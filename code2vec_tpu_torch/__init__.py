@@ -11,8 +11,13 @@ Layout (each module names its JAX counterpart):
   (``csrc/*.cu``, built with ``nvcc`` at first use by ``ops/_build.py``);
 - ``models`` — the ``Code2Vec`` ``nn.Module``;
 - ``interop`` — JAX param tree <-> reference ``state_dict``;
+- ``formats`` — vocab files, ``code.vec`` and the ANN index container,
+  interchangeable with the JAX package's;
+- ``ann`` — the IVF-PQ index (k-means and PQ on the card, K5 scoring);
 - ``predict`` / ``serve`` — the serving path (``python -m
-  code2vec_tpu_torch.serve``).
+  code2vec_tpu_torch.serve``): predict/embed over any bag up to the
+  ladder's top rung (K4 above the training bag) and ``neighbors`` over the
+  exact or the IVF-PQ backend.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper runs its plain PyTorch version.

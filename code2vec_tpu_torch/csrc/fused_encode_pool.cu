@@ -5,7 +5,11 @@
 // pallas_impl="gather_split", rows gathered before the kernel), K3 is
 // _make_fused_kernel (:219, pallas_impl="fused", softmax="materialize",
 // rows gathered inside the kernel by id, dequantized on load). Both are one
-// kernel here, templated on where a row comes from.
+// kernel here, templated on where a row comes from. K4 is _make_fused_kernel
+// with softmax="online" (:389-414) or "two_pass" (:415-438): the same chain
+// with the bag softmax streamed, so that a bag of any length runs in a
+// bounded workspace (encode_pool_online_kernel, encode_score_kernel +
+// encode_pool_fixed_max_kernel, below).
 //
 // Per context l of batch row b (D = 2*Et + Ep):
 //   x   = [start | path | end] rows          (end rows come from the terminal table)
@@ -27,6 +31,14 @@
 // contexts never reach device memory. Compute stays f32 on the FMA pipes:
 // tensor cores would need TF32 or bf16 and change the numbers the JAX
 // package is held to.
+//
+// K4's bound is K3's: operations, counted once per context. The TPU kernel
+// streams because VMEM cannot hold an encoded bag of thousands of contexts;
+// here K3's one-CTA-per-chunk grid already bounds shared memory, but its
+// partials workspace grows with L. K4 gives each batch row a fixed S CTAs
+// that loop over the row's chunks, so the workspace is B * S * (H + 2)
+// floats at any L. two_pass encodes every context twice (the TPU kernel's
+// price for never rescaling); online encodes once.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -216,6 +228,42 @@ size_t smem_bytes(int D, int H) {
          sizeof(int) * 3 * kChunk;
 }
 
+// The carved-up shared memory of one CTA (layout of smem_bytes).
+struct Smem {
+  float* xe;   // x^T, then the encoded rows
+  float* wt;   // [kTileK, H] W tile
+  float* s;    // [kChunk] masked scores
+  c2v::PoolState st;
+  int* ids;    // [3, kChunk]
+};
+
+__device__ __forceinline__ Smem carve(float* smem, int D, int H) {
+  Smem m;
+  m.xe = smem;
+  m.wt = m.xe + (size_t)kChunk * (D > H ? D : H);
+  m.s = m.wt + (size_t)kTileK * H;
+  m.st = c2v::make_pool_state(m.s + kChunk, H);
+  m.ids = reinterpret_cast<int*>(m.s + kChunk + c2v::pool_state_floats(H));
+  return m;
+}
+
+// Gather, encode and LayerNorm+tanh chunk c of row b into m.xe ([n][H]);
+// returns n, the chunk's context count. Ends synchronised.
+template <class Rows>
+__device__ __forceinline__ int encode_rows(const Rows& rows, const Smem& m, int b, int c, int L,
+                                           int Et, int Ep, int H, const float* __restrict__ W,
+                                           const float* __restrict__ lns,
+                                           const float* __restrict__ lnb) {
+  const int base = c * kChunk, n = min(kChunk, L - base);
+  load_chunk(rows, m.xe, m.ids, b, base, n, L, Et, Ep);
+  __syncthreads();
+  encode_chunk(m.xe, m.wt, n, 2 * Et + Ep, W, H);
+  layer_norm_tanh(m.xe, n, H, lns, lnb);
+  __syncthreads();
+  return n;
+}
+
+// K2/K3 (materialize): one CTA per (chunk, batch row).
 template <class Rows>
 __global__ void encode_pool_kernel(Rows rows, const float* __restrict__ mask,
                                    const float* __restrict__ W, const float* __restrict__ lns,
@@ -224,24 +272,103 @@ __global__ void encode_pool_kernel(Rows rows, const float* __restrict__ mask,
                                    float* __restrict__ w, float* __restrict__ part, int L, int Et,
                                    int Ep, int H) {
   extern __shared__ float smem[];
-  const int D = 2 * Et + Ep;
-  float* xe = smem;                                    // x^T, then the encoded rows
-  float* wt = xe + (size_t)kChunk * (D > H ? D : H);   // [kTileK, H] W tile
-  float* s = wt + (size_t)kTileK * H;                  // [kChunk] masked scores
-  c2v::PoolState st = c2v::make_pool_state(s + kChunk, H);
-  int* ids = reinterpret_cast<int*>(s + kChunk + c2v::pool_state_floats(H));  // [3, kChunk]
+  const Smem m = carve(smem, 2 * Et + Ep, H);
   const int b = blockIdx.y, base = blockIdx.x * kChunk;
-  const int n = min(kChunk, L - base);
-  c2v::pool_init(st, H);
-  load_chunk(rows, xe, ids, b, base, n, L, Et, Ep);
+  c2v::pool_init(m.st, H);
+  const int n = encode_rows(rows, m, b, blockIdx.x, L, Et, Ep, H, W, lns, lnb);
+  c2v::score_rows(m.xe, n, H, attn, mask + (size_t)b * L + base, m.s);
   __syncthreads();
-  encode_chunk(xe, wt, n, D, W, H);
-  layer_norm_tanh(xe, n, H, lns, lnb);
-  __syncthreads();
-  c2v::score_rows(xe, n, H, attn, mask + (size_t)b * L + base, s);
-  __syncthreads();
-  c2v::pool_fold(xe, s, n, H, st, w + (size_t)b * L + base);
-  c2v::pool_chunk_done(st, L, H, b, cv, w, part);
+  c2v::pool_fold(m.xe, m.s, n, H, m.st, w + (size_t)b * L + base);
+  c2v::pool_chunk_done(m.st, L, H, b, cv, w, part);
+}
+
+// K4 online (fused_encode_pool.py:389-414): gridDim.x = S CTAs per batch
+// row, S fixed by the caller from the SM count and B, never from L. CTA s
+// streams chunks s, s+S, s+2S, ... carrying (m, d, acc[H]) with the
+// online rescaling (pool_fold) and leaves the raw masked scores in w;
+// the S partials are merged by pool_combine_kernel, which also normalises w
+// (:440-442). Shared memory and workspace stay O(kChunk*D + S*H) at any L.
+template <class Rows>
+__global__ void encode_pool_online_kernel(Rows rows, const float* __restrict__ mask,
+                                          const float* __restrict__ W,
+                                          const float* __restrict__ lns,
+                                          const float* __restrict__ lnb,
+                                          const float* __restrict__ attn, float* __restrict__ cv,
+                                          float* __restrict__ w, float* __restrict__ part, int L,
+                                          int Et, int Ep, int H) {
+  extern __shared__ float smem[];
+  const Smem m = carve(smem, 2 * Et + Ep, H);
+  const int b = blockIdx.y, n_chunks = (L + kChunk - 1) / kChunk;
+  c2v::pool_init(m.st, H);
+  for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    const int n = encode_rows(rows, m, b, c, L, Et, Ep, H, W, lns, lnb);
+    c2v::score_rows(m.xe, n, H, attn, mask + (size_t)b * L + c * kChunk, m.s);
+    __syncthreads();
+    c2v::pool_fold(m.xe, m.s, n, H, m.st, w + (size_t)b * L + c * kChunk);
+  }
+  c2v::pool_chunk_done(m.st, L, H, b, cv, w, part);
+}
+
+// K4 two_pass, pass A (fused_encode_pool.py:416-425): gather, encode and
+// score every chunk; the masked scores go to w, each CTA's max to
+// rowmax[b][s].
+template <class Rows>
+__global__ void encode_score_kernel(Rows rows, const float* __restrict__ mask,
+                                    const float* __restrict__ W, const float* __restrict__ lns,
+                                    const float* __restrict__ lnb,
+                                    const float* __restrict__ attn, float* __restrict__ w,
+                                    float* __restrict__ rowmax, int L, int Et, int Ep, int H) {
+  extern __shared__ float smem[];
+  const Smem m = carve(smem, 2 * Et + Ep, H);
+  const int b = blockIdx.y, n_chunks = (L + kChunk - 1) / kChunk;
+  float mx = -INFINITY;  // meaningful in warp 0
+  for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    const int n = encode_rows(rows, m, b, c, L, Et, Ep, H, W, lns, lnb);
+    c2v::score_rows(m.xe, n, H, attn, mask + (size_t)b * L + c * kChunk, m.s);
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const float sc = lane < n ? m.s[lane] : -INFINITY;
+      if (lane < n) w[(size_t)b * L + c * kChunk + lane] = sc;
+      mx = fmaxf(mx, c2v::warp_max(sc));
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) rowmax[(size_t)b * gridDim.x + blockIdx.x] = mx;
+}
+
+// K4 two_pass, pass B (:426-438): the row max is fixed by pass A, so each
+// chunk is re-gathered and re-encoded and summed as exp(w - M) * enc with
+// no rescaling; the denominator d = sum exp(w - M) accumulates beside it.
+// Partials (acc, M, d) are merged by pool_combine_kernel as in online.
+template <class Rows>
+__global__ void encode_pool_fixed_max_kernel(Rows rows, const float* __restrict__ W,
+                                             const float* __restrict__ lns,
+                                             const float* __restrict__ lnb,
+                                             const float* __restrict__ rowmax,
+                                             float* __restrict__ cv, float* __restrict__ w,
+                                             float* __restrict__ part, int L, int Et, int Ep,
+                                             int H) {
+  extern __shared__ float smem[];
+  const Smem m = carve(smem, 2 * Et + Ep, H);
+  const int b = blockIdx.y, n_chunks = (L + kChunk - 1) / kChunk;
+  c2v::pool_init(m.st, H);
+  if (threadIdx.x == 0) {
+    float mx = -INFINITY;
+    for (int i = 0; i < (int)gridDim.x; ++i) mx = fmaxf(mx, rowmax[(size_t)b * gridDim.x + i]);
+    m.st.stat[0] = mx;
+  }
+  for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
+    const int n = encode_rows(rows, m, b, c, L, Et, Ep, H, W, lns, lnb);
+    c2v::pool_fold_fixed_max(m.xe, w + (size_t)b * L + c * kChunk, n, H, m.st);
+  }
+  c2v::pool_chunk_done(m.st, L, H, b, cv, w, part);
+}
+
+template <class K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <class Rows>
@@ -257,17 +384,75 @@ int launch(const Rows& rows, const float* mask, const float* W, const float* lns
     return (int)cudaErrorInvalidValue;
   }
   if (const int pending = c2v::pending_error()) return pending;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        encode_pool_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  if (const cudaError_t err = allow_smem(encode_pool_kernel<Rows>, smem)) return (int)err;
   const cudaStream_t s = (cudaStream_t)stream;
   encode_pool_kernel<Rows><<<dim3(n_chunks, B), c2v::block_threads(tile_threads), smem, s>>>(
       rows, mask, W, lns, lnb, attn, cv, w, part, L, Et, Ep, H);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)c2v::launch_combine(part, B, L, H, cv, w, s);
+}
+
+// K4: mode 0 = online (one kernel), 1 = two_pass (pass A, pass B); then
+// the combine over the S partials of each row. `part` is [B, S, H + 2]
+// (unused when S == 1), `rowmax` [B, S] (two_pass only).
+template <class Rows>
+int launch_stream(const Rows& rows, int mode, const float* mask, const float* W,
+                  const float* lns, const float* lnb, const float* attn, float* cv, float* w,
+                  float* part, float* rowmax, int B, int L, int Et, int Ep, int H, int S,
+                  void* stream) {
+  const int D = 2 * Et + Ep;
+  const int n_chunks = (L + kChunk - 1) / kChunk;
+  const size_t smem = smem_bytes(D, H);
+  const int tile_threads = (kChunk / kRowsPerThread) * ((H + kColsPerThread - 1) / kColsPerThread);
+  if (B < 1 || B > 65535 || L < 1 || Et < 1 || Ep < 1 || H < 1 || tile_threads > 1024 ||
+      smem > c2v::kMaxSmem || S < 1 || S > n_chunks || (S > 1 && part == nullptr) ||
+      (mode != 0 && mode != 1) || (mode == 1 && rowmax == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (const int pending = c2v::pending_error()) return pending;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const dim3 grid(S, B);
+  const int threads = c2v::block_threads(tile_threads);
+  cudaError_t err;
+  if (mode == 0) {
+    if ((err = allow_smem(encode_pool_online_kernel<Rows>, smem))) return (int)err;
+    encode_pool_online_kernel<Rows><<<grid, threads, smem, s>>>(rows, mask, W, lns, lnb, attn, cv,
+                                                                 w, part, L, Et, Ep, H);
+    if ((err = cudaGetLastError())) return (int)err;
+  } else {
+    if ((err = allow_smem(encode_score_kernel<Rows>, smem))) return (int)err;
+    if ((err = allow_smem(encode_pool_fixed_max_kernel<Rows>, smem))) return (int)err;
+    encode_score_kernel<Rows><<<grid, threads, smem, s>>>(rows, mask, W, lns, lnb, attn, w,
+                                                           rowmax, L, Et, Ep, H);
+    if ((err = cudaGetLastError())) return (int)err;
+    encode_pool_fixed_max_kernel<Rows><<<grid, threads, smem, s>>>(rows, W, lns, lnb, rowmax, cv,
+                                                                    w, part, L, Et, Ep, H);
+    if ((err = cudaGetLastError())) return (int)err;
+  }
+  return (int)c2v::launch_combine_parts(part, S, B, L, H, cv, w, s);
+}
+
+// Dispatch on the table storage: 0 = f32, 1 = bf16, 2 = int8 (+ per-row
+// f32 scales ts/ps), then call f(rows).
+template <class F>
+int with_table_rows(int table_dtype, const void* tv, const float* ts, const void* pv,
+                    const float* ps, long long vt, long long vp, const int* starts,
+                    const int* paths, const int* ends, F f) {
+  switch (table_dtype) {
+    case 0:
+      return f(TableRows<float>{(const float*)tv, nullptr, (const float*)pv, nullptr, vt, vp,
+                                starts, paths, ends});
+    case 1:
+      return f(TableRows<__nv_bfloat16>{(const __nv_bfloat16*)tv, nullptr,
+                                        (const __nv_bfloat16*)pv, nullptr, vt, vp, starts, paths,
+                                        ends});
+    case 2:
+      return f(TableRows<int8_t>{(const int8_t*)tv, ts, (const int8_t*)pv, ps, vt, vp, starts,
+                                 paths, ends});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -294,23 +479,28 @@ int c2v_encode_pool_fused(int table_dtype, const void* tv, const float* ts, cons
                           const float* W, const float* lns, const float* lnb,
                           const float* attn, float* cv, float* w, float* part, int B, int L,
                           int Et, int Ep, int H, void* stream) {
-  switch (table_dtype) {
-    case 0:
-      return launch(TableRows<float>{(const float*)tv, nullptr, (const float*)pv, nullptr, vt,
-                                     vp, starts, paths, ends},
-                    mask, W, lns, lnb, attn, cv, w, part, B, L, Et, Ep, H, stream);
-    case 1:
-      return launch(TableRows<__nv_bfloat16>{(const __nv_bfloat16*)tv, nullptr,
-                                             (const __nv_bfloat16*)pv, nullptr, vt, vp, starts,
-                                             paths, ends},
-                    mask, W, lns, lnb, attn, cv, w, part, B, L, Et, Ep, H, stream);
-    case 2:
-      return launch(TableRows<int8_t>{(const int8_t*)tv, ts, (const int8_t*)pv, ps, vt, vp,
-                                      starts, paths, ends},
-                    mask, W, lns, lnb, attn, cv, w, part, B, L, Et, Ep, H, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return with_table_rows(table_dtype, tv, ts, pv, ps, vt, vp, starts, paths, ends,
+                         [&](const auto& rows) {
+                           return launch(rows, mask, W, lns, lnb, attn, cv, w, part, B, L, Et, Ep,
+                                         H, stream);
+                         });
+}
+
+// K4: the streamed-softmax chain with the gather inside. mode: 0 = online,
+// 1 = two_pass; S CTAs per batch row (1 <= S <= chunks of kChunk); `part`
+// [B, S, H + 2] and, for two_pass, `rowmax` [B, S] are workspaces.
+// table_dtype as for K3. Returns the launches' cudaError_t.
+int c2v_encode_pool_stream(int mode, int table_dtype, const void* tv, const float* ts,
+                           const void* pv, const float* ps, long long vt, long long vp,
+                           const int* starts, const int* paths, const int* ends,
+                           const float* mask, const float* W, const float* lns, const float* lnb,
+                           const float* attn, float* cv, float* w, float* part, float* rowmax,
+                           int B, int L, int Et, int Ep, int H, int S, void* stream) {
+  return with_table_rows(table_dtype, tv, ts, pv, ps, vt, vp, starts, paths, ends,
+                         [&](const auto& rows) {
+                           return launch_stream(rows, mode, mask, W, lns, lnb, attn, cv, w, part,
+                                                rowmax, B, L, Et, Ep, H, S, stream);
+                         });
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
 // Shared device code of the attention-pool kernels: K1 (pool.cu) and
-// K2/K3 (fused_encode_pool.cu) score, fold and finish a batch row's pool
+// K2/K3/K4 (fused_encode_pool.cu) score, fold and finish a batch row's pool
 // with these same routines, as _tile_pool / _pool_f32 are shared by the
 // TPU kernels (code2vec_tpu/ops/pallas_attention.py:38,
 // code2vec_tpu/ops/fused_encode_pool.py:174).
@@ -21,7 +21,8 @@
 // fused_encode_pool.py:392-442): M = max m_c, D = sum d_c exp(m_c - M),
 // cv = sum acc_c exp(m_c - M) / D, w = exp(s - M) / D. Shared memory stays
 // O(kChunk*H) at any bag length; the workspace is B * chunks * (H + 2)
-// floats, allocated by the caller.
+// floats, allocated by the caller (K4: B * S * (H + 2) for S CTAs per row,
+// each folding many chunks).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -131,6 +132,27 @@ __device__ __forceinline__ void pool_fold(const float* enc, const float* s, int 
   __syncthreads();
 }
 
+// Fold a chunk of n rows against a max fixed in advance in st.stat[0]
+// (two_pass pass B, fused_encode_pool.py:432-436): the raw scores come
+// from w_chunk, nothing is rescaled. Ends synchronised.
+__device__ __forceinline__ void pool_fold_fixed_max(const float* enc, const float* w_chunk, int n,
+                                                    int H, PoolState st) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const float ex = lane < n ? expf(w_chunk[lane] - st.stat[0]) : 0.f;
+    const float esum = warp_sum(ex);
+    st.e[lane] = ex;
+    if (lane == 0) st.stat[1] += esum;
+  }
+  __syncthreads();
+  for (int h = threadIdx.x; h < H; h += blockDim.x) {
+    float a = st.acc[h];
+    for (int c = 0; c < n; ++c) a = fmaf(st.e[c], enc[(size_t)c * H + h], a);
+    st.acc[h] = a;
+  }
+  __syncthreads();
+}
+
 // cv = acc / d and w = exp(s - m) / d over the row's L raw scores.
 __device__ __forceinline__ void pool_finish(PoolState st, int L, int H, float* cv_row,
                                             float* w_row) {
@@ -186,15 +208,20 @@ static __global__ void pool_combine_kernel(const float* __restrict__ part, int n
   for (int l = threadIdx.x; l < L; l += blockDim.x) w_b[l] = expf(w_b[l] - m) / d;
 }
 
-// Launch the combine step after the chunk kernel of B rows (a no-op for
-// rows of one chunk, which finished in place).
+// Launch the combine step over the n_parts partials per row that the
+// kernel before it wrote (a no-op for one part: that row finished in place).
+static inline cudaError_t launch_combine_parts(const float* part, int n_parts, int B, int L, int H,
+                                               float* cv, float* w, cudaStream_t stream) {
+  if (n_parts == 1) return cudaSuccess;
+  pool_combine_kernel<<<B, block_threads(H), (n_parts + 2) * sizeof(float), stream>>>(
+      part, n_parts, L, H, cv, w);
+  return cudaGetLastError();
+}
+
+// The combine step after a kernel of one CTA per (chunk, batch row).
 static inline cudaError_t launch_combine(const float* part, int B, int L, int H, float* cv,
                                          float* w, cudaStream_t stream) {
-  const int n_chunks = (L + kChunk - 1) / kChunk;
-  if (n_chunks == 1) return cudaSuccess;
-  pool_combine_kernel<<<B, block_threads(H), (n_chunks + 2) * sizeof(float), stream>>>(
-      part, n_chunks, L, H, cv, w);
-  return cudaGetLastError();
+  return launch_combine_parts(part, (L + kChunk - 1) / kChunk, B, L, H, cv, w, stream);
 }
 
 }  // namespace c2v

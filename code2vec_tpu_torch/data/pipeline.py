@@ -1,7 +1,8 @@
 """Bag-width ladders: the padding rule every serving shape follows.
 
-Own copy of ``derive_bucket_ladder_hist``, ``derive_bucket_ladder`` and
-``nearest_bucket_width`` from ``code2vec_tpu/data/pipeline.py:456-645``.
+Own copy of ``derive_bucket_ladder_hist``, ``derive_bucket_ladder``,
+``derive_longbag_ladder`` and ``nearest_bucket_width`` from
+``code2vec_tpu/data/pipeline.py:456-645``.
 PAD positions carry exactly-zero attention weight, so an example's
 forward is identical at any width >= its real context count; padding to
 a small static ladder keeps the set of shapes a server must warm small.
@@ -67,6 +68,50 @@ def derive_bucket_ladder(
         lengths, weights, max_contexts,
         max_buckets=max_buckets, min_fraction=min_fraction, min_width=min_width,
     )
+
+
+def derive_longbag_ladder(
+    lengths: np.ndarray,
+    weights: np.ndarray,
+    base_top: int,
+    chunk_l: int = 128,
+    max_rungs: int = 4,
+) -> tuple[int, ...]:
+    """Long-bag rungs ABOVE a base ladder's top width.
+
+    Widths double from ``base_top``, each rounded up to a multiple of
+    ``chunk_l`` (the streamed softmax's chunk), until the longest observed
+    bag is covered; if ``max_rungs`` doublings fall short, the last rung
+    jumps to the (chunk-rounded) maximum. Rungs holding no examples are
+    pruned, except the top one. Returns ``()`` when nothing exceeds
+    ``base_top``. ``lengths``/``weights``: a context-count histogram."""
+    if chunk_l < 1:
+        raise ValueError(f"chunk_l must be >= 1, got {chunk_l}")
+    lengths = np.asarray(lengths, np.int64)
+    weights = np.asarray(weights, np.int64)
+    over = lengths > base_top
+    if not over.any():
+        return ()
+    max_len = int(lengths[over].max())
+
+    def round_chunk(w: int) -> int:
+        return -(-int(w) // chunk_l) * chunk_l
+
+    rungs: list[int] = []
+    w = int(base_top)
+    while w < max_len and len(rungs) < max_rungs:
+        w = round_chunk(w * 2)  # ceil-to-chunk of 2w: > w, so always advances
+        rungs.append(w)
+    if rungs and rungs[-1] < max_len:
+        rungs[-1] = round_chunk(max_len)
+    kept: list[int] = []
+    prev = int(base_top)
+    for width in rungs:
+        occupied = int(weights[(lengths > prev) & (lengths <= width)].sum())
+        if occupied or width == rungs[-1]:
+            kept.append(width)
+            prev = width
+    return tuple(kept)
 
 
 def nearest_bucket_width(count: int, ladder: tuple[int, ...]) -> int:

@@ -16,8 +16,11 @@ like the JAX model's and the logits are sliced to ``label_count``.
 
 ``use_pallas`` + ``pallas_impl`` select the same kernel routes as the JAX
 config: ``pool_only`` (K1 after a plain encode), ``gather_split`` (K2) or
-``fused`` (K3); without ``use_pallas`` the forward is plain PyTorch. On
-the CPU every kernel route runs its plain version.
+``fused`` (K3); without ``use_pallas`` the forward is plain PyTorch. Bag
+widths above ``longbag_width`` are long-bag shapes: they are forced to the
+fused kernel with a streamed softmax (K4), as the JAX model's
+``_resolve_kernel`` does. On the CPU every kernel route runs its plain
+version.
 """
 
 from __future__ import annotations
@@ -31,10 +34,11 @@ import torch.nn.functional as F
 
 from code2vec_tpu_torch.ops.attention import attention_pool, streaming_attention_pool
 from code2vec_tpu_torch.ops.embed import embedding_lookup
-from code2vec_tpu_torch.ops.fused_encode_pool import LN_EPS
+from code2vec_tpu_torch.ops.fused_encode_pool import DEFAULT_CHUNK_L, LN_EPS
 from code2vec_tpu_torch.ops.quant import TABLE_DTYPES, QuantTable, dequantize_rows
 
 PALLAS_IMPLS = ("pool_only", "gather_split", "fused")
+PALLAS_SOFTMAX = ("auto", "materialize", "online", "two_pass")
 
 
 @dataclass(frozen=True)
@@ -53,6 +57,16 @@ class Code2VecConfig:
     # (K1), "gather_split" (K2), "fused" (K3)
     use_pallas: bool = False
     pallas_impl: str = "pool_only"
+    # the streamed softmax's bag chunk on the CPU (JAX parity); the CUDA
+    # kernels stream 32 contexts a step and refuse a value other than 128
+    pallas_chunk_l: int = DEFAULT_CHUNK_L
+    # bag-softmax numerics of the fused kernel: "materialize" (K3),
+    # "online" / "two_pass" (K4, streamed), or "auto": materialize at widths
+    # <= longbag_width (everywhere when it is 0), online above it
+    pallas_softmax: str = "auto"
+    # widths STRICTLY ABOVE this are long-bag shapes (0 = none): a kernel
+    # forward there is forced to the fused kernel with a streamed softmax
+    longbag_width: int = 0
     # embedding-table storage for the gathers: "f32" | "bf16" | "int8"
     table_dtype: str = "f32"
     attn_impl: str = "xla"  # "xla" | "streaming": the plain pool's formulation
@@ -82,6 +96,10 @@ class Code2Vec(nn.Module):
         if c.use_pallas and c.pallas_impl not in PALLAS_IMPLS:
             raise ValueError(
                 f"unknown pallas_impl {c.pallas_impl!r}: expected one of {PALLAS_IMPLS}"
+            )
+        if c.pallas_softmax not in PALLAS_SOFTMAX:
+            raise ValueError(
+                f"unknown pallas_softmax {c.pallas_softmax!r}: expected one of {PALLAS_SOFTMAX}"
             )
         self.config = c
         in_features = 2 * c.terminal_embed_size + c.path_embed_size
@@ -130,6 +148,24 @@ class Code2Vec(nn.Module):
             self._dense_kernel_cache = (key, w.detach().t().contiguous())
         return self._dense_kernel_cache[1]
 
+    def resolve_kernel(self, width: int) -> tuple[str | None, str]:
+        """``(impl, softmax_mode)`` of a forward at bag ``width`` — the JAX
+        model's ``_resolve_kernel`` without the autotune lookup. ``None``
+        impl is the plain forward. A long-bag width (above
+        ``longbag_width``) must stream: it is forced to ``fused`` with
+        ``online``, or ``two_pass`` when that was asked for."""
+        c = self.config
+        if not c.use_pallas:
+            return None, "materialize"
+        longbag = bool(c.longbag_width) and width > c.longbag_width
+        if c.pallas_softmax != "auto":
+            softmax = c.pallas_softmax
+        else:
+            softmax = "online" if longbag else "materialize"
+        if longbag and (c.pallas_impl != "fused" or softmax == "materialize"):
+            return "fused", (softmax if softmax != "materialize" else "online")
+        return c.pallas_impl, softmax
+
     def quantize_tables(self) -> tuple[QuantTable, QuantTable] | None:
         """The ``(terminal, path)`` storage of ``config.table_dtype``, or
         None for f32 — serving quantizes once at load and passes it back
@@ -159,7 +195,7 @@ class Code2Vec(nn.Module):
         else:
             t_store, p_store = self.quantize_tables()
         mask = (starts > 0).float()  # PAD = 0 (model/model.py:64)
-        impl = c.pallas_impl if c.use_pallas else None
+        impl, softmax_mode = self.resolve_kernel(starts.shape[1])
         if impl in ("fused", "gather_split"):
             if self.training and 0.0 < c.dropout_prob < 1.0:
                 raise NotImplementedError(
@@ -172,6 +208,7 @@ class Code2Vec(nn.Module):
                 t_store, p_store, starts, paths, ends, mask,
                 self._dense_kernel(), self.input_layer_norm.weight,
                 self.input_layer_norm.bias, self.attention_parameter, impl=impl,
+                chunk_l=c.pallas_chunk_l, softmax_mode=softmax_mode,
             )
         else:
             code_vector, attention = self._unfused_forward(

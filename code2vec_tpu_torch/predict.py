@@ -6,6 +6,10 @@ and the weights as a reference-layout ``code2vec.model`` (a JAX-trained dir
 gets one from ``tools/export_reference_checkpoint.py``). The
 :class:`Predictor` reads them, quantizes the tables once at load
 (``table_dtype``), and pads every forward to the nearest ladder width.
+A ladder with rungs above the training bag (recorded by a run that fed
+unbounded bags, or given as ``longbag_widths``) serves long bags: the
+Predictor's bag rises to the top rung and the model streams the softmax
+(K4) at every width above the training bag.
 
 Source extraction (``predict_source``: the Java and Python extractors) is
 not ported yet; the pre-mapped ``contexts`` form is the input here.
@@ -69,7 +73,8 @@ class Predictor:
     ``device``: ``None`` runs on ``cuda`` and raises when no GPU is
     visible; ``"cpu"`` runs the plain versions. ``pallas_impl`` picks the
     forward's kernel route (serving default: the fully fused K3).
-    ``table_dtype`` overrides the meta's table storage.
+    ``table_dtype`` overrides the meta's table storage. ``longbag_widths``
+    adds rungs above the ladder's top (each must exceed it).
     """
 
     def __init__(
@@ -81,6 +86,8 @@ class Predictor:
         *,
         device: str | torch.device | None = None,
         pallas_impl: str = "fused",
+        pallas_softmax: str = "auto",
+        longbag_widths: tuple[int, ...] = (),
     ) -> None:
         from code2vec_tpu_torch import interop
         from code2vec_tpu_torch.data.pipeline import derive_bucket_ladder
@@ -100,20 +107,34 @@ class Predictor:
         self.label_vocab = read_vocab(os.path.join(model_path, LABEL_VOCAB))
 
         self.bag = int(meta["max_path_length"])
+        # the TRAINING bag, before any long-bag raise below: the serving
+        # engine keys its base/long-bag split off this
+        self.base_bag = self.bag
         recorded = meta.get("bucket_ladder")
+        # a recorded ladder is the checkpoint's word; the geometric one is
+        # a guess for this Predictor's own padding
+        self.ladder_recorded = bool(recorded)
         self.ladder: tuple[int, ...] = (
             tuple(int(w) for w in recorded) if recorded
             else derive_bucket_ladder(np.zeros(0, np.int64), self.bag)
         )
+        extra = tuple(sorted({int(w) for w in longbag_widths}))
+        if extra:
+            if extra[0] <= self.ladder[-1]:
+                raise ValueError(
+                    f"long-bag widths must all exceed the ladder top {self.ladder[-1]}, "
+                    f"got {list(extra)}"
+                )
+            self.ladder = self.ladder + extra
         if self.ladder[-1] < self.bag:
             raise ValueError(
                 f"the ladder {list(self.ladder)} must end at the training bag {self.bag}"
             )
         if self.ladder[-1] > self.bag:
-            raise NotImplementedError(
-                f"the ladder {list(self.ladder)} has long-bag rungs above the "
-                f"training bag {self.bag}; long-bag serving is not ported yet"
-            )
+            # long-bag rungs: bags up to the top rung are padded to a rung
+            # instead of subsampled, and widths above the training bag
+            # stream their softmax (K4)
+            self.bag = int(self.ladder[-1])
         self.table_dtype = table_dtype or meta.get("table_dtype", "f32")
         self.config = Code2VecConfig(
             terminal_count=meta["terminal_count"],
@@ -130,6 +151,8 @@ class Predictor:
             table_dtype=self.table_dtype,
             use_pallas=True,
             pallas_impl=pallas_impl,
+            pallas_softmax=pallas_softmax,
+            longbag_width=self.base_bag if self.bag > self.base_bag else 0,
         )
         sd = interop.load_state_dict(model_path)
         interop.check_dims(sd, self.config)

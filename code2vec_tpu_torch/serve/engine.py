@@ -8,8 +8,12 @@ and module loads, cuBLAS handles, allocator growth). A shape first met
 after warmup is counted in :attr:`post_warmup_compiles`, the number a
 warmed server keeps at zero. CUDA graphs come in a later slice.
 
-The ladder is the Predictor's: the one recorded in ``model_meta.json``,
-else the geometric ladder below the training bag.
+The ladder is the Predictor's: the one recorded in ``model_meta.json``
+(plus any ``--longbag_widths``), else the geometric ladder below the
+training bag. ``base_width`` is the training bag; rungs above it raise
+``max_width`` to the top rung, so a request of up to that many contexts
+serves through a warmed long-bag shape (K4 on the card) and only a longer
+one is rejected.
 """
 
 from __future__ import annotations
@@ -41,8 +45,15 @@ class ServingEngine:
         self.predictor = predictor
         self.device = predictor.device
         self.table_dtype = predictor.table_dtype
+        # the training bag (requests up to here always serve) and the top
+        # rung (long-bag rungs raise it above the training bag)
+        self.base_width = int(predictor.base_bag)
         self.max_width = int(predictor.bag)
         self.ladder: tuple[int, ...] = predictor.ladder
+        if self.max_width > self.base_width:
+            logger.info("long-bag rungs above the training bag %d: requests up to %d contexts "
+                        "serve through the streamed-softmax kernel", self.base_width,
+                        self.max_width)
         self.batch_sizes = tuple(sorted({int(b) for b in batch_sizes}))
         self._lock = threading.Lock()
         self._warm: set[tuple[int, int]] = set()

@@ -6,13 +6,18 @@ serves::
     {"op": "predict", "contexts": [[start, path, end], ...], "top_k": 5,
      "method_name": "*", "include_vector": false}
     {"op": "embed",   "contexts": [[start, path, end], ...]}
+    {"op": "neighbors", "vector": [...], "top_k": 5}
+    {"op": "neighbors", "contexts": [[start, path, end], ...], "top_k": 5}
     {"op": "health"}
     {"op": "shutdown"}
 
 Responses echo an optional ``"id"`` and carry ``"error"`` +
 ``"error_kind"`` instead of results on failure. ``source`` requests get a
 ``not_implemented`` error (extraction is not ported yet), as do
-``embed_file``, ``neighbors``, ``reload`` and ``rollback``. Context triples
+``embed_file``, ``neighbors`` at ``granularity="file"``, ``reload`` and
+``rollback``. ``neighbors`` answers from the server's retrieval backend
+(``serve/retrieval.py``: exact or IVF-PQ): the ``vector`` form directly,
+the ``contexts`` form after embedding the bag through the batcher. Context triples
 are bounds-checked against the vocab tables BEFORE they reach a kernel: an
 out-of-range id is the client's mistake, never a device gather.
 
@@ -36,7 +41,7 @@ from code2vec_tpu_torch.serve.batcher import ServeOverloaded, ServerClosed
 
 logger = logging.getLogger(__name__)
 
-NOT_PORTED_OPS = ("embed_file", "neighbors", "reload", "rollback", "swap_status", "flights")
+NOT_PORTED_OPS = ("embed_file", "reload", "rollback", "swap_status", "flights")
 
 
 def validate_context_rows(rows, n_terminals: int, n_paths: int) -> list[tuple[int, int, int]]:
@@ -64,10 +69,12 @@ def validate_context_rows(rows, n_terminals: int, n_paths: int) -> list[tuple[in
 class CodeServer:
     """The serving facade over one predictor, engine and micro-batcher."""
 
-    def __init__(self, predictor, engine, batcher, *, version: str = "v0") -> None:
+    def __init__(self, predictor, engine, batcher, *, retrieval=None,
+                 version: str = "v0") -> None:
         self.predictor = predictor
         self.engine = engine
         self.batcher = batcher
+        self.retrieval = retrieval  # the neighbors backend, or None
         self.version = version
         self._shutdown = threading.Event()
 
@@ -100,6 +107,8 @@ class CodeServer:
                 resolver = lambda: {"ok": True, "shutting_down": True}  # noqa: E731
             elif op in ("predict", "embed"):
                 resolver = self._submit_methods(request, op)
+            elif op == "neighbors":
+                resolver = self._submit_neighbors(request)
             elif op in NOT_PORTED_OPS:
                 raise NotImplementedError(f"op {op!r} is not ported yet")
             else:
@@ -138,12 +147,15 @@ class CodeServer:
             "version": self.version,
             "device": str(engine.device),
             "ladder": list(engine.ladder),
+            "base_width": engine.base_width,
+            "max_width": engine.max_width,
             "batch_sizes": list(engine.batch_sizes),
             "executables": engine.executables(),
             "post_warmup_compiles": engine.post_warmup_compiles,
             "table_dtype": engine.table_dtype,
             "kernel_route": config.pallas_impl if config.use_pallas else "plain",
             "kernel_launches": launch_counts(),
+            "retrieval": self.retrieval.describe() if self.retrieval is not None else None,
         }
 
     def _submit_methods(self, request: dict, op: str) -> Callable[[], dict]:
@@ -191,6 +203,50 @@ class CodeServer:
                 "width": result.width,
             }
             return {"ok": True, "methods": [entry]}
+
+        return resolve
+
+
+    def _submit_neighbors(self, request: dict) -> Callable[[], dict]:
+        retrieval = self.retrieval
+        if retrieval is None:
+            raise ValueError(
+                "no retrieval index loaded: start the server with --code_vec_path "
+                "(exact) or --retrieval_backend ann --ann_index_path"
+            )
+        top_k = int(request.get("top_k", 5))
+        granularity = request.get("granularity", "method")
+        if granularity not in ("method", "file"):
+            raise ValueError(f"granularity must be 'method' or 'file', got {granularity!r}")
+
+        def ranked(vec: np.ndarray) -> list[dict]:
+            return [{"name": n, "similarity": s} for n, s in retrieval.top_k(vec, top_k)]
+
+        vector = request.get("vector")
+        if vector is not None:
+            vec = np.asarray(vector, np.float32)
+            if vec.shape != (retrieval.dim,):
+                raise ValueError(f"'vector' must have dim {retrieval.dim}, got {vec.shape}")
+            payload = {"ok": True, "neighbors": ranked(vec)}
+            return lambda: payload
+        if granularity == "file":
+            raise NotImplementedError(
+                "file-granularity neighbors (the hierarchical file head) are not ported yet"
+            )
+        # contexts form: embed through the batcher, then retrieve; the
+        # client's include_vector decides whether the vector stays in
+        want_vector = bool(request.get("include_vector", False))
+        embed_resolver = self._submit_methods({**request, "include_vector": True}, "embed")
+
+        def resolve() -> dict:
+            embedded = embed_resolver()
+            for entry in embedded["methods"]:
+                cv = entry.get("code_vector")
+                if cv is not None:
+                    entry["neighbors"] = ranked(np.asarray(cv, np.float32))
+                if not want_vector:
+                    entry.pop("code_vector", None)
+            return embedded
 
         return resolve
 

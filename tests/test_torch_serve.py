@@ -166,8 +166,9 @@ class TestServeBehaviour:
 
     @pytest.mark.parametrize("op", ["neighbors", "reload", "bogus"])
     def test_other_ops_are_errors(self, server, op):
+        # neighbors is served, but this server loaded no retrieval index
         resp = server.handle({"op": op})
-        assert resp["error_kind"] == ("bad_request" if op == "bogus" else "not_implemented")
+        assert resp["error_kind"] == ("not_implemented" if op == "reload" else "bad_request")
 
     def test_health_after_traffic(self, server):
         for n in (1, 9, 16, 30):
