@@ -9,16 +9,20 @@ the final result line is not printed):
 1. device  — require CUDA and compute capability 9.0; print the card's
    name and power limit (``nvidia-smi``) and the torch/CUDA versions;
 2. build   — compile every ``code2vec_tpu_torch/csrc/*.cu`` with ``nvcc``
-   for sm_90a (one process per source, in parallel);
+   for sm_90a (one process per source, in parallel), then read the SASS of
+   the encode-pool library (``cuobjdump``): every encode kernel (online,
+   which K3's materialize also runs; score and fixed-max of two_pass; for
+   each row source) must hold TF32 ``HMMA`` instructions;
 3. kernels — K1 (pool), K2 (encode-pool over gathered rows) and K3
    (encode-pool with the gather inside; f32, bf16 and int8 tables) at the
    top11 widths, B in {1, 8, 64} x L in {1, 37, 200}; K4 (the streamed
    softmax, online and two_pass x f32/bf16/int8) at B in {1, 8, 64} x L in
    {512, 1024, 2048}; the first row of every batch a full bag, PAD tails
    in the others and, when B > 1, one all-masked row; each
-   held against its plain PyTorch version (max |err| <= 1e-5, f32 compute
-   on both sides, TF32 off) and timed with CUDA events (median of 30
-   launches after warmup, L2 flushed before each launch);
+   held against its plain PyTorch version (max |err| <= 1e-5; f32 on the
+   plain side with TF32 off, 3xTF32 on the tensor cores in K2-K4) and timed
+   with CUDA events (median of 30 launches after warmup, L2 flushed before
+   each launch);
 4. serve   — a top11-width model dir with random weights from a seed,
    served through the port's own ``build_server`` with each kernel route
    (K3 with f32, int8 and bf16 tables, K2, K1): 96 predict/embed requests
@@ -86,13 +90,22 @@ ANN_NLIST, ANN_M, ANN_SHORTLIST, ANN_PROBE = 1000, 20, 256, 16
 ANN_QUERIES, ANN_CONTEXT_QUERIES = 64, 16
 K5_SHAPES = [(q, p) for q in (1, 8, 64) for p in (8, 16)]
 K5_TIMED_SHAPE = (1, ANN_PROBE)  # a neighbors query: one at a time
-TOL = 1e-5  # kernel vs plain version, f32 compute on both sides
+TOL = 1e-5  # kernel vs plain version (f32 plain, 3xTF32 encode on the tensor cores)
 SERVE_RTOL, SERVE_ATOL = 2e-4, 2e-5
 N_TIMED = 30
-# H100 SXM published peaks (NVIDIA data sheet): HBM bandwidth, and f32 on
-# the FMA pipes (the kernels compute in f32 without tensor cores)
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth, f32
+# on the FMA pipes, TF32 on the tensor cores (dense). The least the encode
+# of K2-K4 needs on the tensor cores is TF32_PRODUCTS[table dtype] products
+# for f32 accuracy: three for f32 rows (hi*hi + hi*lo + lo*hi); two for bf16
+# rows, which are exact in TF32 (lo = 0), and for int8 rows, whose codes are
+# exact in TF32 with the row scale applied after each segment's product.
+# Everything else runs on the FMA pipes.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+TF32_PRODUCTS = {"f32": 3, "bf16": 2, "int8": 2}
+ENCODE_KERNELS = ("encode_pool_online_kernel", "encode_score_kernel",
+                  "encode_pool_fixed_max_kernel")
 
 
 def nvidia_smi() -> str:
@@ -101,6 +114,33 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def sass_check(build, lib_path) -> dict:
+    """TF32 HMMA instructions per encode kernel in the library's SASS
+    (``cuobjdump`` beside the ``nvcc`` that built it); raises if one of the
+    three encode kernels, for any of the four row sources, has none."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line and "TF32" in line:
+            counts[fn] += 1
+    encode = {fn: n for fn, n in counts.items() if any(k in fn for k in ENCODE_KERNELS)}
+    for fn, n in sorted(encode.items()):
+        print(f"  sass: {n:4d} TF32 HMMA in {fn}")
+    kinds = {k: [n for fn, n in encode.items() if k in fn] for k in ENCODE_KERNELS}
+    missing = [k for k, ns in kinds.items() if len(ns) != 4 or min(ns) == 0]
+    if missing:
+        raise AssertionError(f"encode kernels without TF32 HMMA (or not one per row source): "
+                             f"{missing}; counts {encode}")
+    print("  sass: every encode kernel runs on the tensor cores (K3's materialize launches "
+          "encode_pool_online_kernel)", flush=True)
+    return encode
 
 
 # ---------------------------------------------------------------------------
@@ -113,12 +153,14 @@ class KernelBench:
         self.torch = torch
         self.dev = dev
         self.flush_buf = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
+        self.spread = (0.0, 0.0)
 
     def time_ms(self, fn) -> float:
         """Median device milliseconds of one call over N_TIMED launches,
         each with a cold L2 (a 96 MB write before it, outside the timed
         events). The card is held busy (``torch.cuda._sleep``) while the
-        host enqueues the call, so host launch overhead is not timed."""
+        host enqueues the call, so host launch overhead is not timed. The
+        fastest and slowest launch stay in ``self.spread``."""
         torch = self.torch
         for _ in range(3):
             fn()
@@ -133,6 +175,7 @@ class KernelBench:
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
+        self.spread = (min(times), max(times))
         return float(np.median(times))
 
 
@@ -174,7 +217,10 @@ def encode_pool_bound(torch, s, p, e, mask, table_dtype, H):
     mask, weights and outputs; flops of encode + LayerNorm/tanh/pool for
     the contexts the function needs: each real one, plus one encode per
     all-PAD row (its uniform weights average one repeated row); a PAD slot
-    of a row with real contexts has weight exactly 0 and needs none."""
+    of a row with real contexts has weight exactly 0 and needs none.
+    Returns (bytes, flops, seconds of operations): the encode's 2*D*H per
+    context TF32_PRODUCTS[table_dtype] times at the TF32 tensor-core rate,
+    the 8*H of LayerNorm/tanh/pool at the f32 rate."""
     c = TOP11
     B, L = s.shape
     et, ep = c["terminal_embed_size"], c["path_embed_size"]
@@ -186,13 +232,16 @@ def encode_pool_bound(torch, s, p, e, mask, table_dtype, H):
     nbytes = (t_rows * (et * item + scale) + p_rows * (ep * item + scale)
               + 4 * (4 * B * L + d * H + 3 * H + B * H + B * L))
     real = int(mask.sum().item()) + int((mask.sum(dim=1) == 0).sum().item())
-    flops = (2 * d * H + 8 * H) * real
-    return nbytes, flops
+    ops_s = (TF32_PRODUCTS[table_dtype] * 2 * d * H * real / TF32_FLOP_PER_S
+             + 8 * H * real / F32_FLOP_PER_S)
+    return nbytes, (2 * d * H + 8 * H) * real, ops_s
 
 
-def bound_of(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_of(nbytes, ops_s):
+    """The larger of the bytes' time at the HBM rate and the operations'
+    time, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (t_bytes, "bytes") if t_bytes >= ops_s else (ops_s, "operations")
 
 
 def phase_kernels(torch, dev) -> dict:
@@ -256,6 +305,7 @@ def phase_kernels(torch, dev) -> dict:
                     )
 
                 nbytes, flops = pool_bound(B, L, H)
+                ops_s = flops / F32_FLOP_PER_S
             else:
                 s, p, e, mask = id_inputs(torch, dev, g, B, L)
                 T, P = tables[dt]
@@ -267,7 +317,7 @@ def phase_kernels(torch, dev) -> dict:
                 else:
                     plain = lambda: streamed_reference_forward(  # noqa: E731
                         *args, softmax_mode=mode)
-                nbytes, flops = encode_pool_bound(torch, s, p, e, mask, dt, H)
+                nbytes, flops, ops_s = encode_pool_bound(torch, s, p, e, mask, dt, H)
             cv, w = kernel()
             cv_ref, w_ref = plain()
             torch.cuda.synchronize()
@@ -279,17 +329,20 @@ def phase_kernels(torch, dev) -> dict:
                 torch.testing.assert_close(w, w_ref, rtol=TOL, atol=TOL)
             elif err > TOL:
                 raise AssertionError(f"{name} at {(B, L)}: max |err| {err:.3e} > {TOL}")
-            bound_s, bound_by = bound_of(nbytes, flops)
+            bound_s, bound_by = bound_of(nbytes, ops_s)
+            ms = bench.time_ms(kernel)
+            lo, hi = bench.spread
             row = {
                 "B": B, "L": L, "max_abs_err": err,
-                "ms": bench.time_ms(kernel), "plain_ms": bench.time_ms(plain),
+                "ms": ms, "ms_min_max": [lo, hi], "plain_ms": bench.time_ms(plain),
                 "library_ms": bench.time_ms(library) if library else None,
                 "bound_ms": bound_s * 1e3, "bound_by": bound_by,
                 "bytes": nbytes, "flops": flops,
             }
             rows.append(row)
             print(f"kernel {name:32s} B={B:3d} L={L:4d} max_abs_err={err:.3e} "
-                  f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                  f"ms={ms:.4f} (launches {lo:.4f}-{hi:.4f}) "
+                  f"plain_ms={row['plain_ms']:.4f} "
                   f"library_ms={row['library_ms']} bound_ms={row['bound_ms']:.4f} "
                   f"({bound_by})", flush=True)
         timed = LONG_TIMED_SHAPE if shapes is LONG_SHAPES else TIMED_SHAPE
@@ -610,7 +663,7 @@ def phase_retrieval(torch, smi, device, model_dir: Path) -> dict:
         if err > TOL:
             raise AssertionError(f"K5 at Q={q} P={n_probe}: max |err| {err:.3e} > {TOL}")
         nbytes, flops = lut_bound(probed, index.cell_counts, cap, ANN_M)
-        bound_s, bound_by = bound_of(nbytes, flops)
+        bound_s, bound_by = bound_of(nbytes, flops / F32_FLOP_PER_S)
         row = {"Q": q, "P": n_probe, "max_abs_err": err, "ms": bench.time_ms(kernel),
                "plain_ms": bench.time_ms(plain), "library_ms": None,
                "bound_ms": bound_s * 1e3, "bound_by": bound_by, "bytes": nbytes,
@@ -758,6 +811,7 @@ def main() -> int:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
+        sass_check(_build, libs["fused_encode_pool"])
         return libs
 
     smi = phase("device", device)

@@ -1,15 +1,14 @@
-// K2 and K3: encode -> attend -> pool over a bag of path-contexts.
+// K2, K3 and K4: encode -> attend -> pool over a bag of path-contexts.
 //
 // Replaces code2vec_tpu/ops/fused_encode_pool.py:_kernel_forward
 // (pl.pallas_call at :651): K2 is _make_split_kernel (:190,
 // pallas_impl="gather_split", rows gathered before the kernel), K3 is
 // _make_fused_kernel (:219, pallas_impl="fused", softmax="materialize",
-// rows gathered inside the kernel by id, dequantized on load). Both are one
-// kernel here, templated on where a row comes from. K4 is _make_fused_kernel
-// with softmax="online" (:389-414) or "two_pass" (:415-438): the same chain
-// with the bag softmax streamed, so that a bag of any length runs in a
-// bounded workspace (encode_pool_online_kernel, encode_score_kernel +
-// encode_pool_fixed_max_kernel, below).
+// rows gathered inside the kernel by id, dequantized on load), K4 is
+// _make_fused_kernel with softmax="online" (:389-414) or "two_pass"
+// (:415-438): the same chain with the bag softmax streamed, so that a bag of
+// any length runs in a bounded workspace. All of them are one chunk step
+// here, templated on where a row comes from.
 //
 // Per context l of batch row b (D = 2*Et + Ep):
 //   x   = [start | path | end] rows          (end rows come from the terminal table)
@@ -18,27 +17,47 @@
 //   then the K1 pool (pool.cuh) over enc with the row's mask.
 //
 // Bound on an H100: operations. The encode is 2*D*H flops per context
-// (180 kflop at the top11 widths) against 3 gathered rows of 400 bytes, so
-// the chain sits above the f32 ridge. Design: one CTA per (chunk of kChunk
-// contexts, batch row), so a short batch of long bags still spreads over
-// the SMs. A CTA loads its chunk's rows into shared memory as f32,
-// transposed [D][kChunk] (int8 as q*scale, bf16 widened, ids clamped like a
-// JAX gather, 64-bit row offsets), and multiplies them by W streamed
-// through shared memory in tiles of kTileK rows: each thread owns a
-// register tile of 8 contexts x 4 columns, so one float4 of W and two of x
-// feed 32 FMAs. A warp per context then applies LayerNorm + tanh in place
-// and the pool folds the chunk (pool.cuh). Gathered rows and encoded
-// contexts never reach device memory. Compute stays f32 on the FMA pipes:
-// tensor cores would need TF32 or bf16 and change the numbers the JAX
-// package is held to.
+// (180 kflop at the top11 widths) against 3 gathered rows of 400 bytes.
+// Design: a CTA of 8 encode warps and 4 copy warps owns S of a batch row's
+// chunks of kChunk contexts (chunks s, s+S, ...) and folds them into one
+// softmax partial.
+//   - Gather: the copy warps read the ids of chunk c+2S while chunk c is
+//     encoded, then copy every row of chunk c+S at once with cp.async, a
+//     warp-wide copy per row, 16/8/4 bytes per lane as the row's width and
+//     alignment allow, row-major into shared memory [kChunk][xs]; ids are
+//     clamped as a JAX gather clamps. Two row buffers. A copy of a random
+//     row stalls its warp for hundreds of cycles (measured), hence warps of
+//     their own. The copies go through L1 (cp.async.ca): a row that many
+//     slots share (every PAD slot reads row 0) is then served by each SM's
+//     L1 instead of queueing at one L2 slice. bf16 / int8 rows land raw and
+//     are widened (int8 times its row scale, copied beside it) in shared
+//     memory.
+//   - W: zero-padded to [Dp, ws] (Dp = D rounded up to 8) and loaded once
+//     per CTA where it fits beside the row buffers (top11: 126 KB); else it
+//     streams through a double-buffered ring of kTileK-row tiles for every
+//     chunk (encode 300: W is 360 KB).
+//   - Encode: on the tensor cores, mma.sync m16n8k8 TF32 with f32
+//     accumulation, each operand split as x = hi + lo with hi = tf32(x)
+//     and acc += a_lo*b_hi + a_hi*b_lo + a_hi*b_hi: the dropped lo*lo term
+//     is < 2^-22 relative, so the result stays within f32 rounding of the
+//     plain f32 product (a single TF32 product would not: ~1e-3). The
+//     tensor core truncates its sums, so the small products accumulate
+//     apart and the large one joins an f32 sum every kGroupK columns. A warp
+//     owns 16 contexts x every fourth 8-column tile of H. The padded row
+//     strides (xs % 8 == 4, ws % 16 == 8) make the fragment loads free of
+//     bank conflicts.
+//   - Then LayerNorm + tanh and the score in shared memory, four contexts
+//     per warp at once, and the pool folds the chunk (pool.cuh). Gathered
+//     rows and encoded contexts never reach device memory.
 //
-// K4's bound is K3's: operations, counted once per context. The TPU kernel
-// streams because VMEM cannot hold an encoded bag of thousands of contexts;
-// here K3's one-CTA-per-chunk grid already bounds shared memory, but its
-// partials workspace grows with L. K4 gives each batch row a fixed S CTAs
-// that loop over the row's chunks, so the workspace is B * S * (H + 2)
-// floats at any L. two_pass encodes every context twice (the TPU kernel's
-// price for never rescaling); online encodes once.
+// A CTA holds ~219 KB of shared memory at the top11 widths, so one runs on
+// an SM: each batch row gets S CTAs, one wave of the card over the batch;
+// the wrapper picks S (ops/fused_encode_pool.stream_ctas) for every entry
+// point, and the workspace is B * S * (H + 2) floats at any L. K2 and K3
+// (materialize) run K4's online kernel on that grid; a row of one CTA
+// finishes in place. two_pass encodes every context twice
+// (the TPU kernel's price for never rescaling); online encodes once.
+// pool.cuh's combine kernel merges the S partials.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -49,20 +68,34 @@ namespace {
 using c2v::kChunk;
 
 constexpr float kLnEps = 1e-6f;  // flax nn.LayerNorm default, fused_encode_pool.py:84
-constexpr int kTileK = 32;       // rows of W per shared-memory tile
-constexpr int kRowsPerThread = 8;  // contexts of a thread's register tile
-constexpr int kColsPerThread = 4;  // output columns of a thread's register tile
+constexpr int kBuf = 2;          // row buffers: chunk c+S lands while chunk c is encoded
+constexpr int kWarps = 8;        // encode warps: 2 m-tiles of 16 contexts x 4 column groups
+constexpr int kThreads = 32 * kWarps;
+constexpr int kCopyWarps = 4;    // warps that issue the row copies
+constexpr int kBlock = kThreads + 32 * kCopyWarps;
+constexpr int kTileK = 32;       // rows of W per tile when W streams
+constexpr int kNPass = 4;        // 8-column tiles a warp accumulates at once
+constexpr int kGroupK = 64;      // columns of x the tensor core sums before a rounded f32 add
 
-// K2's row source: rows gathered (and dequantized) before the kernel.
+// K2's row source: rows gathered (and dequantized) before the kernel,
+// indexed by position b*L + l.
 struct GatheredRows {
+  using T = float;
   const float* gs;  // [B, L, Et]
   const float* gp;  // [B, L, Ep]
   const float* ge;  // [B, L, Et]
+  __host__ __device__ const void* base(int seg) const {
+    return seg == 0 ? gs : (seg == 1 ? gp : ge);
+  }
+  __device__ const float* scale(int) const { return nullptr; }
+  __device__ long long id(int, size_t pos) const { return (long long)pos; }
+  __device__ long long row(int, long long id) const { return id; }
 };
 
-// K3's row source: the tables themselves, indexed by the id tensors.
-template <class T>
+// K3/K4's row source: the tables themselves, indexed by the id tensors.
+template <class T_>
 struct TableRows {
+  using T = T_;
   const T* tv;         // terminal table [Vt, Et]
   const float* ts;     // its per-row int8 scale [Vt, 1], or nullptr
   const T* pv;         // path table [Vp, Ep]
@@ -71,269 +104,535 @@ struct TableRows {
   const int* starts;   // [B, L] ids
   const int* paths;
   const int* ends;
+  __host__ __device__ const void* base(int seg) const { return seg == 1 ? pv : tv; }
+  __device__ const float* scale(int seg) const { return seg == 1 ? ps : ts; }
+  __device__ long long id(int seg, size_t pos) const {
+    return (seg == 0 ? starts : (seg == 1 ? paths : ends))[pos];
+  }
+  __device__ long long row(int seg, long long id) const {
+    const long long v = seg == 1 ? vp : vt;
+    return id < 0 ? 0 : (id >= v ? v - 1 : id);  // clamp out-of-range ids, as a JAX gather does
+  }
 };
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float widen(int8_t v) { return (float)v; }
 
-// Fill xT [D][kChunk] with the chunk's rows (contexts base .. base+n of row
-// b), zeros for c >= n. A warp covers one k for 32 contexts, so the segment
-// branch is uniform and the shared-memory stores are conflict-free.
-__device__ __forceinline__ void load_chunk(const GatheredRows& r, float* xT, int* /*ids*/,
-                                           int b, int base, int n, int L, int Et, int Ep) {
-  const int D = 2 * Et + Ep;
-  const size_t row0 = (size_t)b * L + base;
-  for (int i = threadIdx.x; i < D * kChunk; i += blockDim.x) {
-    const int k = i / kChunk, c = i % kChunk;
-    float v = 0.f;
-    if (c < n) {
-      const size_t row = row0 + c;
-      if (k < Et) {
-        v = r.gs[row * Et + k];
-      } else if (k < Et + Ep) {
-        v = r.gp[row * Ep + (k - Et)];
-      } else {
-        v = r.ge[row * Et + (k - Et - Ep)];
-      }
-    }
-    xT[i] = v;
-  }
-}
-
-template <class T>
-__device__ __forceinline__ void load_chunk(const TableRows<T>& r, float* xT, int* ids, int b,
-                                           int base, int n, int L, int Et, int Ep) {
-  const size_t row0 = (size_t)b * L + base;
-  for (int i = threadIdx.x; i < 3 * n; i += blockDim.x) {
-    const int seg = i / n, c = i - seg * n;
-    const int* src = seg == 0 ? r.starts : (seg == 1 ? r.paths : r.ends);
-    const long long v = seg == 1 ? r.vp : r.vt;
-    long long id = src[row0 + c];
-    id = id < 0 ? 0 : (id >= v ? v - 1 : id);  // clamp out-of-range ids, as a JAX gather does
-    ids[seg * kChunk + c] = (int)id;
-  }
-  __syncthreads();
-  const int D = 2 * Et + Ep;
-  for (int i = threadIdx.x; i < D * kChunk; i += blockDim.x) {
-    const int k = i / kChunk, c = i % kChunk;
-    float v = 0.f;
-    if (c < n) {
-      if (k < Et) {
-        const long long id = ids[c];
-        v = widen(r.tv[id * Et + k]);
-        if (r.ts) v *= r.ts[id];
-      } else if (k < Et + Ep) {
-        const long long id = ids[kChunk + c];
-        v = widen(r.pv[id * Ep + (k - Et)]);
-        if (r.ps) v *= r.ps[id];
-      } else {
-        const long long id = ids[2 * kChunk + c];
-        v = widen(r.tv[id * Et + (k - Et - Ep)]);
-        if (r.ts) v *= r.ts[id];
-      }
-    }
-    xT[i] = v;
-  }
-}
-
-// enc [n][H] = x [n][D] @ W [D][H], x given transposed in xe ([D][kChunk]);
-// the result overwrites xe. Thread t owns contexts cg*8 .. cg*8+7 and
-// columns hg*4 .. hg*4+3; W passes through `wt` in tiles of kTileK rows.
-// Each output accumulates over k in order, as a plain dot product does.
-__device__ __forceinline__ void encode_chunk(float* xe, float* wt, int n, int D,
-                                             const float* __restrict__ W, int H) {
-  const int n_hg = (H + kColsPerThread - 1) / kColsPerThread;
-  const int hg = threadIdx.x % n_hg, cg = threadIdx.x / n_hg;
-  const int h0 = hg * kColsPerThread, c0 = cg * kRowsPerThread;
-  const bool active = c0 < n;  // groups past the chunk's contexts only help load W
-  const bool vec = (H % 4) == 0;
-  float acc[kRowsPerThread][kColsPerThread] = {};
-  for (int k0 = 0; k0 < D; k0 += kTileK) {
-    const int kt = min(kTileK, D - k0);
-    const float* src = W + (size_t)k0 * H;
-    if (vec) {
-      for (int i = threadIdx.x; i < kt * H / 4; i += blockDim.x)
-        reinterpret_cast<float4*>(wt)[i] = reinterpret_cast<const float4*>(src)[i];
-    } else {
-      for (int i = threadIdx.x; i < kt * H; i += blockDim.x) wt[i] = src[i];
-    }
-    __syncthreads();
-    if (active) {
-      for (int kk = 0; kk < kt; ++kk) {
-        const float* xr = xe + (size_t)(k0 + kk) * kChunk + c0;
-        const float4 xa = *reinterpret_cast<const float4*>(xr);
-        const float4 xb = *reinterpret_cast<const float4*>(xr + 4);
-        const float xv[kRowsPerThread] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-        const float* wr = wt + (size_t)kk * H + h0;
-        float wv[kColsPerThread];
-        if (vec) {
-          const float4 t = *reinterpret_cast<const float4*>(wr);
-          wv[0] = t.x;
-          wv[1] = t.y;
-          wv[2] = t.z;
-          wv[3] = t.w;
-        } else {
-#pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j) wv[j] = h0 + j < H ? wr[j] : 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < kRowsPerThread; ++i) {
-#pragma unroll
-          for (int j = 0; j < kColsPerThread; ++j) acc[i][j] = fmaf(xv[i], wv[j], acc[i][j]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (active) {
-#pragma unroll
-    for (int i = 0; i < kRowsPerThread; ++i) {
-#pragma unroll
-      for (int j = 0; j < kColsPerThread; ++j) {
-        if (c0 + i < n && h0 + j < H) xe[(size_t)(c0 + i) * H + h0 + j] = acc[i][j];
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// In place: enc_c = tanh((enc_c - mean) * rsqrt(var + eps) * scale + bias),
-// one warp per context.
-__device__ __forceinline__ void layer_norm_tanh(float* enc, int n, int H,
-                                                const float* __restrict__ lns,
-                                                const float* __restrict__ lnb) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const float inv_h = 1.f / (float)H;
-  for (int c = warp; c < n; c += nwarps) {
-    float* row = enc + (size_t)c * H;
-    float sum = 0.f;
-    for (int h = lane; h < H; h += 32) sum += row[h];
-    const float mu = c2v::warp_sum(sum) * inv_h;
-    float sq = 0.f;
-    for (int h = lane; h < H; h += 32) {
-      const float d = row[h] - mu;
-      sq = fmaf(d, d, sq);
-    }
-    const float r = rsqrtf(c2v::warp_sum(sq) * inv_h + kLnEps);
-    for (int h = lane; h < H; h += 32) row[h] = tanhf((row[h] - mu) * r * lns[h] + lnb[h]);
-  }
-}
-
-// Shared memory: rows/encoded [kChunk * max(D, H)], W tile [kTileK * H],
-// scores [kChunk], pool state, then ids [3 * kChunk] ints.
-size_t smem_bytes(int D, int H) {
-  return sizeof(float) * ((size_t)kChunk * (D > H ? D : H) + (size_t)kTileK * H + kChunk +
-                          c2v::pool_state_floats(H)) +
-         sizeof(int) * 3 * kChunk;
-}
-
-// The carved-up shared memory of one CTA (layout of smem_bytes).
-struct Smem {
-  float* xe;   // x^T, then the encoded rows
-  float* wt;   // [kTileK, H] W tile
-  float* s;    // [kChunk] masked scores
-  c2v::PoolState st;
-  int* ids;    // [3, kChunk]
+// Sizes and shared-memory offsets of one launch, computed on the host.
+struct Layout {
+  int L, H, D, Dp, n_chunks;
+  int xs;          // row stride of the f32 rows, floats: Dp + 4 (xs % 8 == 4)
+  int ws;          // row stride of W in shared memory, floats (ws % 16 == 8)
+  int resident;    // W loaded once per CTA (else streamed in kTileK-row tiles)
+  int item;        // bytes per stored table element: 4 f32, 2 bf16, 1 int8
+  int stride;      // bytes per row of a row buffer
+  int seg_off[3], seg_bytes[3], seg_w[3];  // per segment: byte offset in a row, bytes, copy width
+  int w_copy;      // copy width of W's rows, bytes
+  int off_rows, off_x, off_enc, off_par, off_s, off_mk, off_scl, off_pool, smem;  // bytes (W at 0)
 };
 
-__device__ __forceinline__ Smem carve(float* smem, int D, int H) {
-  Smem m;
-  m.xe = smem;
-  m.wt = m.xe + (size_t)kChunk * (D > H ? D : H);
-  m.s = m.wt + (size_t)kTileK * H;
-  m.st = c2v::make_pool_state(m.s + kChunk, H);
-  m.ids = reinterpret_cast<int*>(m.s + kChunk + c2v::pool_state_floats(H));
-  return m;
+// a[seg] without a dynamic index (which would move the Layout to local memory)
+__device__ __forceinline__ int pick(const int (&a)[3], int seg) {
+  return seg == 0 ? a[0] : (seg == 1 ? a[1] : a[2]);
 }
 
-// Gather, encode and LayerNorm+tanh chunk c of row b into m.xe ([n][H]);
-// returns n, the chunk's context count. Ends synchronised.
-template <class Rows>
-__device__ __forceinline__ int encode_rows(const Rows& rows, const Smem& m, int b, int c, int L,
-                                           int Et, int Ep, int H, const float* __restrict__ W,
-                                           const float* __restrict__ lns,
-                                           const float* __restrict__ lnb) {
-  const int base = c * kChunk, n = min(kChunk, L - base);
-  load_chunk(rows, m.xe, m.ids, b, base, n, L, Et, Ep);
-  __syncthreads();
-  encode_chunk(m.xe, m.wt, n, 2 * Et + Ep, W, H);
-  layer_norm_tanh(m.xe, n, H, lns, lnb);
-  __syncthreads();
-  return n;
-}
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-// K2/K3 (materialize): one CTA per (chunk, batch row).
-template <class Rows>
-__global__ void encode_pool_kernel(Rows rows, const float* __restrict__ mask,
-                                   const float* __restrict__ W, const float* __restrict__ lns,
-                                   const float* __restrict__ lnb,
-                                   const float* __restrict__ attn, float* __restrict__ cv,
-                                   float* __restrict__ w, float* __restrict__ part, int L, int Et,
-                                   int Ep, int H) {
-  extern __shared__ float smem[];
-  const Smem m = carve(smem, 2 * Et + Ep, H);
-  const int b = blockIdx.y, base = blockIdx.x * kChunk;
-  c2v::pool_init(m.st, H);
-  const int n = encode_rows(rows, m, b, blockIdx.x, L, Et, Ep, H, W, lns, lnb);
-  c2v::score_rows(m.xe, n, H, attn, mask + (size_t)b * L + base, m.s);
-  __syncthreads();
-  c2v::pool_fold(m.xe, m.s, n, H, m.st, w + (size_t)b * L + base);
-  c2v::pool_chunk_done(m.st, L, H, b, cv, w, part);
-}
-
-// K4 online (fused_encode_pool.py:389-414): gridDim.x = S CTAs per batch
-// row, S fixed by the caller from the SM count and B, never from L. CTA s
-// streams chunks s, s+S, s+2S, ... carrying (m, d, acc[H]) with the
-// online rescaling (pool_fold) and leaves the raw masked scores in w;
-// the S partials are merged by pool_combine_kernel, which also normalises w
-// (:440-442). Shared memory and workspace stay O(kChunk*D + S*H) at any L.
-template <class Rows>
-__global__ void encode_pool_online_kernel(Rows rows, const float* __restrict__ mask,
-                                          const float* __restrict__ W,
-                                          const float* __restrict__ lns,
-                                          const float* __restrict__ lnb,
-                                          const float* __restrict__ attn, float* __restrict__ cv,
-                                          float* __restrict__ w, float* __restrict__ part, int L,
-                                          int Et, int Ep, int H) {
-  extern __shared__ float smem[];
-  const Smem m = carve(smem, 2 * Et + Ep, H);
-  const int b = blockIdx.y, n_chunks = (L + kChunk - 1) / kChunk;
-  c2v::pool_init(m.st, H);
-  for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    const int n = encode_rows(rows, m, b, c, L, Et, Ep, H, W, lns, lnb);
-    c2v::score_rows(m.xe, n, H, attn, mask + (size_t)b * L + c * kChunk, m.s);
-    __syncthreads();
-    c2v::pool_fold(m.xe, m.s, n, H, m.st, w + (size_t)b * L + c * kChunk);
+// The widest copy (16, 8, 4 bytes by cp.async; 2, 1 by plain loads) that
+// divides the row's bytes, its offset in the buffer and the source's address.
+int copy_width(int bytes, int off, const void* src) {
+  for (int w = 16; w > 1; w >>= 1) {
+    if (bytes % w == 0 && off % w == 0 && (uintptr_t)src % w == 0) return w;
   }
-  c2v::pool_chunk_done(m.st, L, H, b, cv, w, part);
+  return 1;
+}
+
+template <class Rows>
+Layout make_layout(const Rows& rows, const float* W, int L, int Et, int Ep, int H) {
+  Layout ly{};
+  ly.L = L;
+  ly.H = H;
+  ly.D = 2 * Et + Ep;
+  ly.Dp = round_up(ly.D, 8);
+  ly.n_chunks = (L + kChunk - 1) / kChunk;
+  ly.xs = ly.Dp + 4;
+  ly.ws = round_up(H, 8);
+  if (ly.ws % 16 != 8) ly.ws += 8;
+  ly.item = (int)sizeof(typename Rows::T);
+  ly.stride = ly.item == 4 ? 4 * ly.xs : round_up(ly.D * ly.item, 16);
+  const int lens[3] = {Et, Ep, Et};
+  for (int s = 0, off = 0; s < 3; off += lens[s++]) {
+    ly.seg_off[s] = off * ly.item;
+    ly.seg_bytes[s] = lens[s] * ly.item;
+    ly.seg_w[s] = copy_width(ly.seg_bytes[s], ly.seg_off[s], rows.base(s));
+  }
+  ly.w_copy = copy_width(4 * H, 0, W);
+  const bool widen = ly.item != 4;
+  for (int resident = 1; resident >= 0; --resident) {  // W resident if it fits, else streamed
+    ly.resident = resident;
+    int off = 4 * (ly.resident ? ly.Dp : 2 * kTileK) * ly.ws;
+    ly.off_rows = off;
+    off += kBuf * kChunk * ly.stride;
+    ly.off_x = off;
+    off += widen ? 4 * kChunk * ly.xs : 0;
+    ly.off_enc = off;
+    off += 4 * round_up(kChunk * H, 4);
+    ly.off_par = off;
+    off += 4 * round_up(3 * H, 4);
+    ly.off_s = off;
+    off += 4 * kChunk;
+    ly.off_mk = off;
+    off += 4 * kBuf * kChunk;
+    ly.off_scl = off;
+    off += widen ? 4 * kBuf * 3 * kChunk : 0;
+    ly.off_pool = off;
+    off += 4 * (int)c2v::pool_state_floats(H);
+    ly.smem = off;
+    if (ly.smem <= (int)c2v::kMaxSmem) break;
+  }
+  return ly;
+}
+
+// The carved-up shared memory of one CTA (layout of make_layout).
+struct Smem {
+  float* w;      // W, or two tiles of it
+  char* rows;    // kBuf row buffers [kChunk][stride bytes]
+  float* x;      // the widened f32 rows (bf16 / int8 tables)
+  float* enc;    // [kChunk, H] encoded contexts
+  float* par;    // [3, H] LayerNorm scale, bias and the attention vector
+  float* s;      // [kChunk] masked scores
+  float* mk;     // [kBuf][kChunk] the chunks' mask values
+  float* scl;    // [kBuf][3][kChunk] int8 row scales
+  c2v::PoolState st;
+};
+
+__device__ __forceinline__ Smem carve(char* smem, const Layout& ly) {
+  auto f = [&](int off) { return reinterpret_cast<float*>(smem + off); };
+  return Smem{f(0), smem + ly.off_rows, f(ly.off_x), f(ly.off_enc), f(ly.off_par),
+              f(ly.off_s), f(ly.off_mk), f(ly.off_scl), c2v::make_pool_state(f(ly.off_pool), ly.H)};
+}
+
+__device__ __forceinline__ void copy_async(void* dst, const void* src, int w) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  switch (w) {
+    case 16:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+      break;
+    case 8:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+      break;
+    case 4:
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+      break;
+    case 2:
+      *reinterpret_cast<uint16_t*>(dst) = *reinterpret_cast<const uint16_t*>(src);
+      break;
+    default:
+      *reinterpret_cast<uint8_t*>(dst) = *reinterpret_cast<const uint8_t*>(src);
+  }
+}
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr int kRowsPerCopyWarp = 3 * kChunk / kCopyWarps;  // (segment, context) rows
+static_assert(kRowsPerCopyWarp <= 32, "a copy warp's row ids fit in one lane each");
+
+// Copy warp cw copies rows cw, cw + kCopyWarps, ... of the chunk's 3*kChunk
+// (segment, context) rows; lane j holds the id of its row j as stored (0
+// past the bag). Loaded a chunk ahead of issue_rows and not used before,
+// so the load's latency hides behind an encode.
+template <class Rows>
+__device__ __forceinline__ long long load_id(const Rows& rows, const Layout& ly, int b, int c) {
+  const int lane = threadIdx.x & 31, cw = (threadIdx.x - kThreads) >> 5;
+  const int r = cw + kCopyWarps * lane, base = c * kChunk, ctx = r % kChunk;
+  if (lane >= kRowsPerCopyWarp || base + ctx >= ly.L) return 0;
+  return rows.id(r / kChunk, (size_t)b * ly.L + base + ctx);
+}
+
+// The copy warps issue chunk c's rows into row buffer `buf`, a warp-wide
+// copy per row, and beside them each int8 row's scale and, if mask is
+// given, the chunk's mask values. A copy of a random row stalls its warp
+// for hundreds of cycles, so four warps issue them while the other eight
+// encode.
+template <class Rows>
+__device__ __forceinline__ void issue_rows(const Rows& rows, const Layout& ly, const Smem& m,
+                                           const float* __restrict__ mask, int buf, int c,
+                                           long long id) {
+  const int lane = threadIdx.x & 31, cw = (threadIdx.x - kThreads) >> 5;
+  const int n = min(kChunk, ly.L - c * kChunk);
+  if (lane < kRowsPerCopyWarp) {
+    const int r = cw + kCopyWarps * lane, seg = r / kChunk, ctx = r % kChunk;
+    id = rows.row(seg, id);
+    const float* sc = rows.scale(seg);
+    if (ctx < n && sc) copy_async(m.scl + (buf * 3 + seg) * kChunk + ctx, sc + id, 4);
+  }
+  for (int ctx = lane; mask && cw == 0 && ctx < n; ctx += 32) {
+    copy_async(m.mk + buf * kChunk + ctx, mask + (size_t)blockIdx.y * ly.L + c * kChunk + ctx, 4);
+  }
+  char* dst0 = m.rows + (size_t)buf * kChunk * ly.stride;
+#pragma unroll 4
+  for (int j = 0; j < kRowsPerCopyWarp; ++j) {
+    const int r = cw + kCopyWarps * j, seg = r / kChunk, ctx = r % kChunk;
+    const long long rid = __shfl_sync(0xffffffffu, id, j);
+    if (ctx >= n) continue;  // uniform over the warp
+    const int w = pick(ly.seg_w, seg), bytes = pick(ly.seg_bytes, seg);
+    const char* src = reinterpret_cast<const char*>(rows.base(seg)) + rid * bytes;
+    char* dst = dst0 + (size_t)ctx * ly.stride + pick(ly.seg_off, seg);
+    for (int o = lane * w; o < bytes; o += 32 * w) copy_async(dst + o, src + o, w);
+  }
+}
+
+// Threads 0 .. nthr issue W's rows k0 .. k0+kt (zero rows past D) into
+// `dst` [kt][ws], a warp per row.
+__device__ __forceinline__ void issue_w(const float* __restrict__ W, const Layout& ly, float* dst,
+                                        int k0, int kt, int nthr) {
+  const int per_row = 4 * ly.H / ly.w_copy, rows = min(kt, ly.D - k0);
+  for (int k = threadIdx.x / 32; k < rows; k += nthr / 32) {
+    const char* src = reinterpret_cast<const char*>(W + (size_t)(k0 + k) * ly.H);
+    char* d = reinterpret_cast<char*>(dst + (size_t)k * ly.ws);
+    for (int o = threadIdx.x % 32; o < per_row; o += 32) {
+      copy_async(d + o * ly.w_copy, src + o * ly.w_copy, ly.w_copy);
+    }
+  }
+  for (int i = threadIdx.x; i < (kt - max(rows, 0)) * ly.ws; i += nthr) {
+    dst[(size_t)max(rows, 0) * ly.ws + i] = 0.f;
+  }
+}
+
+// A barrier of the encode warps alone (the copy warps run on).
+__device__ __forceinline__ void encode_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+// Widen a bf16 / int8 row buffer into the f32 rows (int8 times the row scale).
+template <class T>
+__device__ __forceinline__ void widen_rows(const Layout& ly, const Smem& m, int buf, int n) {
+  const char* src = m.rows + (size_t)buf * kChunk * ly.stride;
+  const float* scl = m.scl + buf * 3 * kChunk;
+  const bool scaled = sizeof(T) == 1;
+  for (int i = threadIdx.x; i < n * ly.D; i += kThreads) {
+    const int ctx = i / ly.D, k = i % ly.D;
+    float v = widen(reinterpret_cast<const T*>(src + (size_t)ctx * ly.stride)[k]);
+    if (scaled) {
+      const int seg = k * ly.item < ly.seg_off[1] ? 0 : (k * ly.item < ly.seg_off[2] ? 1 : 2);
+      v *= scl[seg * kChunk + ctx];
+    }
+    m.x[(size_t)ctx * ly.xs + k] = v;
+  }
+}
+
+// v = hi + lo: hi is v rounded to TF32 (10 mantissa bits, to nearest,
+// ties away from zero, as cvt.rna.tf32.f32 rounds a finite value), lo the
+// exact rest, |lo| <= 2^-11 |v|. The tensor core reads the top 19 bits of
+// a TF32 operand, so lo enters the product truncated: |err| < 2^-21 |v|.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One warp's NP column tiles j0, j0+4, ... (8 columns each) of the 16 rows
+// r0 .. r0+16: enc (+)= x[r0.., 0:kt] @ wt[0:kt, tiles] in 3xTF32. The
+// tensor core truncates when it adds into an accumulator, so the two small
+// products sum apart (in `lo`, where truncation costs ~2^-11 less) and the
+// large one in `part` over kGroupK columns of x at a time, which then joins
+// `acc` by a rounded f32 add.
+template <int NP>
+__device__ __forceinline__ void encode_cols(const float* __restrict__ x, int xs,
+                                            const float* __restrict__ wt, int ws, int kt, int j0,
+                                            float* enc, int r0, int H, bool first) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* xa = x + (size_t)(r0 + g) * xs + t;
+  const float* xb = xa + (size_t)8 * xs;
+  const float* wk = wt + (size_t)t * ws + j0 * 8 + g;
+  float* e0 = enc + (size_t)(r0 + g) * H + j0 * 8 + 2 * t;
+  float* e1 = e0 + (size_t)8 * H;
+  const int n0 = j0 * 8 + 2 * t;
+  float acc[NP][4], lo[NP][4] = {};
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const int n = n0 + 32 * p;
+    acc[p][0] = !first && n < H ? e0[32 * p] : 0.f;
+    acc[p][1] = !first && n + 1 < H ? e0[32 * p + 1] : 0.f;
+    acc[p][2] = !first && n < H ? e1[32 * p] : 0.f;
+    acc[p][3] = !first && n + 1 < H ? e1[32 * p + 1] : 0.f;
+  }
+  for (int k0 = 0; k0 < kt; k0 += kGroupK) {
+    float part[NP][4] = {};
+#pragma unroll 2
+    for (int k = k0; k < min(k0 + kGroupK, kt); k += 8) {
+      uint32_t ah[4], al[4], bh[NP][2], bl[NP][2];
+      split_tf32(xa[k], ah[0], al[0]);
+      split_tf32(xb[k], ah[1], al[1]);
+      split_tf32(xa[k + 4], ah[2], al[2]);
+      split_tf32(xb[k + 4], ah[3], al[3]);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        split_tf32(wk[(size_t)k * ws + 32 * p], bh[p][0], bl[p][0]);
+        split_tf32(wk[(size_t)(k + 4) * ws + 32 * p], bh[p][1], bl[p][1]);
+      }
+#pragma unroll
+      for (int p = 0; p < NP; ++p) mma_tf32(lo[p], al, bh[p][0], bh[p][1]);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) mma_tf32(lo[p], ah, bl[p][0], bl[p][1]);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) mma_tf32(part[p], ah, bh[p][0], bh[p][1]);
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[p][v] += part[p][v];
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const int n = n0 + 32 * p;
+    if (n < H) {
+      e0[32 * p] = acc[p][0] + lo[p][0];
+      e1[32 * p] = acc[p][2] + lo[p][2];
+    }
+    if (n + 1 < H) {
+      e0[32 * p + 1] = acc[p][1] + lo[p][1];
+      e1[32 * p + 1] = acc[p][3] + lo[p][3];
+    }
+  }
+}
+
+// enc[:, :H] (+)= x[:, k0:k0+kt] @ wt[0:kt, :] over the chunk's kChunk rows
+// on the tensor cores. kt is a multiple of 8; `first` starts the sum at
+// zero, else it continues from enc (W streamed in tiles). Warp w owns the
+// m-tiles w%2, w%2+2, ... and the column tiles w/2, w/2+4, ...
+__device__ __forceinline__ void encode_tile(const float* x, int xs, const float* wt, int ws, int k0,
+                                            int kt, float* enc, int H, bool first) {
+  const int warp = threadIdx.x >> 5, n_tiles = (H + 7) / 8;
+  for (int mt = warp & 1; mt < kChunk / 16; mt += 2) {
+    for (int j0 = warp >> 1; j0 < n_tiles; j0 += 4 * kNPass) {
+      switch (min(kNPass, (n_tiles - j0 + 3) / 4)) {  // the tiles of this pass, uniform in the warp
+        case 4:
+          encode_cols<4>(x + k0, xs, wt, ws, kt, j0, enc, mt * 16, H, first);
+          break;
+        case 3:
+          encode_cols<3>(x + k0, xs, wt, ws, kt, j0, enc, mt * 16, H, first);
+          break;
+        case 2:
+          encode_cols<2>(x + k0, xs, wt, ws, kt, j0, enc, mt * 16, H, first);
+          break;
+        default:
+          encode_cols<1>(x + k0, xs, wt, ws, kt, j0, enc, mt * 16, H, first);
+      }
+    }
+  }
+}
+
+// In place: enc_c = tanh((enc_c - mean) * rsqrt(var + eps) * scale + bias)
+// and, if mask is given, the masked score s_c = <enc_c, attn> (pool.cuh's
+// score_rows) for the chunk's n contexts, mask values from shared memory.
+// Warp w takes contexts w, w+8, ... together, parameters from shared memory.
+__device__ __forceinline__ void ln_tanh_score(float* enc, int n, int H, const float* par,
+                                              const float* __restrict__ mask, float* s) {
+  constexpr int R = kChunk / kWarps;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float inv_h = 1.f / (float)H;
+  float* row[R];
+  float mu[R], r[R], acc[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    row[q] = enc + (size_t)(warp + kWarps * q) * H;
+    acc[q] = 0.f;
+  }
+  for (int h = lane; h < H; h += 32) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) acc[q] += row[q][h];
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    mu[q] = c2v::warp_sum(acc[q]) * inv_h;
+    acc[q] = 0.f;
+  }
+  for (int h = lane; h < H; h += 32) {
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const float d = row[q][h] - mu[q];
+      acc[q] = fmaf(d, d, acc[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    r[q] = rsqrtf(c2v::warp_sum(acc[q]) * inv_h + kLnEps);
+    acc[q] = 0.f;
+  }
+  for (int h = lane; h < H; h += 32) {
+    const float ls = par[h], lb = par[H + h], at = par[2 * H + h];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const float v = tanhf((row[q][h] - mu[q]) * r[q] * ls + lb);
+      row[q][h] = v;
+      acc[q] = fmaf(v, at, acc[q]);
+    }
+  }
+  if (mask == nullptr) return;
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const float v = c2v::warp_sum(acc[q]);
+    const int c = warp + kWarps * q;
+    if (lane == 0 && c < n) {
+      const float mk = mask[c];
+      s[c] = v * mk + (1.f - mk) * c2v::kNinf;
+    }
+  }
+}
+
+// The chunk loop of CTA blockIdx.x of batch row blockIdx.y: gather, encode,
+// LayerNorm+tanh and (with a mask) score chunks blockIdx.x, +gridDim.x, ...
+// into m.enc / m.s, calling fold(base, n) with every thread on each
+// (contexts base .. base+n; ends synchronised). attn may be nullptr when
+// there is no mask. The copy warps issue chunk c+S's copies while the
+// encode warps encode chunk c.
+template <class Rows, class Fold>
+__device__ __forceinline__ void stream_chunks(const Rows& rows, const Layout& ly, const Smem& m,
+                                              const float* __restrict__ W,
+                                              const float* __restrict__ lns,
+                                              const float* __restrict__ lnb,
+                                              const float* __restrict__ attn,
+                                              const float* __restrict__ mask, Fold fold) {
+  using T = typename Rows::T;
+  constexpr bool kWiden = sizeof(T) != 4;
+  const int b = blockIdx.y, S = gridDim.x, H = ly.H;
+  const bool copier = threadIdx.x >= kThreads;
+  // Zero the pad columns D..xs of the f32 rows and H..ws of W: no copy
+  // writes them and the encode reads them.
+  {
+    float* x = kWiden ? m.x : reinterpret_cast<float*>(m.rows);
+    const int pad_x = ly.xs - ly.D, pad_w = ly.ws - H;
+    for (int i = threadIdx.x; i < (kWiden ? 1 : kBuf) * kChunk * pad_x; i += blockDim.x) {
+      x[(size_t)(i / pad_x) * ly.xs + ly.D + i % pad_x] = 0.f;
+    }
+    const int w_rows = ly.resident ? ly.Dp : 2 * kTileK;
+    for (int i = threadIdx.x; i < w_rows * pad_w; i += blockDim.x) {
+      m.w[(size_t)(i / pad_w) * ly.ws + H + i % pad_w] = 0.f;
+    }
+  }
+  if (ly.resident) issue_w(W, ly, m.w, 0, ly.Dp, blockDim.x);
+  long long id_next = 0;
+  if (copier) {
+    issue_rows(rows, ly, m, mask, 0, blockIdx.x, load_id(rows, ly, b, blockIdx.x));
+    if (blockIdx.x + S < ly.n_chunks) id_next = load_id(rows, ly, b, blockIdx.x + S);
+  }
+  commit();
+  for (int h = threadIdx.x; h < H; h += blockDim.x) {
+    m.par[h] = lns[h];
+    m.par[H + h] = lnb[h];
+    m.par[2 * H + h] = attn ? attn[h] : 0.f;
+  }
+  wait_copies<0>();
+  __syncthreads();
+  const int n_tiles = (ly.Dp + kTileK - 1) / kTileK;
+  for (int i = 0, c = blockIdx.x; c < ly.n_chunks; ++i, c += S) {
+    const int buf = i % kBuf, base = c * kChunk, n = min(kChunk, ly.L - base);
+    if (copier) {
+      if (c + S < ly.n_chunks) {
+        issue_rows(rows, ly, m, mask, (i + 1) % kBuf, c + S, id_next);
+        if (c + 2 * S < ly.n_chunks) id_next = load_id(rows, ly, b, c + 2 * S);
+      }
+      commit();
+    } else {
+      const float* x =
+          kWiden ? m.x : reinterpret_cast<const float*>(m.rows + (size_t)buf * kChunk * ly.stride);
+      if (kWiden) {
+        widen_rows<T>(ly, m, buf, n);
+        encode_sync();
+      }
+      if (ly.resident) {
+        encode_tile(x, ly.xs, m.w, ly.ws, 0, ly.Dp, m.enc, H, true);
+      } else {
+        issue_w(W, ly, m.w, 0, kTileK, kThreads);
+        commit();
+        for (int t = 0; t < n_tiles; ++t) {
+          const int k0 = t * kTileK;
+          if (t + 1 < n_tiles) {
+            issue_w(W, ly, m.w + (size_t)((t + 1) % 2) * kTileK * ly.ws, k0 + kTileK, kTileK,
+                    kThreads);
+            commit();
+            wait_copies<1>();
+          } else {
+            wait_copies<0>();
+          }
+          encode_sync();
+          encode_tile(x, ly.xs, m.w + (size_t)(t % 2) * kTileK * ly.ws, ly.ws, k0,
+                      min(kTileK, ly.Dp - k0), m.enc, H, t == 0);
+          encode_sync();
+        }
+      }
+      encode_sync();
+      ln_tanh_score(m.enc, n, H, m.par, mask ? m.mk + buf * kChunk : nullptr, m.s);
+    }
+    __syncthreads();
+    fold(base, n);
+    if (copier) wait_copies<0>();
+    __syncthreads();
+  }
+}
+
+// K3 and K4 online (fused_encode_pool.py:389-414): gridDim.x = S CTAs per
+// batch row. CTA s streams chunks s, s+S, s+2S, ...
+// carrying (m, d, acc[H]) with the online rescaling (pool_fold) and leaves
+// the raw masked scores in w; the S partials are merged by
+// pool_combine_kernel, which also normalises w (:440-442).
+template <class Rows>
+__global__ void __launch_bounds__(kBlock, 1)
+    encode_pool_online_kernel(Rows rows, Layout ly, const float* __restrict__ mask,
+                              const float* __restrict__ W, const float* __restrict__ lns,
+                              const float* __restrict__ lnb, const float* __restrict__ attn,
+                              float* __restrict__ cv, float* __restrict__ w,
+                              float* __restrict__ part) {
+  extern __shared__ __align__(16) char smem[];
+  const Smem m = carve(smem, ly);
+  const int b = blockIdx.y, H = ly.H;
+  const size_t row0 = (size_t)b * ly.L;
+  c2v::pool_init(m.st, H);
+  stream_chunks(rows, ly, m, W, lns, lnb, attn, mask, [&](int base, int n) {
+    c2v::pool_fold(m.enc, m.s, n, H, m.st, w + row0 + base);
+  });
+  c2v::pool_chunk_done(m.st, ly.L, H, b, cv, w, part);
 }
 
 // K4 two_pass, pass A (fused_encode_pool.py:416-425): gather, encode and
 // score every chunk; the masked scores go to w, each CTA's max to
 // rowmax[b][s].
 template <class Rows>
-__global__ void encode_score_kernel(Rows rows, const float* __restrict__ mask,
-                                    const float* __restrict__ W, const float* __restrict__ lns,
-                                    const float* __restrict__ lnb,
-                                    const float* __restrict__ attn, float* __restrict__ w,
-                                    float* __restrict__ rowmax, int L, int Et, int Ep, int H) {
-  extern __shared__ float smem[];
-  const Smem m = carve(smem, 2 * Et + Ep, H);
-  const int b = blockIdx.y, n_chunks = (L + kChunk - 1) / kChunk;
+__global__ void __launch_bounds__(kBlock, 1)
+    encode_score_kernel(Rows rows, Layout ly, const float* __restrict__ mask,
+                        const float* __restrict__ W, const float* __restrict__ lns,
+                        const float* __restrict__ lnb, const float* __restrict__ attn,
+                        float* __restrict__ w, float* __restrict__ rowmax) {
+  extern __shared__ __align__(16) char smem[];
+  const Smem m = carve(smem, ly);
+  const int b = blockIdx.y, H = ly.H;
+  const size_t row0 = (size_t)b * ly.L;
   float mx = -INFINITY;  // meaningful in warp 0
-  for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    const int n = encode_rows(rows, m, b, c, L, Et, Ep, H, W, lns, lnb);
-    c2v::score_rows(m.xe, n, H, attn, mask + (size_t)b * L + c * kChunk, m.s);
-    __syncthreads();
+  stream_chunks(rows, ly, m, W, lns, lnb, attn, mask, [&](int base, int n) {
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       const float sc = lane < n ? m.s[lane] : -INFINITY;
-      if (lane < n) w[(size_t)b * L + c * kChunk + lane] = sc;
+      if (lane < n) w[row0 + base + lane] = sc;
       mx = fmaxf(mx, c2v::warp_max(sc));
     }
     __syncthreads();
-  }
+  });
   if (threadIdx.x == 0) rowmax[(size_t)b * gridDim.x + blockIdx.x] = mx;
 }
 
@@ -342,27 +641,25 @@ __global__ void encode_score_kernel(Rows rows, const float* __restrict__ mask,
 // no rescaling; the denominator d = sum exp(w - M) accumulates beside it.
 // Partials (acc, M, d) are merged by pool_combine_kernel as in online.
 template <class Rows>
-__global__ void encode_pool_fixed_max_kernel(Rows rows, const float* __restrict__ W,
-                                             const float* __restrict__ lns,
-                                             const float* __restrict__ lnb,
-                                             const float* __restrict__ rowmax,
-                                             float* __restrict__ cv, float* __restrict__ w,
-                                             float* __restrict__ part, int L, int Et, int Ep,
-                                             int H) {
-  extern __shared__ float smem[];
-  const Smem m = carve(smem, 2 * Et + Ep, H);
-  const int b = blockIdx.y, n_chunks = (L + kChunk - 1) / kChunk;
+__global__ void __launch_bounds__(kBlock, 1)
+    encode_pool_fixed_max_kernel(Rows rows, Layout ly, const float* __restrict__ W,
+                                 const float* __restrict__ lns, const float* __restrict__ lnb,
+                                 const float* __restrict__ rowmax, float* __restrict__ cv,
+                                 float* __restrict__ w, float* __restrict__ part) {
+  extern __shared__ __align__(16) char smem[];
+  const Smem m = carve(smem, ly);
+  const int b = blockIdx.y, H = ly.H;
+  const size_t row0 = (size_t)b * ly.L;
   c2v::pool_init(m.st, H);
   if (threadIdx.x == 0) {
     float mx = -INFINITY;
     for (int i = 0; i < (int)gridDim.x; ++i) mx = fmaxf(mx, rowmax[(size_t)b * gridDim.x + i]);
     m.st.stat[0] = mx;
   }
-  for (int c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    const int n = encode_rows(rows, m, b, c, L, Et, Ep, H, W, lns, lnb);
-    c2v::pool_fold_fixed_max(m.xe, w + (size_t)b * L + c * kChunk, n, H, m.st);
-  }
-  c2v::pool_chunk_done(m.st, L, H, b, cv, w, part);
+  stream_chunks(rows, ly, m, W, lns, lnb, nullptr, nullptr, [&](int base, int n) {
+    c2v::pool_fold_fixed_max(m.enc, w + row0 + base, n, H, m.st);
+  });
+  c2v::pool_chunk_done(m.st, ly.L, H, b, cv, w, part);
 }
 
 template <class K>
@@ -371,63 +668,37 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <class Rows>
-int launch(const Rows& rows, const float* mask, const float* W, const float* lns,
-           const float* lnb, const float* attn, float* cv, float* w, float* part, int B, int L,
-           int Et, int Ep, int H, void* stream) {
-  const int D = 2 * Et + Ep;
-  const int n_chunks = (L + kChunk - 1) / kChunk;
-  const size_t smem = smem_bytes(D, H);
-  const int tile_threads = (kChunk / kRowsPerThread) * ((H + kColsPerThread - 1) / kColsPerThread);
-  if (B < 1 || B > 65535 || L < 1 || Et < 1 || Ep < 1 || H < 1 || tile_threads > 1024 ||
-      smem > c2v::kMaxSmem || (n_chunks > 1 && part == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (const int pending = c2v::pending_error()) return pending;
-  if (const cudaError_t err = allow_smem(encode_pool_kernel<Rows>, smem)) return (int)err;
-  const cudaStream_t s = (cudaStream_t)stream;
-  encode_pool_kernel<Rows><<<dim3(n_chunks, B), c2v::block_threads(tile_threads), smem, s>>>(
-      rows, mask, W, lns, lnb, attn, cv, w, part, L, Et, Ep, H);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)c2v::launch_combine(part, B, L, H, cv, w, s);
-}
-
-// K4: mode 0 = online (one kernel), 1 = two_pass (pass A, pass B); then
-// the combine over the S partials of each row. `part` is [B, S, H + 2]
+// mode: 0 = online (one kernel), 1 = two_pass (pass A, pass B); then the
+// combine over the S partials of each row. `part` is [B, S, H + 2]
 // (unused when S == 1), `rowmax` [B, S] (two_pass only).
 template <class Rows>
 int launch_stream(const Rows& rows, int mode, const float* mask, const float* W,
                   const float* lns, const float* lnb, const float* attn, float* cv, float* w,
                   float* part, float* rowmax, int B, int L, int Et, int Ep, int H, int S,
                   void* stream) {
-  const int D = 2 * Et + Ep;
-  const int n_chunks = (L + kChunk - 1) / kChunk;
-  const size_t smem = smem_bytes(D, H);
-  const int tile_threads = (kChunk / kRowsPerThread) * ((H + kColsPerThread - 1) / kColsPerThread);
-  if (B < 1 || B > 65535 || L < 1 || Et < 1 || Ep < 1 || H < 1 || tile_threads > 1024 ||
-      smem > c2v::kMaxSmem || S < 1 || S > n_chunks || (S > 1 && part == nullptr) ||
+  if (B < 1 || B > 65535 || L < 1 || Et < 1 || Ep < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  const Layout ly = make_layout(rows, W, L, Et, Ep, H);
+  if (ly.smem > (int)c2v::kMaxSmem || S < 1 || S > ly.n_chunks || (S > 1 && part == nullptr) ||
       (mode != 0 && mode != 1) || (mode == 1 && rowmax == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (const int pending = c2v::pending_error()) return pending;
   const cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid(S, B);
-  const int threads = c2v::block_threads(tile_threads);
   cudaError_t err;
   if (mode == 0) {
-    if ((err = allow_smem(encode_pool_online_kernel<Rows>, smem))) return (int)err;
-    encode_pool_online_kernel<Rows><<<grid, threads, smem, s>>>(rows, mask, W, lns, lnb, attn, cv,
-                                                                 w, part, L, Et, Ep, H);
+    if ((err = allow_smem(encode_pool_online_kernel<Rows>, ly.smem))) return (int)err;
+    encode_pool_online_kernel<Rows><<<grid, kBlock, ly.smem, s>>>(rows, ly, mask, W, lns, lnb,
+                                                                     attn, cv, w, part);
     if ((err = cudaGetLastError())) return (int)err;
   } else {
-    if ((err = allow_smem(encode_score_kernel<Rows>, smem))) return (int)err;
-    if ((err = allow_smem(encode_pool_fixed_max_kernel<Rows>, smem))) return (int)err;
-    encode_score_kernel<Rows><<<grid, threads, smem, s>>>(rows, mask, W, lns, lnb, attn, w,
-                                                           rowmax, L, Et, Ep, H);
+    if ((err = allow_smem(encode_score_kernel<Rows>, ly.smem))) return (int)err;
+    if ((err = allow_smem(encode_pool_fixed_max_kernel<Rows>, ly.smem))) return (int)err;
+    encode_score_kernel<Rows><<<grid, kBlock, ly.smem, s>>>(rows, ly, mask, W, lns, lnb, attn, w,
+                                                               rowmax);
     if ((err = cudaGetLastError())) return (int)err;
-    encode_pool_fixed_max_kernel<Rows><<<grid, threads, smem, s>>>(rows, W, lns, lnb, rowmax, cv,
-                                                                    w, part, L, Et, Ep, H);
+    encode_pool_fixed_max_kernel<Rows><<<grid, kBlock, ly.smem, s>>>(rows, ly, W, lns, lnb,
+                                                                        rowmax, cv, w, part);
     if ((err = cudaGetLastError())) return (int)err;
   }
   return (int)c2v::launch_combine_parts(part, S, B, L, H, cv, w, s);
@@ -461,28 +732,31 @@ extern "C" {
 
 const char* c2v_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// K2: rows gathered before the kernel. `part` is the [B, chunks, H + 2]
-// workspace (unused for bags of one chunk). Returns the launch's cudaError_t.
+// K2: rows gathered before the kernel; K4's online kernel on S CTAs per
+// batch row (1 <= S <= chunks of kChunk), `part` the [B, S, H + 2]
+// workspace (unused when S == 1). Returns the launch's cudaError_t.
 int c2v_encode_pool_gathered(const float* gs, const float* gp, const float* ge,
                              const float* mask, const float* W, const float* lns,
                              const float* lnb, const float* attn, float* cv, float* w,
-                             float* part, int B, int L, int Et, int Ep, int H, void* stream) {
-  return launch(GatheredRows{gs, gp, ge}, mask, W, lns, lnb, attn, cv, w, part, B, L, Et, Ep, H,
-                stream);
+                             float* part, int B, int L, int Et, int Ep, int H, int S,
+                             void* stream) {
+  return launch_stream(GatheredRows{gs, gp, ge}, 0, mask, W, lns, lnb, attn, cv, w, part, nullptr,
+                       B, L, Et, Ep, H, S, stream);
 }
 
 // K3: rows gathered in the kernel. table_dtype: 0 = f32, 1 = bf16,
-// 2 = int8 (+ per-row f32 scales ts/ps). Returns the launch's cudaError_t.
+// 2 = int8 (+ per-row f32 scales ts/ps); S and `part` as for K2.
+// Returns the launch's cudaError_t.
 int c2v_encode_pool_fused(int table_dtype, const void* tv, const float* ts, const void* pv,
                           const float* ps, long long vt, long long vp, const int* starts,
                           const int* paths, const int* ends, const float* mask,
                           const float* W, const float* lns, const float* lnb,
                           const float* attn, float* cv, float* w, float* part, int B, int L,
-                          int Et, int Ep, int H, void* stream) {
+                          int Et, int Ep, int H, int S, void* stream) {
   return with_table_rows(table_dtype, tv, ts, pv, ps, vt, vp, starts, paths, ends,
                          [&](const auto& rows) {
-                           return launch(rows, mask, W, lns, lnb, attn, cv, w, part, B, L, Et, Ep,
-                                         H, stream);
+                           return launch_stream(rows, 0, mask, W, lns, lnb, attn, cv, w, part,
+                                                nullptr, B, L, Et, Ep, H, S, stream);
                          });
 }
 

@@ -123,11 +123,13 @@ __device__ __forceinline__ void pool_fold(const float* enc, const float* s, int 
     }
   }
   __syncthreads();
+  // The chunk's sum joins the state in one add: a state folding many
+  // chunks (K4) then rounds once per chunk, not once per context.
   const float scale = st.stat[2];
   for (int h = threadIdx.x; h < H; h += blockDim.x) {
-    float a = st.acc[h] * scale;
+    float a = 0.f;
     for (int c = 0; c < n; ++c) a = fmaf(st.e[c], enc[(size_t)c * H + h], a);
-    st.acc[h] = a;
+    st.acc[h] = fmaf(st.acc[h], scale, a);
   }
   __syncthreads();
 }
@@ -146,9 +148,9 @@ __device__ __forceinline__ void pool_fold_fixed_max(const float* enc, const floa
   }
   __syncthreads();
   for (int h = threadIdx.x; h < H; h += blockDim.x) {
-    float a = st.acc[h];
+    float a = 0.f;
     for (int c = 0; c < n; ++c) a = fmaf(st.e[c], enc[(size_t)c * H + h], a);
-    st.acc[h] = a;
+    st.acc[h] += a;
   }
   __syncthreads();
 }

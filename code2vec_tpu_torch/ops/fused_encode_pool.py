@@ -20,9 +20,11 @@ Three kernels, one CUDA source (``csrc/fused_encode_pool.cu``):
   the same chain with the bag softmax streamed chunk by chunk, as the TPU
   kernel does for long bags. ``online`` carries a running max, a rescaled
   denominator and a rescaled weighted sum; ``two_pass`` finds the row max
-  first, then re-gathers and re-encodes every chunk against it. On the card
-  each batch row gets a fixed number of CTAs (:func:`stream_ctas`), so the
-  workspace is O(B * S * H) at any bag length.
+  first, then re-gathers and re-encodes every chunk against it.
+
+On the card all three run one kernel grid: each batch row gets
+:func:`stream_ctas` CTAs, so the workspace is O(B * S * H) at any bag
+length.
 
 :func:`reference_forward` is the plain version of the whole op (the
 counterpart of ``xla_reference_forward``) and of K2/K3;
@@ -30,11 +32,13 @@ counterpart of ``xla_reference_forward``) and of K2/K3;
 recurrence in PyTorch, ``chunk_l`` contexts at a time.
 :func:`fused_encode_attend_pool` launches the kernel for CUDA tensors and
 runs the plain version for CPU tensors. ``chunk_l`` (the TPU's lane tile)
-is the plain version's chunk: the CUDA kernels stream in steps of 32
-contexts and refuse a ``chunk_l`` other than the default; the result differs only by
-rounding. Forward only, f32 compute: the backward, bf16
-compute, the dropout keep mask and the ``off_se``/``off_p`` offsets come
-with the training slice.
+is the plain version's chunk: the CUDA kernels step through a bag 32
+contexts at a time (rows gathered with ``cp.async`` while the chunk before
+is encoded on the tensor cores, in a 3xTF32 split that keeps f32 accuracy)
+and refuse a ``chunk_l`` other than the default;
+the result differs only by rounding. Forward only, f32 compute: the
+backward, bf16 compute, the dropout keep mask and the ``off_se``/``off_p``
+offsets come with the training slice.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import torch
 from code2vec_tpu_torch.ops import _build
 from code2vec_tpu_torch.ops.attention import NINF, attention_pool
 from code2vec_tpu_torch.ops.backend import count_launch, resolve
-from code2vec_tpu_torch.ops.pool_kernel import CHUNK, partials_workspace
+from code2vec_tpu_torch.ops.pool_kernel import CHUNK
 from code2vec_tpu_torch.ops.quant import QuantTable
 
 FUSED_IMPLS = ("fused", "gather_split")
@@ -68,11 +72,13 @@ def kernel_name(impl: str, table_dtype: str, softmax_mode: str = "materialize") 
 
 
 def stream_ctas(b: int, l: int, sm_count: int) -> int:
-    """K4's CTAs per batch row: about two waves of the card's SMs over the
-    batch, never more than the bag's 32-context chunks. It depends on B and
-    the card, not on L beyond that cap, so the workspace is bounded."""
+    """K2/K3/K4's CTAs per batch row: one wave of the card over the batch
+    (a CTA holds W and two row buffers, ~219 KB of shared memory at the
+    top11 widths, so one fits on an SM), never more than the bag's chunks.
+    It depends on B and the card, not on L beyond that cap, so the
+    workspace is bounded. The kernels take S from here alone."""
     chunks = -(-l // CHUNK)
-    return max(1, min(chunks, -(-2 * sm_count // max(b, 1))))
+    return max(1, min(chunks, sm_count // max(b, 1)))
 
 
 def split_table(table) -> tuple[torch.Tensor, torch.Tensor | None, str]:
@@ -189,11 +195,11 @@ def _lib():
     lib = _build.load("fused_encode_pool")
     if lib.c2v_encode_pool_gathered.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.c2v_encode_pool_gathered.argtypes = [p] * 11 + [i] * 5 + [p]
+        lib.c2v_encode_pool_gathered.argtypes = [p] * 11 + [i] * 6 + [p]
         lib.c2v_encode_pool_gathered.restype = i
         lib.c2v_encode_pool_fused.argtypes = (
             [i, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong]
-            + [p] * 11 + [i] * 5 + [p]
+            + [p] * 11 + [i] * 6 + [p]
         )
         lib.c2v_encode_pool_fused.restype = i
         lib.c2v_encode_pool_stream.argtypes = (
@@ -224,12 +230,9 @@ def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, den
     if b < 1 or l < 1:
         raise ValueError(f"encode-pool kernel: empty batch or bag, ids {(b, l)}")
     f32 = torch.float32
-    kern = _check("dense_kernel", dense_kernel, f32, (2 * et + ep, h), dev)
-    if kern.data_ptr() % 16:  # the kernel reads W as float4
-        kern = kern.clone()
     params = [
         _check("mask", mask, f32, (b, l), dev),
-        kern,
+        _check("dense_kernel", dense_kernel, f32, (2 * et + ep, h), dev),
         _check("ln_scale", ln_scale, f32, (h,), dev),
         _check("ln_bias", ln_bias, f32, (h,), dev),
         _check("attn_param", attn_param, f32, (h,), dev),
@@ -237,12 +240,14 @@ def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, den
     cv = torch.empty((b, h), dtype=f32, device=dev)
     w = torch.empty((b, l), dtype=f32, device=dev)
     outs = [cv, w]
+    n_ctas = stream_ctas(b, l, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part = torch.empty((b, n_ctas, h + 2), dtype=f32, device=dev) if n_ctas > 1 else None
+    part_ptr = None if part is None else part.data_ptr()
     lib = _lib()
     name = kernel_name(impl, table_dtype, softmax_mode)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if impl == "gather_split":
-            part = partials_workspace(b, l, h, dev)
             rows = [
                 _check("g_start", gather_rows(t_table, starts), f32, (b, l, et), dev),
                 _check("g_path", gather_rows(p_table, paths), f32, (b, l, ep), dev),
@@ -250,7 +255,7 @@ def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, den
             ]
             code = lib.c2v_encode_pool_gathered(
                 *(t.data_ptr() for t in rows + params + outs),
-                None if part is None else part.data_ptr(), b, l, et, ep, h, stream,
+                part_ptr, b, l, et, ep, h, n_ctas, stream,
             )
         else:
             store = {"f32": f32, "bf16": torch.bfloat16, "int8": torch.int8}[table_dtype]
@@ -271,20 +276,14 @@ def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, den
             )
             ptrs = [t.data_ptr() for t in ids + params + outs]
             if softmax_mode == "materialize":
-                part = partials_workspace(b, l, h, dev)
                 code = lib.c2v_encode_pool_fused(
-                    *tables, *ptrs, None if part is None else part.data_ptr(),
-                    b, l, et, ep, h, stream,
+                    *tables, *ptrs, part_ptr, b, l, et, ep, h, n_ctas, stream,
                 )
             else:
-                n_ctas = stream_ctas(b, l, torch.cuda.get_device_properties(dev).multi_processor_count)
-                part = (torch.empty((b, n_ctas, h + 2), dtype=f32, device=dev)
-                        if n_ctas > 1 else None)
                 rowmax = (torch.empty((b, n_ctas), dtype=f32, device=dev)
                           if softmax_mode == "two_pass" else None)
                 code = lib.c2v_encode_pool_stream(
-                    _STREAM_MODES[softmax_mode], *tables, *ptrs,
-                    None if part is None else part.data_ptr(),
+                    _STREAM_MODES[softmax_mode], *tables, *ptrs, part_ptr,
                     None if rowmax is None else rowmax.data_ptr(),
                     b, l, et, ep, h, n_ctas, stream,
                 )

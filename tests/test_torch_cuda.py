@@ -9,13 +9,18 @@ inside the fixture, never at import). Run them on the card with
 card's machine needs no JAX for these tests.)
 
 ``chip_smoke.py`` covers the top11 widths; these cover what it does not:
-dims that are not multiples of 4 (the scalar W and row paths), chunk
-edges (L = 32, 33, 65), all-masked rows, ids out of range (clamped, as a
-JAX gather clamps); for K4 both streamed modes at L from one context to
-4096 (one CTA per row up to the full wave), for K5 word and byte code
-loads, pad slots, and the searcher's shortlist against its plain scoring.
-Tolerance rtol = atol = 1e-5 (f32 compute on both sides, TF32 off); K5's
-``-inf`` pad masks must be identical.
+dims that are not multiples of 4 or 8 (narrower row copies, zero-padded
+tensor-core tiles), edges of the 32-context chunk step (``CHUNK`` +- 1 and
+beyond), encode 300 (W streamed through shared memory in tiles), all-masked
+rows, ids out of range (clamped, as a JAX gather clamps); for K4 both
+streamed modes at L from one context to 4096 (one CTA per row up to the
+full wave) and B = 1 / 64 at L = 2048 on the card's ``stream_ctas`` grid;
+for K5 word and byte code loads, pad slots, and the searcher's shortlist
+against its plain scoring. Tolerance rtol = atol = 1e-5 (the plain
+versions in f32 with TF32 off, the kernels' encode in 3xTF32 on the
+tensor cores); at top11 widths and one context the kernel's code vector is
+within 2e-6 of a float64 evaluation, which one TF32 product (~1e-3) would
+miss. K5's ``-inf`` pad masks must be identical.
 """
 
 import pytest
@@ -132,6 +137,108 @@ def test_streamed_encode_pool_kernel(dev, mode, table_dtype, L, dims):
     cv_m, w_m = reference_forward(*args)
     torch.testing.assert_close(cv, cv_m, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(w, w_m, rtol=1e-5, atol=1e-5)
+
+
+ODD_DIMS = {"odd": (6, 5, 13), "odd2": (5, 9, 21), "top11": (100, 100, 100)}
+
+
+@pytest.mark.parametrize("dims", list(ODD_DIMS.values()), ids=list(ODD_DIMS))
+@pytest.mark.parametrize("edge", [-1, 0, 1, 33, 97])
+@pytest.mark.parametrize("impl,mode", [("gather_split", "materialize"), ("fused", "materialize"),
+                                       ("fused", "online"), ("fused", "two_pass")])
+def test_encode_chunk_edges(dev, impl, mode, edge, dims):
+    """Bags ending just before, on and after a chunk step, and in a later one."""
+    from code2vec_tpu_torch.ops.fused_encode_pool import fused_encode_attend_pool, reference_forward
+    from code2vec_tpu_torch.ops.pool_kernel import CHUNK
+
+    L = CHUNK + edge
+    t, p, s, pa, e, mask, params = ids_and_tables(dev, 3, L, *dims, seed=L)
+    s[0] = s[0].clamp(min=1)  # the first row a full bag: its last slot is the edge
+    pa[0], e[0] = pa[0].clamp(min=1), e[0].clamp(min=1)
+    mask = (s > 0).float()
+    args = (t, p, s, pa, e, mask, *params)
+    cv, w = fused_encode_attend_pool(*args, impl=impl, softmax_mode=mode)
+    cv_ref, w_ref = reference_forward(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cv, cv_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("L", [33, 700])
+@pytest.mark.parametrize("table_dtype", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("mode", ["online", "two_pass"])
+def test_streamed_encode300_streams_w(dev, mode, table_dtype, L):
+    """Encode 300: W ([300, 300], 360 KB) cannot stay in shared memory, so
+    every chunk streams it through the ring of tiles."""
+    from code2vec_tpu_torch.ops.fused_encode_pool import (
+        fused_encode_attend_pool,
+        reference_forward,
+        streamed_reference_forward,
+    )
+    from code2vec_tpu_torch.ops.quant import quantize_table
+
+    t, p, s, pa, e, mask, params = ids_and_tables(dev, 3, L, 100, 100, 300, seed=L)
+    if table_dtype != "f32":
+        t, p = quantize_table(t, table_dtype), quantize_table(p, table_dtype)
+    args = (t, p, s, pa, e, mask, *params)
+    cv, w = fused_encode_attend_pool(*args, softmax_mode=mode)
+    cv_s, w_s = streamed_reference_forward(*args, softmax_mode=mode)
+    cv_m, w_m = reference_forward(*args)
+    torch.cuda.synchronize()
+    for a, b in ((cv, cv_s), (w, w_s), (cv, cv_m), (w, w_m)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("mode", ["online", "two_pass"])
+def test_streamed_full_wave_at_2048(dev, mode, B):
+    """L = 2048 on the card's grid: stream_ctas gives B=1 a CTA per chunk
+    (64), B=64 a wave of the SMs (S = SMs // 64 CTAs per row)."""
+    from code2vec_tpu_torch.ops.fused_encode_pool import (
+        fused_encode_attend_pool,
+        stream_ctas,
+        streamed_reference_forward,
+    )
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert stream_ctas(B, 2048, sms) == (64 if B == 1 else max(1, sms // 64))
+    t, p, s, pa, e, mask, params = ids_and_tables(dev, B, 2048, 100, 100, 100, seed=B)
+    args = (t, p, s, pa, e, mask, *params)
+    cv, w = fused_encode_attend_pool(*args, softmax_mode=mode)
+    cv_ref, w_ref = streamed_reference_forward(*args, softmax_mode=mode)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cv, cv_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("impl,mode", [("gather_split", "materialize"), ("fused", "materialize"),
+                                       ("fused", "online"), ("fused", "two_pass")])
+def test_code_vector_within_2e6_of_float64(dev, impl, mode):
+    """Top11 widths, one context per row: the code vector is the encoded
+    context itself. 3xTF32 keeps it within 2e-6 of the same function in
+    float64; a single TF32 product is ~1e-3 off."""
+    from code2vec_tpu_torch.ops.fused_encode_pool import LN_EPS, fused_encode_attend_pool
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    t = torch.randn(5000, 100, generator=g, device=dev)
+    p = torch.randn(4000, 100, generator=g, device=dev)
+    ids = [torch.randint(1, v, (64, 1), generator=g, device=dev, dtype=torch.int32)
+           for v in (5000, 4000, 5000)]
+    W = torch.randn(300, 100, generator=g, device=dev) / 300**0.5
+    lns = 1 + 0.1 * torch.randn(100, generator=g, device=dev)
+    lnb = 0.1 * torch.randn(100, generator=g, device=dev)
+    attn = 0.08 * torch.randn(100, generator=g, device=dev)
+    mask = torch.ones(64, 1, device=dev)
+    cv, _ = fused_encode_attend_pool(t, p, *ids, mask, W, lns, lnb, attn, impl=impl,
+                                     softmax_mode=mode)
+    s, pa, e = (x[:, 0].long() for x in ids)
+    x = torch.cat([t[s], p[pa], t[e]], dim=1).double()
+    y = x @ W.double()
+    mu = y.mean(-1, keepdim=True)
+    var = ((y - mu) ** 2).mean(-1, keepdim=True)
+    cv64 = torch.tanh((y - mu) / torch.sqrt(var + LN_EPS) * lns.double() + lnb.double())
+    err = (cv.double() - cv64).abs().max().item()
+    assert err <= 2e-6, err
 
 
 @pytest.mark.parametrize("Q", [1, 8])

@@ -113,10 +113,10 @@ class TestStreamedPlainVersion:
         assert kernel_name("fused", "int8", "two_pass") == "two_pass_int8"
         assert kernel_name("fused", "bf16") == "fused_bf16"
         assert kernel_name("gather_split", "f32", "online") == "gather_split"
-        # CTAs per row: from B and the SM count, capped by the bag's chunks
-        assert stream_ctas(64, 2048, 132) == stream_ctas(64, 4096, 132) == 5
+        # CTAs per row: one wave of the SMs over B, capped by the bag's chunks
+        assert stream_ctas(64, 2048, 132) == stream_ctas(64, 4096, 132) == 2
         assert stream_ctas(1, 33, 132) == 2
-        assert stream_ctas(1, 10**6, 132) == 264
+        assert stream_ctas(1, 10**6, 132) == 132
 
 
 # ---------------------------------------------------------------------------
