@@ -13,7 +13,10 @@ the final result line is not printed):
    the encode-pool library (``cuobjdump``): every encode kernel (online,
    which K3's materialize also runs; score and fixed-max of two_pass; for
    each row source) must hold TF32 ``HMMA`` instructions;
-3. kernels — K1 (pool), K2 (encode-pool over gathered rows) and K3
+3. kernels — first the launch floor: a one-element ``torch`` add timed as
+   every kernel is, the least any launch here can read; then K1 (pool, at
+   each shape with the CTAs per row its grid policy gives), K2
+   (encode-pool over gathered rows) and K3
    (encode-pool with the gather inside; f32, bf16 and int8 tables) at the
    top11 widths, B in {1, 8, 64} x L in {1, 37, 200}; K4 (the streamed
    softmax, online and two_pass x f32/bf16/int8) at B in {1, 8, 64} x L in
@@ -44,16 +47,22 @@ the final result line is not printed):
    ANN corpus (1,000,000 rows at dim 100, the served encode width; 8,192
    true clusters, noise 0.12), an IVF-PQ index built on the card (n_list
    1,000, m 20, shortlist 256) and saved; K5 held against its plain
-   version at Q in {1, 8, 64} x n_probe in {8, 16} on the index's shapes;
+   version at Q in {1, 8, 64} x n_probe in {8, 16} on the index's shapes
+   (fastest and slowest launch, the CTA grid its policy gives);
    then a server with ``--retrieval_backend ann`` answers 64 ``neighbors``
    queries one at a time in the ``vector`` form on ``exact`` and on
    ``ann``, and 16 in the ``contexts`` form on each. Reports p50/p99 per
    backend, recall@10 of ann against exact at n_probe 8/16/32, the probed
    fraction, and fails if the ann shortlists differ (as id sets) from the
-   same searcher with the plain scoring or K5 never launched;
-7. the line ``{"kernels": [...]}`` (per kernel: route, source, the TPU
-   kernel it replaces, launches on its serve route, max error, times at
-   the headline shape and the bound), then, last, the result line.
+   same searcher with the plain scoring or K5 never launched; last, one
+   ``neighbors`` query's search split into the device time of each stage
+   (coarse matmul, topk, LUT einsum, K5, add + topk, id gather, copy to
+   the host) beside the host's wall time of the whole search;
+7. a line with the launch floor and the ``neighbors`` split, the card's
+   name and power limit, the line ``{"kernels": [...]}`` (per kernel:
+   route, source, the TPU kernel it replaces, launches on its serve route,
+   max error, times at the headline shape and the bound), then, last, the
+   result line.
 
 With ``--json_out`` the per-shape kernel records and serving numbers are
 also written to that file.
@@ -253,7 +262,7 @@ def phase_kernels(torch, dev) -> dict:
         reference_forward,
         streamed_reference_forward,
     )
-    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel
+    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel, pool_ctas
     from code2vec_tpu_torch.ops.quant import quantize_table
 
     c = TOP11
@@ -288,6 +297,12 @@ def phase_kernels(torch, dev) -> dict:
          "code2vec_tpu/ops/fused_encode_pool.py:651", "fused", dt, mode, LONG_SHAPES)
         for mode in K4_MODES for dt in ("f32", "bf16", "int8")
     ]
+    one = torch.ones(1, device=dev)
+    floor_ms = bench.time_ms(lambda: one + one)
+    floor = {"ms": floor_ms, "ms_min_max": list(bench.spread)}
+    print(f"launch floor (one-element add, timed as every kernel below): ms={floor_ms:.4f} "
+          f"(launches {bench.spread[0]:.4f}-{bench.spread[1]:.4f})", flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     records = {}
     for name, key, source, replaces, impl, dt, mode, shapes in specs:
         rows = []
@@ -339,6 +354,8 @@ def phase_kernels(torch, dev) -> dict:
                 "bound_ms": bound_s * 1e3, "bound_by": bound_by,
                 "bytes": nbytes, "flops": flops,
             }
+            if impl is None:
+                row["ctas_per_row"] = pool_ctas(B, L, sms)
             rows.append(row)
             print(f"kernel {name:32s} B={B:3d} L={L:4d} max_abs_err={err:.3e} "
                   f"ms={ms:.4f} (launches {lo:.4f}-{hi:.4f}) "
@@ -349,7 +366,7 @@ def phase_kernels(torch, dev) -> dict:
         records[name] = dict(key=key, source=source, replaces=replaces, rows=rows,
                              timed=timed)
     print("kernels checked: " + ", ".join(f"{n}: ok" for n in records), flush=True)
-    return records
+    return records, floor
 
 
 # ---------------------------------------------------------------------------
@@ -611,10 +628,79 @@ def same_shortlist(scores_a, ids_a, scores_b, ids_b) -> bool:
     return True
 
 
+def neighbors_split(torch, bench, searcher, queries) -> dict:
+    """Device ms of each stage of ``AnnSearcher.search`` for one query
+    (ann/index.py), each timed alone as the kernels are (cold L2, the card
+    busy while the host enqueues), on the searcher's own tensors; then the
+    whole chain in one timing, and the host's wall time of ``search``
+    (median of 20 calls), whose excess over the chain is host work."""
+    from code2vec_tpu_torch.ann.index import normalize_rows
+    from code2vec_tpu_torch.ann.lut_kernel import lut_score_cells
+
+    s = searcher
+    cap, n_probe, m = s.capacity, s.n_probe, s.m
+    qd = torch.from_numpy(normalize_rows(queries[:1])).to(s.device)
+    with torch.inference_mode():
+        def coarse():
+            return qd @ s._centroids.T + s._cell_bias[None, :]
+
+        def probe():
+            top, probed = torch.topk(cell_scores, n_probe, dim=1)
+            return top, probed, probed.to(torch.int32)
+
+        def lut():
+            return torch.einsum("qmd,mjd->qmj", qd.reshape(1, m, s.dim // m),
+                                s._codebooks).contiguous()
+
+        def k5():
+            return lut_score_cells(lut_t, probed32, s._codes, s._scales, s._bias)
+
+        def shortlist():
+            return torch.topk((adc + coarse_top[:, :, None]).reshape(1, n_probe * cap),
+                              s.shortlist, dim=1)
+
+        def ids():
+            p_idx = torch.div(flat_idx, cap, rounding_mode="floor")
+            return s._ids[torch.gather(probed, 1, p_idx), flat_idx - p_idx * cap]
+
+        def to_host():
+            return top.cpu().numpy(), rows.cpu().numpy()
+
+        def chain():
+            nonlocal cell_scores, coarse_top, probed, probed32, lut_t, adc, top, flat_idx, rows
+            cell_scores = coarse()
+            coarse_top, probed, probed32 = probe()
+            lut_t = lut()
+            adc = k5()
+            top, flat_idx = shortlist()
+            rows = ids()
+            return to_host()
+
+        cell_scores = coarse_top = probed = probed32 = lut_t = adc = top = flat_idx = rows = None
+        chain()
+        out = {name: bench.time_ms(fn) for name, fn in (
+            ("coarse_matmul", coarse), ("topk_probes", probe), ("lut_einsum", lut),
+            ("k5", k5), ("add_topk_shortlist", shortlist), ("id_gather", ids),
+            ("copy_to_host", to_host))}
+        out["stages_sum"] = sum(out.values())
+        out["chain"] = bench.time_ms(chain)
+    wall = []
+    for _ in range(20):
+        t = time.perf_counter()
+        s.search(queries[:1])
+        wall.append((time.perf_counter() - t) * 1e3)
+    out["search_host_wall_ms"] = float(np.median(wall))
+    return out
+
+
 def phase_retrieval(torch, smi, device, model_dir: Path) -> dict:
     from code2vec_tpu_torch.ann import lut_kernel
     from code2vec_tpu_torch.ann.index import AnnSearcher, build_index, save_index
-    from code2vec_tpu_torch.ann.lut_kernel import lut_score_cells, lut_score_cells_reference
+    from code2vec_tpu_torch.ann.lut_kernel import (
+        lut_grid,
+        lut_score_cells,
+        lut_score_cells_reference,
+    )
     from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
     from code2vec_tpu_torch.serve.__main__ import build_parser, build_server
     from code2vec_tpu_torch.serve.retrieval import AnnRetrievalIndex, RetrievalIndex
@@ -640,6 +726,7 @@ def phase_retrieval(torch, smi, device, model_dir: Path) -> dict:
 
     # K5 against its plain version on the index's shapes
     bench = KernelBench(torch, device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     searcher = AnnSearcher(index, n_probe=max(p for _, p in K5_SHAPES), shortlist=ANN_SHORTLIST,
                            device=device)
     g = np.random.default_rng(3)
@@ -664,14 +751,18 @@ def phase_retrieval(torch, smi, device, model_dir: Path) -> dict:
             raise AssertionError(f"K5 at Q={q} P={n_probe}: max |err| {err:.3e} > {TOL}")
         nbytes, flops = lut_bound(probed, index.cell_counts, cap, ANN_M)
         bound_s, bound_by = bound_of(nbytes, flops / F32_FLOP_PER_S)
-        row = {"Q": q, "P": n_probe, "max_abs_err": err, "ms": bench.time_ms(kernel),
+        ms = bench.time_ms(kernel)
+        lo, hi = bench.spread
+        row = {"Q": q, "P": n_probe, "max_abs_err": err, "ms": ms, "ms_min_max": [lo, hi],
                "plain_ms": bench.time_ms(plain), "library_ms": None,
                "bound_ms": bound_s * 1e3, "bound_by": bound_by, "bytes": nbytes,
-               "flops": flops}
+               "flops": flops, "grid_rows_cells": list(lut_grid(q, n_probe, cap, sms))}
         k5_rows.append(row)
         print(f"kernel K5 lut_score Q={q:2d} P={n_probe:2d} C={cap} max_abs_err={err:.3e} "
-              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"bound_ms={row['bound_ms']:.4f} ({bound_by})", flush=True)
+              f"ms={ms:.4f} (launches {lo:.4f}-{hi:.4f}) plain_ms={row['plain_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.4f} ({bound_by}) CTA rows x cells "
+              f"{row['grid_rows_cells']}",
+              flush=True)
     del searcher
     exact = RetrievalIndex(labels, rows, device=device)
 
@@ -744,6 +835,10 @@ def phase_retrieval(torch, smi, device, model_dir: Path) -> dict:
         lut_kernel.lut_score_cells = lut_score_cells
     if not same_shortlist(s_k, i_k, s_p, i_p):
         raise AssertionError("ann shortlists with K5 differ from the plain scoring's")
+    split = neighbors_split(torch, bench, ann.searcher, queries)
+    print("neighbors split (ann, one query, n_probe "
+          f"{ann.searcher.n_probe}, device ms per stage, cold L2 each): {json.dumps(split)} "
+          f"[{smi}]", flush=True)
     exact_sets = [set(a) for a in answers["exact"]]
     recall = {}
     for n_probe in (8, 16, 32):
@@ -758,6 +853,7 @@ def phase_retrieval(torch, smi, device, model_dir: Path) -> dict:
     print(f"ann recall@10 vs exact: {json.dumps(recall)}; served (n_probe {ANN_PROBE}) "
           f"{served / (10 * ANN_QUERIES):.4f}", flush=True)
     return {"build_s": build_s, "capacity": cap, "k5_rows": k5_rows, "timing": timing,
+            "neighbors_split": split,
             "recall": recall, "served_recall@10": served / (10 * ANN_QUERIES),
             "launches": timing["ann"]["launches"]}
 
@@ -818,7 +914,7 @@ def main() -> int:
     if smi is None or phase("build", build) is None:
         return 1
     dev = torch.device("cuda")
-    kernels = phase("kernels", phase_kernels, torch, dev)
+    kernels, floor = phase("kernels", phase_kernels, torch, dev) or (None, None)
     with tempfile.TemporaryDirectory(prefix="c2v_smoke_") as tmp:
         model_dir = Path(tmp)
         t0 = time.perf_counter()
@@ -846,6 +942,8 @@ def main() -> int:
         })
     k5 = retrieval["k5_rows"]
     timed = next(r for r in k5 if (r["Q"], r["P"]) == K5_TIMED_SHAPE)
+    print(f"launch floor ms={floor['ms']:.4f}; neighbors split: "
+          f"{json.dumps(retrieval['neighbors_split'])}")
     line.append({
         "name": "K5 lut_score", "route": "cuda",
         "source": "code2vec_tpu_torch/csrc/lut_score.cu",
@@ -858,7 +956,8 @@ def main() -> int:
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(
-            {"card": smi, "torch": torch.__version__, "kernels": kernels, "serve": serve,
+            {"card": smi, "torch": torch.__version__, "launch_floor": floor, "kernels": kernels,
+             "serve": serve,
              "longbag": longbag, "retrieval": retrieval},
             indent=1,
         ))

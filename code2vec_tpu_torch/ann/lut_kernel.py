@@ -10,7 +10,9 @@ Counterpart of ``code2vec_tpu/ann/lut_kernel.py``. Given each query's LUT
 
 Pad rows carry scale 0 and bias ``-inf`` and score exactly ``-inf``.
 
-:func:`lut_score_cells` launches the kernel (``csrc/lut_score.cu``) for
+:func:`lut_score_cells` launches the kernel (``csrc/lut_score.cu``, each
+CTA scoring the tile of rows that :func:`lut_grid` gives in one or more of
+a query's probed cells) for
 CUDA tensors and runs :func:`lut_score_cells_reference`, the gather-based
 plain version (the counterpart of ``xla_lut_score_cells``), for CPU
 tensors. The TPU kernel (``pallas_lut_score_cells``) and the GPU sketch
@@ -28,6 +30,28 @@ from code2vec_tpu_torch.ops import _build
 from code2vec_tpu_torch.ops.backend import count_launch, resolve
 
 KERNEL = "lut_score"
+TILE_ALIGN = 32  # tile rows: whole warps
+CTAS_PER_SM = 2  # the grid policy's aim; a CTA holds only its query's LUT
+
+
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
+def lut_grid(q: int, p: int, c: int, sm_count: int) -> tuple[int, int]:
+    """K5's CTA work: ``(tile rows T, probed cells G)``, a CTA scoring T
+    rows (a multiple of ``TILE_ALIGN``) in each of G probed cells of one
+    query. The call's ``q * p * c`` rows are spread over ``CTAS_PER_SM``
+    CTAs on each of ``sm_count`` SMs: a small call cuts each cell into
+    tiles of equal size, a large one gives a CTA whole cells, several when
+    that still fills the card, so that each query's LUT is staged as few
+    times as filling the card allows."""
+    per_cta = -(-(q * p * c) // (CTAS_PER_SM * sm_count))
+    c_tiles = _round_up(c, TILE_ALIGN)
+    if per_cta < c_tiles:
+        t = _round_up(per_cta, TILE_ALIGN)
+        return _round_up(-(-c // -(-c // t)), TILE_ALIGN), 1
+    return c_tiles, max(1, min(p, per_cta // c_tiles))
 
 
 def lut_score_cells_reference(lut, probed, codes, scales, bias) -> torch.Tensor:
@@ -63,15 +87,19 @@ def _launch(lut, probed, codes, scales, bias) -> torch.Tensor:
     if q < 1 or p < 1 or cap < 1:
         raise ValueError(f"lut kernel: empty query, probe or cell, {(q, p, cap)}")
     args = [t.contiguous() for t in (lut, probed, codes, scales, bias)]
+    if args[0].data_ptr() % 16:  # the kernel copies the LUT 16 bytes at a time
+        args[0] = args[0].clone()
     out = torch.empty((q, p, cap), dtype=torch.float32, device=dev)
+    tile, cells = lut_grid(q, p, cap, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = _build.load("lut_score")
     fn = lib.c2v_lut_score_cells
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(*(t.data_ptr() for t in args), out.data_ptr(), q, p, n_list, cap, m, stream)
+        code = fn(*(t.data_ptr() for t in args), out.data_ptr(), q, p, n_list, cap, m, tile,
+                  cells, stream)
     _build.check(lib, code, "lut kernel launch")
     count_launch(KERNEL)
     return out

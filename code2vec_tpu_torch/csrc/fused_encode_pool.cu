@@ -439,8 +439,8 @@ __device__ __forceinline__ void encode_tile(const float* x, int xs, const float*
 }
 
 // In place: enc_c = tanh((enc_c - mean) * rsqrt(var + eps) * scale + bias)
-// and, if mask is given, the masked score s_c = <enc_c, attn> (pool.cuh's
-// score_rows) for the chunk's n contexts, mask values from shared memory.
+// and, if mask is given, the masked score s_c = <enc_c, attn>
+// (s*m + (1-m)*NINF) for the chunk's n contexts, mask values from shared memory.
 // Warp w takes contexts w, w+8, ... together, parameters from shared memory.
 __device__ __forceinline__ void ln_tanh_score(float* enc, int n, int H, const float* par,
                                               const float* __restrict__ mask, float* s) {

@@ -1,8 +1,9 @@
-// Shared device code of the attention-pool kernels: K1 (pool.cu) and
-// K2/K3/K4 (fused_encode_pool.cu) score, fold and finish a batch row's pool
-// with these same routines, as _tile_pool / _pool_f32 are shared by the
-// TPU kernels (code2vec_tpu/ops/pallas_attention.py:38,
-// code2vec_tpu/ops/fused_encode_pool.py:174).
+// Shared device code of the encode-pool kernels K2/K3/K4
+// (fused_encode_pool.cu): they score, fold and finish a batch row's pool
+// with these routines, as _pool_f32 is shared by the TPU kernels
+// (code2vec_tpu/ops/fused_encode_pool.py:174). K1 (pool.cu) uses the
+// constants and warp reductions; its own fold keeps the softmax state in
+// registers.
 //
 // Semantics (code2vec_tpu/ops/attention.py): s = <enc_l, a>; a user-masked
 // slot scores the FINITE sentinel NINF via s*m + (1-m)*NINF; softmax over
@@ -11,18 +12,16 @@
 // kernels' hard -inf for lane padding has no counterpart here: nothing is
 // padded, a chunk simply holds fewer than kChunk rows.
 //
-// The bag is split into chunks of kChunk contexts, one CTA per (chunk,
-// batch row), so a short batch of long bags still fills the card. Each CTA
-// folds its chunk into a softmax partial — max m, denominator
-// d = sum exp(s - m), weighted sum acc[H] = sum exp(s - m) enc — and writes
-// the raw scores to the weights output. A row of one chunk finishes in
-// place; otherwise pool_combine_kernel merges the row's partials with the
-// rescaling of the online softmax (_make_fused_kernel's "online" mode,
+// The bag is split into chunks of kChunk contexts. A CTA folds its chunks
+// into a softmax partial — max m, denominator d = sum exp(s - m), weighted
+// sum acc[H] = sum exp(s - m) enc — and writes the raw scores to the
+// weights output. A row of one CTA finishes in place; otherwise
+// pool_combine_kernel merges the row's partials with the rescaling of the
+// online softmax (_make_fused_kernel's "online" mode,
 // fused_encode_pool.py:392-442): M = max m_c, D = sum d_c exp(m_c - M),
 // cv = sum acc_c exp(m_c - M) / D, w = exp(s - M) / D. Shared memory stays
-// O(kChunk*H) at any bag length; the workspace is B * chunks * (H + 2)
-// floats, allocated by the caller (K4: B * S * (H + 2) for S CTAs per row,
-// each folding many chunks).
+// O(kChunk*H) at any bag length; the workspace is B * S * (H + 2) floats
+// for S CTAs per row, allocated by the caller.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -81,23 +80,6 @@ __device__ __forceinline__ void pool_init(PoolState st, int H) {
     st.stat[0] = -INFINITY;
     st.stat[1] = 0.f;
     st.stat[2] = 0.f;
-  }
-}
-
-// Masked scores of the n rows of enc ([n, H], row-major): one warp per row.
-// mask points at the chunk's first slot of the row's [L] mask.
-__device__ __forceinline__ void score_rows(const float* enc, int n, int H,
-                                           const float* __restrict__ attn,
-                                           const float* __restrict__ mask, float* s) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  for (int c = warp; c < n; c += nwarps) {
-    float v = 0.f;
-    for (int h = lane; h < H; h += 32) v = fmaf(enc[(size_t)c * H + h], attn[h], v);
-    v = warp_sum(v);
-    if (lane == 0) {
-      const float m = mask[c];
-      s[c] = v * m + (1.f - m) * kNinf;
-    }
   }
 }
 
@@ -163,9 +145,9 @@ __device__ __forceinline__ void pool_finish(PoolState st, int L, int H, float* c
   for (int l = threadIdx.x; l < L; l += blockDim.x) w_row[l] = expf(w_row[l] - m) / d;
 }
 
-// End of a chunk CTA (blockIdx.x = chunk, gridDim.x = chunks of the row):
-// a single-chunk row finishes in place, otherwise the partial (acc[H], m,
-// d) goes to part[b][chunk].
+// End of a CTA (blockIdx.x = its part, gridDim.x = parts of the row): a
+// row of one part finishes in place, otherwise the partial (acc[H], m,
+// d) goes to part[b][blockIdx.x].
 __device__ __forceinline__ void pool_chunk_done(PoolState st, int L, int H, int b, float* cv,
                                                 float* w, float* part) {
   if (gridDim.x == 1) {
@@ -218,12 +200,6 @@ static inline cudaError_t launch_combine_parts(const float* part, int n_parts, i
   pool_combine_kernel<<<B, block_threads(H), (n_parts + 2) * sizeof(float), stream>>>(
       part, n_parts, L, H, cv, w);
   return cudaGetLastError();
-}
-
-// The combine step after a kernel of one CTA per (chunk, batch row).
-static inline cudaError_t launch_combine(const float* part, int B, int L, int H, float* cv,
-                                         float* w, cudaStream_t stream) {
-  return launch_combine_parts(part, (L + kChunk - 1) / kChunk, B, L, H, cv, w, stream);
 }
 
 }  // namespace c2v

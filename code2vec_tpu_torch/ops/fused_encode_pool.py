@@ -50,13 +50,13 @@ import torch
 from code2vec_tpu_torch.ops import _build
 from code2vec_tpu_torch.ops.attention import NINF, attention_pool
 from code2vec_tpu_torch.ops.backend import count_launch, resolve
-from code2vec_tpu_torch.ops.pool_kernel import CHUNK
 from code2vec_tpu_torch.ops.quant import QuantTable
 
 FUSED_IMPLS = ("fused", "gather_split")
 SOFTMAX_MODES = ("materialize", "online", "two_pass")
 LN_EPS = 1e-6  # flax nn.LayerNorm default (fused_encode_pool.py:84)
 DEFAULT_CHUNK_L = 128  # the TPU kernel's bag-chunk lane tile
+CHUNK = 32  # contexts per chunk step, kChunk in csrc/pool.cuh
 _TABLE_CODES = {"f32": 0, "bf16": 1, "int8": 2}
 _STREAM_MODES = {"online": 0, "two_pass": 1}
 

@@ -9,14 +9,17 @@ inside the fixture, never at import). Run them on the card with
 card's machine needs no JAX for these tests.)
 
 ``chip_smoke.py`` covers the top11 widths; these cover what it does not:
+for K1 every cluster size (1 to 8 CTAs a row), repeatable bits and one
+CUDA kernel per call;
 dims that are not multiples of 4 or 8 (narrower row copies, zero-padded
 tensor-core tiles), edges of the 32-context chunk step (``CHUNK`` +- 1 and
 beyond), encode 300 (W streamed through shared memory in tiles), all-masked
 rows, ids out of range (clamped, as a JAX gather clamps); for K4 both
 streamed modes at L from one context to 4096 (one CTA per row up to the
 full wave) and B = 1 / 64 at L = 2048 on the card's ``stream_ctas`` grid;
-for K5 word and byte code loads, pad slots, and the searcher's shortlist
-against its plain scoring. Tolerance rtol = atol = 1e-5 (the plain
+for K5 many tiles per cell, one, or several cells per CTA, word and byte
+code loads, sources at any alignment, pad slots, clamped cell ids, and the
+searcher's shortlist against its plain scoring. Tolerance rtol = atol = 1e-5 (the plain
 versions in f32 with TF32 off, the kernels' encode in 3xTF32 on the
 tensor cores); at top11 widths and one context the kernel's code vector is
 within 2e-6 of a float64 evaluation, which one TF32 product (~1e-3) would
@@ -79,6 +82,92 @@ def test_pool_kernel(dev, L, H):
     assert launch_counts() == {"pool": 1}
     torch.testing.assert_close(cv, cv_ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("H", [13, 64, 100, 300])
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 200, 257, 2048])
+@pytest.mark.parametrize("B", [1, 5, 64, 200])
+def test_pool_kernel_grid(dev, B, L, H):
+    """K1 on every cluster size pool_ctas gives (1 to 8 CTAs a row; one at
+    B = 200, more rows than SMs), the last row all-masked (uniform 1/L)."""
+    from code2vec_tpu_torch.ops.attention import attention_pool
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel
+
+    g = torch.Generator(device=dev).manual_seed(B * L + H)
+    ctx = torch.tanh(torch.randn(B, L, H, generator=g, device=dev))
+    lens = torch.randint(1, L + 1, (B,), generator=g, device=dev)
+    lens[0] = L
+    mask = (torch.arange(L, device=dev)[None, :] < lens[:, None]).float()
+    if B > 1:
+        mask[-1] = 0.0
+    attn = torch.randn(H, generator=g, device=dev) / H**0.5
+    reset_launch_counts()
+    cv, w = attention_pool_kernel(ctx, mask, attn)
+    assert launch_counts() == {"pool": 1}
+    cv_ref, w_ref = attention_pool(ctx, mask, attn)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cv, cv_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
+    if B > 1:
+        torch.testing.assert_close(w[-1], torch.full((L,), 1.0 / L, device=dev), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_pool_kernel_scores_past_shared_memory(dev):
+    """A CTA's share of a very long bag does not fit in shared memory
+    (60,000 contexts, one CTA a row since the batch fills the card): the
+    raw scores then go through w itself."""
+    from code2vec_tpu_torch.ops.attention import attention_pool
+    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel, pool_ctas
+
+    B, L, H = 530, 60_000, 4
+    assert pool_ctas(B, L, torch.cuda.get_device_properties(dev).multi_processor_count) == 1
+    g = torch.Generator(device=dev).manual_seed(5)
+    ctx = torch.tanh(torch.randn(B, L, H, generator=g, device=dev))
+    mask = (torch.rand(B, L, generator=g, device=dev) > 0.5).float()
+    attn = torch.randn(H, generator=g, device=dev)
+    cv, w = attention_pool_kernel(ctx, mask, attn)
+    cv_ref, w_ref = attention_pool(ctx, mask, attn)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cv, cv_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,L", [(1, 2048), (5, 257), (64, 200)])
+def test_pool_kernel_calls_are_bitwise_repeatable(dev, B, L):
+    """A cluster leaves no state behind: two calls give identical bits."""
+    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel
+
+    g = torch.Generator(device=dev).manual_seed(B + L)
+    ctx = torch.tanh(torch.randn(B, L, 100, generator=g, device=dev))
+    mask = (torch.rand(B, L, generator=g, device=dev) > 0.2).float()
+    attn = 0.08 * torch.randn(100, generator=g, device=dev)
+    cv1, w1 = attention_pool_kernel(ctx, mask, attn)
+    cv2, w2 = attention_pool_kernel(ctx, mask, attn)
+    torch.cuda.synchronize()
+    assert torch.equal(cv1, cv2) and torch.equal(w1, w2)
+
+
+@pytest.mark.parametrize("B,L", [(1, 37), (1, 2048), (64, 200)])
+def test_pool_kernel_is_one_cuda_kernel(dev, B, L):
+    """One K1 call launches exactly one CUDA kernel (no combine step),
+    counted by the profiler over CUDA activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel
+
+    ctx = torch.randn(B, L, 100, device=dev)
+    mask = torch.ones(B, L, device=dev)
+    attn = torch.randn(100, device=dev)
+    attention_pool_kernel(ctx, mask, attn)  # build and load outside the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        attention_pool_kernel(ctx, mask, attn)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "pool_kernel" in kernels[0], kernels
 
 
 @pytest.mark.parametrize("dims", [(6, 5, 13), (8, 6, 12), (100, 100, 100), (100, 100, 300)],
@@ -149,7 +238,7 @@ ODD_DIMS = {"odd": (6, 5, 13), "odd2": (5, 9, 21), "top11": (100, 100, 100)}
 def test_encode_chunk_edges(dev, impl, mode, edge, dims):
     """Bags ending just before, on and after a chunk step, and in a later one."""
     from code2vec_tpu_torch.ops.fused_encode_pool import fused_encode_attend_pool, reference_forward
-    from code2vec_tpu_torch.ops.pool_kernel import CHUNK
+    from code2vec_tpu_torch.ops.fused_encode_pool import CHUNK
 
     L = CHUNK + edge
     t, p, s, pa, e, mask, params = ids_and_tables(dev, 3, L, *dims, seed=L)
@@ -268,6 +357,103 @@ def test_lut_score_kernel(dev, M, C, P, Q):
     assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
     fin = torch.isfinite(ref)
     torch.testing.assert_close(got[fin], ref[fin], rtol=0, atol=1e-5)
+
+
+def lut_inputs(dev, Q, P, C, M, n_list=11, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lut = torch.randn(Q, M, 256, generator=g, device=dev)
+    probed = torch.randint(0, n_list, (Q, P), generator=g, device=dev, dtype=torch.int32)
+    codes = torch.randint(0, 256, (n_list, C, M), generator=g, device=dev).to(torch.uint8)
+    scales = torch.rand(n_list, C, generator=g, device=dev)
+    bias = torch.zeros(n_list, C, device=dev)
+    counts = torch.randint(1, C + 1, (n_list,), generator=g, device=dev)
+    pad = torch.arange(C, device=dev)[None, :] >= counts[:, None]
+    scales[pad] = 0.0
+    bias[pad] = float("-inf")
+    return lut, probed, codes, scales, bias
+
+
+def assert_lut_matches(got, ref):
+    assert torch.equal(torch.isneginf(got), torch.isneginf(ref))
+    fin = torch.isfinite(ref)
+    assert torch.isfinite(got[fin]).all()
+    torch.testing.assert_close(got[fin], ref[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("Q,P", [(1, 16), (8, 32), (64, 16)])
+@pytest.mark.parametrize("M", [6, 8, 16, 20, 32])
+@pytest.mark.parametrize("C", [1, 100, 128, 2688, 3000])
+def test_lut_score_tiles(dev, C, M, Q, P):
+    """K5 on the grid lut_grid gives: many tiles per cell, one, or several
+    cells per CTA; a ragged last tile; word and byte code reads."""
+    from code2vec_tpu_torch.ann.lut_kernel import lut_score_cells, lut_score_cells_reference
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+
+    args = lut_inputs(dev, Q, P, C, M, seed=C * M + Q * P)
+    reset_launch_counts()
+    got = lut_score_cells(*args)
+    assert launch_counts() == {"lut_score": 1}
+    ref = lut_score_cells_reference(*args)
+    torch.cuda.synchronize()
+    assert_lut_matches(got, ref)
+
+
+@pytest.mark.parametrize("T,G", [(32, 1), (96, 1), (2688, 1), (2688, 2), (2688, 5), (4096, 16)])
+@pytest.mark.parametrize("C", [100, 2688])
+def test_lut_score_any_grid(dev, monkeypatch, C, T, G):
+    """Every (tile rows, cells per CTA) the launcher takes gives the same
+    scores, whatever lut_grid would pick: tiles past the cell, a last
+    group of fewer than G cells (P = 16)."""
+    from code2vec_tpu_torch.ann import lut_kernel
+
+    args = lut_inputs(dev, 3, 16, C, 20, seed=T + G)
+    monkeypatch.setattr(lut_kernel, "lut_grid", lambda *a: (T, G))
+    got = lut_kernel.lut_score_cells(*args)
+    ref = lut_kernel.lut_score_cells_reference(*args)
+    torch.cuda.synchronize()
+    assert_lut_matches(got, ref)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
+@pytest.mark.parametrize("C,M", [(100, 20), (2688, 20), (128, 6)])
+def test_lut_score_unaligned_views(dev, C, M, offset):
+    """Codes, scales and bias (and the LUT) as views at an offset into a
+    larger buffer: codes that are not word-aligned are read as bytes, a
+    LUT that is not 16-byte aligned is copied first."""
+    from code2vec_tpu_torch.ann.lut_kernel import lut_score_cells, lut_score_cells_reference
+
+    lut, probed, codes, scales, bias = lut_inputs(dev, 4, 8, C, M, seed=offset)
+    n = codes.numel()
+    buf = torch.empty(n + 16, dtype=torch.uint8, device=dev)
+    buf[offset:offset + n] = codes.flatten()
+    codes_v = buf[offset:offset + n].view(codes.shape)
+    assert codes_v.data_ptr() % 16 == offset % 16
+    fbuf = torch.empty(2, scales.numel() + 4, device=dev)
+    k = offset % 4
+    fbuf[0, k:k + scales.numel()] = scales.flatten()
+    fbuf[1, k:k + bias.numel()] = bias.flatten()
+    scales_v = fbuf[0, k:k + scales.numel()].view(scales.shape)
+    bias_v = fbuf[1, k:k + bias.numel()].view(bias.shape)
+    lbuf = torch.empty(lut.numel() + 4, device=dev)
+    lbuf[k:k + lut.numel()] = lut.flatten()
+    lut_v = lbuf[k:k + lut.numel()].view(lut.shape)
+    got = lut_score_cells(lut_v, probed, codes_v, scales_v, bias_v)
+    ref = lut_score_cells_reference(lut, probed, codes, scales, bias)
+    torch.cuda.synchronize()
+    assert_lut_matches(got, ref)
+
+
+def test_lut_score_clamps_probed_ids(dev):
+    from code2vec_tpu_torch.ann.lut_kernel import lut_score_cells, lut_score_cells_reference
+
+    lut, probed, codes, scales, bias = lut_inputs(dev, 2, 4, 300, 20)
+    wild = probed.clone()
+    wild[0, 0], wild[1, 3] = -5, 10**6
+    clamped = wild.clamp(0, codes.shape[0] - 1)
+    got = lut_score_cells(lut, wild, codes, scales, bias)
+    ref = lut_score_cells_reference(lut, clamped, codes, scales, bias)
+    torch.cuda.synchronize()
+    assert_lut_matches(got, ref)
 
 
 def test_searcher_on_the_card_matches_its_plain_scoring(dev, monkeypatch):
