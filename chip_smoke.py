@@ -15,7 +15,9 @@ the final result line is not printed):
    each row source) must hold TF32 ``HMMA`` instructions;
 3. kernels — first the launch floor: a one-element ``torch`` add timed as
    every kernel is, the least any launch here can read; then K1 (pool, at
-   each shape with the CTAs per row its grid policy gives), K2
+   each shape with the CTAs per row its grid policy gives), K1b (its
+   backward: d_ctx within 1e-5, d_attn within rtol 1e-4; library: autograd
+   of the plain pool), K2
    (encode-pool over gathered rows) and K3
    (encode-pool with the gather inside; f32, bf16 and int8 tables) at the
    top11 widths, B in {1, 8, 64} x L in {1, 37, 200}; K4 (the streamed
@@ -58,11 +60,26 @@ the final result line is not printed):
    ``neighbors`` query's search split into the device time of each stage
    (coarse matmul, topk, LUT einsum, K5, add + topk, id gather, copy to
    the host) beside the host's wall time of the whole search;
-7. a line with the launch floor and the ``neighbors`` split, the card's
+7. train   — ``train()`` of the port at the top11 widths (a corpus made
+   as ``bench.py`` makes its own: 8,192 methods, mean 120 contexts, the
+   top11 vocab and label widths), batch 1024, bag 200, dropout 0.25, for
+   2 epochs on each route: plain (no kernel), pool_only (K1 + K1b),
+   gather_split (K2 with the keep mask), fused (K3 with the keep mask);
+   per epoch the loss, subtoken F1, steps/s and real contexts/s of the
+   train steps after the warm one; losses finite and each route's kernels
+   launched (counts reset just before each run, read just after). Then a
+   3-step differential from one set of weights, dropout 0: each kernel
+   route's losses within rtol 1e-4 and gradients within atol 1e-5 / rtol
+   1e-3 of the plain route's; and the fused run's model dir served by
+   ``build_server`` (16 predict requests against the trained model run
+   plain). K1b (at B in {1, 64, 1024} x L in {1, 37, 200}) and the masked
+   K2/K3 (at the kernel shapes plus 1024 x 200, timed beside the maskless
+   launch) are checked and timed in the kernels phase;
+8. a line with the launch floor and the ``neighbors`` split, the card's
    name and power limit, the line ``{"kernels": [...]}`` (per kernel:
-   route, source, the TPU kernel it replaces, launches on its serve route,
-   max error, times at the headline shape and the bound), then, last, the
-   result line.
+   route, source, the TPU kernel it replaces, launches on its serve or
+   train route, max error, times at the headline shape and the bound),
+   then, last, the result line.
 
 With ``--json_out`` the per-shape kernel records and serving numbers are
 also written to that file.
@@ -89,6 +106,12 @@ TOP11 = dict(terminal_count=360_633, path_count=342_846, label_count=8_000,
 BAG, LADDER, BATCH_SIZES = 200, (25, 50, 100, 200), (1, 8, 64)
 SHAPES = [(b, l) for b in (1, 8, 64) for l in (1, 37, 200)]
 TIMED_SHAPE = (64, 200)
+# training: batch 1024 at bag 200 (the top11 recipe); K1b at these shapes,
+# the masked K2/K3 at SHAPES plus the training shape
+TRAIN_BATCH, TRAIN_SHAPE = 1024, (1024, 200)
+BWD_SHAPES = [(b, l) for b in (1, 64, 1024) for l in (1, 37, 200)]
+MASKED_SHAPES = SHAPES + [TRAIN_SHAPE]
+KEEP = 0.75  # 1 - dropout 0.25
 LONG_SHAPES = [(b, l) for b in (1, 8, 64) for l in (512, 1024, 2048)]
 LONG_TIMED_SHAPE = (64, 2048)
 LONGBAG_RUNGS = (512, 1024, 2048)
@@ -221,6 +244,14 @@ def pool_bound(B, L, H):
     return nbytes, flops
 
 
+def pool_bwd_bound(B, L, H):
+    """K1b: read ctx once and write d_ctx once, plus w, mask, g_w, g_cv,
+    a and d_attn; 2 flops an element for dldw, 3 for d_ctx, 2 for d_attn."""
+    nbytes = 4 * (2 * B * L * H + 3 * B * L + B * H + 2 * H)
+    flops = 7 * B * L * H
+    return nbytes, flops
+
+
 def encode_pool_bound(torch, s, p, e, mask, table_dtype, H):
     """Bytes of the rows these ids need (each distinct row once) plus ids,
     mask, weights and outputs; flops of encode + LayerNorm/tanh/pool for
@@ -253,16 +284,20 @@ def bound_of(nbytes, ops_s):
     return (t_bytes, "bytes") if t_bytes >= ops_s else (ops_s, "operations")
 
 
-def phase_kernels(torch, dev) -> dict:
+def phase_kernels(torch, dev, smi) -> dict:
     import torch.nn.functional as F
 
-    from code2vec_tpu_torch.ops.attention import NINF, attention_pool
+    from code2vec_tpu_torch.ops.attention import NINF, attention_pool, pool_backward_reference
     from code2vec_tpu_torch.ops.fused_encode_pool import (
         fused_encode_attend_pool,
         reference_forward,
         streamed_reference_forward,
     )
-    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel, pool_ctas
+    from code2vec_tpu_torch.ops.pool_kernel import (
+        attention_pool_kernel,
+        pool_backward_kernel,
+        pool_ctas,
+    )
     from code2vec_tpu_torch.ops.quant import quantize_table
 
     c = TOP11
@@ -282,10 +317,19 @@ def phase_kernels(torch, dev) -> dict:
     specs = [  # (name, launch key, source, replaces, impl, table dtype, softmax, shapes)
         ("K1 pool", "pool", "code2vec_tpu_torch/csrc/pool.cu",
          "code2vec_tpu/ops/pallas_attention.py:114", None, None, None, SHAPES),
+        ("K1b pool backward", "pool_bwd", "code2vec_tpu_torch/csrc/pool.cu",
+         "code2vec_tpu/ops/pallas_attention.py:224", "pool_bwd", None, None, BWD_SHAPES),
         ("K2 encode_pool gather_split", "gather_split",
          "code2vec_tpu_torch/csrc/fused_encode_pool.cu",
          "code2vec_tpu/ops/fused_encode_pool.py:651", "gather_split", "f32", "materialize",
          SHAPES),
+        ("K2 encode_pool gather_split masked", "gather_split_masked",
+         "code2vec_tpu_torch/csrc/fused_encode_pool.cu",
+         "code2vec_tpu/ops/fused_encode_pool.py:651", "gather_split", "f32", "masked",
+         MASKED_SHAPES),
+        ("K3 encode_pool fused f32 masked", "fused_f32_masked",
+         "code2vec_tpu_torch/csrc/fused_encode_pool.cu",
+         "code2vec_tpu/ops/fused_encode_pool.py:651", "fused", "f32", "masked", MASKED_SHAPES),
     ] + [
         (f"K3 encode_pool fused {dt}", f"fused_{dt}",
          "code2vec_tpu_torch/csrc/fused_encode_pool.cu",
@@ -307,8 +351,33 @@ def phase_kernels(torch, dev) -> dict:
     for name, key, source, replaces, impl, dt, mode, shapes in specs:
         rows = []
         for B, L in shapes:
-            library = None
-            if impl is None:
+            library = unmasked = None
+            if impl == "pool_bwd":
+                ctx, mask, a = pool_inputs(torch, dev, g, B, L, H)
+                _, w0 = attention_pool(ctx, mask, a)
+                g_cv = torch.randn(B, H, generator=g, device=dev)
+                g_w = torch.randn(B, L, generator=g, device=dev)
+                bargs = (ctx, mask, a, w0, g_cv, g_w)
+                kernel = lambda: pool_backward_kernel(*bargs)  # noqa: E731
+                plain = lambda: pool_backward_reference(*bargs)  # noqa: E731
+                leaves = (ctx.clone().requires_grad_(), a.clone().requires_grad_())
+                pooled = attention_pool(leaves[0], mask, leaves[1])
+
+                def library():
+                    return torch.autograd.grad(pooled, leaves, (g_cv, g_w), retain_graph=True)
+
+                nbytes, flops = pool_bwd_bound(B, L, H)
+                ops_s = flops / F32_FLOP_PER_S
+            elif mode == "masked":
+                s, p, e, mask = id_inputs(torch, dev, g, B, L)
+                drop = torch.empty(B, L, H, device=dev).bernoulli_(KEEP, generator=g) / KEEP
+                margs = (*tables[dt], s, p, e, mask, W, lns, lnb, attn)
+                kernel = lambda: fused_encode_attend_pool(*margs, drop, impl=impl)  # noqa: E731
+                plain = lambda: reference_forward(*margs, drop)  # noqa: E731
+                unmasked = lambda: fused_encode_attend_pool(*margs, impl=impl)  # noqa: E731
+                nbytes, flops, ops_s = encode_pool_bound(torch, s, p, e, mask, dt, H)
+                nbytes += 4 * B * L * H  # the keep mask, read once
+            elif impl is None:
                 ctx, mask, a = pool_inputs(torch, dev, g, B, L, H)
                 kernel = lambda: attention_pool_kernel(ctx, mask, a)  # noqa: E731
                 plain = lambda: attention_pool(ctx, mask, a)  # noqa: E731
@@ -339,7 +408,10 @@ def phase_kernels(torch, dev) -> dict:
             if not (torch.isfinite(cv).all() and torch.isfinite(w).all()):
                 raise AssertionError(f"{name} at {(B, L)}: non-finite output")
             err = max((cv - cv_ref).abs().max().item(), (w - w_ref).abs().max().item())
-            if mode == "materialize" or impl is None:
+            if impl == "pool_bwd":  # d_ctx within 1e-5, d_attn within rtol 1e-4
+                torch.testing.assert_close(cv, cv_ref, rtol=0, atol=TOL)
+                torch.testing.assert_close(w, w_ref, rtol=1e-4, atol=TOL)
+            elif mode in ("materialize", "masked") or impl is None:
                 torch.testing.assert_close(cv, cv_ref, rtol=TOL, atol=TOL)
                 torch.testing.assert_close(w, w_ref, rtol=TOL, atol=TOL)
             elif err > TOL:
@@ -354,15 +426,19 @@ def phase_kernels(torch, dev) -> dict:
                 "bound_ms": bound_s * 1e3, "bound_by": bound_by,
                 "bytes": nbytes, "flops": flops,
             }
-            if impl is None:
+            if unmasked is not None:
+                row["unmasked_ms"] = bench.time_ms(unmasked)
+            if impl in (None, "pool_bwd"):
                 row["ctas_per_row"] = pool_ctas(B, L, sms)
             rows.append(row)
             print(f"kernel {name:32s} B={B:3d} L={L:4d} max_abs_err={err:.3e} "
                   f"ms={ms:.4f} (launches {lo:.4f}-{hi:.4f}) "
                   f"plain_ms={row['plain_ms']:.4f} "
                   f"library_ms={row['library_ms']} bound_ms={row['bound_ms']:.4f} "
-                  f"({bound_by})", flush=True)
-        timed = LONG_TIMED_SHAPE if shapes is LONG_SHAPES else TIMED_SHAPE
+                  f"({bound_by})" + (f" unmasked_ms={row['unmasked_ms']:.4f}" if unmasked else "")
+                  + f" [{smi}]", flush=True)
+        timed = {id(LONG_SHAPES): LONG_TIMED_SHAPE, id(BWD_SHAPES): TRAIN_SHAPE,
+                 id(MASKED_SHAPES): TRAIN_SHAPE}.get(id(shapes), TIMED_SHAPE)
         records[name] = dict(key=key, source=source, replaces=replaces, rows=rows,
                              timed=timed)
     print("kernels checked: " + ", ".join(f"{n}: ok" for n in records), flush=True)
@@ -500,7 +576,7 @@ def serve_route(torch, model_dir: Path, impl: str, table_dtype: str, requests, s
         if req["op"] == "predict":
             ref = logits_ref[0].cpu().numpy()
             ref_top = softmax_top_k(ref, TOP11["label_count"], 1)[0][0]
-            served = int(entry["predictions"][0]["name"].removeprefix("label"))
+            served = predictor.label_vocab.stoi[entry["predictions"][0]["name"]]
             # a served top-1 that ties the reference's within the logit
             # tolerance is the same answer up to rounding
             top1_agree += served == ref_top or ref[ref_top] - ref[served] <= SERVE_ATOL
@@ -859,6 +935,231 @@ def phase_retrieval(torch, smi, device, model_dir: Path) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: train
+# ---------------------------------------------------------------------------
+
+# route -> the launch keys its training run must show
+TRAIN_ROUTES = {
+    "plain": (),
+    "pool_only": ("pool", "pool_bwd"),
+    "gather_split": ("gather_split_masked",),
+    "fused": ("fused_f32_masked",),
+}
+
+
+def train_corpus():
+    """bench.py's training corpus (bench.py:3218-3229): the top11 vocab and
+    label widths, 8,192 methods, mean 120 contexts (max 400), seed 0."""
+    from code2vec_tpu_torch.data.synth import SynthSpec, corpus_data_from_raw, generate_corpus_data
+
+    spec = SynthSpec(n_methods=8192, n_terminals=360_631, n_paths=342_845, n_labels=8_000,
+                     mean_contexts=120.0, max_contexts=400, seed=0)
+    raw = generate_corpus_data(spec)
+    return raw, corpus_data_from_raw(raw)
+
+
+def train_differential(torch, dev, data, config) -> dict:
+    """From one set of seeded weights, dropout 0, the same 3 batches: each
+    kernel route's losses within rtol 1e-4 of the plain route's and its
+    gradients (taken before each optimizer step) within atol 1e-5 / rtol
+    1e-3 of the plain route's. TF32 is off, so the plain route is f32."""
+    from code2vec_tpu_torch.data.pipeline import build_method_epoch, iter_batches
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
+    from code2vec_tpu_torch.train.step import forward_backward, make_optimizer, to_device
+
+    rng = np.random.default_rng(1)
+    items = rng.permutation(data.n_items)[:3 * TRAIN_BATCH]
+    epoch = build_method_epoch(data, items, config.max_path_length, rng)
+    batches = [to_device(b, dev) for b in iter_batches(epoch, TRAIN_BATCH)]
+    weights = class_weights_from(config, data, dev)
+    base_cfg = model_config_from(config.with_updates(dropout_prob=0.0), data)
+    base = Code2Vec(base_cfg)
+    base.reset_parameters(torch.Generator().manual_seed(5))
+    state = {k: v.to(dev) for k, v in base.state_dict().items()}
+    ref, out = None, {}
+    for route in TRAIN_ROUTES:
+        kernel = dict(use_pallas=True, pallas_impl=route) if route != "plain" else {}
+        with torch.device(dev):
+            model = Code2Vec(base_cfg.with_updates(**kernel))
+        model.load_state_dict(state)
+        opt = make_optimizer(model, config)
+        steps = []
+        for batch in batches:
+            opt.zero_grad(set_to_none=True)
+            loss = forward_backward(model, batch, weights)
+            steps.append((loss, {k: p.grad.clone() for k, p in model.named_parameters()}))
+            opt.step()
+        if ref is None:
+            ref = steps
+            out[route] = [float(loss) for loss, _ in steps]
+            continue
+        worst = 0.0
+        for (loss, grads), (ref_loss, ref_grads) in zip(steps, ref):
+            torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=0)
+            for k, g in ref_grads.items():
+                torch.testing.assert_close(grads[k], g, rtol=1e-3, atol=1e-5, msg=k)
+                worst = max(worst, (grads[k] - g).abs().max().item())
+        out[route] = {"losses": [float(loss) for loss, _ in steps], "max_abs_grad_err": worst}
+        print(f"train differential {route}: 3 steps, losses "
+              f"{[round(x, 6) for x in out[route]['losses']]} vs plain "
+              f"{[round(x, 6) for x in out['plain']]}, max |grad - plain| {worst:.3e}",
+              flush=True)
+        del model, opt, steps
+    return out
+
+
+def profile_steps(torch, model, opt, batches, weights, top=8) -> list:
+    """The ops with the most device time over ``batches`` train steps
+    (``torch.profiler``), in ms per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from code2vec_tpu_torch.train.step import train_step
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for batch in batches:
+            train_step(model, opt, batch, weights)
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    ops = sorted(prof.key_averages(), key=device_us, reverse=True)[:top]
+    return [(e.key[:60], device_us(e) / 1e3 / len(batches)) for e in ops]
+
+
+def step_breakdown(torch, dev, data, config, smi) -> dict:
+    """Where a train step's time goes, per route (dropout 0.25): device ms
+    of the forward, the backward and the optimizer step (CUDA events), the
+    host's wall ms of a whole step (synchronised), and the host's ms to
+    build an epoch and to slice + pin + copy one batch. Median of 5 steps
+    after 2 warm ones."""
+    from code2vec_tpu_torch.data.pipeline import build_method_epoch, iter_batches
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
+    from code2vec_tpu_torch.train.step import make_optimizer, to_device, weighted_nll
+
+    rng = np.random.default_rng(2)
+    items = rng.permutation(data.n_items)[:7 * TRAIN_BATCH]
+    t0 = time.perf_counter()
+    epoch = build_method_epoch(data, items, config.max_path_length, rng)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    host_batches = list(iter_batches(epoch, TRAIN_BATCH, rng=rng))
+    t0 = time.perf_counter()
+    batches = [to_device(b, dev) for b in host_batches]
+    torch.cuda.synchronize()
+    feed_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    weights = class_weights_from(config, data, dev)
+    out = {"epoch_build_ms_7_batches": build_ms, "batch_copy_ms": feed_ms}
+    for route in TRAIN_ROUTES:
+        kernel = dict(use_pallas=True, pallas_impl=route) if route != "plain" else {}
+        with torch.device(dev):
+            model = Code2Vec(model_config_from(config.with_updates(**kernel), data))
+        model.seed_dropout(0)
+        model.train()
+        opt = make_optimizer(model, config)
+        rows = []
+        for i, batch in enumerate(batches):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            opt.zero_grad(set_to_none=True)
+            logits, _, _ = model(batch["starts"], batch["paths"], batch["ends"])
+            loss = weighted_nll(logits, batch["labels"], weights, batch["example_mask"])
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            opt.step()
+            ev[3].record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            if i >= 2:
+                rows.append([ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                             ev[2].elapsed_time(ev[3]), wall])
+        med = np.median(np.asarray(rows), axis=0).tolist()
+        out[route] = dict(zip(("forward_ms", "backward_ms", "optimizer_ms", "step_wall_ms"),
+                              med))
+        out[route]["top_ops"] = profile_steps(torch, model, opt, batches[2:4], weights)
+        print(f"train step breakdown {route}: forward {med[0]:.3f} ms, backward {med[1]:.3f} "
+              f"ms, optimizer {med[2]:.3f} ms (device, events), whole step {med[3]:.3f} ms "
+              f"(host wall, synchronised); host: epoch build {build_ms:.1f} ms for "
+              f"{len(items)} methods, batch slice+pin+copy {feed_ms:.3f} ms [{smi}]", flush=True)
+        print("  device ms per step by op: " + "; ".join(
+            f"{name} {ms:.3f}" for name, ms in out[route]["top_ops"]), flush=True)
+        del model, opt
+    return out
+
+
+def phase_train(torch, smi, dev, tmp: Path) -> dict:
+    """Train code2vec at the top11 widths through each route: 2 epochs of
+    batch 1024 at bag 200, dropout 0.25; then the differential and serving
+    the fused route's model dir."""
+    from code2vec_tpu_torch.formats.vocab_io import read_vocab, write_vocab_from_names
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.loop import train
+
+    t0 = time.perf_counter()
+    raw, data = train_corpus()
+    print(f"train corpus: {data.n_items} methods, {data.n_contexts} contexts, "
+          f"{len(data.terminal_vocab)} terminals, {len(data.path_vocab)} paths, "
+          f"{len(data.label_vocab)} labels, made in {time.perf_counter() - t0:.1f}s", flush=True)
+    config = TrainConfig(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                         max_path_length=BAG, batch_size=TRAIN_BATCH, dropout_prob=0.25,
+                         max_epoch=2, random_seed=0, print_sample_cycle=0)
+    out = {"routes": {}}
+    model_dir = tmp / "trained_fused"
+    for route, keys in TRAIN_ROUTES.items():
+        kernel = dict(use_pallas=True, pallas_impl=route) if route != "plain" else {}
+        epochs = []
+
+        def report(m, route=route):
+            epochs.append(m)
+            print(f"train {route} epoch {m['epoch']}: loss {m['train_loss']:.6f} test_loss "
+                  f"{m['test_loss']:.6f} subtoken f1 {m['f1']:.6f}, {m['train_steps']} steps, "
+                  f"{m['steps_per_s']:.3f} steps/s, {m['contexts_per_s']:.1f} contexts/s "
+                  f"(train steps after the warm one) [{smi}]", flush=True)
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = train(config.with_updates(**kernel), data,
+                       str(model_dir) if route == "fused" else None, device=dev,
+                       on_epoch=report)
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        if not all(math.isfinite(m["train_loss"]) and math.isfinite(m["test_loss"])
+                   for m in epochs) or len(epochs) != 2:
+            raise AssertionError(f"train {route}: epochs {epochs}")
+        missing = [k for k in keys if counts.get(k, 0) < 1]
+        if missing:
+            raise AssertionError(f"train {route} never launched {missing}: {counts}")
+        if route == "plain" and counts:
+            raise AssertionError(f"the plain route launched kernels: {counts}")
+        out["routes"][route] = {"epochs": epochs, "launches": counts, "seconds": seconds}
+        print(f"train {route}: 2 epochs in {seconds:.1f}s, launches {counts}", flush=True)
+        del result
+        torch.cuda.empty_cache()
+    out["differential"] = train_differential(torch, dev, data, config)
+    out["breakdown"] = step_breakdown(torch, dev, data, config, smi)
+
+    # the fused run's dir, served as it stands (plus the vocab files a
+    # server reads)
+    write_vocab_from_names(model_dir / "terminal_idxs.txt", raw.terminal_names)
+    write_vocab_from_names(model_dir / "path_idxs.txt", raw.path_names)
+    meta = json.loads((model_dir / "model_meta.json").read_text())
+    if len(read_vocab(model_dir / "label_vocab.txt")) != meta["label_count"]:
+        raise AssertionError("the trained dir's label vocab disagrees with its meta")
+    requests = make_requests(16, seed=23)
+    for req in requests:
+        req["op"] = "predict"
+    served = serve_route(torch, model_dir, "fused", "f32", requests, smi, dev,
+                         ladder=tuple(meta["bucket_ladder"]))
+    if served["launches"].get("fused_f32", 0) < 1:
+        raise AssertionError("serving the trained dir never launched K3")
+    out["served"] = served
+    return out
 
 
 def main() -> int:
@@ -914,7 +1215,7 @@ def main() -> int:
     if smi is None or phase("build", build) is None:
         return 1
     dev = torch.device("cuda")
-    kernels, floor = phase("kernels", phase_kernels, torch, dev) or (None, None)
+    kernels, floor = phase("kernels", phase_kernels, torch, dev, smi) or (None, None)
     with tempfile.TemporaryDirectory(prefix="c2v_smoke_") as tmp:
         model_dir = Path(tmp)
         t0 = time.perf_counter()
@@ -923,11 +1224,15 @@ def main() -> int:
         serve = phase("serve", phase_serve, torch, smi, dev, model_dir)
         longbag = phase("longbag", phase_longbag, torch, smi, dev, model_dir)
         retrieval = phase("retrieval", phase_retrieval, torch, smi, dev, model_dir)
+        trained = phase("train", phase_train, torch, smi, dev, model_dir)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
 
     routes = {**serve, **longbag}
+    for route, keys in TRAIN_ROUTES.items():  # K1b and the masked K2/K3 train
+        for key in keys:
+            routes.setdefault(key, trained["routes"][route])
     line = []
     for name, rec in kernels.items():
         timed = next(r for r in rec["rows"] if (r["B"], r["L"]) == rec["timed"])
@@ -958,7 +1263,7 @@ def main() -> int:
         Path(args.json_out).write_text(json.dumps(
             {"card": smi, "torch": torch.__version__, "launch_floor": floor, "kernels": kernels,
              "serve": serve,
-             "longbag": longbag, "retrieval": retrieval},
+             "longbag": longbag, "retrieval": retrieval, "train": trained},
             indent=1,
         ))
     print(smi)

@@ -17,7 +17,11 @@ Layout (each module names its JAX counterpart):
 - ``predict`` / ``serve`` — the serving path (``python -m
   code2vec_tpu_torch.serve``): predict/embed over any bag up to the
   ladder's top rung (K4 above the training bag) and ``neighbors`` over the
-  exact or the IVF-PQ backend.
+  exact or the IVF-PQ backend;
+- ``text``, ``data`` (vocab, reader, synthetic corpora, epochs and
+  batches), ``metrics``, ``train`` (config, steps, the epoch loop),
+  ``checkpoint``, ``export`` and ``cli`` — the training path (``python -m
+  code2vec_tpu_torch``), whose model dir the server serves as it stands.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper runs its plain PyTorch version.

@@ -1,0 +1,104 @@
+"""Training checkpoints: the loop's state at an epoch boundary.
+
+Counterpart of ``code2vec_tpu/checkpoint.py`` without orbax, async saves
+or mid-epoch cursors (ROADMAP §A.2). A checkpoint is one ``torch.save``
+file per slot in the model dir: ``checkpoint_best.pt`` (written on a new
+best F1) and ``checkpoint_last.pt`` (every ``checkpoint_cycle`` epochs).
+Each holds the model's and the optimizer's ``state_dict``, the
+:class:`TrainMeta`, the host data generator's state (the next epoch's
+subsample and batch order) and the dropout generator's state, so
+``--resume`` continues the stream the uninterrupted run would have seen.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+from dataclasses import asdict, dataclass, field
+
+import numpy as np
+import torch
+
+SLOTS = ("best", "last")
+
+
+@dataclass
+class TrainMeta:
+    """Host-side loop state saved with the weights."""
+
+    epoch: int = 0  # the next epoch to run
+    best_f1: float | None = None
+    last_loss: float | None = None
+    last_accuracy: float | None = None
+    bad_count: int = 0
+    history: list[dict] = field(default_factory=list)
+    # the vocab pad multiple the tables were built with (their shapes
+    # depend on it), validated on restore
+    vocab_pad_multiple: int | None = None
+
+
+def slot_path(out_dir: str, slot: str) -> str:
+    if slot not in SLOTS:
+        raise ValueError(f"checkpoint slot must be one of {SLOTS}, got {slot!r}")
+    return os.path.join(out_dir, f"checkpoint_{slot}.pt")
+
+
+def save_checkpoint(out_dir: str, slot: str, model, optimizer, meta: TrainMeta,
+                    np_rng: np.random.Generator) -> str:
+    """Write ``slot`` atomically (a temp file, then a rename)."""
+    gen = model.dropout_generator(next(model.parameters()).device)
+    state = {
+        "model": model.state_dict(),
+        "optimizer": optimizer.state_dict(),
+        "meta": asdict(meta),
+        "np_rng_state": copy.deepcopy(np_rng.bit_generator.state),
+        "dropout_rng_state": gen.get_state(),
+    }
+    path = slot_path(out_dir, slot)
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def clear_checkpoints(out_dir: str) -> None:
+    """A fresh run starts from no checkpoint: a stale slot of an earlier
+    run in the same dir could otherwise win a later ``--resume``."""
+    for slot in SLOTS:
+        path = slot_path(out_dir, slot)
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generator,
+                       vocab_pad_multiple: int, prefer_best: bool = False) -> TrainMeta | None:
+    """Load the newest slot (the one whose meta says the later epoch; the
+    best slot with ``prefer_best``) into ``model``, ``optimizer`` (may be
+    None) and ``np_rng``; return its meta, or None when there is none."""
+    found = []
+    for slot in SLOTS:
+        path = slot_path(out_dir, slot)
+        if os.path.exists(path):
+            state = torch.load(path, map_location="cpu", weights_only=False)
+            found.append((slot, state))
+    if not found:
+        return None
+    if prefer_best and any(slot == "best" for slot, _ in found):
+        _, state = next(f for f in found if f[0] == "best")
+    else:
+        _, state = max(found, key=lambda f: f[1]["meta"]["epoch"])
+    meta = TrainMeta(**state["meta"])
+    if meta.vocab_pad_multiple is not None and meta.vocab_pad_multiple != vocab_pad_multiple:
+        raise ValueError(
+            f"the checkpoint in {out_dir} was built with vocab_pad_multiple="
+            f"{meta.vocab_pad_multiple}, this run uses {vocab_pad_multiple}: the table "
+            "shapes differ; pass --vocab_pad_multiple "
+            f"{meta.vocab_pad_multiple} to resume it"
+        )
+    model.load_state_dict(state["model"])
+    if optimizer is not None:
+        optimizer.load_state_dict(state["optimizer"])
+    np_rng.bit_generator.state = state["np_rng_state"]
+    device = next(model.parameters()).device
+    model.dropout_generator(device).set_state(state["dropout_rng_state"])
+    return meta

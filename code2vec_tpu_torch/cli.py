@@ -1,0 +1,216 @@
+"""The training CLI: ``python -m code2vec_tpu_torch``.
+
+Counterpart of ``code2vec_tpu/cli.py``, with the flag names the JAX CLI
+and the reference use (main.py:37-81):
+
+    python -m code2vec_tpu_torch --corpus_path d/corpus.txt \\
+        --path_idx_path d/path_idxs.txt --terminal_idx_path d/terminal_idxs.txt
+
+``--synthetic {tiny,small,parity10k,top11}`` trains on a generated corpus
+instead. The run goes to the card; ``--device cpu`` (or the reference's
+``--no_cuda``) runs the plain versions on the CPU. ``--model_path`` becomes
+a model dir that ``python -m code2vec_tpu_torch.serve`` serves as it
+stands. Each epoch prints one JSON line of metrics.
+
+Flags of features not ported yet are accepted with their default only and
+raise otherwise (``TrainConfig.validate``, ROADMAP §A.2); HPO, telemetry,
+the corpus cache, host sharding and the CSR container have no flag.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+
+logger = logging.getLogger(__name__)
+
+SYNTHETIC = ("tiny", "small", "parity10k", "top11")
+
+
+def _strtobool(value: str) -> bool:
+    lowered = value.strip().lower()
+    if lowered in ("y", "yes", "t", "true", "on", "1"):
+        return True
+    if lowered in ("n", "no", "f", "false", "off", "0"):
+        return False
+    raise argparse.ArgumentTypeError(f"invalid truth value {value!r}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="code2vec_tpu_torch",
+        description="code2vec on PyTorch/CUDA: train and export code vectors",
+    )
+    parser.add_argument("--random_seed", type=int, default=123)
+    parser.add_argument("--corpus_path", type=str, default="./dataset/corpus.txt")
+    parser.add_argument("--path_idx_path", type=str, default="./dataset/path_idxs.txt")
+    parser.add_argument("--terminal_idx_path", type=str, default="./dataset/terminal_idxs.txt")
+    parser.add_argument("--synthetic", type=str, default=None, choices=SYNTHETIC,
+                        help="ignore the corpus flags and train on a generated corpus")
+
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--terminal_embed_size", type=int, default=100)
+    parser.add_argument("--path_embed_size", type=int, default=100)
+    parser.add_argument("--encode_size", type=int, default=300)
+    parser.add_argument("--max_path_length", type=int, default=200)
+
+    parser.add_argument("--model_path", type=str, default="./output")
+    parser.add_argument("--vectors_path", type=str, default="./output/code.vec")
+    parser.add_argument("--test_result_path", type=str, default=None)
+
+    parser.add_argument("--max_epoch", type=int, default=40)
+    parser.add_argument("--lr", type=float, default=0.01)
+    parser.add_argument("--beta_min", type=float, default=0.9)
+    parser.add_argument("--beta_max", type=float, default=0.999)
+    parser.add_argument("--weight_decay", type=float, default=0.0)
+    parser.add_argument("--dropout_prob", type=float, default=0.25)
+
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda (the default) or cpu (the plain versions)")
+    parser.add_argument("--no_cuda", action="store_true", default=False,
+                        help="the reference's flag: same as --device cpu")
+
+    parser.add_argument("--print_sample_cycle", type=int, default=10)
+    parser.add_argument("--eval_method", type=str, default="subtoken",
+                        choices=("exact", "subtoken", "ave_subtoken"))
+
+    parser.add_argument("--angular_margin_loss", action="store_true", default=False)
+    parser.add_argument("--angular_margin", type=float, default=0.5)
+    parser.add_argument("--inverse_temp", type=float, default=30.0)
+
+    parser.add_argument("--infer_method_name", type=_strtobool, default=True)
+    parser.add_argument("--infer_variable_name", type=_strtobool, default=False)
+    parser.add_argument("--shuffle_variable_indexes", type=_strtobool, default=False)
+
+    parser.add_argument("--use_pallas", action="store_true", default=False,
+                        help="run the forward through the hand kernels (the JAX name)")
+    parser.add_argument("--pallas_impl", type=str, default="pool_only",
+                        choices=("pool_only", "gather_split", "fused", "auto"),
+                        help="pool_only: K1/K1b after a plain encode; gather_split: K2; "
+                             "fused: K3 ('auto' is not ported)")
+    parser.add_argument("--pallas_chunk_l", type=int, default=128)
+    parser.add_argument("--pallas_softmax", type=str, default="auto",
+                        choices=("auto", "materialize", "online", "two_pass"))
+    parser.add_argument("--table_dtype", type=str, default="f32",
+                        choices=("f32", "bf16", "int8"),
+                        help="embedding storage of --export_only; training takes f32")
+    parser.add_argument("--attn_impl", type=str, default="xla", choices=("xla", "streaming"))
+    parser.add_argument("--encoder_impl", type=str, default="concat",
+                        choices=("concat", "split"))
+    parser.add_argument("--class_weighting", type=str, default="reference",
+                        choices=("reference", "occurrence", "none"))
+    parser.add_argument("--vocab_pad_multiple", type=int, default=0)
+    parser.add_argument("--checkpoint_cycle", type=int, default=0,
+                        help="also checkpoint the last slot every N epochs")
+    parser.add_argument("--resume", action="store_true", default=False,
+                        help="resume at the epoch boundary of the checkpoint in --model_path")
+    parser.add_argument("--export_only", action="store_true", default=False,
+                        help="restore the best checkpoint in --model_path and rewrite "
+                             "--vectors_path (+ the test TSV) without training")
+
+    # accepted at their defaults only: the features are not ported yet
+    parser.add_argument("--compute_dtype", type=str, default="float32",
+                        choices=("float32", "bfloat16"))
+    parser.add_argument("--data_axis", type=int, default=1)
+    parser.add_argument("--model_axis", type=int, default=1)
+    parser.add_argument("--context_axis", type=int, default=1)
+    parser.add_argument("--adam_mu_dtype", type=str, default="float32",
+                        choices=("float32", "bfloat16"))
+    parser.add_argument("--table_update", type=str, default="dense", choices=("dense", "lazy"))
+    parser.add_argument("--bucketed", action="store_true", default=False)
+    parser.add_argument("--max_contexts", type=int, default=-1)
+    parser.add_argument("--stream_chunk_items", type=int, default=0)
+    parser.add_argument("--feed_workers", type=int, default=0)
+    parser.add_argument("--prefetch_batches", type=int, default=0)
+    parser.add_argument("--device_epoch", action="store_true", default=False)
+    parser.add_argument("--async_checkpoint", action="store_true", default=False)
+    parser.add_argument("--checkpoint_every_steps", type=int, default=0)
+    parser.add_argument("--fault_plan", type=str, default="")
+    return parser
+
+
+_CONFIG_FLAGS = (
+    "random_seed", "terminal_embed_size", "path_embed_size", "encode_size",
+    "max_path_length", "batch_size", "max_epoch", "lr", "beta_min", "beta_max",
+    "weight_decay", "dropout_prob", "angular_margin_loss", "angular_margin", "inverse_temp",
+    "infer_method_name", "infer_variable_name", "shuffle_variable_indexes", "eval_method",
+    "print_sample_cycle", "class_weighting", "use_pallas", "pallas_impl", "pallas_chunk_l",
+    "pallas_softmax", "table_dtype", "attn_impl", "encoder_impl", "vocab_pad_multiple",
+    "resume", "checkpoint_cycle", "compute_dtype", "data_axis", "model_axis", "context_axis",
+    "adam_mu_dtype", "table_update", "bucketed", "max_contexts", "stream_chunk_items",
+    "feed_workers", "prefetch_batches", "device_epoch", "async_checkpoint",
+    "checkpoint_every_steps", "fault_plan",
+)
+
+
+def config_from_args(args: argparse.Namespace):
+    from code2vec_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(**{name: getattr(args, name) for name in _CONFIG_FLAGS})
+
+
+def device_from_args(args: argparse.Namespace) -> str | None:
+    if args.no_cuda:
+        if args.device not in (None, "cpu"):
+            raise SystemExit(f"--no_cuda contradicts --device {args.device}")
+        return "cpu"
+    return args.device
+
+
+def main(argv: list[str] | None = None) -> int:
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s: %(message)s",
+                        datefmt="%m/%d/%Y %I:%M:%S %p")
+    args = build_parser().parse_args(argv)
+    config = config_from_args(args)
+    config.validate(training=not args.export_only)
+    device = device_from_args(args)
+
+    from code2vec_tpu_torch.data.reader import load_corpus
+
+    synth_dir = None
+    if args.synthetic is not None:
+        import tempfile
+
+        from code2vec_tpu_torch.data.synth import SPECS, generate_corpus_files
+
+        synth_dir = tempfile.TemporaryDirectory(prefix="c2v_synth_")
+        logger.info("generating the %r synthetic corpus in %s", args.synthetic, synth_dir.name)
+        paths = generate_corpus_files(synth_dir.name, SPECS[args.synthetic])
+        args.corpus_path = paths["corpus"]
+        args.path_idx_path = paths["path_idx"]
+        args.terminal_idx_path = paths["terminal_idx"]
+    try:
+        data = load_corpus(args.corpus_path, args.path_idx_path, args.terminal_idx_path,
+                           infer_method=args.infer_method_name,
+                           infer_variable=args.infer_variable_name)
+        os.makedirs(args.model_path, exist_ok=True)
+        for out_file in (args.vectors_path, args.test_result_path):
+            if out_file and os.path.dirname(out_file):
+                os.makedirs(os.path.dirname(out_file), exist_ok=True)
+        if args.export_only:
+            from code2vec_tpu_torch.export import export_from_checkpoint
+
+            if not args.vectors_path:
+                raise SystemExit("--export_only requires --vectors_path")
+            f1 = export_from_checkpoint(config, data, args.model_path, args.vectors_path,
+                                        args.test_result_path, device=device)
+            logger.info("done: exported (test f1=%s)", f1)
+            return 0
+
+        from code2vec_tpu_torch.train.loop import train
+
+        result = train(config, data, out_dir=args.model_path, vectors_path=args.vectors_path,
+                       test_result_path=args.test_result_path, device=device,
+                       on_epoch=lambda m: print(json.dumps(m), flush=True))
+        logger.info("done: best_f1=%s after %d epochs", result.best_f1, result.epochs_run)
+        return 0
+    finally:
+        if synth_dir is not None:
+            synth_dir.cleanup()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,6 +14,9 @@
 //   x   = [start | path | end] rows          (end rows come from the terminal table)
 //   y   = x @ W                              W = input_dense/kernel [D, H]
 //   enc = tanh(LayerNorm(y))                 eps 1e-6, biased variance, f32 scale/bias
+//   enc = enc * drop[b, l]                   training only: the dropout keep mask
+//                                            [B, L, H], pre-scaled by 1/keep (K2, K3,
+//                                            K4 online; the JAX kernel's drop_mask)
 //   then the K1 pool (pool.cuh) over enc with the row's mask.
 //
 // Bound on an H100: operations. The encode is 2*D*H flops per context
@@ -438,12 +441,15 @@ __device__ __forceinline__ void encode_tile(const float* x, int xs, const float*
   }
 }
 
-// In place: enc_c = tanh((enc_c - mean) * rsqrt(var + eps) * scale + bias)
+// In place: enc_c = tanh((enc_c - mean) * rsqrt(var + eps) * scale + bias),
+// times the dropout keep mask's row drop[c] when drop is given (training:
+// [n, H], pre-scaled by 1/keep, as the JAX kernel applies it after tanh),
 // and, if mask is given, the masked score s_c = <enc_c, attn>
 // (s*m + (1-m)*NINF) for the chunk's n contexts, mask values from shared memory.
 // Warp w takes contexts w, w+8, ... together, parameters from shared memory.
 __device__ __forceinline__ void ln_tanh_score(float* enc, int n, int H, const float* par,
-                                              const float* __restrict__ mask, float* s) {
+                                              const float* __restrict__ mask, float* s,
+                                              const float* __restrict__ drop) {
   constexpr int R = kChunk / kWarps;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float inv_h = 1.f / (float)H;
@@ -479,7 +485,9 @@ __device__ __forceinline__ void ln_tanh_score(float* enc, int n, int H, const fl
     const float ls = par[h], lb = par[H + h], at = par[2 * H + h];
 #pragma unroll
     for (int q = 0; q < R; ++q) {
-      const float v = tanhf((row[q][h] - mu[q]) * r[q] * ls + lb);
+      float v = tanhf((row[q][h] - mu[q]) * r[q] * ls + lb);
+      const int c = warp + kWarps * q;
+      if (drop && c < n) v *= __ldg(drop + (size_t)c * H + h);
       row[q][h] = v;
       acc[q] = fmaf(v, at, acc[q]);
     }
@@ -497,7 +505,8 @@ __device__ __forceinline__ void ln_tanh_score(float* enc, int n, int H, const fl
 }
 
 // The chunk loop of CTA blockIdx.x of batch row blockIdx.y: gather, encode,
-// LayerNorm+tanh and (with a mask) score chunks blockIdx.x, +gridDim.x, ...
+// LayerNorm+tanh (times the keep mask `drop` [B, L, H] when given) and
+// (with a mask) score chunks blockIdx.x, +gridDim.x, ...
 // into m.enc / m.s, calling fold(base, n) with every thread on each
 // (contexts base .. base+n; ends synchronised). attn may be nullptr when
 // there is no mask. The copy warps issue chunk c+S's copies while the
@@ -508,7 +517,8 @@ __device__ __forceinline__ void stream_chunks(const Rows& rows, const Layout& ly
                                               const float* __restrict__ lns,
                                               const float* __restrict__ lnb,
                                               const float* __restrict__ attn,
-                                              const float* __restrict__ mask, Fold fold) {
+                                              const float* __restrict__ mask,
+                                              const float* __restrict__ drop, Fold fold) {
   using T = typename Rows::T;
   constexpr bool kWiden = sizeof(T) != 4;
   const int b = blockIdx.y, S = gridDim.x, H = ly.H;
@@ -578,7 +588,8 @@ __device__ __forceinline__ void stream_chunks(const Rows& rows, const Layout& ly
         }
       }
       encode_sync();
-      ln_tanh_score(m.enc, n, H, m.par, mask ? m.mk + buf * kChunk : nullptr, m.s);
+      ln_tanh_score(m.enc, n, H, m.par, mask ? m.mk + buf * kChunk : nullptr, m.s,
+                    drop ? drop + ((size_t)b * ly.L + base) * H : nullptr);
     }
     __syncthreads();
     fold(base, n);
@@ -595,6 +606,7 @@ __device__ __forceinline__ void stream_chunks(const Rows& rows, const Layout& ly
 template <class Rows>
 __global__ void __launch_bounds__(kBlock, 1)
     encode_pool_online_kernel(Rows rows, Layout ly, const float* __restrict__ mask,
+                              const float* __restrict__ drop,
                               const float* __restrict__ W, const float* __restrict__ lns,
                               const float* __restrict__ lnb, const float* __restrict__ attn,
                               float* __restrict__ cv, float* __restrict__ w,
@@ -604,7 +616,7 @@ __global__ void __launch_bounds__(kBlock, 1)
   const int b = blockIdx.y, H = ly.H;
   const size_t row0 = (size_t)b * ly.L;
   c2v::pool_init(m.st, H);
-  stream_chunks(rows, ly, m, W, lns, lnb, attn, mask, [&](int base, int n) {
+  stream_chunks(rows, ly, m, W, lns, lnb, attn, mask, drop, [&](int base, int n) {
     c2v::pool_fold(m.enc, m.s, n, H, m.st, w + row0 + base);
   });
   c2v::pool_chunk_done(m.st, ly.L, H, b, cv, w, part);
@@ -624,7 +636,7 @@ __global__ void __launch_bounds__(kBlock, 1)
   const int b = blockIdx.y, H = ly.H;
   const size_t row0 = (size_t)b * ly.L;
   float mx = -INFINITY;  // meaningful in warp 0
-  stream_chunks(rows, ly, m, W, lns, lnb, attn, mask, [&](int base, int n) {
+  stream_chunks(rows, ly, m, W, lns, lnb, attn, mask, nullptr, [&](int base, int n) {
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       const float sc = lane < n ? m.s[lane] : -INFINITY;
@@ -656,7 +668,7 @@ __global__ void __launch_bounds__(kBlock, 1)
     for (int i = 0; i < (int)gridDim.x; ++i) mx = fmaxf(mx, rowmax[(size_t)b * gridDim.x + i]);
     m.st.stat[0] = mx;
   }
-  stream_chunks(rows, ly, m, W, lns, lnb, nullptr, nullptr, [&](int base, int n) {
+  stream_chunks(rows, ly, m, W, lns, lnb, nullptr, nullptr, nullptr, [&](int base, int n) {
     c2v::pool_fold_fixed_max(m.enc, w + row0 + base, n, H, m.st);
   });
   c2v::pool_chunk_done(m.st, ly.L, H, b, cv, w, part);
@@ -670,16 +682,18 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 
 // mode: 0 = online (one kernel), 1 = two_pass (pass A, pass B); then the
 // combine over the S partials of each row. `part` is [B, S, H + 2]
-// (unused when S == 1), `rowmax` [B, S] (two_pass only).
+// (unused when S == 1), `rowmax` [B, S] (two_pass only); `drop` the
+// [B, L, H] keep mask or null (online only).
 template <class Rows>
-int launch_stream(const Rows& rows, int mode, const float* mask, const float* W,
-                  const float* lns, const float* lnb, const float* attn, float* cv, float* w,
+int launch_stream(const Rows& rows, int mode, const float* mask, const float* drop,
+                  const float* W, const float* lns, const float* lnb, const float* attn,
+                  float* cv, float* w,
                   float* part, float* rowmax, int B, int L, int Et, int Ep, int H, int S,
                   void* stream) {
   if (B < 1 || B > 65535 || L < 1 || Et < 1 || Ep < 1 || H < 1) return (int)cudaErrorInvalidValue;
   const Layout ly = make_layout(rows, W, L, Et, Ep, H);
   if (ly.smem > (int)c2v::kMaxSmem || S < 1 || S > ly.n_chunks || (S > 1 && part == nullptr) ||
-      (mode != 0 && mode != 1) || (mode == 1 && rowmax == nullptr)) {
+      (mode != 0 && mode != 1) || (mode == 1 && (rowmax == nullptr || drop != nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   if (const int pending = c2v::pending_error()) return pending;
@@ -688,8 +702,8 @@ int launch_stream(const Rows& rows, int mode, const float* mask, const float* W,
   cudaError_t err;
   if (mode == 0) {
     if ((err = allow_smem(encode_pool_online_kernel<Rows>, ly.smem))) return (int)err;
-    encode_pool_online_kernel<Rows><<<grid, kBlock, ly.smem, s>>>(rows, ly, mask, W, lns, lnb,
-                                                                     attn, cv, w, part);
+    encode_pool_online_kernel<Rows><<<grid, kBlock, ly.smem, s>>>(rows, ly, mask, drop, W, lns,
+                                                                     lnb, attn, cv, w, part);
     if ((err = cudaGetLastError())) return (int)err;
   } else {
     if ((err = allow_smem(encode_score_kernel<Rows>, ly.smem))) return (int)err;
@@ -734,46 +748,49 @@ const char* c2v_error_string(int code) { return cudaGetErrorString((cudaError_t)
 
 // K2: rows gathered before the kernel; K4's online kernel on S CTAs per
 // batch row (1 <= S <= chunks of kChunk), `part` the [B, S, H + 2]
-// workspace (unused when S == 1). Returns the launch's cudaError_t.
+// workspace (unused when S == 1), `drop` the [B, L, H] keep mask or null.
+// Returns the launch's cudaError_t.
 int c2v_encode_pool_gathered(const float* gs, const float* gp, const float* ge,
-                             const float* mask, const float* W, const float* lns,
-                             const float* lnb, const float* attn, float* cv, float* w,
-                             float* part, int B, int L, int Et, int Ep, int H, int S,
+                             const float* mask, const float* drop, const float* W,
+                             const float* lns, const float* lnb, const float* attn, float* cv,
+                             float* w, float* part, int B, int L, int Et, int Ep, int H, int S,
                              void* stream) {
-  return launch_stream(GatheredRows{gs, gp, ge}, 0, mask, W, lns, lnb, attn, cv, w, part, nullptr,
-                       B, L, Et, Ep, H, S, stream);
+  return launch_stream(GatheredRows{gs, gp, ge}, 0, mask, drop, W, lns, lnb, attn, cv, w, part,
+                       nullptr, B, L, Et, Ep, H, S, stream);
 }
 
 // K3: rows gathered in the kernel. table_dtype: 0 = f32, 1 = bf16,
-// 2 = int8 (+ per-row f32 scales ts/ps); S and `part` as for K2.
+// 2 = int8 (+ per-row f32 scales ts/ps); S, `part` and `drop` as for K2.
 // Returns the launch's cudaError_t.
 int c2v_encode_pool_fused(int table_dtype, const void* tv, const float* ts, const void* pv,
                           const float* ps, long long vt, long long vp, const int* starts,
                           const int* paths, const int* ends, const float* mask,
-                          const float* W, const float* lns, const float* lnb,
+                          const float* drop, const float* W, const float* lns, const float* lnb,
                           const float* attn, float* cv, float* w, float* part, int B, int L,
                           int Et, int Ep, int H, int S, void* stream) {
   return with_table_rows(table_dtype, tv, ts, pv, ps, vt, vp, starts, paths, ends,
                          [&](const auto& rows) {
-                           return launch_stream(rows, 0, mask, W, lns, lnb, attn, cv, w, part,
-                                                nullptr, B, L, Et, Ep, H, S, stream);
+                           return launch_stream(rows, 0, mask, drop, W, lns, lnb, attn, cv, w,
+                                                part, nullptr, B, L, Et, Ep, H, S, stream);
                          });
 }
 
 // K4: the streamed-softmax chain with the gather inside. mode: 0 = online,
 // 1 = two_pass; S CTAs per batch row (1 <= S <= chunks of kChunk); `part`
-// [B, S, H + 2] and, for two_pass, `rowmax` [B, S] are workspaces.
-// table_dtype as for K3. Returns the launches' cudaError_t.
+// [B, S, H + 2] and, for two_pass, `rowmax` [B, S] are workspaces; `drop`
+// as for K2, online only. table_dtype as for K3. Returns the launches'
+// cudaError_t.
 int c2v_encode_pool_stream(int mode, int table_dtype, const void* tv, const float* ts,
                            const void* pv, const float* ps, long long vt, long long vp,
                            const int* starts, const int* paths, const int* ends,
-                           const float* mask, const float* W, const float* lns, const float* lnb,
+                           const float* mask, const float* drop, const float* W,
+                           const float* lns, const float* lnb,
                            const float* attn, float* cv, float* w, float* part, float* rowmax,
                            int B, int L, int Et, int Ep, int H, int S, void* stream) {
   return with_table_rows(table_dtype, tv, ts, pv, ps, vt, vp, starts, paths, ends,
                          [&](const auto& rows) {
-                           return launch_stream(rows, mode, mask, W, lns, lnb, attn, cv, w, part,
-                                                rowmax, B, L, Et, Ep, H, S, stream);
+                           return launch_stream(rows, mode, mask, drop, W, lns, lnb, attn, cv, w,
+                                                part, rowmax, B, L, Et, Ep, H, S, stream);
                          });
 }
 

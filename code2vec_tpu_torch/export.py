@@ -1,0 +1,136 @@
+"""Vector export and sample printing (reference: main.py:226-230,362-423).
+
+Counterpart of ``code2vec_tpu/export.py``. ``code.vec`` is rewritten on
+every new best F1: a header line, then the train rows followed by the test
+rows; the optional test-result TSV records each test prediction.
+``print_sample`` logs one correctly predicted test example with its
+per-context attention, PAD rows skipped. ``export_from_checkpoint`` is the
+``--export_only`` pass.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from code2vec_tpu_torch import PAD_INDEX
+from code2vec_tpu_torch.data.pipeline import EpochArrays, iter_batches
+from code2vec_tpu_torch.formats.vectors_io import (
+    append_code_vectors,
+    write_code_vectors_header,
+    write_test_results,
+)
+from code2vec_tpu_torch.train.step import eval_step, to_device
+
+logger = logging.getLogger(__name__)
+
+
+def _forward_all(model, epoch: EpochArrays, batch_size: int, class_weights,
+                 quant_tables=None):
+    """The eval step over every example: host arrays ``(labels, ids, preds,
+    max_logit, code_vectors)``, padding rows removed."""
+    device = class_weights.device
+    labels, ids, outs = [], [], []
+    for batch in iter_batches(epoch, batch_size, rng=None, pad_final=True):
+        out = eval_step(model, to_device(batch, device), class_weights, quant_tables)
+        valid = batch["example_mask"].astype(bool)
+        labels.append(batch["labels"][valid])
+        ids.append(batch["ids"][valid])
+        outs.append((out["preds"], out["max_logit"], out["code_vector"], valid))
+    preds, logits, vectors = (
+        np.concatenate([o[k].cpu().numpy()[o[3]] for o in outs]) for k in range(3))
+    return np.concatenate(labels), np.concatenate(ids), preds, logits, vectors
+
+
+def write_code_vectors(data, model, train_epoch: EpochArrays, test_epoch: EpochArrays,
+                       batch_size: int, vectors_path: str, encode_size: int, class_weights,
+                       test_result_path: str | None = None, quant_tables=None):
+    """Rewrite ``code.vec`` (train rows, then test rows) and optionally the
+    test TSV. The header counts the rows written. Returns the test split's
+    ``(labels, preds)``."""
+    write_code_vectors_header(vectors_path, len(train_epoch) + len(test_epoch), encode_size)
+    itos = data.label_vocab.itos
+    test_labels = test_preds = np.zeros(0, np.int32)
+    for split_epoch, is_test in ((train_epoch, False), (test_epoch, True)):
+        if len(split_epoch) == 0:
+            # an empty test split still leaves the TSV asked for
+            if is_test and test_result_path is not None:
+                open(test_result_path, "w", encoding="utf-8").close()
+            continue
+        labels, ids, preds, max_logit, vectors = _forward_all(
+            model, split_epoch, batch_size, class_weights, quant_tables)
+        if is_test:
+            test_labels, test_preds = labels, preds
+        label_names = [itos[int(label)] for label in labels]
+        append_code_vectors(vectors_path, label_names, vectors)
+        if is_test and test_result_path is not None:
+            with open(test_result_path, "w", encoding="utf-8") as f:
+                write_test_results(f, ids.tolist(), label_names,
+                                   [itos[int(p)] for p in preds], max_logit.tolist())
+    return test_labels, test_preds
+
+
+def print_sample(data, model, test_epoch: EpochArrays, batch_size: int, class_weights) -> None:
+    """Log one correctly predicted test example with each real context's
+    attention weight (reference: main.py:362-390)."""
+    device = class_weights.device
+    terminal_itos = data.terminal_vocab.itos
+    path_itos = data.path_vocab.itos
+    label_itos = data.label_vocab.itos
+    for batch in iter_batches(test_epoch, batch_size, rng=None, pad_final=True):
+        out = eval_step(model, to_device(batch, device), class_weights)
+        preds = out["preds"].cpu().numpy()
+        attn = out["attention"].cpu().numpy()
+        hits = np.nonzero((preds == batch["labels"]) & batch["example_mask"].astype(bool))[0]
+        if not len(hits):
+            continue
+        i = int(hits[0])
+        for s, p, e, a in zip(batch["starts"][i], batch["paths"][i], batch["ends"][i], attn[i]):
+            if s != PAD_INDEX:
+                logger.info("%s %s %s [%s]", terminal_itos[int(s)], path_itos[int(p)],
+                            terminal_itos[int(e)], a)
+        logger.info("expected label: %s", label_itos[int(batch["labels"][i])])
+        logger.info("actual label:   %s", label_itos[int(preds[i])])
+        return
+
+
+def export_from_checkpoint(config, data, out_dir: str, vectors_path: str,
+                           test_result_path: str | None = None, *, device=None) -> float:
+    """Restore the best checkpoint in ``out_dir`` and rewrite ``code.vec``
+    (+ the test TSV) without training; returns the restored model's test
+    F1. With a quantized ``table_dtype`` the vectors are those a quantized
+    deployment would serve."""
+    from code2vec_tpu_torch.checkpoint import restore_checkpoint
+    from code2vec_tpu_torch.data.pipeline import build_epoch, split_items
+    from code2vec_tpu_torch.metrics import evaluate
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.ops.backend import resolve_device
+    from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
+
+    config.validate(training=False)
+    dev = resolve_device(device)
+    np_rng = np.random.default_rng(config.random_seed)
+    train_idx, test_idx = split_items(data.n_items, np_rng)
+    model_config = model_config_from(config, data)
+    with torch.device(dev):
+        model = Code2Vec(model_config.with_updates(table_dtype="f32"))
+    meta = restore_checkpoint(out_dir, model, None, np.random.default_rng(0),
+                              model_config.vocab_pad_multiple, prefer_best=True)
+    if meta is None:
+        raise FileNotFoundError(f"no checkpoint found under {out_dir}")
+    logger.info("restored checkpoint (epoch %d, best_f1=%s)", meta.epoch, meta.best_f1)
+    quant_tables = None
+    if model_config.table_dtype != "f32":
+        model.config = model_config
+        quant_tables = model.quantize_tables()
+    class_weights = class_weights_from(config, data, dev)
+    train_epoch = build_epoch(data, train_idx, config.max_path_length, np_rng)
+    test_epoch = build_epoch(data, test_idx, config.max_path_length, np_rng)
+    labels, preds = write_code_vectors(
+        data, model, train_epoch, test_epoch, config.batch_size, vectors_path,
+        config.encode_size, class_weights, test_result_path, quant_tables)
+    f1 = evaluate(config.eval_method, labels, preds, data.label_vocab)[3]
+    logger.info("exported %s (test f1=%s)", vectors_path, f1)
+    return f1

@@ -3,13 +3,14 @@
 Own copy of ``code2vec_tpu/formats/vectors_io.py``'s readers and writers,
 so the files interchange byte for byte with the JAX package's. Line 1 is
 ``<count>\t<dim>``, then one ``label\t<space-separated floats>`` row per
-method (``str(float(e))`` of each element).
+method (``str(float(e))`` of each element). Also the test-result TSV
+the trainer's export writes beside it.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Sequence
+from typing import IO, Iterable, Sequence
 
 import numpy as np
 
@@ -44,3 +45,11 @@ def read_code_vectors(path: str | os.PathLike) -> tuple[list[str], np.ndarray]:
             rows.append(np.array([float(v) for v in values.split(" ")], np.float32))
     arr = np.stack(rows) if rows else np.zeros((0, dim), np.float32)
     return labels, arr
+
+
+def write_test_results(f: IO[str], ids: Iterable[int], expected: Iterable[str],
+                       predicted: Iterable[str], probs: Iterable[float]) -> None:
+    """The test-result TSV: ``id\\tcorrect?\\texpected\\tpredicted\\tprob``
+    per example (reference: main.py:418-420)."""
+    for i, exp, pred, prob in zip(ids, expected, predicted, probs):
+        f.write(f"{i}\t{exp == pred}\t{exp}\t{pred}\t{prob}\n")

@@ -1,7 +1,6 @@
 """Vocab files (``terminal_idxs.txt`` / ``path_idxs.txt`` / labels).
 
-Own copy of ``code2vec_tpu/formats/vocab_io.py`` and the parts of
-``code2vec_tpu/data/vocab.py`` serving needs. Format: ``<index>\\t<name>``
+Own copy of ``code2vec_tpu/formats/vocab_io.py``. Format: ``<index>\\t<name>``
 per line; index 0 is the ``<PAD/>`` sentinel and blank names are
 tolerated. ``extra_tokens`` occupy indices 1..k and every file index > 0
 is shifted up by k: the terminal vocab is read with ``["@question"]``
@@ -13,29 +12,9 @@ from __future__ import annotations
 import os
 from typing import Iterable, Sequence
 
+from code2vec_tpu_torch.data.vocab import Vocab
 
-class Vocab:
-    """name <-> index maps. ``add`` ignores a name already present (the
-    first index wins), like the reference Vocab (model/dataset.py:64-74)."""
-
-    __slots__ = ("stoi", "itos")
-
-    def __init__(self) -> None:
-        self.stoi: dict[str, int] = {}
-        self.itos: dict[int, str] = {}
-
-    def __len__(self) -> int:
-        return len(self.stoi)
-
-    def add(self, name: str, index: int | None = None) -> int:
-        existing = self.stoi.get(name)
-        if existing is not None:
-            return existing
-        if index is None:
-            index = len(self.stoi)
-        self.stoi[name] = index
-        self.itos[index] = name
-        return index
+__all__ = ["Vocab", "read_vocab", "write_vocab", "write_vocab_from_names"]
 
 
 def read_vocab(path: str | os.PathLike, extra_tokens: Sequence[str] = ()) -> Vocab:
@@ -63,3 +42,13 @@ def write_vocab(path: str | os.PathLike, entries: Iterable[tuple[int, str]]) -> 
     with open(path, "w", encoding="utf-8") as f:
         for index, name in entries:
             f.write(f"{index}\t{name}\n")
+
+
+def write_vocab_from_names(path: str | os.PathLike, names: Iterable[str],
+                           pad_name: str = "<PAD/>") -> None:
+    """A vocab file with the PAD sentinel at 0 and ``names`` at 1..n."""
+    def rows():
+        yield 0, pad_name
+        yield from enumerate(names, start=1)
+
+    write_vocab(path, rows())

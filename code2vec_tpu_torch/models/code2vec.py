@@ -21,6 +21,16 @@ widths above ``longbag_width`` are long-bag shapes: they are forced to the
 fused kernel with a streamed softmax (K4), as the JAX model's
 ``_resolve_kernel`` does. On the CPU every kernel route runs its plain
 version.
+
+Training (``model.train()`` with ``0 < dropout_prob < 1``): the dropout
+keep mask is drawn with ``torch.bernoulli`` from the module's own
+generator (:meth:`Code2Vec.seed_dropout`), at ``(B, L, H)``, divided by
+the keep probability, and applied after tanh on every route: by the plain
+forward and before K1, and inside K2/K3 (the JAX model's ``drop_mask``,
+``code2vec_tpu/models/code2vec.py:362-374``). The stream differs from
+JAX's. Every route has a backward: K1b under K1, the recomputed plain
+formulation under K2/K3. Quantized tables serve only: a training forward
+with ``table_dtype != "f32"`` raises.
 """
 
 from __future__ import annotations
@@ -115,6 +125,8 @@ class Code2Vec(nn.Module):
         else:
             self.output_linear = nn.Linear(c.encode_size, c.padded(c.label_count))
         self._dense_kernel_cache = None
+        self.dropout_seed = 0
+        self._dropout_gen: torch.Generator | None = None
         self.reset_parameters()
 
     @torch.no_grad()
@@ -139,10 +151,38 @@ class Code2Vec(nn.Module):
             self.output_linear.weight.normal_(std=math.sqrt(1.0 / c.encode_size), generator=g)
             self.output_linear.bias.zero_()
 
+    def seed_dropout(self, seed: int) -> None:
+        """Reseed the dropout generator: the next training forward starts
+        the keep-mask stream of ``seed`` on the input's device."""
+        self.dropout_seed = int(seed)
+        self._dropout_gen = None
+
+    def dropout_generator(self, device: torch.device) -> torch.Generator:
+        """The module's keep-mask generator on ``device`` (made from
+        ``dropout_seed`` on first use there); checkpoints save its state."""
+        g = self._dropout_gen
+        if g is None or g.device != torch.device(device):
+            g = torch.Generator(device=device)
+            g.manual_seed(self.dropout_seed)
+            self._dropout_gen = g
+        return g
+
+    def _keep_mask(self, shape, device) -> torch.Tensor | None:
+        """The pre-scaled keep mask of a training forward, or None."""
+        p = self.config.dropout_prob
+        if not (self.training and 0.0 < p < 1.0):
+            return None
+        keep = 1.0 - p
+        m = torch.empty(shape, dtype=torch.float32, device=device)
+        return m.bernoulli_(keep, generator=self.dropout_generator(device)) / keep
+
     def _dense_kernel(self) -> torch.Tensor:
-        """``input_linear.weight`` in the kernels' [in, out] layout, made
-        contiguous once per weight version instead of once per forward."""
+        """``input_linear.weight`` in the kernels' [in, out] layout. With
+        gradients on, the transposed view (the backward reaches the weight);
+        otherwise made contiguous once per weight version."""
         w = self.input_linear.weight
+        if w.requires_grad and torch.is_grad_enabled():
+            return w.t()
         key = (w.data_ptr(), w._version, w.device)
         if self._dense_kernel_cache is None or self._dense_kernel_cache[0] != key:
             self._dense_kernel_cache = (key, w.detach().t().contiguous())
@@ -188,6 +228,11 @@ class Code2Vec(nn.Module):
         quant_tables: tuple[QuantTable, QuantTable] | None = None,
     ):
         c = self.config
+        if self.training and c.table_dtype != "f32":
+            raise ValueError(
+                f"table_dtype={c.table_dtype!r} is not trainable: quantized tables serve "
+                "eval/predict/export forwards; training keeps f32 master weights"
+            )
         if c.table_dtype == "f32":
             t_store, p_store = self.terminal_embedding.weight, self.path_embedding.weight
         elif quant_tables is not None:
@@ -197,18 +242,14 @@ class Code2Vec(nn.Module):
         mask = (starts > 0).float()  # PAD = 0 (model/model.py:64)
         impl, softmax_mode = self.resolve_kernel(starts.shape[1])
         if impl in ("fused", "gather_split"):
-            if self.training and 0.0 < c.dropout_prob < 1.0:
-                raise NotImplementedError(
-                    "dropout inside the encode-pool kernels comes with the "
-                    "training slice; call eval() to serve"
-                )
             from code2vec_tpu_torch.ops.fused_encode_pool import fused_encode_attend_pool
 
+            drop = self._keep_mask((*starts.shape, c.encode_size), starts.device)
             code_vector, attention = fused_encode_attend_pool(
                 t_store, p_store, starts, paths, ends, mask,
                 self._dense_kernel(), self.input_layer_norm.weight,
-                self.input_layer_norm.bias, self.attention_parameter, impl=impl,
-                chunk_l=c.pallas_chunk_l, softmax_mode=softmax_mode,
+                self.input_layer_norm.bias, self.attention_parameter, drop,
+                impl=impl, chunk_l=c.pallas_chunk_l, softmax_mode=softmax_mode,
             )
         else:
             code_vector, attention = self._unfused_forward(
@@ -242,8 +283,9 @@ class Code2Vec(nn.Module):
                 f"unknown encoder_impl {c.encoder_impl!r}: expected 'concat' or 'split'"
             )
         contexts = torch.tanh(self.input_layer_norm(contexts))
-        if 0.0 < c.dropout_prob < 1.0:
-            contexts = F.dropout(contexts, c.dropout_prob, training=self.training)
+        drop = self._keep_mask(contexts.shape, contexts.device)
+        if drop is not None:
+            contexts = contexts * drop
         if impl == "pool_only":
             from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel
 

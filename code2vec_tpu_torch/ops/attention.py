@@ -3,8 +3,8 @@
 Counterpart of ``code2vec_tpu/ops/attention.py``: one learned vector
 ``a`` scores every context, PAD positions get the finite ``NINF``
 sentinel, softmax over the bag axis, and the weighted sum is the code
-vector. These are the plain PyTorch versions; the hand kernel of the same
-pool is ``ops/pool_kernel.py``.
+vector. These are the plain PyTorch versions (and the pool's closed-form
+backward); the hand kernels of the same pool are ``ops/pool_kernel.py``.
 """
 
 from __future__ import annotations
@@ -39,6 +39,34 @@ def attention_pool(
         "bl,ble->be", attention.to(contexts.dtype), contexts
     )
     return code_vector, attention
+
+
+def pool_backward_reference(
+    contexts: torch.Tensor,  # [B, L, E]
+    mask: torch.Tensor,  # [B, L]
+    attn_param: torch.Tensor,  # [E]
+    weights: torch.Tensor,  # [B, L], the forward's attention
+    g_cv: torch.Tensor,  # [B, E]
+    g_w: torch.Tensor | None = None,  # [B, L]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(d_contexts [B, L, E], d_attn [E])`` of :func:`attention_pool`
+    from the saved weights, in f32: the closed-form softmax VJP of the JAX
+    pool kernel's backward (``code2vec_tpu/ops/pallas_attention.py:224-250``).
+
+    - ``dldw = g_cv . ctx_l + g_w``;
+    - ``ds = w (dldw - sum_k w_k dldw_k) mask``;
+    - ``d_ctx = w g_cv + ds a``;  ``d_attn = sum_{b,l} ds ctx``.
+
+    The mask gets no gradient. This is the plain version of K1b."""
+    ctx = contexts.float()
+    g_cv = g_cv.float()
+    dldw = torch.einsum("be,ble->bl", g_cv, ctx)
+    if g_w is not None:
+        dldw = dldw + g_w.float()
+    ds = weights * (dldw - (weights * dldw).sum(dim=-1, keepdim=True)) * mask.float()
+    d_ctx = weights[..., None] * g_cv[:, None, :] + ds[..., None] * attn_param.float()
+    d_attn = torch.einsum("bl,ble->e", ds, ctx)
+    return d_ctx, d_attn
 
 
 def streaming_attention_pool(

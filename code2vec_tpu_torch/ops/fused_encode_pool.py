@@ -36,9 +36,18 @@ is the plain version's chunk: the CUDA kernels step through a bag 32
 contexts at a time (rows gathered with ``cp.async`` while the chunk before
 is encoded on the tensor cores, in a 3xTF32 split that keeps f32 accuracy)
 and refuse a ``chunk_l`` other than the default;
-the result differs only by rounding. Forward only, f32 compute: the
-backward, bf16 compute, the dropout keep mask and the ``off_se``/``off_p``
-offsets come with the training slice.
+the result differs only by rounding.
+
+Training: ``drop_mask`` (f32 ``[B, L, H]``, the dropout keep mask
+pre-scaled by 1/keep, as the JAX op takes it) multiplies each encoded
+context after tanh and before its score, inside K2, K3 and K4-online and
+in every plain version. The backward is the JAX op's ``_op_bwd``:
+:class:`_EncodePool` saves only the primal inputs and its backward
+recomputes :func:`reference_forward` under autograd, giving the gradients
+of ``dense_kernel``, ``ln_scale``, ``ln_bias``, ``attn_param`` and, for
+f32 tables, both tables. Like the JAX one it is not a kernel. ``two_pass``
+with a keep mask, bf16 compute and the ``off_se``/``off_p`` offsets of the
+lazy table optimizer are not ported yet (ROADMAP §A.2).
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ import torch
 from code2vec_tpu_torch.ops import _build
 from code2vec_tpu_torch.ops.attention import NINF, attention_pool
 from code2vec_tpu_torch.ops.backend import count_launch, resolve
+from code2vec_tpu_torch.ops.embed import embedding_lookup
 from code2vec_tpu_torch.ops.quant import QuantTable
 
 FUSED_IMPLS = ("fused", "gather_split")
@@ -61,14 +71,18 @@ _TABLE_CODES = {"f32": 0, "bf16": 1, "int8": 2}
 _STREAM_MODES = {"online": 0, "two_pass": 1}
 
 
-def kernel_name(impl: str, table_dtype: str, softmax_mode: str = "materialize") -> str:
+def kernel_name(impl: str, table_dtype: str, softmax_mode: str = "materialize",
+                masked: bool = False) -> str:
     """The launch-count key of one kernel: ``gather_split`` (K2),
-    ``fused_<table dtype>`` (K3) or ``<online|two_pass>_<table dtype>`` (K4)."""
+    ``fused_<table dtype>`` (K3) or ``<online|two_pass>_<table dtype>`` (K4),
+    with ``_masked`` when it applied a dropout keep mask (training)."""
     if impl == "gather_split":
-        return "gather_split"
-    if softmax_mode != "materialize":
-        return f"{softmax_mode}_{table_dtype}"
-    return f"fused_{table_dtype}"
+        name = "gather_split"
+    elif softmax_mode != "materialize":
+        name = f"{softmax_mode}_{table_dtype}"
+    else:
+        name = f"fused_{table_dtype}"
+    return name + "_masked" if masked else name
 
 
 def stream_ctas(b: int, l: int, sm_count: int) -> int:
@@ -88,8 +102,11 @@ def split_table(table) -> tuple[torch.Tensor, torch.Tensor | None, str]:
 
 
 def gather_rows(table, ids: torch.Tensor) -> torch.Tensor:
-    """Rows of an f32 master table or a QuantTable at ``ids``, as f32."""
+    """Rows of an f32 master table (``embedding_lookup``, whose backward
+    the recompute differentiates) or a QuantTable at ``ids``, as f32."""
     vals, scale, _ = split_table(table)
+    if scale is None and vals.dtype == torch.float32:
+        return embedding_lookup(vals, ids)
     rows = vals[ids].float()
     if scale is not None:
         rows = rows * scale[ids]
@@ -110,27 +127,30 @@ def encode_contexts(gs, gp, ge, dense_kernel, ln_scale, ln_bias) -> torch.Tensor
 
 
 def encode_pool_reference(gs, gp, ge, mask, dense_kernel, ln_scale, ln_bias,
-                          attn_param) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version of K2: encode then pool over gathered rows."""
+                          attn_param, drop_mask=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K2: encode (times the keep mask) then pool
+    over gathered rows."""
     enc = encode_contexts(gs, gp, ge, dense_kernel, ln_scale, ln_bias)
+    if drop_mask is not None:
+        enc = enc * drop_mask.float()
     cv, w = attention_pool(enc, mask.float(), attn_param.float())
     return cv.float(), w
 
 
 def reference_forward(t_table, p_table, starts, paths, ends, mask, dense_kernel,
-                      ln_scale, ln_bias, attn_param):
+                      ln_scale, ln_bias, attn_param, drop_mask=None):
     """The plain version of K3 (and of the whole op): gather, encode,
-    pool — ``(cv [B, H] f32, weights [B, L] f32)``."""
+    keep mask, pool — ``(cv [B, H] f32, weights [B, L] f32)``."""
     return encode_pool_reference(
         gather_rows(t_table, starts), gather_rows(p_table, paths),
         gather_rows(t_table, ends), mask, dense_kernel, ln_scale, ln_bias,
-        attn_param,
+        attn_param, drop_mask,
     )
 
 
 def streamed_reference_forward(t_table, p_table, starts, paths, ends, mask, dense_kernel,
-                               ln_scale, ln_bias, attn_param, *, softmax_mode: str = "online",
-                               chunk_l: int = DEFAULT_CHUNK_L):
+                               ln_scale, ln_bias, attn_param, drop_mask=None, *,
+                               softmax_mode: str = "online", chunk_l: int = DEFAULT_CHUNK_L):
     """The plain version of K4: the TPU kernel's streamed recurrence
     (``fused_encode_pool.py:389-442``) in PyTorch, ``chunk_l`` contexts at a
     time. Each chunk is gathered, encoded and scored; its masked scores go
@@ -154,10 +174,11 @@ def streamed_reference_forward(t_table, p_table, starts, paths, ends, mask, dens
     maskf = mask.float()
 
     def encode(lo, hi):
-        return encode_contexts(
+        enc = encode_contexts(
             gather_rows(t_table, starts[:, lo:hi]), gather_rows(p_table, paths[:, lo:hi]),
             gather_rows(t_table, ends[:, lo:hi]), dense_kernel, ln_scale, ln_bias,
         )
+        return enc if drop_mask is None else enc * drop_mask[:, lo:hi].float()
 
     def scores(enc, lo, hi):
         msk = maskf[:, lo:hi]
@@ -195,16 +216,16 @@ def _lib():
     lib = _build.load("fused_encode_pool")
     if lib.c2v_encode_pool_gathered.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.c2v_encode_pool_gathered.argtypes = [p] * 11 + [i] * 6 + [p]
+        lib.c2v_encode_pool_gathered.argtypes = [p] * 12 + [i] * 6 + [p]
         lib.c2v_encode_pool_gathered.restype = i
         lib.c2v_encode_pool_fused.argtypes = (
             [i, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong]
-            + [p] * 11 + [i] * 6 + [p]
+            + [p] * 12 + [i] * 6 + [p]
         )
         lib.c2v_encode_pool_fused.restype = i
         lib.c2v_encode_pool_stream.argtypes = (
             [i, i, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong]
-            + [p] * 12 + [i] * 6 + [p]
+            + [p] * 13 + [i] * 6 + [p]
         )
         lib.c2v_encode_pool_stream.restype = i
     return lib
@@ -220,7 +241,7 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> torch.Tensor:
 
 
 def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, dense_kernel,
-            ln_scale, ln_bias, attn_param):
+            ln_scale, ln_bias, attn_param, drop_mask=None):
     t_vals, t_scale, table_dtype = split_table(t_table)
     p_vals, p_scale, _ = split_table(p_table)
     dev = starts.device
@@ -230,8 +251,10 @@ def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, den
     if b < 1 or l < 1:
         raise ValueError(f"encode-pool kernel: empty batch or bag, ids {(b, l)}")
     f32 = torch.float32
+    msk = _check("mask", mask, f32, (b, l), dev)
+    drop = None if drop_mask is None else _check("drop_mask", drop_mask, f32, (b, l, h), dev)
+    drop_ptr = None if drop is None else drop.data_ptr()
     params = [
-        _check("mask", mask, f32, (b, l), dev),
         _check("dense_kernel", dense_kernel, f32, (2 * et + ep, h), dev),
         _check("ln_scale", ln_scale, f32, (h,), dev),
         _check("ln_bias", ln_bias, f32, (h,), dev),
@@ -244,7 +267,7 @@ def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, den
     part = torch.empty((b, n_ctas, h + 2), dtype=f32, device=dev) if n_ctas > 1 else None
     part_ptr = None if part is None else part.data_ptr()
     lib = _lib()
-    name = kernel_name(impl, table_dtype, softmax_mode)
+    name = kernel_name(impl, table_dtype, softmax_mode, drop is not None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if impl == "gather_split":
@@ -254,7 +277,8 @@ def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, den
                 _check("g_end", gather_rows(t_table, ends), f32, (b, l, et), dev),
             ]
             code = lib.c2v_encode_pool_gathered(
-                *(t.data_ptr() for t in rows + params + outs),
+                *(t.data_ptr() for t in rows + [msk]), drop_ptr,
+                *(t.data_ptr() for t in params + outs),
                 part_ptr, b, l, et, ep, h, n_ctas, stream,
             )
         else:
@@ -274,7 +298,8 @@ def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, den
                 ts.data_ptr() if ts is not None else None, pv.data_ptr(),
                 ps.data_ptr() if ps is not None else None, tv.shape[0], pv.shape[0],
             )
-            ptrs = [t.data_ptr() for t in ids + params + outs]
+            ptrs = ([t.data_ptr() for t in ids + [msk]] + [drop_ptr]
+                    + [t.data_ptr() for t in params + outs])
             if softmax_mode == "materialize":
                 code = lib.c2v_encode_pool_fused(
                     *tables, *ptrs, part_ptr, b, l, et, ep, h, n_ctas, stream,
@@ -292,6 +317,59 @@ def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, den
     return cv, w
 
 
+def _forward(impl, softmax_mode, chunk_l, backend, args):
+    """The op's value: the plain version for CPU tensors, else the kernel."""
+    if resolve(args[2], backend) == "cpu":
+        if softmax_mode == "materialize":
+            return reference_forward(*args)
+        return streamed_reference_forward(*args, softmax_mode=softmax_mode, chunk_l=chunk_l)
+    if int(chunk_l) != DEFAULT_CHUNK_L:
+        raise ValueError(
+            f"chunk_l={chunk_l} sets the CPU plain version's chunk only; the CUDA "
+            f"kernels stream {CHUNK} contexts a step (leave chunk_l at {DEFAULT_CHUNK_L})"
+        )
+    return _launch(impl, softmax_mode, *args)
+
+
+# positions of the differentiable inputs in the op's argument tuple
+_DIFF_ARGS = {"t_table": 0, "p_table": 1, "dense_kernel": 6, "ln_scale": 7, "ln_bias": 8,
+              "attn_param": 9}
+
+
+class _EncodePool(torch.autograd.Function):
+    """K2/K3/K4 forward, the JAX ``_op_bwd`` backward: only the primal
+    inputs are saved, and the backward differentiates the recomputed
+    :func:`reference_forward` (gather, split encode, LayerNorm, tanh, keep
+    mask, pool). Quantized tables are constants (no gradient)."""
+
+    @staticmethod
+    def forward(ctx, impl, softmax_mode, chunk_l, backend, *args):
+        cv, w = _forward(impl, softmax_mode, chunk_l, backend, args)
+        tensors = [a if isinstance(a, torch.Tensor) else None for a in args]
+        ctx.save_for_backward(*tensors)
+        ctx.constants = [None if isinstance(a, torch.Tensor) else a for a in args]
+        ctx.set_materialize_grads(False)  # an unused weights output sends no g_w
+        return cv, w
+
+    @staticmethod
+    def backward(ctx, g_cv, g_w):
+        args = [t if t is not None else c for t, c in zip(ctx.saved_tensors, ctx.constants)]
+        needs = ctx.needs_input_grad[4:]
+        diff = [i for i in _DIFF_ARGS.values() if needs[i]]
+        grads = [None] * len(args)
+        outs = [(o, g) for o, g in zip((0, 1), (g_cv, g_w)) if g is not None]
+        if diff and outs:
+            with torch.enable_grad():
+                for i in diff:
+                    args[i] = args[i].detach().requires_grad_(True)
+                values = reference_forward(*args)
+                got = torch.autograd.grad([values[o] for o, _ in outs], [args[i] for i in diff],
+                                          [g for _, g in outs], allow_unused=True)
+            for i, g in zip(diff, got):
+                grads[i] = g if g is not None else torch.zeros_like(args[i])
+        return (None, None, None, None, *grads)
+
+
 def fused_encode_attend_pool(
     t_table,  # f32 [Vt, Et] master table OR ops.quant.QuantTable
     p_table,  # f32 [Vp, Ep] master table OR ops.quant.QuantTable
@@ -303,6 +381,7 @@ def fused_encode_attend_pool(
     ln_scale: torch.Tensor,  # f32 [H]
     ln_bias: torch.Tensor,  # f32 [H]
     attn_param: torch.Tensor,  # f32 [H]
+    drop_mask: torch.Tensor | None = None,  # f32 [B, L, H] keep mask, pre-scaled by 1/keep
     *,
     impl: str = "fused",
     chunk_l: int = DEFAULT_CHUNK_L,
@@ -310,16 +389,19 @@ def fused_encode_attend_pool(
     backend: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The whole aggregation chain: ``(code_vector [B, H] f32, attention
-    [B, L] f32)``. CUDA tensors launch K2 (``gather_split``), K3 (``fused``)
-    or, with a chunked ``softmax_mode``, K4; CPU tensors run
-    :func:`reference_forward` (materialize) or
-    :func:`streamed_reference_forward` (``online``/``two_pass``).
+    [B, L] f32)``, differentiable in the parameters and f32 tables. CUDA
+    tensors launch K2 (``gather_split``), K3 (``fused``) or, with a chunked
+    ``softmax_mode``, K4; CPU tensors run :func:`reference_forward`
+    (materialize) or :func:`streamed_reference_forward` (``online``/
+    ``two_pass``). The backward recomputes :func:`reference_forward`.
 
     A chunked softmax mode requires ``impl="fused"``: ``gather_split``
     materializes the whole bag's rows before its kernel runs, so streaming
     its softmax would bound nothing (the JAX rule). ``chunk_l`` sets the
     chunk of the CPU's plain version only; the CUDA kernels stream 32
-    contexts a step, so on CUDA tensors any other value raises."""
+    contexts a step, so on CUDA tensors any other value raises.
+    ``drop_mask`` with ``two_pass`` raises: that long-bag training path is
+    not ported yet."""
     if impl not in FUSED_IMPLS:
         raise ValueError(f"impl must be one of {FUSED_IMPLS}, got {impl!r}")
     if softmax_mode not in SOFTMAX_MODES:
@@ -328,6 +410,11 @@ def fused_encode_attend_pool(
         raise ValueError(
             f"chunked softmax ({softmax_mode!r}) requires impl='fused': {impl!r} "
             "materializes the full bag before the kernel runs"
+        )
+    if drop_mask is not None and softmax_mode == "two_pass":
+        raise NotImplementedError(
+            "a dropout keep mask with softmax_mode='two_pass' (long-bag training) is "
+            "not ported yet (ROADMAP §A.2); train with 'online' or a bag <= the ladder top"
         )
     if int(chunk_l) < 1:
         raise ValueError(f"chunk_l must be >= 1, got {chunk_l}")
@@ -339,14 +426,9 @@ def fused_encode_attend_pool(
             f"{t_dtype!r} vs {p_dtype!r}"
         )
     args = (t_table, p_table, starts, paths, ends, mask, dense_kernel,
-            ln_scale, ln_bias, attn_param)
-    if resolve(starts, backend) == "cpu":
-        if softmax_mode == "materialize":
-            return reference_forward(*args)
-        return streamed_reference_forward(*args, softmax_mode=softmax_mode, chunk_l=chunk_l)
-    if int(chunk_l) != DEFAULT_CHUNK_L:
-        raise ValueError(
-            f"chunk_l={chunk_l} sets the CPU plain version's chunk only; the CUDA "
-            f"kernels stream {CHUNK} contexts a step (leave chunk_l at {DEFAULT_CHUNK_L})"
-        )
-    return _launch(impl, softmax_mode, *args)
+            ln_scale, ln_bias, attn_param, drop_mask)
+    wants_grad = torch.is_grad_enabled() and any(
+        isinstance(a, torch.Tensor) and a.requires_grad for a in args)
+    if wants_grad:
+        return _EncodePool.apply(impl, softmax_mode, chunk_l, backend, *args)
+    return _forward(impl, softmax_mode, chunk_l, backend, args)

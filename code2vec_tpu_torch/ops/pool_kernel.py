@@ -1,14 +1,19 @@
-"""K1: the masked attention pool as a hand-written Hopper kernel.
+"""K1 and K1b: the masked attention pool and its backward as hand-written
+Hopper kernels.
 
 Counterpart of ``code2vec_tpu/ops/pallas_attention.py``
-(``pallas_attention_pool``, kernel body ``_tile_pool``): the model's
-``pallas_impl="pool_only"`` route. The kernel is ``csrc/pool.cu``, one
-launch per call: :func:`pool_ctas` picks how many CTAs (one thread-block
-cluster) share a batch row. Its plain version is
-:func:`~code2vec_tpu_torch.ops.attention.attention_pool` on f32 inputs.
-:func:`attention_pool_kernel` launches the kernel for CUDA tensors and
-runs the plain version for CPU tensors (``ops/backend.py``).
-Forward only: the backward (``_pool_bwd``) comes with the training slice.
+(``pallas_attention_pool``: kernel body ``_tile_pool``, backward
+``_pool_bwd``): the model's ``pallas_impl="pool_only"`` route. Both
+kernels are in ``csrc/pool.cu``, one launch per call: :func:`pool_ctas`
+picks how many CTAs (one thread-block cluster) share a batch row. The
+plain versions are :func:`~code2vec_tpu_torch.ops.attention.attention_pool`
+on f32 inputs and :func:`~code2vec_tpu_torch.ops.attention.pool_backward_reference`.
+
+:func:`attention_pool_kernel` is one ``torch.autograd.Function``: its
+forward launches K1 for CUDA tensors (the plain pool for CPU tensors,
+``ops/backend.py``) and saves ``contexts, mask, attn, weights``; its
+backward launches K1b (``pool_backward_reference`` on the CPU). The mask
+gets no gradient.
 """
 
 from __future__ import annotations
@@ -18,10 +23,11 @@ import ctypes
 import torch
 
 from code2vec_tpu_torch.ops import _build
-from code2vec_tpu_torch.ops.attention import attention_pool
+from code2vec_tpu_torch.ops.attention import attention_pool, pool_backward_reference
 from code2vec_tpu_torch.ops.backend import count_launch, resolve
 
 KERNEL = "pool"
+KERNEL_BWD = "pool_bwd"
 CONTEXTS_PER_CTA = 64  # 8 warps x 8 contexts each in flight at H <= 128
 MAX_CLUSTER = 8  # CTAs per row: the portable thread-block cluster size
 RESIDENT_CTAS_PER_SM = 2  # 256 threads of ~100 registers each: two CTAs an SM
@@ -38,44 +44,106 @@ def pool_ctas(b: int, l: int, sm_count: int) -> int:
     return max(1, min(MAX_CLUSTER, -(-l // CONTEXTS_PER_CTA), fill))
 
 
-def _launcher():
+def _lib():
     lib = _build.load("pool")
-    fn = lib.c2v_pool_forward
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib, fn
+    if lib.c2v_pool_forward.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.c2v_pool_forward.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.c2v_pool_forward.restype = i
+        lib.c2v_pool_backward.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.c2v_pool_backward.restype = i
+    return lib
+
+
+def _checked(what, contexts, **named):
+    """``named`` tensors made contiguous after checking each is f32 of its
+    expected shape on the contexts' device."""
+    b, l, h = contexts.shape
+    dev = contexts.device
+    shapes = {"contexts": (b, l, h), "mask": (b, l), "attn_param": (h,), "weights": (b, l),
+              "g_cv": (b, h), "g_w": (b, l)}
+    if b < 1 or l < 1:
+        raise ValueError(f"{what}: empty batch or bag, shape {(b, l, h)}")
+    if not 1 <= h <= MAX_H:
+        raise ValueError(f"{what}: encode width {h} outside 1..{MAX_H}")
+    out = []
+    for name, t in (("contexts", contexts), *named.items()):
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shapes[name]:
+            raise ValueError(
+                f"{what}: {name} must be torch.float32 {shapes[name]} on {dev}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        out.append(t.contiguous())
+    return out
 
 
 def _launch(contexts, mask, attn_param):
-    b, l, h = contexts.shape
-    dev = contexts.device
-    for name, t, dtype, shape in (
-        ("contexts", contexts, torch.float32, (b, l, h)),
-        ("mask", mask, torch.float32, (b, l)),
-        ("attn_param", attn_param, torch.float32, (h,)),
-    ):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"pool kernel: {name} must be {dtype} {shape} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-    if b < 1 or l < 1:
-        raise ValueError(f"pool kernel: empty batch or bag, shape {(b, l, h)}")
-    if not 1 <= h <= MAX_H:
-        raise ValueError(f"pool kernel: encode width {h} outside 1..{MAX_H}")
-    ctx, msk, attn = contexts.contiguous(), mask.contiguous(), attn_param.contiguous()
+    ctx, msk, attn = _checked("pool kernel", contexts, mask=mask, attn_param=attn_param)
+    b, l, h = ctx.shape
+    dev = ctx.device
     cv = torch.empty((b, h), dtype=torch.float32, device=dev)
     w = torch.empty((b, l), dtype=torch.float32, device=dev)
     ctas = pool_ctas(b, l, torch.cuda.get_device_properties(dev).multi_processor_count)
-    lib, fn = _launcher()
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(ctx.data_ptr(), msk.data_ptr(), attn.data_ptr(), cv.data_ptr(),
-                  w.data_ptr(), b, l, h, ctas, stream)
+        code = lib.c2v_pool_forward(ctx.data_ptr(), msk.data_ptr(), attn.data_ptr(),
+                                    cv.data_ptr(), w.data_ptr(), b, l, h, ctas, stream)
     _build.check(lib, code, "pool kernel launch")
     count_launch(KERNEL)
     return cv, w
+
+
+def pool_backward_kernel(contexts, mask, attn_param, weights, g_cv, g_w=None):
+    """K1b: ``(d_contexts [B, L, H], d_attn [H])`` on the card, the CUDA
+    counterpart of ``pool_backward_reference``. Each CTA writes its part of
+    ``d_attn`` to a ``[B * S, H]`` buffer, summed here in a fixed order."""
+    named = dict(mask=mask, attn_param=attn_param, weights=weights, g_cv=g_cv)
+    if g_w is not None:
+        named["g_w"] = g_w
+    ctx, *rest = _checked("pool backward kernel", contexts, **named)
+    msk, attn, w, gcv = rest[:4]
+    gw = rest[4] if g_w is not None else None
+    b, l, h = ctx.shape
+    dev = ctx.device
+    ctas = pool_ctas(b, l, torch.cuda.get_device_properties(dev).multi_processor_count)
+    d_ctx = torch.empty_like(ctx)
+    part = torch.empty((b * ctas, h), dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.c2v_pool_backward(
+            ctx.data_ptr(), msk.data_ptr(), attn.data_ptr(), w.data_ptr(), gcv.data_ptr(),
+            None if gw is None else gw.data_ptr(), d_ctx.data_ptr(), part.data_ptr(),
+            b, l, h, ctas, stream)
+    _build.check(lib, code, "pool backward kernel launch")
+    count_launch(KERNEL_BWD)
+    return d_ctx, part.sum(dim=0)
+
+
+class _AttentionPool(torch.autograd.Function):
+    """K1 forward, K1b backward; on the CPU their plain versions."""
+
+    @staticmethod
+    def forward(ctx, contexts, mask, attn_param, backend):
+        if resolve(contexts, backend) == "cpu":
+            cv, w = attention_pool(contexts, mask, attn_param)
+        else:
+            cv, w = _launch(contexts, mask, attn_param)
+        ctx.save_for_backward(contexts, mask, attn_param, w)
+        ctx.set_materialize_grads(False)  # an unused weights output sends no g_w
+        return cv, w
+
+    @staticmethod
+    def backward(ctx, g_cv, g_w):
+        contexts, mask, attn_param, w = ctx.saved_tensors
+        if g_cv is None:
+            g_cv = torch.zeros(contexts.shape[0], contexts.shape[2], device=contexts.device)
+        if contexts.device.type == "cpu":
+            d_ctx, d_attn = pool_backward_reference(contexts, mask, attn_param, w, g_cv, g_w)
+        else:
+            d_ctx, d_attn = pool_backward_kernel(contexts, mask, attn_param, w, g_cv, g_w)
+        return d_ctx, None, d_attn, None
 
 
 def attention_pool_kernel(
@@ -85,8 +153,9 @@ def attention_pool_kernel(
     backend: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``ops.attention.attention_pool``: ``(cv [B, H] f32,
-    weights [B, L] f32)``. CUDA tensors launch K1; CPU tensors run
-    ``attention_pool`` in f32."""
+    weights [B, L] f32)``, differentiable in ``contexts`` and
+    ``attn_param``. CUDA tensors launch K1 (and K1b in the backward); CPU
+    tensors run ``attention_pool`` and ``pool_backward_reference`` in f32."""
     if resolve(contexts, backend) == "cpu":
-        return attention_pool(contexts.float(), mask.float(), attn_param.float())
-    return _launch(contexts, mask.float(), attn_param.float())
+        contexts = contexts.float()
+    return _AttentionPool.apply(contexts, mask.float(), attn_param.float(), backend)

@@ -11,6 +11,9 @@ unbounded bags, or given as ``longbag_widths``) serves long bags: the
 Predictor's bag rises to the top rung and the model streams the softmax
 (K4) at every width above the training bag.
 
+A training run writes such a dir itself: :func:`save_inference_meta` at
+its start, :func:`save_model_file` on every new best F1.
+
 Source extraction (``predict_source``: the Java and Python extractors) is
 not ported yet; the pre-mapped ``contexts`` form is the input here.
 """
@@ -31,6 +34,44 @@ logger = logging.getLogger(__name__)
 
 MODEL_META = "model_meta.json"
 LABEL_VOCAB = "label_vocab.txt"
+
+
+def save_inference_meta(out_dir: str, config, model_config, data, bucket_ladder=None) -> None:
+    """``model_meta.json`` and ``label_vocab.txt`` of a training run, the
+    JAX ``save_inference_meta``'s keys (``code2vec_tpu/predict.py:38-82``):
+    model dims and flags, the bag and the run's bag-width ladder, so a
+    server needs no corpus to pick its shapes."""
+    from code2vec_tpu_torch.formats.vocab_io import write_vocab
+
+    meta = {
+        "terminal_count": model_config.terminal_count,
+        "path_count": model_config.path_count,
+        "label_count": model_config.label_count,
+        "terminal_embed_size": model_config.terminal_embed_size,
+        "path_embed_size": model_config.path_embed_size,
+        "encode_size": model_config.encode_size,
+        "angular_margin_loss": model_config.angular_margin_loss,
+        "angular_margin": model_config.angular_margin,
+        "inverse_temp": model_config.inverse_temp,
+        "vocab_pad_multiple": model_config.vocab_pad_multiple,
+        "max_path_length": config.max_path_length,
+        "infer_method_name": config.infer_method_name,
+        "infer_variable_name": config.infer_variable_name,
+        "table_dtype": config.table_dtype,
+        "bucket_ladder": [int(w) for w in bucket_ladder] if bucket_ladder else None,
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, MODEL_META), "w", encoding="utf-8") as f:
+        json.dump(meta, f, indent=1)
+    write_vocab(os.path.join(out_dir, LABEL_VOCAB), sorted(data.label_vocab.itos.items()))
+
+
+def save_model_file(out_dir: str, model) -> str:
+    """The weights as a reference-layout ``code2vec.model`` (vocab pad
+    rows sliced off), the file the :class:`Predictor` loads."""
+    from code2vec_tpu_torch import interop
+
+    return interop.save_state_dict(model.state_dict(), out_dir, model.config)
 
 
 def softmax_top_k(logits: np.ndarray, n_labels: int, top_k: int) -> list[tuple[int, float]]:

@@ -1,0 +1,125 @@
+"""Training configuration (the reference's Option, main.py:93-115).
+
+Own copy of ``code2vec_tpu/train/config.py``: the same field names and
+defaults. Fields of features the port does not have yet stay, so a JAX
+configuration reads the same here, and :meth:`TrainConfig.validate`
+rejects them loudly when set instead of ignoring them (ROADMAP §A.2).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    # reproducibility: also seeds the train/test split
+    random_seed: int = 123
+
+    # model dims (main.py:45-47) and the bag size (main.py:48)
+    terminal_embed_size: int = 100
+    path_embed_size: int = 100
+    encode_size: int = 300
+    max_path_length: int = 200
+
+    # optimizer (main.py:55-58): torch Adam with coupled L2
+    batch_size: int = 32
+    max_epoch: int = 40
+    lr: float = 0.01
+    beta_min: float = 0.9
+    beta_max: float = 0.999
+    weight_decay: float = 0.0
+    dropout_prob: float = 0.25
+
+    # loss head (main.py:73-75)
+    angular_margin_loss: bool = False
+    angular_margin: float = 0.5
+    inverse_temp: float = 30.0
+
+    # tasks (main.py:77-79)
+    infer_method_name: bool = True
+    infer_variable_name: bool = False
+    shuffle_variable_indexes: bool = False
+
+    # eval + control (main.py:67-68; early stop main.py:233-242)
+    eval_method: str = "subtoken"  # exact | subtoken | ave_subtoken
+    print_sample_cycle: int = 10
+    early_stop_patience: int = 10
+
+    # "reference" = 1/freq over the de-facto-uniform freq table,
+    # "occurrence" = true inverse-occurrence weights, "none" = unweighted
+    class_weighting: str = "reference"
+
+    # kernel routes of the forward and their knobs
+    use_pallas: bool = False
+    pallas_impl: str = "pool_only"  # pool_only (K1) | gather_split (K2) | fused (K3)
+    pallas_chunk_l: int = 128
+    pallas_softmax: str = "auto"
+    # embedding storage of eval/export forwards; training takes f32 only
+    table_dtype: str = "f32"
+    attn_impl: str = "xla"  # the plain pool: "xla" | "streaming"
+    encoder_impl: str = "concat"  # the plain encode: "concat" | "split"
+    vocab_pad_multiple: int = 0  # 0 = 1 (no model axis here)
+
+    # checkpoints: best-F1 always, plus the last slot every N epochs
+    resume: bool = False
+    checkpoint_cycle: int = 0
+
+    # not ported yet: validate() rejects a value other than the default
+    compute_dtype: str = "float32"
+    data_axis: int = 1
+    model_axis: int = 1
+    context_axis: int = 1
+    adam_mu_dtype: str = "float32"
+    table_update: str = "dense"
+    bucketed: bool = False
+    max_contexts: int = -1
+    stream_chunk_items: int = 0
+    feed_workers: int = 0
+    prefetch_batches: int = 0
+    device_epoch: bool = False
+    async_checkpoint: bool = False
+    checkpoint_every_steps: int = 0
+    fault_plan: str = ""
+
+    def with_updates(self, **kw) -> "TrainConfig":
+        return replace(self, **kw)
+
+    def validate(self, training: bool = True) -> "TrainConfig":
+        """Raise for a setting the port cannot honour (rather than
+        silently training something else). ``training=False`` (an export
+        pass) accepts a quantized ``table_dtype``."""
+        unported = {
+            "bucketed": self.bucketed,
+            "max_contexts 0 (unbounded bags)": self.max_contexts == 0,
+            "stream_chunk_items": self.stream_chunk_items,
+            "feed_workers": self.feed_workers,
+            "prefetch_batches": self.prefetch_batches,
+            "device_epoch": self.device_epoch,
+            "mesh axes > 1": max(self.data_axis, self.model_axis, self.context_axis) > 1,
+            "table_update='lazy'": self.table_update != "dense",
+            "adam_mu_dtype='bfloat16'": self.adam_mu_dtype != "float32",
+            "compute_dtype='bfloat16'": self.compute_dtype != "float32",
+            "pallas_impl='auto'": self.pallas_impl == "auto",
+            "async_checkpoint": self.async_checkpoint,
+            "checkpoint_every_steps": self.checkpoint_every_steps,
+            "fault_plan": self.fault_plan,
+            "the variable-name task": self.infer_variable_name or self.shuffle_variable_indexes,
+        }
+        asked = [name for name, on in unported.items() if on]
+        if asked:
+            raise NotImplementedError(
+                f"not ported to code2vec_tpu_torch yet (ROADMAP §A.2): {', '.join(asked)}"
+            )
+        if not self.infer_method_name:
+            raise ValueError("the method-name task is the only task: infer_method_name "
+                             "must stay on")
+        if self.max_contexts > 0:
+            raise ValueError("max_contexts takes -1 (follow max_path_length); set "
+                             "max_path_length itself for a bounded cap")
+        if training and self.table_dtype != "f32":
+            raise ValueError(
+                f"table_dtype={self.table_dtype!r} is not trainable: quantized tables serve "
+                "eval/predict/export forwards; training keeps f32 master weights"
+            )
+        return self

@@ -1,0 +1,284 @@
+"""The training loop (reference: main.py:118-248).
+
+Counterpart of ``code2vec_tpu/train/loop.py`` (``model_config_from`` and
+``class_weights_from`` at ``:273-381``, the host-pipeline epoch of
+``train()`` at ``:1371-1761``) for the method-name task:
+
+- a seeded split, then every epoch a fresh context subsample of the train
+  split, a shuffled pass of train steps (losses accumulated on the device,
+  read once per epoch), a fresh subsample of the test split, the eval pass
+  and its metrics;
+- on a new best F1: the ``code.vec`` export (the epoch's own arrays, as
+  the JAX in-RAM path reuses them), the best checkpoint and the served
+  ``code2vec.model``; ``print_sample`` every ``print_sample_cycle``
+  epochs; the reference's early stop, whose counter resets when the train
+  loss OR the accuracy improves (``:1724-1736``).
+
+The numpy generator is drawn in the JAX loop's order (split; then per
+epoch the train subsample, the batch order, the test subsample), so both
+trainers see the same batches from the same seed. Each epoch's line also
+carries the train pass's steps/s and real contexts/s, timed from the end
+of its first (warm) step.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from code2vec_tpu_torch.checkpoint import (
+    TrainMeta,
+    clear_checkpoints,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from code2vec_tpu_torch.data.pipeline import (
+    build_epoch,
+    derive_bucket_ladder,
+    iter_batches,
+    split_items,
+)
+from code2vec_tpu_torch.metrics import evaluate
+from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
+from code2vec_tpu_torch.ops.backend import resolve_device
+from code2vec_tpu_torch.train.step import eval_step, make_optimizer, to_device, train_step
+
+logger = logging.getLogger(__name__)
+
+
+@dataclass
+class TrainResult:
+    best_f1: float
+    final_f1: float
+    epochs_run: int
+    history: list[dict] = field(default_factory=list)
+    model: Code2Vec | None = None
+
+
+def model_config_from(config, data) -> Code2VecConfig:
+    return Code2VecConfig(
+        terminal_count=len(data.terminal_vocab),
+        path_count=len(data.path_vocab),
+        label_count=len(data.label_vocab),
+        terminal_embed_size=config.terminal_embed_size,
+        path_embed_size=config.path_embed_size,
+        encode_size=config.encode_size,
+        dropout_prob=config.dropout_prob,
+        angular_margin_loss=config.angular_margin_loss,
+        angular_margin=config.angular_margin,
+        inverse_temp=config.inverse_temp,
+        use_pallas=config.use_pallas,
+        pallas_impl=config.pallas_impl,
+        pallas_chunk_l=config.pallas_chunk_l,
+        pallas_softmax=config.pallas_softmax,
+        table_dtype=config.table_dtype,
+        attn_impl=config.attn_impl,
+        encoder_impl=config.encoder_impl,
+        vocab_pad_multiple=config.vocab_pad_multiple or 1,
+    )
+
+
+def class_weights_from(config, data, device=None) -> torch.Tensor:
+    """1/freq over the de-facto-uniform freq table by default (reference
+    main.py:129-130); true inverse-occurrence or unweighted as opt-ins."""
+    if config.class_weighting == "reference":
+        freq = np.asarray(data.label_vocab.freq_list(), np.float32)
+    elif config.class_weighting == "occurrence":
+        freq = np.asarray(data.label_vocab.occurrence_list(), np.float32)
+    elif config.class_weighting == "none":
+        freq = np.ones(len(data.label_vocab), np.float32)
+    else:
+        raise ValueError(f"unknown class_weighting: {config.class_weighting!r}")
+    return torch.from_numpy(1.0 / np.maximum(freq, 1.0)).to(device or "cpu")
+
+
+class _Clock:
+    """Elapsed time of a stretch of device work: CUDA events on a card (no
+    synchronisation until the end), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+
+    def mark(self):
+        if self.cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        return time.perf_counter()
+
+    def seconds(self, start, end) -> float:
+        if self.cuda:
+            end.synchronize()
+            return start.elapsed_time(end) / 1e3
+        return end - start
+
+
+def _train_pass(model, optimizer, batches, class_weights, device) -> tuple[float, dict]:
+    """One epoch of train steps: ``(sum of the batch losses, speed)``, the
+    losses read back once. ``speed`` counts the steps after the first and
+    their real (non-PAD, unmasked) contexts."""
+    clock = _Clock(device)
+    losses, contexts, start = [], 0, None
+    for batch in batches:
+        losses.append(train_step(model, optimizer, to_device(batch, device), class_weights))
+        if start is None:
+            start = clock.mark()
+        else:
+            valid = batch["example_mask"].astype(bool)
+            contexts += int(np.count_nonzero(batch["starts"][valid]))
+    if not losses:
+        return 0.0, {"train_steps": 0, "steps_per_s": None, "contexts_per_s": None}
+    seconds = clock.seconds(start, clock.mark())
+    timed = len(losses) - 1
+    speed = {
+        "train_steps": len(losses),
+        "steps_per_s": timed / seconds if timed and seconds > 0 else None,
+        "contexts_per_s": contexts / seconds if timed and seconds > 0 else None,
+    }
+    return float(torch.stack(losses).double().sum()), speed
+
+
+def evaluate_epoch(config, data, model, epoch_arrays, class_weights):
+    """The test pass: ``(loss, accuracy, precision, recall, f1)``, the loss
+    the sum of the batch means (reference main.py:283-284)."""
+    device = class_weights.device
+    losses, expected, actual = [], [], []
+    for batch in iter_batches(epoch_arrays, config.batch_size, rng=None, pad_final=True):
+        out = eval_step(model, to_device(batch, device), class_weights)
+        valid = batch["example_mask"].astype(bool)
+        losses.append(out["loss"])
+        expected.append(batch["labels"][valid])
+        actual.append((out["preds"], valid))
+    test_loss = float(torch.stack(losses).double().sum()) if losses else 0.0
+    expected = np.concatenate(expected) if expected else np.zeros(0, np.int32)
+    actual = (np.concatenate([p.cpu().numpy()[v] for p, v in actual]) if actual
+              else np.zeros(0, np.int64))
+    return (test_loss, *evaluate(config.eval_method, expected, actual, data.label_vocab))
+
+
+def train(
+    config,
+    data,
+    out_dir: str | None = None,
+    vectors_path: str | None = None,
+    test_result_path: str | None = None,
+    *,
+    device: str | torch.device | None = None,
+    initial_state_dict: dict | None = None,
+    on_epoch: Callable[[dict], None] | None = None,
+) -> TrainResult:
+    """Train on a loaded corpus; the model runs on ``device`` (the card
+    unless ``"cpu"`` is asked for). ``initial_state_dict`` replaces the
+    seeded initialization (parity runs start from the JAX run's weights).
+    ``on_epoch`` receives each epoch's metrics. With ``out_dir`` the dir
+    becomes a served model dir (``model_meta.json``, ``label_vocab.txt``,
+    ``code2vec.model`` of the best epoch) holding the checkpoints."""
+    from code2vec_tpu_torch.export import print_sample, write_code_vectors
+    from code2vec_tpu_torch.predict import save_inference_meta, save_model_file
+
+    config.validate()
+    if not data.infer_method or data.infer_variable:
+        raise ValueError(
+            "the corpus was loaded with infer_method=%s, infer_variable=%s; the port "
+            "trains the method-name task only" % (data.infer_method, data.infer_variable)
+        )
+    dev = resolve_device(device)
+    np_rng = np.random.default_rng(config.random_seed)
+    train_idx, test_idx = split_items(data.n_items, np_rng)
+    logger.info("train items: %d, test items: %d", len(train_idx), len(test_idx))
+    model_config = model_config_from(config, data)
+    class_weights = class_weights_from(config, data, dev)
+    if out_dir is not None:
+        save_inference_meta(out_dir, config, model_config, data,
+                            derive_bucket_ladder(np.diff(data.row_splits), config.max_path_length))
+
+    model = Code2Vec(model_config)
+    if initial_state_dict is not None:
+        model.load_state_dict(initial_state_dict, strict=True)
+    else:
+        model.reset_parameters(torch.Generator().manual_seed(config.random_seed))
+    model.to(dev)
+    model.seed_dropout(config.random_seed)
+    optimizer = make_optimizer(model, config)
+
+    meta = TrainMeta()
+    if config.resume and out_dir is not None:
+        restored = restore_checkpoint(out_dir, model, optimizer, np_rng,
+                                      model_config.vocab_pad_multiple)
+        if restored is not None:
+            meta = restored
+            logger.info("resumed from epoch %d (best_f1=%s)", meta.epoch, meta.best_f1)
+    elif out_dir is not None:
+        clear_checkpoints(out_dir)
+    meta.vocab_pad_multiple = model_config.vocab_pad_multiple
+
+    bag, batch_size = config.max_path_length, config.batch_size
+    f1, epochs_completed = 0.0, 0
+    for epoch in range(meta.epoch, config.max_epoch):
+        epoch_start = time.perf_counter()
+        train_epoch = build_epoch(data, train_idx, bag, np_rng)
+        train_loss, speed = _train_pass(
+            model, optimizer, iter_batches(train_epoch, batch_size, rng=np_rng, pad_final=True),
+            class_weights, dev)
+        test_epoch = build_epoch(data, test_idx, bag, np_rng)
+        test_loss, accuracy, precision, recall, f1 = evaluate_epoch(
+            config, data, model, test_epoch, class_weights)
+        metrics = {
+            "train_loss": train_loss, "test_loss": test_loss, "accuracy": accuracy,
+            "precision": precision, "recall": recall, "f1": f1,
+            "epoch_seconds": time.perf_counter() - epoch_start, **speed,
+        }
+        epochs_completed += 1
+        meta.history.append({"epoch": epoch, **metrics})
+        if on_epoch is not None:
+            on_epoch({"epoch": epoch, **metrics})
+        else:
+            logger.info("epoch %s", json.dumps({"epoch": epoch, **metrics}))
+
+        if epoch > 1 and config.print_sample_cycle and epoch % config.print_sample_cycle == 0:
+            print_sample(data, model, test_epoch, batch_size, class_weights)
+
+        if meta.best_f1 is None or meta.best_f1 < f1:
+            meta.best_f1 = f1
+            if vectors_path is not None:
+                write_code_vectors(data, model, train_epoch, test_epoch, batch_size,
+                                   vectors_path, config.encode_size, class_weights,
+                                   test_result_path)
+            save_slot = "best" if out_dir is not None else None
+        else:
+            periodic = (out_dir is not None and bool(config.checkpoint_cycle)
+                        and (epoch + 1) % config.checkpoint_cycle == 0)
+            save_slot = "last" if periodic else None
+
+        # the counter resets when train loss OR accuracy improves (main.py:233-242)
+        if (meta.last_loss is None or train_loss < meta.last_loss
+                or meta.last_accuracy is None or meta.last_accuracy < accuracy):
+            meta.last_loss = train_loss
+            meta.last_accuracy = accuracy
+            meta.bad_count = 0
+        else:
+            meta.bad_count += 1
+
+        if save_slot is not None:
+            meta.epoch = epoch + 1
+            save_checkpoint(out_dir, save_slot, model, optimizer, meta, np_rng)
+            if save_slot == "best":
+                save_model_file(out_dir, model)
+
+        if meta.bad_count > config.early_stop_patience:
+            logger.info("early stop loss:%s, bad:%d", train_loss, meta.bad_count)
+            print_sample(data, model, test_epoch, batch_size, class_weights)
+            break
+
+    if epochs_completed == 0 and meta.history:
+        f1 = meta.history[-1].get("f1", 0.0)  # resumed a finished run
+    return TrainResult(
+        best_f1=meta.best_f1 if meta.best_f1 is not None else f1, final_f1=f1,
+        epochs_run=epochs_completed, history=meta.history, model=model,
+    )

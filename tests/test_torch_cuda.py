@@ -19,7 +19,11 @@ streamed modes at L from one context to 4096 (one CTA per row up to the
 full wave) and B = 1 / 64 at L = 2048 on the card's ``stream_ctas`` grid;
 for K5 many tiles per cell, one, or several cells per CTA, word and byte
 code loads, sources at any alignment, pad slots, clamped cell ids, and the
-searcher's shortlist against its plain scoring. Tolerance rtol = atol = 1e-5 (the plain
+searcher's shortlist against its plain scoring; for K1b (the pool's
+backward) every cluster size, a weights cotangent or none, rows kept in or
+re-read past shared memory, repeatable bits; K2/K3/K4-online with the
+dropout keep mask; and one train step on each kernel route against the
+plain route's gradients. Tolerance rtol = atol = 1e-5 (the plain
 versions in f32 with TF32 off, the kernels' encode in 3xTF32 on the
 tensor cores); at top11 widths and one context the kernel's code vector is
 within 2e-6 of a float64 evaluation, which one TF32 product (~1e-3) would
@@ -520,3 +524,149 @@ def test_wrong_dtype_raises(dev):
     ctx = torch.zeros(2, 3, 8, device=dev, dtype=torch.float64)
     with pytest.raises(ValueError, match="must be torch.float32"):
         attention_pool_kernel(ctx, torch.ones(2, 3, device=dev), torch.ones(8, device=dev))
+
+
+def pool_backward_inputs(dev, B, L, H, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ctx = torch.tanh(torch.randn(B, L, H, generator=g, device=dev))
+    lens = torch.randint(1, L + 1, (B,), generator=g, device=dev)
+    lens[0] = L
+    mask = (torch.arange(L, device=dev)[None, :] < lens[:, None]).float()
+    if B > 1:
+        mask[-1] = 0.0
+    attn = torch.randn(H, generator=g, device=dev) / H**0.5
+    from code2vec_tpu_torch.ops.attention import attention_pool
+
+    _, w = attention_pool(ctx, mask, attn)
+    g_cv = torch.randn(B, H, generator=g, device=dev)
+    g_w = torch.randn(B, L, generator=g, device=dev)
+    return ctx, mask, attn, w, g_cv, g_w
+
+
+@pytest.mark.parametrize("with_gw", [False, True])
+@pytest.mark.parametrize("H", [13, 100, 300])
+@pytest.mark.parametrize("L", [1, 37, 200, 2048])
+@pytest.mark.parametrize("B", [1, 5, 64, 1024])
+def test_pool_backward_kernel(dev, B, L, H, with_gw):
+    """K1b against pool_backward_reference on every cluster size pool_ctas
+    gives, the last row all-masked (its d_ctx is w g_cv, no score term)."""
+    from code2vec_tpu_torch.ops.attention import pool_backward_reference
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.pool_kernel import pool_backward_kernel
+
+    if B * L * H > 40_000_000:
+        pytest.skip("the reference's [B, L, H] temporaries: covered at top11 by chip_smoke")
+    ctx, mask, attn, w, g_cv, g_w = pool_backward_inputs(dev, B, L, H, B * L + H)
+    g_w = g_w if with_gw else None
+    reset_launch_counts()
+    d_ctx, d_attn = pool_backward_kernel(ctx, mask, attn, w, g_cv, g_w)
+    assert launch_counts() == {"pool_bwd": 1}
+    r_ctx, r_attn = pool_backward_reference(ctx, mask, attn, w, g_cv, g_w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d_ctx, r_ctx, rtol=0, atol=1e-5)
+    torch.testing.assert_close(d_attn, r_attn, rtol=1e-4, atol=1e-5)
+
+
+def test_pool_backward_rereads_rows_past_shared_memory(dev):
+    """A CTA's share of the bag (one CTA a row: the batch fills the card)
+    does not fit in shared memory at H = 100, so pass 2 re-reads ctx."""
+    from code2vec_tpu_torch.ops.attention import pool_backward_reference
+    from code2vec_tpu_torch.ops.pool_kernel import pool_backward_kernel, pool_ctas
+
+    B, L, H = 300, 700, 100
+    assert pool_ctas(B, L, torch.cuda.get_device_properties(dev).multi_processor_count) == 1
+    ctx, mask, attn, w, g_cv, g_w = pool_backward_inputs(dev, B, L, H, 11)
+    d_ctx, d_attn = pool_backward_kernel(ctx, mask, attn, w, g_cv, g_w)
+    r_ctx, r_attn = pool_backward_reference(ctx, mask, attn, w, g_cv, g_w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d_ctx, r_ctx, rtol=0, atol=1e-5)
+    torch.testing.assert_close(d_attn, r_attn, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,L", [(1, 2048), (64, 200)])
+def test_pool_backward_is_bitwise_repeatable(dev, B, L):
+    """No float atomics: the d_attn partials are summed in a fixed order."""
+    from code2vec_tpu_torch.ops.pool_kernel import pool_backward_kernel
+
+    args = pool_backward_inputs(dev, B, L, 100, 3)
+    a = pool_backward_kernel(*args)
+    b = pool_backward_kernel(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dims", [(6, 5, 13), (100, 100, 100)], ids=["odd", "top11"])
+@pytest.mark.parametrize("L", [1, 33, 200])
+@pytest.mark.parametrize("impl,mode", [("gather_split", "materialize"), ("fused", "materialize"),
+                                       ("fused", "online")])
+def test_encode_pool_kernel_with_keep_mask(dev, impl, mode, L, dims):
+    """K2/K3/K4-online with the dropout keep mask against the plain version."""
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.fused_encode_pool import (
+        fused_encode_attend_pool,
+        kernel_name,
+        reference_forward,
+    )
+
+    Et, Ep, H = dims
+    t, p, s, pa, e, mask, params = ids_and_tables(dev, 6, L, Et, Ep, H, seed=L + 1)
+    g = torch.Generator(device=dev).manual_seed(L)
+    drop = torch.empty(6, L, H, device=dev).bernoulli_(0.75, generator=g) / 0.75
+    args = (t, p, s, pa, e, mask, *params, drop)
+    reset_launch_counts()
+    cv, w = fused_encode_attend_pool(*args, impl=impl, softmax_mode=mode)
+    assert launch_counts() == {kernel_name(impl, "f32", mode, masked=True): 1}
+    cv_ref, w_ref = reference_forward(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cv, cv_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
+
+
+def test_keep_mask_with_two_pass_raises(dev):
+    from code2vec_tpu_torch.ops.fused_encode_pool import fused_encode_attend_pool
+
+    t, p, s, pa, e, mask, params = ids_and_tables(dev, 2, 40, 6, 5, 13)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fused_encode_attend_pool(t, p, s, pa, e, mask, *params, torch.ones(2, 40, 13, device=dev),
+                                 softmax_mode="two_pass")
+
+
+@pytest.mark.parametrize("route", ["pool_only", "gather_split", "fused"])
+def test_train_step_on_kernel_route_matches_plain_gradients(dev, route):
+    """One train step (dropout 0) on a kernel route: the loss and every
+    parameter's gradient against the plain route's, from the same weights."""
+    import numpy as np
+
+    from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.train.step import forward_backward
+
+    cfg = Code2VecConfig(terminal_count=301, path_count=157, label_count=19,
+                         terminal_embed_size=16, path_embed_size=12, encode_size=24,
+                         dropout_prob=0.0)
+    base = Code2Vec(cfg).to(dev)
+    rng = np.random.default_rng(0)
+    s = rng.integers(0, 301, (32, 50))
+    s[:, :5] = rng.integers(1, 301, (32, 5))
+    batch = {
+        "starts": torch.tensor(s, device=dev),
+        "paths": torch.tensor(rng.integers(1, 157, (32, 50)) * (s > 0), device=dev),
+        "ends": torch.tensor(rng.integers(1, 301, (32, 50)) * (s > 0), device=dev),
+        "labels": torch.tensor(rng.integers(0, 19, 32), device=dev),
+        "example_mask": torch.ones(32, device=dev),
+    }
+    weights = torch.ones(19, device=dev)
+    grads = {}
+    for name, c in (("plain", cfg), (route, cfg.with_updates(use_pallas=True, pallas_impl=route))):
+        model = Code2Vec(c).to(dev)
+        model.load_state_dict(base.state_dict())
+        reset_launch_counts()
+        loss = forward_backward(model, batch, weights)
+        grads[name] = (loss, {k: p.grad.clone() for k, p in model.named_parameters()})
+        if name != "plain":
+            key = {"pool_only": "pool_bwd", "gather_split": "gather_split",
+                   "fused": "fused_f32"}[route]
+            assert launch_counts().get(key, 0) == 1, launch_counts()
+    torch.testing.assert_close(grads[route][0], grads["plain"][0], rtol=1e-4, atol=0)
+    for k, g in grads["plain"][1].items():
+        torch.testing.assert_close(grads[route][1][k], g, rtol=1e-3, atol=1e-5, msg=k)

@@ -99,6 +99,23 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+TRAINING_MODULES = [
+    "text.py", "data/vocab.py", "formats/corpus_io.py", "formats/params_io.py",
+    "data/reader.py", "data/synth.py", "data/pipeline.py", "metrics.py", "train/config.py",
+    "train/step.py", "checkpoint.py", "export.py", "predict.py", "train/loop.py", "cli.py",
+    "__main__.py",
+]
+
+
+@pytest.mark.parametrize("name", TRAINING_MODULES)
+def test_training_modules_are_in_the_scan(name):
+    """The training path's modules exist in the port and are among the
+    files the import scan above covers (neither jax nor code2vec_tpu)."""
+    path = PORT / name
+    assert path in FILES, path
+    assert not imported_roots(path) & set(BANNED), path
+
+
 def test_build_key_covers_every_source():
     from code2vec_tpu_torch.ops import _build
 
