@@ -74,12 +74,29 @@ the final result line is not printed):
    ``build_server`` (16 predict requests against the trained model run
    plain). K1b (at B in {1, 64, 1024} x L in {1, 37, 200}) and the masked
    K2/K3 (at the kernel shapes plus 1024 x 200, timed beside the maskless
-   launch) are checked and timed in the kernels phase;
-8. a line with the launch floor and the ``neighbors`` split, the card's
+   launch) are checked and timed in the kernels phase, and the masked K4
+   (online and two_pass, at B in {1, 8, 64} x L in {1, 37, 200, 513, 2048}
+   plus the long-bag train shape 256 x 4096, against
+   ``streamed_reference_forward`` with the same mask);
+8. train_bucketed — bucketed training on ``bench.py``'s ``--bucket-ab``
+   corpus (30,720 methods, mean 60 contexts, lognormal sigma 1.0, max 400,
+   top11 widths; batch 1024, bag 200, the derived ladder, dropout 0.25, 2
+   epochs on plain, pool_only, gather_split and fused): losses equal across
+   routes within rtol 1e-4 and each kernel launched once for every batch of
+   every ladder width; then long-bag training (``--max_contexts 0``) on its
+   ``--longbag-ab`` lengths (10,240 methods, mean 60, sigma 1.2, max 3,200;
+   batch 256, rungs above 200 from ``derive_longbag_ladder``) on plain,
+   fused (K3 at the base rungs, masked K4 online above) and fused two_pass
+   (masked K4 two_pass at every width): no context truncated, the peak
+   device memory of each run; a differential at three widths (the narrowest
+   rung, 200, the widest long rung) of every kernel route against plain,
+   dropout 0; and the long-bag fused dir served by ``build_server``, a
+   2,000-context request answered through K4;
+9. a line with the launch floor and the ``neighbors`` split, the card's
    name and power limit, the line ``{"kernels": [...]}`` (per kernel:
    route, source, the TPU kernel it replaces, launches on its serve or
-   train route, max error, times at the headline shape and the bound),
-   then, last, the result line.
+   train route (the masked K4's on the long-bag runs), max error, times
+   at the headline shape and the bound), then, last, the result line.
 
 With ``--json_out`` the per-shape kernel records and serving numbers are
 also written to that file.
@@ -114,6 +131,12 @@ MASKED_SHAPES = SHAPES + [TRAIN_SHAPE]
 KEEP = 0.75  # 1 - dropout 0.25
 LONG_SHAPES = [(b, l) for b in (1, 8, 64) for l in (512, 1024, 2048)]
 LONG_TIMED_SHAPE = (64, 2048)
+# long-bag training: batch 256, rungs up to 4096 (bench.py's --longbag-ab);
+# the masked K4 at these shapes, timed at the top rung
+LONGBAG_BATCH = 256
+LONGBAG_TRAIN_SHAPE = (LONGBAG_BATCH, 4096)
+MASKED_LONG_SHAPES = ([(b, l) for b in (1, 8, 64) for l in (1, 37, 200, 513, 2048)]
+                      + [LONGBAG_TRAIN_SHAPE])
 LONGBAG_RUNGS = (512, 1024, 2048)
 K4_MODES = ("online", "two_pass")
 # the retrieval corpus (bench.py's ANN corpus at the served encode width)
@@ -340,6 +363,12 @@ def phase_kernels(torch, dev, smi) -> dict:
          "code2vec_tpu_torch/csrc/fused_encode_pool.cu",
          "code2vec_tpu/ops/fused_encode_pool.py:651", "fused", dt, mode, LONG_SHAPES)
         for mode in K4_MODES for dt in ("f32", "bf16", "int8")
+    ] + [
+        (f"K4 encode_pool {mode} f32 masked", f"{mode}_f32_masked",
+         "code2vec_tpu_torch/csrc/fused_encode_pool.cu",
+         "code2vec_tpu/ops/fused_encode_pool.py:651", "fused", "f32", f"{mode}_masked",
+         MASKED_LONG_SHAPES)
+        for mode in K4_MODES
     ]
     one = torch.ones(1, device=dev)
     floor_ms = bench.time_ms(lambda: one + one)
@@ -352,6 +381,7 @@ def phase_kernels(torch, dev, smi) -> dict:
         rows = []
         for B, L in shapes:
             library = unmasked = None
+            extra = {}
             if impl == "pool_bwd":
                 ctx, mask, a = pool_inputs(torch, dev, g, B, L, H)
                 _, w0 = attention_pool(ctx, mask, a)
@@ -368,14 +398,27 @@ def phase_kernels(torch, dev, smi) -> dict:
 
                 nbytes, flops = pool_bwd_bound(B, L, H)
                 ops_s = flops / F32_FLOP_PER_S
-            elif mode == "masked":
+            elif mode is not None and mode.endswith("masked"):
+                # K2/K3 ("masked") or K4 ("<online|two_pass>_masked") with the keep mask
+                softmax = mode[:-len("_masked")] if mode != "masked" else "materialize"
                 s, p, e, mask = id_inputs(torch, dev, g, B, L)
                 drop = torch.empty(B, L, H, device=dev).bernoulli_(KEEP, generator=g) / KEEP
                 margs = (*tables[dt], s, p, e, mask, W, lns, lnb, attn)
-                kernel = lambda: fused_encode_attend_pool(*margs, drop, impl=impl)  # noqa: E731
-                plain = lambda: reference_forward(*margs, drop)  # noqa: E731
-                unmasked = lambda: fused_encode_attend_pool(*margs, impl=impl)  # noqa: E731
+                kernel = lambda: fused_encode_attend_pool(  # noqa: E731
+                    *margs, drop, impl=impl, softmax_mode=softmax)
+                if softmax == "materialize":
+                    plain = lambda: reference_forward(*margs, drop)  # noqa: E731
+                else:
+                    plain = lambda: streamed_reference_forward(  # noqa: E731
+                        *margs, drop, softmax_mode=softmax)
+                unmasked = lambda: fused_encode_attend_pool(  # noqa: E731
+                    *margs, impl=impl, softmax_mode=softmax)
                 nbytes, flops, ops_s = encode_pool_bound(torch, s, p, e, mask, dt, H)
+                if softmax == "two_pass":
+                    # the kernel's own work by design: every context encoded in
+                    # both passes and the keep mask read in both
+                    extra["bound_both_passes_ms"] = bound_of(
+                        nbytes + 8 * B * L * H, 2 * ops_s)[0] * 1e3
                 nbytes += 4 * B * L * H  # the keep mask, read once
             elif impl is None:
                 ctx, mask, a = pool_inputs(torch, dev, g, B, L, H)
@@ -411,7 +454,7 @@ def phase_kernels(torch, dev, smi) -> dict:
             if impl == "pool_bwd":  # d_ctx within 1e-5, d_attn within rtol 1e-4
                 torch.testing.assert_close(cv, cv_ref, rtol=0, atol=TOL)
                 torch.testing.assert_close(w, w_ref, rtol=1e-4, atol=TOL)
-            elif mode in ("materialize", "masked") or impl is None:
+            elif mode in ("materialize", "masked") or impl is None:  # K4 below: max |err|
                 torch.testing.assert_close(cv, cv_ref, rtol=TOL, atol=TOL)
                 torch.testing.assert_close(w, w_ref, rtol=TOL, atol=TOL)
             elif err > TOL:
@@ -428,6 +471,7 @@ def phase_kernels(torch, dev, smi) -> dict:
             }
             if unmasked is not None:
                 row["unmasked_ms"] = bench.time_ms(unmasked)
+            row.update(extra)
             if impl in (None, "pool_bwd"):
                 row["ctas_per_row"] = pool_ctas(B, L, sms)
             rows.append(row)
@@ -436,9 +480,11 @@ def phase_kernels(torch, dev, smi) -> dict:
                   f"plain_ms={row['plain_ms']:.4f} "
                   f"library_ms={row['library_ms']} bound_ms={row['bound_ms']:.4f} "
                   f"({bound_by})" + (f" unmasked_ms={row['unmasked_ms']:.4f}" if unmasked else "")
+                  + "".join(f" {k}={v:.4f}" for k, v in extra.items())
                   + f" [{smi}]", flush=True)
         timed = {id(LONG_SHAPES): LONG_TIMED_SHAPE, id(BWD_SHAPES): TRAIN_SHAPE,
-                 id(MASKED_SHAPES): TRAIN_SHAPE}.get(id(shapes), TIMED_SHAPE)
+                 id(MASKED_SHAPES): TRAIN_SHAPE,
+                 id(MASKED_LONG_SHAPES): LONGBAG_TRAIN_SHAPE}.get(id(shapes), TIMED_SHAPE)
         records[name] = dict(key=key, source=source, replaces=replaces, rows=rows,
                              timed=timed)
     print("kernels checked: " + ", ".join(f"{n}: ok" for n in records), flush=True)
@@ -947,39 +993,41 @@ TRAIN_ROUTES = {
 }
 
 
-def train_corpus():
-    """bench.py's training corpus (bench.py:3218-3229): the top11 vocab and
-    label widths, 8,192 methods, mean 120 contexts (max 400), seed 0."""
+def train_corpus(n_methods=8192, mean_contexts=120.0, length_sigma=0.6, max_contexts=400):
+    """A synthetic corpus at the top11 vocab and label widths, seed 0. The
+    defaults are bench.py's training corpus (bench.py:3218-3229): 8,192
+    methods, mean 120 contexts, max 400."""
     from code2vec_tpu_torch.data.synth import SynthSpec, corpus_data_from_raw, generate_corpus_data
 
-    spec = SynthSpec(n_methods=8192, n_terminals=360_631, n_paths=342_845, n_labels=8_000,
-                     mean_contexts=120.0, max_contexts=400, seed=0)
+    spec = SynthSpec(n_methods=n_methods, n_terminals=360_631, n_paths=342_845, n_labels=8_000,
+                     mean_contexts=mean_contexts, length_sigma=length_sigma,
+                     max_contexts=max_contexts, seed=0)
     raw = generate_corpus_data(spec)
     return raw, corpus_data_from_raw(raw)
 
 
-def train_differential(torch, dev, data, config) -> dict:
-    """From one set of seeded weights, dropout 0, the same 3 batches: each
-    kernel route's losses within rtol 1e-4 of the plain route's and its
-    gradients (taken before each optimizer step) within atol 1e-5 / rtol
-    1e-3 of the plain route's. TF32 is off, so the plain route is f32."""
-    from code2vec_tpu_torch.data.pipeline import build_method_epoch, iter_batches
+def kernel_route(route):
+    return dict(use_pallas=True, pallas_impl=route) if route != "plain" else {}
+
+
+def train_differential(torch, dev, data, config, host_batches, routes) -> dict:
+    """From one set of seeded weights, dropout 0, the same batches: each
+    kernel route's (config updates in ``routes``, the first the plain
+    route) losses within rtol 1e-4 of the plain route's and its gradients
+    (taken before each optimizer step) within atol 1e-5 / rtol 1e-3 of the
+    plain route's. TF32 is off, so the plain route is f32."""
     from code2vec_tpu_torch.models.code2vec import Code2Vec
     from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
     from code2vec_tpu_torch.train.step import forward_backward, make_optimizer, to_device
 
-    rng = np.random.default_rng(1)
-    items = rng.permutation(data.n_items)[:3 * TRAIN_BATCH]
-    epoch = build_method_epoch(data, items, config.max_path_length, rng)
-    batches = [to_device(b, dev) for b in iter_batches(epoch, TRAIN_BATCH)]
+    batches = [to_device(b, dev) for b in host_batches]
     weights = class_weights_from(config, data, dev)
     base_cfg = model_config_from(config.with_updates(dropout_prob=0.0), data)
     base = Code2Vec(base_cfg)
     base.reset_parameters(torch.Generator().manual_seed(5))
     state = {k: v.to(dev) for k, v in base.state_dict().items()}
     ref, out = None, {}
-    for route in TRAIN_ROUTES:
-        kernel = dict(use_pallas=True, pallas_impl=route) if route != "plain" else {}
+    for route, kernel in routes.items():
         with torch.device(dev):
             model = Code2Vec(base_cfg.with_updates(**kernel))
         model.load_state_dict(state)
@@ -1001,7 +1049,8 @@ def train_differential(torch, dev, data, config) -> dict:
                 torch.testing.assert_close(grads[k], g, rtol=1e-3, atol=1e-5, msg=k)
                 worst = max(worst, (grads[k] - g).abs().max().item())
         out[route] = {"losses": [float(loss) for loss, _ in steps], "max_abs_grad_err": worst}
-        print(f"train differential {route}: 3 steps, losses "
+        print(f"train differential {route}: {len(steps)} steps at widths "
+              f"{[b['starts'].shape[1] for b in host_batches]}, losses "
               f"{[round(x, 6) for x in out[route]['losses']]} vs plain "
               f"{[round(x, 6) for x in out['plain']]}, max |grad - plain| {worst:.3e}",
               flush=True)
@@ -1053,9 +1102,8 @@ def step_breakdown(torch, dev, data, config, smi) -> dict:
     weights = class_weights_from(config, data, dev)
     out = {"epoch_build_ms_7_batches": build_ms, "batch_copy_ms": feed_ms}
     for route in TRAIN_ROUTES:
-        kernel = dict(use_pallas=True, pallas_impl=route) if route != "plain" else {}
         with torch.device(dev):
-            model = Code2Vec(model_config_from(config.with_updates(**kernel), data))
+            model = Code2Vec(model_config_from(config.with_updates(**kernel_route(route)), data))
         model.seed_dropout(0)
         model.train()
         opt = make_optimizer(model, config)
@@ -1092,14 +1140,56 @@ def step_breakdown(torch, dev, data, config, smi) -> dict:
     return out
 
 
+def train_route(torch, smi, dev, data, config, label, keys, out_dir=None) -> dict:
+    """``train()`` on one route for ``config.max_epoch`` epochs, the launch
+    counts set to 0 just before and read just after: the epochs' metrics,
+    the counts, the wall seconds and the peak device memory. Fails on a
+    non-finite loss or a kernel of ``keys`` never launched (the plain route
+    must launch none)."""
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.train.loop import train
+
+    epochs = []
+
+    def report(m):
+        epochs.append(m)
+        pad = (f", pad_efficiency {m['pad_efficiency']:.4f}, truncated_context_fraction "
+               f"{m['truncated_context_fraction']:.4f}" if "pad_efficiency" in m else "")
+        print(f"train {label} epoch {m['epoch']}: loss {m['train_loss']:.6f} test_loss "
+              f"{m['test_loss']:.6f} subtoken f1 {m['f1']:.6f}, {m['train_steps']} steps, "
+              f"{m['steps_per_s']:.3f} steps/s, {m['contexts_per_s']:.1f} contexts/s "
+              f"(train steps after the warm one){pad} [{smi}]", flush=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train(config, data, out_dir, device=dev, on_epoch=report)
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(math.isfinite(m["train_loss"]) and math.isfinite(m["test_loss"])
+               for m in epochs) or len(epochs) != config.max_epoch:
+        raise AssertionError(f"train {label}: epochs {epochs}")
+    missing = [k for k in keys if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"train {label} never launched {missing}: {counts}")
+    if not config.use_pallas and counts:
+        raise AssertionError(f"the plain route launched kernels: {counts}")
+    print(f"train {label}: {len(epochs)} epochs in {seconds:.1f}s, peak device memory "
+          f"{peak / 2**30:.3f} GiB, launches {counts} [{smi}]", flush=True)
+    del result
+    torch.cuda.empty_cache()
+    return {"epochs": epochs, "launches": counts, "seconds": seconds, "peak_bytes": peak}
+
+
 def phase_train(torch, smi, dev, tmp: Path) -> dict:
     """Train code2vec at the top11 widths through each route: 2 epochs of
     batch 1024 at bag 200, dropout 0.25; then the differential and serving
     the fused route's model dir."""
+    from code2vec_tpu_torch.data.pipeline import build_method_epoch, iter_batches
     from code2vec_tpu_torch.formats.vocab_io import read_vocab, write_vocab_from_names
-    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
     from code2vec_tpu_torch.train.config import TrainConfig
-    from code2vec_tpu_torch.train.loop import train
 
     t0 = time.perf_counter()
     raw, data = train_corpus()
@@ -1112,36 +1202,15 @@ def phase_train(torch, smi, dev, tmp: Path) -> dict:
     out = {"routes": {}}
     model_dir = tmp / "trained_fused"
     for route, keys in TRAIN_ROUTES.items():
-        kernel = dict(use_pallas=True, pallas_impl=route) if route != "plain" else {}
-        epochs = []
-
-        def report(m, route=route):
-            epochs.append(m)
-            print(f"train {route} epoch {m['epoch']}: loss {m['train_loss']:.6f} test_loss "
-                  f"{m['test_loss']:.6f} subtoken f1 {m['f1']:.6f}, {m['train_steps']} steps, "
-                  f"{m['steps_per_s']:.3f} steps/s, {m['contexts_per_s']:.1f} contexts/s "
-                  f"(train steps after the warm one) [{smi}]", flush=True)
-
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        result = train(config.with_updates(**kernel), data,
-                       str(model_dir) if route == "fused" else None, device=dev,
-                       on_epoch=report)
-        seconds = time.perf_counter() - t0
-        counts = launch_counts()
-        if not all(math.isfinite(m["train_loss"]) and math.isfinite(m["test_loss"])
-                   for m in epochs) or len(epochs) != 2:
-            raise AssertionError(f"train {route}: epochs {epochs}")
-        missing = [k for k in keys if counts.get(k, 0) < 1]
-        if missing:
-            raise AssertionError(f"train {route} never launched {missing}: {counts}")
-        if route == "plain" and counts:
-            raise AssertionError(f"the plain route launched kernels: {counts}")
-        out["routes"][route] = {"epochs": epochs, "launches": counts, "seconds": seconds}
-        print(f"train {route}: 2 epochs in {seconds:.1f}s, launches {counts}", flush=True)
-        del result
-        torch.cuda.empty_cache()
-    out["differential"] = train_differential(torch, dev, data, config)
+        out["routes"][route] = train_route(
+            torch, smi, dev, data, config.with_updates(**kernel_route(route)), route, keys,
+            str(model_dir) if route == "fused" else None)
+    rng = np.random.default_rng(1)
+    items = rng.permutation(data.n_items)[:3 * TRAIN_BATCH]
+    epoch = build_method_epoch(data, items, config.max_path_length, rng)
+    out["differential"] = train_differential(
+        torch, dev, data, config, list(iter_batches(epoch, TRAIN_BATCH)),
+        {route: kernel_route(route) for route in TRAIN_ROUTES})
     out["breakdown"] = step_breakdown(torch, dev, data, config, smi)
 
     # the fused run's dir, served as it stands (plus the vocab files a
@@ -1158,6 +1227,152 @@ def phase_train(torch, smi, dev, tmp: Path) -> dict:
                          ladder=tuple(meta["bucket_ladder"]))
     if served["launches"].get("fused_f32", 0) < 1:
         raise AssertionError("serving the trained dir never launched K3")
+    out["served"] = served
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: bucketed and long-bag training
+# ---------------------------------------------------------------------------
+
+# long-bag route -> (config updates, the launch keys its training run must show)
+LONGBAG_ROUTES = {
+    "plain": ({}, ()),
+    # K3 at the base rungs, K4 online above max_path_length
+    "fused": (kernel_route("fused"), ("fused_f32_masked", "online_f32_masked")),
+    # K4 two_pass at every width
+    "fused_two_pass": (dict(kernel_route("fused"), pallas_softmax="two_pass"),
+                       ("two_pass_f32_masked",)),
+}
+LONGBAG_REQUEST_LENGTHS = (2000, 5, 60, 200, 350, 900, 1500, 2000, 3000, 40, 120, 600, 2000, 10,
+                           250, 1100)
+
+
+def split_batches(data, config, ladder, bag_width):
+    """Train and test batches an epoch of ``make_batch_source`` feeds, per
+    ladder width (the split's counts capped at ``bag_width``)."""
+    from code2vec_tpu_torch.data.pipeline import bucket_batch_counts, split_items
+
+    train_idx, test_idx = split_items(data.n_items, np.random.default_rng(config.random_seed))
+    counts = np.minimum(np.diff(data.row_splits), bag_width)
+    return tuple(bucket_batch_counts(counts[idx], ladder, config.batch_size)
+                 for idx in (train_idx, test_idx))
+
+
+def check_every_width(label, counts, key, per_width, epochs):
+    """A kernel launched once for every batch of every ladder width its
+    route's forward takes: ``per_width`` batches an epoch, none zero."""
+    want = int(per_width.sum()) * epochs
+    if (per_width == 0).any() or counts.get(key, 0) != want:
+        raise AssertionError(f"train {label}: {key} launched {counts.get(key, 0)} times, "
+                             f"want one per batch ({want}, per width {per_width.tolist()})")
+
+
+def same_losses(label, runs):
+    """Every route's per-epoch train losses within rtol 1e-4 of the first's
+    (one keep-mask stream on every route)."""
+    base = [m["train_loss"] for m in next(iter(runs.values()))["epochs"]]
+    for route, run in runs.items():
+        got = [m["train_loss"] for m in run["epochs"]]
+        if not np.allclose(got, base, rtol=1e-4, atol=0):
+            raise AssertionError(f"{label} {route}: train losses {got} vs {base}")
+
+
+def phase_train_bucketed(torch, smi, dev, tmp: Path) -> dict:
+    """Bucketed training (bench.py's --bucket-ab corpus) and long-bag
+    training (its --longbag-ab lengths) at the top11 widths through each
+    route, a differential at three widths and the long-bag dir served."""
+    from code2vec_tpu_torch.data.pipeline import build_method_epoch, iter_bucketed_batches
+    from code2vec_tpu_torch.formats.vocab_io import write_vocab_from_names
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.loop import resolve_ladder
+
+    out = {}
+    # 1. bucketed: 30,720 methods, mean 60, lognormal sigma 1.0, max 400
+    # (bench.py:875-893), batch 1024, bag 200, the derived ladder
+    t0 = time.perf_counter()
+    _, data = train_corpus(n_methods=30_720, mean_contexts=60.0, length_sigma=1.0,
+                           max_contexts=2 * BAG)
+    config = TrainConfig(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                         max_path_length=BAG, batch_size=TRAIN_BATCH, dropout_prob=0.25,
+                         max_epoch=2, random_seed=0, print_sample_cycle=0, bucketed=True)
+    ladder, bag_width = resolve_ladder(config, data)
+    per_width, test_width = split_batches(data, config, ladder, bag_width)
+    print(f"bucketed corpus: {data.n_items} methods, {data.n_contexts} contexts, made in "
+          f"{time.perf_counter() - t0:.1f}s; ladder {list(ladder)}, train batches per width "
+          f"{per_width.tolist()}, test {test_width.tolist()}", flush=True)
+    runs = {}
+    for route, keys in TRAIN_ROUTES.items():
+        runs[route] = run = train_route(
+            torch, smi, dev, data, config.with_updates(**kernel_route(route)),
+            f"bucketed {route}", keys)
+        for key in keys:
+            check_every_width(f"bucketed {route}", run["launches"], key,
+                              per_width + test_width * (key == "pool"), 2)
+    same_losses("bucketed", runs)
+    out["bucketed"] = {"ladder": list(ladder), "train_batches_per_width": per_width.tolist(),
+                       "routes": runs}
+    del data
+
+    # 2. long bags: 10,240 methods, mean 60, sigma 1.2, max 3,200 (bench.py:1077-1097),
+    # batch 256, bag 200, --max_contexts 0
+    t0 = time.perf_counter()
+    raw, data = train_corpus(n_methods=10_240, mean_contexts=60.0, length_sigma=1.2,
+                             max_contexts=16 * BAG)
+    config = config.with_updates(batch_size=LONGBAG_BATCH, max_contexts=0)
+    ladder, bag_width = resolve_ladder(config, data)
+    per_width, test_width = split_batches(data, config, ladder, bag_width)
+    base = ladder.index(BAG) + 1
+    print(f"long-bag corpus: {data.n_items} methods, {data.n_contexts} contexts (longest "
+          f"{int(np.diff(data.row_splits).max())}), made in {time.perf_counter() - t0:.1f}s; "
+          f"ladder {list(ladder)} (long rungs {list(ladder[base:])}), train batches per width "
+          f"{per_width.tolist()}", flush=True)
+    if bag_width != ladder[-1] or bag_width < int(np.diff(data.row_splits).max()):
+        raise AssertionError(f"long-bag ladder {ladder} does not cover every bag")
+    model_dir = tmp / "trained_longbag"
+    runs = {}
+    for route, (kw, keys) in LONGBAG_ROUTES.items():
+        runs[route] = run = train_route(
+            torch, smi, dev, data, config.with_updates(**kw), f"long-bag {route}", keys,
+            str(model_dir) if route == "fused" else None)
+        if any(m["truncated_context_fraction"] != 0.0 for m in run["epochs"]):
+            raise AssertionError(f"long-bag {route} truncated contexts: {run['epochs']}")
+    check_every_width("long-bag fused", runs["fused"]["launches"], "fused_f32_masked",
+                      per_width[:base], 2)
+    check_every_width("long-bag fused", runs["fused"]["launches"], "online_f32_masked",
+                      per_width[base:], 2)
+    check_every_width("long-bag fused_two_pass", runs["fused_two_pass"]["launches"],
+                      "two_pass_f32_masked", per_width, 2)
+    same_losses("long-bag", runs)
+    out["longbag"] = {"ladder": list(ladder), "train_batches_per_width": per_width.tolist(),
+                      "routes": runs}
+
+    # 3. the differential, dropout 0: one batch at the narrowest rung, one at
+    # the training bag and one at the widest long rung
+    epoch = build_method_epoch(data, np.arange(data.n_items), bag_width,
+                               np.random.default_rng(1))
+    wanted, batches = (ladder[0], BAG, ladder[-1]), {}
+    for batch in iter_bucketed_batches(epoch, ladder, LONGBAG_BATCH):
+        batches.setdefault(batch["starts"].shape[1], batch)
+    del epoch
+    out["differential"] = train_differential(
+        torch, dev, data, config, [batches[w] for w in wanted],
+        {"plain": {}, **{r: kernel_route(r) for r in ("pool_only", "gather_split", "fused")},
+         "fused_two_pass": LONGBAG_ROUTES["fused_two_pass"][0]})
+
+    # 4. the long-bag fused dir served as it stands: a 2,000-context request
+    # is answered through K4
+    write_vocab_from_names(model_dir / "terminal_idxs.txt", raw.terminal_names)
+    write_vocab_from_names(model_dir / "path_idxs.txt", raw.path_names)
+    meta = json.loads((model_dir / "model_meta.json").read_text())
+    if meta["bucket_ladder"] != list(ladder):
+        raise AssertionError(f"recorded ladder {meta['bucket_ladder']}, trained on {ladder}")
+    requests = make_requests(len(LONGBAG_REQUEST_LENGTHS), seed=29,
+                             lengths=np.asarray(LONGBAG_REQUEST_LENGTHS))
+    served = serve_route(torch, model_dir, "fused", "f32", requests, smi, dev,
+                         ladder=tuple(meta["bucket_ladder"]))
+    if served["launches"].get("online_f32", 0) < 1:
+        raise AssertionError("serving the long-bag dir never launched K4")
     out["served"] = served
     return out
 
@@ -1225,6 +1440,7 @@ def main() -> int:
         longbag = phase("longbag", phase_longbag, torch, smi, dev, model_dir)
         retrieval = phase("retrieval", phase_retrieval, torch, smi, dev, model_dir)
         trained = phase("train", phase_train, torch, smi, dev, model_dir)
+        bucketed = phase("train_bucketed", phase_train_bucketed, torch, smi, dev, model_dir)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -1233,6 +1449,9 @@ def main() -> int:
     for route, keys in TRAIN_ROUTES.items():  # K1b and the masked K2/K3 train
         for key in keys:
             routes.setdefault(key, trained["routes"][route])
+    for route, (_, keys) in LONGBAG_ROUTES.items():  # the masked K4 trains long bags
+        for key in keys:
+            routes.setdefault(key, bucketed["longbag"]["routes"][route])
     line = []
     for name, rec in kernels.items():
         timed = next(r for r in rec["rows"] if (r["B"], r["L"]) == rec["timed"])
@@ -1263,7 +1482,8 @@ def main() -> int:
         Path(args.json_out).write_text(json.dumps(
             {"card": smi, "torch": torch.__version__, "launch_floor": floor, "kernels": kernels,
              "serve": serve,
-             "longbag": longbag, "retrieval": retrieval, "train": trained},
+             "longbag": longbag, "retrieval": retrieval, "train": trained,
+             "train_bucketed": bucketed},
             indent=1,
         ))
     print(smi)

@@ -10,7 +10,10 @@ and the reference use (main.py:37-81):
 instead. The run goes to the card; ``--device cpu`` (or the reference's
 ``--no_cuda``) runs the plain versions on the CPU. ``--model_path`` becomes
 a model dir that ``python -m code2vec_tpu_torch.serve`` serves as it
-stands. Each epoch prints one JSON line of metrics.
+stands. Each epoch prints one JSON line of metrics. ``--bucketed
+[--bucket_ladder 25,50,100,200] [--max_contexts 0]`` batches by bag length,
+and with ``--max_contexts 0`` feeds every context of every bag (long bags
+stream through K4 on a kernel route).
 
 Flags of features not ported yet are accepted with their default only and
 raise otherwise (``TrainConfig.validate``, ROADMAP §A.2); HPO, telemetry,
@@ -110,6 +113,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--export_only", action="store_true", default=False,
                         help="restore the best checkpoint in --model_path and rewrite "
                              "--vectors_path (+ the test TSV) without training")
+    parser.add_argument("--bucketed", action="store_true", default=False,
+                        help="bucketed batching: each example goes to the narrowest width "
+                             "of a ladder that holds its real contexts, in [B, L_b] batches")
+    parser.add_argument("--bucket_ladder", type=str, default="",
+                        help="comma list of bag widths ending at --max_path_length (e.g. "
+                             "25,50,100,200); empty = derive one from the corpus")
+    parser.add_argument("--max_contexts", type=int, default=-1,
+                        help="per-example context cap: -1 = --max_path_length (long bags "
+                             "are subsampled); 0 = unbounded (needs --bucketed): long-bag "
+                             "rungs above the top width, streamed through K4 on a kernel "
+                             "route")
 
     # accepted at their defaults only: the features are not ported yet
     parser.add_argument("--compute_dtype", type=str, default="float32",
@@ -120,8 +134,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--adam_mu_dtype", type=str, default="float32",
                         choices=("float32", "bfloat16"))
     parser.add_argument("--table_update", type=str, default="dense", choices=("dense", "lazy"))
-    parser.add_argument("--bucketed", action="store_true", default=False)
-    parser.add_argument("--max_contexts", type=int, default=-1)
     parser.add_argument("--stream_chunk_items", type=int, default=0)
     parser.add_argument("--feed_workers", type=int, default=0)
     parser.add_argument("--prefetch_batches", type=int, default=0)
@@ -140,7 +152,8 @@ _CONFIG_FLAGS = (
     "print_sample_cycle", "class_weighting", "use_pallas", "pallas_impl", "pallas_chunk_l",
     "pallas_softmax", "table_dtype", "attn_impl", "encoder_impl", "vocab_pad_multiple",
     "resume", "checkpoint_cycle", "compute_dtype", "data_axis", "model_axis", "context_axis",
-    "adam_mu_dtype", "table_update", "bucketed", "max_contexts", "stream_chunk_items",
+    "adam_mu_dtype", "table_update", "bucketed", "bucket_ladder", "max_contexts",
+    "stream_chunk_items",
     "feed_workers", "prefetch_batches", "device_epoch", "async_checkpoint",
     "checkpoint_every_steps", "fault_plan",
 )

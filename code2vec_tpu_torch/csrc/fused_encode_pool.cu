@@ -16,7 +16,8 @@
 //   enc = tanh(LayerNorm(y))                 eps 1e-6, biased variance, f32 scale/bias
 //   enc = enc * drop[b, l]                   training only: the dropout keep mask
 //                                            [B, L, H], pre-scaled by 1/keep (K2, K3,
-//                                            K4 online; the JAX kernel's drop_mask)
+//                                            K4 online and both passes of K4 two_pass;
+//                                            the JAX kernel's drop_mask)
 //   then the K1 pool (pool.cuh) over enc with the row's mask.
 //
 // Bound on an H100: operations. The encode is 2*D*H flops per context
@@ -622,12 +623,14 @@ __global__ void __launch_bounds__(kBlock, 1)
   c2v::pool_chunk_done(m.st, ly.L, H, b, cv, w, part);
 }
 
-// K4 two_pass, pass A (fused_encode_pool.py:416-425): gather, encode and
-// score every chunk; the masked scores go to w, each CTA's max to
-// rowmax[b][s].
+// K4 two_pass, pass A (fused_encode_pool.py:416-425): gather, encode (times
+// the keep mask `drop` [B, L, H] when given, so the scores are those of the
+// rows pass B sums) and score every chunk; the masked scores go to w, each
+// CTA's max to rowmax[b][s].
 template <class Rows>
 __global__ void __launch_bounds__(kBlock, 1)
     encode_score_kernel(Rows rows, Layout ly, const float* __restrict__ mask,
+                        const float* __restrict__ drop,
                         const float* __restrict__ W, const float* __restrict__ lns,
                         const float* __restrict__ lnb, const float* __restrict__ attn,
                         float* __restrict__ w, float* __restrict__ rowmax) {
@@ -636,7 +639,7 @@ __global__ void __launch_bounds__(kBlock, 1)
   const int b = blockIdx.y, H = ly.H;
   const size_t row0 = (size_t)b * ly.L;
   float mx = -INFINITY;  // meaningful in warp 0
-  stream_chunks(rows, ly, m, W, lns, lnb, attn, mask, nullptr, [&](int base, int n) {
+  stream_chunks(rows, ly, m, W, lns, lnb, attn, mask, drop, [&](int base, int n) {
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       const float sc = lane < n ? m.s[lane] : -INFINITY;
@@ -649,12 +652,15 @@ __global__ void __launch_bounds__(kBlock, 1)
 }
 
 // K4 two_pass, pass B (:426-438): the row max is fixed by pass A, so each
-// chunk is re-gathered and re-encoded and summed as exp(w - M) * enc with
+// chunk is re-gathered and re-encoded (times the same keep-mask rows as in
+// pass A; stream_chunks indexes `drop` by the chunk's own base, so every
+// CTA of a row reads its chunks' rows) and summed as exp(w - M) * enc with
 // no rescaling; the denominator d = sum exp(w - M) accumulates beside it.
 // Partials (acc, M, d) are merged by pool_combine_kernel as in online.
 template <class Rows>
 __global__ void __launch_bounds__(kBlock, 1)
-    encode_pool_fixed_max_kernel(Rows rows, Layout ly, const float* __restrict__ W,
+    encode_pool_fixed_max_kernel(Rows rows, Layout ly, const float* __restrict__ drop,
+                                 const float* __restrict__ W,
                                  const float* __restrict__ lns, const float* __restrict__ lnb,
                                  const float* __restrict__ rowmax, float* __restrict__ cv,
                                  float* __restrict__ w, float* __restrict__ part) {
@@ -668,7 +674,7 @@ __global__ void __launch_bounds__(kBlock, 1)
     for (int i = 0; i < (int)gridDim.x; ++i) mx = fmaxf(mx, rowmax[(size_t)b * gridDim.x + i]);
     m.st.stat[0] = mx;
   }
-  stream_chunks(rows, ly, m, W, lns, lnb, nullptr, nullptr, nullptr, [&](int base, int n) {
+  stream_chunks(rows, ly, m, W, lns, lnb, nullptr, nullptr, drop, [&](int base, int n) {
     c2v::pool_fold_fixed_max(m.enc, w + row0 + base, n, H, m.st);
   });
   c2v::pool_chunk_done(m.st, ly.L, H, b, cv, w, part);
@@ -683,7 +689,8 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 // mode: 0 = online (one kernel), 1 = two_pass (pass A, pass B); then the
 // combine over the S partials of each row. `part` is [B, S, H + 2]
 // (unused when S == 1), `rowmax` [B, S] (two_pass only); `drop` the
-// [B, L, H] keep mask or null (online only).
+// [B, L, H] keep mask or null (both modes; two_pass reads it in both
+// passes).
 template <class Rows>
 int launch_stream(const Rows& rows, int mode, const float* mask, const float* drop,
                   const float* W, const float* lns, const float* lnb, const float* attn,
@@ -693,7 +700,7 @@ int launch_stream(const Rows& rows, int mode, const float* mask, const float* dr
   if (B < 1 || B > 65535 || L < 1 || Et < 1 || Ep < 1 || H < 1) return (int)cudaErrorInvalidValue;
   const Layout ly = make_layout(rows, W, L, Et, Ep, H);
   if (ly.smem > (int)c2v::kMaxSmem || S < 1 || S > ly.n_chunks || (S > 1 && part == nullptr) ||
-      (mode != 0 && mode != 1) || (mode == 1 && (rowmax == nullptr || drop != nullptr))) {
+      (mode != 0 && mode != 1) || (mode == 1 && rowmax == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   if (const int pending = c2v::pending_error()) return pending;
@@ -708,11 +715,11 @@ int launch_stream(const Rows& rows, int mode, const float* mask, const float* dr
   } else {
     if ((err = allow_smem(encode_score_kernel<Rows>, ly.smem))) return (int)err;
     if ((err = allow_smem(encode_pool_fixed_max_kernel<Rows>, ly.smem))) return (int)err;
-    encode_score_kernel<Rows><<<grid, kBlock, ly.smem, s>>>(rows, ly, mask, W, lns, lnb, attn, w,
-                                                               rowmax);
+    encode_score_kernel<Rows><<<grid, kBlock, ly.smem, s>>>(rows, ly, mask, drop, W, lns, lnb,
+                                                               attn, w, rowmax);
     if ((err = cudaGetLastError())) return (int)err;
-    encode_pool_fixed_max_kernel<Rows><<<grid, kBlock, ly.smem, s>>>(rows, ly, W, lns, lnb,
-                                                                        rowmax, cv, w, part);
+    encode_pool_fixed_max_kernel<Rows><<<grid, kBlock, ly.smem, s>>>(rows, ly, drop, W, lns,
+                                                                        lnb, rowmax, cv, w, part);
     if ((err = cudaGetLastError())) return (int)err;
   }
   return (int)c2v::launch_combine_parts(part, S, B, L, H, cv, w, s);
@@ -778,8 +785,8 @@ int c2v_encode_pool_fused(int table_dtype, const void* tv, const float* ts, cons
 // K4: the streamed-softmax chain with the gather inside. mode: 0 = online,
 // 1 = two_pass; S CTAs per batch row (1 <= S <= chunks of kChunk); `part`
 // [B, S, H + 2] and, for two_pass, `rowmax` [B, S] are workspaces; `drop`
-// as for K2, online only. table_dtype as for K3. Returns the launches'
-// cudaError_t.
+// as for K2, in either mode (two_pass applies it in both passes).
+// table_dtype as for K3. Returns the launches' cudaError_t.
 int c2v_encode_pool_stream(int mode, int table_dtype, const void* tv, const float* ts,
                            const void* pv, const float* ps, long long vt, long long vp,
                            const int* starts, const int* paths, const int* ends,

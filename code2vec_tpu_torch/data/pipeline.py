@@ -1,8 +1,9 @@
 """The input pipeline: split, per-epoch resampling, batching, bag ladders.
 
 Own copy of ``code2vec_tpu/data/pipeline.py``'s host path for the
-method-name task (``:47-180``, ``:357-455``) and its ladder helpers
-(``:456-645``). The same semantics as the reference's per-method loop
+method-name task (``:47-180``, ``:357-455``), its ladder and bucketing
+helpers (``:456-760``) and its in-RAM batch source (``:1057-1278``,
+``:1530``). The same semantics as the reference's per-method loop
 (model/dataset_builder.py:112-210) as vectorized numpy over the CSR
 arrays, drawing from the caller's generator in the JAX module's exact
 order, so both trainers see the same batches:
@@ -11,12 +12,16 @@ order, so both trainers see the same batches:
 - a fresh random subsample of up to ``max_contexts`` contexts per method
   every epoch (model/dataset_builder.py:134-135);
 - ``@method_0 -> @question``, so the answer is not leaked;
-- static ``[B, L]`` batches (PAD = 0) with an example mask.
+- static ``[B, L]`` batches (PAD = 0) with an example mask, or bucketed
+  ``[B, L_b]`` batches over a ladder of bag widths (each example in the
+  narrowest width that holds its real contexts), so a skewed corpus stops
+  paying for PAD slots.
 
 PAD positions carry exactly-zero attention weight, so an example's
 forward is identical at any width >= its real context count: the
-ladders pad serving shapes to a small static set. The variable-name task,
-bucketed and streaming epochs are not ported yet (ROADMAP §A.2).
+ladders pad training and serving shapes to a small static set. The
+variable-name task, streaming and mmap-backed epochs are not ported yet
+(ROADMAP §A.2).
 """
 
 from __future__ import annotations
@@ -258,3 +263,215 @@ def nearest_bucket_width(count: int, ladder: tuple[int, ...]) -> int:
         if count <= width:
             return int(width)
     return int(ladder[-1])
+
+
+def parse_bucket_ladder(spec: str | None, max_contexts: int) -> tuple[int, ...] | None:
+    """A ``--bucket_ladder`` comma list (``"25,50,100,200"``) as sorted
+    widths; None for an empty spec (derive one from the corpus). The top
+    width must equal ``max_contexts``: a lower top would truncate long bags
+    that the fixed-width path keeps."""
+    if spec is None or not spec.strip():
+        return None
+    try:
+        widths = sorted({int(tok) for tok in spec.split(",") if tok.strip()})
+    except ValueError as exc:
+        raise ValueError(f"malformed bucket ladder {spec!r}: {exc}") from None
+    if not widths or widths[0] < 1:
+        raise ValueError(f"bucket ladder widths must be >= 1, got {spec!r}")
+    if widths[-1] != max_contexts:
+        raise ValueError(
+            f"bucket ladder must end at max_contexts ({max_contexts}) so "
+            f"long bags are not truncated; got top width {widths[-1]}"
+        )
+    return tuple(widths)
+
+
+def truncated_fraction(lengths: np.ndarray, weights: np.ndarray, cap: int) -> float:
+    """The fraction of REAL contexts that a per-example cap of ``cap``
+    drops (``weights[i]`` examples hold ``lengths[i]`` contexts). 0.0 means
+    nothing is truncated, as ``--max_contexts 0`` promises."""
+    lengths = np.asarray(lengths, np.int64)
+    weights = np.asarray(weights, np.int64)
+    total = int((lengths * weights).sum())
+    if total == 0:
+        return 0.0
+    dropped = int((np.maximum(lengths - int(cap), 0) * weights).sum())
+    return dropped / total
+
+
+def truncated_fraction_of_counts(counts: np.ndarray, cap: int) -> float:
+    """:func:`truncated_fraction` from per-example context counts."""
+    lengths, weights = np.unique(np.asarray(counts), return_counts=True)
+    return truncated_fraction(lengths, weights, cap)
+
+
+def assign_buckets(counts: np.ndarray, ladder: tuple[int, ...]) -> np.ndarray:
+    """Each example's bucket: the index of the narrowest ladder width that
+    holds its (top-capped) real context count."""
+    arr = np.asarray(ladder)
+    return np.searchsorted(arr, np.minimum(counts, arr[-1]), side="left")
+
+
+def epoch_context_counts(epoch: EpochArrays) -> np.ndarray:
+    """Real (non-PAD) contexts per example: epoch rows fill from position 0
+    and a PAD path is index 0, so the count is exact."""
+    return (epoch.paths != PAD_INDEX).sum(axis=1)
+
+
+def pad_stats(counts: np.ndarray, ladder: tuple[int, ...], batch_size: int,
+              pad_final: bool = True) -> tuple[int, int]:
+    """``(real context slots, padded slots)`` of one epoch of bucketed
+    batches, the ``pad_efficiency`` accounting; a one-width ladder gives
+    the fixed-``L`` numbers."""
+    counts = np.minimum(np.asarray(counts), ladder[-1])
+    bucket_of = assign_buckets(counts, ladder)
+    real = int(counts.sum())
+    slots = 0
+    for b, width in enumerate(ladder):
+        n_b = int((bucket_of == b).sum())
+        n_batches = -(-n_b // batch_size) if pad_final else n_b // batch_size
+        slots += n_batches * batch_size * width
+    return real, slots
+
+
+def iter_bucketed_batches(epoch: EpochArrays, ladder: tuple[int, ...], batch_size: int,
+                          rng: np.random.Generator | None = None,
+                          pad_final: bool = True) -> Iterator[dict[str, np.ndarray]]:
+    """Static-shape ``[B, L_b]`` batches, one ladder width per bucket.
+
+    :func:`iter_batches`' contract (exactly ``batch_size`` rows, each
+    bucket's final partial batch padded under a zero ``example_mask``)
+    with a width that varies over the ladder. An example keeps its whole
+    subsampled row (its bucket's width holds its real count), so its
+    forward is the fixed-width one. ``rng`` draws one member permutation
+    per bucket, in ladder order, then one permutation of the batch plan;
+    ``rng=None`` (eval) emits the buckets in ladder order."""
+    bucket_of = assign_buckets(epoch_context_counts(epoch), ladder)
+    plans: list[tuple[int, np.ndarray]] = []
+    for b, width in enumerate(ladder):
+        members = np.flatnonzero(bucket_of == b)
+        if rng is not None:
+            members = members[rng.permutation(len(members))]
+        stop = len(members) if pad_final else len(members) - len(members) % batch_size
+        for lo in range(0, stop, batch_size):
+            plans.append((width, members[lo:lo + batch_size]))
+    if rng is not None:
+        plans = [plans[i] for i in rng.permutation(len(plans))]
+    for width, idx in plans:
+        yield _bucket_batch(epoch, idx, width, batch_size)
+
+
+def _bucket_batch(epoch: EpochArrays, idx: np.ndarray, width: int,
+                  batch_size: int) -> dict[str, np.ndarray]:
+    """One ``[B, width]`` batch of epoch rows ``idx``; a partial batch
+    repeats its own first row under a zero ``example_mask``."""
+    valid = len(idx)
+    if valid < batch_size:
+        idx = np.concatenate([idx, np.full(batch_size - valid, idx[0], idx.dtype)])
+    mask = np.zeros(batch_size, np.float32)
+    mask[:valid] = 1.0
+    return {
+        "ids": epoch.ids[idx],
+        "starts": epoch.starts[idx, :width],
+        "paths": epoch.paths[idx, :width],
+        "ends": epoch.ends[idx, :width],
+        "labels": epoch.labels[idx],
+        "example_mask": mask,
+    }
+
+
+def bucket_batch_counts(counts: np.ndarray, ladder: tuple[int, ...],
+                        batch_size: int) -> np.ndarray:
+    """Batches per ladder width (ceil division) for examples with
+    ``counts`` real contexts: an epoch's bucketed geometry."""
+    arr = np.asarray(ladder)
+    if not len(counts):
+        return np.zeros(len(arr), np.int64)
+    members = np.bincount(assign_buckets(np.asarray(counts), ladder), minlength=len(arr))
+    return -(-members // batch_size)
+
+
+class BatchSource:
+    """A host epoch feed, the JAX package's ``BatchSource`` protocol:
+
+    - ``ladder``: the static widths the source emits (one width is the
+      fixed-``L`` case);
+    - ``batches(rng, shuffle)``: one epoch's stream, a pure function of the
+      generator's state at the call;
+    - ``pad_stats()``: ``(real context slots, padded slots)`` of the last
+      epoch built, None before any;
+    - ``last_epoch``: the last :class:`EpochArrays` built, which the export
+      and ``print_sample`` reuse instead of drawing anew.
+    """
+
+    ladder: tuple[int, ...] = ()
+    last_epoch: EpochArrays | None = None
+
+    def batches(self, rng: np.random.Generator,
+                shuffle: bool = True) -> Iterator[dict[str, np.ndarray]]:
+        raise NotImplementedError
+
+    def pad_stats(self) -> tuple[int, int] | None:
+        return None
+
+
+class EpochSource(BatchSource):
+    """The in-RAM source: one materialized :class:`EpochArrays` per epoch,
+    batched at a fixed ``L`` or bucketed over ``ladder``. The epoch is
+    built at the stream's first pull, not at :meth:`batches` time, so the
+    generator is drawn in the JAX loop's order (subsample, then the batch
+    order)."""
+
+    def __init__(self, data, item_idx: np.ndarray, batch_size: int, max_contexts: int,
+                 ladder: tuple[int, ...] | None = None):
+        self.data = data
+        self.item_idx = np.asarray(item_idx)
+        self.batch_size = int(batch_size)
+        self.max_contexts = int(max_contexts)
+        self.ladder = tuple(ladder) if ladder else (int(max_contexts),)
+        self._bucketed = ladder is not None
+        self.last_epoch: EpochArrays | None = None
+        # (rows, real, slots): a row's count is min(its contexts, the cap)
+        # whichever contexts the subsample drew, so it is reckoned once
+        self._pad_cache: tuple[int, int, int] | None = None
+
+    def batches(self, rng: np.random.Generator,
+                shuffle: bool = True) -> Iterator[dict[str, np.ndarray]]:
+        def gen():
+            epoch = build_epoch(self.data, self.item_idx, self.max_contexts, rng)
+            self.last_epoch = epoch
+            order = rng if shuffle else None
+            if self._bucketed:
+                yield from iter_bucketed_batches(epoch, self.ladder, self.batch_size,
+                                                 rng=order, pad_final=True)
+            else:
+                yield from iter_batches(epoch, self.batch_size, rng=order, pad_final=True)
+
+        return gen()
+
+    def pad_stats(self) -> tuple[int, int] | None:
+        if self.last_epoch is None:
+            return None
+        n_rows = len(self.last_epoch)
+        if self._pad_cache is None or self._pad_cache[0] != n_rows:
+            real, slots = pad_stats(epoch_context_counts(self.last_epoch), self.ladder,
+                                    self.batch_size)
+            self._pad_cache = (n_rows, real, slots)
+        return self._pad_cache[1], self._pad_cache[2]
+
+
+def make_batch_source(data, item_idx: np.ndarray, batch_size: int, max_contexts: int,
+                      ladder: tuple[int, ...] | None = None,
+                      stream_chunk_items: int = 0) -> BatchSource:
+    """The feed of one split: the in-RAM :class:`EpochSource`, fixed-``L``
+    for ``ladder=None``. Streaming epochs (``stream_chunk_items > 0``) and
+    mmap-backed corpora are not ported yet."""
+    if stream_chunk_items:
+        raise NotImplementedError(
+            "streaming epochs (stream_chunk_items > 0) are not ported yet (ROADMAP §A.2)"
+        )
+    if getattr(data, "mmap_backed", False):
+        raise NotImplementedError(
+            "mmap-backed corpora are not ported yet (ROADMAP §A.2)"
+        )
+    return EpochSource(data, item_idx, batch_size, max_contexts, ladder=ladder)

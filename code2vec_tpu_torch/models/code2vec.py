@@ -26,10 +26,10 @@ Training (``model.train()`` with ``0 < dropout_prob < 1``): the dropout
 keep mask is drawn with ``torch.bernoulli`` from the module's own
 generator (:meth:`Code2Vec.seed_dropout`), at ``(B, L, H)``, divided by
 the keep probability, and applied after tanh on every route: by the plain
-forward and before K1, and inside K2/K3 (the JAX model's ``drop_mask``,
+forward and before K1, and inside K2-K4 (the JAX model's ``drop_mask``,
 ``code2vec_tpu/models/code2vec.py:362-374``). The stream differs from
 JAX's. Every route has a backward: K1b under K1, the recomputed plain
-formulation under K2/K3. Quantized tables serve only: a training forward
+formulation under K2-K4. Quantized tables serve only: a training forward
 with ``table_dtype != "f32"`` raises.
 """
 

@@ -40,13 +40,14 @@ the result differs only by rounding.
 
 Training: ``drop_mask`` (f32 ``[B, L, H]``, the dropout keep mask
 pre-scaled by 1/keep, as the JAX op takes it) multiplies each encoded
-context after tanh and before its score, inside K2, K3 and K4-online and
-in every plain version. The backward is the JAX op's ``_op_bwd``:
-:class:`_EncodePool` saves only the primal inputs and its backward
-recomputes :func:`reference_forward` under autograd, giving the gradients
-of ``dense_kernel``, ``ln_scale``, ``ln_bias``, ``attn_param`` and, for
-f32 tables, both tables. Like the JAX one it is not a kernel. ``two_pass``
-with a keep mask, bf16 compute and the ``off_se``/``off_p`` offsets of the
+context after tanh and before its score, inside K2, K3 and K4 (online, and
+both passes of two_pass: pass A scores the masked rows, pass B sums the
+same masked rows) and in every plain version. The backward is the JAX
+op's ``_op_bwd``: :class:`_EncodePool` saves only the primal inputs and
+its backward recomputes :func:`reference_forward` under autograd, giving
+the gradients of ``dense_kernel``, ``ln_scale``, ``ln_bias``,
+``attn_param`` and, for f32 tables, both tables. Like the JAX one it is
+not a kernel. bf16 compute and the ``off_se``/``off_p`` offsets of the
 lazy table optimizer are not ported yet (ROADMAP §A.2).
 """
 
@@ -399,9 +400,7 @@ def fused_encode_attend_pool(
     materializes the whole bag's rows before its kernel runs, so streaming
     its softmax would bound nothing (the JAX rule). ``chunk_l`` sets the
     chunk of the CPU's plain version only; the CUDA kernels stream 32
-    contexts a step, so on CUDA tensors any other value raises.
-    ``drop_mask`` with ``two_pass`` raises: that long-bag training path is
-    not ported yet."""
+    contexts a step, so on CUDA tensors any other value raises."""
     if impl not in FUSED_IMPLS:
         raise ValueError(f"impl must be one of {FUSED_IMPLS}, got {impl!r}")
     if softmax_mode not in SOFTMAX_MODES:
@@ -410,11 +409,6 @@ def fused_encode_attend_pool(
         raise ValueError(
             f"chunked softmax ({softmax_mode!r}) requires impl='fused': {impl!r} "
             "materializes the full bag before the kernel runs"
-        )
-    if drop_mask is not None and softmax_mode == "two_pass":
-        raise NotImplementedError(
-            "a dropout keep mask with softmax_mode='two_pass' (long-bag training) is "
-            "not ported yet (ROADMAP §A.2); train with 'online' or a bag <= the ladder top"
         )
     if int(chunk_l) < 1:
         raise ValueError(f"chunk_l must be >= 1, got {chunk_l}")

@@ -65,6 +65,17 @@ class TrainConfig:
     resume: bool = False
     checkpoint_cycle: int = 0
 
+    # bucketed batching: each epoch's examples go to the narrowest width of
+    # a static ladder that holds their real contexts, in [B, L_b] batches
+    bucketed: bool = False
+    # comma list of widths ending at max_path_length ("25,50,100,200");
+    # empty = derive a geometric ladder from the corpus's length histogram
+    bucket_ladder: str = ""
+    # per-example context cap: -1 = max_path_length (long bags are
+    # subsampled); 0 = unbounded (needs bucketed): the ladder grows long-bag
+    # rungs above max_path_length and nothing is truncated
+    max_contexts: int = -1
+
     # not ported yet: validate() rejects a value other than the default
     compute_dtype: str = "float32"
     data_axis: int = 1
@@ -72,8 +83,6 @@ class TrainConfig:
     context_axis: int = 1
     adam_mu_dtype: str = "float32"
     table_update: str = "dense"
-    bucketed: bool = False
-    max_contexts: int = -1
     stream_chunk_items: int = 0
     feed_workers: int = 0
     prefetch_batches: int = 0
@@ -89,9 +98,22 @@ class TrainConfig:
         """Raise for a setting the port cannot honour (rather than
         silently training something else). ``training=False`` (an export
         pass) accepts a quantized ``table_dtype``."""
+        if self.bucket_ladder and not self.bucketed:
+            raise ValueError(
+                "--bucket_ladder was given but --bucketed is off: the ladder would be "
+                "ignored; add --bucketed or drop the ladder"
+            )
+        if self.max_contexts > 0:
+            raise ValueError("max_contexts takes -1 (follow max_path_length) or 0 (unbounded "
+                             "bags); set max_path_length itself for a bounded cap")
+        if self.max_contexts == 0 and not self.bucketed:
+            raise ValueError(
+                "--max_contexts 0 (unbounded bags) requires --bucketed: without a ladder "
+                "every example would pad to the longest bag in the corpus"
+            )
+        if self.max_contexts == 0 and self.device_epoch:
+            raise ValueError("--max_contexts 0 does not compose with --device_epoch; drop one")
         unported = {
-            "bucketed": self.bucketed,
-            "max_contexts 0 (unbounded bags)": self.max_contexts == 0,
             "stream_chunk_items": self.stream_chunk_items,
             "feed_workers": self.feed_workers,
             "prefetch_batches": self.prefetch_batches,
@@ -114,9 +136,6 @@ class TrainConfig:
         if not self.infer_method_name:
             raise ValueError("the method-name task is the only task: infer_method_name "
                              "must stay on")
-        if self.max_contexts > 0:
-            raise ValueError("max_contexts takes -1 (follow max_path_length); set "
-                             "max_path_length itself for a bounded cap")
         if training and self.table_dtype != "f32":
             raise ValueError(
                 f"table_dtype={self.table_dtype!r} is not trainable: quantized tables serve "

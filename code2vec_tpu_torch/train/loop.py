@@ -1,13 +1,19 @@
 """The training loop (reference: main.py:118-248).
 
 Counterpart of ``code2vec_tpu/train/loop.py`` (``model_config_from`` and
-``class_weights_from`` at ``:273-381``, the host-pipeline epoch of
-``train()`` at ``:1371-1761``) for the method-name task:
+``class_weights_from`` at ``:273-381``, the ladder of ``:610-745``, the
+host-pipeline epoch of ``train()`` at ``:1315-1761``) for the method-name
+task:
 
+- the bag-width ladder, resolved once: with ``bucketed`` an explicit
+  ``bucket_ladder`` or one derived from the corpus, and with
+  ``max_contexts == 0`` long-bag rungs above ``max_path_length``, the
+  epochs then built at the top rung so no context is truncated;
 - a seeded split, then every epoch a fresh context subsample of the train
   split, a shuffled pass of train steps (losses accumulated on the device,
   read once per epoch), a fresh subsample of the test split, the eval pass
-  and its metrics;
+  and its metrics, both splits fed by ``data.pipeline.make_batch_source``
+  (fixed ``L``, or bucketed over the ladder);
 - on a new best F1: the ``code.vec`` export (the epoch's own arrays, as
   the JAX in-RAM path reuses them), the best checkpoint and the served
   ``code2vec.model``; ``print_sample`` every ``print_sample_cycle``
@@ -39,10 +45,12 @@ from code2vec_tpu_torch.checkpoint import (
     save_checkpoint,
 )
 from code2vec_tpu_torch.data.pipeline import (
-    build_epoch,
     derive_bucket_ladder,
-    iter_batches,
+    derive_longbag_ladder,
+    make_batch_source,
+    parse_bucket_ladder,
     split_items,
+    truncated_fraction_of_counts,
 )
 from code2vec_tpu_torch.metrics import evaluate
 from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
@@ -77,6 +85,9 @@ def model_config_from(config, data) -> Code2VecConfig:
         pallas_impl=config.pallas_impl,
         pallas_chunk_l=config.pallas_chunk_l,
         pallas_softmax=config.pallas_softmax,
+        # --max_contexts 0: widths above max_path_length are long-bag shapes,
+        # which a kernel route streams through K4
+        longbag_width=config.max_path_length if config.max_contexts == 0 else 0,
         table_dtype=config.table_dtype,
         attn_impl=config.attn_impl,
         encoder_impl=config.encoder_impl,
@@ -144,12 +155,38 @@ def _train_pass(model, optimizer, batches, class_weights, device) -> tuple[float
     return float(torch.stack(losses).double().sum()), speed
 
 
-def evaluate_epoch(config, data, model, epoch_arrays, class_weights):
-    """The test pass: ``(loss, accuracy, precision, recall, f1)``, the loss
-    the sum of the batch means (reference main.py:283-284)."""
+def resolve_ladder(config, data) -> tuple[tuple[int, ...] | None, int]:
+    """``(bucket ladder or None, epoch-build context cap)``: the explicit
+    ``bucket_ladder`` or one derived from the corpus's length histogram
+    when ``bucketed``; with ``max_contexts == 0`` the long-bag rungs above
+    ``max_path_length`` (multiples of ``pallas_chunk_l``) join it and the
+    cap rises to the top rung (JAX ``loop.py:617-690``)."""
+    counts = np.diff(data.row_splits)
+    ladder = None
+    if config.bucketed:
+        ladder = parse_bucket_ladder(config.bucket_ladder, config.max_path_length)
+        if ladder is None:
+            ladder = derive_bucket_ladder(counts, config.max_path_length)
+        logger.info("bucketed batching: ladder %s", list(ladder))
+    bag_width = config.max_path_length
+    if config.max_contexts == 0:
+        lengths, weights = np.unique(counts, return_counts=True)
+        rungs = derive_longbag_ladder(lengths, weights, config.max_path_length,
+                                      chunk_l=config.pallas_chunk_l)
+        if rungs:
+            ladder = tuple(ladder) + rungs
+            bag_width = ladder[-1]
+            logger.info("long bags: ladder extended to %s (nothing truncated)", list(ladder))
+    return ladder, bag_width
+
+
+def evaluate_epoch(config, data, model, batches, class_weights):
+    """The test pass over ``batches``: ``(loss, accuracy, precision,
+    recall, f1)``, the loss the sum of the batch means (reference
+    main.py:283-284)."""
     device = class_weights.device
     losses, expected, actual = [], [], []
-    for batch in iter_batches(epoch_arrays, config.batch_size, rng=None, pad_final=True):
+    for batch in batches:
         out = eval_step(model, to_device(batch, device), class_weights)
         valid = batch["example_mask"].astype(bool)
         losses.append(out["loss"])
@@ -189,14 +226,24 @@ def train(
             "trains the method-name task only" % (data.infer_method, data.infer_variable)
         )
     dev = resolve_device(device)
+    bucket_ladder, bag_width = resolve_ladder(config, data)
     np_rng = np.random.default_rng(config.random_seed)
     train_idx, test_idx = split_items(data.n_items, np_rng)
     logger.info("train items: %d, test items: %d", len(train_idx), len(test_idx))
+    # the share of real train contexts the epoch-build cap drops: the same
+    # every epoch (0 with max_contexts 0)
+    truncated_ctx_fraction = (
+        truncated_fraction_of_counts(np.diff(data.row_splits)[train_idx], bag_width)
+        if len(train_idx) else None)
     model_config = model_config_from(config, data)
     class_weights = class_weights_from(config, data, dev)
     if out_dir is not None:
-        save_inference_meta(out_dir, config, model_config, data,
-                            derive_bucket_ladder(np.diff(data.row_splits), config.max_path_length))
+        # a fixed-L run records a corpus-derived ladder, so a server needs no
+        # corpus to pick its shapes
+        save_inference_meta(
+            out_dir, config, model_config, data,
+            bucket_ladder or derive_bucket_ladder(np.diff(data.row_splits),
+                                                  config.max_path_length))
 
     model = Code2Vec(model_config)
     if initial_state_dict is not None:
@@ -218,22 +265,34 @@ def train(
         clear_checkpoints(out_dir)
     meta.vocab_pad_multiple = model_config.vocab_pad_multiple
 
-    bag, batch_size = config.max_path_length, config.batch_size
+    batch_size = config.batch_size
+    # the epochs are built at bag_width: the top rung in long-bag mode
+    train_source = make_batch_source(data, train_idx, batch_size, bag_width, ladder=bucket_ladder,
+                                     stream_chunk_items=config.stream_chunk_items)
+    test_source = make_batch_source(data, test_idx, batch_size, bag_width, ladder=bucket_ladder,
+                                    stream_chunk_items=config.stream_chunk_items)
     f1, epochs_completed = 0.0, 0
     for epoch in range(meta.epoch, config.max_epoch):
         epoch_start = time.perf_counter()
-        train_epoch = build_epoch(data, train_idx, bag, np_rng)
         train_loss, speed = _train_pass(
-            model, optimizer, iter_batches(train_epoch, batch_size, rng=np_rng, pad_final=True),
-            class_weights, dev)
-        test_epoch = build_epoch(data, test_idx, bag, np_rng)
+            model, optimizer, train_source.batches(np_rng, shuffle=True), class_weights, dev)
         test_loss, accuracy, precision, recall, f1 = evaluate_epoch(
-            config, data, model, test_epoch, class_weights)
+            config, data, model, test_source.batches(np_rng, shuffle=False), class_weights)
+        # the epochs the passes were fed, reused by the export and print_sample
+        train_epoch, test_epoch = train_source.last_epoch, test_source.last_epoch
         metrics = {
             "train_loss": train_loss, "test_loss": test_loss, "accuracy": accuracy,
             "precision": precision, "recall": recall, "f1": f1,
-            "epoch_seconds": time.perf_counter() - epoch_start, **speed,
+            "epoch_seconds": time.perf_counter() - epoch_start,
         }
+        source_pad = train_source.pad_stats()
+        if source_pad is not None:
+            # real context slots over the slots fed (1.0 = no PAD slot encoded)
+            real, slots = source_pad
+            metrics["pad_efficiency"] = real / slots if slots else 1.0
+        if truncated_ctx_fraction is not None:
+            metrics["truncated_context_fraction"] = truncated_ctx_fraction
+        metrics.update(speed)
         epochs_completed += 1
         meta.history.append({"epoch": epoch, **metrics})
         if on_epoch is not None:

@@ -598,9 +598,9 @@ def test_pool_backward_is_bitwise_repeatable(dev, B, L):
 @pytest.mark.parametrize("dims", [(6, 5, 13), (100, 100, 100)], ids=["odd", "top11"])
 @pytest.mark.parametrize("L", [1, 33, 200])
 @pytest.mark.parametrize("impl,mode", [("gather_split", "materialize"), ("fused", "materialize"),
-                                       ("fused", "online")])
+                                       ("fused", "online"), ("fused", "two_pass")])
 def test_encode_pool_kernel_with_keep_mask(dev, impl, mode, L, dims):
-    """K2/K3/K4-online with the dropout keep mask against the plain version."""
+    """K2/K3/K4 with the dropout keep mask against the plain version."""
     from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
     from code2vec_tpu_torch.ops.fused_encode_pool import (
         fused_encode_attend_pool,
@@ -622,13 +622,33 @@ def test_encode_pool_kernel_with_keep_mask(dev, impl, mode, L, dims):
     torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
 
 
-def test_keep_mask_with_two_pass_raises(dev):
-    from code2vec_tpu_torch.ops.fused_encode_pool import fused_encode_attend_pool
+@pytest.mark.parametrize("B,L", [(2, 2048), (3, 1000), (64, 513)])
+def test_keep_mask_with_two_pass_matches_the_streamed_plain_version(dev, B, L):
+    """Masked K4 two_pass at long bags, several CTAs a row (each indexes the
+    mask by its own chunks), against ``streamed_reference_forward`` with
+    the same mask: pass A must score the masked rows that pass B sums."""
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.fused_encode_pool import (
+        fused_encode_attend_pool,
+        stream_ctas,
+        streamed_reference_forward,
+    )
 
-    t, p, s, pa, e, mask, params = ids_and_tables(dev, 2, 40, 6, 5, 13)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused_encode_attend_pool(t, p, s, pa, e, mask, *params, torch.ones(2, 40, 13, device=dev),
-                                 softmax_mode="two_pass")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert stream_ctas(B, L, sms) > 1
+    t, p, s, pa, e, mask, params = ids_and_tables(dev, B, L, 100, 100, 100, seed=L)
+    g = torch.Generator(device=dev).manual_seed(B)
+    drop = torch.empty(B, L, 100, device=dev).bernoulli_(0.75, generator=g) / 0.75
+    args = (t, p, s, pa, e, mask, *params, drop)
+    reset_launch_counts()
+    cv, w = fused_encode_attend_pool(*args, softmax_mode="two_pass")
+    assert launch_counts() == {"two_pass_f32_masked": 1}
+    cv_ref, w_ref = streamed_reference_forward(*args, softmax_mode="two_pass")
+    cv_nomask, _ = fused_encode_attend_pool(*args[:-1], softmax_mode="two_pass")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cv, cv_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
+    assert (cv - cv_nomask).abs().max() > 1e-3  # the mask was applied
 
 
 @pytest.mark.parametrize("route", ["pool_only", "gather_split", "fused"])

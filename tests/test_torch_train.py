@@ -321,7 +321,7 @@ def test_training_with_quantized_tables_raises():
 
 
 UNPORTED = [
-    {"bucketed": True}, {"max_contexts": 0}, {"stream_chunk_items": 8}, {"feed_workers": 2},
+    {"stream_chunk_items": 8}, {"feed_workers": 2},
     {"prefetch_batches": 2}, {"device_epoch": True}, {"data_axis": 2}, {"model_axis": 2},
     {"table_update": "lazy"}, {"adam_mu_dtype": "bfloat16"}, {"compute_dtype": "bfloat16"},
     {"pallas_impl": "auto"}, {"async_checkpoint": True}, {"checkpoint_every_steps": 5},
@@ -359,7 +359,7 @@ def test_cli_trains_exports_and_honours_no_cuda(tiny_corpus, tmp_path, capsys):
     assert cli.main(common + ["--device", "cpu", "--export_only", "--table_dtype", "int8"]) == 0
     assert (out / "code.vec").exists()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(common + ["--device", "cpu", "--bucketed"])
+        cli.main(common + ["--device", "cpu", "--prefetch_batches", "2"])
     with pytest.raises(SystemExit):
         cli.main(common + ["--no_cuda", "--device", "cuda"])
 
