@@ -92,7 +92,22 @@ the final result line is not printed):
    rung, 200, the widest long rung) of every kernel route against plain,
    dropout 0; and the long-bag fused dir served by ``build_server``, a
    2,000-context request answered through K4;
-9. a line with the launch floor and the ``neighbors`` split, the card's
+9. train_bf16 — the train phase's corpus, widths, batch, bag and dropout
+   with ``--compute_dtype bfloat16 --adam_mu_dtype bfloat16``, 2 epochs on
+   plain, pool_only (K1 + K1b over bf16 contexts), gather_split (K2 over
+   bf16 rows, with the keep mask) and fused (K3, f32 rows as before): losses
+   finite, each route's F1 > 0, the bf16 kernels launched once for every
+   train batch; steps/s, real contexts/s, F1 and peak memory beside the f32
+   train phase's; a dropout-0 differential of the routes' gradients from
+   one set of weights at widths 25 and 200 (losses within rtol 2^-7,
+   gradients within 2^-5 of each tensor's largest element: bf16 rounds
+   apart on each route); the step breakdown; and the fused run's
+   checkpoint (bf16 first moments) restored, and refused under float32.
+   The kernels phase holds K1 / K1b over bf16 contexts (d_ctx within 1e-5
+   plus one bf16 ulp) and K2 over bf16 rows (masked and not, and against the f32 K2
+   fed the same rows widened: two TF32 products against three) against
+   their plain versions;
+10. a line with the launch floor and the ``neighbors`` split, the card's
    name and power limit, the line ``{"kernels": [...]}`` (per kernel:
    route, source, the TPU kernel it replaces, launches on its serve or
    train route (the masked K4's on the long-bag runs), max error, times
@@ -159,6 +174,14 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 TF32_PRODUCTS = {"f32": 3, "bf16": 2, "int8": 2}
+# the encode kernels' row sources: K2's f32 and bf16 gathered rows, K3/K4's
+# f32, bf16 and int8 tables
+ROW_SOURCES = 5
+# bf16 training: K1/K1b over bf16 contexts at the K1 shapes plus the
+# training shape; K2 over bf16 rows at the K2 shapes, masked at the training
+# shape; the differential's widths
+BF16_POOL_SHAPES = SHAPES + [TRAIN_SHAPE]
+BF16_DIFF_WIDTHS = (25, BAG)
 ENCODE_KERNELS = ("encode_pool_online_kernel", "encode_score_kernel",
                   "encode_pool_fixed_max_kernel")
 
@@ -174,7 +197,7 @@ def nvidia_smi() -> str:
 def sass_check(build, lib_path) -> dict:
     """TF32 HMMA instructions per encode kernel in the library's SASS
     (``cuobjdump`` beside the ``nvcc`` that built it); raises if one of the
-    three encode kernels, for any of the four row sources, has none."""
+    three encode kernels, for any of the ROW_SOURCES row sources, has none."""
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -189,7 +212,7 @@ def sass_check(build, lib_path) -> dict:
     for fn, n in sorted(encode.items()):
         print(f"  sass: {n:4d} TF32 HMMA in {fn}")
     kinds = {k: [n for fn, n in encode.items() if k in fn] for k in ENCODE_KERNELS}
-    missing = [k for k, ns in kinds.items() if len(ns) != 4 or min(ns) == 0]
+    missing = [k for k, ns in kinds.items() if len(ns) != ROW_SOURCES or min(ns) == 0]
     if missing:
         raise AssertionError(f"encode kernels without TF32 HMMA (or not one per row source): "
                              f"{missing}; counts {encode}")
@@ -261,18 +284,27 @@ def id_inputs(torch, dev, g, B, L):
     return s, p, e, (s > 0).float()
 
 
-def pool_bound(B, L, H):
-    nbytes = 4 * (B * L * H + 2 * B * L + H + B * H)
+def pool_bound(B, L, H, ctx_item=4):
+    """K1: ctx read once (``ctx_item`` bytes an element: 4 f32, 2 bf16),
+    mask, a, cv and w; 4 flops an element."""
+    nbytes = ctx_item * B * L * H + 4 * (2 * B * L + H + B * H)
     flops = 4 * B * L * H
     return nbytes, flops
 
 
-def pool_bwd_bound(B, L, H):
-    """K1b: read ctx once and write d_ctx once, plus w, mask, g_w, g_cv,
-    a and d_attn; 2 flops an element for dldw, 3 for d_ctx, 2 for d_attn."""
-    nbytes = 4 * (2 * B * L * H + 3 * B * L + B * H + 2 * H)
+def pool_bwd_bound(B, L, H, ctx_item=4):
+    """K1b: read ctx once and write d_ctx once (``ctx_item`` bytes an
+    element each), plus w, mask, g_w, g_cv, a and d_attn; 2 flops an
+    element for dldw, 3 for d_ctx, 2 for d_attn."""
+    nbytes = 2 * ctx_item * B * L * H + 4 * (3 * B * L + B * H + 2 * H)
     flops = 7 * B * L * H
     return nbytes, flops
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp at each element's magnitude (8 significant bits)."""
+    mag = x.abs().double().clamp_min(2.0**-126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
 def encode_pool_bound(torch, s, p, e, mask, table_dtype, H):
@@ -313,7 +345,9 @@ def phase_kernels(torch, dev, smi) -> dict:
     from code2vec_tpu_torch.ops.attention import NINF, attention_pool, pool_backward_reference
     from code2vec_tpu_torch.ops.fused_encode_pool import (
         fused_encode_attend_pool,
+        gather_rows,
         reference_forward,
+        split_reference_forward,
         streamed_reference_forward,
     )
     from code2vec_tpu_torch.ops.pool_kernel import (
@@ -332,6 +366,10 @@ def phase_kernels(torch, dev, smi) -> dict:
     tables = {"f32": (t_f32, p_f32)}
     for dt in ("bf16", "int8"):
         tables[dt] = (quantize_table(t_f32, dt), quantize_table(p_f32, dt))
+    bf16 = torch.bfloat16
+    # the f32 tables' values rounded to bf16, widened: the f32 K2 reads the
+    # same rows K2 over bf16 rows reads
+    widened = tuple(x.to(bf16).float() for x in (t_f32, p_f32))
     W = torch.randn(D, H, generator=g, device=dev) / math.sqrt(D)
     lns = 1.0 + 0.1 * torch.randn(H, generator=g, device=dev)
     lnb = 0.1 * torch.randn(H, generator=g, device=dev)
@@ -353,6 +391,19 @@ def phase_kernels(torch, dev, smi) -> dict:
         ("K3 encode_pool fused f32 masked", "fused_f32_masked",
          "code2vec_tpu_torch/csrc/fused_encode_pool.cu",
          "code2vec_tpu/ops/fused_encode_pool.py:651", "fused", "f32", "masked", MASKED_SHAPES),
+        ("K1 pool bf16", "pool_bf16", "code2vec_tpu_torch/csrc/pool.cu",
+         "code2vec_tpu/ops/pallas_attention.py:114", "pool_bf16", None, None, BF16_POOL_SHAPES),
+        ("K1b pool backward bf16", "pool_bwd_bf16", "code2vec_tpu_torch/csrc/pool.cu",
+         "code2vec_tpu/ops/pallas_attention.py:224", "pool_bwd_bf16", None, None,
+         BF16_POOL_SHAPES),
+        ("K2 encode_pool gather_split bf16", "gather_split_bf16",
+         "code2vec_tpu_torch/csrc/fused_encode_pool.cu",
+         "code2vec_tpu/ops/fused_encode_pool.py:651", "gather_split_bf16", "bf16", "materialize",
+         SHAPES),
+        ("K2 encode_pool gather_split bf16 masked", "gather_split_bf16_masked",
+         "code2vec_tpu_torch/csrc/fused_encode_pool.cu",
+         "code2vec_tpu/ops/fused_encode_pool.py:651", "gather_split_bf16", "bf16", "masked",
+         [TRAIN_SHAPE]),
     ] + [
         (f"K3 encode_pool fused {dt}", f"fused_{dt}",
          "code2vec_tpu_torch/csrc/fused_encode_pool.cu",
@@ -382,7 +433,75 @@ def phase_kernels(torch, dev, smi) -> dict:
         for B, L in shapes:
             library = unmasked = None
             extra = {}
-            if impl == "pool_bwd":
+            if impl == "pool_bf16":
+                ctx, mask, a = pool_inputs(torch, dev, g, B, L, H)
+                ctx, a = ctx.to(bf16), a.to(bf16)
+                kernel = lambda: attention_pool_kernel(ctx, mask, a)  # noqa: E731
+                plain = lambda: attention_pool(ctx.float(), mask, a.float())  # noqa: E731
+                wide, a_wide = ctx.float(), a.float()
+                add_mask = ((1.0 - mask) * NINF)[:, None, :]
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        a_wide.expand(B, 1, H), wide, wide, attn_mask=add_mask, scale=1.0)
+
+                # the f32 kernel on the same values widened, timed beside it
+                extra["f32_kernel_ms"] = bench.time_ms(
+                    lambda: attention_pool_kernel(wide, mask, a_wide))
+                nbytes, flops = pool_bound(B, L, H, ctx_item=2)
+                ops_s = flops / F32_FLOP_PER_S
+            elif impl == "pool_bwd_bf16":
+                ctx, mask, a = pool_inputs(torch, dev, g, B, L, H)
+                ctx, a = ctx.to(bf16), a.to(bf16)
+                _, w0 = attention_pool(ctx.float(), mask, a.float())
+                g_cv = torch.randn(B, H, generator=g, device=dev)
+                g_w = torch.randn(B, L, generator=g, device=dev)
+                bargs = (ctx, mask, a, w0, g_cv, g_w)
+                kernel = lambda: pool_backward_kernel(*bargs)  # noqa: E731
+                plain = lambda: pool_backward_reference(*bargs)  # noqa: E731
+                wide_args = (ctx.float(), mask, a.float(), w0, g_cv, g_w)
+                extra["f32_kernel_ms"] = bench.time_ms(lambda: pool_backward_kernel(*wide_args))
+                leaves = (ctx.float().requires_grad_(), a.float().requires_grad_())
+                pooled = attention_pool(leaves[0], mask, leaves[1])
+
+                def library():
+                    return torch.autograd.grad(pooled, leaves, (g_cv, g_w), retain_graph=True)
+
+                nbytes, flops = pool_bwd_bound(B, L, H, ctx_item=2)
+                ops_s = flops / F32_FLOP_PER_S
+            elif impl == "gather_split_bf16":
+                # K2 over bf16 rows (the rows gathered in bf16 by the wrapper)
+                s, p, e, mask = id_inputs(torch, dev, g, B, L)
+                drop = None
+                if mode == "masked":
+                    drop = torch.empty(B, L, H, device=dev).bernoulli_(KEEP, generator=g) / KEEP
+                bargs = (t_f32, p_f32, s, p, e, mask, W, lns, lnb, attn, drop)
+                kernel = lambda: fused_encode_attend_pool(  # noqa: E731
+                    *bargs, impl="gather_split", compute_dtype=bf16)
+                plain = lambda: split_reference_forward(*bargs, compute_dtype=bf16)  # noqa: E731
+                if drop is not None:
+                    unmasked = lambda: fused_encode_attend_pool(  # noqa: E731
+                        *bargs[:-1], impl="gather_split", compute_dtype=bf16)
+                # two TF32 products against the f32 K2's three on the same rows
+                two = kernel()
+                three = fused_encode_attend_pool(*widened, *bargs[2:], impl="gather_split")
+                torch.cuda.synchronize()
+                extra["bitwise_vs_three_products"] = float(
+                    all(torch.equal(x, y) for x, y in zip(two, three)))
+                extra["max_abs_diff_vs_three_products"] = max(
+                    (x - y).abs().max().item() for x, y in zip(two, three))
+                extra["f32_kernel_ms"] = bench.time_ms(lambda: fused_encode_attend_pool(
+                    *widened, *bargs[2:], impl="gather_split"))
+                # the wrapper's PyTorch gather (and cast) before the kernel, in
+                # each timed call: bf16 rows and f32 rows
+                extra["gather_ms"] = bench.time_ms(lambda: [gather_rows(
+                    t_f32 if i != 1 else p_f32, x, bf16) for i, x in enumerate((s, p, e))])
+                extra["f32_gather_ms"] = bench.time_ms(lambda: [gather_rows(
+                    t_f32 if i != 1 else p_f32, x) for i, x in enumerate((s, p, e))])
+                nbytes, flops, ops_s = encode_pool_bound(torch, s, p, e, mask, "bf16", H)
+                if drop is not None:
+                    nbytes += 4 * B * L * H  # the keep mask, read once
+            elif impl == "pool_bwd":
                 ctx, mask, a = pool_inputs(torch, dev, g, B, L, H)
                 _, w0 = attention_pool(ctx, mask, a)
                 g_cv = torch.randn(B, H, generator=g, device=dev)
@@ -450,11 +569,20 @@ def phase_kernels(torch, dev, smi) -> dict:
             torch.cuda.synchronize()
             if not (torch.isfinite(cv).all() and torch.isfinite(w).all()):
                 raise AssertionError(f"{name} at {(B, L)}: non-finite output")
-            err = max((cv - cv_ref).abs().max().item(), (w - w_ref).abs().max().item())
-            if impl == "pool_bwd":  # d_ctx within 1e-5, d_attn within rtol 1e-4
+            err = max((cv.float() - cv_ref.float()).abs().max().item(),
+                      (w - w_ref).abs().max().item())
+            if impl == "pool_bwd_bf16":
+                # d_ctx within the f32 K1b's 1e-5 plus one bf16 ulp (each side
+                # rounds its f32 value once), d_attn within rtol 1e-4
+                over = ((cv.double() - cv_ref.double()).abs() - TOL) / bf16_ulp(torch, cv_ref)
+                if over.max() > 1.0:
+                    raise AssertionError(f"{name} at {(B, L)}: d_ctx {over.max():.2f} bf16 ulp "
+                                         f"past {TOL}")
+                torch.testing.assert_close(w, w_ref, rtol=1e-4, atol=TOL)
+            elif impl == "pool_bwd":  # d_ctx within 1e-5, d_attn within rtol 1e-4
                 torch.testing.assert_close(cv, cv_ref, rtol=0, atol=TOL)
                 torch.testing.assert_close(w, w_ref, rtol=1e-4, atol=TOL)
-            elif mode in ("materialize", "masked") or impl is None:  # K4 below: max |err|
+            elif mode in ("materialize", "masked") or impl in (None, "pool_bf16"):  # K4: max|err|
                 torch.testing.assert_close(cv, cv_ref, rtol=TOL, atol=TOL)
                 torch.testing.assert_close(w, w_ref, rtol=TOL, atol=TOL)
             elif err > TOL:
@@ -472,7 +600,7 @@ def phase_kernels(torch, dev, smi) -> dict:
             if unmasked is not None:
                 row["unmasked_ms"] = bench.time_ms(unmasked)
             row.update(extra)
-            if impl in (None, "pool_bwd"):
+            if impl in (None, "pool_bwd", "pool_bf16", "pool_bwd_bf16"):
                 row["ctas_per_row"] = pool_ctas(B, L, sms)
             rows.append(row)
             print(f"kernel {name:32s} B={B:3d} L={L:4d} max_abs_err={err:.3e} "
@@ -483,8 +611,10 @@ def phase_kernels(torch, dev, smi) -> dict:
                   + "".join(f" {k}={v:.4f}" for k, v in extra.items())
                   + f" [{smi}]", flush=True)
         timed = {id(LONG_SHAPES): LONG_TIMED_SHAPE, id(BWD_SHAPES): TRAIN_SHAPE,
-                 id(MASKED_SHAPES): TRAIN_SHAPE,
+                 id(MASKED_SHAPES): TRAIN_SHAPE, id(BF16_POOL_SHAPES): TRAIN_SHAPE,
                  id(MASKED_LONG_SHAPES): LONGBAG_TRAIN_SHAPE}.get(id(shapes), TIMED_SHAPE)
+        if shapes == [TRAIN_SHAPE]:
+            timed = TRAIN_SHAPE
         records[name] = dict(key=key, source=source, replaces=replaces, rows=rows,
                              timed=timed)
     print("kernels checked: " + ", ".join(f"{n}: ok" for n in records), flush=True)
@@ -1015,7 +1145,13 @@ def train_differential(torch, dev, data, config, host_batches, routes) -> dict:
     kernel route's (config updates in ``routes``, the first the plain
     route) losses within rtol 1e-4 of the plain route's and its gradients
     (taken before each optimizer step) within atol 1e-5 / rtol 1e-3 of the
-    plain route's. TF32 is off, so the plain route is f32."""
+    plain route's. TF32 is off, so the plain route is f32. Under bf16
+    compute bf16 rounds at other places on each route (the plain pool's
+    code vector is bf16, K1 pools in f32, K2-K4 recompute the plain bf16
+    forward): every batch's gradients are taken from the seeded weights (a
+    step would carry one route's rounding into the next batch's weights),
+    losses within rtol 2^-7 and gradients within 2^-5 of each tensor's
+    largest element."""
     from code2vec_tpu_torch.models.code2vec import Code2Vec
     from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
     from code2vec_tpu_torch.train.step import forward_backward, make_optimizer, to_device
@@ -1026,6 +1162,9 @@ def train_differential(torch, dev, data, config, host_batches, routes) -> dict:
     base = Code2Vec(base_cfg)
     base.reset_parameters(torch.Generator().manual_seed(5))
     state = {k: v.to(dev) for k, v in base.state_dict().items()}
+    bf16 = config.compute_dtype == "bfloat16"
+    loss_rtol, grad_rtol, grad_atol, grad_frac = (2.0**-7, 0.0, 0.0, 2.0**-5) if bf16 else \
+        (1e-4, 1e-3, 1e-5, 0.0)
     ref, out = None, {}
     for route, kernel in routes.items():
         with torch.device(dev):
@@ -1037,16 +1176,18 @@ def train_differential(torch, dev, data, config, host_batches, routes) -> dict:
             opt.zero_grad(set_to_none=True)
             loss = forward_backward(model, batch, weights)
             steps.append((loss, {k: p.grad.clone() for k, p in model.named_parameters()}))
-            opt.step()
+            if not bf16:
+                opt.step()
         if ref is None:
             ref = steps
             out[route] = [float(loss) for loss, _ in steps]
             continue
         worst = 0.0
         for (loss, grads), (ref_loss, ref_grads) in zip(steps, ref):
-            torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=0)
+            torch.testing.assert_close(loss, ref_loss, rtol=loss_rtol, atol=0)
             for k, g in ref_grads.items():
-                torch.testing.assert_close(grads[k], g, rtol=1e-3, atol=1e-5, msg=k)
+                atol = grad_atol + grad_frac * g.abs().max().item()
+                torch.testing.assert_close(grads[k], g, rtol=grad_rtol, atol=atol, msg=k)
                 worst = max(worst, (grads[k] - g).abs().max().item())
         out[route] = {"losses": [float(loss) for loss, _ in steps], "max_abs_grad_err": worst}
         print(f"train differential {route}: {len(steps)} steps at widths "
@@ -1078,7 +1219,7 @@ def profile_steps(torch, model, opt, batches, weights, top=8) -> list:
     return [(e.key[:60], device_us(e) / 1e3 / len(batches)) for e in ops]
 
 
-def step_breakdown(torch, dev, data, config, smi) -> dict:
+def step_breakdown(torch, dev, data, config, smi, label="") -> dict:
     """Where a train step's time goes, per route (dropout 0.25): device ms
     of the forward, the backward and the optimizer step (CUDA events), the
     host's wall ms of a whole step (synchronised), and the host's ms to
@@ -1130,7 +1271,7 @@ def step_breakdown(torch, dev, data, config, smi) -> dict:
         out[route] = dict(zip(("forward_ms", "backward_ms", "optimizer_ms", "step_wall_ms"),
                               med))
         out[route]["top_ops"] = profile_steps(torch, model, opt, batches[2:4], weights)
-        print(f"train step breakdown {route}: forward {med[0]:.3f} ms, backward {med[1]:.3f} "
+        print(f"train step breakdown {label}{route}: forward {med[0]:.3f} ms, backward {med[1]:.3f} "
               f"ms, optimizer {med[2]:.3f} ms (device, events), whole step {med[3]:.3f} ms "
               f"(host wall, synchronised); host: epoch build {build_ms:.1f} ms for "
               f"{len(items)} methods, batch slice+pin+copy {feed_ms:.3f} ms [{smi}]", flush=True)
@@ -1377,6 +1518,109 @@ def phase_train_bucketed(torch, smi, dev, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: bf16 training
+# ---------------------------------------------------------------------------
+
+# route -> the launch keys its bf16 training run must show once per train batch
+TRAIN_BF16_ROUTES = {
+    "plain": (),
+    "pool_only": ("pool_bwd_bf16",),
+    "gather_split": ("gather_split_bf16_masked",),
+    "fused": ("fused_f32_masked",),
+}
+
+
+def check_bf16_checkpoint(torch, dev, data, config, model_dir: Path) -> dict:
+    """The fused run's best checkpoint: its first moments are bf16, it
+    restores into a bf16-mu optimizer (the moments bit for bit) and a
+    float32 one refuses it with the flag that resumes it."""
+    from code2vec_tpu_torch.checkpoint import restore_checkpoint, slot_path
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.train.loop import model_config_from
+    from code2vec_tpu_torch.train.step import make_optimizer
+
+    saved = torch.load(slot_path(str(model_dir), "best"), map_location="cpu", weights_only=False)
+    moments = [s["exp_avg"] for s in saved["optimizer"]["state"].values()]
+    if saved["meta"]["adam_mu_dtype"] != "bfloat16" or not moments or \
+            any(m.dtype != torch.bfloat16 for m in moments):
+        raise AssertionError("the bf16 run's checkpoint does not hold bf16 first moments")
+    with torch.device(dev):
+        model = Code2Vec(model_config_from(config, data))
+    opt = make_optimizer(model, config)
+    meta = restore_checkpoint(str(model_dir), model, opt, np.random.default_rng(0),
+                              model_config_from(config, data).vocab_pad_multiple)
+    restored = [opt.state[p]["exp_avg"] for p in model.parameters()]
+    if meta is None or not all(r.dtype == torch.bfloat16 and torch.equal(r.cpu(), m)
+                               for r, m in zip(restored, moments)):
+        raise AssertionError("restoring the bf16 checkpoint lost its first moments")
+    try:
+        restore_checkpoint(str(model_dir), model, make_optimizer(
+            model, config.with_updates(adam_mu_dtype="float32")), np.random.default_rng(0),
+            model_config_from(config, data).vocab_pad_multiple)
+    except ValueError as err:
+        if "--adam_mu_dtype bfloat16" not in str(err):
+            raise
+        refusal = str(err)
+    else:
+        raise AssertionError("a float32-mu optimizer restored the bf16 checkpoint")
+    print(f"bf16 checkpoint: {len(moments)} bf16 first moments restored bit for bit; "
+          f"under float32: {refusal}", flush=True)
+    return {"moments": len(moments), "refusal": refusal}
+
+
+def phase_train_bf16(torch, smi, dev, tmp: Path, f32_train) -> dict:
+    """The train phase's recipe under --compute_dtype bfloat16
+    --adam_mu_dtype bfloat16 through each route, beside the f32 numbers."""
+    from code2vec_tpu_torch.data.pipeline import build_method_epoch, iter_batches, split_items
+    from code2vec_tpu_torch.train.config import TrainConfig
+
+    _, data = train_corpus()
+    config = TrainConfig(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                         max_path_length=BAG, batch_size=TRAIN_BATCH, dropout_prob=0.25,
+                         max_epoch=2, random_seed=0, print_sample_cycle=0,
+                         compute_dtype="bfloat16", adam_mu_dtype="bfloat16")
+    train_idx, test_idx = split_items(data.n_items, np.random.default_rng(config.random_seed))
+    n_train = -(-len(train_idx) // TRAIN_BATCH)
+    n_test = -(-len(test_idx) // TRAIN_BATCH)
+    out = {"routes": {}}
+    model_dir = tmp / "trained_bf16"
+    for route, keys in TRAIN_BF16_ROUTES.items():
+        run = out["routes"][route] = train_route(
+            torch, smi, dev, data, config.with_updates(**kernel_route(route)), f"bf16 {route}",
+            keys, str(model_dir) if route == "fused" else None)
+        want = dict.fromkeys(keys, n_train * config.max_epoch)
+        if route == "pool_only":
+            want["pool_bf16"] = (n_train + n_test) * config.max_epoch
+        got = {k: run["launches"].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"bf16 {route}: launches {run['launches']}, want {want}")
+        if not all(m["f1"] > 0.0 for m in run["epochs"]):
+            raise AssertionError(f"bf16 {route}: F1 {[m['f1'] for m in run['epochs']]}")
+        f32 = ((f32_train or {}).get("routes") or {}).get(route)
+        for i, m in enumerate(run["epochs"]):
+            ref = f32["epochs"][i] if f32 else None
+            print(f"train bf16 vs f32 {route} epoch {i}: steps/s {m['steps_per_s']:.3f} vs "
+                  f"{ref['steps_per_s'] if ref else float('nan'):.3f}, real contexts/s "
+                  f"{m['contexts_per_s']:.1f} vs {ref['contexts_per_s'] if ref else float('nan'):.1f}"
+                  f", subtoken f1 {m['f1']:.6f} vs {ref['f1'] if ref else float('nan'):.6f}, peak "
+                  f"device memory {run['peak_bytes'] / 2**30:.3f} vs "
+                  f"{f32['peak_bytes'] / 2**30 if f32 else float('nan'):.3f} GiB [{smi}]",
+                  flush=True)
+    out["checkpoint"] = check_bf16_checkpoint(torch, dev, data, config, model_dir)
+
+    # the differential, dropout 0: a batch at each width
+    rng = np.random.default_rng(1)
+    items = rng.permutation(data.n_items)[:TRAIN_BATCH]
+    batches = [next(iter_batches(build_method_epoch(data, items, width, rng), TRAIN_BATCH))
+               for width in BF16_DIFF_WIDTHS]
+    out["differential"] = train_differential(
+        torch, dev, data, config, batches,
+        {route: kernel_route(route) for route in TRAIN_BF16_ROUTES})
+    out["breakdown"] = step_breakdown(torch, dev, data, config, smi, label="bf16 ")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json_out", default=None,
@@ -1441,6 +1685,7 @@ def main() -> int:
         retrieval = phase("retrieval", phase_retrieval, torch, smi, dev, model_dir)
         trained = phase("train", phase_train, torch, smi, dev, model_dir)
         bucketed = phase("train_bucketed", phase_train_bucketed, torch, smi, dev, model_dir)
+        bf16_train = phase("train_bf16", phase_train_bf16, torch, smi, dev, model_dir, trained)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -1452,6 +1697,9 @@ def main() -> int:
     for route, (_, keys) in LONGBAG_ROUTES.items():  # the masked K4 trains long bags
         for key in keys:
             routes.setdefault(key, bucketed["longbag"]["routes"][route])
+    for route in ("pool_only", "gather_split"):  # the bf16 kernels train (and eval) in bf16
+        for key in bf16_train["routes"][route]["launches"]:
+            routes.setdefault(key, bf16_train["routes"][route])
     line = []
     for name, rec in kernels.items():
         timed = next(r for r in rec["rows"] if (r["B"], r["L"]) == rec["timed"])
@@ -1483,7 +1731,7 @@ def main() -> int:
             {"card": smi, "torch": torch.__version__, "launch_floor": floor, "kernels": kernels,
              "serve": serve,
              "longbag": longbag, "retrieval": retrieval, "train": trained,
-             "train_bucketed": bucketed},
+             "train_bucketed": bucketed, "train_bf16": bf16_train},
             indent=1,
         ))
     print(smi)

@@ -8,6 +8,9 @@ Each holds the model's and the optimizer's ``state_dict``, the
 :class:`TrainMeta`, the host data generator's state (the next epoch's
 subsample and batch order) and the dropout generator's state, so
 ``--resume`` continues the stream the uninterrupted run would have seen.
+The optimizer's first moments are saved in their own dtype (bf16 with
+``--adam_mu_dtype bfloat16``); a resume under the other dtype raises, as the
+JAX restore does.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ class TrainMeta:
     # the vocab pad multiple the tables were built with (their shapes
     # depend on it), validated on restore
     vocab_pad_multiple: int | None = None
+    # Adam's first-moment storage dtype (--adam_mu_dtype), validated on
+    # restore; None (a checkpoint from before the field) reads as float32
+    adam_mu_dtype: str | None = None
 
 
 def slot_path(out_dir: str, slot: str) -> str:
@@ -45,7 +51,11 @@ def slot_path(out_dir: str, slot: str) -> str:
 
 def save_checkpoint(out_dir: str, slot: str, model, optimizer, meta: TrainMeta,
                     np_rng: np.random.Generator) -> str:
-    """Write ``slot`` atomically (a temp file, then a rename)."""
+    """Write ``slot`` atomically (a temp file, then a rename); the meta
+    records the optimizer's first-moment dtype."""
+    from code2vec_tpu_torch.train.step import adam_mu_dtype
+
+    meta.adam_mu_dtype = adam_mu_dtype(optimizer)
     gen = model.dropout_generator(next(model.parameters()).device)
     state = {
         "model": model.state_dict(),
@@ -74,7 +84,9 @@ def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generat
                        vocab_pad_multiple: int, prefer_best: bool = False) -> TrainMeta | None:
     """Load the newest slot (the one whose meta says the later epoch; the
     best slot with ``prefer_best``) into ``model``, ``optimizer`` (may be
-    None) and ``np_rng``; return its meta, or None when there is none."""
+    None) and ``np_rng``; return its meta, or None when there is none. An
+    optimizer whose first moments are stored in another dtype than the
+    checkpoint's raises with the flag that resumes it."""
     found = []
     for slot in SLOTS:
         path = slot_path(out_dir, slot)
@@ -95,6 +107,15 @@ def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generat
             "shapes differ; pass --vocab_pad_multiple "
             f"{meta.vocab_pad_multiple} to resume it"
         )
+    if optimizer is not None:
+        from code2vec_tpu_torch.train.step import adam_mu_dtype
+
+        saved_mu, want_mu = meta.adam_mu_dtype or "float32", adam_mu_dtype(optimizer)
+        if saved_mu != want_mu:
+            raise ValueError(
+                f"the checkpoint in {out_dir} stores Adam first moments as {saved_mu} but "
+                f"this run uses {want_mu}; pass --adam_mu_dtype {saved_mu} to resume it"
+            )
     model.load_state_dict(state["model"])
     if optimizer is not None:
         optimizer.load_state_dict(state["optimizer"])

@@ -13,7 +13,9 @@ a model dir that ``python -m code2vec_tpu_torch.serve`` serves as it
 stands. Each epoch prints one JSON line of metrics. ``--bucketed
 [--bucket_ladder 25,50,100,200] [--max_contexts 0]`` batches by bag length,
 and with ``--max_contexts 0`` feeds every context of every bag (long bags
-stream through K4 on a kernel route).
+stream through K4 on a kernel route). ``--compute_dtype bfloat16`` trains
+(and evaluates and exports) the model in bf16, ``--adam_mu_dtype bfloat16``
+stores Adam's first moments in bf16.
 
 Flags of features not ported yet are accepted with their default only and
 raise otherwise (``TrainConfig.validate``, ROADMAP §A.2); HPO, telemetry,
@@ -125,14 +127,17 @@ def build_parser() -> argparse.ArgumentParser:
                              "rungs above the top width, streamed through K4 on a kernel "
                              "route")
 
-    # accepted at their defaults only: the features are not ported yet
     parser.add_argument("--compute_dtype", type=str, default="float32",
-                        choices=("float32", "bfloat16"))
+                        choices=("float32", "bfloat16"),
+                        help="the model's compute dtype (parameters stay f32)")
+    parser.add_argument("--adam_mu_dtype", type=str, default="float32",
+                        choices=("float32", "bfloat16"),
+                        help="storage of Adam's first moments (a resume must match)")
+
+    # accepted at their defaults only: the features are not ported yet
     parser.add_argument("--data_axis", type=int, default=1)
     parser.add_argument("--model_axis", type=int, default=1)
     parser.add_argument("--context_axis", type=int, default=1)
-    parser.add_argument("--adam_mu_dtype", type=str, default="float32",
-                        choices=("float32", "bfloat16"))
     parser.add_argument("--table_update", type=str, default="dense", choices=("dense", "lazy"))
     parser.add_argument("--stream_chunk_items", type=int, default=0)
     parser.add_argument("--feed_workers", type=int, default=0)

@@ -44,7 +44,10 @@
 //     accumulation, each operand split as x = hi + lo with hi = tf32(x)
 //     and acc += a_lo*b_hi + a_hi*b_lo + a_hi*b_hi: the dropped lo*lo term
 //     is < 2^-22 relative, so the result stays within f32 rounding of the
-//     plain f32 product (a single TF32 product would not: ~1e-3). The
+//     plain f32 product (a single TF32 product would not: ~1e-3). A
+//     widened bf16 row (K2 under compute_dtype="bfloat16", K3/K4 over a
+//     bf16 table) is exact in TF32, its lo is zero, and two products
+//     (a_hi*b_hi + a_hi*b_lo) give what three give. The
 //     tensor core truncates its sums, so the small products accumulate
 //     apart and the large one joins an f32 sum every kGroupK columns. A warp
 //     owns 16 contexts x every fourth 8-column tile of H. The padded row
@@ -65,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "pool.cuh"
 
 namespace {
@@ -82,12 +87,15 @@ constexpr int kNPass = 4;        // 8-column tiles a warp accumulates at once
 constexpr int kGroupK = 64;      // columns of x the tensor core sums before a rounded f32 add
 
 // K2's row source: rows gathered (and dequantized) before the kernel,
-// indexed by position b*L + l.
+// indexed by position b*L + l: f32, or bf16 under compute_dtype="bfloat16"
+// (_gather_rows casts the rows to the compute dtype, fused_encode_pool.py:
+// 771-777, and the split kernel widens them, :203-207).
+template <class T_>
 struct GatheredRows {
-  using T = float;
-  const float* gs;  // [B, L, Et]
-  const float* gp;  // [B, L, Ep]
-  const float* ge;  // [B, L, Et]
+  using T = T_;
+  const T* gs;  // [B, L, Et]
+  const T* gp;  // [B, L, Ep]
+  const T* ge;  // [B, L, Et]
   __host__ __device__ const void* base(int seg) const {
     return seg == 0 ? gs : (seg == 1 ? gp : ge);
   }
@@ -354,8 +362,10 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
 // tensor core truncates when it adds into an accumulator, so the two small
 // products sum apart (in `lo`, where truncation costs ~2^-11 less) and the
 // large one in `part` over kGroupK columns of x at a time, which then joins
-// `acc` by a rounded f32 add.
-template <int NP>
+// `acc` by a rounded f32 add. kExactX: every x is exact in TF32 (widened
+// bf16 rows: 8 significant bits), so x_lo = 0 and the x_lo*W_hi product
+// adds exactly zero; it is skipped, two products give what three give.
+template <int NP, bool kExactX>
 __device__ __forceinline__ void encode_cols(const float* __restrict__ x, int xs,
                                             const float* __restrict__ wt, int ws, int kt, int j0,
                                             float* enc, int r0, int H, bool first) {
@@ -380,17 +390,26 @@ __device__ __forceinline__ void encode_cols(const float* __restrict__ x, int xs,
 #pragma unroll 2
     for (int k = k0; k < min(k0 + kGroupK, kt); k += 8) {
       uint32_t ah[4], al[4], bh[NP][2], bl[NP][2];
-      split_tf32(xa[k], ah[0], al[0]);
-      split_tf32(xb[k], ah[1], al[1]);
-      split_tf32(xa[k + 4], ah[2], al[2]);
-      split_tf32(xb[k + 4], ah[3], al[3]);
+      if (kExactX) {
+        ah[0] = __float_as_uint(xa[k]);
+        ah[1] = __float_as_uint(xb[k]);
+        ah[2] = __float_as_uint(xa[k + 4]);
+        ah[3] = __float_as_uint(xb[k + 4]);
+      } else {
+        split_tf32(xa[k], ah[0], al[0]);
+        split_tf32(xb[k], ah[1], al[1]);
+        split_tf32(xa[k + 4], ah[2], al[2]);
+        split_tf32(xb[k + 4], ah[3], al[3]);
+      }
 #pragma unroll
       for (int p = 0; p < NP; ++p) {
         split_tf32(wk[(size_t)k * ws + 32 * p], bh[p][0], bl[p][0]);
         split_tf32(wk[(size_t)(k + 4) * ws + 32 * p], bh[p][1], bl[p][1]);
       }
+      if (!kExactX) {
 #pragma unroll
-      for (int p = 0; p < NP; ++p) mma_tf32(lo[p], al, bh[p][0], bh[p][1]);
+        for (int p = 0; p < NP; ++p) mma_tf32(lo[p], al, bh[p][0], bh[p][1]);
+      }
 #pragma unroll
       for (int p = 0; p < NP; ++p) mma_tf32(lo[p], ah, bl[p][0], bl[p][1]);
 #pragma unroll
@@ -419,7 +438,9 @@ __device__ __forceinline__ void encode_cols(const float* __restrict__ x, int xs,
 // enc[:, :H] (+)= x[:, k0:k0+kt] @ wt[0:kt, :] over the chunk's kChunk rows
 // on the tensor cores. kt is a multiple of 8; `first` starts the sum at
 // zero, else it continues from enc (W streamed in tiles). Warp w owns the
-// m-tiles w%2, w%2+2, ... and the column tiles w/2, w/2+4, ...
+// m-tiles w%2, w%2+2, ... and the column tiles w/2, w/2+4, ... kExactX as
+// for encode_cols.
+template <bool kExactX>
 __device__ __forceinline__ void encode_tile(const float* x, int xs, const float* wt, int ws, int k0,
                                             int kt, float* enc, int H, bool first) {
   const int warp = threadIdx.x >> 5, n_tiles = (H + 7) / 8;
@@ -427,16 +448,16 @@ __device__ __forceinline__ void encode_tile(const float* x, int xs, const float*
     for (int j0 = warp >> 1; j0 < n_tiles; j0 += 4 * kNPass) {
       switch (min(kNPass, (n_tiles - j0 + 3) / 4)) {  // the tiles of this pass, uniform in the warp
         case 4:
-          encode_cols<4>(x + k0, xs, wt, ws, kt, j0, enc, mt * 16, H, first);
+          encode_cols<4, kExactX>(x + k0, xs, wt, ws, kt, j0, enc, mt * 16, H, first);
           break;
         case 3:
-          encode_cols<3>(x + k0, xs, wt, ws, kt, j0, enc, mt * 16, H, first);
+          encode_cols<3, kExactX>(x + k0, xs, wt, ws, kt, j0, enc, mt * 16, H, first);
           break;
         case 2:
-          encode_cols<2>(x + k0, xs, wt, ws, kt, j0, enc, mt * 16, H, first);
+          encode_cols<2, kExactX>(x + k0, xs, wt, ws, kt, j0, enc, mt * 16, H, first);
           break;
         default:
-          encode_cols<1>(x + k0, xs, wt, ws, kt, j0, enc, mt * 16, H, first);
+          encode_cols<1, kExactX>(x + k0, xs, wt, ws, kt, j0, enc, mt * 16, H, first);
       }
     }
   }
@@ -522,6 +543,8 @@ __device__ __forceinline__ void stream_chunks(const Rows& rows, const Layout& ly
                                               const float* __restrict__ drop, Fold fold) {
   using T = typename Rows::T;
   constexpr bool kWiden = sizeof(T) != 4;
+  // a widened bf16 row is exact in TF32: two products (encode_cols)
+  constexpr bool kExactX = std::is_same<T, __nv_bfloat16>::value;
   const int b = blockIdx.y, S = gridDim.x, H = ly.H;
   const bool copier = threadIdx.x >= kThreads;
   // Zero the pad columns D..xs of the f32 rows and H..ws of W: no copy
@@ -568,7 +591,7 @@ __device__ __forceinline__ void stream_chunks(const Rows& rows, const Layout& ly
         encode_sync();
       }
       if (ly.resident) {
-        encode_tile(x, ly.xs, m.w, ly.ws, 0, ly.Dp, m.enc, H, true);
+        encode_tile<kExactX>(x, ly.xs, m.w, ly.ws, 0, ly.Dp, m.enc, H, true);
       } else {
         issue_w(W, ly, m.w, 0, kTileK, kThreads);
         commit();
@@ -583,8 +606,8 @@ __device__ __forceinline__ void stream_chunks(const Rows& rows, const Layout& ly
             wait_copies<0>();
           }
           encode_sync();
-          encode_tile(x, ly.xs, m.w + (size_t)(t % 2) * kTileK * ly.ws, ly.ws, k0,
-                      min(kTileK, ly.Dp - k0), m.enc, H, t == 0);
+          encode_tile<kExactX>(x, ly.xs, m.w + (size_t)(t % 2) * kTileK * ly.ws, ly.ws, k0,
+                               min(kTileK, ly.Dp - k0), m.enc, H, t == 0);
           encode_sync();
         }
       }
@@ -753,17 +776,27 @@ extern "C" {
 
 const char* c2v_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// K2: rows gathered before the kernel; K4's online kernel on S CTAs per
+// K2: rows gathered before the kernel, row_dtype 0 = f32, 1 = bf16 (widened
+// in shared memory, two TF32 products); K4's online kernel on S CTAs per
 // batch row (1 <= S <= chunks of kChunk), `part` the [B, S, H + 2]
 // workspace (unused when S == 1), `drop` the [B, L, H] keep mask or null.
 // Returns the launch's cudaError_t.
-int c2v_encode_pool_gathered(const float* gs, const float* gp, const float* ge,
+int c2v_encode_pool_gathered(int row_dtype, const void* gs, const void* gp, const void* ge,
                              const float* mask, const float* drop, const float* W,
                              const float* lns, const float* lnb, const float* attn, float* cv,
                              float* w, float* part, int B, int L, int Et, int Ep, int H, int S,
                              void* stream) {
-  return launch_stream(GatheredRows{gs, gp, ge}, 0, mask, drop, W, lns, lnb, attn, cv, w, part,
-                       nullptr, B, L, Et, Ep, H, S, stream);
+  if (row_dtype == 1) {
+    using R = GatheredRows<__nv_bfloat16>;
+    return launch_stream(R{(const __nv_bfloat16*)gs, (const __nv_bfloat16*)gp,
+                           (const __nv_bfloat16*)ge},
+                         0, mask, drop, W, lns, lnb, attn, cv, w, part, nullptr, B, L, Et, Ep, H,
+                         S, stream);
+  }
+  if (row_dtype != 0) return (int)cudaErrorInvalidValue;
+  using R = GatheredRows<float>;
+  return launch_stream(R{(const float*)gs, (const float*)gp, (const float*)ge}, 0, mask, drop, W,
+                       lns, lnb, attn, cv, w, part, nullptr, B, L, Et, Ep, H, S, stream);
 }
 
 // K3: rows gathered in the kernel. table_dtype: 0 = f32, 1 = bf16,

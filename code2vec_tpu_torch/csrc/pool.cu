@@ -3,8 +3,11 @@
 //
 // Replaces code2vec_tpu/ops/pallas_attention.py:_forward (pl.pallas_call
 // at :114, kernel _make_kernel :63, body _tile_pool :38), the kernel of
-// pallas_impl="pool_only". In: ctx [B, L, H] f32, mask [B, L] f32,
-// a [H] f32. Out: cv [B, H] f32, w [B, L] f32.
+// pallas_impl="pool_only". In: ctx [B, L, H] and a [H], both f32 or both
+// bf16 (the model's compute dtype), mask [B, L] f32. Out: cv [B, H] f32,
+// w [B, L] f32. bf16 is read as it is (8 bytes where f32 takes 16) and
+// widened on load, as _tile_pool widens its tile and the attention vector
+// (:50, :97); everything after the load is the f32 arithmetic.
 //
 // Semantics (code2vec_tpu/ops/attention.py): s = <ctx_l, a>; a masked slot
 // scores the FINITE sentinel NINF via s*m + (1-m)*NINF; softmax over the
@@ -22,7 +25,8 @@
 // - a CTA is kWarps warps. A warp takes in_flight(N) whole contexts at a
 //   time straight into registers, each lane holding N float4 slices of a
 //   context (H = 100: 25 lanes, one float4 each; H = 300: three), with
-//   16-byte loads when H % 4 == 0 and scalar loads otherwise. It scores
+//   16-byte loads (8 for bf16) when H % 4 == 0 and scalar loads otherwise.
+//   It scores
 //   them with a warp sum and folds them into its own online softmax state
 //   (max m, denominator d, acc[H]) in registers; the raw scores go to
 //   shared memory (to w when a CTA's share of the bag does not fit);
@@ -36,7 +40,10 @@
 // The TPU kernel's batch tiles of 8 and 128-lane bag padding exist for
 // the TPU's vector unit and are not copied.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "pool.cuh"
 
@@ -45,6 +52,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 using c2v::kNinf;
+using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 8;                // warps per CTA
 constexpr int kThreads = 32 * kWarps;
@@ -62,34 +70,125 @@ __host__ __device__ constexpr size_t partial_floats(int H) {
   return (size_t)(kWarps + 1) * (H + 2) + kMaxCluster + 2;
 }
 
-// Lane `lane`'s N float4 slices of a row of H floats: slice k holds
-// elements 4 * (lane + 32 k) .. + 3, zero past H.
-template <int N>
-__device__ __forceinline__ void load_slices(const float* __restrict__ row, int H, bool vec,
-                                            int lane, float4 (&x)[N]) {
+// One element, or four consecutive ones (one 16-byte f32 or 8-byte bf16
+// load), of global memory widened to f32: a bf16 value is the top half of
+// its f32 (little-endian, the lower address in the low half of a word).
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const bf16* p) {
+  return __uint_as_float((uint32_t)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// The same stores, a bf16 output rounded to nearest even (as astype rounds).
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+}
+
+// Lane `lane`'s N float4 slices of a row of H elements (f32 or bf16,
+// widened): slice k holds elements 4 * (lane + 32 k) .. + 3, zero past H.
+template <class T, int N>
+__device__ __forceinline__ void load_slices(const T* __restrict__ row, int H, bool vec, int lane,
+                                            float4 (&x)[N]) {
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const int e = 4 * (lane + 32 * k);
     if (vec) {
-      x[k] = e < H ? __ldg(reinterpret_cast<const float4*>(row + e)) : make_float4(0, 0, 0, 0);
+      x[k] = e < H ? load4(row + e) : make_float4(0, 0, 0, 0);
     } else {
-      x[k].x = e < H ? __ldg(row + e) : 0.f;
-      x[k].y = e + 1 < H ? __ldg(row + e + 1) : 0.f;
-      x[k].z = e + 2 < H ? __ldg(row + e + 2) : 0.f;
-      x[k].w = e + 3 < H ? __ldg(row + e + 3) : 0.f;
+      x[k].x = e < H ? load1(row + e) : 0.f;
+      x[k].y = e + 1 < H ? load1(row + e + 1) : 0.f;
+      x[k].z = e + 2 < H ? load1(row + e + 2) : 0.f;
+      x[k].w = e + 3 < H ? load1(row + e + 3) : 0.f;
     }
   }
 }
 
-template <int N>
-__device__ __forceinline__ void store_slices(float* row, int H, int lane, const float4 (&x)[N]) {
+// Four consecutive elements as stored (a float4 of f32, a uint2 of four
+// bf16), loaded as they are and widened apart from the load.
+template <class T>
+struct QuadOf;
+template <>
+struct QuadOf<float> {
+  using type = float4;
+};
+template <>
+struct QuadOf<bf16> {
+  using type = uint2;
+};
+template <class T>
+using Quad = typename QuadOf<T>::type;
+
+__device__ __forceinline__ float4 load_quad(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ uint2 load_quad(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ float4 widen4(float4 v) { return v; }
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Lane `lane`'s slices (as load_slices) of the U contexts cb .. cb+U-1 of a
+// batch row starting at row `row0`, each clamped to `last`. With vector
+// loads every load is issued before any value is used: bf16 arrives as raw
+// words and is widened only after the last load, since a widen placed
+// between the loads would wait for its own and hold the next back (the warp
+// issues in order), so one round trip serves the U contexts.
+template <class T, int U, int N>
+__device__ __forceinline__ void load_contexts(const T* __restrict__ ctx, size_t row0, int cb,
+                                              int last, int H, bool vec, int lane,
+                                              float4 (&x)[U][N]) {
+  if (!vec) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      load_slices<T, N>(ctx + (row0 + min(cb + u, last)) * H, H, false, lane, x[u]);
+    }
+    return;
+  }
+  Quad<T> r[U][N];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const T* row = ctx + (row0 + min(cb + u, last)) * H;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const int e = 4 * (lane + 32 * k);
+      r[u][k] = e < H ? load_quad(row + e) : Quad<T>{};
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) x[u][k] = widen4(r[u][k]);
+  }
+}
+
+template <class T, int N>
+__device__ __forceinline__ void store_slices(T* row, int H, int lane, const float4 (&x)[N]) {
 #pragma unroll
   for (int k = 0; k < N; ++k) {
     const int e = 4 * (lane + 32 * k);
-    if (e < H) row[e] = x[k].x;
-    if (e + 1 < H) row[e + 1] = x[k].y;
-    if (e + 2 < H) row[e + 2] = x[k].z;
-    if (e + 3 < H) row[e + 3] = x[k].w;
+    if (e < H) store1(row + e, x[k].x);
+    if (e + 1 < H) store1(row + e + 1, x[k].y);
+    if (e + 2 < H) store1(row + e + 2, x[k].z);
+    if (e + 3 < H) store1(row + e + 3, x[k].w);
   }
 }
 
@@ -98,9 +197,9 @@ __device__ __forceinline__ float rescale(float m, float M) {
   return m == -INFINITY ? 0.f : expf(m - M);
 }
 
-template <int N>
+template <class T, int N>
 __global__ void __launch_bounds__(kThreads) pool_kernel(
-    const float* __restrict__ ctx, const float* __restrict__ mask, const float* __restrict__ attn,
+    const T* __restrict__ ctx, const float* __restrict__ mask, const T* __restrict__ attn,
     float* __restrict__ cv, float* __restrict__ w, int L, int H, int per_cta, bool vec,
     bool scores_in_smem) {
   constexpr int U = in_flight(N);
@@ -119,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) pool_kernel(
   if (one_warp && warp != 0) return;
 
   float4 a[N];
-  load_slices<N>(attn, H, vec, lane, a);
+  load_slices<T, N>(attn, H, vec, lane, a);
   const float* row_mask = mask + (size_t)b * L;
   float m = -INFINITY, d = 0.f;
   float4 acc[N];
@@ -130,10 +229,7 @@ __global__ void __launch_bounds__(kThreads) pool_kernel(
     // every load of the step is issued before any is used
     // (a slot past the CTA's share reloads its last context and scores -inf)
     float4 x[U][N];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      load_slices<N>(ctx + ((size_t)b * L + min(cb + u, c1 - 1)) * H, H, vec, lane, x[u]);
-    }
+    load_contexts<T, U, N>(ctx, (size_t)b * L, cb, c1 - 1, H, vec, lane, x);
     const float mk_lane = lane < U && cb + lane < c1 ? __ldg(row_mask + cb + lane) : 0.f;
     float s[U];
     float mx = m;
@@ -194,7 +290,7 @@ __global__ void __launch_bounds__(kThreads) pool_kernel(
 
   // the warps' partials -> the CTA's partial
   float* mine = part + (size_t)warp * (H + 2);
-  store_slices<N>(mine, H, lane, acc);
+  store_slices<float, N>(mine, H, lane, acc);
   if (lane == 0) {
     mine[H] = m;
     mine[H + 1] = d;
@@ -257,8 +353,8 @@ __global__ void __launch_bounds__(kThreads) pool_kernel(
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-template <int N>
-cudaError_t launch(const float* ctx, const float* mask, const float* attn, float* cv, float* w,
+template <class T, int N>
+cudaError_t launch(const T* ctx, const float* mask, const T* attn, float* cv, float* w,
                    int B, int L, int H, int ctas, bool vec, cudaStream_t stream) {
   const int per_cta = (L + ctas - 1) / ctas;
   size_t smem = sizeof(float) * partial_floats(H);
@@ -266,12 +362,12 @@ cudaError_t launch(const float* ctx, const float* mask, const float* attn, float
   if (scores_in_smem) smem += sizeof(float) * per_cta;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pool_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        pool_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   if (ctas == 1) {  // a row of one CTA needs no cluster
-    pool_kernel<N><<<dim3(1, B), kThreads, smem, stream>>>(ctx, mask, attn, cv, w, L, H,
-                                                           per_cta, vec, scores_in_smem);
+    pool_kernel<T, N><<<dim3(1, B), kThreads, smem, stream>>>(ctx, mask, attn, cv, w, L, H,
+                                                              per_cta, vec, scores_in_smem);
     return cudaSuccess;
   }
   cudaLaunchConfig_t cfg = {};
@@ -286,15 +382,17 @@ cudaError_t launch(const float* ctx, const float* mask, const float* attn, float
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, pool_kernel<N>, ctx, mask, attn, cv, w, L, H, per_cta, vec,
-                            scores_in_smem);
+  return cudaLaunchKernelEx(&cfg, pool_kernel<T, N>, ctx, mask, attn, cv, w, L, H, per_cta,
+                            vec, scores_in_smem);
 }
 
 // K1b: the pool's backward, the closed-form softmax VJP over the saved
 // weights that the JAX package leaves to XLA (_pool_bwd,
-// code2vec_tpu/ops/pallas_attention.py:224-250). In: ctx [B, L, H], mask
-// [B, L], a [H], the forward's w [B, L], g_cv [B, H], g_w [B, L] or null.
-// Out: d_ctx [B, L, H] and d_attn_part [B * S, H], one partial of
+// code2vec_tpu/ops/pallas_attention.py:224-250). In: ctx [B, L, H] and a
+// [H], both f32 or both bf16, mask [B, L], the forward's w [B, L], g_cv
+// [B, H], g_w [B, L] or null (all f32). Out: d_ctx [B, L, H] in ctx's dtype (bf16
+// rounded to nearest even, as :247 casts; the arithmetic is f32 on the
+// widened contexts) and d_attn_part [B * S, H] f32, one partial of
 // d_attn = sum_{b,l} ds ctx per CTA, which the caller sums in a fixed
 // order (no float atomics, so a call is bitwise repeatable).
 //
@@ -346,12 +444,12 @@ __host__ __device__ constexpr size_t bwd_head_floats(int H) {
   return (size_t)kWarps * ((H + 3) / 4 * 4) + 12;
 }
 
-template <int N>
+template <class T, int N>
 __global__ void __launch_bounds__(kThreads) pool_bwd_kernel(
-    const float* __restrict__ ctx, const float* __restrict__ mask, const float* __restrict__ attn,
+    const T* __restrict__ ctx, const float* __restrict__ mask, const T* __restrict__ attn,
     const float* __restrict__ w, const float* __restrict__ g_cv, const float* __restrict__ g_w,
-    float* __restrict__ d_ctx, float* __restrict__ d_attn_part, int L, int H, int per_cta,
-    bool vec, bool keep_rows) {
+    T* __restrict__ d_ctx, float* __restrict__ d_attn_part, int L, int H, int per_cta, bool vec,
+    bool keep_rows) {
   constexpr int U = in_flight(N);
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), n_cta = (int)cluster.num_blocks();
@@ -361,19 +459,16 @@ __global__ void __launch_bounds__(kThreads) pool_bwd_kernel(
   float* part = bwd_smem;                                // [kWarps][hs] d_attn partials
   float* stat = part + (size_t)kWarps * hs;              // [kWarps] warps' T, CTA's, row's
   float* dl = bwd_smem + bwd_head_floats(H);             // [per_cta] dldw
-  float* rows = dl + (per_cta + 3) / 4 * 4;              // [per_cta][hs] kept contexts
+  float* rows = dl + (per_cta + 3) / 4 * 4;              // [per_cta][hs] kept contexts, f32
   const int c0 = min(L, rank * per_cta), c1 = min(L, c0 + per_cta);
   const size_t row0 = (size_t)b * L;
 
   float4 gv[N];
-  load_slices<N>(g_cv + (size_t)b * H, H, vec, lane, gv);
+  load_slices<float, N>(g_cv + (size_t)b * H, H, vec, lane, gv);
   float t = 0.f;  // the same in every lane
   for (int cb = c0 + warp * U; cb < c1; cb += kWarps * U) {
     float4 x[U][N];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      load_slices<N>(ctx + (row0 + min(cb + u, c1 - 1)) * H, H, vec, lane, x[u]);
-    }
+    load_contexts<T, U, N>(ctx, row0, cb, c1 - 1, H, vec, lane, x);
     const bool mine = lane < U && cb + lane < c1;
     const float w_lane = mine ? __ldg(w + row0 + cb + lane) : 0.f;
     const float gw_lane = mine && g_w ? __ldg(g_w + row0 + cb + lane) : 0.f;
@@ -384,7 +479,7 @@ __global__ void __launch_bounds__(kThreads) pool_bwd_kernel(
       if (cb + u < c1) {
         t = fmaf(__shfl_sync(0xffffffffu, w_lane, u), d, t);
         if (lane == 0) dl[cb + u - c0] = d;
-        if (keep_rows) store_slices<N>(rows + (size_t)(cb + u - c0) * hs, H, lane, x[u]);
+        if (keep_rows) store_slices<float, N>(rows + (size_t)(cb + u - c0) * hs, H, lane, x[u]);
       }
     }
   }
@@ -407,22 +502,21 @@ __global__ void __launch_bounds__(kThreads) pool_bwd_kernel(
     asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
   }
   __syncthreads();
-  const float T = stat[kWarps + 1];
+  const float t_row = stat[kWarps + 1];  // T
 
   float4 a[N], acc[N];
-  load_slices<N>(attn, H, vec, lane, a);
+  load_slices<T, N>(attn, H, vec, lane, a);
 #pragma unroll
   for (int k = 0; k < N; ++k) acc[k] = make_float4(0, 0, 0, 0);
   for (int cb = c0 + warp * U; cb < c1; cb += kWarps * U) {
     float4 x[U][N];
+    if (keep_rows) {
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int c = min(cb + u, c1 - 1);
-      if (keep_rows) {
-        load_shared_slices<N>(rows + (size_t)(c - c0) * hs, H, vec, lane, x[u]);
-      } else {
-        load_slices<N>(ctx + (row0 + c) * H, H, vec, lane, x[u]);
+      for (int u = 0; u < U; ++u) {
+        load_shared_slices<N>(rows + (size_t)(min(cb + u, c1 - 1) - c0) * hs, H, vec, lane, x[u]);
       }
+    } else {
+      load_contexts<T, U, N>(ctx, row0, cb, c1 - 1, H, vec, lane, x);
     }
     const bool mine = lane < U && cb + lane < c1;
     const float w_lane = mine ? __ldg(w + row0 + cb + lane) : 0.f;
@@ -431,7 +525,7 @@ __global__ void __launch_bounds__(kThreads) pool_bwd_kernel(
     for (int u = 0; u < U; ++u) {
       if (cb + u >= c1) break;  // uniform over the warp
       const float wl = __shfl_sync(0xffffffffu, w_lane, u);
-      const float ds = wl * (dl[cb + u - c0] - T) * __shfl_sync(0xffffffffu, m_lane, u);
+      const float ds = wl * (dl[cb + u - c0] - t_row) * __shfl_sync(0xffffffffu, m_lane, u);
       float4 y[N];
 #pragma unroll
       for (int k = 0; k < N; ++k) {
@@ -442,19 +536,19 @@ __global__ void __launch_bounds__(kThreads) pool_bwd_kernel(
         acc[k].z = fmaf(ds, x[u][k].z, acc[k].z);
         acc[k].w = fmaf(ds, x[u][k].w, acc[k].w);
       }
-      float* out = d_ctx + (row0 + cb + u) * H;
+      T* out = d_ctx + (row0 + cb + u) * H;
       if (vec) {
 #pragma unroll
         for (int k = 0; k < N; ++k) {
           const int e = 4 * (lane + 32 * k);
-          if (e < H) *reinterpret_cast<float4*>(out + e) = y[k];
+          if (e < H) store4(out + e, y[k]);
         }
       } else {
-        store_slices<N>(out, H, lane, y);
+        store_slices<T, N>(out, H, lane, y);
       }
     }
   }
-  store_slices<N>(part + (size_t)warp * hs, H, lane, acc);
+  store_slices<float, N>(part + (size_t)warp * hs, H, lane, acc);
   __syncthreads();
   for (int h = threadIdx.x; h < H; h += kThreads) {
     float v = 0.f;
@@ -465,10 +559,10 @@ __global__ void __launch_bounds__(kThreads) pool_bwd_kernel(
   if (n_cta > 1) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-template <int N>
-cudaError_t launch_bwd(const float* ctx, const float* mask, const float* attn, const float* w,
-                       const float* g_cv, const float* g_w, float* d_ctx, float* d_attn_part,
-                       int B, int L, int H, int ctas, bool vec, cudaStream_t stream) {
+template <class T, int N>
+cudaError_t launch_bwd(const T* ctx, const float* mask, const T* attn, const float* w,
+                       const float* g_cv, const float* g_w, T* d_ctx, float* d_attn_part, int B,
+                       int L, int H, int ctas, bool vec, cudaStream_t stream) {
   const int per_cta = (L + ctas - 1) / ctas;
   const int hs = (H + 3) / 4 * 4;
   size_t smem = sizeof(float) * (bwd_head_floats(H) + (size_t)(per_cta + 3) / 4 * 4);
@@ -477,11 +571,11 @@ cudaError_t launch_bwd(const float* ctx, const float* mask, const float* attn, c
   if (keep_rows) smem += sizeof(float) * (size_t)per_cta * hs;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pool_bwd_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        pool_bwd_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   if (ctas == 1) {
-    pool_bwd_kernel<N><<<dim3(1, B), kThreads, smem, stream>>>(
+    pool_bwd_kernel<T, N><<<dim3(1, B), kThreads, smem, stream>>>(
         ctx, mask, attn, w, g_cv, g_w, d_ctx, d_attn_part, L, H, per_cta, vec, keep_rows);
     return cudaSuccess;
   }
@@ -497,8 +591,52 @@ cudaError_t launch_bwd(const float* ctx, const float* mask, const float* attn, c
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, pool_bwd_kernel<N>, ctx, mask, attn, w, g_cv, g_w, d_ctx,
+  return cudaLaunchKernelEx(&cfg, pool_bwd_kernel<T, N>, ctx, mask, attn, w, g_cv, g_w, d_ctx,
                             d_attn_part, L, H, per_cta, vec, keep_rows);
+}
+
+// Vector loads need H % 4 == 0 and every vector-read row aligned to its
+// four elements: 16 bytes for f32, 8 for bf16 contexts.
+template <class T>
+bool aligned4(const T* p) {
+  return (uintptr_t)p % (4 * sizeof(T)) == 0;
+}
+
+// The launch of N slices a lane for H: (H + 127) / 128 slices, 8 above 4.
+template <class F>
+cudaError_t with_slices(int H, F f) {
+  switch ((H + 127) / 128) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 3: return f(std::integral_constant<int, 3>());
+    case 4: return f(std::integral_constant<int, 4>());
+    default: return f(std::integral_constant<int, 8>());
+  }
+}
+
+template <class T>
+int pool_backward(const T* ctx, const float* mask, const T* attn, const float* w,
+                  const float* g_cv, const float* g_w, T* d_ctx, float* d_attn_part, int B, int L,
+                  int H, int ctas, cudaStream_t s) {
+  const bool vec = H % 4 == 0 && aligned4(ctx) && aligned4(attn) && aligned4(g_cv) &&
+                   aligned4(d_ctx);
+  const cudaError_t err = with_slices(H, [&](auto n) {
+    return launch_bwd<T, decltype(n)::value>(ctx, mask, attn, w, g_cv, g_w, d_ctx, d_attn_part,
+                                             B, L, H, ctas, vec, s);
+  });
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int pool_forward(const T* ctx, const float* mask, const T* attn, float* cv, float* w, int B,
+                 int L, int H, int ctas, cudaStream_t s) {
+  const bool vec = H % 4 == 0 && aligned4(ctx) && aligned4(attn);
+  const cudaError_t err = with_slices(H, [&](auto n) {
+    return launch<T, decltype(n)::value>(ctx, mask, attn, cv, w, B, L, H, ctas, vec, s);
+  });
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -508,56 +646,41 @@ extern "C" {
 const char* c2v_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 // Launch K1b on `stream`: `ctas` CTAs (one cluster) per batch row, as K1.
-// g_w may be null. d_attn_part is [B * ctas, H]. Returns a cudaError_t, or
-// the negated code of an error already pending before the launch.
-int c2v_pool_backward(const float* ctx, const float* mask, const float* attn, const float* w,
-                      const float* g_cv, const float* g_w, float* d_ctx, float* d_attn_part,
-                      int B, int L, int H, int ctas, void* stream) {
+// ctx_dtype: 0 = f32, 1 = bf16 (ctx, attn and d_ctx); g_w may be null.
+// d_attn_part is [B * ctas, H] f32. Returns a cudaError_t, or the negated
+// code of an error already pending before the launch.
+int c2v_pool_backward(int ctx_dtype, const void* ctx, const float* mask, const void* attn,
+                      const float* w, const float* g_cv, const float* g_w, void* d_ctx,
+                      float* d_attn_part, int B, int L, int H, int ctas, void* stream) {
   if (B < 1 || B > 65535 || L < 1 || H < 1 || H > 128 * kMaxSlices || ctas < 1 ||
-      ctas > kMaxCluster) {
+      ctas > kMaxCluster || (ctx_dtype != 0 && ctx_dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   if (const int pending = c2v::pending_error()) return pending;
-  const bool vec = H % 4 == 0 && (uintptr_t)ctx % 16 == 0 && (uintptr_t)attn % 16 == 0 &&
-                   (uintptr_t)g_cv % 16 == 0 && (uintptr_t)d_ctx % 16 == 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-#define C2V_BWD(n) \
-  launch_bwd<n>(ctx, mask, attn, w, g_cv, g_w, d_ctx, d_attn_part, B, L, H, ctas, vec, s)
-  switch ((H + 127) / 128) {
-    case 1: err = C2V_BWD(1); break;
-    case 2: err = C2V_BWD(2); break;
-    case 3: err = C2V_BWD(3); break;
-    case 4: err = C2V_BWD(4); break;
-    default: err = C2V_BWD(8); break;
+  if (ctx_dtype == 1) {
+    return pool_backward((const bf16*)ctx, mask, (const bf16*)attn, w, g_cv, g_w, (bf16*)d_ctx,
+                         d_attn_part, B, L, H, ctas, s);
   }
-#undef C2V_BWD
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return pool_backward((const float*)ctx, mask, (const float*)attn, w, g_cv, g_w, (float*)d_ctx,
+                       d_attn_part, B, L, H, ctas, s);
 }
 
 // Launch K1 on `stream`: one kernel, `ctas` CTAs (one cluster) per batch
-// row. Returns a cudaError_t, or the negated code of an error already
-// pending before the launch.
-int c2v_pool_forward(const float* ctx, const float* mask, const float* attn, float* cv,
-                     float* w, int B, int L, int H, int ctas, void* stream) {
+// row; ctx_dtype: 0 = f32, 1 = bf16 (ctx and attn). Returns a cudaError_t,
+// or the negated code of an error already pending before the launch.
+int c2v_pool_forward(int ctx_dtype, const void* ctx, const float* mask, const void* attn,
+                     float* cv, float* w, int B, int L, int H, int ctas, void* stream) {
   if (B < 1 || B > 65535 || L < 1 || H < 1 || H > 128 * kMaxSlices || ctas < 1 ||
-      ctas > kMaxCluster) {
+      ctas > kMaxCluster || (ctx_dtype != 0 && ctx_dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   if (const int pending = c2v::pending_error()) return pending;
-  const bool vec = H % 4 == 0 && (uintptr_t)ctx % 16 == 0 && (uintptr_t)attn % 16 == 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  switch ((H + 127) / 128) {
-    case 1: err = launch<1>(ctx, mask, attn, cv, w, B, L, H, ctas, vec, s); break;
-    case 2: err = launch<2>(ctx, mask, attn, cv, w, B, L, H, ctas, vec, s); break;
-    case 3: err = launch<3>(ctx, mask, attn, cv, w, B, L, H, ctas, vec, s); break;
-    case 4: err = launch<4>(ctx, mask, attn, cv, w, B, L, H, ctas, vec, s); break;
-    default: err = launch<8>(ctx, mask, attn, cv, w, B, L, H, ctas, vec, s); break;
+  if (ctx_dtype == 1) {
+    return pool_forward((const bf16*)ctx, mask, (const bf16*)attn, cv, w, B, L, H, ctas, s);
   }
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return pool_forward((const float*)ctx, mask, (const float*)attn, cv, w, B, L, H, ctas, s);
 }
 
 }  // extern "C"

@@ -31,6 +31,18 @@ forward and before K1, and inside K2-K4 (the JAX model's ``drop_mask``,
 JAX's. Every route has a backward: K1b under K1, the recomputed plain
 formulation under K2-K4. Quantized tables serve only: a training forward
 with ``table_dtype != "f32"`` raises.
+
+``dtype=torch.bfloat16`` is the JAX model's bf16 compute, with its casts
+made explicit (no ``torch.autocast``, whose op lists differ): the gathered
+rows and the encoder weight cast to bf16 and the encode in bf16, LayerNorm
+in f32 on the widened contexts and cast back, tanh and the keep mask in
+bf16 (``enc * drop.to(bf16)``), the pool in bf16 with the attention vector
+cast to bf16 (K1/K1b over the bf16 contexts on ``pool_only``, K2 over bf16
+rows on ``gather_split``, ``fused`` unchanged), and the code vector cast to
+f32 for the f32 head. The plain route's keep mask differs from flax
+``nn.Dropout``'s ``x / keep`` by the bf16 rounding of ``1/keep`` (at most
+0.2%), a difference of the stream as the draw's is. Parameters, gradients
+and the head stay f32.
 """
 
 from __future__ import annotations
@@ -44,7 +56,7 @@ import torch.nn.functional as F
 
 from code2vec_tpu_torch.ops.attention import attention_pool, streaming_attention_pool
 from code2vec_tpu_torch.ops.embed import embedding_lookup
-from code2vec_tpu_torch.ops.fused_encode_pool import DEFAULT_CHUNK_L, LN_EPS
+from code2vec_tpu_torch.ops.fused_encode_pool import COMPUTE_DTYPES, DEFAULT_CHUNK_L, LN_EPS
 from code2vec_tpu_torch.ops.quant import TABLE_DTYPES, QuantTable, dequantize_rows
 
 PALLAS_IMPLS = ("pool_only", "gather_split", "fused")
@@ -63,6 +75,7 @@ class Code2VecConfig:
     angular_margin_loss: bool = False
     angular_margin: float = 0.5
     inverse_temp: float = 30.0
+    dtype: torch.dtype = torch.float32  # compute dtype: float32 or bfloat16
     # the kernel routes of the forward (the JAX names are kept): "pool_only"
     # (K1), "gather_split" (K2), "fused" (K3)
     use_pallas: bool = False
@@ -107,6 +120,8 @@ class Code2Vec(nn.Module):
             raise ValueError(
                 f"unknown pallas_impl {c.pallas_impl!r}: expected one of {PALLAS_IMPLS}"
             )
+        if c.dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"unknown compute dtype {c.dtype}: expected one of {COMPUTE_DTYPES}")
         if c.pallas_softmax not in PALLAS_SOFTMAX:
             raise ValueError(
                 f"unknown pallas_softmax {c.pallas_softmax!r}: expected one of {PALLAS_SOFTMAX}"
@@ -168,7 +183,8 @@ class Code2Vec(nn.Module):
         return g
 
     def _keep_mask(self, shape, device) -> torch.Tensor | None:
-        """The pre-scaled keep mask of a training forward, or None."""
+        """The pre-scaled keep mask of a training forward (f32, one draw on
+        every route and in every compute dtype), or None."""
         p = self.config.dropout_prob
         if not (self.training and 0.0 < p < 1.0):
             return None
@@ -250,6 +266,7 @@ class Code2Vec(nn.Module):
                 self._dense_kernel(), self.input_layer_norm.weight,
                 self.input_layer_norm.bias, self.attention_parameter, drop,
                 impl=impl, chunk_l=c.pallas_chunk_l, softmax_mode=softmax_mode,
+                compute_dtype=c.dtype,
             )
         else:
             code_vector, attention = self._unfused_forward(
@@ -262,41 +279,50 @@ class Code2Vec(nn.Module):
         return logits, code_vector, attention
 
     def _lookup(self, store, ids: torch.Tensor) -> torch.Tensor:
+        """Rows at ``ids`` in the compute dtype (a gather, then the cast)."""
         if isinstance(store, QuantTable):
-            return dequantize_rows(store, ids)
-        return embedding_lookup(store, ids)
+            return dequantize_rows(store, ids).to(self.config.dtype)
+        return embedding_lookup(store, ids).to(self.config.dtype)
 
     def _unfused_forward(self, t_store, p_store, starts, paths, ends, mask, impl):
-        """Plain gather + encode; the pool is K1 (``pool_only``) or plain."""
+        """Plain gather + encode; the pool is K1 (``pool_only``) or plain.
+        In the compute dtype ``cd`` as the JAX model: the encode (weight
+        cast to ``cd``), LayerNorm in f32 cast back, tanh, keep mask and
+        pool in ``cd``; the code vector is returned in f32."""
         c = self.config
+        cd = c.dtype
         e_start = self._lookup(t_store, starts)
         e_path = self._lookup(p_store, paths)
         e_end = self._lookup(t_store, ends)
         if c.encoder_impl == "split":
-            kern = self._dense_kernel()
+            kern = self._dense_kernel().to(cd)
             et, ep = e_start.shape[-1], e_path.shape[-1]
             contexts = e_start @ kern[:et] + e_path @ kern[et:et + ep] + e_end @ kern[et + ep:]
         elif c.encoder_impl == "concat":
-            contexts = self.input_linear(torch.cat([e_start, e_path, e_end], dim=-1))
+            contexts = F.linear(torch.cat([e_start, e_path, e_end], dim=-1),
+                                self.input_linear.weight.to(cd))
         else:
             raise ValueError(
                 f"unknown encoder_impl {c.encoder_impl!r}: expected 'concat' or 'split'"
             )
-        contexts = torch.tanh(self.input_layer_norm(contexts))
+        contexts = torch.tanh(self.input_layer_norm(contexts.float()).to(cd))
         drop = self._keep_mask(contexts.shape, contexts.device)
         if drop is not None:
-            contexts = contexts * drop
+            contexts = contexts * drop.to(cd)
+        attn = self.attention_parameter.to(cd)
         if impl == "pool_only":
             from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel
 
-            return attention_pool_kernel(contexts, mask, self.attention_parameter)
-        if c.attn_impl == "streaming":
-            return streaming_attention_pool(contexts, mask, self.attention_parameter)
-        if c.attn_impl == "xla":
-            return attention_pool(contexts, mask, self.attention_parameter)
-        raise ValueError(
-            f"unknown attn_impl {c.attn_impl!r}: expected 'xla' or 'streaming'"
-        )
+            code_vector, attention = attention_pool_kernel(contexts, mask, attn)
+        elif c.attn_impl == "streaming":
+            code_vector, attention = streaming_attention_pool(contexts, mask, attn)
+        elif c.attn_impl == "xla":
+            code_vector, attention = attention_pool(contexts, mask, attn)
+        else:
+            raise ValueError(
+                f"unknown attn_impl {c.attn_impl!r}: expected 'xla' or 'streaming'"
+            )
+        return code_vector.float(), attention
 
     def _angular_margin_head(self, code_vector, labels):
         """ArcFace-style head (model/model.py:71-80). Norms get ``+1e-12``

@@ -5,6 +5,9 @@ Counterpart of ``code2vec_tpu/ops/attention.py``: one learned vector
 sentinel, softmax over the bag axis, and the weighted sum is the code
 vector. These are the plain PyTorch versions (and the pool's closed-form
 backward); the hand kernels of the same pool are ``ops/pool_kernel.py``.
+The pools keep the contexts' dtype as the JAX ones do: over bf16 contexts
+(and a bf16 ``attn_param``) the scores and the code vector are bf16
+einsums, the softmax is f32 and its weights are cast to bf16 for the sum.
 """
 
 from __future__ import annotations
@@ -50,14 +53,18 @@ def pool_backward_reference(
     g_w: torch.Tensor | None = None,  # [B, L]
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(d_contexts [B, L, E], d_attn [E])`` of :func:`attention_pool`
-    from the saved weights, in f32: the closed-form softmax VJP of the JAX
-    pool kernel's backward (``code2vec_tpu/ops/pallas_attention.py:224-250``).
+    from the saved weights: the closed-form softmax VJP of the JAX pool
+    kernel's backward (``code2vec_tpu/ops/pallas_attention.py:224-250``),
+    computed in f32 on the widened contexts; ``d_contexts`` is rounded to
+    the contexts' dtype (bf16 contexts get bf16, as ``:247`` casts) and
+    ``d_attn`` stays f32.
 
     - ``dldw = g_cv . ctx_l + g_w``;
     - ``ds = w (dldw - sum_k w_k dldw_k) mask``;
     - ``d_ctx = w g_cv + ds a``;  ``d_attn = sum_{b,l} ds ctx``.
 
-    The mask gets no gradient. This is the plain version of K1b."""
+    The mask gets no gradient. This is the plain version of K1b, for f32
+    and bf16 contexts."""
     ctx = contexts.float()
     g_cv = g_cv.float()
     dldw = torch.einsum("be,ble->bl", g_cv, ctx)
@@ -66,7 +73,7 @@ def pool_backward_reference(
     ds = weights * (dldw - (weights * dldw).sum(dim=-1, keepdim=True)) * mask.float()
     d_ctx = weights[..., None] * g_cv[:, None, :] + ds[..., None] * attn_param.float()
     d_attn = torch.einsum("bl,ble->e", ds, ctx)
-    return d_ctx, d_attn
+    return d_ctx.to(contexts.dtype), d_attn
 
 
 def streaming_attention_pool(

@@ -47,8 +47,16 @@ op's ``_op_bwd``: :class:`_EncodePool` saves only the primal inputs and
 its backward recomputes :func:`reference_forward` under autograd, giving
 the gradients of ``dense_kernel``, ``ln_scale``, ``ln_bias``,
 ``attn_param`` and, for f32 tables, both tables. Like the JAX one it is
-not a kernel. bf16 compute and the ``off_se``/``off_p`` offsets of the
-lazy table optimizer are not ported yet (ROADMAP §A.2).
+not a kernel. The ``off_se``/``off_p`` offsets of the lazy table optimizer
+are not ported yet (ROADMAP §A.2).
+
+``compute_dtype=torch.bfloat16`` (the model's bf16 compute, JAX
+``static.compute``): ``gather_split`` gathers the rows in bf16 and K2 reads
+them as they are, widening them in the kernel to the f32 encode (the JAX
+split kernel does the same); ``fused`` is unchanged (K3/K4 gather f32 rows,
+as the TPU kernel does). The backward recomputes :func:`reference_forward`
+in bf16, as ``_xla_reference`` does: rows, ``W``, the matmuls, tanh, the
+keep mask and the pool in bf16, LayerNorm and the softmax in f32.
 """
 
 from __future__ import annotations
@@ -69,16 +77,20 @@ LN_EPS = 1e-6  # flax nn.LayerNorm default (fused_encode_pool.py:84)
 DEFAULT_CHUNK_L = 128  # the TPU kernel's bag-chunk lane tile
 CHUNK = 32  # contexts per chunk step, kChunk in csrc/pool.cuh
 _TABLE_CODES = {"f32": 0, "bf16": 1, "int8": 2}
+# K2's gathered rows: the compute dtype -> the row dtype code of its C entry
+_ROW_CODES = {torch.float32: 0, torch.bfloat16: 1}
+COMPUTE_DTYPES = tuple(_ROW_CODES)
 _STREAM_MODES = {"online": 0, "two_pass": 1}
 
 
 def kernel_name(impl: str, table_dtype: str, softmax_mode: str = "materialize",
-                masked: bool = False) -> str:
-    """The launch-count key of one kernel: ``gather_split`` (K2),
-    ``fused_<table dtype>`` (K3) or ``<online|two_pass>_<table dtype>`` (K4),
-    with ``_masked`` when it applied a dropout keep mask (training)."""
+                masked: bool = False, compute_dtype: torch.dtype = torch.float32) -> str:
+    """The launch-count key of one kernel: ``gather_split`` (K2, f32 rows)
+    or ``gather_split_bf16`` (K2 over bf16 rows), ``fused_<table dtype>``
+    (K3) or ``<online|two_pass>_<table dtype>`` (K4), with ``_masked`` when
+    it applied a dropout keep mask (training)."""
     if impl == "gather_split":
-        name = "gather_split"
+        name = "gather_split" + ("_bf16" if compute_dtype == torch.bfloat16 else "")
     elif softmax_mode != "materialize":
         name = f"{softmax_mode}_{table_dtype}"
     else:
@@ -102,49 +114,77 @@ def split_table(table) -> tuple[torch.Tensor, torch.Tensor | None, str]:
     return table, None, "f32"
 
 
-def gather_rows(table, ids: torch.Tensor) -> torch.Tensor:
+def gather_rows(table, ids: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Rows of an f32 master table (``embedding_lookup``, whose backward
-    the recompute differentiates) or a QuantTable at ``ids``, as f32."""
+    the recompute differentiates) or a QuantTable at ``ids``, dequantized
+    in f32 and cast to ``dtype`` (JAX ``_gather_rows``)."""
     vals, scale, _ = split_table(table)
     if scale is None and vals.dtype == torch.float32:
-        return embedding_lookup(vals, ids)
+        return embedding_lookup(vals, ids).to(dtype)
     rows = vals[ids].float()
     if scale is not None:
         rows = rows * scale[ids]
-    return rows
+    return rows.to(dtype)
 
 
-def encode_contexts(gs, gp, ge, dense_kernel, ln_scale, ln_bias) -> torch.Tensor:
+def encode_contexts(gs, gp, ge, dense_kernel, ln_scale, ln_bias,
+                    compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Split-encode + LayerNorm + tanh over gathered rows — the plain
     encode (``xla_encode_contexts``): ``[s|p|e] @ W`` as three sliced
-    matmuls on the same kernel."""
+    matmuls on the same kernel, in ``compute_dtype`` (rows and ``W`` cast
+    to it), LayerNorm in f32, tanh in ``compute_dtype``."""
+    cd = compute_dtype
     et, ep = gs.shape[-1], gp.shape[-1]
-    kern = dense_kernel.float()
-    x = gs @ kern[:et] + gp @ kern[et:et + ep] + ge @ kern[et + ep:]
+    kern = dense_kernel.to(cd)
+    x = gs.to(cd) @ kern[:et] + gp.to(cd) @ kern[et:et + ep] + ge.to(cd) @ kern[et + ep:]
+    x = x.float()
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
     xn = (x - mu) * torch.rsqrt(var + LN_EPS)
-    return torch.tanh(xn * ln_scale.float() + ln_bias.float())
+    return torch.tanh((xn * ln_scale.float() + ln_bias.float()).to(cd))
 
 
 def encode_pool_reference(gs, gp, ge, mask, dense_kernel, ln_scale, ln_bias,
-                          attn_param, drop_mask=None) -> tuple[torch.Tensor, torch.Tensor]:
+                          attn_param, drop_mask=None,
+                          compute_dtype: torch.dtype = torch.float32):
     """The plain version of K2: encode (times the keep mask) then pool
-    over gathered rows."""
-    enc = encode_contexts(gs, gp, ge, dense_kernel, ln_scale, ln_bias)
+    over gathered rows, in ``compute_dtype`` (JAX ``_xla_reference`` after
+    its gather); f32 rows or bf16 rows widened: ``(cv [B, H] f32,
+    weights [B, L] f32)``."""
+    cd = compute_dtype
+    enc = encode_contexts(gs, gp, ge, dense_kernel, ln_scale, ln_bias, cd)
     if drop_mask is not None:
-        enc = enc * drop_mask.float()
-    cv, w = attention_pool(enc, mask.float(), attn_param.float())
+        enc = enc * drop_mask.to(cd)
+    cv, w = attention_pool(enc, mask.float(), attn_param.to(cd))
     return cv.float(), w
 
 
 def reference_forward(t_table, p_table, starts, paths, ends, mask, dense_kernel,
-                      ln_scale, ln_bias, attn_param, drop_mask=None):
+                      ln_scale, ln_bias, attn_param, drop_mask=None,
+                      compute_dtype: torch.dtype = torch.float32):
     """The plain version of K3 (and of the whole op): gather, encode,
-    keep mask, pool — ``(cv [B, H] f32, weights [B, L] f32)``."""
+    keep mask, pool in ``compute_dtype`` — ``(cv [B, H] f32, weights
+    [B, L] f32)``. In bf16 it is what the backward differentiates (JAX
+    ``_xla_reference``)."""
+    cd = compute_dtype
     return encode_pool_reference(
-        gather_rows(t_table, starts), gather_rows(p_table, paths),
-        gather_rows(t_table, ends), mask, dense_kernel, ln_scale, ln_bias,
+        gather_rows(t_table, starts, cd), gather_rows(p_table, paths, cd),
+        gather_rows(t_table, ends, cd), mask, dense_kernel, ln_scale, ln_bias,
+        attn_param, drop_mask, cd,
+    )
+
+
+def split_reference_forward(t_table, p_table, starts, paths, ends, mask, dense_kernel,
+                            ln_scale, ln_bias, attn_param, drop_mask=None,
+                            compute_dtype: torch.dtype = torch.float32):
+    """The plain version of K2 under ``compute_dtype``: the rows gathered
+    in it, then the f32 encode and pool on them widened, as the JAX split
+    kernel computes (and its compiled CPU strategy, ``_compiled_chain_
+    forward``). Equal to :func:`reference_forward` for f32."""
+    cd = compute_dtype
+    return encode_pool_reference(
+        gather_rows(t_table, starts, cd), gather_rows(p_table, paths, cd),
+        gather_rows(t_table, ends, cd), mask, dense_kernel, ln_scale, ln_bias,
         attn_param, drop_mask,
     )
 
@@ -217,7 +257,7 @@ def _lib():
     lib = _build.load("fused_encode_pool")
     if lib.c2v_encode_pool_gathered.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.c2v_encode_pool_gathered.argtypes = [p] * 12 + [i] * 6 + [p]
+        lib.c2v_encode_pool_gathered.argtypes = [i] + [p] * 12 + [i] * 6 + [p]
         lib.c2v_encode_pool_gathered.restype = i
         lib.c2v_encode_pool_fused.argtypes = (
             [i, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong]
@@ -241,8 +281,8 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> torch.Tensor:
     return t.contiguous()
 
 
-def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, dense_kernel,
-            ln_scale, ln_bias, attn_param, drop_mask=None):
+def _launch(impl, softmax_mode, compute_dtype, t_table, p_table, starts, paths, ends, mask,
+            dense_kernel, ln_scale, ln_bias, attn_param, drop_mask=None):
     t_vals, t_scale, table_dtype = split_table(t_table)
     p_vals, p_scale, _ = split_table(p_table)
     dev = starts.device
@@ -268,17 +308,18 @@ def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, den
     part = torch.empty((b, n_ctas, h + 2), dtype=f32, device=dev) if n_ctas > 1 else None
     part_ptr = None if part is None else part.data_ptr()
     lib = _lib()
-    name = kernel_name(impl, table_dtype, softmax_mode, drop is not None)
+    name = kernel_name(impl, table_dtype, softmax_mode, drop is not None, compute_dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if impl == "gather_split":
+            cd = compute_dtype  # f32 or bf16 (checked by fused_encode_attend_pool)
             rows = [
-                _check("g_start", gather_rows(t_table, starts), f32, (b, l, et), dev),
-                _check("g_path", gather_rows(p_table, paths), f32, (b, l, ep), dev),
-                _check("g_end", gather_rows(t_table, ends), f32, (b, l, et), dev),
+                _check("g_start", gather_rows(t_table, starts, cd), cd, (b, l, et), dev),
+                _check("g_path", gather_rows(p_table, paths, cd), cd, (b, l, ep), dev),
+                _check("g_end", gather_rows(t_table, ends, cd), cd, (b, l, et), dev),
             ]
             code = lib.c2v_encode_pool_gathered(
-                *(t.data_ptr() for t in rows + [msk]), drop_ptr,
+                _ROW_CODES[cd], *(t.data_ptr() for t in rows + [msk]), drop_ptr,
                 *(t.data_ptr() for t in params + outs),
                 part_ptr, b, l, et, ep, h, n_ctas, stream,
             )
@@ -318,9 +359,11 @@ def _launch(impl, softmax_mode, t_table, p_table, starts, paths, ends, mask, den
     return cv, w
 
 
-def _forward(impl, softmax_mode, chunk_l, backend, args):
+def _forward(impl, softmax_mode, chunk_l, backend, compute_dtype, args):
     """The op's value: the plain version for CPU tensors, else the kernel."""
     if resolve(args[2], backend) == "cpu":
+        if impl == "gather_split":
+            return split_reference_forward(*args, compute_dtype=compute_dtype)
         if softmax_mode == "materialize":
             return reference_forward(*args)
         return streamed_reference_forward(*args, softmax_mode=softmax_mode, chunk_l=chunk_l)
@@ -329,7 +372,7 @@ def _forward(impl, softmax_mode, chunk_l, backend, args):
             f"chunk_l={chunk_l} sets the CPU plain version's chunk only; the CUDA "
             f"kernels stream {CHUNK} contexts a step (leave chunk_l at {DEFAULT_CHUNK_L})"
         )
-    return _launch(impl, softmax_mode, *args)
+    return _launch(impl, softmax_mode, compute_dtype, *args)
 
 
 # positions of the differentiable inputs in the op's argument tuple
@@ -341,11 +384,13 @@ class _EncodePool(torch.autograd.Function):
     """K2/K3/K4 forward, the JAX ``_op_bwd`` backward: only the primal
     inputs are saved, and the backward differentiates the recomputed
     :func:`reference_forward` (gather, split encode, LayerNorm, tanh, keep
-    mask, pool). Quantized tables are constants (no gradient)."""
+    mask, pool) in the compute dtype. Quantized tables are constants (no
+    gradient)."""
 
     @staticmethod
-    def forward(ctx, impl, softmax_mode, chunk_l, backend, *args):
-        cv, w = _forward(impl, softmax_mode, chunk_l, backend, args)
+    def forward(ctx, impl, softmax_mode, chunk_l, backend, compute_dtype, *args):
+        cv, w = _forward(impl, softmax_mode, chunk_l, backend, compute_dtype, args)
+        ctx.compute_dtype = compute_dtype
         tensors = [a if isinstance(a, torch.Tensor) else None for a in args]
         ctx.save_for_backward(*tensors)
         ctx.constants = [None if isinstance(a, torch.Tensor) else a for a in args]
@@ -355,7 +400,7 @@ class _EncodePool(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_cv, g_w):
         args = [t if t is not None else c for t, c in zip(ctx.saved_tensors, ctx.constants)]
-        needs = ctx.needs_input_grad[4:]
+        needs = ctx.needs_input_grad[5:]
         diff = [i for i in _DIFF_ARGS.values() if needs[i]]
         grads = [None] * len(args)
         outs = [(o, g) for o, g in zip((0, 1), (g_cv, g_w)) if g is not None]
@@ -363,12 +408,12 @@ class _EncodePool(torch.autograd.Function):
             with torch.enable_grad():
                 for i in diff:
                     args[i] = args[i].detach().requires_grad_(True)
-                values = reference_forward(*args)
+                values = reference_forward(*args, compute_dtype=ctx.compute_dtype)
                 got = torch.autograd.grad([values[o] for o, _ in outs], [args[i] for i in diff],
                                           [g for _, g in outs], allow_unused=True)
             for i, g in zip(diff, got):
                 grads[i] = g if g is not None else torch.zeros_like(args[i])
-        return (None, None, None, None, *grads)
+        return (None, None, None, None, None, *grads)
 
 
 def fused_encode_attend_pool(
@@ -387,6 +432,7 @@ def fused_encode_attend_pool(
     impl: str = "fused",
     chunk_l: int = DEFAULT_CHUNK_L,
     softmax_mode: str = "materialize",
+    compute_dtype: torch.dtype = torch.float32,
     backend: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The whole aggregation chain: ``(code_vector [B, H] f32, attention
@@ -394,7 +440,10 @@ def fused_encode_attend_pool(
     tensors launch K2 (``gather_split``), K3 (``fused``) or, with a chunked
     ``softmax_mode``, K4; CPU tensors run :func:`reference_forward`
     (materialize) or :func:`streamed_reference_forward` (``online``/
-    ``two_pass``). The backward recomputes :func:`reference_forward`.
+    ``two_pass``). The backward recomputes :func:`reference_forward` in
+    ``compute_dtype``; with bf16, ``gather_split`` hands K2 bf16 rows
+    (CPU: :func:`split_reference_forward`) and ``fused`` keeps its f32
+    forward.
 
     A chunked softmax mode requires ``impl="fused"``: ``gather_split``
     materializes the whole bag's rows before its kernel runs, so streaming
@@ -412,6 +461,8 @@ def fused_encode_attend_pool(
         )
     if int(chunk_l) < 1:
         raise ValueError(f"chunk_l must be >= 1, got {chunk_l}")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
     t_dtype = split_table(t_table)[2]
     p_dtype = split_table(p_table)[2]
     if t_dtype != p_dtype:
@@ -424,5 +475,5 @@ def fused_encode_attend_pool(
     wants_grad = torch.is_grad_enabled() and any(
         isinstance(a, torch.Tensor) and a.requires_grad for a in args)
     if wants_grad:
-        return _EncodePool.apply(impl, softmax_mode, chunk_l, backend, *args)
-    return _forward(impl, softmax_mode, chunk_l, backend, args)
+        return _EncodePool.apply(impl, softmax_mode, chunk_l, backend, compute_dtype, *args)
+    return _forward(impl, softmax_mode, chunk_l, backend, compute_dtype, args)

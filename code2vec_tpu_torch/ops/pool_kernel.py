@@ -9,11 +9,22 @@ picks how many CTAs (one thread-block cluster) share a batch row. The
 plain versions are :func:`~code2vec_tpu_torch.ops.attention.attention_pool`
 on f32 inputs and :func:`~code2vec_tpu_torch.ops.attention.pool_backward_reference`.
 
+Contexts are f32 or bf16 (``compute_dtype="bfloat16"``), the attention
+vector in the same dtype (the model casts it, as the JAX model does): the
+kernels read bf16 as it is, widen it on load and do the f32 arithmetic,
+as ``_tile_pool`` widens its tile and the JAX wrapper the attention vector
+(``pallas_attention.py:50, 97``); K1b writes ``d_contexts`` in the
+contexts' dtype (bf16 rounded to nearest even, as ``_pool_bwd`` casts).
+The outputs and K1b's ``d_attn`` are f32. A CUDA tensor of another dtype,
+or an attention vector in another dtype than the contexts', raises.
+
 :func:`attention_pool_kernel` is one ``torch.autograd.Function``: its
-forward launches K1 for CUDA tensors (the plain pool for CPU tensors,
-``ops/backend.py``) and saves ``contexts, mask, attn, weights``; its
-backward launches K1b (``pool_backward_reference`` on the CPU). The mask
-gets no gradient.
+forward launches K1 for CUDA tensors (the plain pool on the widened
+inputs for CPU tensors, ``ops/backend.py``) and saves ``contexts, mask,
+attn, weights``; its backward launches K1b (``pool_backward_reference``
+on the CPU) and returns ``d_attn`` in the attention vector's own dtype,
+as ``_pool_bwd`` does, so a bf16 ``attn_param`` cast from the f32
+parameter passes it back through the cast. The mask gets no gradient.
 """
 
 from __future__ import annotations
@@ -32,6 +43,8 @@ CONTEXTS_PER_CTA = 64  # 8 warps x 8 contexts each in flight at H <= 128
 MAX_CLUSTER = 8  # CTAs per row: the portable thread-block cluster size
 RESIDENT_CTAS_PER_SM = 2  # 256 threads of ~100 registers each: two CTAs an SM
 MAX_H = 1024  # 8 float4 slices per lane
+# the contexts' dtypes the kernels read: the code each C entry point takes
+CTX_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def pool_ctas(b: int, l: int, sm_count: int) -> int:
@@ -48,16 +61,17 @@ def _lib():
     lib = _build.load("pool")
     if lib.c2v_pool_forward.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.c2v_pool_forward.argtypes = [p] * 5 + [i] * 4 + [p]
+        lib.c2v_pool_forward.argtypes = [i] + [p] * 5 + [i] * 4 + [p]
         lib.c2v_pool_forward.restype = i
-        lib.c2v_pool_backward.argtypes = [p] * 8 + [i] * 4 + [p]
+        lib.c2v_pool_backward.argtypes = [i] + [p] * 8 + [i] * 4 + [p]
         lib.c2v_pool_backward.restype = i
     return lib
 
 
 def _checked(what, contexts, **named):
-    """``named`` tensors made contiguous after checking each is f32 of its
-    expected shape on the contexts' device."""
+    """``contexts`` (f32 or bf16), ``attn_param`` (the contexts' dtype) and
+    the other ``named`` tensors (f32) made contiguous after checking each
+    one's dtype and expected shape on the contexts' device."""
     b, l, h = contexts.shape
     dev = contexts.device
     shapes = {"contexts": (b, l, h), "mask": (b, l), "attn_param": (h,), "weights": (b, l),
@@ -68,13 +82,21 @@ def _checked(what, contexts, **named):
         raise ValueError(f"{what}: encode width {h} outside 1..{MAX_H}")
     out = []
     for name, t in (("contexts", contexts), *named.items()):
-        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shapes[name]:
+        dtypes = ((contexts.dtype,) if name == "attn_param"
+                  else tuple(CTX_DTYPES) if name == "contexts" else (torch.float32,))
+        if t.device != dev or t.dtype not in dtypes or tuple(t.shape) != shapes[name]:
             raise ValueError(
-                f"{what}: {name} must be torch.float32 {shapes[name]} on {dev}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                f"{what}: {name} must be {' or '.join(map(str, dtypes))} {shapes[name]} "
+                f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
         out.append(t.contiguous())
     return out
+
+
+def kernel_key(base: str, contexts: torch.Tensor) -> str:
+    """The launch-count key: ``pool`` / ``pool_bwd``, ``_bf16`` over bf16
+    contexts."""
+    return base + ("_bf16" if contexts.dtype == torch.bfloat16 else "")
 
 
 def _launch(contexts, mask, attn_param):
@@ -87,17 +109,19 @@ def _launch(contexts, mask, attn_param):
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = lib.c2v_pool_forward(ctx.data_ptr(), msk.data_ptr(), attn.data_ptr(),
-                                    cv.data_ptr(), w.data_ptr(), b, l, h, ctas, stream)
+        code = lib.c2v_pool_forward(CTX_DTYPES[ctx.dtype], ctx.data_ptr(), msk.data_ptr(),
+                                    attn.data_ptr(), cv.data_ptr(), w.data_ptr(), b, l, h, ctas,
+                                    stream)
     _build.check(lib, code, "pool kernel launch")
-    count_launch(KERNEL)
+    count_launch(kernel_key(KERNEL, ctx))
     return cv, w
 
 
 def pool_backward_kernel(contexts, mask, attn_param, weights, g_cv, g_w=None):
     """K1b: ``(d_contexts [B, L, H], d_attn [H])`` on the card, the CUDA
-    counterpart of ``pool_backward_reference``. Each CTA writes its part of
-    ``d_attn`` to a ``[B * S, H]`` buffer, summed here in a fixed order."""
+    counterpart of ``pool_backward_reference``: ``d_contexts`` in the
+    contexts' dtype (f32 or bf16), ``d_attn`` f32. Each CTA writes its part
+    of ``d_attn`` to a ``[B * S, H]`` buffer, summed here in a fixed order."""
     named = dict(mask=mask, attn_param=attn_param, weights=weights, g_cv=g_cv)
     if g_w is not None:
         named["g_w"] = g_w
@@ -113,11 +137,11 @@ def pool_backward_kernel(contexts, mask, attn_param, weights, g_cv, g_w=None):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.c2v_pool_backward(
-            ctx.data_ptr(), msk.data_ptr(), attn.data_ptr(), w.data_ptr(), gcv.data_ptr(),
-            None if gw is None else gw.data_ptr(), d_ctx.data_ptr(), part.data_ptr(),
-            b, l, h, ctas, stream)
+            CTX_DTYPES[ctx.dtype], ctx.data_ptr(), msk.data_ptr(), attn.data_ptr(), w.data_ptr(),
+            gcv.data_ptr(), None if gw is None else gw.data_ptr(), d_ctx.data_ptr(),
+            part.data_ptr(), b, l, h, ctas, stream)
     _build.check(lib, code, "pool backward kernel launch")
-    count_launch(KERNEL_BWD)
+    count_launch(kernel_key(KERNEL_BWD, ctx))
     return d_ctx, part.sum(dim=0)
 
 
@@ -127,7 +151,7 @@ class _AttentionPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, contexts, mask, attn_param, backend):
         if resolve(contexts, backend) == "cpu":
-            cv, w = attention_pool(contexts, mask, attn_param)
+            cv, w = attention_pool(contexts.float(), mask, attn_param.float())
         else:
             cv, w = _launch(contexts, mask, attn_param)
         ctx.save_for_backward(contexts, mask, attn_param, w)
@@ -143,19 +167,18 @@ class _AttentionPool(torch.autograd.Function):
             d_ctx, d_attn = pool_backward_reference(contexts, mask, attn_param, w, g_cv, g_w)
         else:
             d_ctx, d_attn = pool_backward_kernel(contexts, mask, attn_param, w, g_cv, g_w)
-        return d_ctx, None, d_attn, None
+        return d_ctx, None, d_attn.to(attn_param.dtype), None
 
 
 def attention_pool_kernel(
-    contexts: torch.Tensor,  # [B, L, H] f32
+    contexts: torch.Tensor,  # [B, L, H] f32 or bf16
     mask: torch.Tensor,  # [B, L] (1 = real, 0 = PAD)
-    attn_param: torch.Tensor,  # [H]
+    attn_param: torch.Tensor,  # [H], the contexts' dtype
     backend: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``ops.attention.attention_pool``: ``(cv [B, H] f32,
     weights [B, L] f32)``, differentiable in ``contexts`` and
     ``attn_param``. CUDA tensors launch K1 (and K1b in the backward); CPU
-    tensors run ``attention_pool`` and ``pool_backward_reference`` in f32."""
-    if resolve(contexts, backend) == "cpu":
-        contexts = contexts.float()
-    return _AttentionPool.apply(contexts, mask.float(), attn_param.float(), backend)
+    tensors run ``attention_pool`` and ``pool_backward_reference`` in f32
+    on the widened inputs."""
+    return _AttentionPool.apply(contexts, mask.float(), attn_param, backend)

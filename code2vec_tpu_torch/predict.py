@@ -44,6 +44,8 @@ def save_inference_meta(out_dir: str, config, model_config, data, bucket_ladder=
     from code2vec_tpu_torch.formats.vocab_io import write_vocab
 
     meta = {
+        "adam_mu_dtype": config.adam_mu_dtype,
+        "table_update": config.table_update,
         "terminal_count": model_config.terminal_count,
         "path_count": model_config.path_count,
         "label_count": model_config.label_count,

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+DTYPES = ("float32", "bfloat16")  # compute_dtype and adam_mu_dtype
+
 
 @dataclass(frozen=True)
 class TrainConfig:
@@ -76,12 +78,16 @@ class TrainConfig:
     # rungs above max_path_length and nothing is truncated
     max_contexts: int = -1
 
-    # not ported yet: validate() rejects a value other than the default
+    # the model's compute dtype: "float32" | "bfloat16" (parameters,
+    # gradients and the head stay f32)
     compute_dtype: str = "float32"
+    # Adam's first-moment storage: "float32" | "bfloat16" (nu stays f32)
+    adam_mu_dtype: str = "float32"
+
+    # not ported yet: validate() rejects a value other than the default
     data_axis: int = 1
     model_axis: int = 1
     context_axis: int = 1
-    adam_mu_dtype: str = "float32"
     table_update: str = "dense"
     stream_chunk_items: int = 0
     feed_workers: int = 0
@@ -113,6 +119,9 @@ class TrainConfig:
             )
         if self.max_contexts == 0 and self.device_epoch:
             raise ValueError("--max_contexts 0 does not compose with --device_epoch; drop one")
+        for name in ("compute_dtype", "adam_mu_dtype"):
+            if getattr(self, name) not in DTYPES:
+                raise ValueError(f"{name} must be one of {DTYPES}, got {getattr(self, name)!r}")
         unported = {
             "stream_chunk_items": self.stream_chunk_items,
             "feed_workers": self.feed_workers,
@@ -120,8 +129,6 @@ class TrainConfig:
             "device_epoch": self.device_epoch,
             "mesh axes > 1": max(self.data_axis, self.model_axis, self.context_axis) > 1,
             "table_update='lazy'": self.table_update != "dense",
-            "adam_mu_dtype='bfloat16'": self.adam_mu_dtype != "float32",
-            "compute_dtype='bfloat16'": self.compute_dtype != "float32",
             "pallas_impl='auto'": self.pallas_impl == "auto",
             "async_checkpoint": self.async_checkpoint,
             "checkpoint_every_steps": self.checkpoint_every_steps,

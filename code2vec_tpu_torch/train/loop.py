@@ -15,7 +15,8 @@ task:
   and its metrics, both splits fed by ``data.pipeline.make_batch_source``
   (fixed ``L``, or bucketed over the ladder);
 - on a new best F1: the ``code.vec`` export (the epoch's own arrays, as
-  the JAX in-RAM path reuses them), the best checkpoint and the served
+  the JAX in-RAM path reuses them, through the training model's eval
+  step, so in its compute dtype), the best checkpoint and the served
   ``code2vec.model``; ``print_sample`` every ``print_sample_cycle``
   epochs; the reference's early stop, whose counter resets when the train
   loss OR the accuracy improves (``:1724-1736``).
@@ -81,6 +82,7 @@ def model_config_from(config, data) -> Code2VecConfig:
         angular_margin_loss=config.angular_margin_loss,
         angular_margin=config.angular_margin,
         inverse_temp=config.inverse_temp,
+        dtype=torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32,
         use_pallas=config.use_pallas,
         pallas_impl=config.pallas_impl,
         pallas_chunk_l=config.pallas_chunk_l,

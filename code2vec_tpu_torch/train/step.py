@@ -8,6 +8,10 @@ Counterpart of ``code2vec_tpu/train/step.py``:
 - the optimizer is ``torch.optim.Adam(lr, (beta_min, beta_max), eps=1e-8,
   weight_decay)``, whose coupled L2 (added to the gradient before the
   moments) is what the JAX ``torch_style_adam`` reproduces (``:94-123``);
+  with ``adam_mu_dtype="bfloat16"`` it is :class:`TorchStyleAdam`, the
+  same step with the first moment stored in bf16, as ``torch_style_adam(
+  mu_dtype="bfloat16")`` does (``torch.optim.Adam`` keeps its moments in
+  the parameters' dtype);
 - the margin head gets the labels in training (``needs_labels``).
 """
 
@@ -28,11 +32,91 @@ def weighted_nll(logits: torch.Tensor, labels: torch.Tensor, class_weights: torc
     return (nll * w).sum() / torch.clamp(w.sum(), min=1e-12)
 
 
-def make_optimizer(model: torch.nn.Module, config) -> torch.optim.Adam:
-    """torch Adam with the config's rate, betas and coupled weight decay."""
-    return torch.optim.Adam(model.parameters(), lr=config.lr,
-                            betas=(config.beta_min, config.beta_max), eps=1e-8,
-                            weight_decay=config.weight_decay)
+MU_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class TorchStyleAdam(torch.optim.Optimizer):
+    """Adam with coupled L2 and the first moment stored in ``mu_dtype``:
+    the step of optax 0.2.6's ``add_decayed_weights`` + ``scale_by_adam(
+    mu_dtype)`` + ``scale(-lr)`` (JAX ``torch_style_adam``), op for op:
+
+    - ``g += wd * p`` (only with a weight decay);
+    - ``mu = (1 - b1) * g + b1' * mu_stored`` in f32, ``b1'`` being ``b1``
+      rounded to the stored dtype (JAX's weak-typed ``b1`` becomes a bf16
+      constant, 0.8984375 for 0.9) and the product f32: the jitted JAX step
+      keeps it unrounded (XLA's excess precision), as measured on optax
+      0.2.6;
+    - ``nu = (1 - b2) * g * g + b2 * nu`` in f32;
+    - ``p += -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps)``, the
+      bias corrections in f32, from the f32 ``mu``;
+    - only the stored ``mu`` is rounded to ``mu_dtype`` (nearest even).
+
+    ``load_state_dict`` keeps the stored moment in ``mu_dtype`` (the base
+    class would cast it to the parameters' dtype)."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, mu_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      weight_decay=weight_decay, mu_dtype=mu_dtype))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            wd, lr, eps, mu_dtype = (group[k] for k in ("weight_decay", "lr", "eps", "mu_dtype"))
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if wd:
+                    g = g + p * wd
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["exp_avg"] = torch.zeros_like(p, dtype=mu_dtype)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                state["step"] += 1
+                t = np.float32(state["step"])
+                mu_stored, nu = state["exp_avg"], state["exp_avg_sq"]
+                b1_stored = float(torch.tensor(b1, dtype=mu_dtype))
+                mu = g * (1.0 - b1) + mu_stored.float() * b1_stored
+                nu.mul_(b2).add_(g * g * (1.0 - b2))
+                bc1 = float(np.float32(1.0) - np.float32(b1) ** t)
+                bc2 = float(np.float32(1.0) - np.float32(b2) ** t)
+                update = (mu / bc1) / ((nu / bc2).sqrt_() + eps)
+                p.add_(update.mul_(-lr))
+                mu_stored.copy_(mu)
+        return loss
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        for group in self.param_groups:
+            for p in group["params"]:
+                state = self.state.get(p)
+                if state:
+                    state["exp_avg"] = state["exp_avg"].to(group["mu_dtype"])
+
+
+def make_optimizer(model: torch.nn.Module, config) -> torch.optim.Optimizer:
+    """torch Adam with the config's rate, betas and coupled weight decay;
+    :class:`TorchStyleAdam` when ``adam_mu_dtype`` stores mu in bf16."""
+    kw = dict(lr=config.lr, betas=(config.beta_min, config.beta_max), eps=1e-8,
+              weight_decay=config.weight_decay)
+    mu_dtype = getattr(config, "adam_mu_dtype", "float32")
+    if mu_dtype == "float32":
+        return torch.optim.Adam(model.parameters(), **kw)
+    return TorchStyleAdam(model.parameters(), mu_dtype=MU_DTYPES[mu_dtype], **kw)
+
+
+def adam_mu_dtype(optimizer: torch.optim.Optimizer) -> str:
+    """The first-moment storage of ``optimizer``: ``"bfloat16"`` or
+    ``"float32"`` (what a checkpoint records and a resume checks)."""
+    dt = optimizer.defaults.get("mu_dtype", torch.float32)
+    return next(name for name, d in MU_DTYPES.items() if d == dt)
 
 
 def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:

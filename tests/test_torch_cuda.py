@@ -690,3 +690,208 @@ def test_train_step_on_kernel_route_matches_plain_gradients(dev, route):
     torch.testing.assert_close(grads[route][0], grads["plain"][0], rtol=1e-4, atol=0)
     for k, g in grads["plain"][1].items():
         torch.testing.assert_close(grads[route][1][k], g, rtol=1e-3, atol=1e-5, msg=k)
+
+
+# ---------------------------------------------------------------------------
+# bf16 compute: K1 / K1b over bf16 contexts, K2 over bf16 rows
+# ---------------------------------------------------------------------------
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each element's magnitude (8 significant bits)."""
+    mag = x.abs().double().clamp_min(2.0**-126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("H", [13, 64, 100, 300])
+@pytest.mark.parametrize("L", [1, 33, 200, 2048])
+@pytest.mark.parametrize("B", [1, 5, 64])
+def test_pool_kernel_over_bf16_contexts(dev, B, L, H):
+    """K1 reading bf16 contexts (8-byte loads, scalar loads at H = 13)
+    against the f32 plain pool on the widened contexts, every cluster size
+    pool_ctas gives; the last row all-masked."""
+    from code2vec_tpu_torch.ops.attention import attention_pool
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel
+
+    g = torch.Generator(device=dev).manual_seed(B * L + H)
+    ctx = torch.tanh(torch.randn(B, L, H, generator=g, device=dev)).to(torch.bfloat16)
+    mask = (torch.rand(B, L, generator=g, device=dev) > 0.3).float()
+    mask[:, 0] = 1.0
+    if B > 1:
+        mask[-1] = 0.0
+    attn = (torch.randn(H, generator=g, device=dev) / H**0.5).to(torch.bfloat16)
+    reset_launch_counts()
+    cv, w = attention_pool_kernel(ctx, mask, attn)
+    assert launch_counts() == {"pool_bf16": 1}
+    cv_ref, w_ref = attention_pool(ctx.float(), mask, attn.float())
+    torch.cuda.synchronize()
+    assert cv.dtype == w.dtype == torch.float32
+    torch.testing.assert_close(cv, cv_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("with_gw", [False, True])
+@pytest.mark.parametrize("H", [13, 100, 300])
+@pytest.mark.parametrize("L", [1, 37, 200, 2048])
+@pytest.mark.parametrize("B", [1, 5, 64, 1024])
+def test_pool_backward_kernel_over_bf16_contexts(dev, B, L, H, with_gw):
+    """K1b reading bf16 contexts and writing bf16 d_contexts: within the
+    f32 K1b's atol 1e-5 plus one bf16 ulp of the plain version's value (the
+    f32 values, which may differ by rounding, as the f32 kernel's do, are
+    each rounded to nearest even once); d_attn f32 within rtol 1e-4 and
+    atol 1e-5 plus 1e-6 of its largest element (a sum over B * L terms,
+    taken in another order than the plain version's einsum: at 1024 x 37
+    the f32 K1b reads 5e-5 off on elements of 0.1 beside ones of 200)."""
+    from code2vec_tpu_torch.ops.attention import pool_backward_reference
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.pool_kernel import pool_backward_kernel
+
+    if B * L * H > 40_000_000:
+        pytest.skip("the reference's [B, L, H] temporaries: covered at top11 by chip_smoke")
+    ctx, mask, attn, w, g_cv, g_w = pool_backward_inputs(dev, B, L, H, B * L + H + 1)
+    ctx, attn = ctx.to(torch.bfloat16), attn.to(torch.bfloat16)
+    g_w = g_w if with_gw else None
+    reset_launch_counts()
+    d_ctx, d_attn = pool_backward_kernel(ctx, mask, attn, w, g_cv, g_w)
+    assert launch_counts() == {"pool_bwd_bf16": 1}
+    r_ctx, r_attn = pool_backward_reference(ctx, mask, attn, w, g_cv, g_w)
+    torch.cuda.synchronize()
+    assert d_ctx.dtype == torch.bfloat16 and d_attn.dtype == torch.float32
+    diff = (d_ctx.double() - r_ctx.double()).abs()
+    assert (diff <= 1e-5 + bf16_ulp(r_ctx)).all(), diff.max()
+    torch.testing.assert_close(d_attn, r_attn, rtol=1e-4,
+                               atol=1e-5 + 1e-6 * r_attn.abs().max().item())
+
+
+def test_pool_backward_over_bf16_rereads_rows_past_shared_memory(dev):
+    from code2vec_tpu_torch.ops.attention import pool_backward_reference
+    from code2vec_tpu_torch.ops.pool_kernel import pool_backward_kernel, pool_ctas
+
+    B, L, H = 300, 700, 100
+    assert pool_ctas(B, L, torch.cuda.get_device_properties(dev).multi_processor_count) == 1
+    ctx, mask, attn, w, g_cv, g_w = pool_backward_inputs(dev, B, L, H, 12)
+    ctx, attn = ctx.to(torch.bfloat16), attn.to(torch.bfloat16)
+    d_ctx, d_attn = pool_backward_kernel(ctx, mask, attn, w, g_cv, g_w)
+    r_ctx, r_attn = pool_backward_reference(ctx, mask, attn, w, g_cv, g_w)
+    torch.cuda.synchronize()
+    assert ((d_ctx.double() - r_ctx.double()).abs() <= 1e-5 + bf16_ulp(r_ctx)).all()
+    torch.testing.assert_close(d_attn, r_attn, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dims", [(6, 5, 13), (8, 6, 12), (100, 100, 100), (100, 100, 300)],
+                         ids=["odd", "small", "top11", "encode300"])
+@pytest.mark.parametrize("L", [1, 33, 65, 200])
+def test_encode_pool_kernel_over_bf16_rows(dev, L, dims, masked):
+    """K2 under bf16 compute (rows gathered in bf16, widened in the kernel,
+    two TF32 products) against its plain version, the f32 encode of the
+    widened rows."""
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.fused_encode_pool import (
+        fused_encode_attend_pool,
+        split_reference_forward,
+    )
+
+    Et, Ep, H = dims
+    t, p, s, pa, e, mask, params = ids_and_tables(dev, 6, L, Et, Ep, H, seed=L + 3)
+    drop = None
+    if masked:
+        g = torch.Generator(device=dev).manual_seed(L)
+        drop = torch.empty(6, L, H, device=dev).bernoulli_(0.75, generator=g) / 0.75
+    args = (t, p, s, pa, e, mask, *params, drop)
+    reset_launch_counts()
+    cv, w = fused_encode_attend_pool(*args, impl="gather_split", compute_dtype=torch.bfloat16)
+    key = "gather_split_bf16" + ("_masked" if masked else "")
+    assert launch_counts() == {key: 1}
+    cv_ref, w_ref = split_reference_forward(*args, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cv, cv_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("L", [33, 200])
+def test_k2_two_products_on_bf16_rows_give_what_three_give(dev, L, masked):
+    """A widened bf16 row is exact in TF32, so its third product adds zero:
+    K2 over bf16 rows equals the f32 K2 (three products) fed the same rows
+    widened, bit for bit."""
+    from code2vec_tpu_torch.ops.fused_encode_pool import fused_encode_attend_pool
+
+    t, p, s, pa, e, mask, params = ids_and_tables(dev, 8, L, 100, 100, 100, seed=L)
+    drop = None
+    if masked:
+        g = torch.Generator(device=dev).manual_seed(L + 1)
+        drop = torch.empty(8, L, 100, device=dev).bernoulli_(0.75, generator=g) / 0.75
+    two = fused_encode_attend_pool(t, p, s, pa, e, mask, *params, drop, impl="gather_split",
+                                   compute_dtype=torch.bfloat16)
+    t16, p16 = t.to(torch.bfloat16).float(), p.to(torch.bfloat16).float()
+    three = fused_encode_attend_pool(t16, p16, s, pa, e, mask, *params, drop,
+                                     impl="gather_split")
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(two, three))
+
+
+def test_bf16_dtypes_the_kernels_do_not_take_raise(dev):
+    from code2vec_tpu_torch.ops.fused_encode_pool import fused_encode_attend_pool
+    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel
+
+    mask = torch.ones(2, 3, device=dev)
+    with pytest.raises(ValueError, match="must be torch.float32 or torch.bfloat16"):
+        attention_pool_kernel(torch.zeros(2, 3, 8, device=dev, dtype=torch.float16), mask,
+                              torch.ones(8, device=dev))
+    for attn_dtype in (torch.float16, torch.float32):  # the contexts' dtype only
+        with pytest.raises(ValueError, match="attn_param must be torch.bfloat16"):
+            attention_pool_kernel(torch.zeros(2, 3, 8, device=dev, dtype=torch.bfloat16), mask,
+                                  torch.ones(8, device=dev, dtype=attn_dtype))
+    t, p, s, pa, e, mask, params = ids_and_tables(dev, 2, 5, 6, 5, 12)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        fused_encode_attend_pool(t, p, s, pa, e, mask, *params, impl="gather_split",
+                                 compute_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("route", ["plain", "pool_only", "gather_split", "fused"])
+def test_bf16_train_step_on_the_card_matches_the_cpu(dev, route):
+    """One bf16-compute train step (dropout 0) on the card against the same
+    model on the CPU (the plain versions): the loss within 2^-7 relative
+    and every gradient within 2^-5 of its largest element (cuBLAS and the
+    CPU round bf16 products apart); each kernel route launches its bf16
+    kernels."""
+    import numpy as np
+
+    from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.train.step import forward_backward
+
+    kernel = dict(use_pallas=True, pallas_impl=route) if route != "plain" else {}
+    cfg = Code2VecConfig(terminal_count=301, path_count=157, label_count=19,
+                         terminal_embed_size=16, path_embed_size=12, encode_size=24,
+                         dropout_prob=0.0, dtype=torch.bfloat16, **kernel)
+    base = Code2Vec(cfg)
+    rng = np.random.default_rng(1)
+    s = rng.integers(0, 301, (32, 50))
+    s[:, :5] = rng.integers(1, 301, (32, 5))
+    host = {
+        "starts": torch.tensor(s),
+        "paths": torch.tensor(rng.integers(1, 157, (32, 50)) * (s > 0)),
+        "ends": torch.tensor(rng.integers(1, 301, (32, 50)) * (s > 0)),
+        "labels": torch.tensor(rng.integers(0, 19, 32)),
+        "example_mask": torch.ones(32),
+    }
+    out = {}
+    for where in ("cpu", dev):
+        model = Code2Vec(cfg).to(where)
+        model.load_state_dict(base.state_dict())
+        reset_launch_counts()
+        loss = forward_backward(model, {k: v.to(where) for k, v in host.items()},
+                                torch.ones(19, device=where))
+        out[str(where)] = (loss.cpu(), {k: p.grad.cpu() for k, p in model.named_parameters()})
+        counts = launch_counts()
+    want = {"plain": {}, "pool_only": {"pool_bf16": 1, "pool_bwd_bf16": 1},
+            "gather_split": {"gather_split_bf16": 1}, "fused": {"fused_f32": 1}}[route]
+    assert counts == want
+    (loss, grads), (ref_loss, ref_grads) = out[str(dev)], out["cpu"]
+    torch.testing.assert_close(loss, ref_loss, rtol=2.0**-7, atol=0)
+    for k, g in ref_grads.items():
+        torch.testing.assert_close(grads[k], g, rtol=0, atol=2.0**-5 * g.abs().max().item(),
+                                   msg=k)

@@ -323,8 +323,7 @@ def test_training_with_quantized_tables_raises():
 UNPORTED = [
     {"stream_chunk_items": 8}, {"feed_workers": 2},
     {"prefetch_batches": 2}, {"device_epoch": True}, {"data_axis": 2}, {"model_axis": 2},
-    {"table_update": "lazy"}, {"adam_mu_dtype": "bfloat16"}, {"compute_dtype": "bfloat16"},
-    {"pallas_impl": "auto"}, {"async_checkpoint": True}, {"checkpoint_every_steps": 5},
+    {"table_update": "lazy"}, {"pallas_impl": "auto"}, {"async_checkpoint": True}, {"checkpoint_every_steps": 5},
     {"fault_plan": "train_step@1:raise"}, {"infer_variable_name": True},
 ]
 
