@@ -16,8 +16,9 @@ the final result line is not printed):
 3. kernels — first the launch floor: a one-element ``torch`` add timed as
    every kernel is, the least any launch here can read; then K1 (pool, at
    each shape with the CTAs per row its grid policy gives), K1b (its
-   backward: d_ctx within 1e-5, d_attn within rtol 1e-4; library: autograd
-   of the plain pool), K2
+   backward, from the forward's weights and code vector, with the CTAs of
+   its persistent grid: d_ctx within 1e-5, d_attn within rtol 1e-4;
+   library: autograd of the plain pool), K2
    (encode-pool over gathered rows) and K3
    (encode-pool with the gather inside; f32, bf16 and int8 tables) at the
    top11 widths, B in {1, 8, 64} x L in {1, 37, 200}; K4 (the streamed
@@ -294,9 +295,9 @@ def pool_bound(B, L, H, ctx_item=4):
 
 def pool_bwd_bound(B, L, H, ctx_item=4):
     """K1b: read ctx once and write d_ctx once (``ctx_item`` bytes an
-    element each), plus w, mask, g_w, g_cv, a and d_attn; 2 flops an
+    element each), plus w, mask, g_w, cv, g_cv, a and d_attn; 2 flops an
     element for dldw, 3 for d_ctx, 2 for d_attn."""
-    nbytes = 2 * ctx_item * B * L * H + 4 * (3 * B * L + B * H + 2 * H)
+    nbytes = 2 * ctx_item * B * L * H + 4 * (3 * B * L + 2 * B * H + 2 * H)
     flops = 7 * B * L * H
     return nbytes, flops
 
@@ -353,6 +354,7 @@ def phase_kernels(torch, dev, smi) -> dict:
     from code2vec_tpu_torch.ops.pool_kernel import (
         attention_pool_kernel,
         pool_backward_kernel,
+        pool_bwd_grid,
         pool_ctas,
     )
     from code2vec_tpu_torch.ops.quant import quantize_table
@@ -453,13 +455,14 @@ def phase_kernels(torch, dev, smi) -> dict:
             elif impl == "pool_bwd_bf16":
                 ctx, mask, a = pool_inputs(torch, dev, g, B, L, H)
                 ctx, a = ctx.to(bf16), a.to(bf16)
-                _, w0 = attention_pool(ctx.float(), mask, a.float())
+                # w and cv of one pool over the bf16 contexts, as K1 gives them
+                cv0, w0 = attention_pool(ctx.float(), mask, a.float())
                 g_cv = torch.randn(B, H, generator=g, device=dev)
                 g_w = torch.randn(B, L, generator=g, device=dev)
                 bargs = (ctx, mask, a, w0, g_cv, g_w)
-                kernel = lambda: pool_backward_kernel(*bargs)  # noqa: E731
+                kernel = lambda: pool_backward_kernel(*bargs[:4], cv0, *bargs[4:])  # noqa: E731
                 plain = lambda: pool_backward_reference(*bargs)  # noqa: E731
-                wide_args = (ctx.float(), mask, a.float(), w0, g_cv, g_w)
+                wide_args = (ctx.float(), mask, a.float(), w0, cv0, g_cv, g_w)
                 extra["f32_kernel_ms"] = bench.time_ms(lambda: pool_backward_kernel(*wide_args))
                 leaves = (ctx.float().requires_grad_(), a.float().requires_grad_())
                 pooled = attention_pool(leaves[0], mask, leaves[1])
@@ -503,11 +506,11 @@ def phase_kernels(torch, dev, smi) -> dict:
                     nbytes += 4 * B * L * H  # the keep mask, read once
             elif impl == "pool_bwd":
                 ctx, mask, a = pool_inputs(torch, dev, g, B, L, H)
-                _, w0 = attention_pool(ctx, mask, a)
+                cv0, w0 = attention_pool(ctx, mask, a)
                 g_cv = torch.randn(B, H, generator=g, device=dev)
                 g_w = torch.randn(B, L, generator=g, device=dev)
                 bargs = (ctx, mask, a, w0, g_cv, g_w)
-                kernel = lambda: pool_backward_kernel(*bargs)  # noqa: E731
+                kernel = lambda: pool_backward_kernel(*bargs[:4], cv0, *bargs[4:])  # noqa: E731
                 plain = lambda: pool_backward_reference(*bargs)  # noqa: E731
                 leaves = (ctx.clone().requires_grad_(), a.clone().requires_grad_())
                 pooled = attention_pool(leaves[0], mask, leaves[1])
@@ -600,14 +603,18 @@ def phase_kernels(torch, dev, smi) -> dict:
             if unmasked is not None:
                 row["unmasked_ms"] = bench.time_ms(unmasked)
             row.update(extra)
-            if impl in (None, "pool_bwd", "pool_bf16", "pool_bwd_bf16"):
+            if impl in (None, "pool_bf16"):
                 row["ctas_per_row"] = pool_ctas(B, L, sms)
+            elif impl in ("pool_bwd", "pool_bwd_bf16"):
+                row["ctas"] = pool_bwd_grid(
+                    B, L, H, bf16 if impl == "pool_bwd_bf16" else torch.float32, dev)[0]
             rows.append(row)
             print(f"kernel {name:32s} B={B:3d} L={L:4d} max_abs_err={err:.3e} "
                   f"ms={ms:.4f} (launches {lo:.4f}-{hi:.4f}) "
                   f"plain_ms={row['plain_ms']:.4f} "
                   f"library_ms={row['library_ms']} bound_ms={row['bound_ms']:.4f} "
-                  f"({bound_by})" + (f" unmasked_ms={row['unmasked_ms']:.4f}" if unmasked else "")
+                  f"({bound_by}) bound_share={row['bound_ms'] / ms:.3f}"
+                  + (f" unmasked_ms={row['unmasked_ms']:.4f}" if unmasked else "")
                   + "".join(f" {k}={v:.4f}" for k, v in extra.items())
                   + f" [{smi}]", flush=True)
         timed = {id(LONG_SHAPES): LONG_TIMED_SHAPE, id(BWD_SHAPES): TRAIN_SHAPE,
@@ -1734,6 +1741,9 @@ def main() -> int:
              "train_bucketed": bucketed, "train_bf16": bf16_train},
             indent=1,
         ))
+    for k in line:  # each kernel's share of its bound at its timed shape
+        print(f"bound share {k['name']}: {k['bound_ms'] / k['ms']:.3f} "
+              f"(ms={k['ms']:.5f} bound_ms={k['bound_ms']:.5f}, {k['bound_by']})")
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,11 @@ Counterpart of ``code2vec_tpu/ops/pallas_attention.py``
 (``pallas_attention_pool``: kernel body ``_tile_pool``, backward
 ``_pool_bwd``): the model's ``pallas_impl="pool_only"`` route. Both
 kernels are in ``csrc/pool.cu``, one launch per call: :func:`pool_ctas`
-picks how many CTAs (one thread-block cluster) share a batch row. The
-plain versions are :func:`~code2vec_tpu_torch.ops.attention.attention_pool`
-on f32 inputs and :func:`~code2vec_tpu_torch.ops.attention.pool_backward_reference`.
+picks how many CTAs (one thread-block cluster) share a batch row of K1;
+K1b streams the contexts in one pass through a persistent grid that
+``csrc/pool.cu`` sizes itself (:func:`pool_bwd_grid`). The plain versions are
+:func:`~code2vec_tpu_torch.ops.attention.attention_pool` on f32 inputs
+and :func:`~code2vec_tpu_torch.ops.attention.pool_backward_reference`.
 
 Contexts are f32 or bf16 (``compute_dtype="bfloat16"``), the attention
 vector in the same dtype (the model casts it, as the JAX model does): the
@@ -21,10 +23,11 @@ or an attention vector in another dtype than the contexts', raises.
 :func:`attention_pool_kernel` is one ``torch.autograd.Function``: its
 forward launches K1 for CUDA tensors (the plain pool on the widened
 inputs for CPU tensors, ``ops/backend.py``) and saves ``contexts, mask,
-attn, weights``; its backward launches K1b (``pool_backward_reference``
-on the CPU) and returns ``d_attn`` in the attention vector's own dtype,
-as ``_pool_bwd`` does, so a bf16 ``attn_param`` cast from the f32
-parameter passes it back through the cast. The mask gets no gradient.
+attn, cv, weights``; its backward launches K1b, which takes the row's
+softmax term from the saved code vector (``pool_backward_reference`` on
+the CPU, which needs no ``cv``), and returns ``d_attn`` in the attention
+vector's own dtype, as ``_pool_bwd`` does, so a bf16 ``attn_param`` cast
+from the f32 parameter passes it back through the cast. The mask gets no gradient.
 """
 
 from __future__ import annotations
@@ -63,9 +66,26 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.c2v_pool_forward.argtypes = [i] + [p] * 5 + [i] * 4 + [p]
         lib.c2v_pool_forward.restype = i
-        lib.c2v_pool_backward.argtypes = [i] + [p] * 8 + [i] * 4 + [p]
+        lib.c2v_pool_backward.argtypes = [i] + [p] * 11 + [i] * 4 + [p]
         lib.c2v_pool_backward.restype = i
+        lib.c2v_pool_backward_grid.argtypes = [i] * 4 + [ctypes.POINTER(i),
+                                                         ctypes.POINTER(ctypes.c_longlong)]
+        lib.c2v_pool_backward_grid.restype = i
     return lib
+
+
+def pool_bwd_grid(b: int, l: int, h: int, dtype: torch.dtype, device) -> tuple[int, int]:
+    """K1b's persistent grid on the CUDA ``device`` for ``[b, l, h]``
+    contexts of ``dtype``: ``(ctas, tasks)``. ``csrc/pool.cu`` cuts the
+    bags into tasks of a few contexts of one row, one contiguous run of
+    them per warp, on at most as many CTAs as the card holds at once."""
+    lib = _lib()
+    ctas, tasks = ctypes.c_int(), ctypes.c_longlong()
+    with torch.cuda.device(device):
+        code = lib.c2v_pool_backward_grid(CTX_DTYPES[dtype], b, l, h, ctypes.byref(ctas),
+                                          ctypes.byref(tasks))
+    _build.check(lib, code, "pool backward grid")
+    return ctas.value, tasks.value
 
 
 def _checked(what, contexts, **named):
@@ -75,7 +95,7 @@ def _checked(what, contexts, **named):
     b, l, h = contexts.shape
     dev = contexts.device
     shapes = {"contexts": (b, l, h), "mask": (b, l), "attn_param": (h,), "weights": (b, l),
-              "g_cv": (b, h), "g_w": (b, l)}
+              "cv": (b, h), "g_cv": (b, h), "g_w": (b, l)}
     if b < 1 or l < 1:
         raise ValueError(f"{what}: empty batch or bag, shape {(b, l, h)}")
     if not 1 <= h <= MAX_H:
@@ -117,32 +137,57 @@ def _launch(contexts, mask, attn_param):
     return cv, w
 
 
-def pool_backward_kernel(contexts, mask, attn_param, weights, g_cv, g_w=None):
+# K1b's ticket per (device, stream): one zeroed int that a launch's last
+# CTA finds and leaves zeroed, kept so that a call needs no fill launch to
+# zero it. Two launches that share a ticket must never overlap: eager
+# launches on one stream do not, and a launch captured into a CUDA graph
+# gets a ticket of its own, zeroed by a fill that each replay repeats, so
+# a replay shares no ticket with an eager launch or another graph.
+_tickets: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+    key = (dev.index, stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _tickets[key]
+
+
+def pool_backward_kernel(contexts, mask, attn_param, weights, cv, g_cv, g_w=None):
     """K1b: ``(d_contexts [B, L, H], d_attn [H])`` on the card, the CUDA
-    counterpart of ``pool_backward_reference``: ``d_contexts`` in the
-    contexts' dtype (f32 or bf16), ``d_attn`` f32. Each CTA writes its part
-    of ``d_attn`` to a ``[B * S, H]`` buffer, summed here in a fixed order."""
-    named = dict(mask=mask, attn_param=attn_param, weights=weights, g_cv=g_cv)
+    counterpart of ``pool_backward_reference``, from the forward's
+    ``weights`` and code vector ``cv`` (the row's softmax term is
+    ``<g_cv, cv> + <weights, g_w>``): ``d_contexts`` in the contexts' dtype
+    (f32 or bf16), ``d_attn`` f32. Each CTA of the persistent grid writes
+    its part of ``d_attn`` to a ``[G, H]`` scratch buffer; the last CTA to
+    finish (found with the stream's ticket, ``_ticket``) adds them in CTA
+    order, so a call is one kernel and bitwise repeatable."""
+    named = dict(mask=mask, attn_param=attn_param, weights=weights, cv=cv, g_cv=g_cv)
     if g_w is not None:
         named["g_w"] = g_w
     ctx, *rest = _checked("pool backward kernel", contexts, **named)
-    msk, attn, w, gcv = rest[:4]
-    gw = rest[4] if g_w is not None else None
+    msk, attn, w, cv_, gcv = rest[:5]
+    gw = rest[5] if g_w is not None else None
     b, l, h = ctx.shape
     dev = ctx.device
-    ctas = pool_ctas(b, l, torch.cuda.get_device_properties(dev).multi_processor_count)
+    ctas, _ = pool_bwd_grid(b, l, h, ctx.dtype, dev)
     d_ctx = torch.empty_like(ctx)
-    part = torch.empty((b * ctas, h), dtype=torch.float32, device=dev)
+    part = torch.empty((ctas, h), dtype=torch.float32, device=dev)
+    d_attn = torch.empty(h, dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ticket = _ticket(dev, stream)
         code = lib.c2v_pool_backward(
             CTX_DTYPES[ctx.dtype], ctx.data_ptr(), msk.data_ptr(), attn.data_ptr(), w.data_ptr(),
-            gcv.data_ptr(), None if gw is None else gw.data_ptr(), d_ctx.data_ptr(),
-            part.data_ptr(), b, l, h, ctas, stream)
+            cv_.data_ptr(), gcv.data_ptr(), None if gw is None else gw.data_ptr(),
+            d_ctx.data_ptr(), part.data_ptr(), d_attn.data_ptr(), ticket.data_ptr(), b, l, h,
+            ctas, stream)
     _build.check(lib, code, "pool backward kernel launch")
     count_launch(kernel_key(KERNEL_BWD, ctx))
-    return d_ctx, part.sum(dim=0)
+    return d_ctx, d_attn
 
 
 class _AttentionPool(torch.autograd.Function):
@@ -154,19 +199,19 @@ class _AttentionPool(torch.autograd.Function):
             cv, w = attention_pool(contexts.float(), mask, attn_param.float())
         else:
             cv, w = _launch(contexts, mask, attn_param)
-        ctx.save_for_backward(contexts, mask, attn_param, w)
+        ctx.save_for_backward(contexts, mask, attn_param, cv, w)
         ctx.set_materialize_grads(False)  # an unused weights output sends no g_w
         return cv, w
 
     @staticmethod
     def backward(ctx, g_cv, g_w):
-        contexts, mask, attn_param, w = ctx.saved_tensors
+        contexts, mask, attn_param, cv, w = ctx.saved_tensors
         if g_cv is None:
             g_cv = torch.zeros(contexts.shape[0], contexts.shape[2], device=contexts.device)
         if contexts.device.type == "cpu":
             d_ctx, d_attn = pool_backward_reference(contexts, mask, attn_param, w, g_cv, g_w)
         else:
-            d_ctx, d_attn = pool_backward_kernel(contexts, mask, attn_param, w, g_cv, g_w)
+            d_ctx, d_attn = pool_backward_kernel(contexts, mask, attn_param, w, cv, g_cv, g_w)
         return d_ctx, None, d_attn.to(attn_param.dtype), None
 
 

@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Time K1b, the attention pool's backward kernel, across checkouts of the
+PyTorch port on one card, in turns (parent, change, change, parent).
+
+    python3 code2vec_tpu_torch/tools/pool_bwd_ab.py [--train_steps] ROOT [ROOT ...]
+
+Each ROOT is a checkout holding ``code2vec_tpu_torch/`` and
+``chip_smoke.py`` (for instance a ``git archive`` of a commit unpacked into
+``build/``). First every ROOT's kernels are built, one process per
+distinct ROOT, all at once. Then the ROOTs run in the order given, each in
+a process of its own: K1b at each of ``SHAPES`` (B x L x H: top11's train
+batch at its encode width of 100, and at the default encode width of
+300), over f32 and bf16 contexts, on inputs made from one seed with the
+ROOT's own ``chip_smoke.pool_inputs`` (the same values in every process),
+timed as that script times every kernel (``KernelBench``: the median of
+30 launches, each after a 96 MB write that flushes L2) and held against
+``pool_backward_reference``. A ROOT whose ``pool_backward_kernel`` takes
+no ``cv`` (the two-pass K1b) is called without it. The builds print
+ptxas' report of ``csrc/pool.cu`` (registers and spills per kernel), and
+each run the one-pass K1b's grid (``ctas``). With ``--train_steps``
+each run also takes the ROOT's ``chip_smoke.step_breakdown`` of a train
+step at the top11 recipe (batch 1024, bag 200, dropout 0.25; its train
+phase's corpus and config), in f32 and in bf16, and reports the plain and
+``pool_only`` routes' forward, backward, optimizer and wall ms.
+
+Prints the card's name and power limit, one JSON line per run, and last a
+JSON summary: per ROOT, shape and dtype, the runs' times in milliseconds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+SHAPES = ((1024, 200, 100), (1024, 200, 300))  # B, L, H
+SEED = 1234
+
+
+STEP_ROUTES = ("plain", "pool_only")
+STEP_KEYS = ("forward_ms", "backward_ms", "optimizer_ms", "step_wall_ms")
+
+
+def train_steps(torch, chip_smoke, dev) -> dict:
+    """The step breakdown of chip_smoke's train phase, f32 and bf16."""
+    from code2vec_tpu_torch.train.config import TrainConfig
+
+    _, data = chip_smoke.train_corpus()
+    config = TrainConfig(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                         max_path_length=chip_smoke.BAG, batch_size=chip_smoke.TRAIN_BATCH,
+                         dropout_prob=0.25, max_epoch=2, random_seed=0, print_sample_cycle=0)
+    out = {}
+    for name, cfg in (("f32", config), ("bf16", config.with_updates(
+            compute_dtype="bfloat16", adam_mu_dtype="bfloat16"))):
+        bd = chip_smoke.step_breakdown(torch, dev, data, cfg, "")
+        out[name] = {r: {k: bd[r][k] for k in STEP_KEYS} for r in STEP_ROUTES}
+    return out
+
+
+def child(root: Path, build_only: bool, steps: bool) -> dict:
+    sys.path.insert(0, str(root))
+    import torch
+
+    from code2vec_tpu_torch.ops import _build
+
+    _build.build_all()
+    if build_only:  # with ptxas' report of the kernels' registers and spills
+        return {"root": str(root), "built": True, "pool_ptxas": _build.build_log.get("pool")}
+    import chip_smoke
+    from code2vec_tpu_torch.ops import pool_kernel
+    from code2vec_tpu_torch.ops.attention import attention_pool, pool_backward_reference
+    from code2vec_tpu_torch.ops.pool_kernel import pool_backward_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    takes_cv = "cv" in inspect.signature(pool_backward_kernel).parameters
+    grid = getattr(pool_kernel, "pool_bwd_grid", None)  # the one-pass K1b's
+    bench = chip_smoke.KernelBench(torch, dev)
+    out = {"root": str(root), "takes_cv": takes_cv}
+    for B, L, H in SHAPES:
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            ctx, mask, a = chip_smoke.pool_inputs(torch, dev, g, B, L, H)
+            ctx, a = ctx.to(dtype), a.to(dtype)
+            cv, w = attention_pool(ctx.float(), mask, a.float())
+            g_cv = torch.randn(B, H, generator=g, device=dev)
+            g_w = torch.randn(B, L, generator=g, device=dev)
+            extra = (cv,) if takes_cv else ()
+            run = lambda: pool_backward_kernel(ctx, mask, a, w, *extra, g_cv, g_w)  # noqa: E731
+            d_ctx, d_attn = run()
+            r_ctx, r_attn = pool_backward_reference(ctx, mask, a, w, g_cv, g_w)
+            torch.cuda.synchronize()
+            out[f"{B}x{L}x{H} {name}"] = {
+                "ms": bench.time_ms(run), "ms_min_max": list(bench.spread),
+                "d_ctx_max_abs_err": (d_ctx.float() - r_ctx.float()).abs().max().item(),
+                "d_attn_max_abs_err": (d_attn - r_attn).abs().max().item(),
+                "ctas": grid(B, L, H, dtype, dev)[0] if grid else None,
+            }
+    if steps:
+        out["train_steps"] = train_steps(torch, chip_smoke, dev)
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("roots", nargs="+", type=Path)
+    parser.add_argument("--train_steps", action="store_true",
+                        help="also time a train step's plain and pool_only routes")
+    parser.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--build_only", action="store_true", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.child:
+        print(json.dumps(child(args.roots[0].resolve(), args.build_only, args.train_steps)),
+              flush=True)
+        return 0
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    me = [sys.executable, str(Path(__file__).resolve()), "--child"]
+    if args.train_steps:
+        me.append("--train_steps")
+    roots = [r.resolve() for r in args.roots]
+    builds = [subprocess.Popen([*me, "--build_only", str(r)]) for r in dict.fromkeys(roots)]
+    if any(p.wait() != 0 for p in builds):
+        print("pool_bwd_ab: a build failed", file=sys.stderr)
+        return 1
+    summary: dict = {}
+    for root in roots:
+        res = subprocess.run([*me, str(root)], capture_output=True, text=True, timeout=1200)
+        if res.returncode != 0:
+            print(res.stderr, file=sys.stderr)
+            return 1
+        run = json.loads(res.stdout.strip().splitlines()[-1])
+        print(json.dumps(run), flush=True)
+        for B, L, H in SHAPES:
+            for name in ("f32", "bf16"):
+                key = f"{B}x{L}x{H} {name}"
+                summary.setdefault(str(root), {}).setdefault(key, []).append(run[key]["ms"])
+        for name in ("f32", "bf16"):
+            for route, t in run.get("train_steps", {}).get(name, {}).items():
+                summary[str(root)].setdefault(f"{name} {route} backward_ms", []).append(
+                    t["backward_ms"])
+    print(json.dumps({"card": smi, "ms": summary}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

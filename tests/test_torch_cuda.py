@@ -20,9 +20,9 @@ full wave) and B = 1 / 64 at L = 2048 on the card's ``stream_ctas`` grid;
 for K5 many tiles per cell, one, or several cells per CTA, word and byte
 code loads, sources at any alignment, pad slots, clamped cell ids, and the
 searcher's shortlist against its plain scoring; for K1b (the pool's
-backward) every cluster size, a weights cotangent or none, rows kept in or
-re-read past shared memory, repeatable bits; K2/K3/K4-online with the
-dropout keep mask; and one train step on each kernel route against the
+backward) its persistent grid below and at its cap, a weights cotangent
+or none, a row's tasks spread over several CTAs, repeatable bits;
+K2/K3/K4-online with the dropout keep mask; and one train step on each kernel route against the
 plain route's gradients. Tolerance rtol = atol = 1e-5 (the plain
 versions in f32 with TF32 off, the kernels' encode in 3xTF32 on the
 tensor cores); at top11 widths and one context the kernel's code vector is
@@ -526,21 +526,24 @@ def test_wrong_dtype_raises(dev):
         attention_pool_kernel(ctx, torch.ones(2, 3, device=dev), torch.ones(8, device=dev))
 
 
-def pool_backward_inputs(dev, B, L, H, seed):
+def pool_backward_inputs(dev, B, L, H, seed, dtype=torch.float32):
+    """K1b's inputs: contexts and attention vector in ``dtype``, and ``w``
+    and ``cv`` from one ``attention_pool`` call on those contexts (widened),
+    as K1 gives them to K1b in training."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    ctx = torch.tanh(torch.randn(B, L, H, generator=g, device=dev))
+    ctx = torch.tanh(torch.randn(B, L, H, generator=g, device=dev)).to(dtype)
     lens = torch.randint(1, L + 1, (B,), generator=g, device=dev)
     lens[0] = L
     mask = (torch.arange(L, device=dev)[None, :] < lens[:, None]).float()
     if B > 1:
         mask[-1] = 0.0
-    attn = torch.randn(H, generator=g, device=dev) / H**0.5
+    attn = (torch.randn(H, generator=g, device=dev) / H**0.5).to(dtype)
     from code2vec_tpu_torch.ops.attention import attention_pool
 
-    _, w = attention_pool(ctx, mask, attn)
+    cv, w = attention_pool(ctx.float(), mask, attn.float())
     g_cv = torch.randn(B, H, generator=g, device=dev)
     g_w = torch.randn(B, L, generator=g, device=dev)
-    return ctx, mask, attn, w, g_cv, g_w
+    return ctx, mask, attn, w, cv, g_cv, g_w
 
 
 @pytest.mark.parametrize("with_gw", [False, True])
@@ -548,18 +551,20 @@ def pool_backward_inputs(dev, B, L, H, seed):
 @pytest.mark.parametrize("L", [1, 37, 200, 2048])
 @pytest.mark.parametrize("B", [1, 5, 64, 1024])
 def test_pool_backward_kernel(dev, B, L, H, with_gw):
-    """K1b against pool_backward_reference on every cluster size pool_ctas
-    gives, the last row all-masked (its d_ctx is w g_cv, no score term)."""
+    """K1b against pool_backward_reference, the last row all-masked (its
+    d_ctx is w g_cv, no score term): one context a row, rows that end
+    inside a task, tasks of 8 and 2 contexts, grids below and at the
+    persistent grid's cap."""
     from code2vec_tpu_torch.ops.attention import pool_backward_reference
     from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
     from code2vec_tpu_torch.ops.pool_kernel import pool_backward_kernel
 
     if B * L * H > 40_000_000:
         pytest.skip("the reference's [B, L, H] temporaries: covered at top11 by chip_smoke")
-    ctx, mask, attn, w, g_cv, g_w = pool_backward_inputs(dev, B, L, H, B * L + H)
+    ctx, mask, attn, w, cv, g_cv, g_w = pool_backward_inputs(dev, B, L, H, B * L + H)
     g_w = g_w if with_gw else None
     reset_launch_counts()
-    d_ctx, d_attn = pool_backward_kernel(ctx, mask, attn, w, g_cv, g_w)
+    d_ctx, d_attn = pool_backward_kernel(ctx, mask, attn, w, cv, g_cv, g_w)
     assert launch_counts() == {"pool_bwd": 1}
     r_ctx, r_attn = pool_backward_reference(ctx, mask, attn, w, g_cv, g_w)
     torch.cuda.synchronize()
@@ -567,20 +572,59 @@ def test_pool_backward_kernel(dev, B, L, H, with_gw):
     torch.testing.assert_close(d_attn, r_attn, rtol=1e-4, atol=1e-5)
 
 
-def test_pool_backward_rereads_rows_past_shared_memory(dev):
-    """A CTA's share of the bag (one CTA a row: the batch fills the card)
-    does not fit in shared memory at H = 100, so pass 2 re-reads ctx."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pool_backward_grid_splits_rows_over_warps(dev, dtype):
+    """K1b's persistent grid at B = 300, L = 700, H = 100: 88 tasks a row
+    over the capped grid's warps, so a row's tasks land on several warps
+    and CTAs and the runs end in a ragged tail. Two calls give the same
+    bits, and both agree with the plain version."""
     from code2vec_tpu_torch.ops.attention import pool_backward_reference
-    from code2vec_tpu_torch.ops.pool_kernel import pool_backward_kernel, pool_ctas
+    from code2vec_tpu_torch.ops.pool_kernel import pool_backward_kernel, pool_bwd_grid
 
     B, L, H = 300, 700, 100
-    assert pool_ctas(B, L, torch.cuda.get_device_properties(dev).multi_processor_count) == 1
-    ctx, mask, attn, w, g_cv, g_w = pool_backward_inputs(dev, B, L, H, 11)
-    d_ctx, d_attn = pool_backward_kernel(ctx, mask, attn, w, g_cv, g_w)
+    warps = 8  # a CTA's warps, kWarps in csrc/pool.cu
+    ctas, tasks = pool_bwd_grid(B, L, H, dtype, dev)
+    assert tasks == B * 88 and ctas < tasks // warps and tasks % (ctas * warps) != 0
+    ctx, mask, attn, w, cv, g_cv, g_w = pool_backward_inputs(dev, B, L, H, 11, dtype)
+    first = pool_backward_kernel(ctx, mask, attn, w, cv, g_cv, g_w)
+    second = pool_backward_kernel(ctx, mask, attn, w, cv, g_cv, g_w)
     r_ctx, r_attn = pool_backward_reference(ctx, mask, attn, w, g_cv, g_w)
     torch.cuda.synchronize()
-    torch.testing.assert_close(d_ctx, r_ctx, rtol=0, atol=1e-5)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    d_ctx, d_attn = first
+    if dtype == torch.float32:
+        torch.testing.assert_close(d_ctx, r_ctx, rtol=0, atol=1e-5)
+    else:
+        assert ((d_ctx.double() - r_ctx.double()).abs() <= 1e-5 + bf16_ulp(r_ctx)).all()
     torch.testing.assert_close(d_attn, r_attn, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_pool_backward_in_a_cuda_graph(dev, dtype):
+    """K1b captured into a CUDA graph and replayed between eager calls on
+    the capture's stream and the default one: the captured launch has a
+    ticket of its own, so every replay and every eager call gives the same
+    bits."""
+    from code2vec_tpu_torch.ops.pool_kernel import pool_backward_kernel
+
+    args = pool_backward_inputs(dev, 64, 200, 100, 5, dtype)
+    eager = pool_backward_kernel(*args)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        pool_backward_kernel(*args)  # warm-up: builds and loads the kernel
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = pool_backward_kernel(*args)
+    for _ in range(3):
+        graph.replay()
+        with torch.cuda.stream(side):
+            again = pool_backward_kernel(*args)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(captured, eager))
+        assert all(torch.equal(x, y) for x, y in zip(again, eager))
 
 
 @pytest.mark.parametrize("B,L", [(1, 2048), (64, 200)])
@@ -749,11 +793,11 @@ def test_pool_backward_kernel_over_bf16_contexts(dev, B, L, H, with_gw):
 
     if B * L * H > 40_000_000:
         pytest.skip("the reference's [B, L, H] temporaries: covered at top11 by chip_smoke")
-    ctx, mask, attn, w, g_cv, g_w = pool_backward_inputs(dev, B, L, H, B * L + H + 1)
-    ctx, attn = ctx.to(torch.bfloat16), attn.to(torch.bfloat16)
+    ctx, mask, attn, w, cv, g_cv, g_w = pool_backward_inputs(dev, B, L, H, B * L + H + 1,
+                                                             torch.bfloat16)
     g_w = g_w if with_gw else None
     reset_launch_counts()
-    d_ctx, d_attn = pool_backward_kernel(ctx, mask, attn, w, g_cv, g_w)
+    d_ctx, d_attn = pool_backward_kernel(ctx, mask, attn, w, cv, g_cv, g_w)
     assert launch_counts() == {"pool_bwd_bf16": 1}
     r_ctx, r_attn = pool_backward_reference(ctx, mask, attn, w, g_cv, g_w)
     torch.cuda.synchronize()
@@ -762,21 +806,6 @@ def test_pool_backward_kernel_over_bf16_contexts(dev, B, L, H, with_gw):
     assert (diff <= 1e-5 + bf16_ulp(r_ctx)).all(), diff.max()
     torch.testing.assert_close(d_attn, r_attn, rtol=1e-4,
                                atol=1e-5 + 1e-6 * r_attn.abs().max().item())
-
-
-def test_pool_backward_over_bf16_rereads_rows_past_shared_memory(dev):
-    from code2vec_tpu_torch.ops.attention import pool_backward_reference
-    from code2vec_tpu_torch.ops.pool_kernel import pool_backward_kernel, pool_ctas
-
-    B, L, H = 300, 700, 100
-    assert pool_ctas(B, L, torch.cuda.get_device_properties(dev).multi_processor_count) == 1
-    ctx, mask, attn, w, g_cv, g_w = pool_backward_inputs(dev, B, L, H, 12)
-    ctx, attn = ctx.to(torch.bfloat16), attn.to(torch.bfloat16)
-    d_ctx, d_attn = pool_backward_kernel(ctx, mask, attn, w, g_cv, g_w)
-    r_ctx, r_attn = pool_backward_reference(ctx, mask, attn, w, g_cv, g_w)
-    torch.cuda.synchronize()
-    assert ((d_ctx.double() - r_ctx.double()).abs() <= 1e-5 + bf16_ulp(r_ctx)).all()
-    torch.testing.assert_close(d_attn, r_attn, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("masked", [False, True])
