@@ -108,7 +108,27 @@ the final result line is not printed):
    plus one bf16 ulp) and K2 over bf16 rows (masked and not, and against the f32 K2
    fed the same rows widened: two TF32 products against three) against
    their plain versions;
-10. a line with the launch floor and the ``neighbors`` split, the card's
+10. train_lazy — the train phase's corpus, widths, batch, bag and dropout
+   with ``--table_update lazy`` (the tables' touched rows only, from per-slot
+   gradients), 2 epochs on plain, pool_only (K1 + K1b), gather_split
+   (masked K2) and fused (masked K3), and with bf16 compute + bf16 first
+   moments on plain and fused: each kernel launched once for every train
+   batch, F1 > 0, loss, F1, steps/s, real contexts/s and peak memory beside
+   the dense runs of the train and train_bf16 phases; a dropout-0
+   differential of 3 lazy steps a route against the lazy plain route (the
+   train differential's tolerances on the losses, the other parameters'
+   gradients and the tables' per-slot gradients; every row a step leaves
+   untouched, and its moments, bit for bit unchanged); per route, a warm
+   step's table optimizer run under ``torch.cuda.set_sync_debug_mode(
+   "error")`` (it must not sync; the whole step is tried the same way and
+   where it syncs is printed), and the profiler's op list of a lazy step
+   (no embedding backward, no ``[V, E]``-sized zero / ``index_put`` /
+   ``index_add_``, the tables' ``.grad`` None; the dense plain step must show
+   its embedding backward); the step breakdown with the mean rows a step
+   touches per table (f32 every route, bf16 plain and fused), beside the
+   dense breakdowns; and one lazy epoch of the long-bag recipe on fused
+   (masked K3 at the base rungs, masked K4 online above, once a batch);
+11. a line with the launch floor and the ``neighbors`` split, the card's
    name and power limit, the line ``{"kernels": [...]}`` (per kernel:
    route, source, the TPU kernel it replaces, launches on its serve or
    train route (the masked K4's on the long-bag runs), max error, times
@@ -1158,10 +1178,18 @@ def train_differential(torch, dev, data, config, host_batches, routes) -> dict:
     forward): every batch's gradients are taken from the seeded weights (a
     step would carry one route's rounding into the next batch's weights),
     losses within rtol 2^-7 and gradients within 2^-5 of each tensor's
-    largest element."""
+    largest element. Under ``table_update="lazy"`` the tables' gradients are
+    the per-slot ones (``<table> slots``), and each step must leave the rows
+    it does not touch, and their moments, bit for bit as they were."""
     from code2vec_tpu_torch.models.code2vec import Code2Vec
     from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
-    from code2vec_tpu_torch.train.step import forward_backward, make_optimizer, to_device
+    from code2vec_tpu_torch.train.step import (
+        forward_backward,
+        lazy_forward_backward,
+        make_optimizer,
+        to_device,
+    )
+    from code2vec_tpu_torch.train.table_opt import TABLE_PARAMS
 
     batches = [to_device(b, dev) for b in host_batches]
     weights = class_weights_from(config, data, dev)
@@ -1172,19 +1200,40 @@ def train_differential(torch, dev, data, config, host_batches, routes) -> dict:
     bf16 = config.compute_dtype == "bfloat16"
     loss_rtol, grad_rtol, grad_atol, grad_frac = (2.0**-7, 0.0, 0.0, 2.0**-5) if bf16 else \
         (1e-4, 1e-3, 1e-5, 0.0)
+    lazy = config.table_update == "lazy"
     ref, out = None, {}
     for route, kernel in routes.items():
         with torch.device(dev):
             model = Code2Vec(base_cfg.with_updates(**kernel))
         model.load_state_dict(state)
         opt = make_optimizer(model, config)
+        tables = [model.get_parameter(name) for name in TABLE_PARAMS]
         steps = []
         for batch in batches:
             opt.zero_grad(set_to_none=True)
-            loss = forward_backward(model, batch, weights)
-            steps.append((loss, {k: p.grad.clone() for k, p in model.named_parameters()}))
-            if not bf16:
-                opt.step()
+            if not lazy:
+                loss = forward_backward(model, batch, weights)
+                steps.append((loss, {k: p.grad.clone() for k, p in model.named_parameters()}))
+                if not bf16:
+                    opt.step()
+                continue
+            loss, table_grads = lazy_forward_backward(model, batch, weights)
+            grads = {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
+            grads.update({f"{name} slots": s.clone()
+                          for name, (_, s) in zip(TABLE_PARAMS, table_grads)})
+            steps.append((loss, grads))
+            if any(t.grad is not None for t in tables):
+                raise AssertionError(f"lazy {route}: a table got a dense .grad")
+            before = [(t.detach().clone(), opt.state[t]["exp_avg"].clone(),
+                       opt.state[t]["exp_avg_sq"].clone()) for t in tables]
+            opt.step(table_grads)
+            for t, prev, (ids, _) in zip(tables, before, table_grads):
+                untouched = torch.ones(t.shape[0], dtype=torch.bool, device=dev)
+                untouched[ids.long()] = False
+                now = (t.detach(), opt.state[t]["exp_avg"], opt.state[t]["exp_avg_sq"])
+                if not all(torch.equal(a[untouched], b[untouched]) for a, b in zip(now, prev)):
+                    raise AssertionError(f"lazy {route}: an untouched row or moment changed")
+            del before
         if ref is None:
             ref = steps
             out[route] = [float(loss) for loss, _ in steps]
@@ -1197,7 +1246,7 @@ def train_differential(torch, dev, data, config, host_batches, routes) -> dict:
                 torch.testing.assert_close(grads[k], g, rtol=grad_rtol, atol=atol, msg=k)
                 worst = max(worst, (grads[k] - g).abs().max().item())
         out[route] = {"losses": [float(loss) for loss, _ in steps], "max_abs_grad_err": worst}
-        print(f"train differential {route}: {len(steps)} steps at widths "
+        print(f"train differential {'lazy ' if lazy else ''}{route}: {len(steps)} steps at widths "
               f"{[b['starts'].shape[1] for b in host_batches]}, losses "
               f"{[round(x, 6) for x in out[route]['losses']]} vs plain "
               f"{[round(x, 6) for x in out['plain']]}, max |grad - plain| {worst:.3e}",
@@ -1226,16 +1275,26 @@ def profile_steps(torch, model, opt, batches, weights, top=8) -> list:
     return [(e.key[:60], device_us(e) / 1e3 / len(batches)) for e in ops]
 
 
-def step_breakdown(torch, dev, data, config, smi, label="") -> dict:
-    """Where a train step's time goes, per route (dropout 0.25): device ms
+def step_breakdown(torch, dev, data, config, smi, label="", routes=None) -> dict:
+    """Where a train step's time goes, per route (dropout 0.25; every
+    route of the train phase unless ``routes`` names some): device ms
     of the forward, the backward and the optimizer step (CUDA events), the
     host's wall ms of a whole step (synchronised), and the host's ms to
     build an epoch and to slice + pin + copy one batch. Median of 5 steps
-    after 2 warm ones."""
+    after 2 warm ones. Under ``table_update="lazy"`` the forward takes the
+    zero offsets, the optimizer span begins with collecting the per-slot
+    gradients, and the mean number of distinct rows a step touches in each
+    table is reported."""
     from code2vec_tpu_torch.data.pipeline import build_method_epoch, iter_batches
     from code2vec_tpu_torch.models.code2vec import Code2Vec
     from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
-    from code2vec_tpu_torch.train.step import make_optimizer, to_device, weighted_nll
+    from code2vec_tpu_torch.train.step import (
+        make_optimizer,
+        slot_grads,
+        to_device,
+        weighted_nll,
+        zero_offsets,
+    )
 
     rng = np.random.default_rng(2)
     items = rng.permutation(data.n_items)[:7 * TRAIN_BATCH]
@@ -1249,7 +1308,18 @@ def step_breakdown(torch, dev, data, config, smi, label="") -> dict:
     feed_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
     weights = class_weights_from(config, data, dev)
     out = {"epoch_build_ms_7_batches": build_ms, "batch_copy_ms": feed_ms}
-    for route in TRAIN_ROUTES:
+    lazy = config.table_update == "lazy"
+    if lazy:
+        out["touched_rows_per_step"] = {
+            "terminal": float(np.mean([np.unique(np.concatenate([b["starts"], b["ends"]], 1)).size
+                                       for b in host_batches])),
+            "path": float(np.mean([np.unique(b["paths"]).size for b in host_batches])),
+        }
+        print(f"lazy steps touch {out['touched_rows_per_step']['terminal']:.1f} of "
+              f"{len(data.terminal_vocab)} terminal rows and "
+              f"{out['touched_rows_per_step']['path']:.1f} of {len(data.path_vocab)} path rows "
+              f"a step (mean) [{smi}]", flush=True)
+    for route in routes or TRAIN_ROUTES:
         with torch.device(dev):
             model = Code2Vec(model_config_from(config.with_updates(**kernel_route(route)), data))
         model.seed_dropout(0)
@@ -1262,12 +1332,17 @@ def step_breakdown(torch, dev, data, config, smi, label="") -> dict:
             t0 = time.perf_counter()
             ev[0].record()
             opt.zero_grad(set_to_none=True)
-            logits, _, _ = model(batch["starts"], batch["paths"], batch["ends"])
+            offsets = zero_offsets(model.config, batch["starts"].shape, dev) if lazy else None
+            logits, _, _ = model(batch["starts"], batch["paths"], batch["ends"],
+                                 embed_offsets=offsets)
             loss = weighted_nll(logits, batch["labels"], weights, batch["example_mask"])
             ev[1].record()
             loss.backward()
             ev[2].record()
-            opt.step()
+            if lazy:
+                opt.step(slot_grads(batch, offsets))
+            else:
+                opt.step()
             ev[3].record()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
@@ -1628,6 +1703,244 @@ def phase_train_bf16(torch, smi, dev, tmp: Path, f32_train) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: lazy table training (--table_update lazy)
+# ---------------------------------------------------------------------------
+
+# bf16 compute + bf16 first moments, lazily: route -> its launch keys
+TRAIN_LAZY_BF16_ROUTES = {"plain": (), "fused": ("fused_f32_masked",)}
+# the profiler ops that form a dense [V, E] table gradient
+DENSE_GRAD_OPS = ("aten::zero_", "aten::zeros", "aten::index_put_", "aten::index_put",
+                  "aten::index_add_")
+
+
+def synced_at(err: BaseException) -> str:
+    """Where a sync-debug error was raised: the innermost frame of the port
+    (or of this script) in its traceback, with the error's first line."""
+    frames = [f for f in traceback.extract_tb(err.__traceback__)
+              if "code2vec_tpu_torch" in f.filename or f.filename.endswith("chip_smoke.py")]
+    where = f"{Path(frames[-1].filename).name}:{frames[-1].lineno} {frames[-1].line}" \
+        if frames else "?"
+    return f"{where}: {str(err).splitlines()[0]}"
+
+
+def check_lazy_step(torch, dev, data, config, host_batches, route, smi) -> dict:
+    """On one route, lazily: (1) a warm step's table optimizer under
+    ``torch.cuda.set_sync_debug_mode("error")`` must not sync, and the
+    whole next step is tried the same way (where it syncs is reported, not
+    failed); (2) the profiler's op list of a step holds no embedding
+    backward and no ``[V, E]``-sized zero / ``index_put`` / ``index_add_``,
+    and the tables' ``.grad`` stay None (the dense step on the plain route
+    shows the embedding backward, so the check can see one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
+    from code2vec_tpu_torch.train.step import (
+        lazy_forward_backward,
+        make_optimizer,
+        to_device,
+        train_step,
+    )
+
+    batches = [to_device(b, dev) for b in host_batches]
+    weights = class_weights_from(config, data, dev)
+    table_shapes = {(len(data.terminal_vocab), config.terminal_embed_size),
+                    (len(data.path_vocab), config.path_embed_size)}
+    out = {}
+    for update in ("lazy", "dense") if route == "plain" else ("lazy",):
+        with torch.device(dev):
+            model = Code2Vec(model_config_from(config.with_updates(**kernel_route(route)), data))
+        model.seed_dropout(0)
+        opt = make_optimizer(model, config.with_updates(table_update=update))
+        train_step(model, opt, batches[0], weights)
+        if update == "lazy":
+            opt.zero_grad(set_to_none=True)
+            _, table_grads = lazy_forward_backward(model, batches[1], weights)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                opt.step(table_grads)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                train_step(model, opt, batches[2], weights)
+                out["whole_step_sync"] = None
+            except RuntimeError as err:
+                if "synchroniz" not in str(err):  # only a sync is reported, not failed
+                    raise
+                out["whole_step_sync"] = synced_at(err)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            train_step(model, opt, batches[3], weights)
+            torch.cuda.synchronize()
+        dense_ops = sorted({
+            e.name for e in prof.events()
+            if e.name == "aten::embedding_dense_backward"
+            or (e.name in DENSE_GRAD_OPS
+                and any(tuple(sh) in table_shapes for sh in (e.input_shapes or [])))})
+        out[f"{update}_dense_grad_ops"] = dense_ops
+        grads = [model.terminal_embedding.weight.grad, model.path_embedding.weight.grad]
+        if update == "lazy" and (dense_ops or any(g is not None for g in grads)):
+            raise AssertionError(f"lazy {route}: a dense table gradient was formed: {dense_ops}, "
+                                 f".grad {[g is not None for g in grads]}")
+        if update == "dense" and "aten::embedding_dense_backward" not in dense_ops:
+            raise AssertionError(f"the dense step's op list shows no embedding backward: "
+                                 f"{dense_ops}")
+        del model, opt
+    print(f"lazy {route}: the table optimizer's step ran under sync debug mode 'error' with "
+          f"no sync; the whole step: {out['whole_step_sync'] or 'no sync'}; dense table "
+          f"gradient ops in a lazy step: {out['lazy_dense_grad_ops'] or 'none'}"
+          + (f" (dense step: {out['dense_dense_grad_ops']})" if route == "plain" else "")
+          + f" [{smi}]", flush=True)
+    return out
+
+
+def check_sparse_adam(torch, dev, data, config, host_batches, smi) -> dict:
+    """Two ``LazyTableAdam`` steps on the card, on the per-slot gradients
+    of two batches at the config's widths, against ``torch.optim.SparseAdam``
+    on the card stepping copies of the same tables with the same gradients
+    as sparse tensors: every row of both tables and both moments within
+    rtol 1e-5 and 1e-6 of each tensor's largest element (both sum a row's
+    slots on the card, in their own orders); the rows neither step touched
+    equal bit for bit."""
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
+    from code2vec_tpu_torch.train.step import lazy_forward_backward, to_device
+    from code2vec_tpu_torch.train.table_opt import LazyTableAdam
+
+    weights = class_weights_from(config, data, dev)
+    with torch.device(dev):
+        model = Code2Vec(model_config_from(config.with_updates(dropout_prob=0.0), data))
+    grads = [lazy_forward_backward(model, to_device(b, dev), weights)[1]
+             for b in host_batches[:2]]
+    tables = [model.terminal_embedding.weight, model.path_embedding.weight]
+    lazy_tables = [t.detach().clone() for t in tables]
+    sparse_tables = [t.detach().clone().requires_grad_() for t in tables]
+    del model
+    betas = (config.beta_min, config.beta_max)
+    lazy = LazyTableAdam(lazy_tables, torch.optim.Adam([torch.zeros(1, device=dev)]),
+                         lr=config.lr, betas=betas, eps=1e-8)
+    sparse = torch.optim.SparseAdam(sparse_tables, lr=config.lr, betas=betas, eps=1e-8)
+    worst = {}
+    touched = [torch.zeros(t.shape[0], dtype=torch.bool, device=dev) for t in tables]
+    for step, table_grads in enumerate(grads):
+        lazy.step(table_grads)
+        for t, (ids, slots) in zip(sparse_tables, table_grads):
+            t.grad = torch.sparse_coo_tensor(ids.long()[None], slots, t.shape,
+                                            check_invariants=True)
+        sparse.step()
+        for name, a, b, (ids, _), seen in zip(("terminal", "path"), lazy_tables,
+                                              sparse_tables, table_grads, touched):
+            seen[ids.long()] = True
+            untouched = ~seen
+            for what, x, y in (("rows", a, b.detach()),
+                               ("mu", lazy.state[a]["exp_avg"], sparse.state[b]["exp_avg"]),
+                               ("nu", lazy.state[a]["exp_avg_sq"],
+                                sparse.state[b]["exp_avg_sq"])):
+                key = f"{name} {what}"
+                torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6 * y.abs().max().item(),
+                                           msg=f"LazyTableAdam vs SparseAdam, step {step}: {key}")
+                if not torch.equal(x[untouched], y[untouched]):
+                    raise AssertionError(f"step {step}: {key}: an untouched row differs")
+                worst[key] = max(worst.get(key, 0.0), (x - y).abs().max().item())
+    print(f"LazyTableAdam vs torch.optim.SparseAdam on the card, 2 steps over "
+          f"{[tuple(t.shape) for t in lazy_tables]}: max |diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" [{smi}]", flush=True)
+    return worst
+
+
+def beside(label, run, ref, smi):
+    """Each epoch of ``run`` beside the same epoch of ``ref`` (the dense
+    run of the same recipe)."""
+    for i, m in enumerate(run["epochs"]):
+        r = ref["epochs"][i] if ref else None
+        ref_of = (lambda key: r[key] if r else float("nan"))  # noqa: E731
+        print(f"train {label} vs dense epoch {i}: loss {m['train_loss']:.6f} vs "
+              f"{ref_of('train_loss'):.6f}, subtoken f1 {m['f1']:.6f} vs {ref_of('f1'):.6f}, "
+              f"steps/s {m['steps_per_s']:.3f} vs {ref_of('steps_per_s'):.3f}, real contexts/s "
+              f"{m['contexts_per_s']:.1f} vs {ref_of('contexts_per_s'):.1f}, peak device memory "
+              f"{run['peak_bytes'] / 2**30:.3f} vs "
+              f"{ref['peak_bytes'] / 2**30 if ref else float('nan'):.3f} GiB [{smi}]", flush=True)
+
+
+def phase_train_lazy(torch, smi, dev, dense_f32, dense_bucketed, dense_bf16) -> dict:
+    """The train phase's recipe with --table_update lazy through each route
+    (f32; bf16 compute + bf16 first moments on plain and fused), beside the
+    dense runs; the lazy differential, the sync and dense-gradient checks,
+    the step breakdown beside the dense one, and one long-bag epoch."""
+    from code2vec_tpu_torch.data.pipeline import build_method_epoch, iter_batches, split_items
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.loop import resolve_ladder
+
+    _, data = train_corpus()
+    config = TrainConfig(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                         max_path_length=BAG, batch_size=TRAIN_BATCH, dropout_prob=0.25,
+                         max_epoch=2, random_seed=0, print_sample_cycle=0, table_update="lazy")
+    train_idx, test_idx = split_items(data.n_items, np.random.default_rng(config.random_seed))
+    n_train = -(-len(train_idx) // TRAIN_BATCH)
+    n_test = -(-len(test_idx) // TRAIN_BATCH)
+    bf16 = config.with_updates(compute_dtype="bfloat16", adam_mu_dtype="bfloat16")
+    out = {"routes": {}, "bf16_routes": {}}
+    for runs, cfg, routes, dense, tag in (
+            (out["routes"], config, TRAIN_ROUTES, dense_f32, "lazy"),
+            (out["bf16_routes"], bf16, TRAIN_LAZY_BF16_ROUTES, dense_bf16, "lazy bf16")):
+        for route, keys in routes.items():
+            run = runs[route] = train_route(torch, smi, dev, data,
+                                            cfg.with_updates(**kernel_route(route)),
+                                            f"{tag} {route}", keys)
+            want = dict.fromkeys(keys, n_train * config.max_epoch)
+            if route == "pool_only":
+                want["pool"] = (n_train + n_test) * config.max_epoch
+            got = {k: run["launches"].get(k, 0) for k in want}
+            if got != want:
+                raise AssertionError(f"{tag} {route}: launches {run['launches']}, want {want}")
+            if not all(m["f1"] > 0.0 for m in run["epochs"]):
+                raise AssertionError(f"{tag} {route}: F1 {[m['f1'] for m in run['epochs']]}")
+            beside(f"{tag} {route}", run, ((dense or {}).get("routes") or {}).get(route), smi)
+
+    # the differential, dropout 0: 3 lazy steps a route from one set of weights
+    rng = np.random.default_rng(1)
+    items = rng.permutation(data.n_items)[:3 * TRAIN_BATCH]
+    host = list(iter_batches(build_method_epoch(data, items, BAG, rng), TRAIN_BATCH))
+    out["differential"] = train_differential(
+        torch, dev, data, config, host, {route: kernel_route(route) for route in TRAIN_ROUTES})
+    out["sparse_adam"] = check_sparse_adam(torch, dev, data, config, host, smi)
+    host = host + host[:1]
+    out["checks"] = {route: check_lazy_step(torch, dev, data, config, host, route, smi)
+                     for route in TRAIN_ROUTES}
+    out["breakdown"] = step_breakdown(torch, dev, data, config, smi, label="lazy ")
+    out["breakdown_bf16"] = step_breakdown(torch, dev, data, bf16, smi, label="lazy bf16 ",
+                                           routes=TRAIN_LAZY_BF16_ROUTES)
+    del data
+
+    # long bags, lazily: one epoch of the long-bag recipe on the fused route
+    _, data = train_corpus(n_methods=10_240, mean_contexts=60.0, length_sigma=1.2,
+                           max_contexts=16 * BAG)
+    config = config.with_updates(batch_size=LONGBAG_BATCH, max_contexts=0, bucketed=True,
+                                 max_epoch=1)
+    ladder, bag_width = resolve_ladder(config, data)
+    per_width, _ = split_batches(data, config, ladder, bag_width)
+    base = ladder.index(BAG) + 1
+    kw, keys = LONGBAG_ROUTES["fused"]
+    run = out["longbag"] = train_route(torch, smi, dev, data, config.with_updates(**kw),
+                                       "lazy long-bag fused", keys)
+    check_every_width("lazy long-bag fused", run["launches"], "fused_f32_masked",
+                      per_width[:base], 1)
+    check_every_width("lazy long-bag fused", run["launches"], "online_f32_masked",
+                      per_width[base:], 1)
+    if any(m["truncated_context_fraction"] != 0.0 for m in run["epochs"]):
+        raise AssertionError(f"lazy long-bag truncated contexts: {run['epochs']}")
+    beside("lazy long-bag fused", run,
+           ((dense_bucketed or {}).get("longbag") or {}).get("routes", {}).get("fused"), smi)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json_out", default=None,
@@ -1693,6 +2006,8 @@ def main() -> int:
         trained = phase("train", phase_train, torch, smi, dev, model_dir)
         bucketed = phase("train_bucketed", phase_train_bucketed, torch, smi, dev, model_dir)
         bf16_train = phase("train_bf16", phase_train_bf16, torch, smi, dev, model_dir, trained)
+        lazy_train = phase("train_lazy", phase_train_lazy, torch, smi, dev, trained, bucketed,
+                           bf16_train)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -1738,7 +2053,7 @@ def main() -> int:
             {"card": smi, "torch": torch.__version__, "launch_floor": floor, "kernels": kernels,
              "serve": serve,
              "longbag": longbag, "retrieval": retrieval, "train": trained,
-             "train_bucketed": bucketed, "train_bf16": bf16_train},
+             "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train},
             indent=1,
         ))
     for k in line:  # each kernel's share of its bound at its timed shape

@@ -19,7 +19,8 @@ Layout (each module names its JAX counterpart):
   ladder's top rung (K4 above the training bag) and ``neighbors`` over the
   exact or the IVF-PQ backend;
 - ``text``, ``data`` (vocab, reader, synthetic corpora, epochs and
-  batches), ``metrics``, ``train`` (config, steps, the epoch loop),
+  batches), ``metrics``, ``train`` (config, steps, the lazy table
+  optimizer, the epoch loop),
   ``checkpoint``, ``export`` and ``cli`` — the training path (``python -m
   code2vec_tpu_torch``), whose model dir the server serves as it stands.
 

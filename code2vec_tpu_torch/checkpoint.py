@@ -10,7 +10,8 @@ subsample and batch order) and the dropout generator's state, so
 ``--resume`` continues the stream the uninterrupted run would have seen.
 The optimizer's first moments are saved in their own dtype (bf16 with
 ``--adam_mu_dtype bfloat16``); a resume under the other dtype raises, as the
-JAX restore does.
+JAX restore does, and so does a resume under the other ``--table_update``
+(the optimizer states differ: JAX ``checkpoint.py:666-675``).
 """
 
 from __future__ import annotations
@@ -41,6 +42,9 @@ class TrainMeta:
     # Adam's first-moment storage dtype (--adam_mu_dtype), validated on
     # restore; None (a checkpoint from before the field) reads as float32
     adam_mu_dtype: str | None = None
+    # the tables' optimizer (--table_update), validated on restore; None (a
+    # checkpoint from before the field) reads as dense
+    table_update: str | None = None
 
 
 def slot_path(out_dir: str, slot: str) -> str:
@@ -52,10 +56,11 @@ def slot_path(out_dir: str, slot: str) -> str:
 def save_checkpoint(out_dir: str, slot: str, model, optimizer, meta: TrainMeta,
                     np_rng: np.random.Generator) -> str:
     """Write ``slot`` atomically (a temp file, then a rename); the meta
-    records the optimizer's first-moment dtype."""
-    from code2vec_tpu_torch.train.step import adam_mu_dtype
+    records the optimizer's first-moment dtype and table update."""
+    from code2vec_tpu_torch.train.step import adam_mu_dtype, table_update
 
     meta.adam_mu_dtype = adam_mu_dtype(optimizer)
+    meta.table_update = table_update(optimizer)
     gen = model.dropout_generator(next(model.parameters()).device)
     state = {
         "model": model.state_dict(),
@@ -86,7 +91,8 @@ def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generat
     best slot with ``prefer_best``) into ``model``, ``optimizer`` (may be
     None) and ``np_rng``; return its meta, or None when there is none. An
     optimizer whose first moments are stored in another dtype than the
-    checkpoint's raises with the flag that resumes it."""
+    checkpoint's, or that steps the tables otherwise (``--table_update``),
+    raises with the flag that resumes it."""
     found = []
     for slot in SLOTS:
         path = slot_path(out_dir, slot)
@@ -108,8 +114,15 @@ def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generat
             f"{meta.vocab_pad_multiple} to resume it"
         )
     if optimizer is not None:
-        from code2vec_tpu_torch.train.step import adam_mu_dtype
+        from code2vec_tpu_torch.train.step import adam_mu_dtype, table_update
 
+        saved_update, want_update = meta.table_update or "dense", table_update(optimizer)
+        if saved_update != want_update:
+            raise ValueError(
+                f"the checkpoint in {out_dir} was saved with --table_update {saved_update} but "
+                f"this run uses {want_update}; pass --table_update {saved_update} to resume it "
+                "(the optimizer states differ)"
+            )
         saved_mu, want_mu = meta.adam_mu_dtype or "float32", adam_mu_dtype(optimizer)
         if saved_mu != want_mu:
             raise ValueError(

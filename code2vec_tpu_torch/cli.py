@@ -15,7 +15,11 @@ stands. Each epoch prints one JSON line of metrics. ``--bucketed
 and with ``--max_contexts 0`` feeds every context of every bag (long bags
 stream through K4 on a kernel route). ``--compute_dtype bfloat16`` trains
 (and evaluates and exports) the model in bf16, ``--adam_mu_dtype bfloat16``
-stores Adam's first moments in bf16.
+stores Adam's first moments in bf16. ``--table_update lazy`` steps the
+embedding tables' touched rows only (``torch.optim.SparseAdam``'s
+semantics), ``--embed_grad {dense,segment,segment_sorted}`` is accepted for JAX
+configurations (every mode runs ``F.embedding``'s backward, already a
+segment sum).
 
 Flags of features not ported yet are accepted with their default only and
 raise otherwise (``TrainConfig.validate``, ROADMAP §A.2); HPO, telemetry,
@@ -133,12 +137,18 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--adam_mu_dtype", type=str, default="float32",
                         choices=("float32", "bfloat16"),
                         help="storage of Adam's first moments (a resume must match)")
+    parser.add_argument("--table_update", type=str, default="dense", choices=("dense", "lazy"),
+                        help="lazy: Adam on the tables' touched rows only, from per-slot "
+                             "gradients (no [vocab, dim] gradient; a resume must match)")
+    parser.add_argument("--embed_grad", type=str, default="dense",
+                        choices=("dense", "segment", "segment_sorted"),
+                        help="the JAX package's choice of the tables' backward; accepted for "
+                             "its configurations, every mode runs F.embedding's backward")
 
     # accepted at their defaults only: the features are not ported yet
     parser.add_argument("--data_axis", type=int, default=1)
     parser.add_argument("--model_axis", type=int, default=1)
     parser.add_argument("--context_axis", type=int, default=1)
-    parser.add_argument("--table_update", type=str, default="dense", choices=("dense", "lazy"))
     parser.add_argument("--stream_chunk_items", type=int, default=0)
     parser.add_argument("--feed_workers", type=int, default=0)
     parser.add_argument("--prefetch_batches", type=int, default=0)
@@ -157,7 +167,7 @@ _CONFIG_FLAGS = (
     "print_sample_cycle", "class_weighting", "use_pallas", "pallas_impl", "pallas_chunk_l",
     "pallas_softmax", "table_dtype", "attn_impl", "encoder_impl", "vocab_pad_multiple",
     "resume", "checkpoint_cycle", "compute_dtype", "data_axis", "model_axis", "context_axis",
-    "adam_mu_dtype", "table_update", "bucketed", "bucket_ladder", "max_contexts",
+    "adam_mu_dtype", "table_update", "embed_grad", "bucketed", "bucket_ladder", "max_contexts",
     "stream_chunk_items",
     "feed_workers", "prefetch_batches", "device_epoch", "async_checkpoint",
     "checkpoint_every_steps", "fault_plan",

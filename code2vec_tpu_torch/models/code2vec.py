@@ -43,6 +43,12 @@ f32 for the f32 head. The plain route's keep mask differs from flax
 ``nn.Dropout``'s ``x / keep`` by the bf16 rounding of ``1/keep`` (at most
 0.2%), a difference of the stream as the draw's is. Parameters, gradients
 and the head stay f32.
+
+The lazy table optimizer (``train/table_opt.py``) trains through
+``forward(embed_offsets=...)``: the tables enter detached and the zero
+offsets added to the gathered rows take their per-slot gradients.
+``embed_grad`` is JAX's choice of the dense tables' backward; every mode
+runs ``F.embedding``'s, which already is a segment sum (``ops/embed.py``).
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from code2vec_tpu_torch.ops.attention import attention_pool, streaming_attention_pool
-from code2vec_tpu_torch.ops.embed import embedding_lookup
+from code2vec_tpu_torch.ops.embed import GRAD_MODES, embedding_lookup
 from code2vec_tpu_torch.ops.fused_encode_pool import COMPUTE_DTYPES, DEFAULT_CHUNK_L, LN_EPS
 from code2vec_tpu_torch.ops.quant import TABLE_DTYPES, QuantTable, dequantize_rows
 
@@ -95,6 +101,9 @@ class Code2VecConfig:
     attn_impl: str = "xla"  # "xla" | "streaming": the plain pool's formulation
     encoder_impl: str = "concat"  # "concat" | "split": the plain encode's formulation
     vocab_pad_multiple: int = 1
+    # the tables' backward on the plain and pool_only routes (ops/embed.py):
+    # "dense" | "segment" | "segment_sorted"
+    embed_grad: str = "dense"
 
     def with_updates(self, **kw) -> "Code2VecConfig":
         return replace(self, **kw)
@@ -126,6 +135,8 @@ class Code2Vec(nn.Module):
             raise ValueError(
                 f"unknown pallas_softmax {c.pallas_softmax!r}: expected one of {PALLAS_SOFTMAX}"
             )
+        if c.embed_grad not in GRAD_MODES:
+            raise ValueError(f"unknown embed_grad {c.embed_grad!r}: expected one of {GRAD_MODES}")
         self.config = c
         in_features = 2 * c.terminal_embed_size + c.path_embed_size
         self.terminal_embedding = nn.Embedding(c.padded(c.terminal_count), c.terminal_embed_size)
@@ -242,7 +253,16 @@ class Code2Vec(nn.Module):
         ends: torch.Tensor,  # int [B, L]
         labels: torch.Tensor | None = None,  # int [B], margin head only
         quant_tables: tuple[QuantTable, QuantTable] | None = None,
+        embed_offsets: tuple[torch.Tensor, torch.Tensor] | None = None,
     ):
+        """``embed_offsets``: optional ``(off_se [B, 2L, Et], off_p [B, L,
+        Ep])`` zeros in the compute dtype, added to the gathered rows (the
+        JAX model's ``embed_offsets``). The lazy table optimizer takes the
+        tables' per-slot gradients from them: with offsets the tables enter
+        as constants, so no ``[vocab, dim]`` gradient is formed and their
+        ``.grad`` stays None. Zeros leave the forward bit-identical. K3/K4
+        gather in-kernel and cannot add them; they enter only the backward's
+        recompute there (zero by contract)."""
         c = self.config
         if self.training and c.table_dtype != "f32":
             raise ValueError(
@@ -251,6 +271,8 @@ class Code2Vec(nn.Module):
             )
         if c.table_dtype == "f32":
             t_store, p_store = self.terminal_embedding.weight, self.path_embedding.weight
+            if embed_offsets is not None:
+                t_store, p_store = t_store.detach(), p_store.detach()
         elif quant_tables is not None:
             t_store, p_store = quant_tables
         else:
@@ -261,16 +283,17 @@ class Code2Vec(nn.Module):
             from code2vec_tpu_torch.ops.fused_encode_pool import fused_encode_attend_pool
 
             drop = self._keep_mask((*starts.shape, c.encode_size), starts.device)
+            off_se, off_p = embed_offsets if embed_offsets is not None else (None, None)
             code_vector, attention = fused_encode_attend_pool(
                 t_store, p_store, starts, paths, ends, mask,
                 self._dense_kernel(), self.input_layer_norm.weight,
-                self.input_layer_norm.bias, self.attention_parameter, drop,
+                self.input_layer_norm.bias, self.attention_parameter, drop, off_se, off_p,
                 impl=impl, chunk_l=c.pallas_chunk_l, softmax_mode=softmax_mode,
                 compute_dtype=c.dtype,
             )
         else:
             code_vector, attention = self._unfused_forward(
-                t_store, p_store, starts, paths, ends, mask, impl
+                t_store, p_store, starts, paths, ends, mask, impl, embed_offsets
             )
         if c.angular_margin_loss:
             logits = self._angular_margin_head(code_vector, labels)
@@ -282,18 +305,23 @@ class Code2Vec(nn.Module):
         """Rows at ``ids`` in the compute dtype (a gather, then the cast)."""
         if isinstance(store, QuantTable):
             return dequantize_rows(store, ids).to(self.config.dtype)
-        return embedding_lookup(store, ids).to(self.config.dtype)
+        return embedding_lookup(store, ids, self.config.embed_grad).to(self.config.dtype)
 
-    def _unfused_forward(self, t_store, p_store, starts, paths, ends, mask, impl):
+    def _unfused_forward(self, t_store, p_store, starts, paths, ends, mask, impl,
+                         embed_offsets=None):
         """Plain gather + encode; the pool is K1 (``pool_only``) or plain.
         In the compute dtype ``cd`` as the JAX model: the encode (weight
         cast to ``cd``), LayerNorm in f32 cast back, tanh, keep mask and
-        pool in ``cd``; the code vector is returned in f32."""
+        pool in ``cd``; the code vector is returned in f32. The terminal
+        rows are gathered as ``[starts; ends]`` (plus ``off_se``) and split,
+        as JAX ``_unfused_forward`` does."""
         c = self.config
         cd = c.dtype
-        e_start = self._lookup(t_store, starts)
+        e_se = self._lookup(t_store, torch.cat([starts, ends], dim=1))
         e_path = self._lookup(p_store, paths)
-        e_end = self._lookup(t_store, ends)
+        if embed_offsets is not None:
+            e_se, e_path = e_se + embed_offsets[0], e_path + embed_offsets[1]
+        e_start, e_end = e_se.chunk(2, dim=1)
         if c.encoder_impl == "split":
             kern = self._dense_kernel().to(cd)
             et, ep = e_start.shape[-1], e_path.shape[-1]

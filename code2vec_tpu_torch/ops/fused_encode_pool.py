@@ -47,8 +47,15 @@ op's ``_op_bwd``: :class:`_EncodePool` saves only the primal inputs and
 its backward recomputes :func:`reference_forward` under autograd, giving
 the gradients of ``dense_kernel``, ``ln_scale``, ``ln_bias``,
 ``attn_param`` and, for f32 tables, both tables. Like the JAX one it is
-not a kernel. The ``off_se``/``off_p`` offsets of the lazy table optimizer
-are not ported yet (ROADMAP §A.2).
+not a kernel.
+
+The lazy table optimizer's zero offsets (``off_se`` ``[B, 2L, Et]``,
+``off_p`` ``[B, L, Ep]``, in the compute dtype; JAX ``:740-760``) are added
+to the gathered rows before K2 (``gather_split``) and after the gather of
+the backward's recompute, which differentiates them. K3/K4 gather in-kernel
+and cannot add them: they are zero by contract there and enter only the
+backward. With the tables detached (no ``needs_input_grad``) the recompute
+forms no table gradient.
 
 ``compute_dtype=torch.bfloat16`` (the model's bf16 compute, JAX
 ``static.compute``): ``gather_split`` gathers the rows in bf16 and K2 reads
@@ -159,33 +166,44 @@ def encode_pool_reference(gs, gp, ge, mask, dense_kernel, ln_scale, ln_bias,
     return cv.float(), w
 
 
-def reference_forward(t_table, p_table, starts, paths, ends, mask, dense_kernel,
-                      ln_scale, ln_bias, attn_param, drop_mask=None,
-                      compute_dtype: torch.dtype = torch.float32):
-    """The plain version of K3 (and of the whole op): gather, encode,
-    keep mask, pool in ``compute_dtype`` — ``(cv [B, H] f32, weights
-    [B, L] f32)``. In bf16 it is what the backward differentiates (JAX
+def gathered_rows(t_table, p_table, starts, paths, ends, off_se=None, off_p=None,
+                  dtype: torch.dtype = torch.float32):
+    """The start, path and end rows in ``dtype``, plus the lazy optimizer's
+    offsets, ``off_se`` split into its starts and ends halves (JAX
     ``_xla_reference``)."""
+    rows = [gather_rows(t_table, starts, dtype), gather_rows(p_table, paths, dtype),
+            gather_rows(t_table, ends, dtype)]
+    if off_se is None:
+        return rows
+    o_s, o_e = off_se.chunk(2, dim=1)
+    return rows[0] + o_s, rows[1] + off_p, rows[2] + o_e
+
+
+def reference_forward(t_table, p_table, starts, paths, ends, mask, dense_kernel,
+                      ln_scale, ln_bias, attn_param, drop_mask=None, off_se=None, off_p=None,
+                      compute_dtype: torch.dtype = torch.float32):
+    """The plain version of K3 (and of the whole op): gather (plus the
+    offsets), encode, keep mask, pool in ``compute_dtype`` — ``(cv [B, H]
+    f32, weights [B, L] f32)``. In bf16 it is what the backward
+    differentiates (JAX ``_xla_reference``)."""
     cd = compute_dtype
     return encode_pool_reference(
-        gather_rows(t_table, starts, cd), gather_rows(p_table, paths, cd),
-        gather_rows(t_table, ends, cd), mask, dense_kernel, ln_scale, ln_bias,
-        attn_param, drop_mask, cd,
+        *gathered_rows(t_table, p_table, starts, paths, ends, off_se, off_p, cd), mask,
+        dense_kernel, ln_scale, ln_bias, attn_param, drop_mask, cd,
     )
 
 
 def split_reference_forward(t_table, p_table, starts, paths, ends, mask, dense_kernel,
-                            ln_scale, ln_bias, attn_param, drop_mask=None,
-                            compute_dtype: torch.dtype = torch.float32):
+                            ln_scale, ln_bias, attn_param, drop_mask=None, off_se=None,
+                            off_p=None, compute_dtype: torch.dtype = torch.float32):
     """The plain version of K2 under ``compute_dtype``: the rows gathered
-    in it, then the f32 encode and pool on them widened, as the JAX split
-    kernel computes (and its compiled CPU strategy, ``_compiled_chain_
-    forward``). Equal to :func:`reference_forward` for f32."""
-    cd = compute_dtype
+    in it (plus the offsets), then the f32 encode and pool on them widened,
+    as the JAX split kernel computes (and its compiled CPU strategy,
+    ``_compiled_chain_forward``). Equal to :func:`reference_forward` for
+    f32."""
     return encode_pool_reference(
-        gather_rows(t_table, starts, cd), gather_rows(p_table, paths, cd),
-        gather_rows(t_table, ends, cd), mask, dense_kernel, ln_scale, ln_bias,
-        attn_param, drop_mask,
+        *gathered_rows(t_table, p_table, starts, paths, ends, off_se, off_p, compute_dtype),
+        mask, dense_kernel, ln_scale, ln_bias, attn_param, drop_mask,
     )
 
 
@@ -282,7 +300,7 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> torch.Tensor:
 
 
 def _launch(impl, softmax_mode, compute_dtype, t_table, p_table, starts, paths, ends, mask,
-            dense_kernel, ln_scale, ln_bias, attn_param, drop_mask=None):
+            dense_kernel, ln_scale, ln_bias, attn_param, drop_mask=None, off_se=None, off_p=None):
     t_vals, t_scale, table_dtype = split_table(t_table)
     p_vals, p_scale, _ = split_table(p_table)
     dev = starts.device
@@ -313,10 +331,11 @@ def _launch(impl, softmax_mode, compute_dtype, t_table, p_table, starts, paths, 
         stream = torch.cuda.current_stream(dev).cuda_stream
         if impl == "gather_split":
             cd = compute_dtype  # f32 or bf16 (checked by fused_encode_attend_pool)
+            gs, gp, ge = gathered_rows(t_table, p_table, starts, paths, ends, off_se, off_p, cd)
             rows = [
-                _check("g_start", gather_rows(t_table, starts, cd), cd, (b, l, et), dev),
-                _check("g_path", gather_rows(p_table, paths, cd), cd, (b, l, ep), dev),
-                _check("g_end", gather_rows(t_table, ends, cd), cd, (b, l, et), dev),
+                _check("g_start", gs, cd, (b, l, et), dev),
+                _check("g_path", gp, cd, (b, l, ep), dev),
+                _check("g_end", ge, cd, (b, l, et), dev),
             ]
             code = lib.c2v_encode_pool_gathered(
                 _ROW_CODES[cd], *(t.data_ptr() for t in rows + [msk]), drop_ptr,
@@ -360,32 +379,37 @@ def _launch(impl, softmax_mode, compute_dtype, t_table, p_table, starts, paths, 
 
 
 def _forward(impl, softmax_mode, chunk_l, backend, compute_dtype, args):
-    """The op's value: the plain version for CPU tensors, else the kernel."""
+    """The op's value: the plain version for CPU tensors, else the kernel.
+    Only ``gather_split`` adds the offsets (the last two ``args``); K3/K4
+    and their plain versions gather without them, as the JAX op does."""
     if resolve(args[2], backend) == "cpu":
         if impl == "gather_split":
             return split_reference_forward(*args, compute_dtype=compute_dtype)
         if softmax_mode == "materialize":
-            return reference_forward(*args)
-        return streamed_reference_forward(*args, softmax_mode=softmax_mode, chunk_l=chunk_l)
+            return reference_forward(*args[:-2])
+        return streamed_reference_forward(*args[:-2], softmax_mode=softmax_mode,
+                                          chunk_l=chunk_l)
     if int(chunk_l) != DEFAULT_CHUNK_L:
         raise ValueError(
             f"chunk_l={chunk_l} sets the CPU plain version's chunk only; the CUDA "
             f"kernels stream {CHUNK} contexts a step (leave chunk_l at {DEFAULT_CHUNK_L})"
         )
+    if impl != "gather_split":
+        args = args[:-2]
     return _launch(impl, softmax_mode, compute_dtype, *args)
 
 
 # positions of the differentiable inputs in the op's argument tuple
 _DIFF_ARGS = {"t_table": 0, "p_table": 1, "dense_kernel": 6, "ln_scale": 7, "ln_bias": 8,
-              "attn_param": 9}
+              "attn_param": 9, "off_se": 11, "off_p": 12}
 
 
 class _EncodePool(torch.autograd.Function):
     """K2/K3/K4 forward, the JAX ``_op_bwd`` backward: only the primal
     inputs are saved, and the backward differentiates the recomputed
-    :func:`reference_forward` (gather, split encode, LayerNorm, tanh, keep
-    mask, pool) in the compute dtype. Quantized tables are constants (no
-    gradient)."""
+    :func:`reference_forward` (gather, offsets, split encode, LayerNorm,
+    tanh, keep mask, pool) in the compute dtype. Quantized or detached
+    tables are constants (no gradient)."""
 
     @staticmethod
     def forward(ctx, impl, softmax_mode, chunk_l, backend, compute_dtype, *args):
@@ -428,6 +452,8 @@ def fused_encode_attend_pool(
     ln_bias: torch.Tensor,  # f32 [H]
     attn_param: torch.Tensor,  # f32 [H]
     drop_mask: torch.Tensor | None = None,  # f32 [B, L, H] keep mask, pre-scaled by 1/keep
+    off_se: torch.Tensor | None = None,  # [B, 2L, Et] zeros in compute_dtype (lazy tables)
+    off_p: torch.Tensor | None = None,  # [B, L, Ep] zeros in compute_dtype (lazy tables)
     *,
     impl: str = "fused",
     chunk_l: int = DEFAULT_CHUNK_L,
@@ -436,7 +462,10 @@ def fused_encode_attend_pool(
     backend: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The whole aggregation chain: ``(code_vector [B, H] f32, attention
-    [B, L] f32)``, differentiable in the parameters and f32 tables. CUDA
+    [B, L] f32)``, differentiable in the parameters, f32 tables and the
+    offsets (``off_se``/``off_p`` both or neither; added to the rows by
+    ``gather_split``, zero by contract on ``fused``, whose kernels gather
+    in-kernel: they enter the backward only). CUDA
     tensors launch K2 (``gather_split``), K3 (``fused``) or, with a chunked
     ``softmax_mode``, K4; CPU tensors run :func:`reference_forward`
     (materialize) or :func:`streamed_reference_forward` (``online``/
@@ -470,8 +499,10 @@ def fused_encode_attend_pool(
             f"terminal/path tables must share a storage dtype, got "
             f"{t_dtype!r} vs {p_dtype!r}"
         )
+    if (off_se is None) != (off_p is None):
+        raise ValueError("off_se and off_p come together (the lazy table optimizer's offsets)")
     args = (t_table, p_table, starts, paths, ends, mask, dense_kernel,
-            ln_scale, ln_bias, attn_param, drop_mask)
+            ln_scale, ln_bias, attn_param, drop_mask, off_se, off_p)
     wants_grad = torch.is_grad_enabled() and any(
         isinstance(a, torch.Tensor) and a.requires_grad for a in args)
     if wants_grad:

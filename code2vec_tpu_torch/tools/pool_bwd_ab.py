@@ -2,7 +2,7 @@
 """Time K1b, the attention pool's backward kernel, across checkouts of the
 PyTorch port on one card, in turns (parent, change, change, parent).
 
-    python3 code2vec_tpu_torch/tools/pool_bwd_ab.py [--train_steps] ROOT [ROOT ...]
+    python3 code2vec_tpu_torch/tools/pool_bwd_ab.py [--train_steps [--optimizer]] ROOT [ROOT ...]
 
 Each ROOT is a checkout holding ``code2vec_tpu_torch/`` and
 ``chip_smoke.py`` (for instance a ``git archive`` of a commit unpacked into
@@ -20,8 +20,14 @@ ptxas' report of ``csrc/pool.cu`` (registers and spills per kernel), and
 each run the one-pass K1b's grid (``ctas``). With ``--train_steps``
 each run also takes the ROOT's ``chip_smoke.step_breakdown`` of a train
 step at the top11 recipe (batch 1024, bag 200, dropout 0.25; its train
-phase's corpus and config), in f32 and in bf16, and reports the plain and
-``pool_only`` routes' forward, backward, optimizer and wall ms.
+phase's corpus and config) on the plain and ``pool_only`` routes, in f32
+and in bf16 (compute and first moments), with dense tables and, where the
+ROOT has them, lazy ones (``--table_update lazy``), and reports the
+forward, backward and optimizer device ms and the host's wall ms of a
+step. With ``--optimizer`` each ROOT with lazy tables also times
+``LazyTableAdam.step`` alone on one batch's per-slot gradients (CUDA
+events, 20 steps after 3 warm ones) and lists its ops by device time
+(``torch.profiler``, 5 steps).
 
 Prints the card's name and power limit, one JSON line per run, and last a
 JSON summary: per ROOT, shape and dtype, the runs' times in milliseconds.
@@ -36,6 +42,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
+
 SHAPES = ((1024, 200, 100), (1024, 200, 300))  # B, L, H
 SEED = 1234
 
@@ -44,23 +52,79 @@ STEP_ROUTES = ("plain", "pool_only")
 STEP_KEYS = ("forward_ms", "backward_ms", "optimizer_ms", "step_wall_ms")
 
 
-def train_steps(torch, chip_smoke, dev) -> dict:
-    """The step breakdown of chip_smoke's train phase, f32 and bf16."""
+def optimizer_alone(torch, dev, data, config) -> dict:
+    """``LazyTableAdam.step`` on one batch's per-slot gradients: its ms a
+    step and its ops' device ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from code2vec_tpu_torch.data.pipeline import build_method_epoch, iter_batches
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
+    from code2vec_tpu_torch.train.step import lazy_forward_backward, make_optimizer, to_device
+
+    rng = np.random.default_rng(2)
+    items = rng.permutation(data.n_items)[:config.batch_size]
+    epoch = build_method_epoch(data, items, config.max_path_length, rng)
+    batch = to_device(next(iter_batches(epoch, config.batch_size)), dev)
+    with torch.device(dev):
+        model = Code2Vec(model_config_from(config, data))
+    opt = make_optimizer(model, config)
+    _, grads = lazy_forward_backward(model, batch, class_weights_from(config, data, dev))
+    for _ in range(3):
+        opt.step(grads)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(20):
+        opt.step(grads)
+    ev[1].record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            opt.step(grads)
+        torch.cuda.synchronize()
+
+    def device_ms(e):
+        us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        return us / 1e3 / 5
+
+    ops = sorted((e for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=device_ms, reverse=True)
+    return {"ms": ev[0].elapsed_time(ev[1]) / 20,
+            "ops_ms": {e.key: device_ms(e) for e in ops[:16]}}
+
+
+def train_steps(torch, chip_smoke, dev, optimizer: bool) -> dict:
+    """The step breakdown of chip_smoke's train phase on ``STEP_ROUTES``,
+    f32 and bf16, dense and (where the ROOT has it) lazy; with
+    ``optimizer`` the lazy table step alone too."""
     from code2vec_tpu_torch.train.config import TrainConfig
 
+    chip_smoke.TRAIN_ROUTES = {r: chip_smoke.TRAIN_ROUTES[r] for r in STEP_ROUTES}
     _, data = chip_smoke.train_corpus()
     config = TrainConfig(terminal_embed_size=100, path_embed_size=100, encode_size=100,
                          max_path_length=chip_smoke.BAG, batch_size=chip_smoke.TRAIN_BATCH,
                          dropout_prob=0.25, max_epoch=2, random_seed=0, print_sample_cycle=0)
+    updates = ["dense"]
+    try:
+        config.with_updates(table_update="lazy").validate()
+        updates.append("lazy")
+    except NotImplementedError:  # a checkout from before the lazy table optimizer
+        pass
     out = {}
-    for name, cfg in (("f32", config), ("bf16", config.with_updates(
-            compute_dtype="bfloat16", adam_mu_dtype="bfloat16"))):
-        bd = chip_smoke.step_breakdown(torch, dev, data, cfg, "")
-        out[name] = {r: {k: bd[r][k] for k in STEP_KEYS} for r in STEP_ROUTES}
+    for update in updates:
+        for name, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+            cfg = config.with_updates(compute_dtype=dtype, adam_mu_dtype=dtype)
+            if update == "lazy":
+                cfg = cfg.with_updates(table_update="lazy")
+            bd = chip_smoke.step_breakdown(torch, dev, data, cfg, "")
+            out[f"{update} {name}"] = {r: {k: bd[r][k] for k in STEP_KEYS} for r in STEP_ROUTES}
+            if update == "lazy" and optimizer:
+                out[f"lazy {name} optimizer alone"] = optimizer_alone(torch, dev, data, cfg)
     return out
 
 
-def child(root: Path, build_only: bool, steps: bool) -> dict:
+def child(root: Path, build_only: bool, steps: bool, optimizer: bool) -> dict:
     sys.path.insert(0, str(root))
     import torch
 
@@ -100,7 +164,7 @@ def child(root: Path, build_only: bool, steps: bool) -> dict:
                 "ctas": grid(B, L, H, dtype, dev)[0] if grid else None,
             }
     if steps:
-        out["train_steps"] = train_steps(torch, chip_smoke, dev)
+        out["train_steps"] = train_steps(torch, chip_smoke, dev, optimizer)
     return out
 
 
@@ -109,20 +173,21 @@ def main() -> int:
     parser.add_argument("roots", nargs="+", type=Path)
     parser.add_argument("--train_steps", action="store_true",
                         help="also time a train step's plain and pool_only routes")
+    parser.add_argument("--optimizer", action="store_true",
+                        help="with --train_steps, also time and profile the lazy table step")
     parser.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--build_only", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child:
-        print(json.dumps(child(args.roots[0].resolve(), args.build_only, args.train_steps)),
-              flush=True)
+        print(json.dumps(child(args.roots[0].resolve(), args.build_only, args.train_steps,
+                               args.optimizer)), flush=True)
         return 0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     me = [sys.executable, str(Path(__file__).resolve()), "--child"]
-    if args.train_steps:
-        me.append("--train_steps")
+    me += [f"--{flag}" for flag in ("train_steps", "optimizer") if getattr(args, flag)]
     roots = [r.resolve() for r in args.roots]
     builds = [subprocess.Popen([*me, "--build_only", str(r)]) for r in dict.fromkeys(roots)]
     if any(p.wait() != 0 for p in builds):
@@ -140,10 +205,13 @@ def main() -> int:
             for name in ("f32", "bf16"):
                 key = f"{B}x{L}x{H} {name}"
                 summary.setdefault(str(root), {}).setdefault(key, []).append(run[key]["ms"])
-        for name in ("f32", "bf16"):
-            for route, t in run.get("train_steps", {}).get(name, {}).items():
-                summary[str(root)].setdefault(f"{name} {route} backward_ms", []).append(
-                    t["backward_ms"])
+        for setting, res in run.get("train_steps", {}).items():
+            if "ms" in res:  # the lazy table step alone
+                summary[str(root)].setdefault(setting, []).append(res["ms"])
+                continue
+            for route, t in res.items():
+                summary[str(root)].setdefault(f"{setting} {route}", []).append(
+                    [t[k] for k in STEP_KEYS])
     print(json.dumps({"card": smi, "ms": summary}))
     return 0
 

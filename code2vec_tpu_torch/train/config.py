@@ -10,7 +10,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 
+from code2vec_tpu_torch.ops.embed import GRAD_MODES
+
 DTYPES = ("float32", "bfloat16")  # compute_dtype and adam_mu_dtype
+TABLE_UPDATES = ("dense", "lazy")
 
 
 @dataclass(frozen=True)
@@ -61,6 +64,9 @@ class TrainConfig:
     table_dtype: str = "f32"
     attn_impl: str = "xla"  # the plain pool: "xla" | "streaming"
     encoder_impl: str = "concat"  # the plain encode: "concat" | "split"
+    # JAX's choice of the tables' dense backward; here every mode is F.embedding's
+    # (ops/embed.py)
+    embed_grad: str = "dense"
     vocab_pad_multiple: int = 0  # 0 = 1 (no model axis here)
 
     # checkpoints: best-F1 always, plus the last slot every N epochs
@@ -83,12 +89,14 @@ class TrainConfig:
     compute_dtype: str = "float32"
     # Adam's first-moment storage: "float32" | "bfloat16" (nu stays f32)
     adam_mu_dtype: str = "float32"
+    # the tables' optimizer: "dense" (Adam over every row) or "lazy" (the
+    # touched rows only, torch.optim.SparseAdam's semantics; train/table_opt.py)
+    table_update: str = "dense"
 
     # not ported yet: validate() rejects a value other than the default
     data_axis: int = 1
     model_axis: int = 1
     context_axis: int = 1
-    table_update: str = "dense"
     stream_chunk_items: int = 0
     feed_workers: int = 0
     prefetch_batches: int = 0
@@ -119,16 +127,16 @@ class TrainConfig:
             )
         if self.max_contexts == 0 and self.device_epoch:
             raise ValueError("--max_contexts 0 does not compose with --device_epoch; drop one")
-        for name in ("compute_dtype", "adam_mu_dtype"):
-            if getattr(self, name) not in DTYPES:
-                raise ValueError(f"{name} must be one of {DTYPES}, got {getattr(self, name)!r}")
+        for name, allowed in (("compute_dtype", DTYPES), ("adam_mu_dtype", DTYPES),
+                              ("table_update", TABLE_UPDATES), ("embed_grad", GRAD_MODES)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
         unported = {
             "stream_chunk_items": self.stream_chunk_items,
             "feed_workers": self.feed_workers,
             "prefetch_batches": self.prefetch_batches,
             "device_epoch": self.device_epoch,
             "mesh axes > 1": max(self.data_axis, self.model_axis, self.context_axis) > 1,
-            "table_update='lazy'": self.table_update != "dense",
             "pallas_impl='auto'": self.pallas_impl == "auto",
             "async_checkpoint": self.async_checkpoint,
             "checkpoint_every_steps": self.checkpoint_every_steps,

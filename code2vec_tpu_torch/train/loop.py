@@ -19,7 +19,10 @@ task:
   step, so in its compute dtype), the best checkpoint and the served
   ``code2vec.model``; ``print_sample`` every ``print_sample_cycle``
   epochs; the reference's early stop, whose counter resets when the train
-  loss OR the accuracy improves (``:1724-1736``).
+  loss OR the accuracy improves (``:1724-1736``);
+- the optimizer of ``config.table_update`` (``train/step.make_optimizer``:
+  the lazy table optimizer steps the tables' touched rows at every bag
+  width, fixed, bucketed or long) and the tables' ``embed_grad``.
 
 The numpy generator is drawn in the JAX loop's order (split; then per
 epoch the train subsample, the batch order, the test subsample), so both
@@ -94,6 +97,7 @@ def model_config_from(config, data) -> Code2VecConfig:
         attn_impl=config.attn_impl,
         encoder_impl=config.encoder_impl,
         vocab_pad_multiple=config.vocab_pad_multiple or 1,
+        embed_grad=config.embed_grad,
     )
 
 

@@ -12,7 +12,12 @@ Counterpart of ``code2vec_tpu/train/step.py``:
   same step with the first moment stored in bf16, as ``torch_style_adam(
   mu_dtype="bfloat16")`` does (``torch.optim.Adam`` keeps its moments in
   the parameters' dtype);
-- the margin head gets the labels in training (``needs_labels``).
+- the margin head gets the labels in training (``needs_labels``);
+- ``table_update="lazy"`` (JAX ``build_train_step_fn`` ``:238-296``): the
+  step differentiates zero offsets added to the gathered rows instead of
+  the tables, which enter as constants, and hands the offsets' gradients
+  with the ids they read to :class:`~code2vec_tpu_torch.train.table_opt.
+  LazyTableAdam`; no ``[vocab, dim]`` gradient is formed.
 """
 
 from __future__ import annotations
@@ -20,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from code2vec_tpu_torch.train.table_opt import LazyTableAdam
 
 BATCH_KEYS = ("starts", "paths", "ends", "labels", "example_mask")
 
@@ -103,13 +110,27 @@ class TorchStyleAdam(torch.optim.Optimizer):
 
 def make_optimizer(model: torch.nn.Module, config) -> torch.optim.Optimizer:
     """torch Adam with the config's rate, betas and coupled weight decay;
-    :class:`TorchStyleAdam` when ``adam_mu_dtype`` stores mu in bf16."""
+    :class:`TorchStyleAdam` when ``adam_mu_dtype`` stores mu in bf16. With
+    ``table_update="lazy"`` that Adam steps the non-table parameters and
+    :class:`LazyTableAdam` the tables' touched rows (no weight decay)."""
     kw = dict(lr=config.lr, betas=(config.beta_min, config.beta_max), eps=1e-8,
               weight_decay=config.weight_decay)
     mu_dtype = getattr(config, "adam_mu_dtype", "float32")
-    if mu_dtype == "float32":
-        return torch.optim.Adam(model.parameters(), **kw)
-    return TorchStyleAdam(model.parameters(), mu_dtype=MU_DTYPES[mu_dtype], **kw)
+    table_update = getattr(config, "table_update", "dense")
+
+    def adam(params):
+        if mu_dtype == "float32":
+            return torch.optim.Adam(params, **kw)
+        return TorchStyleAdam(params, mu_dtype=MU_DTYPES[mu_dtype], **kw)
+
+    if table_update == "dense":
+        return adam(model.parameters())
+    if table_update != "lazy":
+        raise ValueError(f"table_update must be 'dense' or 'lazy', got {table_update!r}")
+    tables = [model.terminal_embedding.weight, model.path_embedding.weight]
+    rest = [p for p in model.parameters() if all(p is not t for t in tables)]
+    return LazyTableAdam(tables, adam(rest), lr=config.lr, betas=kw["betas"], eps=kw["eps"],
+                         mu_dtype=MU_DTYPES[mu_dtype])
 
 
 def adam_mu_dtype(optimizer: torch.optim.Optimizer) -> str:
@@ -117,6 +138,12 @@ def adam_mu_dtype(optimizer: torch.optim.Optimizer) -> str:
     ``"float32"`` (what a checkpoint records and a resume checks)."""
     dt = optimizer.defaults.get("mu_dtype", torch.float32)
     return next(name for name, d in MU_DTYPES.items() if d == dt)
+
+
+def table_update(optimizer: torch.optim.Optimizer) -> str:
+    """``"lazy"`` or ``"dense"``: how ``optimizer`` steps the tables (what
+    a checkpoint records and a resume checks)."""
+    return "lazy" if isinstance(optimizer, LazyTableAdam) else "dense"
 
 
 def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
@@ -131,25 +158,58 @@ def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, t
     return out
 
 
-def forward_backward(model, batch: dict[str, torch.Tensor],
-                     class_weights: torch.Tensor) -> torch.Tensor:
+def forward_backward(model, batch: dict[str, torch.Tensor], class_weights: torch.Tensor,
+                     embed_offsets=None) -> torch.Tensor:
     """Training-mode forward and backward of one batch (gradients land in
     ``.grad``); returns the loss, still on the device."""
     model.train()
     labels = batch["labels"]
     logits, _, _ = model(batch["starts"], batch["paths"], batch["ends"],
-                         labels=labels if model.config.angular_margin_loss else None)
+                         labels=labels if model.config.angular_margin_loss else None,
+                         embed_offsets=embed_offsets)
     loss = weighted_nll(logits, labels, class_weights, batch["example_mask"])
     loss.backward()
     return loss.detach()
 
 
+def zero_offsets(config, shape, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The lazy step's ``(off_se [B, 2L, Et], off_p [B, L, Ep])``: one zero
+    in the compute dtype, expanded (no ``B x L`` buffer), each a leaf that
+    takes a gradient."""
+    b, l = shape
+    zero = torch.zeros((), dtype=config.dtype, device=device)
+    return (zero.expand(b, 2 * l, config.terminal_embed_size).requires_grad_(),
+            zero.expand(b, l, config.path_embed_size).requires_grad_())
+
+
+def lazy_forward_backward(model, batch: dict[str, torch.Tensor], class_weights: torch.Tensor):
+    """The lazy step's forward and backward: ``(loss, table_grads)``, the
+    non-table gradients in ``.grad`` and ``table_grads`` the tables'
+    ``[(ids, slots), ...]`` (terminal: ``[starts; ends]`` flattened; path:
+    ``paths``; slots f32 ``[N, dim]``)."""
+    offsets = zero_offsets(model.config, batch["starts"].shape, batch["starts"].device)
+    loss = forward_backward(model, batch, class_weights, embed_offsets=offsets)
+    return loss, slot_grads(batch, offsets)
+
+
+def slot_grads(batch: dict[str, torch.Tensor], offsets) -> list:
+    """The tables' ``[(ids, slots), ...]`` from the offsets' gradients."""
+    term_ids = torch.cat([batch["starts"], batch["ends"]], dim=1).reshape(-1)
+    return [(ids, off.grad.reshape(-1, off.shape[-1]).float())
+            for ids, off in zip((term_ids, batch["paths"].reshape(-1)), offsets)]
+
+
 def train_step(model, optimizer, batch: dict[str, torch.Tensor],
                class_weights: torch.Tensor) -> torch.Tensor:
-    """One optimizer step; returns the batch's loss on the device."""
+    """One optimizer step (lazy when ``optimizer`` is a
+    :class:`LazyTableAdam`); returns the batch's loss on the device."""
     optimizer.zero_grad(set_to_none=True)
-    loss = forward_backward(model, batch, class_weights)
-    optimizer.step()
+    if isinstance(optimizer, LazyTableAdam):
+        loss, table_grads = lazy_forward_backward(model, batch, class_weights)
+        optimizer.step(table_grads)
+    else:
+        loss = forward_backward(model, batch, class_weights)
+        optimizer.step()
     return loss
 
 

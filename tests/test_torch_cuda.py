@@ -22,8 +22,12 @@ code loads, sources at any alignment, pad slots, clamped cell ids, and the
 searcher's shortlist against its plain scoring; for K1b (the pool's
 backward) its persistent grid below and at its cap, a weights cotangent
 or none, a row's tasks spread over several CTAs, repeatable bits;
-K2/K3/K4-online with the dropout keep mask; and one train step on each kernel route against the
-plain route's gradients. Tolerance rtol = atol = 1e-5 (the plain
+K2/K3/K4-online with the dropout keep mask; one train step on each kernel route against the
+plain route's gradients; and the lazy table optimizer (``--table_update
+lazy``): three lazy steps on each route against the plain lazy steps on the
+CPU (untouched rows and moments bit for bit), its step under
+``set_sync_debug_mode("error")`` and the profiler's op list of a step (no
+dense table gradient). Tolerance rtol = atol = 1e-5 (the plain
 versions in f32 with TF32 off, the kernels' encode in 3xTF32 on the
 tensor cores); at top11 widths and one context the kernel's code vector is
 within 2e-6 of a float64 evaluation, which one TF32 product (~1e-3) would
@@ -924,3 +928,164 @@ def test_bf16_train_step_on_the_card_matches_the_cpu(dev, route):
     for k, g in ref_grads.items():
         torch.testing.assert_close(grads[k], g, rtol=0, atol=2.0**-5 * g.abs().max().item(),
                                    msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the lazy table optimizer (--table_update lazy)
+# ---------------------------------------------------------------------------
+
+LAZY_DIMS = dict(terminal_count=301, path_count=157, label_count=19, terminal_embed_size=16,
+                 path_embed_size=12, encode_size=24, dropout_prob=0.0)
+
+
+def lazy_batches(n, B=32, L=50, seed=2):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        s = rng.integers(0, 301, (B, L))
+        s[:, :5] = rng.integers(1, 301, (B, 5))
+        out.append({
+            "starts": torch.tensor(s),
+            "paths": torch.tensor(rng.integers(1, 157, (B, L)) * (s > 0)),
+            "ends": torch.tensor(rng.integers(1, 301, (B, L)) * (s > 0)),
+            "labels": torch.tensor(rng.integers(0, 19, B)),
+            "example_mask": torch.ones(B),
+        })
+    return out
+
+
+def lazy_model(route, where, seed=5):
+    from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
+
+    kernel = dict(use_pallas=True, pallas_impl=route) if route != "plain" else {}
+    model = Code2Vec(Code2VecConfig(**LAZY_DIMS, **kernel))
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    return model.to(where)
+
+
+@pytest.mark.parametrize("route", ["plain", "pool_only", "gather_split", "fused"])
+def test_lazy_steps_on_the_card_match_the_cpu_plain_steps(dev, route):
+    """Three lazy steps (dropout 0) on the card's route against the plain
+    route's on the CPU from the same weights: each step's loss (rtol 1e-4)
+    and the tables' per-slot and the other parameters' gradients (atol 1e-5
+    / rtol 1e-3, the route differential's); after each step every
+    parameter and the tables' two moments, over every row, within the lazy
+    step's tolerance against JAX (atol 3e-5 / rtol 1e-4); the rows a step
+    leaves untouched, and their moments, bit for bit unchanged; the tables
+    get no ``.grad``; the route's kernels launched once a step."""
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.step import lazy_forward_backward, make_optimizer
+
+    batches = lazy_batches(3)
+    cfg = TrainConfig(lr=0.01, table_update="lazy")
+    runs, states = {}, {}
+    for name, where in (("cpu", "cpu"), ("card", dev)):
+        model = lazy_model(route if name == "card" else "plain", where)
+        opt = make_optimizer(model, cfg)
+        weights = torch.ones(19, device=where)
+        tables = [model.terminal_embedding.weight, model.path_embedding.weight]
+        steps = []
+        reset_launch_counts()
+        for host in batches:
+            batch = {k: v.to(where) for k, v in host.items()}
+            before = [(t.detach().clone(), opt.state[t]["exp_avg"].clone(),
+                       opt.state[t]["exp_avg_sq"].clone()) for t in tables]
+            opt.zero_grad(set_to_none=True)
+            loss, table_grads = lazy_forward_backward(model, batch, weights)
+            assert all(t.grad is None for t in tables)
+            steps.append((loss.cpu(), [s.cpu() for _, s in table_grads],
+                          {k: p.grad.cpu() for k, p in model.named_parameters()
+                           if p.grad is not None}))
+            opt.step(table_grads)
+            for t, prev, (ids, _) in zip(tables, before, table_grads):
+                untouched = torch.ones(t.shape[0], dtype=torch.bool, device=t.device)
+                untouched[ids.long()] = False
+                now = (t.detach(), opt.state[t]["exp_avg"], opt.state[t]["exp_avg_sq"])
+                for a, b in zip(now, prev):
+                    assert torch.equal(a[untouched], b[untouched])
+            state = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+            for k, t in zip(("terminal", "path"), tables):
+                state[f"{k} mu"] = opt.state[t]["exp_avg"].cpu().clone()
+                state[f"{k} nu"] = opt.state[t]["exp_avg_sq"].cpu().clone()
+            states.setdefault(name, []).append(state)
+        runs[name] = steps
+        counts = launch_counts()
+    want = {"plain": {}, "pool_only": {"pool": 3, "pool_bwd": 3},
+            "gather_split": {"gather_split": 3}, "fused": {"fused_f32": 3}}[route]
+    assert counts == want
+    for (loss, slots, grads), (ref_loss, ref_slots, ref_grads) in zip(runs["card"], runs["cpu"]):
+        torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=0)
+        for a, b in zip(slots, ref_slots):
+            torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-5)
+        assert grads.keys() == ref_grads.keys()
+        for k, g in ref_grads.items():
+            torch.testing.assert_close(grads[k], g, rtol=1e-3, atol=1e-5, msg=k)
+    for i, (state, ref_state) in enumerate(zip(states["card"], states["cpu"])):
+        assert state.keys() == ref_state.keys()
+        for k, v in ref_state.items():
+            torch.testing.assert_close(state[k], v, rtol=1e-4, atol=3e-5, msg=f"step {i}: {k}")
+
+
+@pytest.mark.parametrize("route", ["plain", "fused"])
+def test_lazy_table_step_never_waits_for_the_card(dev, route):
+    """A warm lazy step's table optimizer (and the whole step) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no device-to-host sync."""
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.step import (
+        lazy_forward_backward,
+        make_optimizer,
+        train_step,
+    )
+
+    model = lazy_model(route, dev)
+    opt = make_optimizer(model, TrainConfig(lr=0.01, table_update="lazy"))
+    weights = torch.ones(19, device=dev)
+    batches = [{k: v.to(dev) for k, v in b.items()} for b in lazy_batches(3)]
+    train_step(model, opt, batches[0], weights)
+    opt.zero_grad(set_to_none=True)
+    _, table_grads = lazy_forward_backward(model, batches[1], weights)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt.step(table_grads)
+        train_step(model, opt, batches[2], weights)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_lazy_step_forms_no_dense_table_gradient(dev):
+    """The profiler's op list of a lazy step: no embedding backward and no
+    ``[V, E]``-sized zero or ``index_put`` (a dense step has both)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.step import make_optimizer, train_step
+
+    weights = torch.ones(19, device=dev)
+    batch = {k: v.to(dev) for k, v in lazy_batches(1)[0].items()}
+    table_shapes = {(301, 16), (157, 12)}
+    found = {}
+    for update in ("dense", "lazy"):
+        model = lazy_model("plain", dev)
+        opt = make_optimizer(model, TrainConfig(lr=0.01, table_update=update))
+        train_step(model, opt, batch, weights)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            train_step(model, opt, batch, weights)
+            torch.cuda.synchronize()
+        found[update] = sorted({
+            e.name for e in prof.events()
+            if e.name == "aten::embedding_dense_backward"
+            or (e.name in ("aten::zero_", "aten::zeros", "aten::index_put_", "aten::index_put",
+                           "aten::index_add_")
+                and any(tuple(s) in table_shapes for s in (e.input_shapes or [])))})
+        if update == "lazy":
+            assert model.terminal_embedding.weight.grad is None
+            assert model.path_embedding.weight.grad is None
+    assert "aten::embedding_dense_backward" in found["dense"], found
+    assert found["lazy"] == [], found

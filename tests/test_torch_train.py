@@ -323,7 +323,7 @@ def test_training_with_quantized_tables_raises():
 UNPORTED = [
     {"stream_chunk_items": 8}, {"feed_workers": 2},
     {"prefetch_batches": 2}, {"device_epoch": True}, {"data_axis": 2}, {"model_axis": 2},
-    {"table_update": "lazy"}, {"pallas_impl": "auto"}, {"async_checkpoint": True}, {"checkpoint_every_steps": 5},
+    {"pallas_impl": "auto"}, {"async_checkpoint": True}, {"checkpoint_every_steps": 5},
     {"fault_plan": "train_step@1:raise"}, {"infer_variable_name": True},
 ]
 
@@ -332,6 +332,14 @@ UNPORTED = [
 def test_unported_settings_are_rejected(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainConfig(**kw).validate()
+
+
+def test_unknown_table_update_raises():
+    """``lazy`` is ported (tests/test_torch_table_opt.py); another value is
+    a ValueError, as in JAX ``create_train_state``."""
+    TrainConfig(table_update="lazy").validate()
+    with pytest.raises(ValueError, match="table_update must be one of"):
+        TrainConfig(table_update="sparse").validate()
 
 
 def test_train_rejects_a_quantized_table_dtype():
