@@ -128,11 +128,30 @@ the final result line is not printed):
    touches per table (f32 every route, bf16 plain and fused), beside the
    dense breakdowns; and one lazy epoch of the long-bag recipe on fused
    (masked K3 at the base rungs, masked K4 online above, once a batch);
-11. a line with the launch floor and the ``neighbors`` split, the card's
+11. train_device — the train phase's corpus, widths, batch, bag and dropout
+   with ``--device_epoch`` (both splits staged on the card, each epoch's
+   batches sampled there, 16 steps a chunk), 2 epochs on plain, pool_only
+   (K1 + K1b), gather_split (masked K2 in training, K2 in eval) and fused
+   (masked K3, K3), on fused with ``--table_update lazy`` in bf16 (compute
+   and first moments), and with ``--sample_prefetch`` on plain and fused
+   (losses within rtol 1e-4 of the unprefetched runs'); bucketed device
+   epochs on the train_bucketed phase's corpus and ladder on plain and
+   fused. Each kernel launched once for every train and eval batch, losses
+   finite, F1 > 0; per epoch epoch_seconds, steps/s and real contexts/s
+   beside the host-fed run of the same recipe, the staging's seconds and
+   bytes, and the peak device memory. Per route, dropout 0: one chunk of
+   the runner against the host step fed the same sampled batches (losses
+   within rtol 1e-5), and the next chunk, warm, under
+   ``torch.cuda.set_sync_debug_mode("error")``: a sync fails the phase and
+   is printed with where it happened; last, where a warm plain device
+   epoch's time goes (the train pass's enqueue and read, the eval pass,
+   the F1 on the host, the device's busy time over a train pass);
+12. a line with the launch floor and the ``neighbors`` split, the card's
    name and power limit, the line ``{"kernels": [...]}`` (per kernel:
    route, source, the TPU kernel it replaces, launches on its serve or
-   train route (the masked K4's on the long-bag runs), max error, times
-   at the headline shape and the bound), then, last, the result line.
+   train route (the masked K4's on the long-bag runs) plus those of the
+   train_device phase's runs of the four routes, max error, times at the
+   headline shape and the bound), then, last, the result line.
 
 With ``--json_out`` the per-shape kernel records and serving numbers are
 also written to that file.
@@ -1855,18 +1874,18 @@ def check_sparse_adam(torch, dev, data, config, host_batches, smi) -> dict:
     return worst
 
 
-def beside(label, run, ref, smi):
-    """Each epoch of ``run`` beside the same epoch of ``ref`` (the dense
-    run of the same recipe)."""
+def beside(label, run, ref, smi, ref_name="dense",
+           keys=(("train_loss", ".6f"), ("f1", ".6f"), ("steps_per_s", ".3f"),
+                 ("contexts_per_s", ".1f"))):
+    """Each epoch of ``run`` beside the same epoch of ``ref`` (the run of
+    the same recipe named ``ref_name``): ``keys`` and the peak memory."""
+    nan = float("nan")
     for i, m in enumerate(run["epochs"]):
-        r = ref["epochs"][i] if ref else None
-        ref_of = (lambda key: r[key] if r else float("nan"))  # noqa: E731
-        print(f"train {label} vs dense epoch {i}: loss {m['train_loss']:.6f} vs "
-              f"{ref_of('train_loss'):.6f}, subtoken f1 {m['f1']:.6f} vs {ref_of('f1'):.6f}, "
-              f"steps/s {m['steps_per_s']:.3f} vs {ref_of('steps_per_s'):.3f}, real contexts/s "
-              f"{m['contexts_per_s']:.1f} vs {ref_of('contexts_per_s'):.1f}, peak device memory "
+        r = ref["epochs"][i] if ref else {}
+        pairs = ", ".join(f"{key} {m[key]:{fmt}} vs {r.get(key, nan):{fmt}}" for key, fmt in keys)
+        print(f"train {label} vs {ref_name} epoch {i}: {pairs}, peak device memory "
               f"{run['peak_bytes'] / 2**30:.3f} vs "
-              f"{ref['peak_bytes'] / 2**30 if ref else float('nan'):.3f} GiB [{smi}]", flush=True)
+              f"{ref['peak_bytes'] / 2**30 if ref else nan:.3f} GiB [{smi}]", flush=True)
 
 
 def phase_train_lazy(torch, smi, dev, dense_f32, dense_bucketed, dense_bf16) -> dict:
@@ -1941,6 +1960,245 @@ def phase_train_lazy(torch, smi, dev, dense_f32, dense_bucketed, dense_bf16) -> 
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: device-resident epochs (--device_epoch)
+# ---------------------------------------------------------------------------
+
+# route -> {launch key: the passes that launch it once a batch}
+DEVICE_ROUTES = {
+    "plain": {},
+    "pool_only": {"pool": ("train", "eval"), "pool_bwd": ("train",)},
+    "gather_split": {"gather_split_masked": ("train",), "gather_split": ("eval",)},
+    "fused": {"fused_f32_masked": ("train",), "fused_f32": ("eval",)},
+}
+
+
+def device_launches(label, run, keys, n_train, n_test, epochs):
+    """Each kernel of ``keys`` launched once for every batch of the passes
+    that run it: ``n_train`` / ``n_test`` batches an epoch (scalars, or
+    arrays per ladder width)."""
+    for key, passes in keys.items():
+        want = epochs * int(sum(np.sum(n) for p, n in (("train", n_train), ("eval", n_test))
+                                if p in passes))
+        got = run["launches"].get(key, 0)
+        if got != want:
+            raise AssertionError(f"device {label}: {key} launched {got} times, want one per "
+                                 f"{'/'.join(passes)} batch ({want}): {run['launches']}")
+
+
+def beside_host(label, run, ref, smi, ref_name="host"):
+    """Each device-epoch epoch beside the same epoch of ``ref``, the
+    host-fed run of the same recipe (or the run named ``ref_name``), then
+    the staging."""
+    beside(f"device {label}", run, ref, smi, ref_name,
+           (("epoch_seconds", ".4f"), ("steps_per_s", ".3f"), ("contexts_per_s", ".1f"),
+            ("train_loss", ".6f"), ("f1", ".6f")))
+    first = run["epochs"][0]
+    print(f"train device {label}: staged {first['staged_bytes']} bytes in "
+          f"{first['stage_seconds']:.4f} s [{smi}]", flush=True)
+
+
+def device_chunk_checks(torch, dev, data, config, route, smi) -> dict:
+    """On one route, dropout 0, from one set of seeded weights: (1) one
+    chunk of the device runner against ``train_step`` fed the same sampled
+    batches through the host feed (their numpy copies, ``to_device``),
+    losses within rtol 1e-5; (2) the runner's next chunk, warm, under
+    ``torch.cuda.set_sync_debug_mode("error")``: a sync fails the check and
+    says where."""
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.train.device_epoch import (
+        EpochRunner,
+        sampler_generator,
+        stage_method_corpus,
+    )
+    from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
+    from code2vec_tpu_torch.train.step import StepTally, make_optimizer, to_device, train_step
+
+    cfg = config.with_updates(dropout_prob=0.0, **kernel_route(route))
+    base = Code2Vec(model_config_from(cfg, data))
+    base.reset_parameters(torch.Generator().manual_seed(5))
+    state = {k: v.to(dev) for k, v in base.state_dict().items()}
+    del base
+    models = []
+    for _ in range(2):
+        with torch.device(dev):
+            model = Code2Vec(model_config_from(cfg, data))
+        model.load_state_dict(state)
+        models.append((model, make_optimizer(model, cfg)))
+    weights = class_weights_from(cfg, data, dev)
+    corpus = stage_method_corpus(data, np.arange(data.n_items), np.random.default_rng(3),
+                                 device=dev)
+    runner = EpochRunner(weights, cfg.batch_size, cfg.max_path_length, 3)
+    order = np.random.default_rng(4).permutation(data.n_items)
+    (lo, nb, n_valid), (lo2, nb2, n_valid2), *_ = runner._chunk_plan(data.n_items)
+    g = sampler_generator(0, dev)
+    before = g.get_state()
+    tally = StepTally(dev)
+    runner.train_chunk(*models[0], corpus, order, lo, nb, n_valid, g, tally)
+    g.set_state(before)
+    batches = [{k: v.cpu().numpy() for k, v in b.items()}
+               for b in runner._batches(corpus, order, lo, nb, n_valid, g)]
+    host = [train_step(*models[1], to_device(b, dev), weights) for b in batches]
+    device = torch.stack(tally.losses)
+    torch.testing.assert_close(device, torch.stack(host), rtol=1e-5, atol=0)
+    out = {"device_losses": device.tolist(), "host_losses": torch.stack(host).tolist()}
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.train_chunk(*models[0], corpus, order, lo2, nb2, n_valid2, g, StepTally(dev))
+        out["chunk_sync"] = None
+    except RuntimeError as err:
+        if "synchroniz" not in str(err):
+            raise
+        out["chunk_sync"] = synced_at(err)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"device chunk {route}: {nb} steps, losses {[round(x, 6) for x in out['device_losses']]}"
+          f" vs the host step {[round(x, 6) for x in out['host_losses']]}; a warm chunk of {nb2} "
+          f"steps under sync debug mode 'error': {out['chunk_sync'] or 'no sync'} [{smi}]",
+          flush=True)
+    if out["chunk_sync"]:
+        raise AssertionError(f"device chunk {route} synchronised: {out['chunk_sync']}")
+    del models, corpus
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_epoch_split(torch, dev, data, config, smi) -> dict:
+    """Where a device epoch's time goes (plain route, the run's recipe, one
+    warm epoch first): the host's wall ms to enqueue the train pass, to its
+    loss read, of the eval pass (to its read) and of the F1 on the host;
+    and the device's busy ms over a train pass (``torch.profiler``: the
+    union of its kernels' and copies' device intervals) against the
+    unprofiled pass's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from code2vec_tpu_torch.data.pipeline import split_items
+    from code2vec_tpu_torch.metrics import evaluate
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.train.loop import (
+        class_weights_from,
+        model_config_from,
+        stage_device_epochs,
+    )
+    from code2vec_tpu_torch.train.step import StepTally, make_optimizer
+
+    rng = np.random.default_rng(config.random_seed)
+    train_idx, test_idx = split_items(data.n_items, rng)
+    weights = class_weights_from(config, data, dev)
+    feed = stage_device_epochs(config, data, train_idx, test_idx, rng, None, weights, dev)
+    with torch.device(dev):
+        model = Code2Vec(model_config_from(config, data))
+    model.seed_dropout(0)
+    opt = make_optimizer(model, config)
+    runner = feed.runner
+    runner.run_train_epoch(model, opt, feed.train, rng, feed.generator)
+    runner.run_eval_epoch(model, feed.test, feed.generator)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tally = StepTally(dev)
+    runner.train_epoch(model, opt, feed.train, rng, feed.generator, tally)
+    t1 = time.perf_counter()
+    tally.result()
+    t2 = time.perf_counter()
+    _, preds, _ = runner.run_eval_epoch(model, feed.test, feed.generator)
+    t3 = time.perf_counter()
+    evaluate(config.eval_method, feed.expected, preds, data.label_vocab)
+    t4 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner.run_train_epoch(model, opt, feed.train, rng, feed.generator)
+        torch.cuda.synchronize()
+    # the union of the kernels' (and copies') device intervals, in ms
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    busy /= 1e3
+    out = {"train_enqueue_ms": (t1 - t0) * 1e3, "train_pass_ms": (t2 - t0) * 1e3,
+           "eval_pass_ms": (t3 - t2) * 1e3, "f1_host_ms": (t4 - t3) * 1e3,
+           "train_device_busy_ms": busy, "train_steps": len(tally.losses)}
+    out["train_idle_share"] = 1.0 - busy / out["train_pass_ms"]
+    print(f"device epoch split (plain, {out['train_steps']} train steps): train pass "
+          f"{out['train_pass_ms']:.2f} ms host wall (enqueued in {out['train_enqueue_ms']:.2f}), "
+          f"device busy {busy:.2f} ms of it (idle share {out['train_idle_share']:.3f}); eval "
+          f"pass {out['eval_pass_ms']:.2f} ms; F1 on the host {out['f1_host_ms']:.2f} ms [{smi}]",
+          flush=True)
+    del model, opt, feed
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_device(torch, smi, dev, host_train, host_bucketed, host_lazy) -> dict:
+    """The train phase's recipe with --device_epoch on every route (also
+    lazy bf16 on fused, sample_prefetch on plain and fused), bucketed device
+    epochs on the --bucket-ab corpus (plain and fused), each beside its
+    host-fed run; per route one chunk against the host step and a warm chunk
+    under the sync debug mode."""
+    from code2vec_tpu_torch.data.pipeline import split_items
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.loop import resolve_ladder
+
+    def host_run(runs, route):
+        return ((runs or {}).get("routes") or {}).get(route)
+
+    _, data = train_corpus()
+    config = TrainConfig(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                         max_path_length=BAG, batch_size=TRAIN_BATCH, dropout_prob=0.25,
+                         max_epoch=2, random_seed=0, print_sample_cycle=0, device_epoch=True)
+    train_idx, test_idx = split_items(data.n_items, np.random.default_rng(config.random_seed))
+    n_train, n_test = -(-len(train_idx) // TRAIN_BATCH), -(-len(test_idx) // TRAIN_BATCH)
+    lazy_bf16 = dict(table_update="lazy", compute_dtype="bfloat16", adam_mu_dtype="bfloat16")
+    runs = [(route, route, {}) for route in DEVICE_ROUTES] + [
+        ("fused lazy bf16", "fused", lazy_bf16),
+        ("plain sample_prefetch", "plain", {"sample_prefetch": True}),
+        ("fused sample_prefetch", "fused", {"sample_prefetch": True})]
+    out = {"routes": {}}
+    for label, route, kw in runs:
+        keys = DEVICE_ROUTES[route]
+        run = out["routes"][label] = train_route(
+            torch, smi, dev, data, config.with_updates(**kernel_route(route), **kw),
+            f"device {label}", tuple(keys))
+        device_launches(label, run, keys, n_train, n_test, config.max_epoch)
+        if not all(m["f1"] > 0.0 for m in run["epochs"]):
+            raise AssertionError(f"device {label}: F1 {[m['f1'] for m in run['epochs']]}")
+        if "sample_prefetch" in kw:  # beside the same route's device run
+            beside_host(label, run, out["routes"][route], smi, "unprefetched")
+        elif "table_update" in kw:
+            beside_host(label, run, ((host_lazy or {}).get("bf16_routes") or {}).get(route), smi)
+        else:
+            beside_host(label, run, host_run(host_train, route), smi)
+    for route in ("plain", "fused"):  # the same batches, prefetched or not
+        same_losses(f"device {route} sample_prefetch",
+                    {"off": out["routes"][route], "on": out["routes"][f"{route} sample_prefetch"]})
+    out["chunks"] = {route: device_chunk_checks(torch, dev, data, config, route, smi)
+                     for route in DEVICE_ROUTES}
+    out["split"] = device_epoch_split(torch, dev, data, config, smi)
+    del data
+
+    # bucketed device epochs on the --bucket-ab corpus, the derived ladder
+    _, data = train_corpus(n_methods=30_720, mean_contexts=60.0, length_sigma=1.0,
+                           max_contexts=2 * BAG)
+    config = config.with_updates(bucketed=True)
+    ladder, bag_width = resolve_ladder(config, data)
+    per_width, test_width = split_batches(data, config, ladder, bag_width)
+    out["bucketed"] = {"ladder": list(ladder), "routes": {}}
+    for route in ("plain", "fused"):
+        keys = DEVICE_ROUTES[route]
+        run = out["bucketed"]["routes"][route] = train_route(
+            torch, smi, dev, data, config.with_updates(**kernel_route(route)),
+            f"device bucketed {route}", tuple(keys))
+        device_launches(f"bucketed {route}", run, keys, per_width, test_width,
+                        config.max_epoch)
+        beside_host(f"bucketed {route}", run,
+                    host_run((host_bucketed or {}).get("bucketed"), route), smi)
+    same_losses("device bucketed", out["bucketed"]["routes"])
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json_out", default=None,
@@ -1956,12 +2214,15 @@ def main() -> int:
 
     def phase(name, fn, *a):
         print(f"== phase {name}", flush=True)
+        t0 = time.perf_counter()
         try:
             return fn(*a)
         except Exception:  # noqa: BLE001 - every phase reports, the run fails
             traceback.print_exc()
             failed.append(name)
             return None
+        finally:
+            print(f"== phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
     def device():
         cap = torch.cuda.get_device_capability(0)
@@ -2008,6 +2269,8 @@ def main() -> int:
         bf16_train = phase("train_bf16", phase_train_bf16, torch, smi, dev, model_dir, trained)
         lazy_train = phase("train_lazy", phase_train_lazy, torch, smi, dev, trained, bucketed,
                            bf16_train)
+        device_train = phase("train_device", phase_train_device, torch, smi, dev, trained,
+                             bucketed, lazy_train)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -2022,13 +2285,19 @@ def main() -> int:
     for route in ("pool_only", "gather_split"):  # the bf16 kernels train (and eval) in bf16
         for key in bf16_train["routes"][route]["launches"]:
             routes.setdefault(key, bf16_train["routes"][route])
+    # the device-epoch runs of the train phase's routes launch the same kernels
+    device_counts = {}
+    for route in DEVICE_ROUTES:
+        for key, n in device_train["routes"][route]["launches"].items():
+            device_counts[key] = device_counts.get(key, 0) + n
     line = []
     for name, rec in kernels.items():
         timed = next(r for r in rec["rows"] if (r["B"], r["L"]) == rec["timed"])
         line.append({
             "name": name, "route": "cuda", "source": rec["source"],
             "replaces": rec["replaces"],
-            "launches": routes[rec["key"]]["launches"][rec["key"]],
+            "launches": (routes[rec["key"]]["launches"][rec["key"]]
+                         + device_counts.get(rec["key"], 0)),
             "max_abs_err": max(r["max_abs_err"] for r in rec["rows"]),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -2053,7 +2322,8 @@ def main() -> int:
             {"card": smi, "torch": torch.__version__, "launch_floor": floor, "kernels": kernels,
              "serve": serve,
              "longbag": longbag, "retrieval": retrieval, "train": trained,
-             "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train},
+             "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train,
+             "train_device": device_train},
             indent=1,
         ))
     for k in line:  # each kernel's share of its bound at its timed shape

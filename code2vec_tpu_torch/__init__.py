@@ -20,7 +20,7 @@ Layout (each module names its JAX counterpart):
   exact or the IVF-PQ backend;
 - ``text``, ``data`` (vocab, reader, synthetic corpora, epochs and
   batches), ``metrics``, ``train`` (config, steps, the lazy table
-  optimizer, the epoch loop),
+  optimizer, device-resident epochs, the epoch loop),
   ``checkpoint``, ``export`` and ``cli`` — the training path (``python -m
   code2vec_tpu_torch``), whose model dir the server serves as it stands.
 

@@ -6,8 +6,9 @@ file per slot in the model dir: ``checkpoint_best.pt`` (written on a new
 best F1) and ``checkpoint_last.pt`` (every ``checkpoint_cycle`` epochs).
 Each holds the model's and the optimizer's ``state_dict``, the
 :class:`TrainMeta`, the host data generator's state (the next epoch's
-subsample and batch order) and the dropout generator's state, so
-``--resume`` continues the stream the uninterrupted run would have seen.
+subsample and batch order), the dropout generator's state and, with
+``--device_epoch``, the device sampler's, so ``--resume`` continues the
+stream the uninterrupted run would have seen.
 The optimizer's first moments are saved in their own dtype (bf16 with
 ``--adam_mu_dtype bfloat16``); a resume under the other dtype raises, as the
 JAX restore does, and so does a resume under the other ``--table_update``
@@ -17,11 +18,14 @@ JAX restore does, and so does a resume under the other ``--table_update``
 from __future__ import annotations
 
 import copy
+import logging
 import os
 from dataclasses import asdict, dataclass, field
 
 import numpy as np
 import torch
+
+logger = logging.getLogger(__name__)
 
 SLOTS = ("best", "last")
 
@@ -54,9 +58,10 @@ def slot_path(out_dir: str, slot: str) -> str:
 
 
 def save_checkpoint(out_dir: str, slot: str, model, optimizer, meta: TrainMeta,
-                    np_rng: np.random.Generator) -> str:
+                    np_rng: np.random.Generator, sampler: torch.Generator | None = None) -> str:
     """Write ``slot`` atomically (a temp file, then a rename); the meta
-    records the optimizer's first-moment dtype and table update."""
+    records the optimizer's first-moment dtype and table update.
+    ``sampler`` is the device-epoch sampler's generator, if any."""
     from code2vec_tpu_torch.train.step import adam_mu_dtype, table_update
 
     meta.adam_mu_dtype = adam_mu_dtype(optimizer)
@@ -68,6 +73,7 @@ def save_checkpoint(out_dir: str, slot: str, model, optimizer, meta: TrainMeta,
         "meta": asdict(meta),
         "np_rng_state": copy.deepcopy(np_rng.bit_generator.state),
         "dropout_rng_state": gen.get_state(),
+        "sampler_rng_state": None if sampler is None else sampler.get_state(),
     }
     path = slot_path(out_dir, slot)
     tmp = f"{path}.tmp{os.getpid()}"
@@ -86,10 +92,14 @@ def clear_checkpoints(out_dir: str) -> None:
 
 
 def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generator,
-                       vocab_pad_multiple: int, prefer_best: bool = False) -> TrainMeta | None:
+                       vocab_pad_multiple: int, prefer_best: bool = False,
+                       sampler: torch.Generator | None = None) -> TrainMeta | None:
     """Load the newest slot (the one whose meta says the later epoch; the
     best slot with ``prefer_best``) into ``model``, ``optimizer`` (may be
-    None) and ``np_rng``; return its meta, or None when there is none. An
+    None), ``np_rng`` and ``sampler`` (the device-epoch sampler's
+    generator, may be None; a checkpoint of a host-path run holds no
+    sampler state, and the sampler then stays freshly seeded, which is
+    logged); return its meta, or None when there is none. An
     optimizer whose first moments are stored in another dtype than the
     checkpoint's, or that steps the tables otherwise (``--table_update``),
     raises with the flag that resumes it."""
@@ -135,4 +145,10 @@ def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generat
     np_rng.bit_generator.state = state["np_rng_state"]
     device = next(model.parameters()).device
     model.dropout_generator(device).set_state(state["dropout_rng_state"])
+    if sampler is not None:
+        if state.get("sampler_rng_state") is not None:
+            sampler.set_state(state["sampler_rng_state"])
+        else:
+            logger.info("the checkpoint in %s holds no device-epoch sampler state (a host-path "
+                        "run's): the sampler starts from the run's seed", out_dir)
     return meta

@@ -19,7 +19,8 @@ stores Adam's first moments in bf16. ``--table_update lazy`` steps the
 embedding tables' touched rows only (``torch.optim.SparseAdam``'s
 semantics), ``--embed_grad {dense,segment,segment_sorted}`` is accepted for JAX
 configurations (every mode runs ``F.embedding``'s backward, already a
-segment sum).
+segment sum). ``--device_epoch [--device_chunk_batches 16] [--sample_prefetch
+true]`` stages both splits on the card and samples each epoch's batches there.
 
 Flags of features not ported yet are accepted with their default only and
 raise otherwise (``TrainConfig.validate``, ROADMAP §A.2); HPO, telemetry,
@@ -145,6 +146,15 @@ def build_parser() -> argparse.ArgumentParser:
                         help="the JAX package's choice of the tables' backward; accepted for "
                              "its configurations, every mode runs F.embedding's backward")
 
+    parser.add_argument("--device_epoch", action="store_true", default=False,
+                        help="stage both splits on the card once and sample each epoch's "
+                             "batches there, --device_chunk_batches steps a chunk")
+    parser.add_argument("--device_chunk_batches", type=int, default=16,
+                        help="batches per device-epoch chunk")
+    parser.add_argument("--sample_prefetch", type=_strtobool, default=False,
+                        help="device-epoch chunks sample batch i+1 while stepping batch i "
+                             "(a second CUDA stream; the same batches)")
+
     # accepted at their defaults only: the features are not ported yet
     parser.add_argument("--data_axis", type=int, default=1)
     parser.add_argument("--model_axis", type=int, default=1)
@@ -152,7 +162,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--stream_chunk_items", type=int, default=0)
     parser.add_argument("--feed_workers", type=int, default=0)
     parser.add_argument("--prefetch_batches", type=int, default=0)
-    parser.add_argument("--device_epoch", action="store_true", default=False)
     parser.add_argument("--async_checkpoint", action="store_true", default=False)
     parser.add_argument("--checkpoint_every_steps", type=int, default=0)
     parser.add_argument("--fault_plan", type=str, default="")
@@ -168,9 +177,9 @@ _CONFIG_FLAGS = (
     "pallas_softmax", "table_dtype", "attn_impl", "encoder_impl", "vocab_pad_multiple",
     "resume", "checkpoint_cycle", "compute_dtype", "data_axis", "model_axis", "context_axis",
     "adam_mu_dtype", "table_update", "embed_grad", "bucketed", "bucket_ladder", "max_contexts",
-    "stream_chunk_items",
-    "feed_workers", "prefetch_batches", "device_epoch", "async_checkpoint",
-    "checkpoint_every_steps", "fault_plan",
+    "device_epoch", "device_chunk_batches", "sample_prefetch", "stream_chunk_items",
+    "feed_workers", "prefetch_batches", "async_checkpoint", "checkpoint_every_steps",
+    "fault_plan",
 )
 
 

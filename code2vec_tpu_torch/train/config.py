@@ -93,6 +93,14 @@ class TrainConfig:
     # touched rows only, torch.optim.SparseAdam's semantics; train/table_opt.py)
     table_update: str = "dense"
 
+    # device-resident epochs (train/device_epoch.py): both splits staged on
+    # the card once, each epoch's batches sampled there, device_chunk_batches
+    # steps enqueued per chunk; sample_prefetch samples batch i+1 before
+    # stepping batch i (on a second CUDA stream)
+    device_epoch: bool = False
+    device_chunk_batches: int = 16
+    sample_prefetch: bool = False
+
     # not ported yet: validate() rejects a value other than the default
     data_axis: int = 1
     model_axis: int = 1
@@ -100,7 +108,6 @@ class TrainConfig:
     stream_chunk_items: int = 0
     feed_workers: int = 0
     prefetch_batches: int = 0
-    device_epoch: bool = False
     async_checkpoint: bool = False
     checkpoint_every_steps: int = 0
     fault_plan: str = ""
@@ -127,6 +134,12 @@ class TrainConfig:
             )
         if self.max_contexts == 0 and self.device_epoch:
             raise ValueError("--max_contexts 0 does not compose with --device_epoch; drop one")
+        if self.sample_prefetch and not self.device_epoch:
+            raise ValueError("--sample_prefetch double-buffers the device-epoch sampler; it "
+                             "requires --device_epoch")
+        if self.device_chunk_batches < 1:
+            raise ValueError(f"device_chunk_batches must be >= 1, got "
+                             f"{self.device_chunk_batches}")
         for name, allowed in (("compute_dtype", DTYPES), ("adam_mu_dtype", DTYPES),
                               ("table_update", TABLE_UPDATES), ("embed_grad", GRAD_MODES)):
             if getattr(self, name) not in allowed:
@@ -135,7 +148,6 @@ class TrainConfig:
             "stream_chunk_items": self.stream_chunk_items,
             "feed_workers": self.feed_workers,
             "prefetch_batches": self.prefetch_batches,
-            "device_epoch": self.device_epoch,
             "mesh axes > 1": max(self.data_axis, self.model_axis, self.context_axis) > 1,
             "pallas_impl='auto'": self.pallas_impl == "auto",
             "async_checkpoint": self.async_checkpoint,

@@ -1,0 +1,439 @@
+"""Device-resident epochs: the corpus staged on the card once, each epoch's
+batches sampled there, chunks of steps enqueued back to back.
+
+Counterpart of ``code2vec_tpu/train/device_epoch.py`` for one device and
+the method-name task: ``StagedCorpus`` and the staging (``:57-163``,
+``:266-282``), the sampler ``_sample_batch`` (``:565-616``), the double
+buffer of ``_scan_train_chunk`` / ``_scan_eval_chunk`` (``:619-680``),
+``EpochRunner`` (``:683-908``) and the bucketed staging and runner
+(``:912-1001``, ``:1051-1139``).
+
+The host pipeline (``data/pipeline.py``) rebuilds ``[N, L]`` epoch arrays
+in numpy every epoch and copies one ``[B, L]`` batch per step. Here:
+
+- ``stage_method_corpus`` builds the split's CSR contexts once on the host
+  (interleaved ``[total, 3]``, each method's contexts shuffled once, the
+  ``@method_0 -> @question`` substitution applied) and copies each array to
+  the card once;
+- each step draws a random rotation window of ``bag`` contexts per method
+  (``ctx[(shift + j) % n]``) on the card. A method with ``n <= bag``
+  contexts (the common case) takes all of them, as the host pipeline does,
+  and attention pooling does not depend on their order. A longer method
+  keeps each context with probability ``bag / n`` without duplicates, but
+  neighbours in the staged order are drawn together; the host pipeline
+  stays the exact-parity path;
+- a chunk of ``chunk_batches`` steps costs the host one pinned copy of its
+  ``[nb * B]`` row order; the losses stay on the card and are read once
+  per epoch.
+
+Each step is the port's own ``train_step`` / ``eval_step``, so every
+kernel route, compute dtype and table update works unchanged: the sampled
+batch has the keys and dtypes of ``train/step.to_device``. The numpy
+generator draws the staging shuffles and each epoch's method order in the
+JAX module's order; the shifts come from an explicit ``torch.Generator``
+on the corpus's device (its stream differs from JAX's keys, as dropout's
+does). Not ported: the variable task's staging (``stage_variable_corpus``,
+``concat_staged``), the sharded runners, and CUDA-graph capture of a chunk
+(ROADMAP).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from code2vec_tpu_torch import PAD_INDEX, QUESTION_TOKEN_INDEX
+from code2vec_tpu_torch.data.pipeline import assign_buckets, flat_context_indices
+from code2vec_tpu_torch.train.step import StepTally, eval_step, train_step
+
+# the shifts are uniform in [0, 2^30), as JAX's randint draws them
+SHIFT_HIGH = 1 << 30
+# the sampler's stream, apart from dropout's and the numpy generator's
+SAMPLER_STREAM = 0x5A3D
+
+
+@dataclass
+class StagedCorpus:
+    """A split staged as CSR: method ``i`` owns ``contexts[row_splits[i]:
+    row_splits[i + 1]]``. On the card the arrays are int32 tensors; a host
+    staging (``device="host"``) keeps numpy arrays with int64 splits.
+    ``counts`` is the host's copy of each method's context count, which the
+    pad and speed accounting read without a device sync."""
+
+    contexts: torch.Tensor | np.ndarray  # int32 [total, 3]: (start, path, end), @question applied
+    row_splits: torch.Tensor | np.ndarray  # int32 [n_items + 1] (int64 on the host)
+    labels: torch.Tensor | np.ndarray  # int32 [n_items]
+    n_items: int
+    counts: np.ndarray  # int64 [n_items]
+
+    @property
+    def n_contexts(self) -> int:
+        return int(self.contexts.shape[0])
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.contexts.nbytes + self.row_splits.nbytes + self.labels.nbytes)
+
+
+def _check_device_total(total: int) -> None:
+    """The sampler indexes with int32 ``row_splits``."""
+    if total >= 2**31:
+        raise ValueError(
+            f"staged corpus has {total} contexts; device row_splits are int32: stage a "
+            "subset (the sharded staging is not ported yet, ROADMAP §A.2)"
+        )
+
+
+def _per_row_shuffle(total: int, row_splits: np.ndarray,
+                     rng: np.random.Generator) -> np.ndarray:
+    """A permutation of ``[0, total)`` that shuffles within each CSR row
+    only: a sort by (row id, f32 uniform), the JAX module's draw exactly."""
+    row_ids = np.repeat(np.arange(len(row_splits) - 1, dtype=np.int32), np.diff(row_splits))
+    return np.lexsort((rng.random(total, dtype=np.float32), row_ids))
+
+
+def stage_method_corpus(data, item_idx: np.ndarray, rng: np.random.Generator,
+                        device: str | torch.device = "host") -> StagedCorpus:
+    """Stage the selected items' contexts: built on the host (each row
+    shuffled once, ``@method_0`` replaced by ``@question``, as the host
+    pipeline does per epoch), then one copy per array to ``device``
+    (``"host"`` keeps the numpy arrays)."""
+    counts = np.diff(data.row_splits)[item_idx].astype(np.int64)
+    new_splits = np.zeros(len(item_idx) + 1, np.int64)
+    np.cumsum(counts, out=new_splits[1:])
+    total = int(new_splits[-1])
+    if device != "host":
+        _check_device_total(total)
+    # the shuffle permutes the flat indices before the gather: one [total, 3]
+    # pass instead of gather-then-permute
+    flat, _, _ = flat_context_indices(data.row_splits, item_idx)
+    flat = flat[_per_row_shuffle(total, new_splits, rng)]
+    contexts = np.empty((total, 3), np.int32)
+    contexts[:, 0] = data.starts[flat]
+    contexts[:, 1] = data.paths[flat]
+    contexts[:, 2] = data.ends[flat]
+    method_idx = data.method_token_index
+    if method_idx is not None:
+        terms = contexts[:, (0, 2)]
+        np.putmask(terms, terms == method_idx, QUESTION_TOKEN_INDEX)
+        contexts[:, (0, 2)] = terms
+    staged = StagedCorpus(contexts=contexts, row_splits=new_splits,
+                          labels=data.labels[item_idx].astype(np.int32),
+                          n_items=len(item_idx), counts=counts)
+    return staged if device == "host" else place_staged(staged, device)
+
+
+def place_staged(staged: StagedCorpus, device: str | torch.device) -> StagedCorpus:
+    """A host staging on ``device``: one copy per array, int32 splits."""
+    rs = np.asarray(staged.row_splits)
+    _check_device_total(int(rs[-1]) if len(rs) else 0)
+    dev = torch.device(device)
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return StagedCorpus(contexts=put(staged.contexts), row_splits=put(rs.astype(np.int32)),
+                        labels=put(staged.labels), n_items=staged.n_items, counts=staged.counts)
+
+
+@dataclass
+class BucketedStagedCorpus:
+    """A staged split partitioned by context count over a ladder of bag
+    widths: one :class:`StagedCorpus` per non-empty bucket (the top one
+    always), each sampled at its own width by :class:`BucketedEpochRunner`.
+    Rows keep every context; the width bounds the sampled window."""
+
+    buckets: list[tuple[int, StagedCorpus]]  # (bag width, staged rows)
+
+    @property
+    def n_items(self) -> int:
+        return sum(s.n_items for _, s in self.buckets)
+
+    @property
+    def n_contexts(self) -> int:
+        return sum(s.n_contexts for _, s in self.buckets)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(s.nbytes for _, s in self.buckets)
+
+    @property
+    def counts(self) -> np.ndarray:
+        """Context counts in bucket order."""
+        return np.concatenate([s.counts for _, s in self.buckets]) if self.buckets \
+            else np.zeros(0, np.int64)
+
+    def host_labels(self) -> np.ndarray:
+        """Labels in bucket order, the ``expected`` array of
+        :meth:`BucketedEpochRunner.run_eval_epoch`'s predictions (read from
+        the card: call it once, at staging)."""
+        return (np.concatenate([np.asarray(torch.as_tensor(s.labels).cpu()) for _, s in
+                                self.buckets]) if self.buckets else np.zeros(0, np.int32))
+
+
+def _bucket_host_partition(staged: StagedCorpus,
+                           ladder: tuple[int, ...]) -> list[tuple[int, StagedCorpus]]:
+    """A host staging's rows by context count into ladder buckets. Rows
+    longer than the top width land in the top bucket (the sampler
+    subsamples them); empty buckets are dropped but for the top one."""
+    rs = np.asarray(staged.row_splits).astype(np.int64)
+    ctx, labels = np.asarray(staged.contexts), np.asarray(staged.labels)
+    counts = np.diff(rs)
+    bucket_of = assign_buckets(counts, ladder)
+    out = []
+    for b, width in enumerate(ladder):
+        members = np.flatnonzero(bucket_of == b)
+        if not len(members) and width != ladder[-1]:
+            continue
+        flat, _, _ = flat_context_indices(rs, members)
+        sub_splits = np.zeros(len(members) + 1, np.int64)
+        np.cumsum(counts[members], out=sub_splits[1:])
+        out.append((width, StagedCorpus(contexts=ctx[flat], row_splits=sub_splits,
+                                        labels=labels[members], n_items=len(members),
+                                        counts=counts[members])))
+    return out
+
+
+def bucket_staged(staged: StagedCorpus, ladder: tuple[int, ...],
+                  device: str | torch.device) -> BucketedStagedCorpus:
+    """Partition a host staging over ``ladder`` and place each bucket on
+    ``device``."""
+    return BucketedStagedCorpus(buckets=[(width, place_staged(sub, device))
+                                         for width, sub in _bucket_host_partition(staged, ladder)])
+
+
+def sampler_generator(seed: int, device: str | torch.device) -> torch.Generator:
+    """The shifts' generator on ``device``, seeded from the run's seed on a
+    stream of its own (not dropout's, not the numpy generator's)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence([seed, SAMPLER_STREAM]).generate_state(1)[0]))
+    return g
+
+
+def sample_batch_from_shift(contexts: torch.Tensor, row_splits: torch.Tensor,
+                            labels: torch.Tensor, rows: torch.Tensor, row_valid: torch.Tensor,
+                            bag: int, shift: torch.Tensor) -> dict[str, torch.Tensor]:
+    """One ``[B, bag]`` batch of rows ``rows`` (int [B], may repeat for a
+    masked tail; ``row_valid`` f32 [B] is the example mask): row ``i``
+    takes contexts ``(shift[i] + j) % n_i`` for ``j < min(n_i, bag)`` and
+    PAD after. The value of JAX ``_sample_batch`` for the ``shift`` its key
+    draws; int32 ids and labels, f32 mask, as ``train/step.to_device``
+    gives the step."""
+    rows = rows.long()
+    off = row_splits[rows]
+    n = row_splits[rows + 1] - off
+    n_safe = n.clamp(min=1)[:, None]
+    j = torch.arange(bag, dtype=torch.int32, device=contexts.device)[None, :]
+    idx = (j + shift % n_safe) % n_safe
+    valid = j < n.clamp(max=bag)[:, None]
+    trip = contexts[torch.where(valid, off[:, None] + idx, 0)]  # [B, bag, 3]
+    return {
+        "starts": torch.where(valid, trip[..., 0], PAD_INDEX),
+        "paths": torch.where(valid, trip[..., 1], PAD_INDEX),
+        "ends": torch.where(valid, trip[..., 2], PAD_INDEX),
+        "labels": labels[rows],
+        "example_mask": row_valid,
+    }
+
+
+def sample_batch(corpus: StagedCorpus, rows: torch.Tensor, row_valid: torch.Tensor, bag: int,
+                 generator: torch.Generator) -> dict[str, torch.Tensor]:
+    """:func:`sample_batch_from_shift` with the shifts drawn from
+    ``generator`` on the corpus's device."""
+    shift = torch.randint(0, SHIFT_HIGH, (rows.shape[0], 1), generator=generator,
+                          device=corpus.contexts.device)
+    return sample_batch_from_shift(corpus.contexts, corpus.row_splits, corpus.labels, rows,
+                                   row_valid, bag, shift)
+
+
+class _SideSampler:
+    """``sample_prefetch`` on the card: the batches are sampled on a second
+    stream, ordered after the chunk's inputs (made on the current stream)
+    and waited for by the current stream before their step, so the gathers
+    can overlap the step before them. Tensors crossing streams are recorded
+    on the stream that uses them, so the allocator does not hand their
+    memory out early."""
+
+    def __init__(self, device: torch.device, *inputs: torch.Tensor):
+        self.main = torch.cuda.current_stream(device)
+        self.side = torch.cuda.Stream(device)
+        self.side.wait_stream(self.main)
+        for t in inputs:
+            t.record_stream(self.side)
+
+    def sample(self, fn, i: int):
+        with torch.cuda.stream(self.side):
+            batch = fn(i)
+            done = torch.cuda.Event()
+            done.record(self.side)
+        return batch, done
+
+    def ready(self, pending) -> dict[str, torch.Tensor]:
+        batch, done = pending
+        self.main.wait_event(done)
+        for t in batch.values():
+            t.record_stream(self.main)
+        return batch
+
+
+class EpochRunner:
+    """Train and eval epochs over a :class:`StagedCorpus` at one bag width,
+    ``chunk_batches`` sampled steps a chunk, enqueued with no host sync.
+
+    ``sample_prefetch`` double-buffers as JAX ``_scan_train_chunk`` does:
+    batch i + 1 is sampled before batch i is stepped (on a second stream
+    on the card). The generator draws in the same order and no tail batch
+    is drawn, so the batches are bit for bit those of the unprefetched
+    runner."""
+
+    def __init__(self, class_weights: torch.Tensor, batch_size: int, bag: int,
+                 chunk_batches: int = 16, sample_prefetch: bool = False):
+        self.class_weights = class_weights
+        self.batch_size = int(batch_size)
+        self.bag = int(bag)
+        self.chunk_batches = int(chunk_batches)
+        self.sample_prefetch = bool(sample_prefetch)
+
+    def _chunk_plan(self, n_rows: int) -> list[tuple[int, int, int]]:
+        """``[(row_lo, n_batches, n_valid_rows)]`` over ``ceil(n / B)``
+        batches."""
+        n_batches_total = -(-n_rows // self.batch_size)
+        plan, lo = [], 0
+        while lo < n_batches_total:
+            nb = min(self.chunk_batches, n_batches_total - lo)
+            row_lo = lo * self.batch_size
+            plan.append((row_lo, nb, min(n_rows - row_lo, nb * self.batch_size)))
+            lo += nb
+        return plan
+
+    def _padded_rows(self, order: np.ndarray, row_lo: int, nb: int) -> np.ndarray:
+        rows = order[row_lo:row_lo + nb * self.batch_size]
+        if len(rows) < nb * self.batch_size:
+            # the masked tail repeats order[0], as iter_batches pads
+            fill = np.full(nb * self.batch_size - len(rows), order[0], rows.dtype)
+            rows = np.concatenate([rows, fill])
+        return rows.astype(np.int32)
+
+    def _batches(self, corpus: StagedCorpus, order: np.ndarray, row_lo: int, nb: int,
+                 n_valid: int, generator: torch.Generator):
+        """The chunk's ``nb`` sampled batches, in order: one pinned,
+        asynchronous copy of its row order to the card, the example mask
+        made there."""
+        dev = corpus.contexts.device
+        rows = torch.from_numpy(self._padded_rows(order, row_lo, nb))
+        if dev.type == "cuda":
+            rows = rows.pin_memory().to(dev, non_blocking=True)
+        valid = (torch.arange(nb * self.batch_size, device=dev) < n_valid).float()
+        b = self.batch_size
+
+        def sample(i):
+            return sample_batch(corpus, rows[i * b:(i + 1) * b], valid[i * b:(i + 1) * b],
+                                self.bag, generator)
+
+        if not self.sample_prefetch:
+            for i in range(nb):
+                yield sample(i)
+            return
+        # batch i + 1 is sampled before batch i is handed out (and stepped)
+        side = _SideSampler(dev, rows, valid) if dev.type == "cuda" else None
+        prefetch = side.sample if side else (lambda fn, i: fn(i))
+        pending = prefetch(sample, 0)
+        for i in range(nb):
+            batch = side.ready(pending) if side else pending
+            if i + 1 < nb:
+                pending = prefetch(sample, i + 1)
+            yield batch
+
+    def _real_contexts(self, corpus: StagedCorpus, order: np.ndarray, row_lo: int,
+                       nb: int, n_valid: int) -> list[int]:
+        """Each of the chunk's batches' real (sampled, unmasked) contexts,
+        from the host's copy of the counts."""
+        taken = np.minimum(corpus.counts[order[row_lo:row_lo + n_valid]], self.bag)
+        b = self.batch_size
+        return [int(taken[i * b:(i + 1) * b].sum()) for i in range(nb)]
+
+    def train_chunk(self, model, optimizer, corpus: StagedCorpus, order: np.ndarray,
+                    row_lo: int, nb: int, n_valid: int, generator: torch.Generator,
+                    tally: StepTally) -> None:
+        """Enqueue one chunk of train steps; each step's loss goes to
+        ``tally``."""
+        real = self._real_contexts(corpus, order, row_lo, nb, n_valid)
+        for i, batch in enumerate(self._batches(corpus, order, row_lo, nb, n_valid, generator)):
+            tally.add(train_step(model, optimizer, batch, self.class_weights), real[i])
+
+    def train_epoch(self, model, optimizer, corpus: StagedCorpus, rng: np.random.Generator,
+                    generator: torch.Generator, tally: StepTally) -> None:
+        """Enqueue one epoch of train steps in the order ``rng`` draws."""
+        order = rng.permutation(corpus.n_items)
+        for row_lo, nb, n_valid in self._chunk_plan(corpus.n_items):
+            self.train_chunk(model, optimizer, corpus, order, row_lo, nb, n_valid, generator,
+                             tally)
+
+    def run_train_epoch(self, model, optimizer, corpus: StagedCorpus, rng: np.random.Generator,
+                        generator: torch.Generator) -> tuple[float, dict]:
+        """One training epoch: ``(summed loss, speed)`` as the host path's
+        ``_train_pass`` gives them, the losses read once."""
+        tally = StepTally(corpus.contexts.device)
+        self.train_epoch(model, optimizer, corpus, rng, generator, tally)
+        return tally.result()
+
+    def eval_epoch(self, model, corpus: StagedCorpus, generator: torch.Generator,
+                   outs: list) -> None:
+        """Enqueue one eval pass in corpus order; each batch's ``(loss,
+        preds, max_logit)`` of its unmasked rows goes to ``outs``."""
+        order = np.arange(corpus.n_items)
+        for row_lo, nb, n_valid in self._chunk_plan(corpus.n_items):
+            batches = self._batches(corpus, order, row_lo, nb, n_valid, generator)
+            for i, batch in enumerate(batches):
+                out = eval_step(model, batch, self.class_weights)
+                k = min(self.batch_size, n_valid - i * self.batch_size)
+                outs.append((out["loss"], out["preds"][:k], out["max_logit"][:k]))
+
+    def run_eval_epoch(self, model, corpus: StagedCorpus,
+                       generator: torch.Generator) -> tuple[float, np.ndarray, np.ndarray]:
+        """One eval pass in corpus order: ``(sum of the batch mean losses,
+        preds [n_items], max_logits [n_items])``."""
+        outs = []
+        self.eval_epoch(model, corpus, generator, outs)
+        return eval_results(outs)
+
+
+def eval_results(outs: list) -> tuple[float, np.ndarray, np.ndarray]:
+    """The eval outputs read back: the loss as the host path sums it."""
+    if not outs:
+        return 0.0, np.zeros(0, np.int64), np.zeros(0, np.float32)
+    losses, preds, max_logits = zip(*outs)
+    return (float(torch.stack(losses).double().sum()), torch.cat(preds).cpu().numpy(),
+            torch.cat(max_logits).float().cpu().numpy())
+
+
+class BucketedEpochRunner:
+    """:class:`EpochRunner` over a :class:`BucketedStagedCorpus`: one
+    sub-epoch per bucket at its own ``[B, L_b]`` shape. Training takes the
+    buckets in the order ``rng.permutation(len(buckets))`` draws, each
+    bucket then drawing its own method order; eval takes them in ladder
+    order, the order of :meth:`BucketedStagedCorpus.host_labels`."""
+
+    def __init__(self, class_weights: torch.Tensor, batch_size: int, ladder: tuple[int, ...],
+                 chunk_batches: int = 16, sample_prefetch: bool = False):
+        self.ladder = tuple(ladder)
+        self._runners = {width: EpochRunner(class_weights, batch_size, width, chunk_batches,
+                                            sample_prefetch) for width in self.ladder}
+
+    def run_train_epoch(self, model, optimizer, corpus: BucketedStagedCorpus,
+                        rng: np.random.Generator,
+                        generator: torch.Generator) -> tuple[float, dict]:
+        tally = StepTally(corpus.buckets[0][1].contexts.device)
+        for i in rng.permutation(len(corpus.buckets)):
+            width, staged = corpus.buckets[int(i)]
+            self._runners[width].train_epoch(model, optimizer, staged, rng, generator, tally)
+        return tally.result()
+
+    def run_eval_epoch(self, model, corpus: BucketedStagedCorpus,
+                       generator: torch.Generator) -> tuple[float, np.ndarray, np.ndarray]:
+        outs = []
+        for width, staged in corpus.buckets:
+            self._runners[width].eval_epoch(model, staged, generator, outs)
+        return eval_results(outs)

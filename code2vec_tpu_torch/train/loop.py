@@ -49,9 +49,11 @@ from code2vec_tpu_torch.checkpoint import (
     save_checkpoint,
 )
 from code2vec_tpu_torch.data.pipeline import (
+    build_epoch,
     derive_bucket_ladder,
     derive_longbag_ladder,
     make_batch_source,
+    pad_stats,
     parse_bucket_ladder,
     split_items,
     truncated_fraction_of_counts,
@@ -59,7 +61,23 @@ from code2vec_tpu_torch.data.pipeline import (
 from code2vec_tpu_torch.metrics import evaluate
 from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
 from code2vec_tpu_torch.ops.backend import resolve_device
-from code2vec_tpu_torch.train.step import eval_step, make_optimizer, to_device, train_step
+from code2vec_tpu_torch.train.device_epoch import (
+    BucketedEpochRunner,
+    BucketedStagedCorpus,
+    EpochRunner,
+    StagedCorpus,
+    bucket_staged,
+    place_staged,
+    sampler_generator,
+    stage_method_corpus,
+)
+from code2vec_tpu_torch.train.step import (
+    StepTally,
+    eval_step,
+    make_optimizer,
+    to_device,
+    train_step,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -115,50 +133,15 @@ def class_weights_from(config, data, device=None) -> torch.Tensor:
     return torch.from_numpy(1.0 / np.maximum(freq, 1.0)).to(device or "cpu")
 
 
-class _Clock:
-    """Elapsed time of a stretch of device work: CUDA events on a card (no
-    synchronisation until the end), the host clock on the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-
-    def mark(self):
-        if self.cuda:
-            event = torch.cuda.Event(enable_timing=True)
-            event.record()
-            return event
-        return time.perf_counter()
-
-    def seconds(self, start, end) -> float:
-        if self.cuda:
-            end.synchronize()
-            return start.elapsed_time(end) / 1e3
-        return end - start
-
-
 def _train_pass(model, optimizer, batches, class_weights, device) -> tuple[float, dict]:
-    """One epoch of train steps: ``(sum of the batch losses, speed)``, the
-    losses read back once. ``speed`` counts the steps after the first and
-    their real (non-PAD, unmasked) contexts."""
-    clock = _Clock(device)
-    losses, contexts, start = [], 0, None
+    """One epoch of host-fed train steps: ``(sum of the batch losses,
+    speed)``, the losses read back once (:class:`StepTally`)."""
+    tally = StepTally(device)
     for batch in batches:
-        losses.append(train_step(model, optimizer, to_device(batch, device), class_weights))
-        if start is None:
-            start = clock.mark()
-        else:
-            valid = batch["example_mask"].astype(bool)
-            contexts += int(np.count_nonzero(batch["starts"][valid]))
-    if not losses:
-        return 0.0, {"train_steps": 0, "steps_per_s": None, "contexts_per_s": None}
-    seconds = clock.seconds(start, clock.mark())
-    timed = len(losses) - 1
-    speed = {
-        "train_steps": len(losses),
-        "steps_per_s": timed / seconds if timed and seconds > 0 else None,
-        "contexts_per_s": contexts / seconds if timed and seconds > 0 else None,
-    }
-    return float(torch.stack(losses).double().sum()), speed
+        loss = train_step(model, optimizer, to_device(batch, device), class_weights)
+        valid = batch["example_mask"].astype(bool)
+        tally.add(loss, int(np.count_nonzero(batch["starts"][valid])))
+    return tally.result()
 
 
 def resolve_ladder(config, data) -> tuple[tuple[int, ...] | None, int]:
@@ -203,6 +186,59 @@ def evaluate_epoch(config, data, model, batches, class_weights):
     actual = (np.concatenate([p.cpu().numpy()[v] for p, v in actual]) if actual
               else np.zeros(0, np.int64))
     return (test_loss, *evaluate(config.eval_method, expected, actual, data.label_vocab))
+
+
+@dataclass
+class DeviceEpochs:
+    """The device-epoch feed of a run (``config.device_epoch``): both
+    splits staged on the card, the runner, and what the loop reads from
+    them without a device sync."""
+
+    runner: EpochRunner | BucketedEpochRunner
+    train: StagedCorpus | BucketedStagedCorpus
+    test: StagedCorpus | BucketedStagedCorpus
+    expected: np.ndarray  # the test labels in eval order
+    pad: tuple[int, int]  # (real context slots, padded slots) of a train epoch
+    generator: torch.Generator  # the sampler's shifts
+    stage_seconds: float
+
+    @property
+    def staged_bytes(self) -> int:
+        return self.train.nbytes + self.test.nbytes
+
+
+def stage_device_epochs(config, data, train_idx, test_idx, np_rng, ladder, class_weights,
+                        device) -> DeviceEpochs:
+    """Stage the train then the test split (drawing ``np_rng`` in JAX
+    ``loop.py:1017-1037``'s order, so before a restore) and build the
+    runner: bucketed over ``ladder``, else at ``max_path_length``. The pad
+    accounting is corpus-static: the sampler fills ``min(count, width)``
+    slots a row every epoch (JAX ``:1096-1114``)."""
+    t0 = time.perf_counter()
+    host_train = stage_method_corpus(data, train_idx, np_rng)
+    host_test = stage_method_corpus(data, test_idx, np_rng)
+    b, chunk, prefetch = config.batch_size, config.device_chunk_batches, config.sample_prefetch
+    if ladder is not None:
+        staged_train = bucket_staged(host_train, ladder, device)
+        staged_test = bucket_staged(host_test, ladder, device)
+        expected = staged_test.host_labels()
+        runner = BucketedEpochRunner(class_weights, b, ladder, chunk, prefetch)
+    else:
+        ladder = (config.max_path_length,)
+        staged_train = place_staged(host_train, device)
+        staged_test = place_staged(host_test, device)
+        expected = host_test.labels
+        runner = EpochRunner(class_weights, b, config.max_path_length, chunk, prefetch)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    feed = DeviceEpochs(runner=runner, train=staged_train, test=staged_test, expected=expected,
+                        pad=pad_stats(staged_train.counts, ladder, b),
+                        generator=sampler_generator(config.random_seed, device),
+                        stage_seconds=time.perf_counter() - t0)
+    logger.info("device epochs: staged %d train / %d test contexts (%d bytes) on %s in %.3fs",
+                staged_train.n_contexts, staged_test.n_contexts, feed.staged_bytes, device,
+                feed.stage_seconds)
+    return feed
 
 
 def train(
@@ -259,11 +295,14 @@ def train(
     model.to(dev)
     model.seed_dropout(config.random_seed)
     optimizer = make_optimizer(model, config)
+    feed = (stage_device_epochs(config, data, train_idx, test_idx, np_rng, bucket_ladder,
+                                class_weights, dev) if config.device_epoch else None)
 
     meta = TrainMeta()
     if config.resume and out_dir is not None:
         restored = restore_checkpoint(out_dir, model, optimizer, np_rng,
-                                      model_config.vocab_pad_multiple)
+                                      model_config.vocab_pad_multiple,
+                                      sampler=feed.generator if feed else None)
         if restored is not None:
             meta = restored
             logger.info("resumed from epoch %d (best_f1=%s)", meta.epoch, meta.best_f1)
@@ -272,26 +311,51 @@ def train(
     meta.vocab_pad_multiple = model_config.vocab_pad_multiple
 
     batch_size = config.batch_size
-    # the epochs are built at bag_width: the top rung in long-bag mode
-    train_source = make_batch_source(data, train_idx, batch_size, bag_width, ladder=bucket_ladder,
-                                     stream_chunk_items=config.stream_chunk_items)
-    test_source = make_batch_source(data, test_idx, batch_size, bag_width, ladder=bucket_ladder,
-                                    stream_chunk_items=config.stream_chunk_items)
+    if feed is None:
+        # the epochs are built at bag_width: the top rung in long-bag mode
+        train_source = make_batch_source(data, train_idx, batch_size, bag_width,
+                                         ladder=bucket_ladder,
+                                         stream_chunk_items=config.stream_chunk_items)
+        test_source = make_batch_source(data, test_idx, batch_size, bag_width,
+                                        ladder=bucket_ladder,
+                                        stream_chunk_items=config.stream_chunk_items)
+
+    def host_epoch(item_idx, epoch):
+        # device epochs build no host arrays: the export and print_sample draw
+        # a fresh subsample from a side generator seeded by (run seed, epoch),
+        # so they cannot shift the main stream (JAX loop.py:1640-1661)
+        return build_epoch(data, item_idx, bag_width,
+                           np.random.default_rng([config.random_seed, 0xE902, epoch]))
+
     f1, epochs_completed = 0.0, 0
     for epoch in range(meta.epoch, config.max_epoch):
         epoch_start = time.perf_counter()
-        train_loss, speed = _train_pass(
-            model, optimizer, train_source.batches(np_rng, shuffle=True), class_weights, dev)
-        test_loss, accuracy, precision, recall, f1 = evaluate_epoch(
-            config, data, model, test_source.batches(np_rng, shuffle=False), class_weights)
-        # the epochs the passes were fed, reused by the export and print_sample
-        train_epoch, test_epoch = train_source.last_epoch, test_source.last_epoch
+        if feed is not None:
+            train_loss, speed = feed.runner.run_train_epoch(model, optimizer, feed.train, np_rng,
+                                                            feed.generator)
+            test_loss, preds, _ = feed.runner.run_eval_epoch(model, feed.test, feed.generator)
+            accuracy, precision, recall, f1 = evaluate(config.eval_method, feed.expected, preds,
+                                                       data.label_vocab)
+            # built on demand for the export and print_sample
+            train_epoch = test_epoch = None
+            source_pad = feed.pad
+        else:
+            train_loss, speed = _train_pass(
+                model, optimizer, train_source.batches(np_rng, shuffle=True), class_weights,
+                dev)
+            test_loss, accuracy, precision, recall, f1 = evaluate_epoch(
+                config, data, model, test_source.batches(np_rng, shuffle=False), class_weights)
+            # the epochs the passes were fed, reused by the export and print_sample
+            train_epoch, test_epoch = train_source.last_epoch, test_source.last_epoch
+            source_pad = train_source.pad_stats()
         metrics = {
             "train_loss": train_loss, "test_loss": test_loss, "accuracy": accuracy,
             "precision": precision, "recall": recall, "f1": f1,
             "epoch_seconds": time.perf_counter() - epoch_start,
         }
-        source_pad = train_source.pad_stats()
+        if feed is not None and epochs_completed == 0:
+            metrics["stage_seconds"] = feed.stage_seconds
+            metrics["staged_bytes"] = feed.staged_bytes
         if source_pad is not None:
             # real context slots over the slots fed (1.0 = no PAD slot encoded)
             real, slots = source_pad
@@ -307,11 +371,17 @@ def train(
             logger.info("epoch %s", json.dumps({"epoch": epoch, **metrics}))
 
         if epoch > 1 and config.print_sample_cycle and epoch % config.print_sample_cycle == 0:
+            if test_epoch is None:
+                test_epoch = host_epoch(test_idx, epoch)
             print_sample(data, model, test_epoch, batch_size, class_weights)
 
         if meta.best_f1 is None or meta.best_f1 < f1:
             meta.best_f1 = f1
             if vectors_path is not None:
+                if train_epoch is None:
+                    train_epoch = host_epoch(train_idx, epoch)
+                if test_epoch is None:
+                    test_epoch = host_epoch(test_idx, epoch)
                 write_code_vectors(data, model, train_epoch, test_epoch, batch_size,
                                    vectors_path, config.encode_size, class_weights,
                                    test_result_path)
@@ -332,12 +402,15 @@ def train(
 
         if save_slot is not None:
             meta.epoch = epoch + 1
-            save_checkpoint(out_dir, save_slot, model, optimizer, meta, np_rng)
+            save_checkpoint(out_dir, save_slot, model, optimizer, meta, np_rng,
+                            sampler=feed.generator if feed else None)
             if save_slot == "best":
                 save_model_file(out_dir, model)
 
         if meta.bad_count > config.early_stop_patience:
             logger.info("early stop loss:%s, bad:%d", train_loss, meta.bad_count)
+            if test_epoch is None:
+                test_epoch = host_epoch(test_idx, epoch)
             print_sample(data, model, test_epoch, batch_size, class_weights)
             break
 

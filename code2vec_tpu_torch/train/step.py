@@ -22,6 +22,8 @@ Counterpart of ``code2vec_tpu/train/step.py``:
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -144,6 +146,56 @@ def table_update(optimizer: torch.optim.Optimizer) -> str:
     """``"lazy"`` or ``"dense"``: how ``optimizer`` steps the tables (what
     a checkpoint records and a resume checks)."""
     return "lazy" if isinstance(optimizer, LazyTableAdam) else "dense"
+
+
+class StepTally:
+    """An epoch's train steps: their losses kept on the device (summed in
+    float64 when read, once) and the speed of the steps after the first
+    (warm) one, timed with CUDA events on a card (no synchronisation until
+    :meth:`result`), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.losses: list[torch.Tensor] = []
+        self.contexts = 0  # real contexts of the steps after the first
+        self.start = None
+
+    def _mark(self):
+        if self.cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        return time.perf_counter()
+
+    def add(self, loss: torch.Tensor, contexts: int) -> None:
+        """A step enqueued: its loss and its real (non-PAD, unmasked)
+        contexts."""
+        self.losses.append(loss)
+        if self.start is None:
+            self.start = self._mark()
+        else:
+            self.contexts += contexts
+
+    def result(self) -> tuple[float, dict]:
+        """``(sum of the losses, speed)``: ``train_steps``, and
+        ``steps_per_s`` / ``contexts_per_s`` over the steps after the
+        first (None with fewer than two)."""
+        if not self.losses:
+            return 0.0, {"train_steps": 0, "steps_per_s": None, "contexts_per_s": None}
+        end = self._mark()
+        if self.cuda:
+            end.synchronize()
+            seconds = self.start.elapsed_time(end) / 1e3
+        else:
+            seconds = end - self.start
+        timed = len(self.losses) - 1
+        ok = timed and seconds > 0
+        speed = {
+            "train_steps": len(self.losses),
+            "steps_per_s": timed / seconds if ok else None,
+            "contexts_per_s": self.contexts / seconds if ok else None,
+        }
+        return float(torch.stack(self.losses).double().sum()), speed
 
 
 def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:

@@ -27,7 +27,10 @@ plain route's gradients; and the lazy table optimizer (``--table_update
 lazy``): three lazy steps on each route against the plain lazy steps on the
 CPU (untouched rows and moments bit for bit), its step under
 ``set_sync_debug_mode("error")`` and the profiler's op list of a step (no
-dense table gradient). Tolerance rtol = atol = 1e-5 (the plain
+dense table gradient); device-resident epochs: the sampler on the card bit
+for bit the CPU sampler's for the same shifts, and ``sample_prefetch`` (a
+second stream) the same batches and generator state as without it.
+Tolerance rtol = atol = 1e-5 (the plain
 versions in f32 with TF32 off, the kernels' encode in 3xTF32 on the
 tensor cores); at top11 widths and one context the kernel's code vector is
 within 2e-6 of a float64 evaluation, which one TF32 product (~1e-3) would
@@ -1089,3 +1092,61 @@ def test_lazy_step_forms_no_dense_table_gradient(dev):
             assert model.path_embedding.weight.grad is None
     assert "aten::embedding_dense_backward" in found["dense"], found
     assert found["lazy"] == [], found
+
+
+def staged_on(dev, lens, seed=0):
+    import numpy as np
+
+    from code2vec_tpu_torch.train.device_epoch import StagedCorpus
+
+    rng = np.random.default_rng(seed)
+    splits = np.zeros(len(lens) + 1, np.int32)
+    np.cumsum(lens, out=splits[1:])
+    ctx = rng.integers(1, 1000, (int(splits[-1]), 3)).astype(np.int32)
+    labels = rng.integers(0, 7, len(lens)).astype(np.int32)
+    return StagedCorpus(*(torch.from_numpy(x).to(dev) for x in (ctx, splits, labels)),
+                        len(lens), np.asarray(lens, np.int64))
+
+
+def test_device_sampler_on_the_card_matches_the_cpu(dev):
+    from code2vec_tpu_torch.train.device_epoch import sample_batch_from_shift
+
+    lens = [5, 8, 1, 0, 13, 400, 200, 201]
+    corpus = staged_on(dev, lens)
+    rows = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7, 0, 0], dtype=torch.int32, device=dev)
+    valid = torch.tensor([1.0] * 8 + [0.0] * 2, device=dev)
+    shift = torch.randint(0, 1 << 30, (10, 1), generator=torch.Generator(device=dev).manual_seed(1),
+                          device=dev)
+    args = (corpus.contexts, corpus.row_splits, corpus.labels, rows, valid, 200, shift)
+    got = sample_batch_from_shift(*args)
+    want = sample_batch_from_shift(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    for k in want:
+        assert got[k].device.type == "cuda" and got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("bag", [8, 200])
+def test_device_prefetch_on_the_card_samples_the_same_batches(dev, bag):
+    """``sample_prefetch`` samples on a second stream: the batches (read
+    after the chunk, from the consuming stream) and the generator's state
+    afterwards equal the unprefetched runner's."""
+    import numpy as np
+
+    from code2vec_tpu_torch.train.device_epoch import EpochRunner, sampler_generator
+
+    corpus = staged_on(dev, list(np.random.default_rng(2).integers(0, 300, 100)))
+    order = np.random.default_rng(3).permutation(100)
+    out = []
+    for prefetch in (False, True):
+        runner = EpochRunner(torch.ones(7, device=dev), 16, bag, 4, prefetch)
+        g = sampler_generator(0, dev)
+        batches = [{k: v.clone() for k, v in b.items()}
+                   for lo, nb, nv in runner._chunk_plan(100)
+                   for b in runner._batches(corpus, order, lo, nb, nv, g)]
+        torch.cuda.synchronize()
+        out.append((batches, g.get_state()))
+    (a, sa), (b, sb) = out
+    assert len(a) == len(b) == 7 and torch.equal(sa, sb)
+    for x, y in zip(a, b):
+        for k in x:
+            assert torch.equal(x[k], y[k]), k

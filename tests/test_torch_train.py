@@ -322,7 +322,7 @@ def test_training_with_quantized_tables_raises():
 
 UNPORTED = [
     {"stream_chunk_items": 8}, {"feed_workers": 2},
-    {"prefetch_batches": 2}, {"device_epoch": True}, {"data_axis": 2}, {"model_axis": 2},
+    {"prefetch_batches": 2}, {"data_axis": 2}, {"model_axis": 2},
     {"pallas_impl": "auto"}, {"async_checkpoint": True}, {"checkpoint_every_steps": 5},
     {"fault_plan": "train_step@1:raise"}, {"infer_variable_name": True},
 ]
@@ -332,6 +332,12 @@ UNPORTED = [
 def test_unported_settings_are_rejected(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainConfig(**kw).validate()
+
+
+def test_device_epoch_validates():
+    """``device_epoch`` is ported (tests/test_torch_device_epoch.py)."""
+    TrainConfig(device_epoch=True).validate()
+    TrainConfig(device_epoch=True, sample_prefetch=True, device_chunk_batches=4).validate()
 
 
 def test_unknown_table_update_raises():
