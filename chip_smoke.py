@@ -9,7 +9,9 @@ the final result line is not printed):
 1. device  — require CUDA and compute capability 9.0; print the card's
    name and power limit (``nvidia-smi``) and the torch/CUDA versions;
 2. build   — compile every ``code2vec_tpu_torch/csrc/*.cu`` with ``nvcc``
-   for sm_90a (one process per source, in parallel), then read the SASS of
+   for sm_90a (one process per source, in parallel; beside them the Java
+   extractor from ``extractor/src`` with ``g++``, its seconds kept for the
+   extract phase), then read the SASS of
    the encode-pool library (``cuobjdump``): every encode kernel (online,
    which K3's materialize also runs; score and fixed-max of two_pass; for
    each row source) must hold TF32 ``HMMA`` instructions;
@@ -146,12 +148,44 @@ the final result line is not printed):
    is printed with where it happened; last, where a warm plain device
    epoch's time goes (the train pass's enqueue and read, the eval pass,
    the F1 on the host, the device's busy time over a train pass);
-12. a line with the launch floor and the ``neighbors`` split, the card's
+12. extract — the port's extractor (built in the build phase: its
+   seconds), the share of a method's contexts each ``@var_*`` alias of
+   ``examples/java/src`` touches, ``examples/java`` extracted into a
+   dataset, a method-task and a variable-task model trained on it on the
+   card (fused, 10 epochs), ``predict_source`` / ``predict_variables`` of
+   ``MathUtils.java`` through K3 against the plain versions on the CPU (the
+   names, counts and top-1, code vectors within rtol 2e-4 / atol 2e-5),
+   and the method model served: every method of the examples as a
+   ``source`` request and as a ``contexts`` request of its mapped ids, for
+   predict, embed and neighbors, one at a time, 3 rounds; the answers equal
+   (code vectors within 1e-6), p50/p99 of each form with the extraction's
+   ms apart, by file with the files' bytes and the methods' contexts,
+   beside the serve phase's top11 one-at-a-time p50 (fused f32), and the
+   server warmup's load of the extractor;
+13. train_variable — the variable-name task (``--infer_variable_name``,
+   ``--shuffle_variable_indexes``) on the train phase's corpus with 0-3
+   ``@var_*`` aliases a method, each alias at the start or end of the share
+   the extract phase measured (15% if that is below 10%) of its method's
+   contexts, at the train phase's widths, batch, bag and dropout, 3 epochs:
+   host-fed and device epochs, each at a fixed bag and bucketed (the ladder
+   derived from the methods' counts, as JAX derives it), on every route; the
+   dual task on fused, host-fed and on the device; fused device epochs lazy
+   in bf16. Per run epoch_seconds, steps/s, real contexts/s, pad_efficiency,
+   loss, F1 and the launches, each kernel once for every batch of the
+   passes that run it, the train loss lower after 3 epochs than after the
+   first; the variable rows and their mean real contexts; the step
+   breakdown on variable batches (plain, fused); a dropout-0
+   differential on a batch with an all-PAD row and 255 one-context rows
+   (the train differential's tolerances); per route a device chunk (the
+   remap on) against the host step and a warm chunk under
+   ``torch.cuda.set_sync_debug_mode("error")``;
+14. a line with the launch floor and the ``neighbors`` split, the card's
    name and power limit, the line ``{"kernels": [...]}`` (per kernel:
    route, source, the TPU kernel it replaces, launches on its serve or
    train route (the masked K4's on the long-bag runs) plus those of the
-   train_device phase's runs of the four routes, max error, times at the
-   headline shape and the bound), then, last, the result line.
+   train_device phase's runs of the four routes and of every
+   train_variable run, max error, times at the headline shape and the
+   bound), then, last, the result line.
 
 With ``--json_out`` the per-shape kernel records and serving numbers are
 also written to that file.
@@ -1304,7 +1338,7 @@ def step_breakdown(torch, dev, data, config, smi, label="", routes=None) -> dict
     zero offsets, the optimizer span begins with collecting the per-slot
     gradients, and the mean number of distinct rows a step touches in each
     table is reported."""
-    from code2vec_tpu_torch.data.pipeline import build_method_epoch, iter_batches
+    from code2vec_tpu_torch.data.pipeline import build_epoch, iter_batches
     from code2vec_tpu_torch.models.code2vec import Code2Vec
     from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
     from code2vec_tpu_torch.train.step import (
@@ -1318,7 +1352,8 @@ def step_breakdown(torch, dev, data, config, smi, label="", routes=None) -> dict
     rng = np.random.default_rng(2)
     items = rng.permutation(data.n_items)[:7 * TRAIN_BATCH]
     t0 = time.perf_counter()
-    epoch = build_method_epoch(data, items, config.max_path_length, rng)
+    epoch = build_epoch(data, items, config.max_path_length, rng,
+                        config.shuffle_variable_indexes)
     build_ms = (time.perf_counter() - t0) * 1e3
     host_batches = list(iter_batches(epoch, TRAIN_BATCH, rng=rng))
     t0 = time.perf_counter()
@@ -1375,14 +1410,16 @@ def step_breakdown(torch, dev, data, config, smi, label="", routes=None) -> dict
         print(f"train step breakdown {label}{route}: forward {med[0]:.3f} ms, backward {med[1]:.3f} "
               f"ms, optimizer {med[2]:.3f} ms (device, events), whole step {med[3]:.3f} ms "
               f"(host wall, synchronised); host: epoch build {build_ms:.1f} ms for "
-              f"{len(items)} methods, batch slice+pin+copy {feed_ms:.3f} ms [{smi}]", flush=True)
+              f"{len(items)} methods ({len(epoch)} rows), batch slice+pin+copy {feed_ms:.3f} ms "
+              f"[{smi}]", flush=True)
         print("  device ms per step by op: " + "; ".join(
             f"{name} {ms:.3f}" for name, ms in out[route]["top_ops"]), flush=True)
         del model, opt
     return out
 
 
-def train_route(torch, smi, dev, data, config, label, keys, out_dir=None) -> dict:
+def train_route(torch, smi, dev, data, config, label, keys, out_dir=None,
+                vectors_path=None) -> dict:
     """``train()`` on one route for ``config.max_epoch`` epochs, the launch
     counts set to 0 just before and read just after: the epochs' metrics,
     the counts, the wall seconds and the peak device memory. Fails on a
@@ -1395,18 +1432,20 @@ def train_route(torch, smi, dev, data, config, label, keys, out_dir=None) -> dic
 
     def report(m):
         epochs.append(m)
-        pad = (f", pad_efficiency {m['pad_efficiency']:.4f}, truncated_context_fraction "
-               f"{m['truncated_context_fraction']:.4f}" if "pad_efficiency" in m else "")
+        pad = (f", pad_efficiency {m['pad_efficiency']:.4f}" if "pad_efficiency" in m else "")
+        if "truncated_context_fraction" in m:  # the method rows' geometry
+            pad += f", truncated_context_fraction {m['truncated_context_fraction']:.4f}"
         print(f"train {label} epoch {m['epoch']}: loss {m['train_loss']:.6f} test_loss "
               f"{m['test_loss']:.6f} subtoken f1 {m['f1']:.6f}, {m['train_steps']} steps, "
               f"{m['steps_per_s']:.3f} steps/s, {m['contexts_per_s']:.1f} contexts/s "
-              f"(train steps after the warm one){pad} [{smi}]", flush=True)
+              f"(train steps after the warm one), epoch_seconds {m['epoch_seconds']:.4f}{pad} "
+              f"[{smi}]", flush=True)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
-    result = train(config, data, out_dir, device=dev, on_epoch=report)
+    result = train(config, data, out_dir, vectors_path, device=dev, on_epoch=report)
     seconds = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1998,7 +2037,7 @@ def beside_host(label, run, ref, smi, ref_name="host"):
           f"{first['stage_seconds']:.4f} s [{smi}]", flush=True)
 
 
-def device_chunk_checks(torch, dev, data, config, route, smi) -> dict:
+def device_chunk_checks(torch, dev, data, config, route, smi, label="") -> dict:
     """On one route, dropout 0, from one set of seeded weights: (1) one
     chunk of the device runner against ``train_step`` fed the same sampled
     batches through the host feed (their numpy copies, ``to_device``),
@@ -2006,12 +2045,8 @@ def device_chunk_checks(torch, dev, data, config, route, smi) -> dict:
     ``torch.cuda.set_sync_debug_mode("error")``: a sync fails the check and
     says where."""
     from code2vec_tpu_torch.models.code2vec import Code2Vec
-    from code2vec_tpu_torch.train.device_epoch import (
-        EpochRunner,
-        sampler_generator,
-        stage_method_corpus,
-    )
-    from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
+    from code2vec_tpu_torch.train.device_epoch import EpochRunner, place_staged, sampler_generator
+    from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from, stage_host
     from code2vec_tpu_torch.train.step import StepTally, make_optimizer, to_device, train_step
 
     cfg = config.with_updates(dropout_prob=0.0, **kernel_route(route))
@@ -2026,11 +2061,12 @@ def device_chunk_checks(torch, dev, data, config, route, smi) -> dict:
         model.load_state_dict(state)
         models.append((model, make_optimizer(model, cfg)))
     weights = class_weights_from(cfg, data, dev)
-    corpus = stage_method_corpus(data, np.arange(data.n_items), np.random.default_rng(3),
-                                 device=dev)
-    runner = EpochRunner(weights, cfg.batch_size, cfg.max_path_length, 3)
-    order = np.random.default_rng(4).permutation(data.n_items)
-    (lo, nb, n_valid), (lo2, nb2, n_valid2), *_ = runner._chunk_plan(data.n_items)
+    corpus = place_staged(stage_host(data, np.arange(data.n_items), np.random.default_rng(3)),
+                          dev)
+    runner = EpochRunner(weights, cfg.batch_size, cfg.max_path_length, 3,
+                         shuffle_variable_ids=cfg.shuffle_variable_indexes)
+    order = np.random.default_rng(4).permutation(corpus.n_items)
+    (lo, nb, n_valid), (lo2, nb2, n_valid2), *_ = runner._chunk_plan(corpus.n_items)
     g = sampler_generator(0, dev)
     before = g.get_state()
     tally = StepTally(dev)
@@ -2055,12 +2091,13 @@ def device_chunk_checks(torch, dev, data, config, route, smi) -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    print(f"device chunk {route}: {nb} steps, losses {[round(x, 6) for x in out['device_losses']]}"
+    print(f"device chunk {label or route}: {nb} steps, losses {[round(x, 6) for x in out['device_losses']]}"
           f" vs the host step {[round(x, 6) for x in out['host_losses']]}; a warm chunk of {nb2} "
           f"steps under sync debug mode 'error': {out['chunk_sync'] or 'no sync'} [{smi}]",
           flush=True)
     if out["chunk_sync"]:
-        raise AssertionError(f"device chunk {route} synchronised: {out['chunk_sync']}")
+        raise AssertionError(f"device chunk {label or route} synchronised: "
+                             f"{out['chunk_sync']}")
     del models, corpus
     torch.cuda.empty_cache()
     return out
@@ -2199,6 +2236,367 @@ def phase_train_device(torch, smi, dev, host_train, host_bucketed, host_lazy) ->
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: Java source extraction, prediction and serving from source
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ROOT / "examples" / "java"
+# the share of a method's contexts given to each @var_* alias of the
+# train_variable corpus when the extracted examples show less than 10%
+VAR_SHARE_FLOOR, VAR_SHARE_FALLBACK = 0.10, 0.15
+EXTRACT_TRAIN = dict(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                     max_path_length=BAG, batch_size=8, dropout_prob=0.25, max_epoch=10,
+                     random_seed=0, print_sample_cycle=0, use_pallas=True, pallas_impl="fused")
+EXTRACT_ROUNDS = 3
+
+
+def java_variable_share() -> dict:
+    """Over the port extractor's records of ``examples/java/src``: for each
+    ``@var_*`` alias of each method, the share of the method's contexts
+    that touch it (start or end)."""
+    from code2vec_tpu_torch.extractor import extract_source
+
+    shares = []
+    for path in sorted((EXAMPLES / "src").rglob("*.java")):
+        result = extract_source(path.read_text())
+        names = result.terminal_vocab
+        for m in result.methods:
+            for _, alias in m.aliases:
+                if alias.startswith("@var_") and m.path_contexts:
+                    touching = sum(names[s] == alias or names[e] == alias
+                                   for s, _, e in m.path_contexts)
+                    shares.append(touching / len(m.path_contexts))
+    out = {"aliases": len(shares), "mean": float(np.mean(shares)),
+           "median": float(np.median(shares)), "min": float(np.min(shares)),
+           "max": float(np.max(shares))}
+    out["used"] = out["mean"] if out["mean"] >= VAR_SHARE_FLOOR else VAR_SHARE_FALLBACK
+    return out
+
+
+def top1_agrees(got, want) -> bool:
+    """The same top-1 name, unless the plain version's first two are
+    within 1e-4 of each other (a tie that rounding may break either way)."""
+    p = [x.prob for x in want.predictions]
+    return got.predictions[0].name == want.predictions[0].name or (len(p) > 1
+                                                                   and p[0] - p[1] < 1e-4)
+
+
+def percentiles(xs) -> tuple[float, float]:
+    return float(np.percentile(xs, 50)), float(np.percentile(xs, 99))
+
+
+def phase_extract(torch, smi, dev, tmp: Path, built: dict, serve: dict | None) -> dict:
+    """Extract ``examples/java`` with the port's extractor (built beside
+    the kernels, ``built``), train a method-task and a variable-task model
+    on it on the card (fused), predict ``MathUtils.java`` from source
+    through K3 against the plain versions on the CPU, and serve the method
+    model: every method of the examples as a ``source`` request and as the
+    ``contexts`` request of its mapped ids, for predict, embed and
+    neighbors, one at a time; the answers must be equal. The extraction
+    milliseconds are reported by file, with the files' sizes and the
+    methods' contexts, beside the ``serve`` phase's one-at-a-time p50 of
+    the top11 model (fused, f32) of this run."""
+    import shutil
+
+    from code2vec_tpu_torch import extractor
+    from code2vec_tpu_torch.data.reader import load_corpus
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.predict import Predictor
+    from code2vec_tpu_torch.serve.__main__ import build_parser, build_server
+    from code2vec_tpu_torch.train.config import TrainConfig
+
+    out = dict(built)
+    print(f"extractor built in {out['build_seconds']:.2f} s "
+          f"({'already built' if out['build_cached'] else 'g++, one process a source'}, "
+          "beside the kernels' nvcc)", flush=True)
+    out["share"] = share = java_variable_share()
+    print(f"examples/java: {share['aliases']} @var aliases touch a mean {share['mean']:.4f} "
+          f"(median {share['median']:.4f}, {share['min']:.4f}-{share['max']:.4f}) of their "
+          f"method's contexts; train_variable gives each alias {share['used']:.4f}", flush=True)
+    ds = tmp / "java_dataset"
+    ds.mkdir()
+    shutil.copy(EXAMPLES / "dataset" / "methods.txt", ds / "methods.txt")
+    t0 = time.perf_counter()
+    extractor.extract_dataset(ds, EXAMPLES)
+    out["extract_dataset_seconds"] = time.perf_counter() - t0
+    vocab = (str(ds / "terminal_idxs.txt"), str(ds / "path_idxs.txt"))
+    source = (EXAMPLES / "src" / "util" / "MathUtils.java").read_text()
+    out["models"] = {}
+    for task, (im, iv) in (("method", (True, False)), ("variable", (False, True))):
+        data = load_corpus(ds / "corpus.txt", vocab[1], vocab[0], infer_method=im,
+                           infer_variable=iv)
+        model_dir = tmp / f"java_{task}"
+        cfg = TrainConfig(**EXTRACT_TRAIN, infer_method_name=im, infer_variable_name=iv,
+                          shuffle_variable_indexes=iv)
+        run = train_route(torch, smi, dev, data, cfg, f"extract {task}", ("fused_f32_masked",),
+                          str(model_dir), str(model_dir / "code.vec"))
+        pred = Predictor(str(model_dir), *vocab, pallas_impl="fused")
+        plain = Predictor(str(model_dir), *vocab, device="cpu")
+        call = "predict_source" if task == "method" else "predict_variables"
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = getattr(pred, call)(source, top_k=3)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        want = getattr(plain, call)(source, top_k=3)
+        if counts.get("fused_f32", 0) != len(got) or len(got) != len(want) or not got:
+            raise AssertionError(f"extract {task}: {len(got)} predictions, {counts}")
+        worst = 0.0
+        for g, w in zip(got, want):
+            if (g.method_name, g.target_variable, g.n_contexts, g.n_oov) != \
+                    (w.method_name, w.target_variable, w.n_contexts, w.n_oov) \
+                    or not top1_agrees(g, w):
+                raise AssertionError(f"extract {task}: {g} vs the plain {w}")
+            if not np.allclose(g.code_vector, w.code_vector, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+                raise AssertionError(f"extract {task} {g.method_name}: code vector off")
+            worst = max(worst, float(np.abs(g.code_vector - w.code_vector).max()))
+            print(f"  {call} {g.method_name}: {g.n_contexts} contexts ({g.n_oov} OOV) -> "
+                  + ", ".join(f"{p.name} {p.prob:.3f}" for p in g.predictions), flush=True)
+        print(f"extract {task}: {call}(MathUtils.java) through K3, {len(got)} predictions "
+              f"in {wall_ms:.1f} ms host wall (extraction included), launches {counts}, "
+              f"max |cv - plain on the CPU| {worst:.3e} [{smi}]", flush=True)
+        out["models"][task] = {"train": run, "predictions": len(got), "wall_ms": wall_ms,
+                               "launches": counts, "max_abs_err": worst}
+
+    # the method model served: source requests against contexts requests
+    model_dir = tmp / "java_method"
+    args = build_parser().parse_args([
+        "--model_path", str(model_dir), "--terminal_idx_path", vocab[0],
+        "--path_idx_path", vocab[1], "--code_vec_path", str(model_dir / "code.vec")])
+    server = build_server(args)
+    try:
+        pairs, files, method_contexts = [], {}, []
+        for path in sorted((EXAMPLES / "src").rglob("*.java")):
+            text = path.read_text()
+            extracted = server.predictor._extract(text, "*", "java")
+            names = [label for label, _, _ in extracted]
+            files[path.name] = {"bytes": len(text.encode()), "lines": text.count("\n"),
+                                "methods": len(extracted),
+                                "contexts": sum(len(c) for _, c, _ in extracted),
+                                "extract_ms": []}
+            for label, contexts, _ in extracted:
+                if names.count(label) != 1:
+                    continue
+                mapped, _ = server.predictor._map_contexts(contexts)
+                method_contexts.append(len(contexts))
+                for op in ("predict", "embed", "neighbors"):
+                    common = {"op": op, "method_name": label, "top_k": 3, "include_vector": True}
+                    pairs.append((path.name, {**common, "source": text},
+                                  {**common, "contexts": [list(c) for c in mapped]}))
+        lat = {"source": [], "contexts": []}
+        extract_ms, worst = [], 0.0
+        reset_launch_counts()
+        for _ in range(EXTRACT_ROUNDS):
+            for name, by_source, by_contexts in pairs:
+                t0 = time.perf_counter()
+                a = server.handle(by_source)
+                t1 = time.perf_counter()
+                b = server.handle(by_contexts)
+                t2 = time.perf_counter()
+                lat["source"].append((t1 - t0) * 1e3)
+                lat["contexts"].append((t2 - t1) * 1e3)
+                if not (a.get("ok") and b.get("ok")):
+                    raise AssertionError(f"serve from source: {a} / {b}")
+                extract_ms.append(a["extract_ms"])
+                files[name]["extract_ms"].append(a["extract_ms"])
+                (ea,), (eb,) = a["methods"], b["methods"]
+                for key in ("method_name", "n_contexts", "predictions", "neighbors"):
+                    if ea.get(key) != eb.get(key):
+                        raise AssertionError(f"serve {by_source['op']} {ea['method_name']}: "
+                                             f"{key} {ea.get(key)} vs {eb.get(key)}")
+                va, vb = np.asarray(ea["code_vector"]), np.asarray(eb["code_vector"])
+                if not np.isfinite(va).all() or not np.allclose(va, vb, rtol=0, atol=1e-6):
+                    raise AssertionError(f"serve {ea['method_name']}: code vectors differ")
+                worst = max(worst, float(np.abs(va - vb).max()))
+        counts = launch_counts()
+        if counts.get("fused_f32", 0) < len(pairs):
+            raise AssertionError(f"serve from source never went through K3: {counts}")
+        health = server.handle({"op": "health"})
+    finally:
+        server.close()
+    out["serve"] = {"requests_per_form": len(pairs) * EXTRACT_ROUNDS, "launches": counts,
+                    "max_abs_diff": worst, "post_warmup_compiles":
+                    health["post_warmup_compiles"], "warmup_extractor_ms":
+                    health["extractor_ms"]}
+    for name, f in files.items():
+        f["extract_p50_ms"] = float(np.percentile(f.pop("extract_ms"), 50))
+        print(f"  {name}: {f['bytes']} bytes, {f['lines']} lines, {f['methods']} methods, "
+              f"{f['contexts']} contexts; extraction p50 {f['extract_p50_ms']:.3f} ms a request",
+              flush=True)
+    out["files"] = files
+    mc = np.asarray(method_contexts)
+    out["method_contexts"] = {"methods": len(mc), "mean": float(mc.mean()),
+                              "median": float(np.median(mc)), "max": int(mc.max())}
+    for form, xs in lat.items():
+        out["serve"][f"{form}_p50_ms"], out["serve"][f"{form}_p99_ms"] = percentiles(xs)
+    out["serve"]["extract_p50_ms"], out["serve"]["extract_p99_ms"] = percentiles(extract_ms)
+    sv = out["serve"]
+    print(f"serve from source: {sv['requests_per_form']} requests a form (predict, embed, "
+          f"neighbors; {len(pairs) // 3} methods x {EXTRACT_ROUNDS} rounds, one at a time): "
+          f"source p50 {sv['source_p50_ms']:.3f} / p99 {sv['source_p99_ms']:.3f} ms, of it the "
+          f"extraction p50 {sv['extract_p50_ms']:.3f} / p99 {sv['extract_p99_ms']:.3f} ms (host); "
+          f"contexts p50 {sv['contexts_p50_ms']:.3f} / p99 {sv['contexts_p99_ms']:.3f} ms; "
+          f"answers equal (max |cv diff| {worst:.1e}), launches {counts}, post-warmup compiles "
+          f"{sv['post_warmup_compiles']}, the extractor loaded in the warmup in "
+          f"{sv['warmup_extractor_ms']:.3f} ms [{smi}]", flush=True)
+    top11 = (serve or {}).get("fused_f32", {}).get("sequential_p50_ms")
+    sv["top11_fused_f32_p50_ms"] = top11
+    print(f"the served methods hold {mc.mean():.1f} contexts on average (median "
+          f"{np.median(mc):.0f}, max {mc.max()}) in files of "
+          f"{min(f['bytes'] for f in files.values())}-{max(f['bytes'] for f in files.values())} "
+          f"bytes; extraction p50 {sv['extract_p50_ms']:.3f} ms against the top11 model's "
+          f"one-at-a-time p50 (serve phase, fused f32) "
+          + (f"{top11:.3f} ms" if top11 is not None else "not measured") + f" [{smi}]",
+          flush=True)
+    if sv["post_warmup_compiles"]:
+        raise AssertionError("the server warmed a shape after startup")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the variable-name task (--infer_variable_name, --shuffle_variable_indexes)
+# ---------------------------------------------------------------------------
+
+VAR_NAMES = 2_000
+
+
+def variable_corpus(share: float, infer_method: bool = False):
+    """The train phase's corpus with 0-3 ``@var_*`` aliases a method (as
+    ``data/synth.generate_corpus_files`` draws them), each alias put at the
+    start or the end of ``share`` of its method's contexts (at least one),
+    named from a pool of camelCase variable names that follows the method's
+    label, so the names can be learned from the contexts."""
+    from dataclasses import replace
+
+    from code2vec_tpu_torch.data.reader import _build_label_state
+    from code2vec_tpu_torch.data.synth import _label_names
+
+    raw, base = train_corpus()
+    rng = np.random.default_rng(7)
+    names = _label_names(VAR_NAMES, rng)
+    stoi = base.terminal_vocab.stoi
+    counts = np.diff(base.row_splits)
+    n_aliases = rng.integers(0, 4, base.n_items)
+    starts, ends = base.starts.copy(), base.ends.copy()
+    var_lists = []
+    for i in range(base.n_items):
+        lo, n = int(base.row_splits[i]), int(counts[i])
+        pairs = []
+        for j in range(int(n_aliases[i])):
+            slots = lo + rng.choice(n, max(1, round(share * n)), replace=False)
+            at_end = rng.random(len(slots)) < 0.5
+            starts[slots[~at_end]] = stoi[f"@var_{j}"]
+            ends[slots[at_end]] = stoi[f"@var_{j}"]
+            pairs.append((names[(int(raw.label_ids[i]) * 3 + j) % VAR_NAMES], f"@var_{j}"))
+        var_lists.append(pairs)
+    headers = [(raw.label_names[int(k)], None) for k in raw.label_ids]
+    label_vocab, labels, normalized, sources, aliases = _build_label_state(
+        headers, var_lists, infer_method, True)
+    return replace(base, starts=starts, ends=ends, labels=np.asarray(labels, np.int32),
+                   normalized_labels=normalized, sources=sources, aliases=aliases,
+                   label_vocab=label_vocab, infer_method=infer_method, infer_variable=True,
+                   variable_indexes=np.asarray(sorted(i for k, i in stoi.items()
+                                                      if k.startswith("@var_")), np.int32))
+
+
+def variable_batch(data, config):
+    """A variable-task batch of 1024 rows at bag 200: row 0 an alias no
+    context touches (all PAD, still an example), rows 1-255 one context."""
+    from code2vec_tpu_torch.data.pipeline import build_variable_epoch, iter_batches
+
+    rng = np.random.default_rng(11)
+    items = rng.permutation(data.n_items)[:TRAIN_BATCH]
+    epoch = build_variable_epoch(data, items, config.max_path_length, rng, True)
+    batch = next(iter_batches(epoch, TRAIN_BATCH))
+    for k in ("starts", "paths", "ends"):
+        batch[k] = batch[k].copy()
+        batch[k][0] = 0
+        batch[k][1:256, 1:] = 0
+    return batch
+
+
+def phase_train_variable(torch, smi, dev, share) -> dict:
+    """The variable-name task at the train phase's widths, batch, bag and
+    dropout (variable-only, --shuffle_variable_indexes): host-fed and
+    --device_epoch, each at a fixed bag and --bucketed, on every route; the
+    dual task (method and variable rows) on fused, host-fed and on the
+    device; fused device epochs lazy in bf16. Each kernel launched once for
+    every batch of the passes that run it, each run's train loss lower
+    after 3 epochs than after the first; the step breakdown of variable
+    batches (plain, fused); a differential on a batch with an
+    all-PAD row and 1-context rows; per route a device chunk against the
+    host step and a warm chunk, the remap on, under the sync debug mode."""
+    from code2vec_tpu_torch.data.pipeline import bucket_batch_counts, split_items
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.loop import resolve_ladder, stage_host
+
+    if share is None:
+        share = java_variable_share()
+    t0 = time.perf_counter()
+    data = variable_corpus(share["used"])
+    config = TrainConfig(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                         max_path_length=BAG, batch_size=TRAIN_BATCH, dropout_prob=0.25,
+                         max_epoch=3, random_seed=0, print_sample_cycle=0,
+                         infer_method_name=False, infer_variable_name=True,
+                         shuffle_variable_indexes=True)
+    ladder, _ = resolve_ladder(config.with_updates(bucketed=True), data)
+    out = {"share": share["used"], "ladder": list(ladder), "routes": {}}
+
+    def geometry(d):
+        """Each split's rows' context counts, and their batches an epoch
+        per ladder width (fixed: one width)."""
+        train_idx, test_idx = split_items(d.n_items, np.random.default_rng(config.random_seed))
+        counts = [stage_host(d, idx, np.random.default_rng(0)).counts
+                  for idx in (train_idx, test_idx)]
+        return counts, {layout: [bucket_batch_counts(c, lad, TRAIN_BATCH) for c in counts]
+                        for layout, lad in (("fixed", (BAG,)), ("bucketed", ladder))}
+
+    counts, batches = geometry(data)
+    real = np.minimum(counts[0], BAG)
+    out["rows"] = {"train": len(counts[0]), "test": len(counts[1]),
+                   "mean_real_contexts": float(real.mean()), "empty": int((real == 0).sum())}
+    print(f"variable corpus: {data.n_items} methods, {len(data.variable_indexes)} @var ids, "
+          f"{len(data.label_vocab)} labels, share {share['used']:.4f}; {len(counts[0])} train / "
+          f"{len(counts[1])} test variable rows, mean {real.mean():.2f} real contexts a train "
+          f"row (bag {BAG}), {out['rows']['empty']} empty; bucketed ladder {list(ladder)}, made "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+    dual = variable_corpus(share["used"], infer_method=True)
+    _, dual_batches = geometry(dual)
+    lazy_bf16 = dict(table_update="lazy", compute_dtype="bfloat16", adam_mu_dtype="bfloat16")
+    runs = [(f"{feed} {layout} {route}", route, data, batches[layout],
+             dict(device_epoch=feed == "device", bucketed=layout == "bucketed"))
+            for feed in ("host", "device") for layout in ("fixed", "bucketed")
+            for route in DEVICE_ROUTES]
+    runs += [("dual host fixed fused", "fused", dual, dual_batches["fixed"],
+              dict(infer_method_name=True)),
+             ("dual device fixed fused", "fused", dual, dual_batches["fixed"],
+              dict(infer_method_name=True, device_epoch=True)),
+             ("device fixed fused lazy bf16", "fused", data, batches["fixed"],
+              dict(device_epoch=True, **lazy_bf16))]
+    for label, route, d, (n_train, n_test), kw in runs:
+        keys = DEVICE_ROUTES[route]
+        run = out["routes"][label] = train_route(
+            torch, smi, dev, d, config.with_updates(**kernel_route(route), **kw),
+            f"variable {label}", tuple(keys))
+        device_launches(f"variable {label}", run, keys, n_train, n_test, config.max_epoch)
+        losses = [m["train_loss"] for m in run["epochs"]]
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"variable {label}: train losses {losses}")
+        if kw.get("device_epoch") and not kw.get("table_update"):
+            host = out["routes"].get(label.replace("device", "host"))
+            beside_host(f"variable {label.replace('device ', '')}", run, host, smi)
+    out["breakdown"] = step_breakdown(torch, dev, data, config, smi, "variable ",
+                                      ("plain", "fused"))
+    out["differential"] = train_differential(
+        torch, dev, data, config, [variable_batch(data, config)],
+        {route: kernel_route(route) for route in TRAIN_ROUTES})
+    out["chunks"] = {route: device_chunk_checks(torch, dev, data, config, route, smi,
+                                                f"variable {route}")
+                     for route in DEVICE_ROUTES}
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json_out", default=None,
@@ -2237,13 +2635,31 @@ def main() -> int:
         torch.set_float32_matmul_precision("highest")
         return smi
 
+    extractor_build = {}
+
     def build():
+        """The kernels (one nvcc a source) and, beside them in a thread,
+        the Java extractor (one g++ a source), all started together."""
         sys.path.insert(0, str(ROOT))
+        from concurrent.futures import ThreadPoolExecutor
+
+        from code2vec_tpu_torch import extractor
         from code2vec_tpu_torch.ops import _build
 
+        def build_extractor():
+            cached = (extractor.build_dir() / extractor.LIBRARY).exists()
+            t0 = time.perf_counter()
+            extractor.build_extractor()
+            return {"build_seconds": time.perf_counter() - t0, "build_cached": cached}
+
         t0 = time.perf_counter()
-        libs = _build.build_all()
-        print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s", flush=True)
+        with ThreadPoolExecutor(1) as pool:
+            ext = pool.submit(build_extractor)
+            libs = _build.build_all()
+            extractor_build.update(ext.result())
+        print(f"built {sorted(libs)} and the Java extractor in {time.perf_counter() - t0:.1f}s "
+              f"(the extractor {extractor_build['build_seconds']:.2f} s of it"
+              f"{', already built' if extractor_build['build_cached'] else ''})", flush=True)
         for name, log in sorted(_build.build_log.items()):
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
@@ -2271,6 +2687,10 @@ def main() -> int:
                            bf16_train)
         device_train = phase("train_device", phase_train_device, torch, smi, dev, trained,
                              bucketed, lazy_train)
+        extracted = phase("extract", phase_extract, torch, smi, dev, model_dir,
+                          extractor_build, serve)
+        variable = phase("train_variable", phase_train_variable, torch, smi, dev,
+                         (extracted or {}).get("share"))
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -2290,6 +2710,12 @@ def main() -> int:
     for route in DEVICE_ROUTES:
         for key, n in device_train["routes"][route]["launches"].items():
             device_counts[key] = device_counts.get(key, 0) + n
+    # the train_variable phase's runs launch the same kernels on variable rows
+    var_counts = {}
+    for run in variable["routes"].values():
+        for key, n in run["launches"].items():
+            var_counts[key] = var_counts.get(key, 0) + n
+    print(f"train_variable launches: {json.dumps(var_counts)}")
     line = []
     for name, rec in kernels.items():
         timed = next(r for r in rec["rows"] if (r["B"], r["L"]) == rec["timed"])
@@ -2297,7 +2723,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": rec["source"],
             "replaces": rec["replaces"],
             "launches": (routes[rec["key"]]["launches"][rec["key"]]
-                         + device_counts.get(rec["key"], 0)),
+                         + device_counts.get(rec["key"], 0) + var_counts.get(rec["key"], 0)),
             "max_abs_err": max(r["max_abs_err"] for r in rec["rows"]),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -2323,7 +2749,7 @@ def main() -> int:
              "serve": serve,
              "longbag": longbag, "retrieval": retrieval, "train": trained,
              "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train,
-             "train_device": device_train},
+             "train_device": device_train, "extract": extracted, "train_variable": variable},
             indent=1,
         ))
     for k in line:  # each kernel's share of its bound at its timed shape

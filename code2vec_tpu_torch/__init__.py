@@ -17,9 +17,13 @@ Layout (each module names its JAX counterpart):
 - ``predict`` / ``serve`` — the serving path (``python -m
   code2vec_tpu_torch.serve``): predict/embed over any bag up to the
   ladder's top rung (K4 above the training bag) and ``neighbors`` over the
-  exact or the IVF-PQ backend;
+  exact or the IVF-PQ backend, from mapped contexts or Java source;
+- ``extractor`` — the repo's C++ Java extractor (``extractor/src``), built
+  with ``g++`` at first use: corpora (``python -m
+  code2vec_tpu_torch.extractor``) and in-process extraction for
+  ``predict``;
 - ``text``, ``data`` (vocab, reader, synthetic corpora, epochs and
-  batches), ``metrics``, ``train`` (config, steps, the lazy table
+  batches of the method and variable tasks), ``metrics``, ``train`` (config, steps, the lazy table
   optimizer, device-resident epochs, the epoch loop),
   ``checkpoint``, ``export`` and ``cli`` — the training path (``python -m
   code2vec_tpu_torch``), whose model dir the server serves as it stands.

@@ -21,6 +21,9 @@ semantics), ``--embed_grad {dense,segment,segment_sorted}`` is accepted for JAX
 configurations (every mode runs ``F.embedding``'s backward, already a
 segment sum). ``--device_epoch [--device_chunk_batches 16] [--sample_prefetch
 true]`` stages both splits on the card and samples each epoch's batches there.
+``--infer_variable_name true [--infer_method_name false]
+[--shuffle_variable_indexes true]`` trains the variable-name task (one example
+per ``@var_*`` alias of a method), alone or beside the method-name task.
 
 Flags of features not ported yet are accepted with their default only and
 raise otherwise (``TrainConfig.validate``, ROADMAP §A.2); HPO, telemetry,

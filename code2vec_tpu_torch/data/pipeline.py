@@ -1,7 +1,7 @@
 """The input pipeline: split, per-epoch resampling, batching, bag ladders.
 
-Own copy of ``code2vec_tpu/data/pipeline.py``'s host path for the
-method-name task (``:47-180``, ``:357-455``), its ladder and bucketing
+Own copy of ``code2vec_tpu/data/pipeline.py``'s host path for both
+tasks (``:47-455``), its ladder and bucketing
 helpers (``:456-760``) and its in-RAM batch source (``:1057-1278``,
 ``:1530``). The same semantics as the reference's per-method loop
 (model/dataset_builder.py:112-210) as vectorized numpy over the CSR
@@ -20,7 +20,8 @@ order, so both trainers see the same batches:
 PAD positions carry exactly-zero attention weight, so an example's
 forward is identical at any width >= its real context count: the
 ladders pad training and serving shapes to a small static set. The
-variable-name task, streaming and mmap-backed epochs are not ported yet
+variable-name task's epoch (one row per ``@var_*`` alias) follows the
+method rows. Streaming and mmap-backed epochs are not ported yet
 (ROADMAP §A.2).
 """
 
@@ -108,16 +109,126 @@ def build_method_epoch(data, item_idx: np.ndarray, max_contexts: int,
                        labels=data.labels[item_idx])
 
 
-def build_epoch(data, item_idx: np.ndarray, max_contexts: int,
-                rng: np.random.Generator) -> EpochArrays:
+def variable_items(data, item_idx: np.ndarray):
+    """The variable task's expansion, shared by the host epoch and the
+    device staging: per item with ``@var_*`` aliases, ``(item, alias
+    names, alias ids, starts, paths, ends)`` of the contexts touching ANY
+    of them (model/dataset_builder.py:152-177). The caller shuffles,
+    selects and renames, so the generator is drawn in the reference's
+    order."""
+    terminal_stoi = data.terminal_vocab.stoi
+    for i in item_idx:
+        alias_names = [a for a in data.aliases[i] if a.startswith("@var_")]
+        if not alias_names:
+            continue
+        alias_idx = np.asarray([terminal_stoi[a] for a in alias_names], dtype=np.int32)
+        lo, hi = int(data.row_splits[i]), int(data.row_splits[i + 1])
+        s, p, e = data.starts[lo:hi], data.paths[lo:hi], data.ends[lo:hi]
+        touches = np.isin(s, alias_idx) | np.isin(e, alias_idx)
+        yield i, alias_names, alias_idx, s[touches], p[touches], e[touches]
+
+
+def build_variable_epoch(data, item_idx: np.ndarray, max_contexts: int,
+                         rng: np.random.Generator,
+                         shuffle_variable_indexes: bool = False) -> EpochArrays:
+    """The variable-name task's epoch: one row per ``@var_*`` alias of each
+    method. A method's contexts touching any of its variables are shuffled
+    once (one ``rng.permutation``); each alias's row keeps the first
+    ``max_contexts`` of those that touch it, with the alias renamed to
+    ``@question``. With ``shuffle_variable_indexes`` the other ``@var_*``
+    ids go through a permutation of the whole ``@var_*`` id set, one
+    ``rng.shuffle`` per method drawn before its context permutation
+    (model/dataset_builder.py:152-204). Every row is appended before its
+    contexts are looked at, so an alias that no context touches gets an
+    all-PAD row. JAX ``pipeline.py:225-355`` draw for draw."""
+    variable_indexes = data.variable_indexes
+    perm_map = None
+    if not shuffle_variable_indexes and len(variable_indexes):
+        # the identity remap outside shuffle mode (model/dataset_builder.py:155-156)
+        perm_map = _index_remap(variable_indexes, variable_indexes)
+    ids: list[int] = []
+    labels: list[int] = []
+    out_rows, out_cols, out_s, out_p, out_e = [], [], [], [], []
+    label_stoi = data.label_vocab.stoi
+    for i, alias_names, alias_idx, s, p, e in variable_items(data, item_idx):
+        alias_map = data.aliases[i]
+        if shuffle_variable_indexes:
+            shuffled = variable_indexes.copy()
+            rng.shuffle(shuffled)
+            perm_map = _index_remap(variable_indexes, shuffled)
+        order = rng.permutation(len(s))
+        s, p, e = s[order], p[order], e[order]
+        base = len(ids)
+        for alias_name in alias_names:
+            ids.append(int(data.ids[i]))
+            labels.append(label_stoi[alias_map[alias_name]])
+        # [A, C] membership, row-major: (alias, context in stream order)
+        member = (s[None, :] == alias_idx[:, None]) | (e[None, :] == alias_idx[:, None])
+        a_ids, c_ids = np.nonzero(member)
+        if not len(a_ids):
+            continue
+        counts = member.sum(axis=1).astype(np.int64)
+        seg_starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+        within = np.arange(len(a_ids), dtype=np.int64) - np.repeat(seg_starts, counts)
+        keep = within < max_contexts  # the first L per alias
+        a_kept, c_kept = a_ids[keep], c_ids[keep]
+        targets = alias_idx[a_kept]
+        out_rows.append(base + a_kept)
+        out_cols.append(within[keep])
+        out_s.append(_rename_target(s[c_kept], targets, perm_map))
+        out_p.append(p[c_kept])
+        out_e.append(_rename_target(e[c_kept], targets, perm_map))
+    n = len(ids)
+    starts = np.full((n, max_contexts), PAD_INDEX, np.int32)
+    paths = np.full((n, max_contexts), PAD_INDEX, np.int32)
+    ends = np.full((n, max_contexts), PAD_INDEX, np.int32)
+    if out_rows:
+        rows, cols = np.concatenate(out_rows), np.concatenate(out_cols)
+        starts[rows, cols] = np.concatenate(out_s)
+        paths[rows, cols] = np.concatenate(out_p)
+        ends[rows, cols] = np.concatenate(out_e)
+    return EpochArrays(ids=np.asarray(ids, np.int64), starts=starts, paths=paths, ends=ends,
+                       labels=np.asarray(labels, np.int32))
+
+
+def _index_remap(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """A lookup table of terminal id -> remapped id, the identity but for
+    the ``@var_*`` ids ``src``, which go to ``dst``."""
+    table = np.arange(int(src.max()) + 1, dtype=np.int32)
+    table[src] = dst
+    return table
+
+
+def _rename_target(values: np.ndarray, target_idx, perm_map: np.ndarray | None) -> np.ndarray:
+    """The target variable -> ``@question``; the other ids through the
+    remap (model/dataset_builder.py:181-195). The table covers ids up to
+    the largest ``@var_*`` id; larger ids pass through unchanged."""
+    is_target = values == target_idx
+    if perm_map is not None:
+        in_table = values < len(perm_map)
+        remapped = perm_map[np.where(in_table, values, 0)].astype(np.int32)
+        values = np.where(in_table, remapped, values)
+    return np.where(is_target, np.int32(QUESTION_TOKEN_INDEX), values)
+
+
+def build_epoch(data, item_idx: np.ndarray, max_contexts: int, rng: np.random.Generator,
+                shuffle_variable_indexes: bool = False) -> EpochArrays:
     """A full epoch of the tasks the corpus was loaded with: the method
-    task (the variable task raises, ROADMAP §A.2)."""
-    if data.infer_variable or not data.infer_method:
-        raise NotImplementedError(
-            "the port builds method-name epochs only; the variable-name task is "
-            "not ported yet (ROADMAP §A.2)"
-        )
-    return build_method_epoch(data, item_idx, max_contexts, rng)
+    rows first, then the variable rows, drawn from ``rng`` in that order
+    (the reference's concatenation, model/dataset_builder.py:122-204)."""
+    parts: list[EpochArrays] = []
+    if data.infer_method:
+        parts.append(build_method_epoch(data, item_idx, max_contexts, rng))
+    if data.infer_variable:
+        parts.append(build_variable_epoch(data, item_idx, max_contexts, rng,
+                                          shuffle_variable_indexes))
+    if not parts:
+        raise ValueError("the corpus was loaded with neither task (infer_method and "
+                         "infer_variable both off)")
+    if len(parts) == 1:
+        return parts[0]
+    return EpochArrays(*(np.concatenate([getattr(p, k) for p in parts])
+                         for k in ("ids", "starts", "paths", "ends", "labels")))
 
 
 def iter_batches(epoch: EpochArrays, batch_size: int, rng: np.random.Generator | None = None,
@@ -423,13 +534,14 @@ class EpochSource(BatchSource):
     order)."""
 
     def __init__(self, data, item_idx: np.ndarray, batch_size: int, max_contexts: int,
-                 ladder: tuple[int, ...] | None = None):
+                 ladder: tuple[int, ...] | None = None, shuffle_variable_indexes: bool = False):
         self.data = data
         self.item_idx = np.asarray(item_idx)
         self.batch_size = int(batch_size)
         self.max_contexts = int(max_contexts)
         self.ladder = tuple(ladder) if ladder else (int(max_contexts),)
         self._bucketed = ladder is not None
+        self._svi = bool(shuffle_variable_indexes)
         self.last_epoch: EpochArrays | None = None
         # (rows, real, slots): a row's count is min(its contexts, the cap)
         # whichever contexts the subsample drew, so it is reckoned once
@@ -438,7 +550,7 @@ class EpochSource(BatchSource):
     def batches(self, rng: np.random.Generator,
                 shuffle: bool = True) -> Iterator[dict[str, np.ndarray]]:
         def gen():
-            epoch = build_epoch(self.data, self.item_idx, self.max_contexts, rng)
+            epoch = build_epoch(self.data, self.item_idx, self.max_contexts, rng, self._svi)
             self.last_epoch = epoch
             order = rng if shuffle else None
             if self._bucketed:
@@ -461,8 +573,8 @@ class EpochSource(BatchSource):
 
 
 def make_batch_source(data, item_idx: np.ndarray, batch_size: int, max_contexts: int,
-                      ladder: tuple[int, ...] | None = None,
-                      stream_chunk_items: int = 0) -> BatchSource:
+                      ladder: tuple[int, ...] | None = None, stream_chunk_items: int = 0,
+                      shuffle_variable_indexes: bool = False) -> BatchSource:
     """The feed of one split: the in-RAM :class:`EpochSource`, fixed-``L``
     for ``ladder=None``. Streaming epochs (``stream_chunk_items > 0``) and
     mmap-backed corpora are not ported yet."""
@@ -474,4 +586,37 @@ def make_batch_source(data, item_idx: np.ndarray, batch_size: int, max_contexts:
         raise NotImplementedError(
             "mmap-backed corpora are not ported yet (ROADMAP §A.2)"
         )
-    return EpochSource(data, item_idx, batch_size, max_contexts, ladder=ladder)
+    return EpochSource(data, item_idx, batch_size, max_contexts, ladder=ladder,
+                       shuffle_variable_indexes=shuffle_variable_indexes)
+
+
+def oov_rate(data, train_idx: np.ndarray, test_idx: np.ndarray, exact: bool = False) -> float:
+    """The share of test label (sub)tokens absent from the train split's
+    label tokens, over the tasks the corpus was loaded with
+    (model/dataset_builder.py:72-110); ``exact`` compares whole labels
+    (the ``eval_method == 'exact'`` branch)."""
+
+    def tokens_of(i: int) -> list[str]:
+        out: list[str] = []
+        if data.infer_method:
+            out.extend(_label_tokens(data, data.normalized_labels[i], exact))
+        if data.infer_variable:
+            for alias, normalized in data.aliases[i].items():
+                if alias.startswith("@var_"):
+                    out.extend(_label_tokens(data, normalized, exact))
+        return out
+
+    train_vocab = {t for i in train_idx for t in tokens_of(int(i))}
+    match = count = 0
+    for i in test_idx:
+        tokens = tokens_of(int(i))
+        match += sum(1 for t in tokens if t in train_vocab)
+        count += len(tokens)
+    return 1.0 - match / count if count else 0.0
+
+
+def _label_tokens(data, normalized_label: str, exact: bool) -> list[str]:
+    if exact:
+        return [normalized_label]
+    index = data.label_vocab.stoi[normalized_label]
+    return list(data.label_vocab.itosubtokens.get(index, ()))

@@ -48,6 +48,9 @@ class CorpusData:
     label_vocab: Vocab = field(repr=False)
     infer_method: bool = True
     infer_variable: bool = False
+    # the sorted shifted ids of the terminals named "@var_*" (reference:
+    # model/dataset_reader.py:54-56), the variable task's remap set
+    variable_indexes: np.ndarray = field(default_factory=lambda: np.zeros(0, np.int32))
 
     @property
     def n_items(self) -> int:
@@ -84,6 +87,11 @@ def _build_label_state(headers, var_lists, infer_method, infer_variable):
                 label_vocab.add_label(original)
         aliases.append(alias_map)
     return label_vocab, labels, normalized_labels, sources, aliases
+
+
+def _variable_indexes_of(terminal_vocab: Vocab) -> np.ndarray:
+    return np.asarray(sorted(idx for name, idx in terminal_vocab.stoi.items()
+                             if name.startswith("@var_")), dtype=np.int32)
 
 
 def load_corpus(
@@ -135,6 +143,7 @@ def load_corpus(
         normalized_labels=normalized_labels, sources=sources, aliases=aliases,
         terminal_vocab=terminal_vocab, path_vocab=path_vocab, label_vocab=label_vocab,
         infer_method=infer_method, infer_variable=infer_variable,
+        variable_indexes=_variable_indexes_of(terminal_vocab),
     )
     logger.info("corpus: %d items, %d contexts; vocabs: %d terminals, %d paths, %d labels",
                 data.n_items, data.n_contexts, len(terminal_vocab), len(path_vocab),

@@ -2,7 +2,7 @@
 
 Counterpart of ``code2vec_tpu/export.py``. ``code.vec`` is rewritten on
 every new best F1: a header line, then the train rows followed by the test
-rows; the optional test-result TSV records each test prediction.
+rows (each split's method rows, then its variable rows); the optional test-result TSV records each test prediction.
 ``print_sample`` logs one correctly predicted test example with its
 per-context attention, PAD rows skipped. ``export_from_checkpoint`` is the
 ``--export_only`` pass.
@@ -126,8 +126,10 @@ def export_from_checkpoint(config, data, out_dir: str, vectors_path: str,
         model.config = model_config
         quant_tables = model.quantize_tables()
     class_weights = class_weights_from(config, data, dev)
-    train_epoch = build_epoch(data, train_idx, config.max_path_length, np_rng)
-    test_epoch = build_epoch(data, test_idx, config.max_path_length, np_rng)
+    train_epoch = build_epoch(data, train_idx, config.max_path_length, np_rng,
+                              config.shuffle_variable_indexes)
+    test_epoch = build_epoch(data, test_idx, config.max_path_length, np_rng,
+                             config.shuffle_variable_indexes)
     labels, preds = write_code_vectors(
         data, model, train_epoch, test_epoch, config.batch_size, vectors_path,
         config.encode_size, class_weights, test_result_path, quant_tables)

@@ -14,8 +14,19 @@ Predictor's bag rises to the top rung and the model streams the softmax
 A training run writes such a dir itself: :func:`save_inference_meta` at
 its start, :func:`save_model_file` on every new best F1.
 
-Source extraction (``predict_source``: the Java and Python extractors) is
-not ported yet; the pre-mapped ``contexts`` form is the input here.
+From Java source (JAX ``predict.py:306-693``): ``predict_source`` names
+each method, ``predict_variables`` each ``@var_*`` variable of each method
+(``target_variable``), through the port's extractor (``extractor.py``) with
+the corpus's ``params.txt`` caps, the names mapped into the training vocab
+(a context with an unseen name is dropped and counted as OOV) and the
+trainer's framing (the method's or the variable's alias becomes
+``@question``). Extraction is host work; only the forward runs on the
+device. Python sources are not ported yet (ROADMAP §A.6-Python)::
+
+    python -m code2vec_tpu_torch.predict File.java --model_path out \
+        --terminal_idx_path ds/terminal_idxs.txt --path_idx_path ds/path_idxs.txt \
+        [--task auto|method|variable] [--top_k 5] [--show_attention N] \
+        [--neighbors N [--code_vec_path out/code.vec]] [--no_cuda]
 """
 
 from __future__ import annotations
@@ -28,7 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from code2vec_tpu_torch import PAD_INDEX, QUESTION_TOKEN_NAME
+from code2vec_tpu_torch import PAD_INDEX, QUESTION_TOKEN_INDEX, QUESTION_TOKEN_NAME
 
 logger = logging.getLogger(__name__)
 
@@ -95,9 +106,25 @@ class Prediction:
 @dataclass
 class MethodPrediction:
     predictions: list[Prediction]  # top-k, most probable first
-    n_contexts: int
-    attention: list[tuple[int, int, int, float]]  # (start, path, end, weight), heaviest first
+    n_contexts: int  # contexts fed to the model (after the OOV drop and any subsample)
+    # (start, path, end, weight), heaviest first: ids, or names for a source prediction
+    attention: list[tuple]
     code_vector: np.ndarray  # [encode_size]
+    method_name: str = "<contexts>"  # the name found in the source
+    n_oov: int = 0  # contexts dropped: a name unseen in training
+    target_variable: str | None = None  # set on a variable-name prediction
+
+
+def nearest_from_rows(labels: list[str], rows: np.ndarray, vector: np.ndarray, top_k: int = 5,
+                      row_norms: np.ndarray | None = None) -> list[tuple[str, float]]:
+    """The cosine-nearest rows of a ``code.vec`` matrix to ``vector``; pass
+    ``row_norms`` when querying many vectors."""
+    if row_norms is None:
+        row_norms = np.linalg.norm(rows, axis=1)
+    norms = row_norms * max(np.linalg.norm(vector), 1e-12)
+    sims = rows @ vector / np.maximum(norms, 1e-12)
+    order = np.argsort(-sims)[:top_k]
+    return [(labels[int(i)], float(sims[i])) for i in order]
 
 
 def subsample(contexts: list, bag: int, rng: np.random.Generator | None = None) -> list:
@@ -178,6 +205,10 @@ class Predictor:
             # instead of subsampled, and widths above the training bag
             # stream their softmax (K4)
             self.bag = int(self.ladder[-1])
+        # the corpus's extraction caps (params.txt beside the vocab files):
+        # new sources must be extracted as the corpus was
+        self.extract_params = self._load_extract_params(
+            os.path.join(os.path.dirname(os.path.abspath(path_idx_path)), "params.txt"))
         self.table_dtype = table_dtype or meta.get("table_dtype", "f32")
         self.config = Code2VecConfig(
             terminal_count=meta["terminal_count"],
@@ -245,8 +276,200 @@ class Predictor:
             code_vector=code_vector[0].float().cpu().numpy(),
         )
 
-    def predict_source(self, *args, **kwargs):
-        raise NotImplementedError(
-            "source extraction (Java/Python extractors) is not ported yet; "
-            "send pre-mapped 'contexts' instead"
-        )
+    @staticmethod
+    def _load_extract_params(params_path: str) -> dict:
+        """The extractor's keyword arguments from a corpus's ``params.txt``
+        (the reference's typo'd ``nomalize_`` keys, or the right spelling);
+        the reference defaults, with a warning, when there is none."""
+        defaults = dict(max_length=8, max_width=3, normalize_string=True, normalize_char=True,
+                        normalize_int=False, normalize_double=True)
+        if not os.path.exists(params_path):
+            logger.warning("%s not found: extracting with the default caps; if the corpus "
+                           "used other extraction params, predictions degrade", params_path)
+            return defaults
+        from code2vec_tpu_torch.formats.params_io import read_params
+
+        p = read_params(params_path)
+
+        def flag(key: str, default: bool) -> bool:
+            raw = p.get("nomalize_" + key, p.get("normalize_" + key))
+            return default if raw is None else raw.strip() == "true"
+
+        return dict(max_length=int(p.get("max_length", 8)), max_width=int(p.get("max_width", 3)),
+                    normalize_string=flag("string_literal", True),
+                    normalize_char=flag("char_literal", True),
+                    normalize_int=flag("int_literal", False),
+                    normalize_double=flag("double_literal", True))
+
+    def _map_contexts(self, contexts: list[tuple[str, str, str]],
+                      question_token: str = "@method_0") -> tuple[list[tuple[int, int, int]], int]:
+        """(start, path, end) names -> training vocab ids, and the count of
+        contexts dropped for a name unseen in training. ``question_token``
+        maps to ``@question`` (the method's own alias for the method task,
+        the target variable's for the variable task); terminals are
+        lowercased as the vocab writers lowercase them."""
+        t_stoi, p_stoi = self.terminal_vocab.stoi, self.path_vocab.stoi
+
+        def term_id(name: str) -> int | None:
+            return QUESTION_TOKEN_INDEX if name == question_token else t_stoi.get(name.lower())
+
+        mapped, oov = [], 0
+        for s, p, e in contexts:
+            ts, tp, te = term_id(s), p_stoi.get(p), term_id(e)
+            if ts is None or tp is None or te is None:
+                oov += 1
+                continue
+            mapped.append((ts, tp, te))
+        return mapped, oov
+
+    def _extract(self, source: str, method_name: str, language: str
+                 ) -> list[tuple[str, list[tuple[str, str, str]], list[tuple[str, str]]]]:
+        """Per matching method of ``source``: (its name, its contexts as
+        name triples, its (original, alias) pairs)."""
+        if language == "python":
+            from code2vec_tpu_torch.extractor import PYTHON_NOT_PORTED
+
+            raise NotImplementedError(PYTHON_NOT_PORTED)
+        if language != "java":
+            raise ValueError(f"unknown language: {language!r}")
+        from code2vec_tpu_torch.extractor import extract_source
+
+        result = extract_source(source, method_name, **self.extract_params)
+        t, p = result.terminal_vocab, result.path_vocab
+        return [(m.label, [(t[s], p[pa], t[e]) for s, pa, e in m.path_contexts], list(m.aliases))
+                for m in result.methods]
+
+    def _predict_named(self, label: str, mapped, n_oov: int, top_k: int,
+                       rng: np.random.Generator | None) -> MethodPrediction:
+        """:meth:`predict_contexts` with the attention as names."""
+        m = self.predict_contexts(mapped, top_k, rng)
+        t_itos, p_itos = self.terminal_vocab.itos, self.path_vocab.itos
+        m.attention = [(t_itos[s], p_itos[p], t_itos[e], a) for s, p, e, a in m.attention]
+        m.method_name, m.n_oov = label, n_oov
+        return m
+
+    def predict_source(self, source: str, method_name: str = "*", language: str = "java",
+                       top_k: int = 5, rng: np.random.Generator | None = None
+                       ) -> list[MethodPrediction]:
+        """Method-name predictions for every matching method of ``source``."""
+        if not self.meta.get("infer_method_name", True):
+            raise ValueError("this checkpoint was trained for the variable-name task only; "
+                             "use predict_variables (CLI: --task variable)")
+        out = []
+        for label, contexts, _ in self._extract(source, method_name, language):
+            mapped, oov = self._map_contexts(contexts)
+            if not mapped:
+                logger.warning("%s: every context is OOV against the training vocab; the "
+                               "prediction is the label prior", label)
+            out.append(self._predict_named(label, mapped, oov, top_k, rng))
+        return out
+
+    def predict_variables(self, source: str, method_name: str = "*", language: str = "java",
+                          top_k: int = 5, rng: np.random.Generator | None = None
+                          ) -> list[MethodPrediction]:
+        """Variable-name predictions: one per ``@var_*`` alias of each
+        matching method, in the extractor's order, framed as the trainer
+        frames them (the contexts touching the variable, its alias as
+        ``@question``; model/dataset_builder.py:152-204)."""
+        if not self.meta.get("infer_variable_name", False):
+            raise ValueError("this checkpoint was not trained for the variable-name task; "
+                             "use predict_source (CLI: --task method)")
+        out = []
+        for label, contexts, aliases in self._extract(source, method_name, language):
+            for original, alias in aliases:
+                if not alias.startswith("@var_"):
+                    continue  # @method_ / @label_ aliases are not variables
+                mine = [(s, p, e) for s, p, e in contexts if s == alias or e == alias]
+                mapped, oov = self._map_contexts(mine, question_token=alias)
+                if not mapped:
+                    logger.warning("%s.%s: every context is OOV against the training vocab; "
+                                   "the prediction is the label prior", label, original)
+                m = self._predict_named(f"{label}.{original}", mapped, oov, top_k, rng)
+                m.target_variable = original
+                out.append(m)
+        return out
+
+
+def main(argv: list[str] | None = None) -> int:
+    """``python -m code2vec_tpu_torch.predict File.java --model_path ...``:
+    the top-k names of each method (or each variable) of a Java file, on
+    the card unless ``--no_cuda``."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        prog="code2vec_tpu_torch.predict",
+        description="Predict method or variable names for a Java file from a trained model dir")
+    parser.add_argument("source_file", help=".java file (.py is not ported yet)")
+    parser.add_argument("--model_path", required=True)
+    parser.add_argument("--terminal_idx_path", required=True)
+    parser.add_argument("--path_idx_path", required=True)
+    parser.add_argument("--method_name", default="*", help="* = all methods")
+    parser.add_argument("--no_cuda", action="store_true", default=False,
+                        help="run the plain versions on the CPU (the default is the card)")
+    parser.add_argument("--task", default="auto", choices=("auto", "method", "variable"),
+                        help="what to predict; auto follows the model's training task (method "
+                             "wins for a dual-task model)")
+    parser.add_argument("--top_k", type=int, default=5)
+    parser.add_argument("--table_dtype", default=None, choices=("f32", "bf16", "int8"),
+                        help="embedding storage of the forward (default: the model meta's)")
+    parser.add_argument("--show_attention", type=int, default=0, metavar="N",
+                        help="also print the N highest-attention path-contexts per method")
+    parser.add_argument("--neighbors", type=int, default=0, metavar="N",
+                        help="also print the N cosine-nearest methods of --code_vec_path")
+    parser.add_argument("--code_vec_path", default=None,
+                        help="exported code.vec for --neighbors (default: "
+                             "<model_path>/code.vec when present)")
+    args = parser.parse_args(argv)
+
+    neighbor_index = None
+    if args.neighbors:
+        from code2vec_tpu_torch.formats.vectors_io import read_code_vectors
+
+        code_vec_path = args.code_vec_path
+        if code_vec_path is None:
+            code_vec_path = os.path.join(args.model_path, "code.vec")
+            if not os.path.exists(code_vec_path):
+                parser.error(f"--neighbors needs --code_vec_path (no {code_vec_path} found)")
+        nn_labels, nn_rows = read_code_vectors(code_vec_path)
+        meta_file = os.path.join(args.model_path, MODEL_META)
+        if os.path.exists(meta_file):
+            with open(meta_file, encoding="utf-8") as f:
+                encode_size = json.load(f).get("encode_size")
+            if encode_size and nn_rows.ndim == 2 and nn_rows.shape[1] != encode_size:
+                parser.error(f"{code_vec_path} holds {nn_rows.shape[1]}-dim vectors but the "
+                             f"model's encode_size is {encode_size}: it was exported from a "
+                             "different model")
+        neighbor_index = (nn_labels, nn_rows, np.linalg.norm(nn_rows, axis=1))
+
+    predictor = Predictor(args.model_path, args.terminal_idx_path, args.path_idx_path,
+                          table_dtype=args.table_dtype, device="cpu" if args.no_cuda else None)
+    with open(args.source_file, encoding="utf-8") as f:
+        source = f.read()
+    language = "python" if args.source_file.endswith(".py") else "java"
+    task = args.task
+    if task == "auto":
+        task = "method" if predictor.meta.get("infer_method_name", True) else "variable"
+    predict = predictor.predict_source if task == "method" else predictor.predict_variables
+    results = predict(source, args.method_name, language=language, top_k=args.top_k)
+    if not results:
+        print("no matching methods found")
+        return 0
+    for m in results:
+        print(f"{m.method_name}  ({m.n_contexts} contexts"
+              + (f", {m.n_oov} OOV dropped" if m.n_oov else "") + ")")
+        for p in m.predictions:
+            print(f"  {p.prob:6.3f}  {p.name}")
+        for s, pth, e, a in m.attention[:args.show_attention]:
+            print(f"    [{a:.3f}] {s} {pth} {e}")
+        if neighbor_index is not None:
+            nn_labels, nn_rows, nn_norms = neighbor_index
+            for name, sim in nearest_from_rows(nn_labels, nn_rows, m.code_vector,
+                                               args.neighbors, row_norms=nn_norms):
+                print(f"    ~{sim:.3f}  {name}")
+    return 0
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -21,6 +21,7 @@ import os
 import signal
 import sys
 import threading
+import time
 
 logger = logging.getLogger(__name__)
 
@@ -95,6 +96,7 @@ def build_retrieval(args, device):
 def build_server(args):
     """Predictor -> warmed engine -> retrieval -> micro-batcher -> CodeServer, in
     process (tests and chip_smoke.py drive it without a subprocess)."""
+    from code2vec_tpu_torch.extractor import load_library
     from code2vec_tpu_torch.predict import Predictor
     from code2vec_tpu_torch.serve.batcher import MicroBatcher
     from code2vec_tpu_torch.serve.engine import ServingEngine
@@ -112,9 +114,16 @@ def build_server(args):
     warm = engine.prepare()
     logger.info("warmed %d shapes over ladder %s x batch sizes %s on %s",
                 len(warm), list(engine.ladder), list(engine.batch_sizes), predictor.device)
+    # the Java extractor, built at first use, is built and loaded here so
+    # that no `source` request waits for g++
+    t0 = time.perf_counter()
+    load_library()
+    extractor_ms = (time.perf_counter() - t0) * 1e3
+    logger.info("Java extractor ready in %.1f ms", extractor_ms)
     retrieval = build_retrieval(args, predictor.device)
     batcher = MicroBatcher(engine, deadline_ms=args.deadline_ms, max_pending=args.max_pending)
-    return CodeServer(predictor, engine, batcher, retrieval=retrieval, version=args.model_path)
+    return CodeServer(predictor, engine, batcher, retrieval=retrieval, version=args.model_path,
+                      extractor_ms=extractor_ms)
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -5,21 +5,28 @@ serves::
 
     {"op": "predict", "contexts": [[start, path, end], ...], "top_k": 5,
      "method_name": "*", "include_vector": false}
-    {"op": "embed",   "contexts": [[start, path, end], ...]}
+    {"op": "predict", "source": "class A { int f(int x) { ... } }", "language": "java"}
+    {"op": "embed",   "contexts": [[start, path, end], ...]}   (or "source")
     {"op": "neighbors", "vector": [...], "top_k": 5}
-    {"op": "neighbors", "contexts": [[start, path, end], ...], "top_k": 5}
+    {"op": "neighbors", "contexts": [[start, path, end], ...], "top_k": 5}   (or "source")
     {"op": "health"}
     {"op": "shutdown"}
 
 Responses echo an optional ``"id"`` and carry ``"error"`` +
-``"error_kind"`` instead of results on failure. ``source`` requests get a
-``not_implemented`` error (extraction is not ported yet), as do
-``embed_file``, ``neighbors`` at ``granularity="file"``, ``reload`` and
-``rollback``. ``neighbors`` answers from the server's retrieval backend
+``"error_kind"`` instead of results on failure. A ``source`` request (Java)
+is extracted and mapped into the training vocab on the request thread, so
+the batcher only sees id arrays: one entry per matching method, a method
+whose every context is OOV getting an entry with an ``error`` and no device
+work, and the payload's ``extract_ms`` (extraction and mapping, host work)
+apart from each entry's device timing. A Python ``source`` (ROADMAP
+§A.6-Python), ``embed_file``, ``neighbors`` at ``granularity="file"``,
+``reload`` and ``rollback`` get a ``not_implemented`` error.
+``neighbors`` answers from the server's retrieval backend
 (``serve/retrieval.py``: exact or IVF-PQ): the ``vector`` form directly,
-the ``contexts`` form after embedding the bag through the batcher. Context triples
-are bounds-checked against the vocab tables BEFORE they reach a kernel: an
-out-of-range id is the client's mistake, never a device gather.
+the ``contexts`` and ``source`` forms after embedding through the batcher.
+Context triples are bounds-checked against the vocab tables BEFORE they
+reach a kernel: an out-of-range id is the client's mistake, never a device
+gather.
 
 :func:`serve_stdio` is the JSONL transport: responses in request order,
 and because requests are submitted as they are read while responses are
@@ -32,6 +39,7 @@ import json
 import logging
 import queue
 import threading
+import time
 from typing import Callable
 
 import numpy as np
@@ -70,12 +78,13 @@ class CodeServer:
     """The serving facade over one predictor, engine and micro-batcher."""
 
     def __init__(self, predictor, engine, batcher, *, retrieval=None,
-                 version: str = "v0") -> None:
+                 version: str = "v0", extractor_ms: float | None = None) -> None:
         self.predictor = predictor
         self.engine = engine
         self.batcher = batcher
         self.retrieval = retrieval  # the neighbors backend, or None
         self.version = version
+        self.extractor_ms = extractor_ms  # the warmup's build and load of the extractor
         self._shutdown = threading.Event()
 
     @property
@@ -152,6 +161,7 @@ class CodeServer:
             "batch_sizes": list(engine.batch_sizes),
             "executables": engine.executables(),
             "post_warmup_compiles": engine.post_warmup_compiles,
+            "extractor_ms": self.extractor_ms,
             "table_dtype": engine.table_dtype,
             "kernel_route": config.pallas_impl if config.use_pallas else "plain",
             "kernel_launches": launch_counts(),
@@ -160,52 +170,80 @@ class CodeServer:
 
     def _submit_methods(self, request: dict, op: str) -> Callable[[], dict]:
         predictor, engine = self.predictor, self.engine
+        source = request.get("source")
         contexts_field = request.get("contexts")
-        if contexts_field is None:
-            if request.get("source") is not None:
-                raise NotImplementedError(
-                    "source extraction is not ported yet; send pre-mapped 'contexts'"
-                )
-            raise ValueError(f"{op!r} needs a 'contexts' list of [start, path, end] id triples")
+        if contexts_field is None and (not isinstance(source, str) or not source.strip()):
+            raise ValueError(f"{op!r} needs a non-empty 'source' string or a 'contexts' list "
+                             "of [start, path, end] id triples")
         if op == "predict" and not predictor.meta.get("infer_method_name", True):
             raise ValueError(
                 "this checkpoint was trained for the variable-name task only; "
-                "'predict' is unavailable (embed still works)"
+                "'predict' is unavailable (embed and neighbors still work)"
             )
         method_name = request.get("method_name", "*")
         top_k = int(request.get("top_k", 5))
         include_vector = bool(request.get("include_vector", op == "embed"))
-        mapped = validate_context_rows(
-            contexts_field, int(predictor.meta["terminal_count"]),
-            int(predictor.meta["path_count"]),
-        )
-        # over-long bags: the offline Predictor's seeded subsample rule
-        mapped = subsample(mapped, engine.max_width)
-        label = method_name if isinstance(method_name, str) and method_name != "*" else "<contexts>"
-        future = self.batcher.submit(np.asarray(mapped, np.int32).reshape(-1, 3))
+        # (label, n_oov, future or None, n_contexts): over-long bags take the
+        # offline Predictor's seeded subsample
+        submitted = []
+        extract_ms = None
+        if contexts_field is not None:
+            mapped = validate_context_rows(
+                contexts_field, int(predictor.meta["terminal_count"]),
+                int(predictor.meta["path_count"]),
+            )
+            mapped = subsample(mapped, engine.max_width)
+            label = (method_name if isinstance(method_name, str) and method_name != "*"
+                     else "<contexts>")
+            submitted.append((label, 0, self.batcher.submit(
+                np.asarray(mapped, np.int32).reshape(-1, 3)), len(mapped)))
+        else:
+            language = request.get("language", "java")
+            if language == "python":
+                from code2vec_tpu_torch.extractor import PYTHON_NOT_PORTED
+
+                raise NotImplementedError(PYTHON_NOT_PORTED)
+            t0 = time.perf_counter()
+            methods = []
+            for label, contexts, _ in predictor._extract(source, method_name, language):
+                mapped, n_oov = predictor._map_contexts(contexts)
+                methods.append((label, subsample(mapped, engine.max_width), n_oov))
+            extract_ms = (time.perf_counter() - t0) * 1e3
+            for label, mapped, n_oov in methods:
+                future = (self.batcher.submit(np.asarray(mapped, np.int32).reshape(-1, 3))
+                          if mapped else None)
+                submitted.append((label, n_oov, future, len(mapped)))
         label_vocab = predictor.label_vocab
 
         def resolve() -> dict:
-            result = future.result()
-            entry: dict = {"method_name": label, "n_contexts": len(mapped), "n_oov": 0}
-            if op == "predict":
-                entry["predictions"] = [
-                    {"name": label_vocab.itos[i], "prob": prob}
-                    for i, prob in softmax_top_k(result.logits, len(label_vocab), top_k)
-                ]
-            if include_vector:
-                entry["code_vector"] = [float(v) for v in result.code_vector]
-            entry["timing"] = {
-                "queue_wait_ms": result.queue_wait_ms,
-                "device_ms": result.device_ms,
-                "coalesced": result.coalesced,
-                "batch": result.batch,
-                "width": result.width,
-            }
-            return {"ok": True, "methods": [entry]}
+            entries = []
+            for label, n_oov, future, n_contexts in submitted:
+                entry: dict = {"method_name": label, "n_contexts": n_contexts, "n_oov": n_oov}
+                entries.append(entry)
+                if future is None:
+                    entry["error"] = "every context is OOV against the training vocab"
+                    continue
+                result = future.result()
+                if op == "predict":
+                    entry["predictions"] = [
+                        {"name": label_vocab.itos[i], "prob": prob}
+                        for i, prob in softmax_top_k(result.logits, len(label_vocab), top_k)
+                    ]
+                if include_vector:
+                    entry["code_vector"] = [float(v) for v in result.code_vector]
+                entry["timing"] = {
+                    "queue_wait_ms": result.queue_wait_ms,
+                    "device_ms": result.device_ms,
+                    "coalesced": result.coalesced,
+                    "batch": result.batch,
+                    "width": result.width,
+                }
+            payload = {"ok": True, "methods": entries}
+            if extract_ms is not None:
+                payload["extract_ms"] = extract_ms
+            return payload
 
         return resolve
-
 
     def _submit_neighbors(self, request: dict) -> Callable[[], dict]:
         retrieval = self.retrieval

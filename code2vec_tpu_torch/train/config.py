@@ -41,7 +41,9 @@ class TrainConfig:
     angular_margin: float = 0.5
     inverse_temp: float = 30.0
 
-    # tasks (main.py:77-79)
+    # tasks (main.py:77-79): the method name, the variable names (one example
+    # per @var_* alias), or both; shuffle_variable_indexes permutes the other
+    # @var_* ids of a variable example every epoch
     infer_method_name: bool = True
     infer_variable_name: bool = False
     shuffle_variable_indexes: bool = False
@@ -153,16 +155,14 @@ class TrainConfig:
             "async_checkpoint": self.async_checkpoint,
             "checkpoint_every_steps": self.checkpoint_every_steps,
             "fault_plan": self.fault_plan,
-            "the variable-name task": self.infer_variable_name or self.shuffle_variable_indexes,
         }
         asked = [name for name, on in unported.items() if on]
         if asked:
             raise NotImplementedError(
                 f"not ported to code2vec_tpu_torch yet (ROADMAP §A.2): {', '.join(asked)}"
             )
-        if not self.infer_method_name:
-            raise ValueError("the method-name task is the only task: infer_method_name "
-                             "must stay on")
+        if not (self.infer_method_name or self.infer_variable_name):
+            raise ValueError("no task: turn on infer_method_name, infer_variable_name or both")
         if training and self.table_dtype != "f32":
             raise ValueError(
                 f"table_dtype={self.table_dtype!r} is not trainable: quantized tables serve "

@@ -2,8 +2,9 @@
 batches sampled there, chunks of steps enqueued back to back.
 
 Counterpart of ``code2vec_tpu/train/device_epoch.py`` for one device and
-the method-name task: ``StagedCorpus`` and the staging (``:57-163``,
-``:266-282``), the sampler ``_sample_batch`` (``:565-616``), the double
+both tasks: ``StagedCorpus`` and the staging of method and variable rows
+(``:57-282``), the sampler ``_sample_batch`` with its variable remap
+(``:565-616``), the double
 buffer of ``_scan_train_chunk`` / ``_scan_eval_chunk`` (``:619-680``),
 ``EpochRunner`` (``:683-908``) and the bucketed staging and runner
 (``:912-1001``, ``:1051-1139``).
@@ -30,11 +31,13 @@ Each step is the port's own ``train_step`` / ``eval_step``, so every
 kernel route, compute dtype and table update works unchanged: the sampled
 batch has the keys and dtypes of ``train/step.to_device``. The numpy
 generator draws the staging shuffles and each epoch's method order in the
-JAX module's order; the shifts come from an explicit ``torch.Generator``
-on the corpus's device (its stream differs from JAX's keys, as dropout's
-does). Not ported: the variable task's staging (``stage_variable_corpus``,
-``concat_staged``), the sharded runners, and CUDA-graph capture of a chunk
-(ROADMAP).
+JAX module's order; the shifts (and, for the variable task's
+``shuffle_variable_ids``, each batch's ``[B, V]`` uniform draw) come from an
+explicit ``torch.Generator`` on the corpus's device (its stream differs
+from JAX's keys, as dropout's does). The remap permutes the ``@var_*`` ids
+once per variable row of a batch, where the host path permutes them once
+per method; the marginal distribution is the same (JAX ``:577-579``). Not
+ported: the sharded runners and CUDA-graph capture of a chunk (ROADMAP).
 """
 
 from __future__ import annotations
@@ -59,14 +62,19 @@ class StagedCorpus:
     """A split staged as CSR: method ``i`` owns ``contexts[row_splits[i]:
     row_splits[i + 1]]``. On the card the arrays are int32 tensors; a host
     staging (``device="host"``) keeps numpy arrays with int64 splits.
-    ``counts`` is the host's copy of each method's context count, which the
-    pad and speed accounting read without a device sync."""
+    ``counts`` is the host's copy of each row's context count, which the
+    pad and speed accounting read without a device sync. A row is a method
+    (method task) or one ``@var_*`` alias of a method (variable task);
+    ``remap_ids`` (the sorted ``@var_*`` ids) and ``remap_flags`` (1 on a
+    variable row) are set when the corpus holds variable rows."""
 
     contexts: torch.Tensor | np.ndarray  # int32 [total, 3]: (start, path, end), @question applied
     row_splits: torch.Tensor | np.ndarray  # int32 [n_items + 1] (int64 on the host)
     labels: torch.Tensor | np.ndarray  # int32 [n_items]
     n_items: int
     counts: np.ndarray  # int64 [n_items]
+    remap_ids: torch.Tensor | np.ndarray | None = None  # int32 [V]
+    remap_flags: torch.Tensor | np.ndarray | None = None  # int32 [n_items]
 
     @property
     def n_contexts(self) -> int:
@@ -74,7 +82,8 @@ class StagedCorpus:
 
     @property
     def nbytes(self) -> int:
-        return int(self.contexts.nbytes + self.row_splits.nbytes + self.labels.nbytes)
+        extra = sum(int(x.nbytes) for x in (self.remap_ids, self.remap_flags) if x is not None)
+        return int(self.contexts.nbytes + self.row_splits.nbytes + self.labels.nbytes) + extra
 
 
 def _check_device_total(total: int) -> None:
@@ -125,6 +134,60 @@ def stage_method_corpus(data, item_idx: np.ndarray, rng: np.random.Generator,
     return staged if device == "host" else place_staged(staged, device)
 
 
+def stage_variable_corpus(data, item_idx: np.ndarray, rng: np.random.Generator,
+                          device: str | torch.device = "host") -> StagedCorpus:
+    """Stage the variable task: one row per ``@var_*`` alias of each item,
+    the contexts touching that alias with the alias renamed to
+    ``@question``, each row shuffled once (one ``rng.permutation`` a row,
+    an alias no context touches included: its row is empty). The remap of
+    the other variables redraws every epoch, so it is left to the sampler:
+    the staging carries ``remap_ids`` and ``remap_flags``."""
+    from code2vec_tpu_torch.data.pipeline import variable_items
+
+    label_stoi = data.label_vocab.stoi
+    parts: list[np.ndarray] = []
+    counts: list[int] = []
+    labels: list[int] = []
+    for i, alias_names, alias_idx, s, p, e in variable_items(data, item_idx):
+        alias_map = data.aliases[i]
+        for alias_name, var_idx in zip(alias_names, alias_idx):
+            mine = (s == var_idx) | (e == var_idx)
+            row = np.stack([np.where(s[mine] == var_idx, QUESTION_TOKEN_INDEX, s[mine]),
+                            p[mine],
+                            np.where(e[mine] == var_idx, QUESTION_TOKEN_INDEX, e[mine])],
+                           axis=1).astype(np.int32)
+            parts.append(row[rng.permutation(len(row))])
+            counts.append(len(row))
+            labels.append(label_stoi[alias_map[alias_name]])
+    contexts = np.concatenate(parts) if parts else np.zeros((0, 3), np.int32)
+    row_splits = np.zeros(len(counts) + 1, np.int64)
+    np.cumsum(counts, out=row_splits[1:])
+    staged = StagedCorpus(contexts=contexts, row_splits=row_splits,
+                          labels=np.asarray(labels, np.int32), n_items=len(labels),
+                          counts=np.asarray(counts, np.int64),
+                          remap_ids=data.variable_indexes.astype(np.int32),
+                          remap_flags=np.ones(len(labels), np.int32))
+    return staged if device == "host" else place_staged(staged, device)
+
+
+def concat_staged(a: StagedCorpus, b: StagedCorpus) -> StagedCorpus:
+    """Method rows then variable rows in one host staging (``build_epoch``'s
+    order); place it afterwards with :func:`place_staged`."""
+    a_rs, b_rs = np.asarray(a.row_splits, np.int64), np.asarray(b.row_splits, np.int64)
+
+    def flags(x: StagedCorpus) -> np.ndarray:
+        return (np.asarray(x.remap_flags) if x.remap_flags is not None
+                else np.zeros(x.n_items, np.int32))
+
+    return StagedCorpus(
+        contexts=np.concatenate([np.asarray(a.contexts), np.asarray(b.contexts)]),
+        row_splits=np.concatenate([a_rs, b_rs[1:] + int(a_rs[-1])]),
+        labels=np.concatenate([np.asarray(a.labels), np.asarray(b.labels)]),
+        n_items=a.n_items + b.n_items, counts=np.concatenate([a.counts, b.counts]),
+        remap_ids=a.remap_ids if a.remap_ids is not None else b.remap_ids,
+        remap_flags=np.concatenate([flags(a), flags(b)]))
+
+
 def place_staged(staged: StagedCorpus, device: str | torch.device) -> StagedCorpus:
     """A host staging on ``device``: one copy per array, int32 splits."""
     rs = np.asarray(staged.row_splits)
@@ -132,10 +195,11 @@ def place_staged(staged: StagedCorpus, device: str | torch.device) -> StagedCorp
     dev = torch.device(device)
 
     def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        return None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
     return StagedCorpus(contexts=put(staged.contexts), row_splits=put(rs.astype(np.int32)),
-                        labels=put(staged.labels), n_items=staged.n_items, counts=staged.counts)
+                        labels=put(staged.labels), n_items=staged.n_items, counts=staged.counts,
+                        remap_ids=put(staged.remap_ids), remap_flags=put(staged.remap_flags))
 
 
 @dataclass
@@ -180,6 +244,7 @@ def _bucket_host_partition(staged: StagedCorpus,
     subsamples them); empty buckets are dropped but for the top one."""
     rs = np.asarray(staged.row_splits).astype(np.int64)
     ctx, labels = np.asarray(staged.contexts), np.asarray(staged.labels)
+    flags = None if staged.remap_flags is None else np.asarray(staged.remap_flags)
     counts = np.diff(rs)
     bucket_of = assign_buckets(counts, ladder)
     out = []
@@ -190,9 +255,10 @@ def _bucket_host_partition(staged: StagedCorpus,
         flat, _, _ = flat_context_indices(rs, members)
         sub_splits = np.zeros(len(members) + 1, np.int64)
         np.cumsum(counts[members], out=sub_splits[1:])
-        out.append((width, StagedCorpus(contexts=ctx[flat], row_splits=sub_splits,
-                                        labels=labels[members], n_items=len(members),
-                                        counts=counts[members])))
+        out.append((width, StagedCorpus(
+            contexts=ctx[flat], row_splits=sub_splits, labels=labels[members],
+            n_items=len(members), counts=counts[members], remap_ids=staged.remap_ids,
+            remap_flags=None if flags is None else flags[members])))
     return out
 
 
@@ -214,13 +280,19 @@ def sampler_generator(seed: int, device: str | torch.device) -> torch.Generator:
 
 def sample_batch_from_shift(contexts: torch.Tensor, row_splits: torch.Tensor,
                             labels: torch.Tensor, rows: torch.Tensor, row_valid: torch.Tensor,
-                            bag: int, shift: torch.Tensor) -> dict[str, torch.Tensor]:
+                            bag: int, shift: torch.Tensor, remap_ids: torch.Tensor | None = None,
+                            remap_flags: torch.Tensor | None = None,
+                            remap_u: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
     """One ``[B, bag]`` batch of rows ``rows`` (int [B], may repeat for a
     masked tail; ``row_valid`` f32 [B] is the example mask): row ``i``
     takes contexts ``(shift[i] + j) % n_i`` for ``j < min(n_i, bag)`` and
-    PAD after. The value of JAX ``_sample_batch`` for the ``shift`` its key
-    draws; int32 ids and labels, f32 mask, as ``train/step.to_device``
-    gives the step."""
+    PAD after. With ``remap_u`` (f32 ``[B, V]``, a uniform draw) each row
+    flagged in ``remap_flags`` maps every ``@var_*`` id of ``remap_ids``
+    (sorted ``[V]``) to ``remap_ids[argsort(remap_u[i])]`` at its rank, the
+    per-epoch shuffle of the variable ids. The value of JAX
+    ``_sample_batch`` for the ``shift`` and ``remap_u`` its key draws;
+    int32 ids and labels, f32 mask, as ``train/step.to_device`` gives the
+    step."""
     rows = rows.long()
     off = row_splits[rows]
     n = row_splits[rows + 1] - off
@@ -229,23 +301,50 @@ def sample_batch_from_shift(contexts: torch.Tensor, row_splits: torch.Tensor,
     idx = (j + shift % n_safe) % n_safe
     valid = j < n.clamp(max=bag)[:, None]
     trip = contexts[torch.where(valid, off[:, None] + idx, 0)]  # [B, bag, 3]
+    starts = torch.where(valid, trip[..., 0], PAD_INDEX)
+    ends = torch.where(valid, trip[..., 2], PAD_INDEX)
+    if remap_u is not None:
+        n_var = remap_ids.shape[0]
+        mapped = remap_ids[torch.argsort(remap_u, dim=1, stable=True)]  # [B, V]
+        apply_row = (remap_flags[rows] > 0)[:, None]
+
+        def remap(t: torch.Tensor) -> torch.Tensor:
+            # searchsorted gives V past the largest id: clamp as JAX clips
+            pos = torch.searchsorted(remap_ids, t).clamp_(max=n_var - 1)
+            is_var = remap_ids[pos] == t
+            return torch.where(is_var & apply_row, torch.take_along_dim(mapped, pos, dim=1), t)
+
+        starts, ends = remap(starts), remap(ends)
     return {
-        "starts": torch.where(valid, trip[..., 0], PAD_INDEX),
+        "starts": starts,
         "paths": torch.where(valid, trip[..., 1], PAD_INDEX),
-        "ends": torch.where(valid, trip[..., 2], PAD_INDEX),
+        "ends": ends,
         "labels": labels[rows],
         "example_mask": row_valid,
     }
 
 
+def remaps(corpus: StagedCorpus, shuffle_variable_ids: bool) -> bool:
+    """Whether the sampler remaps ``corpus``'s variable rows (JAX
+    ``_remap_args``): asked for, and the corpus carries ``@var_*`` ids."""
+    return (shuffle_variable_ids and corpus.remap_ids is not None
+            and int(corpus.remap_ids.shape[0]) > 0)
+
+
 def sample_batch(corpus: StagedCorpus, rows: torch.Tensor, row_valid: torch.Tensor, bag: int,
-                 generator: torch.Generator) -> dict[str, torch.Tensor]:
-    """:func:`sample_batch_from_shift` with the shifts drawn from
-    ``generator`` on the corpus's device."""
-    shift = torch.randint(0, SHIFT_HIGH, (rows.shape[0], 1), generator=generator,
-                          device=corpus.contexts.device)
+                 generator: torch.Generator,
+                 shuffle_variable_ids: bool = False) -> dict[str, torch.Tensor]:
+    """:func:`sample_batch_from_shift` with the shifts, then (when the
+    corpus :func:`remaps`) the ``[B, V]`` uniform draw, from ``generator``
+    on the corpus's device."""
+    dev = corpus.contexts.device
+    shift = torch.randint(0, SHIFT_HIGH, (rows.shape[0], 1), generator=generator, device=dev)
+    if not remaps(corpus, shuffle_variable_ids):
+        return sample_batch_from_shift(corpus.contexts, corpus.row_splits, corpus.labels, rows,
+                                       row_valid, bag, shift)
+    u = torch.rand((rows.shape[0], corpus.remap_ids.shape[0]), generator=generator, device=dev)
     return sample_batch_from_shift(corpus.contexts, corpus.row_splits, corpus.labels, rows,
-                                   row_valid, bag, shift)
+                                   row_valid, bag, shift, corpus.remap_ids, corpus.remap_flags, u)
 
 
 class _SideSampler:
@@ -289,12 +388,14 @@ class EpochRunner:
     runner."""
 
     def __init__(self, class_weights: torch.Tensor, batch_size: int, bag: int,
-                 chunk_batches: int = 16, sample_prefetch: bool = False):
+                 chunk_batches: int = 16, sample_prefetch: bool = False,
+                 shuffle_variable_ids: bool = False):
         self.class_weights = class_weights
         self.batch_size = int(batch_size)
         self.bag = int(bag)
         self.chunk_batches = int(chunk_batches)
         self.sample_prefetch = bool(sample_prefetch)
+        self.shuffle_variable_ids = bool(shuffle_variable_ids)
 
     def _chunk_plan(self, n_rows: int) -> list[tuple[int, int, int]]:
         """``[(row_lo, n_batches, n_valid_rows)]`` over ``ceil(n / B)``
@@ -330,7 +431,7 @@ class EpochRunner:
 
         def sample(i):
             return sample_batch(corpus, rows[i * b:(i + 1) * b], valid[i * b:(i + 1) * b],
-                                self.bag, generator)
+                                self.bag, generator, self.shuffle_variable_ids)
 
         if not self.sample_prefetch:
             for i in range(nb):
@@ -417,10 +518,12 @@ class BucketedEpochRunner:
     order, the order of :meth:`BucketedStagedCorpus.host_labels`."""
 
     def __init__(self, class_weights: torch.Tensor, batch_size: int, ladder: tuple[int, ...],
-                 chunk_batches: int = 16, sample_prefetch: bool = False):
+                 chunk_batches: int = 16, sample_prefetch: bool = False,
+                 shuffle_variable_ids: bool = False):
         self.ladder = tuple(ladder)
         self._runners = {width: EpochRunner(class_weights, batch_size, width, chunk_batches,
-                                            sample_prefetch) for width in self.ladder}
+                                            sample_prefetch, shuffle_variable_ids)
+                         for width in self.ladder}
 
     def run_train_epoch(self, model, optimizer, corpus: BucketedStagedCorpus,
                         rng: np.random.Generator,

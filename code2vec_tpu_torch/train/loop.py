@@ -3,7 +3,7 @@
 Counterpart of ``code2vec_tpu/train/loop.py`` (``model_config_from`` and
 ``class_weights_from`` at ``:273-381``, the ladder of ``:610-745``, the
 host-pipeline epoch of ``train()`` at ``:1315-1761``) for the method-name
-task:
+and variable-name tasks, alone or together (method rows first):
 
 - the bag-width ladder, resolved once: with ``bucketed`` an explicit
   ``bucket_ladder`` or one derived from the corpus, and with
@@ -53,6 +53,7 @@ from code2vec_tpu_torch.data.pipeline import (
     derive_bucket_ladder,
     derive_longbag_ladder,
     make_batch_source,
+    oov_rate,
     pad_stats,
     parse_bucket_ladder,
     split_items,
@@ -67,9 +68,11 @@ from code2vec_tpu_torch.train.device_epoch import (
     EpochRunner,
     StagedCorpus,
     bucket_staged,
+    concat_staged,
     place_staged,
     sampler_generator,
     stage_method_corpus,
+    stage_variable_corpus,
 )
 from code2vec_tpu_torch.train.step import (
     StepTally,
@@ -149,7 +152,10 @@ def resolve_ladder(config, data) -> tuple[tuple[int, ...] | None, int]:
     ``bucket_ladder`` or one derived from the corpus's length histogram
     when ``bucketed``; with ``max_contexts == 0`` the long-bag rungs above
     ``max_path_length`` (multiples of ``pallas_chunk_l``) join it and the
-    cap rises to the top rung (JAX ``loop.py:617-690``)."""
+    cap rises to the top rung (JAX ``loop.py:617-690``). The histogram is
+    the methods' context counts even when the corpus trains the variable
+    task only, as in JAX (``:627-629``): a variable row's contexts are a
+    subset of its method's."""
     counts = np.diff(data.row_splits)
     ladder = None
     if config.bucketed:
@@ -207,6 +213,20 @@ class DeviceEpochs:
         return self.train.nbytes + self.test.nbytes
 
 
+def stage_host(data, item_idx, np_rng) -> StagedCorpus:
+    """A split's host staging: its method rows, then its variable rows, for
+    the tasks the corpus was loaded with (JAX ``loop.py:1017-1031``)."""
+    parts = []
+    if data.infer_method:
+        parts.append(stage_method_corpus(data, item_idx, np_rng))
+    if data.infer_variable:
+        parts.append(stage_variable_corpus(data, item_idx, np_rng))
+    staged = parts[0]
+    for part in parts[1:]:
+        staged = concat_staged(staged, part)
+    return staged
+
+
 def stage_device_epochs(config, data, train_idx, test_idx, np_rng, ladder, class_weights,
                         device) -> DeviceEpochs:
     """Stage the train then the test split (drawing ``np_rng`` in JAX
@@ -215,20 +235,21 @@ def stage_device_epochs(config, data, train_idx, test_idx, np_rng, ladder, class
     accounting is corpus-static: the sampler fills ``min(count, width)``
     slots a row every epoch (JAX ``:1096-1114``)."""
     t0 = time.perf_counter()
-    host_train = stage_method_corpus(data, train_idx, np_rng)
-    host_test = stage_method_corpus(data, test_idx, np_rng)
+    host_train = stage_host(data, train_idx, np_rng)
+    host_test = stage_host(data, test_idx, np_rng)
     b, chunk, prefetch = config.batch_size, config.device_chunk_batches, config.sample_prefetch
+    shuffle = config.shuffle_variable_indexes
     if ladder is not None:
         staged_train = bucket_staged(host_train, ladder, device)
         staged_test = bucket_staged(host_test, ladder, device)
         expected = staged_test.host_labels()
-        runner = BucketedEpochRunner(class_weights, b, ladder, chunk, prefetch)
+        runner = BucketedEpochRunner(class_weights, b, ladder, chunk, prefetch, shuffle)
     else:
         ladder = (config.max_path_length,)
         staged_train = place_staged(host_train, device)
         staged_test = place_staged(host_test, device)
         expected = host_test.labels
-        runner = EpochRunner(class_weights, b, config.max_path_length, chunk, prefetch)
+        runner = EpochRunner(class_weights, b, config.max_path_length, chunk, prefetch, shuffle)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     feed = DeviceEpochs(runner=runner, train=staged_train, test=staged_test, expected=expected,
@@ -262,21 +283,28 @@ def train(
     from code2vec_tpu_torch.predict import save_inference_meta, save_model_file
 
     config.validate()
-    if not data.infer_method or data.infer_variable:
+    # the tasks are fixed when the corpus is loaded: catch a mismatch (JAX loop.py:550-562)
+    if (config.infer_method_name != data.infer_method
+            or config.infer_variable_name != data.infer_variable):
         raise ValueError(
-            "the corpus was loaded with infer_method=%s, infer_variable=%s; the port "
-            "trains the method-name task only" % (data.infer_method, data.infer_variable)
+            "task flags disagree with the loaded corpus: config has "
+            f"infer_method_name={config.infer_method_name}, "
+            f"infer_variable_name={config.infer_variable_name} but the corpus was loaded "
+            f"with infer_method={data.infer_method}, infer_variable={data.infer_variable}; "
+            "pass matching flags to load_corpus"
         )
     dev = resolve_device(device)
     bucket_ladder, bag_width = resolve_ladder(config, data)
     np_rng = np.random.default_rng(config.random_seed)
     train_idx, test_idx = split_items(data.n_items, np_rng)
     logger.info("train items: %d, test items: %d", len(train_idx), len(test_idx))
-    # the share of real train contexts the epoch-build cap drops: the same
-    # every epoch (0 with max_contexts 0)
+    logger.info("OOV rate: %s",
+                oov_rate(data, train_idx, test_idx, exact=config.eval_method == "exact"))
+    # the share of real train contexts the epoch-build cap drops, from the
+    # method rows' geometry: the same every epoch (0 with max_contexts 0)
     truncated_ctx_fraction = (
         truncated_fraction_of_counts(np.diff(data.row_splits)[train_idx], bag_width)
-        if len(train_idx) else None)
+        if data.infer_method and len(train_idx) else None)
     model_config = model_config_from(config, data)
     class_weights = class_weights_from(config, data, dev)
     if out_dir is not None:
@@ -313,19 +341,18 @@ def train(
     batch_size = config.batch_size
     if feed is None:
         # the epochs are built at bag_width: the top rung in long-bag mode
-        train_source = make_batch_source(data, train_idx, batch_size, bag_width,
-                                         ladder=bucket_ladder,
-                                         stream_chunk_items=config.stream_chunk_items)
-        test_source = make_batch_source(data, test_idx, batch_size, bag_width,
-                                        ladder=bucket_ladder,
-                                        stream_chunk_items=config.stream_chunk_items)
+        source_kw = dict(ladder=bucket_ladder, stream_chunk_items=config.stream_chunk_items,
+                         shuffle_variable_indexes=config.shuffle_variable_indexes)
+        train_source = make_batch_source(data, train_idx, batch_size, bag_width, **source_kw)
+        test_source = make_batch_source(data, test_idx, batch_size, bag_width, **source_kw)
 
     def host_epoch(item_idx, epoch):
         # device epochs build no host arrays: the export and print_sample draw
         # a fresh subsample from a side generator seeded by (run seed, epoch),
         # so they cannot shift the main stream (JAX loop.py:1640-1661)
         return build_epoch(data, item_idx, bag_width,
-                           np.random.default_rng([config.random_seed, 0xE902, epoch]))
+                           np.random.default_rng([config.random_seed, 0xE902, epoch]),
+                           config.shuffle_variable_indexes)
 
     f1, epochs_completed = 0.0, 0
     for epoch in range(meta.epoch, config.max_epoch):

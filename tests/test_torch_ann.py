@@ -441,7 +441,7 @@ class TestNeighborsOp:
         ({"vector": [1.0] * 3}, "bad_request"),
         ({"vector": [1.0] * 16, "granularity": "class"}, "bad_request"),
         ({"contexts": [[1, 2, 3]], "granularity": "file"}, "not_implemented"),
-        ({"source": "class A { void f() {} }"}, "not_implemented"),
+        ({"source": "def f(a):\n    return a\n", "language": "python"}, "not_implemented"),
     ])
     def test_bad_and_unported_forms(self, backends, req, kind):
         _, srv = servers(*backends["exact"], dim=16)

@@ -29,7 +29,10 @@ CPU (untouched rows and moments bit for bit), its step under
 ``set_sync_debug_mode("error")`` and the profiler's op list of a step (no
 dense table gradient); device-resident epochs: the sampler on the card bit
 for bit the CPU sampler's for the same shifts, and ``sample_prefetch`` (a
-second stream) the same batches and generator state as without it.
+second stream) the same batches and generator state as without it;
+variable-task rows (one context, all PAD but still an example) through
+K1, K1b, masked K2 and masked K3, a variable train step on each kernel
+route, and the sampler's ``@var_*`` remap on the card bit for bit the CPU's.
 Tolerance rtol = atol = 1e-5 (the plain
 versions in f32 with TF32 off, the kernels' encode in 3xTF32 on the
 tensor cores); at top11 widths and one context the kernel's code vector is
@@ -1150,3 +1153,154 @@ def test_device_prefetch_on_the_card_samples_the_same_batches(dev, bag):
     for x, y in zip(a, b):
         for k in x:
             assert torch.equal(x[k], y[k]), k
+
+
+# ---------------------------------------------------------------------------
+# variable-name rows: short rows and all-PAD rows that are real examples
+# ---------------------------------------------------------------------------
+
+def variable_mask(dev, B, L, seed=0):
+    """A variable-task batch's shape of bag: rows 0 and B/2 all PAD (an
+    alias no context touches, still an example), a quarter of the rows one
+    context, the rest 2-40 contexts, PAD after."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.randint(2, min(40, L) + 1, (B,), generator=g, device=dev)
+    lens[: B // 4 + 1] = 1
+    lens[0] = lens[B // 2] = 0
+    return (torch.arange(L, device=dev)[None, :] < lens[:, None]).float()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,L", [(64, 8), (64, 200), (1024, 200)])
+def test_pool_and_backward_on_variable_rows(dev, B, L, dtype):
+    """K1 and K1b against the plain pool and its backward: an all-PAD row
+    pools uniformly (1/L a slot) and its d_ctx is w g_cv."""
+    from code2vec_tpu_torch.ops.attention import attention_pool, pool_backward_reference
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel, pool_backward_kernel
+
+    H = 100
+    g = torch.Generator(device=dev).manual_seed(B + L)
+    mask = variable_mask(dev, B, L, B + L)
+    ctx = torch.tanh(torch.randn(B, L, H, generator=g, device=dev)).to(dtype)
+    attn = (torch.randn(H, generator=g, device=dev) / H**0.5).to(dtype)
+    reset_launch_counts()
+    cv, w = attention_pool_kernel(ctx, mask, attn)
+    cv_ref, w_ref = attention_pool(ctx.float(), mask, attn.float())
+    torch.testing.assert_close(cv, cv_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w[0], torch.full((L,), 1.0 / L, device=dev), rtol=1e-6, atol=0)
+    g_cv = torch.randn(B, H, generator=g, device=dev)
+    d_ctx, d_attn = pool_backward_kernel(ctx, mask, attn, w_ref, cv_ref, g_cv, None)
+    bf16 = dtype == torch.bfloat16
+    assert launch_counts() == ({"pool_bf16": 1, "pool_bwd_bf16": 1} if bf16 else
+                               {"pool": 1, "pool_bwd": 1})
+    r_ctx, r_attn = pool_backward_reference(ctx, mask, attn, w_ref, g_cv, None)
+    torch.cuda.synchronize()
+    diff = (d_ctx.double() - r_ctx.double()).abs()
+    assert (diff <= 1e-5 + (bf16_ulp(r_ctx) if bf16 else 0.0)).all(), diff.max()
+    torch.testing.assert_close(d_attn, r_attn, rtol=1e-4,
+                               atol=1e-5 + 1e-6 * r_attn.abs().max().item())
+
+
+@pytest.mark.parametrize("B", [64, 1024])
+@pytest.mark.parametrize("impl", ["gather_split", "fused"])
+def test_masked_encode_pool_on_variable_rows(dev, impl, B):
+    """Masked K2 / K3 (the dropout keep mask, as training runs them) at
+    top11 widths on variable rows, against the plain version."""
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.fused_encode_pool import (
+        fused_encode_attend_pool,
+        kernel_name,
+        reference_forward,
+    )
+
+    L = 200
+    t, p, s, pa, e, _, params = ids_and_tables(dev, B, L, 100, 100, 100, seed=B)
+    mask = variable_mask(dev, B, L, B)
+    s, pa, e = (torch.where(mask > 0, x.clamp(min=1), 0).int() for x in (s, pa, e))
+    g = torch.Generator(device=dev).manual_seed(B + 1)
+    drop = torch.empty(B, L, 100, device=dev).bernoulli_(0.75, generator=g) / 0.75
+    args = (t, p, s, pa, e, mask, *params, drop)
+    reset_launch_counts()
+    cv, w = fused_encode_attend_pool(*args, impl=impl)
+    assert launch_counts() == {kernel_name(impl, "f32", "materialize", masked=True): 1}
+    cv_ref, w_ref = reference_forward(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(cv, cv_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w, w_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(w[B // 2], torch.full((L,), 1.0 / L, device=dev), rtol=1e-6,
+                               atol=0)
+
+
+@pytest.mark.parametrize("route", ["pool_only", "gather_split", "fused"])
+def test_variable_train_step_on_kernel_route_matches_plain(dev, route):
+    """One step (dropout 0) on a batch the device sampler draws from
+    staged variable rows, the remap on: the loss and every gradient on the
+    kernel route against the plain route's."""
+    import numpy as np
+
+    from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.train.device_epoch import StagedCorpus, sample_batch
+    from code2vec_tpu_torch.train.step import forward_backward
+
+    rng = np.random.default_rng(0)
+    lens = [0, 1, 1, 1, 3, 17, 0, 40, 250] + list(rng.integers(0, 30, 55))
+    splits = np.zeros(len(lens) + 1, np.int32)
+    np.cumsum(lens, out=splits[1:])
+    ctx = rng.integers(1, 157, (int(splits[-1]), 3)).astype(np.int32)
+    ctx[:, 0] = rng.integers(1, 301, len(ctx))
+    ctx[:, 2] = rng.integers(1, 301, len(ctx))
+    var_ids = np.arange(2, 14, dtype=np.int32)
+    corpus = StagedCorpus(*(torch.from_numpy(x).to(dev) for x in (
+        ctx, splits, rng.integers(0, 19, len(lens)).astype(np.int32))), len(lens),
+        np.asarray(lens, np.int64), torch.from_numpy(var_ids).to(dev),
+        torch.ones(len(lens), dtype=torch.int32, device=dev))
+    batch = sample_batch(corpus, torch.arange(len(lens), dtype=torch.int32, device=dev),
+                         torch.ones(len(lens), device=dev), 200,
+                         torch.Generator(device=dev).manual_seed(1), shuffle_variable_ids=True)
+    cfg = Code2VecConfig(terminal_count=301, path_count=157, label_count=19,
+                         terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                         dropout_prob=0.0)
+    base = Code2Vec(cfg).to(dev)
+    weights = torch.ones(19, device=dev)
+    grads = {}
+    for name, c in (("plain", cfg), (route, cfg.with_updates(use_pallas=True, pallas_impl=route))):
+        model = Code2Vec(c).to(dev)
+        model.load_state_dict(base.state_dict())
+        reset_launch_counts()
+        loss = forward_backward(model, batch, weights)
+        grads[name] = (loss, {k: p.grad.clone() for k, p in model.named_parameters()})
+        if name != "plain":
+            key = {"pool_only": "pool_bwd", "gather_split": "gather_split",
+                   "fused": "fused_f32"}[route]
+            assert launch_counts().get(key, 0) == 1, launch_counts()
+    torch.testing.assert_close(grads[route][0], grads["plain"][0], rtol=1e-4, atol=0)
+    for k, g in grads["plain"][1].items():
+        torch.testing.assert_close(grads[route][1][k], g, rtol=1e-3, atol=1e-5, msg=k)
+
+
+def test_device_remap_on_the_card_matches_the_cpu(dev):
+    """The sampler's remap (argsort, searchsorted, take_along_dim) on the
+    card bit for bit the CPU's, for the same shifts and uniform draw."""
+    import numpy as np
+
+    from code2vec_tpu_torch.train.device_epoch import sample_batch_from_shift
+
+    rng = np.random.default_rng(4)
+    lens = [0, 1, 5, 40, 300, 7]
+    splits = np.zeros(len(lens) + 1, np.int32)
+    np.cumsum(lens, out=splits[1:])
+    ctx = rng.integers(1, 40, (int(splits[-1]), 3)).astype(np.int32)
+    var_ids = torch.tensor([3, 5, 9, 20], dtype=torch.int32)
+    flags = torch.tensor([0, 1, 1, 0, 1, 1], dtype=torch.int32)
+    rows = torch.tensor([0, 1, 2, 3, 4, 5, 5, 0], dtype=torch.int32)
+    shift = torch.randint(0, 1 << 30, (8, 1), generator=torch.Generator().manual_seed(1))
+    u = torch.rand((8, 4), generator=torch.Generator().manual_seed(2))
+    args = (torch.from_numpy(ctx), torch.from_numpy(splits), torch.arange(6, dtype=torch.int32),
+            rows, torch.ones(8), 64, shift, var_ids, flags, u)
+    want = sample_batch_from_shift(*args)
+    got = sample_batch_from_shift(*(a.to(dev) if torch.is_tensor(a) else a for a in args))
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k

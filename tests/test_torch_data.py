@@ -124,11 +124,13 @@ def test_epoch_and_batches(tiny, batch_size, shuffle):
 
 
 def test_build_epoch_refuses_the_variable_task(tiny):
+    """The variable task is ported (tests/test_torch_variable.py); what
+    ``build_epoch`` refuses now is a corpus loaded with neither task."""
     from dataclasses import replace
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.build_epoch(replace(tiny["port"], infer_variable=True), np.arange(3), 10,
-                             np.random.default_rng(0))
+    with pytest.raises(ValueError, match="neither task"):
+        pipeline.build_epoch(replace(tiny["port"], infer_method=False, infer_variable=False),
+                             np.arange(3), 10, np.random.default_rng(0))
 
 
 @pytest.mark.parametrize("kw", [{"cache": True}, {"native": True}, {"shard": (0, 2)}])

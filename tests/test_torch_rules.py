@@ -4,7 +4,11 @@
   ``jax``, ``flax``, ``optax``, ``orbax`` or ``code2vec_tpu`` (AST scan).
 - Every port module imports in a fresh interpreter with those names
   blocked in ``sys.modules``.
-- Entry points not asked for the CPU raise when no GPU is visible.
+- Entry points not asked for the CPU raise when no GPU is visible: the
+  predictor, the server, the predict CLI and the extractor CLI.
+- The port's extractor builds from ``extractor/src`` alone and writes only
+  under ``build/code2vec_tpu_torch/`` (never ``extractor/build``, which the
+  JAX package's build uses, nor ``code2vec_tpu/_native``).
 """
 
 import ast
@@ -12,6 +16,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -122,3 +127,61 @@ def test_build_key_covers_every_source():
     names = {p.name for p in _build.CSRC.glob("*.cu*")}
     assert {"pool.cu", "pool.cuh", "fused_encode_pool.cu"} <= names
     assert _build.build_key() == _build.build_key()
+
+
+def test_predict_cli_without_device_raises(no_gpu, tmp_path):
+    from code2vec_tpu_torch.predict import main
+
+    java = tmp_path / "A.java"
+    java.write_text("class A { int f(int a) { return a; } }\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([str(java), "--model_path", str(tmp_path), "--terminal_idx_path", "t.txt",
+              "--path_idx_path", "p.txt"])
+
+
+def test_extractor_cli_without_device_raises(no_gpu, tmp_path):
+    from code2vec_tpu_torch import extractor
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extractor.main([str(tmp_path), str(tmp_path)])
+    (tmp_path / "methods.txt").write_text("")
+    assert extractor.main([str(tmp_path), str(tmp_path), "--no_cuda"]) == 0
+
+
+def test_extractor_reads_its_sources_and_writes_its_build_dir_only(monkeypatch, tmp_path):
+    """A real build into a scratch build root, every compiler command
+    recorded: sources from ``extractor/src`` only, outputs under the build
+    root only, and nothing of the JAX package's extractor build."""
+    import subprocess as sp
+
+    from code2vec_tpu_torch import extractor
+
+    text = (PORT / "extractor.py").read_text(encoding="utf-8")
+    for banned in ("_native", "cmake", "extractor/build", '"extractor" / "build"'):
+        assert banned not in text, banned
+    calls = []
+
+    def recorded(fn):
+        def call(cmd, *a, **kw):
+            calls.append(list(cmd))
+            return fn(cmd, *a, **kw)
+        return call
+
+    monkeypatch.setattr(extractor, "subprocess", SimpleNamespace(
+        Popen=recorded(sp.Popen), run=recorded(sp.run), PIPE=sp.PIPE))
+    monkeypatch.setattr(extractor, "BUILD_ROOT", tmp_path / "build" / "code2vec_tpu_torch")
+    out = extractor.build_extractor()
+    assert out.parent == tmp_path / "build" / "code2vec_tpu_torch"
+    src = REPO / "extractor" / "src"
+    assert extractor.SOURCE_DIR == src
+    assert len(calls) == 7  # five objects, then the program and the library
+    for cmd in calls:
+        written = Path(cmd[cmd.index("-o") + 1])
+        assert written.is_relative_to(tmp_path / "build" / "code2vec_tpu_torch"), cmd
+        for arg in cmd[1:]:
+            if arg.endswith((".cc", ".h")):
+                assert Path(arg).parent == src, cmd
+        if "-I" in cmd:
+            assert Path(cmd[cmd.index("-I") + 1]) == src
+    assert sorted(p.name for p in (tmp_path / "build").rglob("*") if p.is_file()) == \
+        ["c2v-extract", "libc2v.so"]

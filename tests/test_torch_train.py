@@ -324,7 +324,7 @@ UNPORTED = [
     {"stream_chunk_items": 8}, {"feed_workers": 2},
     {"prefetch_batches": 2}, {"data_axis": 2}, {"model_axis": 2},
     {"pallas_impl": "auto"}, {"async_checkpoint": True}, {"checkpoint_every_steps": 5},
-    {"fault_plan": "train_step@1:raise"}, {"infer_variable_name": True},
+    {"fault_plan": "train_step@1:raise"},
 ]
 
 
