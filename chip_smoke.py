@@ -179,13 +179,38 @@ the final result line is not printed):
    (the train differential's tolerances); per route a device chunk (the
    remap on) against the host step and a warm chunk under
    ``torch.cuda.set_sync_debug_mode("error")``;
-14. a line with the launch floor and the ``neighbors`` split, the card's
+14. python_source (run after extract, before train_variable) — (a) a mixed
+   Java + Python dataset extracted by the port's extractor CLI with the
+   repo root as the source dir: the rows of ``examples/java`` and
+   ``examples/python`` and one ``<file>\t*`` row for each
+   ``code2vec_tpu/**/*.py`` (the frozen JAX package, read as text and never
+   imported): its functions, labels, contexts, vocab counts,
+   ``truncated_context_fraction`` at bag 200, the extraction's seconds and
+   each Python file's extraction ms by its size; (b) a method model at
+   top11's widths (embed 100/100, encode 100, bag 200, dropout 0.25; the
+   corpus's own vocab and labels; batch 64) trained 5 epochs on fused
+   (masked K3) and on pool_only (K1 + K1b): steps/s, loss, F1, each kernel
+   once a batch; (c) ``examples/python/src/util/math_utils.py`` predicted
+   and embedded as a file through K3 against the plain versions on the CPU;
+   (d) a server with the long-bag rungs 512/1024/2048: every Python function
+   as a ``source`` request (``language: "python"``) for predict and embed,
+   and every Python file as ``embed_file``, one at a time: p50/p99 of each,
+   ``extract_ms`` by file size, the launches (K3, and K4 for the functions
+   at the long-bag rungs; longer ones subsampled as the engine does), each
+   embedding against the model run plain on the card; (e) ``code.vec`` of
+   those embeddings, ``file.vec`` from ``export_file_vectors`` (each row
+   equal to the served ``embed_file`` vector), its IVF-PQ index from the
+   port's ``tools/ann_build.py``, and every file's ``neighbors`` at
+   ``granularity="file"``: on the exact backend the file itself first
+   (similarity within 1e-4 of 1), on ``--retrieval_backend ann`` in the top
+   5, K5 launched for every request;
+15. a line with the launch floor and the ``neighbors`` split, the card's
    name and power limit, the line ``{"kernels": [...]}`` (per kernel:
    route, source, the TPU kernel it replaces, launches on its serve or
    train route (the masked K4's on the long-bag runs) plus those of the
-   train_device phase's runs of the four routes and of every
-   train_variable run, max error, times at the headline shape and the
-   bound), then, last, the result line.
+   train_device phase's runs of the four routes, of every train_variable
+   run and of the python_source phase, max error, times at the headline
+   shape and the bound), then, last, the result line.
 
 With ``--json_out`` the per-shape kernel records and serving numbers are
 also written to that file.
@@ -2597,6 +2622,363 @@ def phase_train_variable(torch, smi, dev, share) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: Python sources, a mixed Java + Python corpus, whole-file vectors
+# ---------------------------------------------------------------------------
+
+PY_EXAMPLES = ROOT / "examples" / "python"
+# the JAX package's own sources, read as text and never imported: the package
+# is frozen, so this corpus of real Python is fixed
+PY_PACKAGE = ROOT / "code2vec_tpu"
+PY_TRAIN = dict(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                max_path_length=BAG, batch_size=64, dropout_prob=0.25, max_epoch=5,
+                random_seed=0, print_sample_cycle=0)
+PY_ROUTES = ("fused", "pool_only")
+PY_TOP_K = 5
+
+
+def python_corpus_rows() -> list[tuple[str, str]]:
+    """``methods.txt`` rows, relative to the repo root: the Java and the
+    Python examples' own rows, then one ``<file>\t*`` row for each
+    ``code2vec_tpu/**/*.py``."""
+    from code2vec_tpu_torch.extractor import read_method_rows
+
+    rows = []
+    for example in (EXAMPLES, PY_EXAMPLES):
+        prefix = example.relative_to(ROOT).as_posix()
+        rows += [(f"{prefix}/{src}", name) for src, name in read_method_rows(example / "dataset")]
+    return rows + [(p.relative_to(ROOT).as_posix(), "*") for p in sorted(PY_PACKAGE.rglob("*.py"))]
+
+
+def size_table(files: dict, key: str) -> dict:
+    """``key`` (ms a file) by file size: count, p50 and max under 10 KB,
+    10-90 KB and above."""
+    out = {}
+    for name, lo, hi in (("<10KB", 0, 10_000), ("10-90KB", 10_000, 90_000),
+                         (">90KB", 90_000, math.inf)):
+        xs = [f[key] for f in files.values() if lo <= f["bytes"] < hi and f.get(key) is not None]
+        out[name] = ({"files": len(xs), "p50_ms": float(np.percentile(xs, 50)),
+                      "max_ms": float(np.max(xs))} if xs else {"files": 0})
+    return out
+
+
+def phase_python_source(torch, smi, dev, tmp: Path, serve: dict | None) -> dict:
+    """(a) the mixed Java + Python corpus extracted by the port's CLI (the
+    examples' rows and every file of the JAX package); (b) a method model at
+    top11's widths trained on it on fused (masked K3) and pool_only (K1 +
+    K1b), each kernel once a batch; (c) ``math_utils.py`` predicted and
+    embedded as a file through K3 against the plain versions on the CPU;
+    (d) every Python function served one at a time as a ``source`` request
+    (predict and embed; K3, and K4 at the long-bag rungs) and every Python
+    file as ``embed_file``, the embeddings against the model run plain on
+    the card; (e) ``code.vec`` of those embeddings, ``file.vec`` from
+    ``export_file_vectors``, its index from the port's ``ann_build``, and
+    every file's ``neighbors`` at ``granularity="file"`` on the exact
+    backend (itself first, similarity within 1e-4 of 1) and on IVF-PQ
+    (itself in the top k, K5 launched)."""
+    from code2vec_tpu_torch import extractor
+    from code2vec_tpu_torch.data.pipeline import nearest_bucket_width, truncated_fraction_of_counts
+    from code2vec_tpu_torch.data.reader import load_corpus
+    from code2vec_tpu_torch.export import export_file_vectors
+    from code2vec_tpu_torch.formats.params_io import read_params
+    from code2vec_tpu_torch.formats.vectors_io import (
+        append_code_vectors,
+        read_code_vectors,
+        write_code_vectors_header,
+    )
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.models.hierarchical import pool_vectors
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.predict import Predictor, subsample
+    from code2vec_tpu_torch.pyextract import extract_python_source
+    from code2vec_tpu_torch.serve.__main__ import build_parser, build_server
+    from code2vec_tpu_torch.tools import ann_build
+    from code2vec_tpu_torch.train.config import TrainConfig
+
+    out = {}
+    # (a) extract
+    rows = python_corpus_rows()
+    ds = tmp / "py_dataset"
+    ds.mkdir()
+    (ds / "methods.txt").write_text("".join(f"{src}\t{name}\n" for src, name in rows))
+    t0 = time.perf_counter()
+    if extractor.main([str(ds), str(ROOT)]) != 0:
+        raise AssertionError("the mixed extraction failed")
+    extract_seconds = time.perf_counter() - t0
+    params = read_params(ds / "params.txt")
+    data = load_corpus(ds / "corpus.txt", ds / "path_idxs.txt", ds / "terminal_idxs.txt")
+    counts = np.diff(data.row_splits)
+    actual = [line.split("\t") for line in (ds / "actual_methods.txt").read_text().splitlines()]
+    by_file: dict[str, list[str]] = {}
+    for src, label, _, _ in actual:
+        by_file.setdefault(src, []).append(label)
+    py_files = sorted(f for f in {src for src, _ in rows} if f.endswith(".py"))
+    geo = out["geometry"] = {
+        "rows": len(rows), "files": len({src for src, _ in rows}), "python_files": len(py_files),
+        "functions": data.n_items,
+        "java_methods": sum(src.endswith(".java") for src, *_ in actual),
+        "python_functions": sum(src.endswith(".py") for src, *_ in actual),
+        "labels": len(data.label_vocab),
+        "method_name_vocab_count": int(params["method_name_vocab_count"]),
+        "terminals": int(params["terminal_vocab_count"]),
+        "paths": int(params["path_vocab_count"]), "contexts": int(counts.sum()),
+        "mean_contexts": float(counts.mean()), "max_contexts": int(counts.max()),
+        "share_over_200": float((counts > BAG).mean()),
+        "share_over_2048": float((counts > LONGBAG_RUNGS[-1]).mean()),
+        "truncated_context_fraction": truncated_fraction_of_counts(counts, BAG),
+        "extract_seconds": extract_seconds,
+    }
+    files = {}
+    for rel in py_files:
+        text = (ROOT / rel).read_text()
+        t0 = time.perf_counter()
+        methods = extract_python_source(text)
+        files[rel] = {"bytes": len(text.encode()), "functions": len(methods),
+                      "contexts": sum(len(m.contexts) for m in methods),
+                      "extract_ms": (time.perf_counter() - t0) * 1e3}
+    out["extract_by_size"] = size_table(files, "extract_ms")
+    print(f"python_source corpus: {geo['rows']} rows ({geo['python_files']} Python files), "
+          f"{geo['functions']} methods ({geo['java_methods']} Java + {geo['python_functions']} "
+          f"Python), {geo['labels']} labels ({geo['method_name_vocab_count']} distinct names), "
+          f"{geo['terminals']} terminals, {geo['paths']} paths, {geo['contexts']} contexts (mean "
+          f"{geo['mean_contexts']:.1f}, max {geo['max_contexts']}; {geo['share_over_200']:.4f} "
+          f"over {BAG}, {geo['share_over_2048']:.4f} over {LONGBAG_RUNGS[-1]}), "
+          f"truncated_context_fraction {geo['truncated_context_fraction']:.4f} at bag {BAG}; "
+          f"extracted in {extract_seconds:.2f} s (host)", flush=True)
+    print("python_source extraction ms by file, (bytes, ms) from the smallest: "
+          + " ".join(f"({f['bytes']}, {f['extract_ms']:.1f})"
+                     for f in sorted(files.values(), key=lambda f: f["bytes"])), flush=True)
+    biggest = max(files, key=lambda f: files[f]["bytes"])
+    print(f"python_source extraction a file (extract_python_source, host): "
+          f"{json.dumps(out['extract_by_size'])}; the largest, {biggest} "
+          f"({files[biggest]['bytes']} bytes), {files[biggest]['extract_ms']:.1f} ms", flush=True)
+
+    # (b) train at top11's widths on fused and pool_only
+    config = TrainConfig(**PY_TRAIN)
+    n_train, n_test = split_batches(data, config, (BAG,), BAG)
+    model_dir = tmp / "py_model"
+    out["train"] = {}
+    for route in PY_ROUTES:
+        keys = DEVICE_ROUTES[route]
+        run = train_route(torch, smi, dev, data, config.with_updates(**kernel_route(route)),
+                          f"python {route}", tuple(keys),
+                          str(model_dir) if route == "fused" else None)
+        device_launches(f"python {route}", run, keys, n_train, n_test, config.max_epoch)
+        out["train"][route] = run
+        print(f"train python {route}: every kernel of {sorted(keys)} once a batch "
+              f"({int(n_train.sum())} train / {int(n_test.sum())} test batches an epoch, "
+              f"{config.max_epoch} epochs)", flush=True)
+    vocab = (str(ds / "terminal_idxs.txt"), str(ds / "path_idxs.txt"))
+
+    # (c) predict math_utils.py through K3 against the plain versions on the CPU
+    source = (PY_EXAMPLES / "src" / "util" / "math_utils.py").read_text()
+    pred = Predictor(str(model_dir), *vocab, pallas_impl="fused")
+    plain = Predictor(str(model_dir), *vocab, device="cpu")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = pred.predict_source(source, language="python", top_k=3)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    vec, names = pred.embed_file(source, language="python")
+    counts_c = launch_counts()
+    want = plain.predict_source(source, language="python", top_k=3)
+    want_vec, want_names = plain.embed_file(source, language="python")
+    if not got or len(got) != len(want) or \
+            counts_c.get("fused_f32", 0) != len(got) + len(names):
+        raise AssertionError(f"python predict: {len(got)} predictions, {counts_c}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        if (g.method_name, g.n_contexts, g.n_oov) != (w.method_name, w.n_contexts, w.n_oov) \
+                or not top1_agrees(g, w):
+            raise AssertionError(f"python predict: {g} vs the plain {w}")
+        if not (np.allclose(g.code_vector, w.code_vector, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+                and np.allclose([p.prob for p in g.predictions], [p.prob for p in w.predictions],
+                                rtol=SERVE_RTOL, atol=SERVE_ATOL)):
+            raise AssertionError(f"python predict {g.method_name}: off the plain version")
+        worst = max(worst, float(np.abs(g.code_vector - w.code_vector).max()))
+    if names != want_names or not np.allclose(vec, want_vec, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+        raise AssertionError("python embed_file: off the plain version")
+    worst = max(worst, float(np.abs(vec - want_vec).max()))
+    out["predict"] = {"predictions": len(got), "wall_ms": wall_ms, "launches": counts_c,
+                      "max_abs_err": worst}
+    print(f"python predict_source(math_utils.py) through K3: {len(got)} functions in "
+          f"{wall_ms:.1f} ms host wall (extraction included), embed_file pooled {len(names)}; "
+          f"launches {counts_c}; max |cv - plain on the CPU| {worst:.3e} [{smi}]", flush=True)
+    for g in got:
+        print(f"  {g.method_name}: {g.n_contexts} contexts -> "
+              + ", ".join(f"{p.name} {p.prob:.3f}" for p in g.predictions), flush=True)
+
+    # (d) serve every Python function and file, one request at a time
+    common = ["--model_path", str(model_dir), "--terminal_idx_path", vocab[0],
+              "--path_idx_path", vocab[1], "--longbag_widths",
+              ",".join(map(str, LONGBAG_RUNGS))]
+    server = build_server(build_parser().parse_args(common))
+    texts = {rel: (ROOT / rel).read_text() for rel in py_files}
+    lat = {"predict": [], "embed": [], "embed_file": []}
+    method_vectors, method_files, method_names = [], [], []
+    served = []  # (file, name, entries) of the embed requests
+    try:
+        reset_launch_counts()
+        for rel in py_files:
+            ms_file = []
+            for name in dict.fromkeys(by_file.get(rel, [])):
+                for op in ("predict", "embed"):
+                    t0 = time.perf_counter()
+                    resp = server.handle({"op": op, "source": texts[rel], "language": "python",
+                                          "method_name": name, "top_k": 3})
+                    lat[op].append((time.perf_counter() - t0) * 1e3)
+                    if not resp.get("ok") or not resp["methods"] or \
+                            any("error" in e for e in resp["methods"]):
+                        raise AssertionError(f"serve {op} {rel}:{name}: {resp}")
+                    ms_file.append(resp["extract_ms"])
+                    if op == "embed":
+                        served.append((rel, name, resp["methods"]))
+            t0 = time.perf_counter()
+            resp = server.handle({"op": "embed_file", "source": texts[rel], "language": "python"})
+            ms = (time.perf_counter() - t0) * 1e3
+            n_methods = len(by_file.get(rel, []))
+            if n_methods == 0:
+                if resp.get("error_kind") != "bad_request":
+                    raise AssertionError(f"embed_file {rel} (no function): {resp}")
+                continue
+            if not resp.get("ok") or resp["n_methods"] != n_methods:
+                raise AssertionError(f"embed_file {rel}: {n_methods} functions, {resp}")
+            lat["embed_file"].append(ms)
+            files[rel].update(embed_file_ms=ms, embed_file_extract_ms=resp["extract_ms"],
+                              file_vector=resp["file_vector"],
+                              request_extract_p50_ms=float(np.percentile(ms_file, 50)))
+        counts_d = launch_counts()
+        health = server.handle({"op": "health"})
+    finally:
+        server.close()
+    # the served embeddings against the model run plain on the card (f32, no kernel)
+    predictor = server.predictor
+    with torch.device("meta"):
+        plain_model = Code2Vec(predictor.config.with_updates(use_pallas=False))
+    plain_model.load_state_dict(predictor.model.state_dict(), assign=True)
+    plain_model.eval()
+    mapped_by_file = {}
+    worst, n_long, long_requests, widths = 0.0, 0, 0, []
+    for rel, name, entries in served:
+        if rel not in mapped_by_file:
+            mapped_by_file[rel] = [(label, predictor._map_contexts(ctx)[0]) for label, ctx, _ in
+                                   predictor._extract(texts[rel], "*", "python")]
+        mine = [m for label, m in mapped_by_file[rel] if label == name]
+        if len(mine) != len(entries):
+            raise AssertionError(f"serve {rel}:{name}: {len(entries)} entries, {len(mine)} methods")
+        long_requests += any(e["timing"]["width"] > BAG for e in entries)
+        for entry, mapped in zip(entries, mine):
+            ctx = np.asarray(subsample(mapped, predictor.bag), np.int32)
+            width = nearest_bucket_width(len(ctx), predictor.ladder)
+            ids = np.zeros((3, 1, width), np.int32)
+            ids[:, 0, :len(ctx)] = ctx.T
+            with torch.inference_mode():
+                _, ref, _ = plain_model(*(torch.from_numpy(x).to(dev) for x in ids))
+            cv = np.asarray(entry["code_vector"], np.float32)
+            ref = ref[0].cpu().numpy()
+            if entry["n_contexts"] != len(ctx) or not np.isfinite(cv).all() or \
+                    not np.allclose(cv, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+                raise AssertionError(f"serve embed {rel}:{name}: off the plain version")
+            worst = max(worst, float(np.abs(cv - ref).max()))
+            widths.append(entry["timing"]["width"])
+            n_long += entry["timing"]["width"] > BAG
+            method_vectors.append(cv)
+            method_files.append(rel)
+            method_names.append(name)
+    k3, k4 = counts_d.get("fused_f32", 0), counts_d.get("online_f32", 0)
+    if not (n_long and k4 >= long_requests and k3 >= 1) or health["post_warmup_compiles"]:
+        raise AssertionError(f"python serve: {n_long} long-bag methods in {long_requests} "
+                             f"requests, launches {counts_d}, health {health}")
+    sv = out["serve"] = {"requests": {op: len(x) for op, x in lat.items()},
+                         "launches": counts_d, "long_bag_methods": n_long,
+                         "long_bag_requests": long_requests, "max_abs_err": worst,
+                         "widths": {int(w): int(n) for w, n in
+                                    zip(*np.unique(widths, return_counts=True))}}
+    for op, xs in lat.items():
+        sv[f"{op}_p50_ms"], sv[f"{op}_p99_ms"] = percentiles(xs)
+    sv["embed_file_by_size"] = size_table(files, "embed_file_ms")
+    sv["embed_file_extract_by_size"] = size_table(files, "embed_file_extract_ms")
+    share = [f["embed_file_extract_ms"] / f["embed_file_ms"] for f in files.values()
+             if f.get("embed_file_ms") and 10_000 <= f["bytes"] < 90_000]
+    sv["extract_share_10_90KB"] = (float(np.median(share)), float(np.min(share)),
+                                   float(np.max(share))) if share else None
+    top11 = (serve or {}).get("fused_f32", {}).get("sequential_p50_ms")
+    sv["top11_fused_f32_p50_ms"] = top11
+    print(f"python serve, one at a time: predict p50 {sv['predict_p50_ms']:.3f} / p99 "
+          f"{sv['predict_p99_ms']:.3f} ms, embed {sv['embed_p50_ms']:.3f} / "
+          f"{sv['embed_p99_ms']:.3f} ms ({sv['requests']['embed']} functions each), embed_file "
+          f"{sv['embed_file_p50_ms']:.3f} / {sv['embed_file_p99_ms']:.3f} ms "
+          f"({sv['requests']['embed_file']} files); widths served {sv['widths']}, {n_long} "
+          f"long-bag methods in {long_requests} requests; launches {counts_d}; max |cv - plain| "
+          f"{worst:.3e}; the top11 one-at-a-time p50 (serve phase) "
+          + (f"{top11:.3f} ms" if top11 is not None else "not measured") + f" [{smi}]",
+          flush=True)
+    print(f"python embed_file by file size: {json.dumps(sv['embed_file_by_size'])}; its "
+          f"extract_ms: {json.dumps(sv['embed_file_extract_by_size'])}; extract_ms / request "
+          f"ms for 10-90 KB files (median, min, max): {sv['extract_share_10_90KB']} [{smi}]",
+          flush=True)
+
+    # (e) code.vec -> file.vec -> ann_build -> file neighbors
+    code_vec, file_vec, index = tmp / "py_code.vec", tmp / "py_file.vec", tmp / "py_ann.index"
+    write_code_vectors_header(code_vec, len(method_vectors), predictor.config.encode_size)
+    append_code_vectors(code_vec, method_names, np.stack(method_vectors))
+    labels, rows_read = read_code_vectors(code_vec)
+    if labels != method_names:
+        raise AssertionError("code.vec did not read back")
+    attn = predictor.attention_vector()
+    keys, pooled = export_file_vectors(rows_read, method_files, str(file_vec), attn_param=attn)
+    for key, vec in zip(keys, pooled):
+        served_vec = np.asarray(files[key]["file_vector"], np.float32)
+        if not np.allclose(served_vec, vec, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+            raise AssertionError(f"embed_file {key}: the served vector is not the export's")
+    for key in keys:
+        files[key].pop("file_vector")
+    t0 = time.perf_counter()
+    if ann_build.main(["--code_vec", str(file_vec), "--out", str(index)]) != 0:
+        raise AssertionError("ann_build failed")
+    build_s = time.perf_counter() - t0
+    search = out["search"] = {"files": len(keys), "ann_build_seconds": build_s}
+    for backend, extra in (("exact", ["--code_vec_path", str(file_vec)]),
+                           ("ann", ["--retrieval_backend", "ann", "--ann_index_path",
+                                    str(index)])):
+        server = build_server(build_parser().parse_args(common + extra))
+        xs, sims, ranks = [], [], []
+        try:
+            reset_launch_counts()
+            for key in keys:
+                t0 = time.perf_counter()
+                resp = server.handle({"op": "neighbors", "source": texts[key],
+                                      "language": "python", "granularity": "file",
+                                      "top_k": PY_TOP_K})
+                xs.append((time.perf_counter() - t0) * 1e3)
+                names_k = [n["name"] for n in resp.get("neighbors", [])]
+                if not resp.get("ok") or key not in names_k:
+                    raise AssertionError(f"neighbors {backend} {key}: {resp}")
+                ranks.append(names_k.index(key))
+                sims.append(resp["neighbors"][ranks[-1]]["similarity"])
+            counts_e = launch_counts()
+            describe = server.retrieval.describe()
+        finally:
+            server.close()
+        if backend == "exact" and (any(ranks) or max(abs(s - 1.0) for s in sims) > 1e-4):
+            raise AssertionError(f"exact file neighbors: ranks {ranks}, similarities {sims}")
+        if backend == "ann" and counts_e.get("lut_score", 0) < len(keys):
+            raise AssertionError(f"ann file neighbors launched K5 {counts_e} for {len(keys)}")
+        p50, p99 = percentiles(xs)
+        search[backend] = {"p50_ms": p50, "p99_ms": p99, "launches": counts_e,
+                           "rank_counts": {int(r): int(n) for r, n in
+                                           zip(*np.unique(ranks, return_counts=True))},
+                           "max_abs_sim_minus_1": float(max(abs(s - 1.0) for s in sims)),
+                           "index": {k: describe.get(k) for k in ("n_list", "n_probe",
+                                                                   "shortlist", "size")}}
+        print(f"python file neighbors, {backend}: {len(keys)} files one at a time, p50 {p50:.3f} "
+              f"/ p99 {p99:.3f} ms, own file at ranks {search[backend]['rank_counts']}, max "
+              f"|similarity - 1| {search[backend]['max_abs_sim_minus_1']:.2e}, launches "
+              f"{counts_e} [{smi}]", flush=True)
+    out["files"] = files
+    out["ann_build_seconds"] = build_s
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json_out", default=None,
@@ -2689,6 +3071,8 @@ def main() -> int:
                              bucketed, lazy_train)
         extracted = phase("extract", phase_extract, torch, smi, dev, model_dir,
                           extractor_build, serve)
+        python = phase("python_source", phase_python_source, torch, smi, dev, model_dir,
+                       serve)
         variable = phase("train_variable", phase_train_variable, torch, smi, dev,
                          (extracted or {}).get("share"))
     if failed:
@@ -2716,6 +3100,14 @@ def main() -> int:
         for key, n in run["launches"].items():
             var_counts[key] = var_counts.get(key, 0) + n
     print(f"train_variable launches: {json.dumps(var_counts)}")
+    # the python_source phase's training, predictions, serving and search
+    py_counts = {}
+    for counts in ([run["launches"] for run in python["train"].values()]
+                   + [python["predict"]["launches"], python["serve"]["launches"]]
+                   + [python["search"][b]["launches"] for b in ("exact", "ann")]):
+        for key, n in counts.items():
+            py_counts[key] = py_counts.get(key, 0) + n
+    print(f"python_source launches: {json.dumps(py_counts)}")
     line = []
     for name, rec in kernels.items():
         timed = next(r for r in rec["rows"] if (r["B"], r["L"]) == rec["timed"])
@@ -2723,7 +3115,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": rec["source"],
             "replaces": rec["replaces"],
             "launches": (routes[rec["key"]]["launches"][rec["key"]]
-                         + device_counts.get(rec["key"], 0) + var_counts.get(rec["key"], 0)),
+                         + device_counts.get(rec["key"], 0) + var_counts.get(rec["key"], 0)
+                         + py_counts.get(rec["key"], 0)),
             "max_abs_err": max(r["max_abs_err"] for r in rec["rows"]),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -2737,7 +3130,7 @@ def main() -> int:
         "name": "K5 lut_score", "route": "cuda",
         "source": "code2vec_tpu_torch/csrc/lut_score.cu",
         "replaces": "code2vec_tpu/ann/lut_kernel.py:206",
-        "launches": retrieval["launches"]["lut_score"],
+        "launches": retrieval["launches"]["lut_score"] + py_counts.get("lut_score", 0),
         "max_abs_err": max(r["max_abs_err"] for r in k5),
         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"], "library_ms": None,
@@ -2749,7 +3142,8 @@ def main() -> int:
              "serve": serve,
              "longbag": longbag, "retrieval": retrieval, "train": trained,
              "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train,
-             "train_device": device_train, "extract": extracted, "train_variable": variable},
+             "train_device": device_train, "extract": extracted, "train_variable": variable,
+             "python_source": python},
             indent=1,
         ))
     for k in line:  # each kernel's share of its bound at its timed shape

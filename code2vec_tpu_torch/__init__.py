@@ -9,19 +9,23 @@ Layout (each module names its JAX counterpart):
 
 - ``ops`` — the plain PyTorch ops and the hand-written Hopper kernels
   (``csrc/*.cu``, built with ``nvcc`` at first use by ``ops/_build.py``);
-- ``models`` — the ``Code2Vec`` ``nn.Module``;
+- ``models`` — the ``Code2Vec`` ``nn.Module`` and the file-level head
+  (``hierarchical``: method vectors pooled into one vector a file);
 - ``interop`` — JAX param tree <-> reference ``state_dict``;
 - ``formats`` — vocab files, ``code.vec`` and the ANN index container,
   interchangeable with the JAX package's;
 - ``ann`` — the IVF-PQ index (k-means and PQ on the card, K5 scoring);
+  ``tools/ann_build.py`` builds one from a ``code.vec`` or ``file.vec``;
 - ``predict`` / ``serve`` — the serving path (``python -m
   code2vec_tpu_torch.serve``): predict/embed over any bag up to the
   ladder's top rung (K4 above the training bag) and ``neighbors`` over the
-  exact or the IVF-PQ backend, from mapped contexts or Java source;
+  exact or the IVF-PQ backend, from mapped contexts or Java or Python
+  source, and ``embed_file`` / file-granularity ``neighbors``;
 - ``extractor`` — the repo's C++ Java extractor (``extractor/src``), built
   with ``g++`` at first use: corpora (``python -m
-  code2vec_tpu_torch.extractor``) and in-process extraction for
-  ``predict``;
+  code2vec_tpu_torch.extractor``, mixed Java + Python datasets too) and
+  in-process extraction for ``predict``; ``pyextract`` — the Python
+  sources' ``ast`` extractor;
 - ``text``, ``data`` (vocab, reader, synthetic corpora, epochs and
   batches of the method and variable tasks), ``metrics``, ``train`` (config, steps, the lazy table
   optimizer, device-resident epochs, the epoch loop),

@@ -5,7 +5,10 @@ every new best F1: a header line, then the train rows followed by the test
 rows (each split's method rows, then its variable rows); the optional test-result TSV records each test prediction.
 ``print_sample`` logs one correctly predicted test example with its
 per-context attention, PAD rows skipped. ``export_from_checkpoint`` is the
-``--export_only`` pass.
+``--export_only`` pass. ``export_file_vectors`` pools method vectors by
+source file (``models/hierarchical.py``) into a ``file.vec`` in
+``code.vec``'s format, which the exact backend and ``tools/ann_build``
+take as they take ``code.vec``.
 """
 
 from __future__ import annotations
@@ -94,6 +97,25 @@ def print_sample(data, model, test_epoch: EpochArrays, batch_size: int, class_we
         logger.info("expected label: %s", label_itos[int(batch["labels"][i])])
         logger.info("actual label:   %s", label_itos[int(preds[i])])
         return
+
+
+def export_file_vectors(method_vectors: np.ndarray, group_ids, vectors_path: str,
+                        attn_param: np.ndarray | None = None, group_names=None
+                        ) -> tuple[list, np.ndarray]:
+    """Attention-pool ``method_vectors [N, H]`` by ``group_ids`` (one file
+    or class key a vector) and write one row a group in ``code.vec``'s
+    format, labelled ``group_names[key]`` (default ``str(key)``).
+    ``attn_param``: the checkpoint's method-level attention vector (None:
+    the mean). Returns ``(group keys, [G, H] f32)``."""
+    from code2vec_tpu_torch.models.hierarchical import pool_vectors_by_group
+
+    keys, pooled = pool_vectors_by_group(method_vectors, group_ids, attn_param)
+    names = [str(group_names[k]) if group_names is not None else str(k) for k in keys]
+    write_code_vectors_header(vectors_path, len(names), pooled.shape[-1])
+    append_code_vectors(vectors_path, names, pooled)
+    logger.info("exported %d file vectors (from %d method vectors) to %s", len(names),
+                len(method_vectors), vectors_path)
+    return keys, pooled
 
 
 def export_from_checkpoint(config, data, out_dir: str, vectors_path: str,

@@ -18,8 +18,15 @@ into ``build/code2vec_tpu_torch/extractor-<digest>/`` (the digest covers
 the sources and the flags, so an edit rebuilds). Each translation unit is
 one ``g++`` process, all started together; the outputs appear in place
 only once the whole build has succeeded, and a failed build raises with
-the compiler's stderr. Python sources (``pyextract``) and mixed datasets
-are not ported yet (ROADMAP §A.6-Python).
+the compiler's stderr.
+
+Python sources go through ``pyextract.py`` (pure Python, no build). The
+CLI sends a ``methods.txt`` with any ``.py`` row down the mixed route
+(JAX ``extractor.py:351-436``): the Java rows through ``c2v-extract`` in a
+temporary directory, whose artifacts are copied into the dataset, then the
+Python rows appended in merge mode into the same vocab files, their ids
+after the Java leg's ``method_count``; the Java leg's normalization flags
+reach the Python leg.
 
     python -m code2vec_tpu_torch.extractor <dataset_dir> <source_dir> [--no_cuda]
 """
@@ -47,8 +54,6 @@ CXX_FLAGS = ("-std=c++17", "-O3", "-DNDEBUG", "-Wall", "-Wextra", "-fPIC")
 CORE = ("lexer.cc", "parser.cc", "extract.cc")
 BINARY = "c2v-extract"
 LIBRARY = "libc2v.so"
-PYTHON_NOT_PORTED = ("Python sources (pyextract) and mixed Java+Python datasets are not "
-                     "ported yet (ROADMAP §A.6-Python)")
 
 _lock = threading.Lock()
 _lib = None
@@ -234,10 +239,9 @@ def extract_dataset(dataset_dir: str | os.PathLike, source_dir: str | os.PathLik
                     method_declarations: str | None = None,
                     extra_args: list[str] | tuple[str, ...] = ()) -> subprocess.CompletedProcess:
     """``c2v-extract`` over ``<dataset_dir>/methods.txt``: writes the five
-    artifacts into ``dataset_dir``. Raises ``NotImplementedError`` for a
-    ``.py`` row and ``CalledProcessError`` when the program fails."""
-    if any(src.endswith(".py") for src, _ in read_method_rows(dataset_dir)):
-        raise NotImplementedError(PYTHON_NOT_PORTED)
+    artifacts into ``dataset_dir``. Every row goes to the program, a
+    ``.py`` row too, as in JAX (the CLI routes those to :func:`_extract_mixed`).
+    Raises ``CalledProcessError`` when the program fails."""
     cmd = [str(build_extractor() / BINARY), str(dataset_dir), str(source_dir),
            "--max-length", str(max_length), "--max-width", str(max_width)]
     if method_declarations:
@@ -246,9 +250,70 @@ def extract_dataset(dataset_dir: str | os.PathLike, source_dir: str | os.PathLik
     return subprocess.run(cmd, check=True, capture_output=True, text=True)
 
 
+def _py_config_from_flags(args, extra):
+    """The Java leg's pass-through normalization flags, applied to the
+    Python leg too: both legs intern literals into one vocab, so they must
+    agree on what a literal normalizes to."""
+    from code2vec_tpu_torch.pyextract import PyExtractConfig
+
+    config = PyExtractConfig(max_length=args.max_length, max_width=args.max_width)
+    for flag in extra:
+        if flag == "--no-normalize-string":
+            config.normalize_string_literal = False
+        elif flag == "--no-normalize-char":
+            config.normalize_char_literal = False
+        elif flag == "--normalize-int":
+            config.normalize_int_literal = True
+        elif flag == "--normalize-double":
+            config.normalize_double_literal = True
+        elif flag == "--no-normalize-double":
+            config.normalize_double_literal = False
+    return config
+
+
+def _extract_mixed(args, extra, rows) -> None:
+    """A Java + Python dataset: the ``.java`` rows through ``c2v-extract``
+    in a temporary directory, its artifacts copied into the dataset, then
+    the ``.py`` rows through ``pyextract`` in merge mode (the Java leg's
+    vocab files preloaded, records appended, ids from its
+    ``method_count``)."""
+    from code2vec_tpu_torch.formats.params_io import read_params
+    from code2vec_tpu_torch.pyextract import extract_python_dataset
+
+    java_rows = [r for r in rows if not r[0].endswith(".py")]
+    py_rows = [r for r in rows if r[0].endswith(".py")]
+    start_id, merge = 0, False
+    if java_rows:
+        with tempfile.TemporaryDirectory() as tmp:
+            with open(os.path.join(tmp, "methods.txt"), "w", encoding="utf-8",
+                      errors="surrogateescape") as f:
+                for src, method in java_rows:
+                    f.write(f"{src}\t{method}\n")
+            result = extract_dataset(tmp, args.source_dir, max_length=args.max_length,
+                                     max_width=args.max_width,
+                                     method_declarations=args.method_declarations,
+                                     extra_args=extra)
+            sys.stderr.write(result.stderr)
+            names = ["corpus.txt", "actual_methods.txt", "terminal_idxs.txt", "path_idxs.txt",
+                     "params.txt"]
+            if args.method_declarations and os.path.exists(
+                    os.path.join(tmp, args.method_declarations)):
+                names.append(args.method_declarations)
+            for name in names:
+                shutil.copy2(os.path.join(tmp, name), os.path.join(args.dataset_dir, name))
+            start_id = int(read_params(os.path.join(tmp, "params.txt"))["method_count"])
+        merge = True
+    n, vocabs = extract_python_dataset(
+        args.dataset_dir, args.source_dir, py_rows, config=_py_config_from_flags(args, extra),
+        merge=merge, start_id=start_id, method_declarations=args.method_declarations)
+    print(f"extracted {n} methods ({start_id} java + {n - start_id} python), "
+          f"{len(vocabs.terminals)} terminals, {len(vocabs.paths)} paths", file=sys.stderr)
+
+
 def main(argv: list[str] | None = None) -> int:
     """``python -m code2vec_tpu_torch.extractor <dataset_dir> <source_dir>``:
-    the Java rows of ``methods.txt`` -> the corpus artifacts. The port's
+    the rows of ``methods.txt`` -> the corpus artifacts (a ``.py`` row sends
+    the whole dataset down the mixed route). The port's
     entry points run on the card unless asked for the CPU: extraction is
     host work, but without ``--no_cuda`` the command needs a visible GPU, like the trainer whose corpus it makes."""
     import argparse
@@ -257,7 +322,7 @@ def main(argv: list[str] | None = None) -> int:
 
     parser = argparse.ArgumentParser(
         prog="code2vec_tpu_torch.extractor",
-        description="Java sources -> path-context corpus artifacts (reads "
+        description="Java and/or Python sources -> path-context corpus artifacts (reads "
                     "<dataset_dir>/methods.txt, writes corpus.txt, terminal_idxs.txt, "
                     "path_idxs.txt, params.txt, actual_methods.txt)")
     parser.add_argument("dataset_dir")
@@ -270,6 +335,10 @@ def main(argv: list[str] | None = None) -> int:
     args, extra = parser.parse_known_args(argv)
     resolve_device("cpu" if args.no_cuda else None)
     try:
+        rows = read_method_rows(args.dataset_dir)
+        if any(src.endswith(".py") for src, _ in rows):
+            _extract_mixed(args, extra, rows)
+            return 0
         result = extract_dataset(args.dataset_dir, args.source_dir, max_length=args.max_length,
                                  max_width=args.max_width,
                                  method_declarations=args.method_declarations,

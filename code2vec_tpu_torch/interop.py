@@ -16,6 +16,12 @@ model/model.py:21-42) is what the port's ``Code2Vec`` holds:
 
 :func:`state_dict_from_jax_params` keeps the tree's shapes, vocab padding
 included, so the round trip tree -> state_dict -> tree is exact.
+The file-level head of ``models/hierarchical.py`` carries its one
+parameter both ways (:func:`hierarchical_state_dict_from_jax_params`,
+:func:`jax_params_from_hierarchical_state_dict`):
+
+    file_attention                [H]  <-> file_attention
+
 ``code2vec.model`` files hold the reference's unpadded shapes:
 :func:`save_state_dict` slices the pad rows off and :func:`pad_state_dict`
 puts zero rows back for a padded config.
@@ -91,6 +97,18 @@ def jax_params_from_state_dict(sd: dict, config) -> dict:
             "bias": a("output_linear.bias"),
         }
     return tree
+
+
+def hierarchical_state_dict_from_jax_params(params: dict) -> dict[str, torch.Tensor]:
+    """A JAX ``HierarchicalAttentionPool`` param tree -> the port module's
+    ``state_dict``."""
+    return {"file_attention": _t(params["file_attention"])}
+
+
+def jax_params_from_hierarchical_state_dict(sd: dict) -> dict:
+    """Inverse of :func:`hierarchical_state_dict_from_jax_params`."""
+    return {"file_attention": np.ascontiguousarray(
+        sd["file_attention"].detach().cpu().numpy().astype(np.float32))}
 
 
 def check_keys(sd: dict) -> None:

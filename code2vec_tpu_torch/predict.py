@@ -14,16 +14,19 @@ Predictor's bag rises to the top rung and the model streams the softmax
 A training run writes such a dir itself: :func:`save_inference_meta` at
 its start, :func:`save_model_file` on every new best F1.
 
-From Java source (JAX ``predict.py:306-693``): ``predict_source`` names
-each method, ``predict_variables`` each ``@var_*`` variable of each method
-(``target_variable``), through the port's extractor (``extractor.py``) with
-the corpus's ``params.txt`` caps, the names mapped into the training vocab
-(a context with an unseen name is dropped and counted as OOV) and the
-trainer's framing (the method's or the variable's alias becomes
-``@question``). Extraction is host work; only the forward runs on the
-device. Python sources are not ported yet (ROADMAP §A.6-Python)::
+From Java or Python source (JAX ``predict.py:306-693``):
+``predict_source`` names each method, ``predict_variables`` each
+``@var_*`` variable of each method (``target_variable``), through the
+port's extractors (``extractor.py`` for Java, ``pyextract.py`` for Python)
+with the corpus's ``params.txt`` caps, the names mapped into the training
+vocab (a context with an unseen name is dropped and counted as OOV) and
+the trainer's framing (the method's or the variable's alias becomes
+``@question``). ``embed_file`` gives one vector for a whole source file:
+its methods' code vectors pooled with the checkpoint's attention vector
+(``models/hierarchical.py``). Extraction and the file pool are host work;
+only the forward runs on the device::
 
-    python -m code2vec_tpu_torch.predict File.java --model_path out \
+    python -m code2vec_tpu_torch.predict File.java|file.py --model_path out \
         --terminal_idx_path ds/terminal_idxs.txt --path_idx_path ds/path_idxs.txt \
         [--task auto|method|variable] [--top_k 5] [--show_attention N] \
         [--neighbors N [--code_vec_path out/code.vec]] [--no_cuda]
@@ -325,19 +328,33 @@ class Predictor:
     def _extract(self, source: str, method_name: str, language: str
                  ) -> list[tuple[str, list[tuple[str, str, str]], list[tuple[str, str]]]]:
         """Per matching method of ``source``: (its name, its contexts as
-        name triples, its (original, alias) pairs)."""
-        if language == "python":
-            from code2vec_tpu_torch.extractor import PYTHON_NOT_PORTED
+        name triples, its (original, alias) pairs). The Java extractor
+        gives run-local ids and vocabs, the Python one name triples."""
+        if language == "java":
+            from code2vec_tpu_torch.extractor import extract_source
 
-            raise NotImplementedError(PYTHON_NOT_PORTED)
-        if language != "java":
+            result = extract_source(source, method_name, **self.extract_params)
+            t, p = result.terminal_vocab, result.path_vocab
+            return [(m.label, [(t[s], p[pa], t[e]) for s, pa, e in m.path_contexts],
+                     list(m.aliases)) for m in result.methods]
+        if language != "python":
             raise ValueError(f"unknown language: {language!r}")
-        from code2vec_tpu_torch.extractor import extract_source
+        from code2vec_tpu_torch.pyextract import PyExtractConfig, extract_python_source
 
-        result = extract_source(source, method_name, **self.extract_params)
-        t, p = result.terminal_vocab, result.path_vocab
-        return [(m.label, [(t[s], p[pa], t[e]) for s, pa, e in m.path_contexts], list(m.aliases))
-                for m in result.methods]
+        ep = self.extract_params
+        config = PyExtractConfig(
+            normalize_string_literal=ep["normalize_string"],
+            normalize_char_literal=ep["normalize_char"],
+            normalize_int_literal=ep["normalize_int"],
+            normalize_double_literal=ep["normalize_double"],
+            max_length=ep["max_length"], max_width=ep["max_width"])
+        return [(m.label, list(m.contexts), list(m.variables))
+                for m in extract_python_source(source, method_name, config)]
+
+    def attention_vector(self) -> np.ndarray:
+        """The method-level attention vector ``[H]`` f32: the salience
+        direction the file pool reuses one level up."""
+        return self.model.attention_parameter.detach().float().cpu().numpy()
 
     def _predict_named(self, label: str, mapped, n_oov: int, top_k: int,
                        rng: np.random.Generator | None) -> MethodPrediction:
@@ -389,17 +406,40 @@ class Predictor:
                 out.append(m)
         return out
 
+    def embed_file(self, source: str, language: str = "java", method_name: str = "*",
+                   rng: np.random.Generator | None = None) -> tuple[np.ndarray, list[str]]:
+        """One vector for a whole source file: each matching method whose
+        mapped contexts are not empty is embedded, and the method vectors
+        are pooled with the checkpoint's attention vector
+        (``models/hierarchical.pool_vectors``). Returns ``(file vector [H]
+        f32, method names)``; raises ``ValueError`` when no method embeds
+        (nothing extracted, or every context OOV)."""
+        from code2vec_tpu_torch.models.hierarchical import pool_vectors
+
+        names, vectors = [], []
+        for label, contexts, _ in self._extract(source, method_name, language):
+            mapped, _ = self._map_contexts(contexts)
+            if not mapped:
+                continue
+            names.append(label)
+            vectors.append(self.predict_contexts(mapped, 1, rng).code_vector)
+        if not vectors:
+            raise ValueError("no method in the source produced an embedding (nothing extracted, "
+                             "or every context is OOV against the training vocab)")
+        return pool_vectors(np.stack(vectors), self.attention_vector()), names
+
 
 def main(argv: list[str] | None = None) -> int:
     """``python -m code2vec_tpu_torch.predict File.java --model_path ...``:
-    the top-k names of each method (or each variable) of a Java file, on
-    the card unless ``--no_cuda``."""
+    the top-k names of each method (or each variable) of a Java or Python
+    (``.py``) file, on the card unless ``--no_cuda``."""
     import argparse
 
     parser = argparse.ArgumentParser(
         prog="code2vec_tpu_torch.predict",
-        description="Predict method or variable names for a Java file from a trained model dir")
-    parser.add_argument("source_file", help=".java file (.py is not ported yet)")
+        description="Predict method or variable names for a Java or Python file from a "
+                    "trained model dir")
+    parser.add_argument("source_file", help=".java or .py file")
     parser.add_argument("--model_path", required=True)
     parser.add_argument("--terminal_idx_path", required=True)
     parser.add_argument("--path_idx_path", required=True)

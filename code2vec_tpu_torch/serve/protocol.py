@@ -6,24 +6,32 @@ serves::
     {"op": "predict", "contexts": [[start, path, end], ...], "top_k": 5,
      "method_name": "*", "include_vector": false}
     {"op": "predict", "source": "class A { int f(int x) { ... } }", "language": "java"}
+    {"op": "predict", "source": "def f(x):\\n    return x + 1\\n", "language": "python"}
     {"op": "embed",   "contexts": [[start, path, end], ...]}   (or "source")
+    {"op": "embed_file", "source": "...", "language": "python"}   (or "contexts")
     {"op": "neighbors", "vector": [...], "top_k": 5}
     {"op": "neighbors", "contexts": [[start, path, end], ...], "top_k": 5}   (or "source")
+    {"op": "neighbors", "source": "...", "granularity": "file", "top_k": 5}
     {"op": "health"}
     {"op": "shutdown"}
 
 Responses echo an optional ``"id"`` and carry ``"error"`` +
-``"error_kind"`` instead of results on failure. A ``source`` request (Java)
-is extracted and mapped into the training vocab on the request thread, so
-the batcher only sees id arrays: one entry per matching method, a method
-whose every context is OOV getting an entry with an ``error`` and no device
-work, and the payload's ``extract_ms`` (extraction and mapping, host work)
-apart from each entry's device timing. A Python ``source`` (ROADMAP
-§A.6-Python), ``embed_file``, ``neighbors`` at ``granularity="file"``,
-``reload`` and ``rollback`` get a ``not_implemented`` error.
+``"error_kind"`` instead of results on failure. A ``source`` request (Java
+or Python) is extracted and mapped into the training vocab on the request
+thread, so the batcher only sees id arrays: one entry per matching method,
+a method whose every context is OOV getting an entry with an ``error`` and
+no device work, and the payload's ``extract_ms`` (extraction and mapping,
+host work) apart from each entry's device timing. ``embed_file`` embeds
+every method of the source through the batcher and pools the method
+vectors on the host with the checkpoint's attention vector
+(``models/hierarchical.pool_vectors``) into one ``file_vector``; a source
+where no method embeds is a ``bad_request``. ``reload``, ``rollback``,
+``swap_status`` and ``flights`` get a ``not_implemented`` error.
 ``neighbors`` answers from the server's retrieval backend
 (``serve/retrieval.py``: exact or IVF-PQ): the ``vector`` form directly,
-the ``contexts`` and ``source`` forms after embedding through the batcher.
+the ``contexts`` and ``source`` forms after embedding through the batcher;
+at ``granularity="file"`` they are pooled as ``embed_file`` pools them and
+searched against an index of file vectors (``export.export_file_vectors``).
 Context triples are bounds-checked against the vocab tables BEFORE they
 reach a kernel: an out-of-range id is the client's mistake, never a device
 gather.
@@ -49,7 +57,7 @@ from code2vec_tpu_torch.serve.batcher import ServeOverloaded, ServerClosed
 
 logger = logging.getLogger(__name__)
 
-NOT_PORTED_OPS = ("embed_file", "reload", "rollback", "swap_status", "flights")
+NOT_PORTED_OPS = ("reload", "rollback", "swap_status", "flights")
 
 
 def validate_context_rows(rows, n_terminals: int, n_paths: int) -> list[tuple[int, int, int]]:
@@ -85,6 +93,7 @@ class CodeServer:
         self.retrieval = retrieval  # the neighbors backend, or None
         self.version = version
         self.extractor_ms = extractor_ms  # the warmup's build and load of the extractor
+        self._file_attention = None  # the file pool's direction, [H] f32 on the host
         self._shutdown = threading.Event()
 
     @property
@@ -116,6 +125,8 @@ class CodeServer:
                 resolver = lambda: {"ok": True, "shutting_down": True}  # noqa: E731
             elif op in ("predict", "embed"):
                 resolver = self._submit_methods(request, op)
+            elif op == "embed_file":
+                resolver = self._submit_file(request)
             elif op == "neighbors":
                 resolver = self._submit_neighbors(request)
             elif op in NOT_PORTED_OPS:
@@ -199,10 +210,6 @@ class CodeServer:
                 np.asarray(mapped, np.int32).reshape(-1, 3)), len(mapped)))
         else:
             language = request.get("language", "java")
-            if language == "python":
-                from code2vec_tpu_torch.extractor import PYTHON_NOT_PORTED
-
-                raise NotImplementedError(PYTHON_NOT_PORTED)
             t0 = time.perf_counter()
             methods = []
             for label, contexts, _ in predictor._extract(source, method_name, language):
@@ -245,6 +252,37 @@ class CodeServer:
 
         return resolve
 
+    def _submit_file(self, request: dict) -> Callable[[], dict]:
+        """``embed_file``: every method of the request embedded through the
+        batcher (as ``embed``), then the method vectors pooled on the host
+        with the checkpoint's attention vector into one file vector."""
+        embed_resolver = self._submit_methods({**request, "include_vector": True}, "embed")
+        if self._file_attention is None:  # read off the card once, not a sync a request
+            self._file_attention = self.predictor.attention_vector()
+        attn = self._file_attention
+
+        def resolve() -> dict:
+            from code2vec_tpu_torch.models.hierarchical import pool_vectors
+
+            embedded = embed_resolver()
+            names, vectors = [], []
+            for entry in embedded["methods"]:
+                if entry.get("code_vector") is not None:
+                    names.append(entry["method_name"])
+                    vectors.append(entry["code_vector"])
+            if not vectors:
+                return {"error": "no method in the source produced an embedding (nothing "
+                                 "extracted, or every context is OOV against the training vocab)",
+                        "error_kind": "bad_request"}
+            file_vector = pool_vectors(np.asarray(vectors, np.float32), attn)
+            payload = {"ok": True, "file_vector": [float(v) for v in file_vector],
+                       "n_methods": len(vectors), "method_names": names}
+            if "extract_ms" in embedded:
+                payload["extract_ms"] = embedded["extract_ms"]
+            return payload
+
+        return resolve
+
     def _submit_neighbors(self, request: dict) -> Callable[[], dict]:
         retrieval = self.retrieval
         if retrieval is None:
@@ -267,13 +305,26 @@ class CodeServer:
                 raise ValueError(f"'vector' must have dim {retrieval.dim}, got {vec.shape}")
             payload = {"ok": True, "neighbors": ranked(vec)}
             return lambda: payload
-        if granularity == "file":
-            raise NotImplementedError(
-                "file-granularity neighbors (the hierarchical file head) are not ported yet"
-            )
-        # contexts form: embed through the batcher, then retrieve; the
-        # client's include_vector decides whether the vector stays in
+        # the client's include_vector decides whether the vector stays in
         want_vector = bool(request.get("include_vector", False))
+        if granularity == "file":
+            # pool the method vectors into one file vector, then retrieve
+            file_resolver = self._submit_file(request)
+
+            def resolve_file() -> dict:
+                pooled = file_resolver()
+                if "error" in pooled:
+                    return pooled
+                out = {"ok": True, "n_methods": pooled["n_methods"],
+                       "neighbors": ranked(np.asarray(pooled["file_vector"], np.float32))}
+                if want_vector:
+                    out["file_vector"] = pooled["file_vector"]
+                if "extract_ms" in pooled:
+                    out["extract_ms"] = pooled["extract_ms"]
+                return out
+
+            return resolve_file
+        # contexts and source forms: embed through the batcher, then retrieve
         embed_resolver = self._submit_methods({**request, "include_vector": True}, "embed")
 
         def resolve() -> dict:

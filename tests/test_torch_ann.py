@@ -18,7 +18,8 @@
 - the exact backend against numpy normalize -> matmul -> argsort;
 - the ``neighbors`` op: the same requests through the JAX and the port
   ``CodeServer`` (both over the same stub engine) give the same responses,
-  on both backends, in the ``vector`` and ``contexts`` forms.
+  on both backends, in the ``vector`` and ``contexts`` forms, and at
+  ``granularity="file"``.
 """
 
 import json
@@ -369,9 +370,21 @@ class StubBatcher:
         pass
 
 
+def stub_extract(source, method_name, language):
+    """The Predictor's Python leg, with the default caps."""
+    from code2vec_tpu_torch.pyextract import extract_python_source
+
+    assert language == "python"
+    return [(m.label, m.contexts, m.variables) for m in extract_python_source(source, method_name)]
+
+
 def servers(jax_backend, port_backend, dim):
     meta = {"terminal_count": 50, "path_count": 40}
-    stub = dict(predictor=SimpleNamespace(meta=meta, label_vocab=None),
+    # the file head's direction: JAX reads the param tree, the port the Predictor
+    attn = np.linspace(-1.0, 1.0, dim).astype(np.float32)
+    stub = dict(predictor=SimpleNamespace(
+        meta=meta, label_vocab=None, state=SimpleNamespace(params={"attention": attn}),
+        attention_vector=lambda: attn, _extract=stub_extract),
                 engine=SimpleNamespace(max_width=16), batcher=StubBatcher(dim))
     return (JaxCodeServer(retrieval=jax_backend, **stub),
             CodeServer(retrieval=port_backend, **stub))
@@ -440,12 +453,20 @@ class TestNeighborsOp:
     @pytest.mark.parametrize("req,kind", [
         ({"vector": [1.0] * 3}, "bad_request"),
         ({"vector": [1.0] * 16, "granularity": "class"}, "bad_request"),
-        ({"contexts": [[1, 2, 3]], "granularity": "file"}, "not_implemented"),
-        ({"source": "def f(a):\n    return a\n", "language": "python"}, "not_implemented"),
+        # the file and Python forms are ported: JAX's answer, an error where it errs
+        ({"contexts": [[1, 2, 3]], "granularity": "file"}, None),
+        ({"source": "def f(:\n", "language": "python"}, "internal"),
     ])
     def test_bad_and_unported_forms(self, backends, req, kind):
-        _, srv = servers(*backends["exact"], dim=16)
-        assert srv.handle({"op": "neighbors", **req})["error_kind"] == kind
+        jax_srv, srv = servers(*backends["exact"], dim=16)
+        got = srv.handle({"op": "neighbors", **req})
+        want = jax_srv.handle({"op": "neighbors", **req})
+        assert got.get("error_kind") == want.get("error_kind") == kind
+        if kind is None:
+            assert schema(got) == schema(want) and got["n_methods"] == want["n_methods"] == 1
+            assert [n["name"] for n in _neighbors(got)] == [n["name"] for n in _neighbors(want)]
+            np.testing.assert_allclose([n["similarity"] for n in _neighbors(got)],
+                                       [n["similarity"] for n in _neighbors(want)], atol=1e-5)
 
 
 def _neighbors(resp):

@@ -14,7 +14,8 @@ JAX package, on the CPU.
   request of the same method (``predict``, ``embed``, ``neighbors``), a
   method whose every context is OOV gets an entry and no device work.
 - The ``--task`` rules and the variable-only guard raise as in JAX; a
-  Python source raises ``NotImplementedError``.
+  Python source answers as JAX's ``Predictor`` answers it, a ``.py`` row
+  of ``methods.txt`` is extracted as JAX extracts it.
 """
 
 import io
@@ -264,25 +265,51 @@ def test_task_rules_raise_as_in_jax(models):
 
 
 def test_python_sources_are_not_ported(models, tmp_path):
-    with pytest.raises(NotImplementedError, match="A.6-Python"):
-        models["method"][2].predict_source("def f(a):\n    return a\n", language="python")
-    with pytest.raises(NotImplementedError, match="A.6-Python"):
-        models["variable"][2].predict_variables("def f(a):\n    return a\n",
-                                                language="python")
-    ds = tmp_path / "py"
-    ds.mkdir()
-    (ds / "methods.txt").write_text("src/util/MathUtils.java\t*\nsrc/a.py\t*\n")
-    with pytest.raises(NotImplementedError, match="A.6-Python"):
-        extractor.extract_dataset(ds, EXAMPLES)
-    with pytest.raises(NotImplementedError, match="A.6-Python"):
-        extractor.main([str(ds), str(EXAMPLES), "--no_cuda"])
-    py = tmp_path / "a.py"
-    py.write_text("def f(a):\n    return a\n")
+    """Python sources are ported now: each place that raised answers as
+    JAX does (a model trained on Java maps a Python method's contexts as
+    JAX's Predictor maps them; the mixed datasets and whole files are held
+    in tests/test_torch_pyextract.py and tests/test_torch_file_vectors.py)."""
+    py_file = REPO / "examples" / "python" / "src" / "util" / "math_utils.py"
+    py_source = py_file.read_text()
+    _, jax_pred, pred = models["method"]
+    assert_predictions_match(pred.predict_source(py_source, language="python", top_k=2),
+                             jax_pred.predict_source(py_source, language="python", top_k=2))
+    _, jax_pred, pred = models["variable"]
+    assert_predictions_match(pred.predict_variables(py_source, language="python", top_k=2),
+                             jax_pred.predict_variables(py_source, language="python", top_k=2))
+    with pytest.raises(ValueError, match="unknown language"):
+        pred.predict_variables(py_source, language="cobol")
+    # a .py row: extract_dataset hands it to c2v-extract as JAX's does, the
+    # CLI takes the mixed route as JAX's does
+    for who in ("port", "jax"):
+        for form in ("dataset", "cli"):
+            ds = tmp_path / f"{who}_{form}"
+            ds.mkdir()
+            (ds / "methods.txt").write_text("examples/java/src/util/MathUtils.java\t*\n"
+                                            "examples/python/src/util/math_utils.py\t*\n")
+            if form == "dataset":
+                (extractor if who == "port" else jax_extractor).extract_dataset(str(ds),
+                                                                                str(REPO))
+            elif who == "port":
+                assert extractor.main([str(ds), str(REPO), "--no_cuda"]) == 0
+            else:
+                jax_extractor.main([str(ds), str(REPO)])
+    for form in ("dataset", "cli"):
+        for name in ARTIFACTS:
+            assert (tmp_path / f"port_{form}" / name).read_bytes() == \
+                (tmp_path / f"jax_{form}" / name).read_bytes(), (form, name)
+    # the predict CLI on a .py file prints what JAX's prints
     model_dir, _, _ = models["method"]
-    with pytest.raises(NotImplementedError, match="A.6-Python"):
-        predict_main([str(py), "--no_cuda", "--model_path", str(model_dir),
-                      "--terminal_idx_path", models["vocab"][0],
-                      "--path_idx_path", models["vocab"][1]])
+    args = [str(py_file), "--model_path", str(model_dir),
+            "--terminal_idx_path", models["vocab"][0], "--path_idx_path", models["vocab"][1]]
+    outs = []
+    for main in (predict_main, jax_predict_main):
+        buf = io.StringIO()
+        with redirect_stdout(buf):
+            main(args + (["--no_cuda"] if main is predict_main else []))
+        outs.append(buf.getvalue().splitlines())
+    assert len(outs[0]) == len(outs[1]) > 0
+    assert [line.split()[-1] for line in outs[0]] == [line.split()[-1] for line in outs[1]]
 
 
 def test_extractor_cli_writes_the_dataset(tmp_path):

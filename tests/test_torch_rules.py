@@ -5,7 +5,8 @@
 - Every port module imports in a fresh interpreter with those names
   blocked in ``sys.modules``.
 - Entry points not asked for the CPU raise when no GPU is visible: the
-  predictor, the server, the predict CLI and the extractor CLI.
+  predictor, the server, the predict CLI, the extractor CLI and the index
+  builder CLI (``tools/ann_build.py``).
 - The port's extractor builds from ``extractor/src`` alone and writes only
   under ``build/code2vec_tpu_torch/`` (never ``extractor/build``, which the
   JAX package's build uses, nor ``code2vec_tpu/_native``).
@@ -146,6 +147,26 @@ def test_extractor_cli_without_device_raises(no_gpu, tmp_path):
         extractor.main([str(tmp_path), str(tmp_path)])
     (tmp_path / "methods.txt").write_text("")
     assert extractor.main([str(tmp_path), str(tmp_path), "--no_cuda"]) == 0
+
+
+def test_ann_build_cli_without_device_raises(no_gpu, tmp_path):
+    """The index builder runs on the card unless ``--device cpu``; with no
+    GPU visible it raises before it reads or writes anything."""
+    from code2vec_tpu_torch.formats.vectors_io import append_code_vectors, write_code_vectors_header
+    from code2vec_tpu_torch.tools import ann_build
+
+    vec = tmp_path / "code.vec"
+    write_code_vectors_header(vec, 4, 8)
+    append_code_vectors(vec, ["a", "b", "c", "d"], torch.eye(4, 8).numpy())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ann_build.main(["--code_vec", str(vec), "--out", str(tmp_path / "ann.index")])
+    assert not (tmp_path / "ann.index").exists()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ann_build.main(["--code_vec", str(vec), "--out", str(tmp_path / "ann.index"),
+                        "--device", "cuda"])
+    assert ann_build.main(["--code_vec", str(vec), "--out", str(tmp_path / "ann.index"),
+                           "--n_list", "2", "--m", "2", "--device", "cpu"]) == 0
+    assert (tmp_path / "ann.index").exists()
 
 
 def test_extractor_reads_its_sources_and_writes_its_build_dir_only(monkeypatch, tmp_path):

@@ -161,10 +161,21 @@ class TestServeBehaviour:
         assert resp["error_kind"] == "bad_request"
 
     def test_source_request_is_an_error_response(self, server):
-        # Java source is served (tests/test_torch_extract.py); Python is not ported yet
+        # Java and Python sources are served (tests/test_torch_extract.py,
+        # tests/test_torch_file_vectors.py); against this model's made-up vocab
+        # every context of a Python method is OOV: an entry with an error and
+        # no device work, as JAX answers it; a source that does not parse is
+        # an error response of JAX's kind ("internal": a SyntaxError)
         resp = server.handle({"op": "predict", "source": "def f(a):\n    return a\n",
                               "language": "python"})
-        assert resp["error_kind"] == "not_implemented" and "not ported" in resp["error"]
+        (entry,) = resp["methods"]
+        assert resp["ok"] and entry["method_name"] == "f" and entry["n_contexts"] == 0
+        assert entry["n_oov"] > 0 and "OOV" in entry["error"] and "timing" not in entry
+        resp = server.handle({"op": "embed", "source": "def f(:\n", "language": "python"})
+        assert resp["error_kind"] == "internal" and resp["error"].startswith("SyntaxError")
+        resp = server.handle({"op": "embed", "source": "def f(a):\n    return a\n",
+                              "language": "cobol"})
+        assert resp["error_kind"] == "bad_request" and "unknown language" in resp["error"]
 
     @pytest.mark.parametrize("op", ["neighbors", "reload", "bogus"])
     def test_other_ops_are_errors(self, server, op):
