@@ -148,6 +148,26 @@ the final result line is not printed):
    is printed with where it happened; last, where a warm plain device
    epoch's time goes (the train pass's enqueue and read, the eval pass,
    the F1 on the host, the device's busy time over a train pass);
+11b. train_feed (after train_device) — the host feed on ``bench.py``'s
+   training generator at 32,768 methods (mean 120 contexts, max 400, seed
+   0; the train phase's widths, batch 1024, bag 200, dropout 0.25, 2
+   epochs, ``--profile_steps 8``): the corpus written as ``corpus.txt``,
+   converted to a CSR container by the port's ``tools/corpus_convert.py``
+   (its seconds and bytes), parsed natively (beside the Python parser on a
+   4,096-method slice), loaded through the native parser (a fallback
+   fails the phase) and then the cache (its seconds), VmRSS before and
+   after a host epoch of the mmap source; then ``train()`` on fused
+   synchronously, with ``--prefetch_batches 2``, with ``--feed_workers W``
+   (W = min(4, usable cores - 1)), with both, from the container fixed and
+   bucketed (synchronously and with both), streamed
+   (``--stream_chunk_items 8192``, synchronously and with prefetch), and
+   on pool_only (synchronously and with both). After each timed run an
+   untimed pass draws the stream it was fed through the same feed and
+   hashes every host batch as it is copied: each run's digests equal its
+   synchronous stream's and its losses are within rtol 1e-5; each kernel
+   launched once for every train and eval batch. Per run epoch_seconds, steps/s, real contexts/s,
+   the profiled host-build / H2D / feed-wait / compute split and the peak
+   device memory, beside the train_device phase's fused device epochs;
 12. extract — the port's extractor (built in the build phase: its
    seconds), the share of a method's contexts each ``@var_*`` alias of
    ``examples/java/src`` touches, ``examples/java`` extracted into a
@@ -208,9 +228,10 @@ the final result line is not printed):
    name and power limit, the line ``{"kernels": [...]}`` (per kernel:
    route, source, the TPU kernel it replaces, launches on its serve or
    train route (the masked K4's on the long-bag runs) plus those of the
-   train_device phase's runs of the four routes, of every train_variable
-   run and of the python_source phase, max error, times at the headline
-   shape and the bound), then, last, the result line.
+   train_device phase's runs of the four routes, of the train_feed runs,
+   of every train_variable run and of the python_source phase, max error,
+   times at the headline shape and the bound), then, last, the result
+   line.
 
 With ``--json_out`` the per-shape kernel records and serving numbers are
 also written to that file.
@@ -2262,6 +2283,308 @@ def phase_train_device(torch, smi, dev, host_train, host_bucketed, host_lazy) ->
 
 
 # ---------------------------------------------------------------------------
+# phase 11b: the host feed and out-of-core corpora
+# ---------------------------------------------------------------------------
+
+FEED_METHODS = 32_768  # bench.py's training generator at 32,768 methods
+FEED_SLICE = 4_096  # the Python parser's slice
+FEED_STREAM_CHUNK = 8_192
+FEED_PROFILE_STEPS = 8
+FEED_ROUTES = {  # route -> the kernels of its train and eval passes
+    "fused": {"fused_f32_masked": ("train",), "fused_f32": ("eval",)},
+    "pool_only": {"pool": ("train", "eval"), "pool_bwd": ("train",)},
+}
+
+
+def vm_rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def mapped_rss_bytes(path: Path) -> int:
+    """The resident bytes of this process's mappings of ``path``
+    (``/proc/self/smaps``): the container pages a gather has touched."""
+    total, inside = 0, False
+    with open("/proc/self/smaps") as f:
+        for line in f:
+            fields = line.split()
+            if "-" in fields[0] and len(fields) >= 5 and ":" in fields[3]:
+                inside = len(fields) >= 6 and fields[5] == str(path)
+            elif inside and fields[0] == "Rss:":
+                total += int(fields[1]) * 1024
+    return total
+
+
+def head_records(src: Path, dst: Path, n: int) -> None:
+    """The first ``n`` records of a text corpus (records end at a blank line)."""
+    with open(src, encoding="utf-8") as f, open(dst, "w", encoding="utf-8") as out:
+        for line in f:
+            out.write(line)
+            if line == "\n":
+                n -= 1
+                if n == 0:
+                    return
+
+
+def batch_digest(batch) -> str:
+    """A hash of one host batch's fields."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for key in ("ids", "starts", "paths", "ends", "labels", "example_mask"):
+        h.update(np.ascontiguousarray(batch[key]).tobytes())
+    return h.hexdigest()
+
+
+def feed_digests(torch, dev, data, config) -> dict:
+    """The digests of the batches ``train()`` is fed under ``config``, in
+    stream order, from an untimed pass apart from the timed run: the same
+    sources (``make_batch_source``, behind a ``FeedPool`` and
+    ``ParallelFeed`` with workers), drawn from the run's generator in the
+    run's order (the split, then each epoch's train and eval pass), through
+    ``device_batches`` at the run's prefetch depth with each batch hashed as
+    it is copied to the card, before the next pull can recycle it."""
+    from code2vec_tpu_torch.data.parallel_feed import FeedPool, ParallelFeed
+    from code2vec_tpu_torch.data.pipeline import make_batch_source, split_items
+    from code2vec_tpu_torch.train.loop import resolve_ladder
+    from code2vec_tpu_torch.train.prefetch import device_batches
+    from code2vec_tpu_torch.train.step import to_device
+
+    ladder, bag_width = resolve_ladder(config, data)
+    rng = np.random.default_rng(config.random_seed)
+    splits = split_items(data.n_items, rng)
+    kw = dict(ladder=ladder, stream_chunk_items=config.stream_chunk_items,
+              shuffle_variable_indexes=config.shuffle_variable_indexes)
+    sources = [make_batch_source(data, idx, config.batch_size, bag_width, **kw)
+               for idx in splits]
+    digests = {"train": [], "eval": []}
+    pool = None
+    try:
+        if config.feed_workers:
+            pool = FeedPool(data, config.feed_workers, config.batch_size,
+                            int(sources[0].ladder[-1]))
+            sources = [ParallelFeed(source, pool) for source in sources]
+        for _ in range(config.max_epoch):
+            for split, source, shuffle in (("train", sources[0], True),
+                                           ("eval", sources[1], False)):
+                def copy(batch, out=digests[split]):
+                    out.append(batch_digest(batch))
+                    return to_device(batch, dev)
+
+                with device_batches(source.batches(rng, shuffle=shuffle), copy,
+                                    config.prefetch_batches, device=dev) as stream:
+                    for _ in stream:
+                        pass
+    finally:
+        if pool is not None:
+            pool.close()
+    torch.cuda.synchronize(dev)
+    return digests
+
+
+def feed_run(torch, smi, dev, data, config, label, route):
+    """One timed ``train()`` run, then the digests of the stream it was fed
+    (:func:`feed_digests`, untimed, so no hash lies inside an epoch or the
+    profiled split): the train_route record with the digests, and each
+    kernel of the route once for every train and eval batch."""
+    run = train_route(torch, smi, dev, data, config, f"feed {label}",
+                      tuple(FEED_ROUTES[route]))
+    t0 = time.perf_counter()
+    digests = feed_digests(torch, dev, data, config)
+    n_train = sum(m["train_steps"] for m in run["epochs"])
+    if len(digests["train"]) != n_train:
+        raise AssertionError(f"feed {label}: the digest pass drew {len(digests['train'])} "
+                             f"train batches, the run took {n_train} steps")
+    run["digests"] = digests["train"] + digests["eval"]
+    print(f"train feed {label}: {len(run['digests'])} batches hashed in an untimed pass of "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for key, passes in FEED_ROUTES[route].items():
+        want = sum(len(digests[p]) for p in passes)
+        if run["launches"].get(key, 0) != want:
+            raise AssertionError(f"feed {label}: {key} launched {run['launches'].get(key, 0)} "
+                                 f"times, want one per {'/'.join(passes)} batch ({want})")
+    for m in run["epochs"]:
+        print(f"train feed {label} epoch {m['epoch']}: split of {m['profiled_steps']} steps: "
+              f"host_build {m['host_build_ms']:.3f} ms, h2d {m['h2d_ms']:.3f} ms, feed_wait "
+              f"{m['feed_wait_ms']:.3f} ms, compute {m['compute_ms']:.3f} ms [{smi}]",
+              flush=True)
+    return run
+
+
+def same_stream(label, run, ref):
+    """The run fed the reference's batches (equal digests, in order) and its
+    per-epoch losses are within rtol 1e-5 of the reference's."""
+    if run["digests"] != ref["digests"]:
+        first = next((i for i, (a, b) in enumerate(zip(run["digests"], ref["digests"]))
+                      if a != b), min(len(run["digests"]), len(ref["digests"])))
+        raise AssertionError(f"feed {label}: batch {first} differs from the synchronous "
+                             f"stream's ({len(run['digests'])} vs {len(ref['digests'])} batches)")
+    for key in ("train_loss", "test_loss"):
+        got, want = [m[key] for m in run["epochs"]], [m[key] for m in ref["epochs"]]
+        if not np.allclose(got, want, rtol=1e-5, atol=0):
+            raise AssertionError(f"feed {label}: {key} {got} vs the synchronous {want}")
+    print(f"train feed {label}: {len(run['digests'])} batch digests equal the synchronous "
+          f"stream's; losses {[round(m['train_loss'], 6) for m in run['epochs']]} vs "
+          f"{[round(m['train_loss'], 6) for m in ref['epochs']]}", flush=True)
+
+
+def phase_train_feed(torch, smi, dev, tmp: Path, device_train) -> dict:
+    """The host feed at the train recipe's widths on bench.py's training
+    generator at 32,768 methods: the corpus written as text, converted to a
+    CSR container by the port's tool, loaded through the native parser and
+    then the cache; fused trained synchronously, with --prefetch_batches 2,
+    with --feed_workers W, both, from the container (fixed, then bucketed)
+    with both, streamed (--stream_chunk_items 8192) with prefetch; pool_only
+    with both. Each run's batches equal its synchronous stream's."""
+    import logging
+    import os
+
+    from code2vec_tpu_torch.data import reader
+    from code2vec_tpu_torch.data.corpus_parser import parse_corpus_native
+    from code2vec_tpu_torch.data.pipeline import make_batch_source, split_items
+    from code2vec_tpu_torch.data.synth import SynthSpec, generate_corpus_files
+    from code2vec_tpu_torch.tools.corpus_convert import text_to_csr
+    from code2vec_tpu_torch.train.config import TrainConfig
+
+    out = {}
+    cores = len(os.sched_getaffinity(0))
+    workers = max(1, min(4, cores - 1))
+    out["cores"], out["workers"] = cores, workers
+    print(f"train feed: {cores} usable cores, feed workers {workers}", flush=True)
+
+    # the corpus: text, then the container
+    root = tmp / "feed_corpus"
+    t0 = time.perf_counter()
+    spec = SynthSpec(n_methods=FEED_METHODS, n_terminals=360_631, n_paths=342_845,
+                     n_labels=8_000, mean_contexts=120.0, length_sigma=0.6, max_contexts=400,
+                     seed=0)
+    paths = generate_corpus_files(root, spec)
+    write_s = time.perf_counter() - t0
+    text = Path(paths["corpus"])
+    csr = root / "corpus.csr"
+    t0 = time.perf_counter()
+    n_records = text_to_csr(str(text), str(csr))
+    convert_s = time.perf_counter() - t0
+    out["corpus"] = {"methods": n_records, "text_bytes": text.stat().st_size,
+                     "csr_bytes": csr.stat().st_size, "write_seconds": write_s,
+                     "convert_seconds": convert_s}
+    print(f"train feed corpus: {n_records} methods, text {text.stat().st_size} bytes written in "
+          f"{write_s:.2f} s; converted to a CSR container of {csr.stat().st_size} bytes in "
+          f"{convert_s:.2f} s (tools/corpus_convert.py)", flush=True)
+
+    # the parsers: native on the whole corpus and on a slice, Python on the slice
+    slice_path = root / "slice.txt"
+    head_records(text, slice_path, FEED_SLICE)
+    t0 = time.perf_counter()
+    parse_corpus_native(str(text))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parse_corpus_native(str(slice_path))
+    native_slice_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reader._parse_python(str(slice_path))
+    python_slice_s = time.perf_counter() - t0
+    out["parse"] = {"native_seconds": native_s, "native_slice_seconds": native_slice_s,
+                    "python_slice_seconds": python_slice_s}
+    print(f"train feed parse: native {native_s:.3f} s for {FEED_METHODS} methods; on a "
+          f"{FEED_SLICE}-method slice native {native_slice_s:.4f} s, Python "
+          f"{python_slice_s:.3f} s ({python_slice_s / native_slice_s:.1f}x)", flush=True)
+
+    # load_corpus through the native parser (it must not fall back), then the cache
+    fallbacks = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            if "native corpus parser unavailable" in record.getMessage():
+                fallbacks.append(record.getMessage())
+
+    catch = Catch()
+    logging.getLogger(reader.__name__).addHandler(catch)
+    try:
+        args = (paths["corpus"], paths["path_idx"], paths["terminal_idx"])
+        t0 = time.perf_counter()
+        parsed = reader.load_corpus(*args)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = reader.load_corpus(*args)
+        cache_s = time.perf_counter() - t0
+    finally:
+        logging.getLogger(reader.__name__).removeHandler(catch)
+    if fallbacks:
+        raise AssertionError(f"the native parser fell back: {fallbacks}")
+    for key in ("starts", "paths", "ends", "row_splits", "ids", "labels"):
+        if not np.array_equal(getattr(parsed, key), getattr(data, key)):
+            raise AssertionError(f"the cached corpus's {key} differs from the parsed one")
+    del parsed
+    mmap = reader.load_corpus(str(csr), paths["path_idx"], paths["terminal_idx"])
+    if not mmap.mmap_backed or not np.array_equal(mmap.row_splits, data.row_splits):
+        raise AssertionError("the container did not load mmap-backed as the text corpus")
+    out["load"] = {"parse_and_cache_write_seconds": load_s, "cache_load_seconds": cache_s}
+    print(f"train feed load: {data.n_items} methods, {data.n_contexts} contexts; native parse + "
+          f"cache write {load_s:.3f} s, cache load {cache_s:.3f} s, no fallback", flush=True)
+
+    config = TrainConfig(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                         max_path_length=BAG, batch_size=TRAIN_BATCH, dropout_prob=0.25,
+                         max_epoch=2, random_seed=0, print_sample_cycle=0,
+                         profile_steps=FEED_PROFILE_STEPS)
+    train_idx, test_idx = split_items(data.n_items, np.random.default_rng(config.random_seed))
+    print(f"train feed: {len(train_idx)} train / {len(test_idx)} test methods, "
+          f"{-(-len(train_idx) // TRAIN_BATCH)} train batches an epoch at a fixed bag", flush=True)
+
+    # VmRSS around one host-only epoch of the mmap source
+    source = make_batch_source(mmap, train_idx, TRAIN_BATCH, BAG)
+    before, mapped_before = vm_rss_bytes(), mapped_rss_bytes(csr)
+    n = sum(1 for _ in source.batches(np.random.default_rng(0)))
+    after, mapped_after = vm_rss_bytes(), mapped_rss_bytes(csr)
+    out["mmap_rss"] = {"before": before, "after": after, "mapped_before": mapped_before,
+                       "mapped_after": mapped_after, "batches": n}
+    print(f"train feed: VmRSS {before / 2**20:.1f} MiB before and {after / 2**20:.1f} MiB after "
+          f"an mmap epoch of {n} batches; the container's mapping resident "
+          f"{mapped_before / 2**20:.1f} -> {mapped_after / 2**20:.1f} MiB of "
+          f"{csr.stat().st_size / 2**20:.1f} MiB", flush=True)
+
+    both = dict(prefetch_batches=2, feed_workers=workers)
+    fused = kernel_route("fused")
+    runs = [  # (label, data, route, flags, the synchronous run it is held to)
+        ("sync", data, "fused", {}, None),
+        ("prefetch", data, "fused", dict(prefetch_batches=2), "sync"),
+        ("workers", data, "fused", dict(feed_workers=workers), "sync"),
+        ("workers+prefetch", data, "fused", both, "sync"),
+        ("csr sync", mmap, "fused", {}, None),
+        ("csr workers+prefetch", mmap, "fused", both, "csr sync"),
+        ("csr bucketed sync", mmap, "fused", dict(bucketed=True), None),
+        ("csr bucketed workers+prefetch", mmap, "fused", dict(bucketed=True, **both),
+         "csr bucketed sync"),
+        ("stream sync", data, "fused", dict(stream_chunk_items=FEED_STREAM_CHUNK), None),
+        ("stream prefetch", data, "fused",
+         dict(stream_chunk_items=FEED_STREAM_CHUNK, prefetch_batches=2), "stream sync"),
+        ("pool_only sync", data, "pool_only", {}, None),
+        ("pool_only workers+prefetch", data, "pool_only", both, "pool_only sync"),
+    ]
+    out["routes"] = {}
+    for label, run_data, route, flags, ref in runs:
+        kernel = fused if route == "fused" else kernel_route(route)
+        run = out["routes"][label] = feed_run(
+            torch, smi, dev, run_data, config.with_updates(**kernel, **flags), label, route)
+        if ref is not None:
+            same_stream(label, run, out["routes"][ref])
+    dev_fused = ((device_train or {}).get("routes") or {}).get("fused")
+    for label in ("sync", "prefetch", "workers", "workers+prefetch", "csr workers+prefetch",
+                  "csr bucketed workers+prefetch", "stream prefetch"):
+        run = out["routes"][label]
+        print(f"train feed {label} epoch_seconds {[round(m['epoch_seconds'], 4) for m in run['epochs']]}"
+              f" vs the train_device phase's fused device epochs (8,192 methods) "
+              f"{[round(m['epoch_seconds'], 4) for m in dev_fused['epochs']] if dev_fused else None}"
+              f" [{smi}]", flush=True)
+    for run in out["routes"].values():
+        run.pop("digests")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 12: Java source extraction, prediction and serving from source
 # ---------------------------------------------------------------------------
 
@@ -3069,6 +3392,8 @@ def main() -> int:
                            bf16_train)
         device_train = phase("train_device", phase_train_device, torch, smi, dev, trained,
                              bucketed, lazy_train)
+        feed_train = phase("train_feed", phase_train_feed, torch, smi, dev, model_dir,
+                           device_train)
         extracted = phase("extract", phase_extract, torch, smi, dev, model_dir,
                           extractor_build, serve)
         python = phase("python_source", phase_python_source, torch, smi, dev, model_dir,
@@ -3108,6 +3433,12 @@ def main() -> int:
         for key, n in counts.items():
             py_counts[key] = py_counts.get(key, 0) + n
     print(f"python_source launches: {json.dumps(py_counts)}")
+    # the train_feed phase's runs (fused and pool_only, every feed)
+    feed_counts = {}
+    for run in feed_train["routes"].values():
+        for key, n in run["launches"].items():
+            feed_counts[key] = feed_counts.get(key, 0) + n
+    print(f"train_feed launches: {json.dumps(feed_counts)}")
     line = []
     for name, rec in kernels.items():
         timed = next(r for r in rec["rows"] if (r["B"], r["L"]) == rec["timed"])
@@ -3116,7 +3447,7 @@ def main() -> int:
             "replaces": rec["replaces"],
             "launches": (routes[rec["key"]]["launches"][rec["key"]]
                          + device_counts.get(rec["key"], 0) + var_counts.get(rec["key"], 0)
-                         + py_counts.get(rec["key"], 0)),
+                         + py_counts.get(rec["key"], 0) + feed_counts.get(rec["key"], 0)),
             "max_abs_err": max(r["max_abs_err"] for r in rec["rows"]),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -3142,7 +3473,8 @@ def main() -> int:
              "serve": serve,
              "longbag": longbag, "retrieval": retrieval, "train": trained,
              "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train,
-             "train_device": device_train, "extract": extracted, "train_variable": variable,
+             "train_device": device_train, "train_feed": feed_train, "extract": extracted,
+             "train_variable": variable,
              "python_source": python},
             indent=1,
         ))

@@ -12,8 +12,10 @@ Layout (each module names its JAX counterpart):
 - ``models`` — the ``Code2Vec`` ``nn.Module`` and the file-level head
   (``hierarchical``: method vectors pooled into one vector a file);
 - ``interop`` — JAX param tree <-> reference ``state_dict``;
-- ``formats`` — vocab files, ``code.vec`` and the ANN index container,
-  interchangeable with the JAX package's;
+- ``formats`` — vocab files, ``code.vec``, the ANN index container and
+  the corpus (text and the mmap-backed CSR container), interchangeable
+  with the JAX package's; ``tools/corpus_convert.py`` and
+  ``tools/corpus_stats.py`` convert and inspect corpora;
 - ``ann`` — the IVF-PQ index (k-means and PQ on the card, K5 scoring);
   ``tools/ann_build.py`` builds one from a ``code.vec`` or ``file.vec``;
 - ``predict`` / ``serve`` — the serving path (``python -m
@@ -26,9 +28,11 @@ Layout (each module names its JAX counterpart):
   code2vec_tpu_torch.extractor``, mixed Java + Python datasets too) and
   in-process extraction for ``predict``; ``pyextract`` — the Python
   sources' ``ast`` extractor;
-- ``text``, ``data`` (vocab, reader, synthetic corpora, epochs and
-  batches of the method and variable tasks), ``metrics``, ``train`` (config, steps, the lazy table
-  optimizer, device-resident epochs, the epoch loop),
+- ``text``, ``data`` (vocab, reader with the native parser and the
+  corpus cache, synthetic corpora, epochs and batches of the method and
+  variable tasks in RAM, streamed or from an mmap-backed corpus, the feed
+  workers), ``metrics``, ``train`` (config, steps, the lazy table
+  optimizer, device-resident epochs, the host prefetcher, the epoch loop),
   ``checkpoint``, ``export`` and ``cli`` — the training path (``python -m
   code2vec_tpu_torch``), whose model dir the server serves as it stands.
 

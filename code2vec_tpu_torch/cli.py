@@ -24,10 +24,19 @@ true]`` stages both splits on the card and samples each epoch's batches there.
 ``--infer_variable_name true [--infer_method_name false]
 [--shuffle_variable_indexes true]`` trains the variable-name task (one example
 per ``@var_*`` alias of a method), alone or beside the method-name task.
+The host feed: ``--prefetch_batches N`` builds and copies batches ahead on a
+thread, ``--feed_workers N`` builds them on forked processes,
+``--stream_chunk_items N`` builds epochs in chunks (bounded RSS),
+``--profile_steps N`` adds the steps' host-build / H2D / feed-wait / compute
+split to the epoch line; every setting feeds the same batches. The corpus
+is a ``corpus.txt`` (parsed natively, then cached beside it unless
+``--no_corpus_cache``) or a CSR container from ``python -m
+code2vec_tpu_torch.tools.corpus_convert`` (mmap-backed);
+``--corpus_format`` fails when the file is not the format named.
 
 Flags of features not ported yet are accepted with their default only and
-raise otherwise (``TrainConfig.validate``, ROADMAP §A.2); HPO, telemetry,
-the corpus cache, host sharding and the CSR container have no flag.
+raise otherwise (``TrainConfig.validate``, ROADMAP §A.2); HPO, telemetry
+and host sharding have no flag.
 """
 
 from __future__ import annotations
@@ -158,13 +167,43 @@ def build_parser() -> argparse.ArgumentParser:
                         help="device-epoch chunks sample batch i+1 while stepping batch i "
                              "(a second CUDA stream; the same batches)")
 
+    # the host feed and the corpus (JAX cli.py:216-243, :254)
+    parser.add_argument("--corpus_format", type=str, default="auto",
+                        choices=("auto", "text", "csr"),
+                        help="corpus file format: text (L1 corpus.txt), "
+                        "csr (memory-mapped binary container from "
+                        "tools/corpus_convert.py — feeds training through "
+                        "mmap views in bounded host RSS), or auto-detect "
+                        "by magic (default)")
+    parser.add_argument("--stream_chunk_items", type=int, default=0,
+                        help="stream epochs in chunks of this many rows "
+                        "instead of materializing [N, L] tensors (bounds "
+                        "host RSS at java-large scale; 0 = materialize)")
+    parser.add_argument("--prefetch_batches", type=int, default=0,
+                        help="host-epoch input pipeline: build + transfer "
+                        "this many batches ahead of compute on a background "
+                        "thread (0 = synchronous; identical batches in "
+                        "identical order)")
+    parser.add_argument("--feed_workers", type=int, default=0,
+                        help="parallel host ingest: execute each epoch's "
+                        "batch plan on this many forked worker processes "
+                        "(RNG stays on the coordinator — feed order, loss "
+                        "history, and resume cursors are bitwise identical "
+                        "to 0 = build on the coordinator). Method-task "
+                        "host pipeline only; composes with bucketed/"
+                        "streaming/mmap and --prefetch_batches")
+    parser.add_argument("--profile_steps", type=int, default=0,
+                        help="fence the first N train steps of each epoch "
+                        "and log the host-build / H2D / feed-wait / "
+                        "compute wall-time split (0 = off)")
+    parser.add_argument("--no_corpus_cache", action="store_true", default=False,
+                        help="disable the <corpus>.cache.npz sidecar that "
+                             "makes repeat startups fast at top11 scale")
+
     # accepted at their defaults only: the features are not ported yet
     parser.add_argument("--data_axis", type=int, default=1)
     parser.add_argument("--model_axis", type=int, default=1)
     parser.add_argument("--context_axis", type=int, default=1)
-    parser.add_argument("--stream_chunk_items", type=int, default=0)
-    parser.add_argument("--feed_workers", type=int, default=0)
-    parser.add_argument("--prefetch_batches", type=int, default=0)
     parser.add_argument("--async_checkpoint", action="store_true", default=False)
     parser.add_argument("--checkpoint_every_steps", type=int, default=0)
     parser.add_argument("--fault_plan", type=str, default="")
@@ -181,8 +220,8 @@ _CONFIG_FLAGS = (
     "resume", "checkpoint_cycle", "compute_dtype", "data_axis", "model_axis", "context_axis",
     "adam_mu_dtype", "table_update", "embed_grad", "bucketed", "bucket_ladder", "max_contexts",
     "device_epoch", "device_chunk_batches", "sample_prefetch", "stream_chunk_items",
-    "feed_workers", "prefetch_batches", "async_checkpoint", "checkpoint_every_steps",
-    "fault_plan",
+    "feed_workers", "prefetch_batches", "profile_steps", "async_checkpoint",
+    "checkpoint_every_steps", "fault_plan",
 )
 
 
@@ -223,9 +262,20 @@ def main(argv: list[str] | None = None) -> int:
         args.path_idx_path = paths["path_idx"]
         args.terminal_idx_path = paths["terminal_idx"]
     try:
+        if args.corpus_format != "auto":
+            # fail loudly when the file is not what the flag says (a text path
+            # after a conversion would parse the whole corpus into RAM)
+            from code2vec_tpu_torch.formats.corpus_io import is_csr_corpus
+
+            actual = "csr" if is_csr_corpus(args.corpus_path) else "text"
+            if actual != args.corpus_format:
+                raise SystemExit(
+                    f"--corpus_format {args.corpus_format} but {args.corpus_path!r} is a "
+                    f"{actual} corpus; convert with tools/corpus_convert.py or fix the flag")
         data = load_corpus(args.corpus_path, args.path_idx_path, args.terminal_idx_path,
                            infer_method=args.infer_method_name,
-                           infer_variable=args.infer_variable_name)
+                           infer_variable=args.infer_variable_name,
+                           cache=not args.no_corpus_cache)
         os.makedirs(args.model_path, exist_ok=True)
         for out_file in (args.vectors_path, args.test_result_path):
             if out_file and os.path.dirname(out_file):

@@ -1,9 +1,9 @@
 """The input pipeline: split, per-epoch resampling, batching, bag ladders.
 
 Own copy of ``code2vec_tpu/data/pipeline.py``'s host path for both
-tasks (``:47-455``), its ladder and bucketing
-helpers (``:456-760``) and its in-RAM batch source (``:1057-1278``,
-``:1530``). The same semantics as the reference's per-method loop
+tasks (``:47-455``), its ladder and bucketing helpers (``:456-760``), its
+streaming epochs (``:801-954``), its batch sources (``:1057-1590``) and
+its plan/build split (``:1593-1700``). The same semantics as the reference's per-method loop
 (model/dataset_builder.py:112-210) as vectorized numpy over the CSR
 arrays, drawing from the caller's generator in the JAX module's exact
 order, so both trainers see the same batches:
@@ -21,8 +21,18 @@ PAD positions carry exactly-zero attention weight, so an example's
 forward is identical at any width >= its real context count: the
 ladders pad training and serving shapes to a small static set. The
 variable-name task's epoch (one row per ``@var_*`` alias) follows the
-method rows. Streaming and mmap-backed epochs are not ported yet
-(ROADMAP §A.2).
+method rows.
+
+A split's feed is a :class:`BatchSource` (``make_batch_source`` picks
+one): the in-RAM epoch, chunked streaming (``stream_chunk_items``, any
+task, bounded RSS) or, for an mmap-backed CSR corpus and the method task,
+batches gathered straight from the mapped arrays. Each method-task source
+splits its stream into plans (every draw of the generator, made in the
+stream's order) and a pure build (:func:`execute_plan`), which
+``data/parallel_feed.py`` runs on worker processes. Not ported yet: the
+host-sharded lockstep feed (``scheduled_batches``, ``empty_batch``,
+``pad_batch_stream``; ROADMAP §A.2.9) and mid-epoch replay
+(``skip_batches``, §A.2.8).
 """
 
 from __future__ import annotations
@@ -74,27 +84,42 @@ def flat_context_indices(row_splits: np.ndarray, item_idx: np.ndarray
     return flat, seg, within
 
 
+CONTEXT_ORDERS = ("shuffled", "corpus")
+
+
 def _segment_subsample(row_splits: np.ndarray, item_idx: np.ndarray, max_contexts: int,
-                       rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+                       rng: np.random.Generator, context_order: str = "shuffled"
+                       ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Up to ``max_contexts`` random contexts per selected item:
     ``(flat_idx, out_row, out_col)``. "Shuffle each method's contexts, keep
     the first L", vectorized: one uniform per context, a stable sort by
-    (segment, uniform), the first L positions of each segment."""
+    (segment, uniform), the first L positions of each segment.
+    ``context_order="corpus"`` puts the kept contexts back in corpus order:
+    the same draws and the same kept subset, only their places in the row
+    change, so rows built at different stream positions compare bitwise."""
     flat, seg, within = flat_context_indices(row_splits, item_idx)
     if len(flat) == 0:
         return flat, seg, within
     order = np.lexsort((rng.random(len(flat)), seg))
     keep = within < max_contexts
-    return flat[order[keep]], seg[keep], within[keep]
+    kept_flat, kept_seg = flat[order[keep]], seg[keep]
+    if context_order == "corpus":
+        kept_flat = kept_flat[np.lexsort((kept_flat, kept_seg))]
+    elif context_order != "shuffled":
+        raise ValueError(f"unknown context_order: {context_order!r}")
+    return kept_flat, kept_seg, within[keep]
 
 
 def build_method_epoch(data, item_idx: np.ndarray, max_contexts: int,
-                       rng: np.random.Generator) -> EpochArrays:
+                       rng: np.random.Generator, context_order: str = "shuffled") -> EpochArrays:
     """The method-name task's epoch: a fresh context subsample per method,
     the method's own ``@method_0`` replaced by ``@question``
-    (model/dataset_builder.py:122-150)."""
+    (model/dataset_builder.py:122-150). ``data`` is anything with the CSR
+    arrays, ``ids``, ``labels`` and ``method_token_index`` (a worker's
+    slim view too)."""
     n = len(item_idx)
-    flat, row, col = _segment_subsample(data.row_splits, item_idx, max_contexts, rng)
+    flat, row, col = _segment_subsample(data.row_splits, item_idx, max_contexts, rng,
+                                        context_order)
     starts = np.full((n, max_contexts), PAD_INDEX, np.int32)
     paths = np.full((n, max_contexts), PAD_INDEX, np.int32)
     ends = np.full((n, max_contexts), PAD_INDEX, np.int32)
@@ -129,8 +154,8 @@ def variable_items(data, item_idx: np.ndarray):
 
 
 def build_variable_epoch(data, item_idx: np.ndarray, max_contexts: int,
-                         rng: np.random.Generator,
-                         shuffle_variable_indexes: bool = False) -> EpochArrays:
+                         rng: np.random.Generator, shuffle_variable_indexes: bool = False,
+                         context_order: str = "shuffled") -> EpochArrays:
     """The variable-name task's epoch: one row per ``@var_*`` alias of each
     method. A method's contexts touching any of its variables are shuffled
     once (one ``rng.permutation``); each alias's row keeps the first
@@ -140,7 +165,8 @@ def build_variable_epoch(data, item_idx: np.ndarray, max_contexts: int,
     ``rng.shuffle`` per method drawn before its context permutation
     (model/dataset_builder.py:152-204). Every row is appended before its
     contexts are looked at, so an alias that no context touches gets an
-    all-PAD row. JAX ``pipeline.py:225-355`` draw for draw."""
+    all-PAD row. JAX ``pipeline.py:225-355`` draw for draw; under
+    ``context_order="corpus"`` the permutation is drawn and not applied."""
     variable_indexes = data.variable_indexes
     perm_map = None
     if not shuffle_variable_indexes and len(variable_indexes):
@@ -157,7 +183,8 @@ def build_variable_epoch(data, item_idx: np.ndarray, max_contexts: int,
             rng.shuffle(shuffled)
             perm_map = _index_remap(variable_indexes, shuffled)
         order = rng.permutation(len(s))
-        s, p, e = s[order], p[order], e[order]
+        if context_order == "shuffled":
+            s, p, e = s[order], p[order], e[order]
         base = len(ids)
         for alias_name in alias_names:
             ids.append(int(data.ids[i]))
@@ -212,23 +239,21 @@ def _rename_target(values: np.ndarray, target_idx, perm_map: np.ndarray | None) 
 
 
 def build_epoch(data, item_idx: np.ndarray, max_contexts: int, rng: np.random.Generator,
-                shuffle_variable_indexes: bool = False) -> EpochArrays:
+                shuffle_variable_indexes: bool = False,
+                context_order: str = "shuffled") -> EpochArrays:
     """A full epoch of the tasks the corpus was loaded with: the method
     rows first, then the variable rows, drawn from ``rng`` in that order
     (the reference's concatenation, model/dataset_builder.py:122-204)."""
     parts: list[EpochArrays] = []
     if data.infer_method:
-        parts.append(build_method_epoch(data, item_idx, max_contexts, rng))
+        parts.append(build_method_epoch(data, item_idx, max_contexts, rng, context_order))
     if data.infer_variable:
         parts.append(build_variable_epoch(data, item_idx, max_contexts, rng,
-                                          shuffle_variable_indexes))
+                                          shuffle_variable_indexes, context_order))
     if not parts:
         raise ValueError("the corpus was loaded with neither task (infer_method and "
                          "infer_variable both off)")
-    if len(parts) == 1:
-        return parts[0]
-    return EpochArrays(*(np.concatenate([getattr(p, k) for p in parts])
-                         for k in ("ids", "starts", "paths", "ends", "labels")))
+    return parts[0] if len(parts) == 1 else _concat_epochs(parts)
 
 
 def iter_batches(epoch: EpochArrays, batch_size: int, rng: np.random.Generator | None = None,
@@ -502,6 +527,94 @@ def bucket_batch_counts(counts: np.ndarray, ladder: tuple[int, ...],
     return -(-members // batch_size)
 
 
+def iter_streaming_batches(epoch_builder, item_idx: np.ndarray, batch_size: int,
+                           rng: np.random.Generator, chunk_items: int = 65536,
+                           pad_final: bool = True, shuffle: bool = True,
+                           ladder: tuple[int, ...] | None = None
+                           ) -> Iterator[dict[str, np.ndarray]]:
+    """An epoch as static-shape batches without its ``[N, L]`` arrays: the
+    item order is shuffled once (one permutation draw), then
+    ``epoch_builder(chunk_idx)`` builds ``chunk_items`` items at a time,
+    each chunk's sub-batch remainder carried into the next, so the batches
+    have :func:`iter_batches`' shapes and padding. The variable task may
+    give more rows than items; the carry absorbs it. ``ladder``: bucketed
+    ``[B, L_b]`` batches (:func:`_iter_streaming_bucketed_batches`)."""
+    if ladder is not None:
+        yield from _iter_streaming_bucketed_batches(
+            epoch_builder, item_idx, ladder, batch_size, rng, chunk_items=chunk_items,
+            pad_final=pad_final, shuffle=shuffle)
+        return
+    order = rng.permutation(len(item_idx)) if shuffle else np.arange(len(item_idx))
+    carry: EpochArrays | None = None
+
+    def emit(epoch: EpochArrays, final: bool):
+        n_full = len(epoch) // batch_size * batch_size
+        yield from iter_batches(_slice_epoch(epoch, 0, n_full), batch_size, pad_final=False)
+        rest = _slice_epoch(epoch, n_full, len(epoch))
+        if final and len(rest) and pad_final:
+            yield from iter_batches(rest, batch_size, pad_final=True)
+            rest = None
+        return rest
+
+    for lo in range(0, len(order), chunk_items):
+        chunk = epoch_builder(item_idx[order[lo:lo + chunk_items]])
+        if carry is not None and len(carry):
+            chunk = _concat_epochs([carry, chunk])
+        # the remainder comes back as emit()'s return value
+        carry = yield from emit(chunk, lo + chunk_items >= len(order))
+
+
+def _iter_streaming_bucketed_batches(epoch_builder, item_idx: np.ndarray,
+                                     ladder: tuple[int, ...], batch_size: int,
+                                     rng: np.random.Generator, chunk_items: int = 65536,
+                                     pad_final: bool = True, shuffle: bool = True
+                                     ) -> Iterator[dict[str, np.ndarray]]:
+    """The bucketed body of :func:`iter_streaming_batches`: per chunk,
+    build, join each bucket's rows onto its carry, emit the full batches in
+    a seeded interleave (one permutation draw a chunk) and carry each
+    bucket's remainder; the last chunk flushes the remainders as padded,
+    masked batches."""
+    order = rng.permutation(len(item_idx)) if shuffle else np.arange(len(item_idx))
+    carry: list[EpochArrays | None] = [None] * len(ladder)
+    for lo in range(0, len(order), chunk_items):
+        chunk = epoch_builder(item_idx[order[lo:lo + chunk_items]])
+        final = lo + chunk_items >= len(order)
+        bucket_of = assign_buckets(epoch_context_counts(chunk), ladder)
+        plans: list[tuple[int, EpochArrays]] = []
+        for b, width in enumerate(ladder):
+            part = _gather_epoch_rows(chunk, np.flatnonzero(bucket_of == b))
+            if carry[b] is not None and len(carry[b]):
+                part = _concat_epochs([carry[b], part])
+            n_full = len(part) // batch_size * batch_size
+            for lo_b in range(0, n_full, batch_size):
+                plans.append((width, _slice_epoch(part, lo_b, lo_b + batch_size)))
+            rest = _slice_epoch(part, n_full, len(part))
+            if final and len(rest) and pad_final:
+                plans.append((width, rest))
+                rest = None
+            carry[b] = rest if rest is not None and len(rest) else None
+        if shuffle:
+            plans = [plans[i] for i in rng.permutation(len(plans))]
+        for width, part in plans:
+            yield _bucket_batch(part, np.arange(len(part)), width, batch_size)
+
+
+_EPOCH_FIELDS = ("ids", "starts", "paths", "ends", "labels")
+
+
+def _gather_epoch_rows(epoch: EpochArrays, idx: np.ndarray) -> EpochArrays:
+    return EpochArrays(*(getattr(epoch, k)[idx] for k in _EPOCH_FIELDS))
+
+
+def _slice_epoch(epoch: EpochArrays, lo: int, hi: int) -> EpochArrays:
+    return EpochArrays(*(getattr(epoch, k)[lo:hi] for k in _EPOCH_FIELDS))
+
+
+def _concat_epochs(parts: list[EpochArrays]) -> EpochArrays:
+    return EpochArrays(*(np.concatenate([getattr(p, k) for p in parts])
+                         for k in _EPOCH_FIELDS))
+
+
 class BatchSource:
     """A host epoch feed, the JAX package's ``BatchSource`` protocol:
 
@@ -509,21 +622,53 @@ class BatchSource:
       fixed-``L`` case);
     - ``batches(rng, shuffle)``: one epoch's stream, a pure function of the
       generator's state at the call;
+    - ``plan_batches(rng, shuffle)``: the same stream as plans
+      (:class:`BatchPlan`), every draw made as ``batches`` makes it
+      (method task; the variable expansion stays on the coordinator);
     - ``pad_stats()``: ``(real context slots, padded slots)`` of the last
-      epoch built, None before any;
-    - ``last_epoch``: the last :class:`EpochArrays` built, which the export
-      and ``print_sample`` reuse instead of drawing anew.
+      epoch fed, None before any;
+    - ``last_epoch``: the last :class:`EpochArrays` built (the in-RAM
+      source; None for the others), which the export and ``print_sample``
+      reuse instead of drawing anew.
     """
 
     ladder: tuple[int, ...] = ()
     last_epoch: EpochArrays | None = None
+    _last_pad: tuple[int, int] | None = None
 
     def batches(self, rng: np.random.Generator,
                 shuffle: bool = True) -> Iterator[dict[str, np.ndarray]]:
         raise NotImplementedError
 
+    def plan_batches(self, rng: np.random.Generator,
+                     shuffle: bool = True) -> "Iterator[BatchPlan]":
+        raise NotImplementedError(
+            f"{type(self).__name__} has no batch-plan split; --feed_workers supports the "
+            "in-RAM, streaming and mmap-CSR method-task sources")
+
     def pad_stats(self) -> tuple[int, int] | None:
-        return None
+        return self._last_pad
+
+    def _accounted(self, stream):
+        """Tally ``(real context slots, slots)`` while ``stream`` is
+        consumed, the streaming and mmap sources' ``pad_stats``: masked
+        rows count as slots, never as real contexts."""
+        real = slots = 0
+        try:
+            for batch in stream:
+                valid = batch["example_mask"].astype(bool)
+                real += int((batch["paths"][valid] != PAD_INDEX).sum())
+                slots += int(batch["paths"].size)
+                yield batch
+        finally:
+            self._last_pad = (real, slots)
+
+
+def _method_task_only(data, what: str) -> None:
+    if data.infer_variable:
+        raise ValueError(f"{what} plans the method task only (the variable expansion draws "
+                         "per-item rng on the coordinator); run variable-task corpora with "
+                         "--feed_workers 0")
 
 
 class EpochSource(BatchSource):
@@ -534,7 +679,8 @@ class EpochSource(BatchSource):
     order)."""
 
     def __init__(self, data, item_idx: np.ndarray, batch_size: int, max_contexts: int,
-                 ladder: tuple[int, ...] | None = None, shuffle_variable_indexes: bool = False):
+                 ladder: tuple[int, ...] | None = None, shuffle_variable_indexes: bool = False,
+                 context_order: str = "shuffled"):
         self.data = data
         self.item_idx = np.asarray(item_idx)
         self.batch_size = int(batch_size)
@@ -542,6 +688,7 @@ class EpochSource(BatchSource):
         self.ladder = tuple(ladder) if ladder else (int(max_contexts),)
         self._bucketed = ladder is not None
         self._svi = bool(shuffle_variable_indexes)
+        self._context_order = context_order
         self.last_epoch: EpochArrays | None = None
         # (rows, real, slots): a row's count is min(its contexts, the cap)
         # whichever contexts the subsample drew, so it is reckoned once
@@ -550,7 +697,8 @@ class EpochSource(BatchSource):
     def batches(self, rng: np.random.Generator,
                 shuffle: bool = True) -> Iterator[dict[str, np.ndarray]]:
         def gen():
-            epoch = build_epoch(self.data, self.item_idx, self.max_contexts, rng, self._svi)
+            epoch = build_epoch(self.data, self.item_idx, self.max_contexts, rng, self._svi,
+                                self._context_order)
             self.last_epoch = epoch
             order = rng if shuffle else None
             if self._bucketed:
@@ -558,6 +706,51 @@ class EpochSource(BatchSource):
                                                  rng=order, pad_final=True)
             else:
                 yield from iter_batches(epoch, self.batch_size, rng=order, pad_final=True)
+
+        return gen()
+
+    def plan_batches(self, rng: np.random.Generator, shuffle: bool = True):
+        _method_task_only(self.data, "the in-RAM source")
+
+        def gen():
+            # batches()' draws: the whole epoch's subsample at the first
+            # pull, then the batch order
+            entries, counts_full = _uniform_entries(rng, self.data.row_splits, self.item_idx)
+            built_counts = np.minimum(counts_full, self.max_contexts)
+            b = self.batch_size
+            if self._bucketed:
+                # iter_bucketed_batches' draws: a member permutation per
+                # bucket in ladder order, then the plan interleave; a
+                # partial batch repeats its own first row
+                bucket_of = assign_buckets(built_counts, self.ladder)
+                plans: list[tuple[int, np.ndarray]] = []
+                for k, width in enumerate(self.ladder):
+                    members = np.flatnonzero(bucket_of == k)
+                    if shuffle:
+                        members = members[rng.permutation(len(members))]
+                    for lo in range(0, len(members), b):
+                        plans.append((int(width), members[lo:lo + b]))
+                if shuffle:
+                    plans = [plans[i] for i in rng.permutation(len(plans))]
+                for width, rows in plans:
+                    valid = len(rows)
+                    if valid < b:
+                        rows = np.concatenate([rows, np.full(b - valid, rows[0], rows.dtype)])
+                    yield _plan_of(width, [entries[r] for r in rows], valid,
+                                   self._context_order)
+            else:
+                # iter_batches' draws: one row permutation when shuffling;
+                # the final partial batch repeats epoch row 0
+                n = len(self.item_idx)
+                order = rng.permutation(n) if shuffle else None
+                for lo in range(0, n, b):
+                    hi = min(lo + b, n)
+                    valid = hi - lo
+                    rows = order[lo:hi] if order is not None else np.arange(lo, hi)
+                    if valid < b:
+                        rows = np.concatenate([rows, np.zeros(b - valid, rows.dtype)])
+                    yield _plan_of(self.max_contexts, [entries[r] for r in rows], valid,
+                                   self._context_order)
 
         return gen()
 
@@ -572,22 +765,256 @@ class EpochSource(BatchSource):
         return self._pad_cache[1], self._pad_cache[2]
 
 
+class StreamingSource(BatchSource):
+    """The bounded-RSS source: chunked epoch builds
+    (:func:`iter_streaming_batches`), fixed-``L`` or bucketed. Works over
+    any backing, an mmap-backed CSR corpus too, and is the out-of-core
+    feed of the variable task."""
+
+    def __init__(self, data, item_idx: np.ndarray, batch_size: int, max_contexts: int,
+                 chunk_items: int, ladder: tuple[int, ...] | None = None,
+                 shuffle_variable_indexes: bool = False, context_order: str = "shuffled"):
+        self.data = data
+        self.item_idx = np.asarray(item_idx)
+        self.batch_size = int(batch_size)
+        self.max_contexts = int(max_contexts)
+        self.chunk_items = int(chunk_items)
+        self.ladder = tuple(ladder) if ladder else (int(max_contexts),)
+        self._bucket_ladder = tuple(ladder) if ladder else None
+        self._svi = bool(shuffle_variable_indexes)
+        self._context_order = context_order
+
+    def batches(self, rng: np.random.Generator, shuffle: bool = True):
+        def chunk_builder(idx):
+            return build_epoch(self.data, idx, self.max_contexts, rng, self._svi,
+                               self._context_order)
+
+        return self._accounted(iter_streaming_batches(
+            chunk_builder, self.item_idx, self.batch_size, rng, chunk_items=self.chunk_items,
+            shuffle=shuffle, ladder=self._bucket_ladder))
+
+    def plan_batches(self, rng: np.random.Generator, shuffle: bool = True):
+        _method_task_only(self.data, "streaming")
+
+        def gen():
+            # iter_streaming_batches' draws: the item order, then one
+            # subsample draw a chunk; the sub-batch remainders (a bucket's,
+            # when laddered) carry over as (item, uniforms) entries
+            n = len(self.item_idx)
+            order = rng.permutation(n) if shuffle else np.arange(n)
+            b, ladder = self.batch_size, self._bucket_ladder
+            pending: list = []
+            carry: list[list] = [[] for _ in (ladder or ())]
+            for lo in range(0, n, self.chunk_items):
+                chunk_idx = self.item_idx[order[lo:lo + self.chunk_items]]
+                entries, counts_full = _uniform_entries(rng, self.data.row_splits, chunk_idx)
+                final = lo + self.chunk_items >= n
+                if ladder is None:
+                    pending.extend(entries)
+                    n_full = len(pending) // b * b
+                    for s in range(0, n_full, b):
+                        yield _plan_of(self.max_contexts, pending[s:s + b], b,
+                                       self._context_order)
+                    pending = pending[n_full:]
+                    if final and pending:
+                        yield _plan_of(self.max_contexts,
+                                       pending + [pending[0]] * (b - len(pending)),
+                                       len(pending), self._context_order)
+                        pending = []
+                    continue
+                bucket_of = assign_buckets(np.minimum(counts_full, self.max_contexts), ladder)
+                plans: list[tuple[int, list, int]] = []
+                for k, width in enumerate(ladder):
+                    part = carry[k] + [entries[j] for j in np.flatnonzero(bucket_of == k)]
+                    n_full = len(part) // b * b
+                    for s in range(0, n_full, b):
+                        plans.append((int(width), part[s:s + b], b))
+                    rest = part[n_full:]
+                    if final and rest:
+                        plans.append((int(width), rest + [rest[0]] * (b - len(rest)),
+                                      len(rest)))
+                        rest = []
+                    carry[k] = rest
+                if shuffle:
+                    plans = [plans[i] for i in rng.permutation(len(plans))]
+                for width, rows, valid in plans:
+                    yield _plan_of(width, rows, valid, self._context_order)
+
+        return gen()
+
+
+class MmapCorpusSource(BatchSource):
+    """The never-materialize source: each ``[B, L_b]`` batch gathered
+    straight from the (mmap-backed) CSR arrays, so no ``[N, L]`` epoch
+    exists and host RSS stays one batch at any corpus size. The bucket of
+    an item is ``min(count, top width)``'s, known from ``row_splits``
+    alone, so the epoch's batch plan is drawn up front and each batch's
+    subsample when it is built. Method task only (the variable expansion
+    depends on the data: :class:`StreamingSource` takes it)."""
+
+    def __init__(self, data, item_idx: np.ndarray, batch_size: int, max_contexts: int,
+                 ladder: tuple[int, ...] | None = None, context_order: str = "shuffled"):
+        if data.infer_variable:
+            raise ValueError("MmapCorpusSource supports the method task only (the variable "
+                             "expansion is data-dependent per item); use stream_chunk_items "
+                             "for variable-task out-of-core feeding")
+        self.data = data
+        self.item_idx = np.asarray(item_idx)
+        self.batch_size = int(batch_size)
+        self.max_contexts = int(max_contexts)
+        self.ladder = tuple(ladder) if ladder else (int(max_contexts),)
+        self._context_order = context_order
+        counts = data.row_splits[self.item_idx + 1] - data.row_splits[self.item_idx]
+        self._counts = np.minimum(counts, self.ladder[-1])
+
+    def _plan(self, rng: np.random.Generator | None) -> list[tuple[int, np.ndarray]]:
+        """The epoch's ``(width, items)`` plan: :func:`iter_bucketed_batches`'
+        member permutations and interleave (one width: the fixed plan)."""
+        bucket_of = assign_buckets(self._counts, self.ladder)
+        plans: list[tuple[int, np.ndarray]] = []
+        for k, width in enumerate(self.ladder):
+            members = self.item_idx[bucket_of == k]
+            if rng is not None:
+                members = members[rng.permutation(len(members))]
+            for lo in range(0, len(members), self.batch_size):
+                plans.append((width, members[lo:lo + self.batch_size]))
+        if rng is not None:
+            plans = [plans[i] for i in rng.permutation(len(plans))]
+        return plans
+
+    def _batch_plan(self, items: np.ndarray, width: int,
+                    rng: np.random.Generator) -> "BatchPlan":
+        """One batch's subsample draw and padding (the batch's row 0
+        repeated); :meth:`batches` executes these plans inline, so the
+        worker stream is this stream by construction."""
+        entries, _ = _uniform_entries(rng, self.data.row_splits, items)
+        valid = len(items)
+        if valid < self.batch_size:
+            entries = entries + [entries[0]] * (self.batch_size - valid)
+        return _plan_of(width, entries, valid, self._context_order)
+
+    def batches(self, rng: np.random.Generator, shuffle: bool = True):
+        def gen():
+            for width, items in self._plan(rng if shuffle else None):
+                yield execute_plan(self.data, self._batch_plan(items, width, rng))
+
+        return self._accounted(gen())
+
+    def plan_batches(self, rng: np.random.Generator, shuffle: bool = True):
+        def gen():
+            for width, items in self._plan(rng if shuffle else None):
+                yield self._batch_plan(items, width, rng)
+
+        return gen()
+
+
 def make_batch_source(data, item_idx: np.ndarray, batch_size: int, max_contexts: int,
                       ladder: tuple[int, ...] | None = None, stream_chunk_items: int = 0,
-                      shuffle_variable_indexes: bool = False) -> BatchSource:
-    """The feed of one split: the in-RAM :class:`EpochSource`, fixed-``L``
-    for ``ladder=None``. Streaming epochs (``stream_chunk_items > 0``) and
-    mmap-backed corpora are not ported yet."""
+                      shuffle_variable_indexes: bool = False,
+                      context_order: str = "shuffled") -> BatchSource:
+    """The feed of one split (JAX ``pipeline.py:1530``):
+    ``stream_chunk_items > 0`` streams (any backing, any task); an
+    mmap-backed corpus with the method task only gathers batches from the
+    mapped arrays; otherwise the in-RAM epoch. ``ladder=None`` is the
+    fixed-``L`` single-width ladder."""
     if stream_chunk_items:
-        raise NotImplementedError(
-            "streaming epochs (stream_chunk_items > 0) are not ported yet (ROADMAP §A.2)"
-        )
-    if getattr(data, "mmap_backed", False):
-        raise NotImplementedError(
-            "mmap-backed corpora are not ported yet (ROADMAP §A.2)"
-        )
+        return StreamingSource(data, item_idx, batch_size, max_contexts, stream_chunk_items,
+                               ladder=ladder, shuffle_variable_indexes=shuffle_variable_indexes,
+                               context_order=context_order)
+    if getattr(data, "mmap_backed", False) and not data.infer_variable:
+        return MmapCorpusSource(data, item_idx, batch_size, max_contexts, ladder=ladder,
+                                context_order=context_order)
     return EpochSource(data, item_idx, batch_size, max_contexts, ladder=ladder,
-                       shuffle_variable_indexes=shuffle_variable_indexes)
+                       shuffle_variable_indexes=shuffle_variable_indexes,
+                       context_order=context_order)
+
+
+# ---------------------------------------------------------------------------
+# The plan/build split (JAX ``pipeline.py:1593-1700``). A method-task
+# batch is a pure function of its items, its width and the items'
+# subsample uniforms: ``plan_batches`` draws every value ``batches`` would,
+# in its order and sizes, and ``execute_plan`` rebuilds each batch from the
+# corpus arrays alone, on a worker process if need be. Executing the k-th
+# plan gives the k-th batch bit for bit, and the generator ends in the
+# state ``batches`` leaves it in.
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BatchPlan:
+    """One batch with every draw made: ``items`` one per output row
+    (padded by repeating a real row), ``uniforms`` the rows' subsample
+    draws back to back (the sum of their full context counts)."""
+
+    width: int
+    valid: int  # rows with example_mask 1.0
+    items: np.ndarray  # int64 [batch_size]
+    uniforms: np.ndarray  # float64 [sum counts(items)]
+    context_order: str = "shuffled"
+
+
+class _PlannedDraws:
+    """A stand-in for ``np.random.Generator`` that hands back the planned
+    uniforms, so :func:`execute_plan` runs :func:`build_method_epoch`
+    itself: there is no second subsample to keep in step."""
+
+    def __init__(self, uniforms: np.ndarray):
+        self._uniforms = uniforms
+        self._pos = 0
+
+    def random(self, n: int) -> np.ndarray:
+        out = self._uniforms[self._pos:self._pos + n]
+        if len(out) != n:
+            raise ValueError(
+                f"batch plan carries {len(self._uniforms)} uniforms but the build asked for "
+                f"{self._pos + n}: the plan and the corpus disagree (corpus changed since "
+                "planning?)")
+        self._pos += n
+        return out
+
+
+def execute_plan(data, plan: BatchPlan) -> dict[str, np.ndarray]:
+    """The planned batch, built from the corpus arrays (all randomness is in
+    ``plan.uniforms``); ``data`` is a :class:`CorpusData` or a worker's slim
+    view of its arrays."""
+    sub = build_method_epoch(data, plan.items, plan.width, _PlannedDraws(plan.uniforms),
+                             plan.context_order)
+    mask = np.zeros(len(plan.items), np.float32)
+    mask[:plan.valid] = 1.0
+    return {"ids": sub.ids, "starts": sub.starts, "paths": sub.paths, "ends": sub.ends,
+            "labels": sub.labels, "example_mask": mask}
+
+
+def plan_real_slots(plan: BatchPlan, row_splits: np.ndarray) -> tuple[int, int]:
+    """``(real context slots, slots)`` of the plan's batch, from its
+    geometry alone (the ``pad_stats`` of a worker-fed stream)."""
+    items = plan.items[:plan.valid]
+    counts = (row_splits[items + 1] - row_splits[items]).astype(np.int64)
+    return int(np.minimum(counts, plan.width).sum()), len(plan.items) * int(plan.width)
+
+
+def _plan_of(width: int, entries: list[tuple[int, np.ndarray]], valid: int,
+             context_order: str) -> BatchPlan:
+    """A plan from per-row ``(item, uniforms)`` entries, already padded."""
+    segs = [e[1] for e in entries]
+    return BatchPlan(width=int(width), valid=int(valid),
+                     items=np.asarray([e[0] for e in entries], np.int64),
+                     uniforms=np.concatenate(segs) if segs else np.zeros(0, np.float64),
+                     context_order=context_order)
+
+
+def _uniform_entries(rng, row_splits: np.ndarray, items: np.ndarray
+                     ) -> tuple[list[tuple[int, np.ndarray]], np.ndarray]:
+    """The subsample uniforms of ``items`` drawn as one ``build_method_epoch``
+    call draws them (one ``rng.random(total)``, none for a total of 0), cut
+    into per-item segments: ``(entries, full counts)``."""
+    items = np.asarray(items)
+    counts = (row_splits[items + 1] - row_splits[items]).astype(np.int64)
+    seg = np.zeros(len(items) + 1, np.int64)
+    np.cumsum(counts, out=seg[1:])
+    total = int(seg[-1])
+    u = rng.random(total) if total else np.zeros(0, np.float64)
+    return [(int(items[k]), u[seg[k]:seg[k + 1]]) for k in range(len(items))], counts
 
 
 def oov_rate(data, train_idx: np.ndarray, test_idx: np.ndarray, exact: bool = False) -> float:

@@ -57,3 +57,22 @@ class Vocab:
 
     def occurrence_list(self) -> list[int]:
         return [self.occurrences.get(i, 0) for i in range(len(self.stoi))]
+
+    def to_state(self) -> list:
+        """A JSON-serializable snapshot, the corpus cache's form (JAX's)."""
+        return [[name, index,
+                 list(self.itosubtokens[index]) if index in self.itosubtokens else None,
+                 self.freq.get(index, 0), self.occurrences.get(index, 0)]
+                for name, index in self.stoi.items()]
+
+    @classmethod
+    def from_state(cls, state: list) -> "Vocab":
+        vocab = cls()
+        for name, index, subtokens, freq, occurrences in state:
+            vocab.stoi[name] = index
+            vocab.itos[index] = name
+            if subtokens is not None:
+                vocab.itosubtokens[index] = tuple(subtokens)
+            vocab.freq[index] = freq
+            vocab.occurrences[index] = occurrences
+        return vocab

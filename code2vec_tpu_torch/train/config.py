@@ -1,9 +1,10 @@
 """Training configuration (the reference's Option, main.py:93-115).
 
 Own copy of ``code2vec_tpu/train/config.py``: the same field names and
-defaults. Fields of features the port does not have yet stay, so a JAX
-configuration reads the same here, and :meth:`TrainConfig.validate`
-rejects them loudly when set instead of ignoring them (ROADMAP §A.2).
+defaults. Fields of features the port does not have yet (the mesh axes,
+``pallas_impl='auto'``, elastic training) stay, so a JAX configuration
+reads the same here, and :meth:`TrainConfig.validate` rejects them loudly
+when set instead of ignoring them (ROADMAP §A.2.8, §A.2.9, §A.7).
 """
 
 from __future__ import annotations
@@ -103,13 +104,24 @@ class TrainConfig:
     device_chunk_batches: int = 16
     sample_prefetch: bool = False
 
+    # the host feed (data/pipeline.py, data/parallel_feed.py, train/prefetch.py):
+    # stream_chunk_items builds epochs in chunks of that many items instead
+    # of materializing [N, L] (0 = materialize); feed_workers forked processes
+    # build each epoch's planned batches, every draw staying on the
+    # coordinator (0 = build on it; method task, host-fed only);
+    # prefetch_batches builds and copies that many batches ahead on a thread
+    # (0 = synchronous); profile_steps splits that many steps an epoch into
+    # host-build / H2D / feed-wait / compute ms (0 = off). Every setting
+    # feeds the same batches in the same order.
+    stream_chunk_items: int = 0
+    feed_workers: int = 0
+    prefetch_batches: int = 0
+    profile_steps: int = 0
+
     # not ported yet: validate() rejects a value other than the default
     data_axis: int = 1
     model_axis: int = 1
     context_axis: int = 1
-    stream_chunk_items: int = 0
-    feed_workers: int = 0
-    prefetch_batches: int = 0
     async_checkpoint: bool = False
     checkpoint_every_steps: int = 0
     fault_plan: str = ""
@@ -146,10 +158,14 @@ class TrainConfig:
                               ("table_update", TABLE_UPDATES), ("embed_grad", GRAD_MODES)):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
+        for name in ("stream_chunk_items", "feed_workers", "prefetch_batches", "profile_steps"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"--{name} must be >= 0, got {getattr(self, name)}")
+        if self.feed_workers and self.device_epoch:
+            raise ValueError("--feed_workers parallelizes the HOST batch pipeline; "
+                             "--device_epoch samples batches on device and has no host builds "
+                             "to parallelize: drop one flag")
         unported = {
-            "stream_chunk_items": self.stream_chunk_items,
-            "feed_workers": self.feed_workers,
-            "prefetch_batches": self.prefetch_batches,
             "mesh axes > 1": max(self.data_axis, self.model_axis, self.context_axis) > 1,
             "pallas_impl='auto'": self.pallas_impl == "auto",
             "async_checkpoint": self.async_checkpoint,

@@ -13,7 +13,13 @@ and variable-name tasks, alone or together (method rows first):
   split, a shuffled pass of train steps (losses accumulated on the device,
   read once per epoch), a fresh subsample of the test split, the eval pass
   and its metrics, both splits fed by ``data.pipeline.make_batch_source``
-  (fixed ``L``, or bucketed over the ladder);
+  (fixed ``L`` or bucketed; in RAM, streamed in chunks with
+  ``stream_chunk_items``, or gathered from an mmap-backed CSR corpus),
+  their plans built on ``feed_workers`` forked processes
+  (``data/parallel_feed.py``, one pool from after the corpus load to the
+  end of the run) and the batches copied ``prefetch_batches`` ahead on a
+  thread (``train/prefetch.py``); ``profile_steps`` adds the steps'
+  host-build / H2D / feed-wait / compute split to the epoch line;
 - on a new best F1: the ``code.vec`` export (the epoch's own arrays, as
   the JAX in-RAM path reuses them, through the training model's eval
   step, so in its compute dtype), the best checkpoint and the served
@@ -48,6 +54,7 @@ from code2vec_tpu_torch.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from code2vec_tpu_torch.data.parallel_feed import FeedPool, ParallelFeed
 from code2vec_tpu_torch.data.pipeline import (
     build_epoch,
     derive_bucket_ladder,
@@ -74,6 +81,7 @@ from code2vec_tpu_torch.train.device_epoch import (
     stage_method_corpus,
     stage_variable_corpus,
 )
+from code2vec_tpu_torch.train.prefetch import StepProfiler, device_batches
 from code2vec_tpu_torch.train.step import (
     StepTally,
     eval_step,
@@ -136,14 +144,37 @@ def class_weights_from(config, data, device=None) -> torch.Tensor:
     return torch.from_numpy(1.0 / np.maximum(freq, 1.0)).to(device or "cpu")
 
 
-def _train_pass(model, optimizer, batches, class_weights, device) -> tuple[float, dict]:
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _train_pass(model, optimizer, batches, class_weights, device, prefetch: int = 0,
+                profiler: StepProfiler | None = None) -> tuple[float, dict]:
     """One epoch of host-fed train steps: ``(sum of the batch losses,
-    speed)``, the losses read back once (:class:`StepTally`)."""
-    tally = StepTally(device)
-    for batch in batches:
-        loss = train_step(model, optimizer, to_device(batch, device), class_weights)
+    speed)``, the losses read back once (:class:`StepTally`). A batch's real
+    contexts are counted beside its copy, before the next pull may recycle
+    its host arrays; a profiled step is synchronized before and after."""
+    def feed(batch):
         valid = batch["example_mask"].astype(bool)
-        tally.add(loss, int(np.count_nonzero(batch["starts"][valid])))
+        return to_device(batch, device), int(np.count_nonzero(batch["starts"][valid]))
+
+    tally = StepTally(device)
+    step = 0
+    with device_batches(batches, feed, prefetch, profiler, device) as stream:
+        for _, (device_batch, contexts) in stream:
+            sampled = profiler is not None and profiler.sampled(step)
+            if sampled:
+                _sync(device)
+            t0 = time.perf_counter()
+            loss = train_step(model, optimizer, device_batch, class_weights)
+            if sampled:
+                _sync(device)
+                profiler.record_compute(step, (time.perf_counter() - t0) * 1e3)
+            tally.add(loss, contexts)
+            step += 1
+    if profiler is not None:
+        profiler.observe_epoch_length(step)
     return tally.result()
 
 
@@ -175,18 +206,21 @@ def resolve_ladder(config, data) -> tuple[tuple[int, ...] | None, int]:
     return ladder, bag_width
 
 
-def evaluate_epoch(config, data, model, batches, class_weights):
+def evaluate_epoch(config, data, model, batches, class_weights, prefetch: int = 0):
     """The test pass over ``batches``: ``(loss, accuracy, precision,
     recall, f1)``, the loss the sum of the batch means (reference
-    main.py:283-284)."""
+    main.py:283-284). Only a batch's per-row fields are read after the
+    next pull (a feed worker delivers those as owned copies)."""
     device = class_weights.device
     losses, expected, actual = [], [], []
-    for batch in batches:
-        out = eval_step(model, to_device(batch, device), class_weights)
-        valid = batch["example_mask"].astype(bool)
-        losses.append(out["loss"])
-        expected.append(batch["labels"][valid])
-        actual.append((out["preds"], valid))
+    with device_batches(batches, lambda b: to_device(b, device), prefetch,
+                        device=device) as stream:
+        for batch, device_batch in stream:
+            out = eval_step(model, device_batch, class_weights)
+            valid = batch["example_mask"].astype(bool)
+            losses.append(out["loss"])
+            expected.append(batch["labels"][valid])
+            actual.append((out["preds"], valid))
     test_loss = float(torch.stack(losses).double().sum()) if losses else 0.0
     expected = np.concatenate(expected) if expected else np.zeros(0, np.int32)
     actual = (np.concatenate([p.cpu().numpy()[v] for p, v in actual]) if actual
@@ -294,6 +328,11 @@ def train(
             "pass matching flags to load_corpus"
         )
     dev = resolve_device(device)
+    if config.feed_workers and data.infer_variable:
+        raise ValueError("--feed_workers supports the method task only: the variable-name "
+                         "expansion interleaves per-item rng draws with data-dependent row "
+                         "counts, so its builds cannot be planned ahead for workers; run "
+                         "variable-task corpora with --feed_workers 0")
     bucket_ladder, bag_width = resolve_ladder(config, data)
     np_rng = np.random.default_rng(config.random_seed)
     train_idx, test_idx = split_items(data.n_items, np_rng)
@@ -339,111 +378,140 @@ def train(
     meta.vocab_pad_multiple = model_config.vocab_pad_multiple
 
     batch_size = config.batch_size
-    if feed is None:
-        # the epochs are built at bag_width: the top rung in long-bag mode
-        source_kw = dict(ladder=bucket_ladder, stream_chunk_items=config.stream_chunk_items,
-                         shuffle_variable_indexes=config.shuffle_variable_indexes)
-        train_source = make_batch_source(data, train_idx, batch_size, bag_width, **source_kw)
-        test_source = make_batch_source(data, test_idx, batch_size, bag_width, **source_kw)
-
-    def host_epoch(item_idx, epoch):
-        # device epochs build no host arrays: the export and print_sample draw
-        # a fresh subsample from a side generator seeded by (run seed, epoch),
-        # so they cannot shift the main stream (JAX loop.py:1640-1661)
-        return build_epoch(data, item_idx, bag_width,
-                           np.random.default_rng([config.random_seed, 0xE902, epoch]),
-                           config.shuffle_variable_indexes)
-
-    f1, epochs_completed = 0.0, 0
-    for epoch in range(meta.epoch, config.max_epoch):
-        epoch_start = time.perf_counter()
+    profiler = None
+    if config.profile_steps > 0:
         if feed is not None:
-            train_loss, speed = feed.runner.run_train_epoch(model, optimizer, feed.train, np_rng,
-                                                            feed.generator)
-            test_loss, preds, _ = feed.runner.run_eval_epoch(model, feed.test, feed.generator)
-            accuracy, precision, recall, f1 = evaluate(config.eval_method, feed.expected, preds,
-                                                       data.label_vocab)
-            # built on demand for the export and print_sample
-            train_epoch = test_epoch = None
-            source_pad = feed.pad
+            logger.warning("--profile_steps attributes the host input pipeline; device-epoch "
+                           "mode enqueues whole chunks and is not profiled per step")
         else:
-            train_loss, speed = _train_pass(
-                model, optimizer, train_source.batches(np_rng, shuffle=True), class_weights,
-                dev)
-            test_loss, accuracy, precision, recall, f1 = evaluate_epoch(
-                config, data, model, test_source.batches(np_rng, shuffle=False), class_weights)
-            # the epochs the passes were fed, reused by the export and print_sample
-            train_epoch, test_epoch = train_source.last_epoch, test_source.last_epoch
-            source_pad = train_source.pad_stats()
-        metrics = {
-            "train_loss": train_loss, "test_loss": test_loss, "accuracy": accuracy,
-            "precision": precision, "recall": recall, "f1": f1,
-            "epoch_seconds": time.perf_counter() - epoch_start,
-        }
-        if feed is not None and epochs_completed == 0:
-            metrics["stage_seconds"] = feed.stage_seconds
-            metrics["staged_bytes"] = feed.staged_bytes
-        if source_pad is not None:
-            # real context slots over the slots fed (1.0 = no PAD slot encoded)
-            real, slots = source_pad
-            metrics["pad_efficiency"] = real / slots if slots else 1.0
-        if truncated_ctx_fraction is not None:
-            metrics["truncated_context_fraction"] = truncated_ctx_fraction
-        metrics.update(speed)
-        epochs_completed += 1
-        meta.history.append({"epoch": epoch, **metrics})
-        if on_epoch is not None:
-            on_epoch({"epoch": epoch, **metrics})
-        else:
-            logger.info("epoch %s", json.dumps({"epoch": epoch, **metrics}))
+            profiler = StepProfiler(config.profile_steps)
+    pool = None
+    try:
+        if feed is None:
+            # the epochs are built at bag_width: the top rung in long-bag mode
+            source_kw = dict(ladder=bucket_ladder, stream_chunk_items=config.stream_chunk_items,
+                             shuffle_variable_indexes=config.shuffle_variable_indexes)
+            train_source = make_batch_source(data, train_idx, batch_size, bag_width, **source_kw)
+            test_source = make_batch_source(data, test_idx, batch_size, bag_width, **source_kw)
+            if config.feed_workers:
+                # one pool for both splits, forked before any thread of the run
+                pool = FeedPool(data, config.feed_workers, batch_size,
+                                int(train_source.ladder[-1]))
+                train_source = ParallelFeed(train_source, pool)
+                test_source = ParallelFeed(test_source, pool)
+                logger.info("parallel host ingest: %d feed workers, %d arena slots",
+                            pool.n_workers, pool.slots)
+            logger.info("host feed: %s (ladder %s)", type(train_source).__name__,
+                        list(train_source.ladder))
 
-        if epoch > 1 and config.print_sample_cycle and epoch % config.print_sample_cycle == 0:
-            if test_epoch is None:
-                test_epoch = host_epoch(test_idx, epoch)
-            print_sample(data, model, test_epoch, batch_size, class_weights)
+        def host_epoch(item_idx, epoch):
+            # device epochs build no host arrays: the export and print_sample draw
+            # a fresh subsample from a side generator seeded by (run seed, epoch),
+            # so they cannot shift the main stream (JAX loop.py:1640-1661)
+            return build_epoch(data, item_idx, bag_width,
+                               np.random.default_rng([config.random_seed, 0xE902, epoch]),
+                               config.shuffle_variable_indexes)
 
-        if meta.best_f1 is None or meta.best_f1 < f1:
-            meta.best_f1 = f1
-            if vectors_path is not None:
-                if train_epoch is None:
-                    train_epoch = host_epoch(train_idx, epoch)
+        f1, epochs_completed = 0.0, 0
+        for epoch in range(meta.epoch, config.max_epoch):
+            epoch_start = time.perf_counter()
+            if profiler is not None:
+                profiler.reset()
+            if feed is not None:
+                train_loss, speed = feed.runner.run_train_epoch(model, optimizer, feed.train,
+                                                                np_rng, feed.generator)
+                test_loss, preds, _ = feed.runner.run_eval_epoch(model, feed.test, feed.generator)
+                accuracy, precision, recall, f1 = evaluate(config.eval_method, feed.expected,
+                                                           preds, data.label_vocab)
+                # built on demand for the export and print_sample
+                train_epoch = test_epoch = None
+                source_pad = feed.pad
+            else:
+                train_loss, speed = _train_pass(
+                    model, optimizer, train_source.batches(np_rng, shuffle=True), class_weights,
+                    dev, config.prefetch_batches, profiler)
+                test_loss, accuracy, precision, recall, f1 = evaluate_epoch(
+                    config, data, model, test_source.batches(np_rng, shuffle=False),
+                    class_weights, config.prefetch_batches)
+                # the epochs the passes were fed (the in-RAM source's; None from
+                # the others), reused by the export and print_sample
+                train_epoch, test_epoch = train_source.last_epoch, test_source.last_epoch
+                source_pad = train_source.pad_stats()
+            metrics = {
+                "train_loss": train_loss, "test_loss": test_loss, "accuracy": accuracy,
+                "precision": precision, "recall": recall, "f1": f1,
+                "epoch_seconds": time.perf_counter() - epoch_start,
+            }
+            if feed is not None and epochs_completed == 0:
+                metrics["stage_seconds"] = feed.stage_seconds
+                metrics["staged_bytes"] = feed.staged_bytes
+            if source_pad is not None:
+                # real context slots over the slots fed (1.0 = no PAD slot encoded)
+                real, slots = source_pad
+                metrics["pad_efficiency"] = real / slots if slots else 1.0
+            if truncated_ctx_fraction is not None:
+                metrics["truncated_context_fraction"] = truncated_ctx_fraction
+            metrics.update(speed)
+            if profiler is not None and profiler.summary() is not None:
+                # --profile_steps: the sampled steps' mean split (JAX loop.py:1589-1611)
+                metrics.update(profiler.summary())
+            epochs_completed += 1
+            meta.history.append({"epoch": epoch, **metrics})
+            if on_epoch is not None:
+                on_epoch({"epoch": epoch, **metrics})
+            else:
+                logger.info("epoch %s", json.dumps({"epoch": epoch, **metrics}))
+
+            if epoch > 1 and config.print_sample_cycle and epoch % config.print_sample_cycle == 0:
                 if test_epoch is None:
                     test_epoch = host_epoch(test_idx, epoch)
-                write_code_vectors(data, model, train_epoch, test_epoch, batch_size,
-                                   vectors_path, config.encode_size, class_weights,
-                                   test_result_path)
-            save_slot = "best" if out_dir is not None else None
-        else:
-            periodic = (out_dir is not None and bool(config.checkpoint_cycle)
-                        and (epoch + 1) % config.checkpoint_cycle == 0)
-            save_slot = "last" if periodic else None
+                print_sample(data, model, test_epoch, batch_size, class_weights)
 
-        # the counter resets when train loss OR accuracy improves (main.py:233-242)
-        if (meta.last_loss is None or train_loss < meta.last_loss
-                or meta.last_accuracy is None or meta.last_accuracy < accuracy):
-            meta.last_loss = train_loss
-            meta.last_accuracy = accuracy
-            meta.bad_count = 0
-        else:
-            meta.bad_count += 1
+            if meta.best_f1 is None or meta.best_f1 < f1:
+                meta.best_f1 = f1
+                if vectors_path is not None:
+                    if train_epoch is None:
+                        train_epoch = host_epoch(train_idx, epoch)
+                    if test_epoch is None:
+                        test_epoch = host_epoch(test_idx, epoch)
+                    write_code_vectors(data, model, train_epoch, test_epoch, batch_size,
+                                       vectors_path, config.encode_size, class_weights,
+                                       test_result_path)
+                save_slot = "best" if out_dir is not None else None
+            else:
+                periodic = (out_dir is not None and bool(config.checkpoint_cycle)
+                            and (epoch + 1) % config.checkpoint_cycle == 0)
+                save_slot = "last" if periodic else None
 
-        if save_slot is not None:
-            meta.epoch = epoch + 1
-            save_checkpoint(out_dir, save_slot, model, optimizer, meta, np_rng,
-                            sampler=feed.generator if feed else None)
-            if save_slot == "best":
-                save_model_file(out_dir, model)
+            # the counter resets when train loss OR accuracy improves (main.py:233-242)
+            if (meta.last_loss is None or train_loss < meta.last_loss
+                    or meta.last_accuracy is None or meta.last_accuracy < accuracy):
+                meta.last_loss = train_loss
+                meta.last_accuracy = accuracy
+                meta.bad_count = 0
+            else:
+                meta.bad_count += 1
 
-        if meta.bad_count > config.early_stop_patience:
-            logger.info("early stop loss:%s, bad:%d", train_loss, meta.bad_count)
-            if test_epoch is None:
-                test_epoch = host_epoch(test_idx, epoch)
-            print_sample(data, model, test_epoch, batch_size, class_weights)
-            break
+            if save_slot is not None:
+                meta.epoch = epoch + 1
+                save_checkpoint(out_dir, save_slot, model, optimizer, meta, np_rng,
+                                sampler=feed.generator if feed else None)
+                if save_slot == "best":
+                    save_model_file(out_dir, model)
 
-    if epochs_completed == 0 and meta.history:
-        f1 = meta.history[-1].get("f1", 0.0)  # resumed a finished run
-    return TrainResult(
-        best_f1=meta.best_f1 if meta.best_f1 is not None else f1, final_f1=f1,
-        epochs_run=epochs_completed, history=meta.history, model=model,
-    )
+            if meta.bad_count > config.early_stop_patience:
+                logger.info("early stop loss:%s, bad:%d", train_loss, meta.bad_count)
+                if test_epoch is None:
+                    test_epoch = host_epoch(test_idx, epoch)
+                print_sample(data, model, test_epoch, batch_size, class_weights)
+                break
+
+        if epochs_completed == 0 and meta.history:
+            f1 = meta.history[-1].get("f1", 0.0)  # resumed a finished run
+        return TrainResult(
+            best_f1=meta.best_f1 if meta.best_f1 is not None else f1, final_f1=f1,
+            epochs_run=epochs_completed, history=meta.history, model=model,
+        )
+    finally:
+        if pool is not None:
+            pool.close()

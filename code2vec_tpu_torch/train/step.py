@@ -199,14 +199,19 @@ class StepTally:
 
 
 def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:
-    """The step's inputs on ``device`` (pinned, asynchronous copies to a
-    card, so the host can build the next batch meanwhile)."""
+    """The step's inputs on ``device``, in tensors that own their memory:
+    a card gets asynchronous copies from pinned memory (the pinning copy
+    reads the host arrays before this returns), the CPU copies. So the host
+    arrays may be rebuilt once this returns, as a feed worker's recycled
+    arena slot is (``data/parallel_feed.py``); the copies run on the
+    current stream (a prefetcher's own, ``train/prefetch.py``)."""
     out = {}
     for key in BATCH_KEYS:
-        t = torch.from_numpy(np.ascontiguousarray(batch[key]))
         if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out[key] = t
+            t = torch.from_numpy(np.ascontiguousarray(batch[key]))
+            out[key] = t.pin_memory().to(device, non_blocking=True)
+        else:
+            out[key] = torch.from_numpy(np.array(batch[key]))
     return out
 
 

@@ -195,10 +195,17 @@ def test_epoch_source_matches_jax(skewed, ladder, shuffle):
 
 
 def test_make_batch_source_refuses_what_is_not_ported(skewed):
-    _, data, _ = skewed
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipeline.make_batch_source(data, np.arange(8), 4, BAG, ladder=(20, 40),
-                                   stream_chunk_items=8)
+    """Bucketing with streaming is ported now: the policy hands back a
+    bucketed ``StreamingSource`` whose stream is JAX's bit for bit."""
+    _, data, jax_data = skewed
+    idx = np.arange(8)
+    src = pipeline.make_batch_source(data, idx, 4, BAG, ladder=(20, 40), stream_chunk_items=8)
+    want = jax_pipeline.make_batch_source(jax_data, idx, 4, BAG, ladder=(20, 40),
+                                          stream_chunk_items=8)
+    assert type(src) is pipeline.StreamingSource and src.ladder == (20, 40)
+    r1, r2 = np.random.default_rng(4), np.random.default_rng(4)
+    same_batches(list(src.batches(r1)), list(want.batches(r2)))
+    assert r1.bit_generator.state == r2.bit_generator.state
 
 
 # ---------------------------------------------------------------------------
@@ -390,8 +397,11 @@ def test_jax_rules_are_value_errors(kw, match):
 
 
 def test_streaming_with_bucketing_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(bucketed=True, stream_chunk_items=8).validate()
+    """Streaming with bucketing validates now; the host feed's workers
+    still refuse device epochs, as JAX's do."""
+    TrainConfig(bucketed=True, stream_chunk_items=8).validate()
+    with pytest.raises(ValueError, match="--feed_workers"):
+        TrainConfig(feed_workers=2, device_epoch=True).validate()
 
 
 def test_ladder_must_end_at_the_bag(skewed):

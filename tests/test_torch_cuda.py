@@ -32,7 +32,10 @@ for bit the CPU sampler's for the same shifts, and ``sample_prefetch`` (a
 second stream) the same batches and generator state as without it;
 variable-task rows (one context, all PAD but still an example) through
 K1, K1b, masked K2 and masked K3, a variable train step on each kernel
-route, and the sampler's ``@var_*`` remap on the card bit for bit the CPU's.
+route, and the sampler's ``@var_*`` remap on the card bit for bit the CPU's;
+the host prefetcher's copies on its own stream equal the synchronous copies,
+and ``train()`` prefetched (also fed by workers forked from a process with a
+live CUDA context) within rtol 1e-5 of the synchronous run's losses.
 Tolerance rtol = atol = 1e-5 (the plain
 versions in f32 with TF32 off, the kernels' encode in 3xTF32 on the
 tensor cores); at top11 widths and one context the kernel's code vector is
@@ -1304,3 +1307,45 @@ def test_device_remap_on_the_card_matches_the_cpu(dev):
     got = sample_batch_from_shift(*(a.to(dev) if torch.is_tensor(a) else a for a in args))
     for k in want:
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the host feed on the card: the prefetcher's copy stream, feed workers
+# forked from a process whose CUDA context is live
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_prefetch_on_the_card_feeds_the_sync_batches(dev, tmp_path, workers):
+    """Batches copied on the prefetcher's own stream, read on the consuming
+    stream, equal the synchronous copies; ``train()`` prefetched (and fed by
+    workers) gives the synchronous run's losses within rtol 1e-5."""
+    import numpy as np
+
+    from code2vec_tpu_torch.data import pipeline, reader, synth
+    from code2vec_tpu_torch.train import loop
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.prefetch import device_batches
+    from code2vec_tpu_torch.train.step import to_device
+
+    paths = synth.generate_corpus_files(tmp_path, synth.SPECS["tiny"])
+    data = reader.load_corpus(paths["corpus"], paths["path_idx"], paths["terminal_idx"],
+                              cache=False, native=False)
+    source = pipeline.EpochSource(data, np.arange(data.n_items), 16, 40, ladder=(10, 20, 40))
+    sync = [to_device(b, dev) for b in source.batches(np.random.default_rng(1))]
+    with device_batches(source.batches(np.random.default_rng(1)), lambda b: to_device(b, dev),
+                        prefetch=2, device=dev) as stream:
+        got = [{k: v.clone() for k, v in d.items()} for _, d in stream]
+    torch.cuda.synchronize()
+    assert len(got) == len(sync) == 13
+    for a, b in zip(sync, got):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    cfg = TrainConfig(terminal_embed_size=8, path_embed_size=6, encode_size=12, batch_size=16,
+                      max_path_length=40, max_epoch=2, random_seed=5, print_sample_cycle=0,
+                      use_pallas=True, pallas_impl="fused")
+    want = loop.train(cfg, data, device=dev)
+    fed = loop.train(cfg.with_updates(prefetch_batches=2, feed_workers=workers), data,
+                     device=dev)
+    for a, b in zip(want.history, fed.history):
+        for key in ("train_loss", "test_loss"):
+            np.testing.assert_allclose(b[key], a[key], rtol=1e-5)

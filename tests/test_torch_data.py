@@ -133,18 +133,23 @@ def test_build_epoch_refuses_the_variable_task(tiny):
                              np.arange(3), 10, np.random.default_rng(0))
 
 
-@pytest.mark.parametrize("kw", [{"cache": True}, {"native": True}, {"shard": (0, 2)}])
+@pytest.mark.parametrize("kw", [{"cache": True, "shard": (0, 2)},
+                                {"native": True, "shard": (1, 2)}, {"shard": (0, 2)}])
 def test_load_corpus_refuses_what_is_not_ported(tiny, kw):
+    """Host sharding, on the cached, the native and the default route (the
+    cache and the native parser are ported: tests/test_torch_ooc.py)."""
     p = tiny["port_paths"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         reader.load_corpus(p["corpus"], p["path_idx"], p["terminal_idx"], **kw)
 
 
 def test_load_corpus_refuses_a_csr_container(tiny, tmp_path):
+    """A container that is the magic and no header is refused loudly (a
+    valid one loads: tests/test_torch_ooc.py)."""
     p = tiny["port_paths"]
     csr = tmp_path / "corpus.csr"
     csr.write_bytes(corpus_io.CSR_MAGIC + b"\0" * 64)
-    with pytest.raises(NotImplementedError, match="CSR"):
+    with pytest.raises(ValueError, match="CSR"):
         reader.load_corpus(csr, p["path_idx"], p["terminal_idx"])
 
 

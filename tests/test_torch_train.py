@@ -321,8 +321,7 @@ def test_training_with_quantized_tables_raises():
 
 
 UNPORTED = [
-    {"stream_chunk_items": 8}, {"feed_workers": 2},
-    {"prefetch_batches": 2}, {"data_axis": 2}, {"model_axis": 2},
+    {"data_axis": 2}, {"model_axis": 2},
     {"pallas_impl": "auto"}, {"async_checkpoint": True}, {"checkpoint_every_steps": 5},
     {"fault_plan": "train_step@1:raise"},
 ]
@@ -372,7 +371,7 @@ def test_cli_trains_exports_and_honours_no_cuda(tiny_corpus, tmp_path, capsys):
     assert cli.main(common + ["--device", "cpu", "--export_only", "--table_dtype", "int8"]) == 0
     assert (out / "code.vec").exists()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(common + ["--device", "cpu", "--prefetch_batches", "2"])
+        cli.main(common + ["--device", "cpu", "--async_checkpoint"])
     with pytest.raises(SystemExit):
         cli.main(common + ["--no_cuda", "--device", "cuda"])
 
