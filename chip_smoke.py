@@ -63,6 +63,37 @@ the final result line is not printed):
    ``neighbors`` query's search split into the device time of each stage
    (coarse matmul, topk, LUT einsum, K5, add + topk, id gather, copy to
    the host) beside the host's wall time of the whole search;
+6b. serve_control (after retrieval) — (a) the coalescing invariant the
+   hot-swap gate holds: on every serving route (K3 f32/bf16/int8 with K4
+   online at the long-bag rungs, K4 online and two_pass at every rung, K2,
+   K1) 64 requests at each rung 25/50/100/200 (and 512/1024/2048 on the
+   fused routes), each request's code vector from a micro-batch of 64 and
+   of 8 bitwise its batch-1 vector, its logits within rtol 1e-5 / atol
+   1e-6, and one micro-batch mixing every rung likewise; (b) hot-swap: the
+   model dir A (the serve phase's) served with a trickle of requests on a
+   thread of its own, then a ``reload`` of B (random weights from seed 1,
+   written beside it) polled through ``swap_status``, ``rollback``, a
+   ``reload`` of a dir whose W holds a NaN (``swap_failed``, A still
+   active) and a third swap: zero failed requests, B's answers within the
+   serve tolerances of B run plain, the rolled-back answers bitwise A's,
+   ``memory_allocated`` (cuBLAS workspaces dropped) after the third swap
+   within 16 MB of two resident generations, two generations on the
+   handle ledger, ``flights`` non-empty; build and validation seconds and
+   the trickle's p50/p99 before, during and after; (c) HTTP on port 0 over
+   the retrieval phase's IVF-PQ index: the data and control ops 200, a bad
+   body / a missing field / nothing to roll back 400, a flood while the
+   engine is held 429, a NaN reload 500, an ann reload's golden recall@10
+   against its 0.9 floor, ``/healthz``, ``/metrics``, p50/p99 per op over
+   HTTP beside the same server in process; (d) the serve CLI on stdio as a
+   subprocess: 64 pipelined requests, SIGTERM after the last, 64 answers
+   and exit 0; (e) a fleet of 2 replicas on the card behind the router
+   (result cache 64 MB) under a trickle of distinct requests: a rolling
+   reload to B and a rollback with no failed request and never two
+   replicas swapping at once, a repeated request from the cache with no
+   replica launching, the capacity block, p50/p99 through the router
+   beside the single server's. Launches: the coalescing check's, the
+   in-process parts' (counts reset after the check, read at the end) and
+   the replicas' from their ``health`` payloads;
 7. train   — ``train()`` of the port at the top11 widths (a corpus made
    as ``bench.py`` makes its own: 8,192 methods, mean 120 contexts, the
    top11 vocab and label widths), batch 1024, bag 200, dropout 0.25, for
@@ -229,7 +260,8 @@ the final result line is not printed):
    route, source, the TPU kernel it replaces, launches on its serve or
    train route (the masked K4's on the long-bag runs) plus those of the
    train_device phase's runs of the four routes, of the train_feed runs,
-   of every train_variable run and of the python_source phase, max error,
+   of every train_variable run, of the python_source phase and of the
+   serve_control phase, max error,
    times at the headline shape and the bound), then, last, the result
    line.
 
@@ -752,7 +784,11 @@ def phase_kernels(torch, dev, smi) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def write_model_dir(torch, path: Path, device, seed: int = 0) -> None:
+def write_model_dir(torch, path: Path, device, seed: int = 0, vocab: bool = True,
+                    nan_w: bool = False) -> None:
+    """A top11-width model dir with random weights from ``seed``; without
+    ``vocab`` the terminal and path files are left out (a server takes
+    them from its own flags), with ``nan_w`` W holds a NaN."""
     from code2vec_tpu_torch import interop
     from code2vec_tpu_torch.formats.vocab_io import write_vocab
     from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
@@ -762,12 +798,18 @@ def write_model_dir(torch, path: Path, device, seed: int = 0) -> None:
     with torch.device(device):
         model = Code2Vec(cfg)
     model.reset_parameters(torch.Generator(device=device).manual_seed(seed))
+    if nan_w:
+        with torch.no_grad():
+            model.input_linear.weight[0, 0] = float("nan")
+    path.mkdir(parents=True, exist_ok=True)
     interop.save_state_dict(model.state_dict(), str(path), cfg)
     meta = dict(c, angular_margin_loss=False, angular_margin=0.5, inverse_temp=30.0,
                 vocab_pad_multiple=1, max_path_length=BAG, infer_method_name=True,
                 infer_variable_name=False, table_dtype="f32", bucket_ladder=list(LADDER))
     (path / "model_meta.json").write_text(json.dumps(meta))
     write_vocab(path / "label_vocab.txt", ((i, f"label{i}") for i in range(c["label_count"])))
+    if not vocab:
+        return
     # "@question" takes terminal index 1, so the file holds count-1 names
     write_vocab(path / "terminal_idxs.txt",
                 ((i, f"t{i}" if i else "<PAD/>") for i in range(c["terminal_count"] - 1)))
@@ -1234,6 +1276,637 @@ def phase_retrieval(torch, smi, device, model_dir: Path) -> dict:
             "neighbors_split": split,
             "recall": recall, "served_recall@10": served / (10 * ANN_QUERIES),
             "launches": timing["ann"]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: serve_control — the coalescing invariant, hot-swap, HTTP, SIGTERM, the fleet
+# ---------------------------------------------------------------------------
+
+# (label, serve flags, the launch keys the check must show); long-bag rungs
+# serve through K4 online (auto) or the mode asked for
+# (label, flags, kernels, micro-batch sizes): K1 also at 128, above the
+# 66 rows where its cluster once shrank with B
+COALESCE_ROUTES = [
+    ("K3 f32 + K4 online", ["--table_dtype", "f32"], ("fused_f32", "online_f32"), BATCH_SIZES),
+    ("K3 bf16 + K4 online", ["--table_dtype", "bf16"], ("fused_bf16", "online_bf16"),
+     BATCH_SIZES),
+    ("K3 int8 + K4 online", ["--table_dtype", "int8"], ("fused_int8", "online_int8"),
+     BATCH_SIZES),
+    ("K4 online f32", ["--pallas_softmax", "online"], ("online_f32",), BATCH_SIZES),
+    ("K4 two_pass f32", ["--pallas_softmax", "two_pass"], ("two_pass_f32",), BATCH_SIZES),
+    ("K2 f32", ["--pallas_impl", "gather_split"], ("gather_split",), BATCH_SIZES),
+    ("K1 f32", ["--pallas_impl", "pool_only"], ("pool",), BATCH_SIZES + (128,)),
+]
+COALESCE_RTOL, COALESCE_ATOL = 1e-5, 1e-6  # logits (JAX serve/swap.py:233-240)
+
+
+def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
+    """The serving invariant the hot-swap gate holds (JAX serve/swap.py:
+    211-245) on every route: as many requests at each rung as the route's
+    top micro-batch (lengths in the rung's upper half), served at each of
+    its micro-batch sizes and one at a time through the engine; each
+    request's code vector from every batch must equal its batch-1 vector
+    bitwise, its logits within rtol 1e-5 / atol 1e-6. Every mismatch is
+    collected, then the check fails."""
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.predict import Predictor
+    from code2vec_tpu_torch.serve.engine import ServingEngine
+
+    rungs = LADDER + LONGBAG_RUNGS
+    c = TOP11
+    out, bad = {}, []
+    for label, flags, keys, sizes in COALESCE_ROUTES:
+        opts = dict(zip(flags[::2], flags[1::2]))
+        impl = opts.get("--pallas_impl", "fused")
+        longbag = LONGBAG_RUNGS if impl == "fused" else ()
+        predictor = Predictor(
+            str(model_dir), str(model_dir / "terminal_idxs.txt"),
+            str(model_dir / "path_idxs.txt"), table_dtype=opts.get("--table_dtype", "f32"),
+            device=device, pallas_impl=impl,
+            pallas_softmax=opts.get("--pallas_softmax", "auto"), longbag_widths=longbag,
+        )
+        engine = ServingEngine(predictor, batch_sizes=sizes)
+        engine.prepare()
+        reset_launch_counts()
+        g = np.random.default_rng(29)
+        route = {"widths": {}}
+        every = []
+        t0 = time.perf_counter()
+        for lo, width in zip((0,) + rungs, rungs):
+            if width > engine.max_width:
+                break
+            top = sizes[-1]
+            lens = g.integers(max(lo + 1, width // 2), width + 1, top)
+            reqs = [np.stack([g.integers(1, c["terminal_count"], n),
+                              g.integers(1, c["path_count"], n),
+                              g.integers(0, c["terminal_count"], n)], 1).astype(np.int32)
+                    for n in lens]
+            singles = [engine.run(*engine.pad_requests([r])[:3]) for r in reqs]
+            n_bits, worst_logit = 0, 0.0
+            for size in sizes[1:]:
+                for base in range(0, top, size):
+                    group = reqs[base:base + size]
+                    logits, cvs, _ = engine.run(*engine.pad_requests(group)[:3])
+                    for i in range(len(group)):
+                        ref_logits, ref_cv = singles[base + i][0][0], singles[base + i][1][0]
+                        if not np.array_equal(cvs[i], ref_cv):
+                            n_bits += 1
+                            if len(bad) < 40:
+                                bad.append(f"{label} width {width} batch {size}: request "
+                                           f"{base + i} ({lens[base + i]} contexts) max |cv "
+                                           f"- batch-1| {np.abs(cvs[i] - ref_cv).max():.3e}")
+                        worst_logit = max(worst_logit,
+                                          float(np.abs(logits[i] - ref_logits).max()))
+                        if not np.allclose(logits[i], ref_logits, rtol=COALESCE_RTOL,
+                                           atol=COALESCE_ATOL):
+                            bad.append(f"{label} width {width} batch {size}: request "
+                                       f"{base + i} logits beyond rtol {COALESCE_RTOL} / atol "
+                                       f"{COALESCE_ATOL}")
+            route["widths"][width] = {"cv_not_bitwise": n_bits,
+                                      "max_abs_logit_diff": worst_logit}
+            every.extend(zip(reqs, singles))
+        # one micro-batch of requests from every rung, padded to the top
+        # one (the golden set's mix, serve/swap.py): K3 and K4 online are
+        # one kernel, so the short bags keep their bits at 2048
+        per = sizes[-1] // len(route["widths"])
+        mixed = [every[i * sizes[-1] + j] for i in range(len(route["widths"]))
+                 for j in range(per)]
+        _, cvs, _ = engine.run(*engine.pad_requests([r for r, _ in mixed])[:3])
+        n_mixed = sum(not np.array_equal(cvs[i], single[1][0])
+                      for i, (_, single) in enumerate(mixed))
+        route["mixed_widths"] = {"requests": len(mixed), "cv_not_bitwise": n_mixed}
+        if n_mixed:
+            bad.append(f"{label}: {n_mixed}/{len(mixed)} vectors of a mixed-width batch differ "
+                       "from batch-1")
+        counts = launch_counts()
+        missing = [k for k in keys if counts.get(k, 0) < 1]
+        if missing:
+            bad.append(f"{label}: kernels {missing} never launched ({counts})")
+        route.update(launches=counts, seconds=time.perf_counter() - t0)
+        out[label] = route
+        print(f"coalescing {label}: per width (vectors not bitwise of "
+              f"{len(sizes[1:]) * sizes[-1]}, max |logit diff|): "
+              f"{json.dumps(route['widths'])}, launches {counts} [{smi}]", flush=True)
+        del engine, predictor
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("coalesced != batch-1:\n  " + "\n  ".join(bad))
+    return out
+
+
+CTL_CODE_VEC_ROWS = 16_384  # rows of each dir's code.vec (the exact backend)
+CTL_PROBES = 24  # requests answered before a swap, after it and after the rollback
+CTL_SIGTERM_REQUESTS = 64
+CTL_MEMORY_SLACK = 16 * 2**20  # bytes: two resident generations, within this
+
+
+def write_code_vec(path: Path, seed: int) -> None:
+    from code2vec_tpu_torch.formats.vectors_io import append_code_vectors, write_code_vectors_header
+
+    rows = np.random.default_rng(seed).normal(size=(CTL_CODE_VEC_ROWS, TOP11["encode_size"]))
+    write_code_vectors_header(path, CTL_CODE_VEC_ROWS, TOP11["encode_size"])
+    append_code_vectors(path, [f"m{i}" for i in range(CTL_CODE_VEC_ROWS)],
+                        rows.astype(np.float32))
+
+
+def fresh_request(i: int) -> dict:
+    """Request ``i`` of an endless stream of distinct bags (a result cache
+    never answers one), 1-200 contexts, predict and embed in turn."""
+    c = TOP11
+    rng = np.random.default_rng(1000 + i)
+    n = int(rng.integers(1, BAG + 1))
+    ctx = np.stack([rng.integers(1, c["terminal_count"], n), rng.integers(1, c["path_count"], n),
+                    rng.integers(0, c["terminal_count"], n)], axis=1)
+    return {"id": i, "op": "predict" if i % 2 == 0 else "embed", "contexts": ctx.tolist(),
+            "top_k": 5, "include_vector": True}
+
+
+class Trickle:
+    """Requests on a thread of their own while the main thread swaps: one
+    at a time, then 8 pipelined, over and over; ``request(i)`` gives the
+    i-th. Each request's latency and outcome is kept under the label the
+    main thread set (``phase``)."""
+
+    def __init__(self, server, request):
+        import threading
+
+        self.server, self.request = server, request
+        self.phase = "before"
+        self.records: list[tuple[str, float, bool]] = []
+        self.failures: list[dict] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="c2v-smoke-trickle", daemon=True)
+        self._thread.start()
+
+    def _note(self, phase, t0, resp):
+        ok = bool(resp.get("ok"))
+        self.records.append((phase, (time.perf_counter() - t0) * 1e3, ok))
+        if not ok:
+            self.failures.append(resp)
+
+    def _run(self):
+        i = 0
+        while not self._stop.is_set():
+            phase, t0 = self.phase, time.perf_counter()
+            self._note(phase, t0, self.server.handle(self.request(i)))
+            burst = [self.request(i + k) for k in range(1, 9)]
+            phase, t0 = self.phase, time.perf_counter()
+            for resolver in [self.server.handle_async(r) for r in burst]:
+                self._note(phase, t0, resolver())
+            i += 9
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(60)
+        out = {}
+        for phase in ("before", "during", "after", "rolled_back"):
+            lat = [ms for p, ms, _ in self.records if p == phase]
+            if lat:
+                p50, p99 = percentiles(lat)
+                out[phase] = {"requests": len(lat), "p50_ms": p50, "p99_ms": p99}
+        out["failed"] = len(self.failures)
+        return out
+
+
+def ctl_args(model_dir: Path, device, *extra) -> list[str]:
+    return ["--model_path", str(model_dir),
+            "--terminal_idx_path", str(model_dir / "terminal_idxs.txt"),
+            "--path_idx_path", str(model_dir / "path_idxs.txt"),
+            "--device", str(device), *extra]
+
+
+def wait_swap(server, timeout=600.0) -> dict:
+    t0 = time.perf_counter()
+    while True:
+        status = server.handle({"op": "swap_status"})["swap"]
+        if status["state"] == "idle":
+            return status
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"swap still {status['state']} after {timeout} s")
+        time.sleep(0.05)
+
+
+def probe_vectors(server, probes) -> np.ndarray:
+    out = []
+    for req in probes:
+        resp = server.handle({**req, "op": "embed"})
+        if not resp.get("ok"):
+            raise AssertionError(f"probe failed: {resp}")
+        out.append(resp["methods"][0]["code_vector"])
+    return np.asarray(out, np.float32)
+
+
+def plain_vectors(torch, predictor, probes, ladder) -> np.ndarray:
+    """The probes' code vectors from ``predictor``'s weights with no
+    kernel, on the card, at full f32 precision."""
+    from code2vec_tpu_torch.data.pipeline import nearest_bucket_width
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.predict import subsample
+
+    with torch.device("meta"):
+        plain = Code2Vec(predictor.config.with_updates(use_pallas=False))
+    plain.load_state_dict(predictor.model.state_dict(), assign=True)
+    plain.eval()
+    out = []
+    for req in probes:
+        ctx = np.asarray(subsample(req["contexts"], ladder[-1]), np.int32)
+        ids = np.zeros((3, 1, nearest_bucket_width(len(ctx), ladder)), np.int32)
+        ids[:, 0, : len(ctx)] = ctx.T
+        with torch.inference_mode():
+            _, cv, _ = plain(*(torch.from_numpy(x).to(predictor.device) for x in ids),
+                             quant_tables=predictor.quant_tables)
+        out.append(cv[0].cpu().numpy())
+    return np.asarray(out, np.float32)
+
+
+def generation_bytes(torch) -> int:
+    """``memory_allocated`` with the cuBLAS workspaces dropped first: each
+    thread that ran a library product holds a workspace until it is
+    cleared, which is per-thread scratch, not a generation's."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def ctl_hot_swap(torch, smi, device, dirs) -> dict:
+    """(b): A served with a trickle; reload B, rollback, a NaN reload, a
+    third swap; memory and the handle ledger after it; flights."""
+    from code2vec_tpu_torch.obs.handles import handles_snapshot
+    from code2vec_tpu_torch.serve.__main__ import build_parser, build_server
+
+    ladder = LADDER + LONGBAG_RUNGS
+    lengths = longbag_lengths(96, seed=31)
+    trickle_reqs = make_requests(96, seed=37, lengths=lengths)
+    probes = make_requests(CTL_PROBES, seed=41, lengths=longbag_lengths(CTL_PROBES, seed=43))
+    torch.cuda.empty_cache()
+    base_alloc = generation_bytes(torch)
+    args = build_parser().parse_args(ctl_args(
+        dirs["A"], device, "--batch_sizes", ",".join(map(str, BATCH_SIZES)),
+        "--longbag_widths", ",".join(map(str, LONGBAG_RUNGS)), "--handle_debug"))
+    t0 = time.perf_counter()
+    server = build_server(args)
+    out = {"startup_s": time.perf_counter() - t0}
+    try:
+        one_gen = generation_bytes(torch) - base_alloc
+        before = probe_vectors(server, probes)
+        trickle = Trickle(server, lambda i: trickle_reqs[i % len(trickle_reqs)])
+        time.sleep(2.0)
+        trickle.phase = "during"
+        t0 = time.perf_counter()
+        resp = server.handle({"op": "reload", "model_path": str(dirs["B"]), "wait": False})
+        if not resp.get("ok") or resp["swap"]["state"] == "idle":
+            raise AssertionError(f"reload B was not accepted as running: {resp}")
+        status = wait_swap(server)
+        swap_s = time.perf_counter() - t0
+        trickle.phase = "after"
+        last = status["last_swap"]
+        if last["outcome"] != "committed":
+            raise AssertionError(f"swap to B did not commit: {status}")
+        time.sleep(2.0)
+        after = probe_vectors(server, probes)
+        want = plain_vectors(torch, server.predictor, probes, ladder)
+        np.testing.assert_allclose(after, want, rtol=SERVE_RTOL, atol=SERVE_ATOL)
+        resp = server.handle({"op": "rollback"})
+        trickle.phase = "rolled_back"
+        if not resp.get("ok") or resp["swap"]["active_version"] != status["previous_version"]:
+            raise AssertionError(f"rollback: {resp}")
+        rolled = probe_vectors(server, probes)
+        if not np.array_equal(rolled, before):
+            raise AssertionError("rollback: answers differ from those before the swap")
+        time.sleep(1.0)
+        trickle_stats = trickle.stop()
+        if trickle_stats["failed"]:
+            raise AssertionError(f"{trickle_stats['failed']} trickle requests failed: "
+                                 f"{trickle.failures[:3]}")
+        two_gen = generation_bytes(torch) - base_alloc  # A active, B resident
+        # a bad checkpoint: the build warms it, validation finds the NaN
+        active = server.version
+        resp = server.handle({"op": "reload", "model_path": str(dirs["NaN"]), "wait": True})
+        if resp.get("error_kind") != "swap_failed" or server.version != active:
+            raise AssertionError(f"NaN reload: {resp}")
+        nan_error = resp["error"]
+        # the third swap: the oldest resident generation (B) is released
+        resp = server.handle({"op": "reload", "model_path": str(dirs["B"]), "wait": True})
+        if not resp.get("ok"):
+            raise AssertionError(f"third swap: {resp}")
+        three_gen = generation_bytes(torch) - base_alloc
+        open_handles = handles_snapshot()
+        n_gens = (open_handles.get("open") or {}).get("generation")
+        if abs(three_gen - two_gen) > CTL_MEMORY_SLACK or n_gens != 2:
+            raise AssertionError(
+                f"after the third swap {three_gen / 2**20:.1f} MiB allocated against "
+                f"{two_gen / 2**20:.1f} MiB for two generations, {n_gens} generations open")
+        flights = server.handle({"op": "flights"})
+        if not flights.get("ok") or flights["recorded"] < 1:
+            raise AssertionError(f"flights: {flights}")
+        health = server.handle({"op": "health"})
+    finally:
+        server.close()
+    out.update(
+        swap_s=swap_s, build_s=last["build_ms"] / 1e3, validate_s=last["validate_ms"] / 1e3,
+        golden_requests=last["golden_requests"], golden_recall=last.get("recall"),
+        trickle=trickle_stats, max_abs_err_vs_plain_B=float(np.abs(after - want).max()),
+        nan_reload_error=nan_error,
+        memory_mib={"one_generation": one_gen / 2**20, "two_generations": two_gen / 2**20,
+                    "after_third_swap": three_gen / 2**20},
+        generations_open=n_gens, flights_recorded=flights["recorded"],
+        post_warmup_compiles=health["post_warmup_compiles"],
+    )
+    print(f"hot-swap: reload A -> B committed in {swap_s:.2f} s (build "
+          f"{out['build_s']:.2f} s, validation {out['validate_s']:.2f} s over "
+          f"{out['golden_requests']} golden requests, recall {out['golden_recall']}); trickle "
+          f"{json.dumps(trickle_stats)}; B vs plain max |err| "
+          f"{out['max_abs_err_vs_plain_B']:.3e}; rollback bitwise; NaN reload refused "
+          f"({nan_error[:80]}...); memory MiB {json.dumps(out['memory_mib'])}, "
+          f"{n_gens} generations open; {flights['recorded']} flights [{smi}]", flush=True)
+    return out
+
+
+def ctl_http(torch, smi, device, dirs, ann_index: Path | None) -> dict:
+    """(c): a server on HTTP (the ann backend over the retrieval phase's
+    index when there is one): data and control ops, /healthz, /metrics,
+    400 / 429 / 500, an ann reload's golden recall, per-op latency over
+    HTTP beside the same server in process."""
+    import threading
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from code2vec_tpu_torch.serve.__main__ import build_parser, build_server
+    from code2vec_tpu_torch.serve.protocol import make_http_server
+
+    extra = ["--batch_sizes", "1,8", "--max_pending", "8"]
+    if ann_index is not None:
+        extra += ["--retrieval_backend", "ann", "--ann_index_path", str(ann_index)]
+    server = build_server(build_parser().parse_args(ctl_args(dirs["A"], device, *extra)))
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    base = "http://127.0.0.1:%d" % httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, kwargs={"poll_interval": 0.1},
+                              daemon=True)
+    thread.start()
+
+    def call(path, body=None, raw=None):
+        data = raw if raw is not None else (json.dumps(body).encode() if body is not None
+                                            else None)
+        req = urllib.request.Request(base + path, data=data,
+                                     method="POST" if data is not None else "GET")
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as err:
+            return err.code, err.read()
+
+    out = {}
+    try:
+        reqs = make_requests(64, seed=47)
+        vec = np.random.default_rng(5).normal(size=TOP11["encode_size"]).tolist()
+        codes = {}
+        for op, body in (("predict", reqs[0]), ("embed", reqs[1]),
+                         ("neighbors", {"op": "neighbors", "vector": vec, "top_k": 10}),
+                         ("health", {"op": "health"}), ("swap_status", {"op": "swap_status"}),
+                         ("flights", {"op": "flights"})):
+            codes[op], _ = call("/", body)
+        codes["GET /healthz"], _ = call("/healthz")
+        codes["GET /metrics"], metrics = call("/metrics")
+        codes["bad body"], _ = call("/", raw=b"{not json")
+        codes["no contexts"], _ = call("/", {"op": "predict"})
+        codes["rollback, none resident"], _ = call("/", {"op": "rollback"})
+        want = {"bad body": 400, "no contexts": 400, "rollback, none resident": 400}
+        for key, code in codes.items():
+            if code != want.get(key, 200):
+                raise AssertionError(f"HTTP {key}: status {code}, expected {want.get(key, 200)}")
+        text = metrics.decode()
+        for name in ("c2v_build_info", "c2v_serve_op_predict_e2e_ms", "c2v_serve_requests_total",
+                     "c2v_serve_queue_depth", "c2v_serve_swaps_committed_total"):
+            if name not in text:
+                raise AssertionError(f"/metrics has no {name}")
+        # 429: the engine held, so one group waits in the batcher and the
+        # queue (8) fills; every accepted request is answered once it is let go
+        lock = server.engine._lock
+        lock.acquire()
+        held = True
+        try:
+            with ThreadPoolExecutor(24) as pool:
+                futs = [pool.submit(call, "/", {**r, "op": "embed"}) for r in reqs[:24]]
+                time.sleep(3.0)
+                lock.release()
+                held = False
+                flood = [f.result()[0] for f in futs]
+        finally:
+            if held:
+                lock.release()
+        if 429 not in flood or set(flood) - {200, 429}:
+            raise AssertionError(f"flood statuses {sorted(flood)}")
+        codes["flood"] = {str(c): flood.count(c) for c in sorted(set(flood))}
+        code, body = call("/", {"op": "reload", "model_path": str(dirs["NaN"]), "wait": True})
+        if code != 500 or json.loads(body)["error_kind"] != "swap_failed":
+            raise AssertionError(f"NaN reload over HTTP: {code} {body[:200]}")
+        codes["reload NaN"] = code
+        code, body = call("/", {"op": "reload", "model_path": str(dirs["B"]), "wait": True})
+        swap = json.loads(body)["swap"]["last_swap"]
+        codes["reload B"] = code
+        out["ann_reload"] = {"outcome": swap["outcome"], "recall@10": swap.get("recall"),
+                             "floor": 0.9, "error": swap.get("error")}
+        if swap["outcome"] == "committed" and (swap.get("recall") or 0) < 0.9:
+            raise AssertionError(f"a reload committed below the recall floor: {swap}")
+        if swap["outcome"] != "committed" and "recall" not in (swap.get("error") or ""):
+            raise AssertionError(f"ann reload: {swap}")
+        lat = {}
+        for op in ("predict", "embed", "neighbors"):
+            for via in ("http", "in_process"):
+                times = []
+                for r in reqs:
+                    body = ({"op": "neighbors", "vector": vec, "top_k": 10} if op == "neighbors"
+                            else {**r, "op": op})
+                    t0 = time.perf_counter()
+                    if via == "http":
+                        code, _ = call("/", body)
+                        ok = code == 200
+                    else:
+                        ok = bool(server.handle(body).get("ok"))
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    if not ok:
+                        raise AssertionError(f"{op} via {via} failed")
+                p50, p99 = percentiles(times)
+                lat[f"{op}/{via}"] = {"p50_ms": p50, "p99_ms": p99}
+        out.update(statuses=codes, latency=lat)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.close()
+        thread.join(10)
+    print(f"http: statuses {json.dumps(out['statuses'])}; ann reload "
+          f"{json.dumps(out['ann_reload'])}; p50/p99 ms {json.dumps(out['latency'])} [{smi}]",
+          flush=True)
+    return out
+
+
+def ctl_sigterm(smi, device, dirs) -> dict:
+    """(d): the serve CLI on stdio as a subprocess on the card: 64
+    pipelined requests, SIGTERM right after the last; all 64 answered,
+    exit code 0."""
+    import signal
+
+    cmd = [sys.executable, "-m", "code2vec_tpu_torch.serve", "--transport", "stdio",
+           *ctl_args(dirs["A"], device, "--batch_sizes", ",".join(map(str, BATCH_SIZES)))]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        proc.stdin.write(json.dumps({"id": "ready", "op": "health"}) + "\n")
+        proc.stdin.flush()
+        ready = json.loads(proc.stdout.readline())
+        if ready.get("id") != "ready" or not ready.get("ok"):
+            raise AssertionError(f"worker not ready: {ready}")
+        startup_s = time.perf_counter() - t0
+        for req in make_requests(CTL_SIGTERM_REQUESTS, seed=53):
+            proc.stdin.write(json.dumps(req) + "\n")
+        proc.stdin.flush()
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=300)
+        drain_s = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    answers = [json.loads(line) for line in stdout.splitlines() if line.strip()]
+    ok = [a for a in answers if a.get("ok")]
+    if proc.returncode != 0 or len(ok) != CTL_SIGTERM_REQUESTS:
+        raise AssertionError(f"SIGTERM drain: exit {proc.returncode}, {len(ok)}/"
+                             f"{CTL_SIGTERM_REQUESTS} answered; stderr tail {stderr[-2000:]}")
+    print(f"sigterm: worker ready in {startup_s:.1f} s; {len(ok)}/{CTL_SIGTERM_REQUESTS} "
+          f"pipelined requests answered after SIGTERM in {drain_s:.2f} s, exit 0 [{smi}]",
+          flush=True)
+    return {"startup_s": startup_s, "answered": len(ok), "drain_s": drain_s, "exit_code": 0}
+
+
+def ctl_fleet(smi, device, dirs, single_trickle) -> dict:
+    """(e): 2 replicas on the card behind the router (result cache 64 MB)
+    under a trickle: a rolling reload to B and a rollback with no failed
+    request and never more than one replica swapping; a repeated request
+    from the cache with no replica launching; the capacity block; p50/p99
+    through the router beside the single server's."""
+    from code2vec_tpu_torch.serve.fleet.__main__ import build_parser, build_router
+
+    args = build_parser().parse_args([
+        "--replicas", "2", *ctl_args(dirs["A"], device),
+        "--batch_sizes", ",".join(map(str, BATCH_SIZES)), "--result_cache_mb", "64",
+        "--probe_interval_s", "1.0"])
+    t0 = time.perf_counter()
+    router, events = build_router(args)
+    boot_s = time.perf_counter() - t0
+    replicas = list(router._slots)
+
+    def replica_call(op):
+        return [h.send({"op": op}).result(120) for h in replicas]
+
+    out = {"boot_s": boot_s}
+    try:
+        trickle = Trickle(router, fresh_request)
+        time.sleep(2.0)
+        concurrent_swaps = 0
+        for step, request in (("reload", {"op": "reload", "model_path": str(dirs["B"])}),
+                              ("rollback", {"op": "rollback"})):
+            trickle.phase = "during"
+            t0 = time.perf_counter()
+            resp = router.handle(request)
+            if not resp.get("ok"):
+                raise AssertionError(f"fleet {step}: {resp}")
+            while True:
+                states = [r["swap"]["state"] for r in replica_call("swap_status")]
+                concurrent_swaps = max(concurrent_swaps, sum(s != "idle" for s in states))
+                rolling = router.handle({"op": "swap_status"})
+                if rolling.get("rolling", {}).get("state", "idle") == "idle" and \
+                        all(s == "idle" for s in states):
+                    break
+                time.sleep(0.1)
+            out[f"{step}_s"] = time.perf_counter() - t0
+            trickle.phase = "after"
+            versions = {r["version"] for r in replica_call("health")}
+            out[f"versions_after_{step}"] = sorted(versions)
+            time.sleep(1.0)
+        stats = trickle.stop()
+        if stats["failed"] or concurrent_swaps > 1:
+            raise AssertionError(f"fleet: {stats['failed']} failed requests, up to "
+                                 f"{concurrent_swaps} replicas swapping at once")
+        if out["versions_after_reload"][0].split("#")[0] != str(dirs["B"]) or \
+                out["versions_after_rollback"][0].split("#")[0] != str(dirs["A"]):
+            raise AssertionError(f"fleet versions: {out}")
+        # the cache: the same bag twice, the second from router memory
+        req = {**make_requests(8, seed=61)[5], "op": "embed"}
+        first = router.handle(req)
+        launches = [r["kernel_launches"] for r in replica_call("health")]
+        hits = router.handle({"op": "health"})["fleet"]["cache"]["hits"]
+        again = router.handle(req)
+        after = [r["kernel_launches"] for r in replica_call("health")]
+        cache = router.handle({"op": "health"})["fleet"]["cache"]
+        if cache["hits"] != hits + 1 or after != launches or \
+                again["methods"][0]["code_vector"] != first["methods"][0]["code_vector"]:
+            raise AssertionError(f"cache: hits {hits} -> {cache['hits']}, launches "
+                                 f"{launches} -> {after}")
+        time.sleep(2.5)  # a probe cycle: the replicas' perf blocks reach the router
+        capacity = router.handle({"op": "health"})["fleet"]["capacity"]
+        if not capacity or capacity["max_qps_fleet"] <= 0:
+            raise AssertionError(f"fleet capacity: {capacity}")
+        out.update(trickle=stats, max_concurrent_swaps=concurrent_swaps, capacity=capacity,
+                   replica_launches=after, single_server_trickle=single_trickle)
+    finally:
+        router.close()
+        if events is not None:
+            events.close()
+    print(f"fleet: 2 replicas booted in {boot_s:.1f} s; rolling reload {out['reload_s']:.2f} s, "
+          f"rollback {out['rollback_s']:.2f} s, at most {concurrent_swaps} swapping at once; "
+          f"router trickle {json.dumps(stats)} beside one server's "
+          f"{json.dumps(single_trickle)}; cache hit with no launch; capacity "
+          f"{capacity['max_qps_fleet']} req/s [{smi}]", flush=True)
+    return out
+
+
+def phase_serve_control(torch, smi, device, tmp: Path, model_dir: Path) -> dict:
+    """The coalescing invariant, hot-swap, HTTP, the SIGTERM drain and the
+    fleet (module docstring, phase 6b)."""
+    import os
+
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+
+    dirs = {"A": model_dir}
+    t0 = time.perf_counter()
+    for name, seed, nan_w in (("B", 1, False), ("NaN", 2, True)):
+        dirs[name] = tmp / f"ctl_{name}"
+        write_model_dir(torch, dirs[name], device, seed=seed, vocab=False, nan_w=nan_w)
+    for name, seed in (("A", 3), ("B", 4)):
+        write_code_vec(dirs[name] / "code.vec", seed)
+    print(f"serve_control: dirs B and NaN and two code.vec written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    ann_index = model_dir / "ann.index"
+    out = {}
+    try:
+        # the check resets and reads the counts around each route itself
+        out["coalescing"] = coalescing_check(torch, model_dir, device, smi)
+        reset_launch_counts()
+        out["hot_swap"] = ctl_hot_swap(torch, smi, device, dirs)
+        out["http"] = ctl_http(torch, smi, device, dirs,
+                               ann_index if ann_index.exists() else None)
+        out["sigterm"] = ctl_sigterm(smi, device, dirs)
+        out["fleet"] = ctl_fleet(smi, device, dirs, out["hot_swap"]["trickle"].get("before"))
+    finally:
+        os.environ.pop("C2V_HANDLE_DEBUG", None)
+        (model_dir / "code.vec").unlink(missing_ok=True)
+    counts = launch_counts()
+    for launches in ([route["launches"] for route in out["coalescing"].values()]
+                     + out["fleet"]["replica_launches"]):
+        for key, n in launches.items():
+            counts[key] = counts.get(key, 0) + n
+    out["launches"] = counts
+    print(f"serve_control launches (in process and the fleet's replicas): "
+          f"{json.dumps(counts)}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3385,6 +4058,8 @@ def main() -> int:
         serve = phase("serve", phase_serve, torch, smi, dev, model_dir)
         longbag = phase("longbag", phase_longbag, torch, smi, dev, model_dir)
         retrieval = phase("retrieval", phase_retrieval, torch, smi, dev, model_dir)
+        control = phase("serve_control", phase_serve_control, torch, smi, dev, model_dir / "ctl",
+                        model_dir)
         trained = phase("train", phase_train, torch, smi, dev, model_dir)
         bucketed = phase("train_bucketed", phase_train_bucketed, torch, smi, dev, model_dir)
         bf16_train = phase("train_bf16", phase_train_bf16, torch, smi, dev, model_dir, trained)
@@ -3447,7 +4122,8 @@ def main() -> int:
             "replaces": rec["replaces"],
             "launches": (routes[rec["key"]]["launches"][rec["key"]]
                          + device_counts.get(rec["key"], 0) + var_counts.get(rec["key"], 0)
-                         + py_counts.get(rec["key"], 0) + feed_counts.get(rec["key"], 0)),
+                         + py_counts.get(rec["key"], 0) + feed_counts.get(rec["key"], 0)
+                         + control["launches"].get(rec["key"], 0)),
             "max_abs_err": max(r["max_abs_err"] for r in rec["rows"]),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -3461,7 +4137,8 @@ def main() -> int:
         "name": "K5 lut_score", "route": "cuda",
         "source": "code2vec_tpu_torch/csrc/lut_score.cu",
         "replaces": "code2vec_tpu/ann/lut_kernel.py:206",
-        "launches": retrieval["launches"]["lut_score"] + py_counts.get("lut_score", 0),
+        "launches": (retrieval["launches"]["lut_score"] + py_counts.get("lut_score", 0)
+                     + control["launches"].get("lut_score", 0)),
         "max_abs_err": max(r["max_abs_err"] for r in k5),
         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"], "library_ms": None,
@@ -3471,7 +4148,8 @@ def main() -> int:
         Path(args.json_out).write_text(json.dumps(
             {"card": smi, "torch": torch.__version__, "launch_floor": floor, "kernels": kernels,
              "serve": serve,
-             "longbag": longbag, "retrieval": retrieval, "train": trained,
+             "longbag": longbag, "retrieval": retrieval, "serve_control": control,
+             "train": trained,
              "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train,
              "train_device": device_train, "train_feed": feed_train, "extract": extracted,
              "train_variable": variable,

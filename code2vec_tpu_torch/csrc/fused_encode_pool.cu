@@ -23,7 +23,7 @@
 // Bound on an H100: operations. The encode is 2*D*H flops per context
 // (180 kflop at the top11 widths) against 3 gathered rows of 400 bytes.
 // Design: a CTA of 8 encode warps and 4 copy warps owns S of a batch row's
-// chunks of kChunk contexts (chunks s, s+S, ...) and folds them into one
+// chunks of kChunk contexts (chunks s, s+S, ...) and writes each one's
 // softmax partial.
 //   - Gather: the copy warps read the ids of chunk c+2S while chunk c is
 //     encoded, then copy every row of chunk c+S at once with cp.async, a
@@ -54,17 +54,17 @@
 //     strides (xs % 8 == 4, ws % 16 == 8) make the fragment loads free of
 //     bank conflicts.
 //   - Then LayerNorm + tanh and the score in shared memory, four contexts
-//     per warp at once, and the pool folds the chunk (pool.cuh). Gathered
+//     per warp at once, and the chunk's pool partial (pool.cuh). Gathered
 //     rows and encoded contexts never reach device memory.
 //
 // A CTA holds ~219 KB of shared memory at the top11 widths, so one runs on
 // an SM: each batch row gets S CTAs, one wave of the card over the batch;
 // the wrapper picks S (ops/fused_encode_pool.stream_ctas) for every entry
-// point, and the workspace is B * S * (H + 2) floats at any L. K2 and K3
-// (materialize) run K4's online kernel on that grid; a row of one CTA
-// finishes in place. two_pass encodes every context twice
-// (the TPU kernel's price for never rescaling); online encodes once.
-// pool.cuh's combine kernel merges the S partials.
+// point. K2 and K3 (materialize) run K4's online kernel on that grid.
+// two_pass encodes every context twice (the TPU kernel's price for never
+// rescaling); online encodes once. pool.cuh's combine kernel merges a
+// row's chunk partials in chunk order, so the bits of a row do not depend
+// on S (and so not on B): the workspace is B * chunks * (H + 2) floats.
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -623,27 +623,26 @@ __device__ __forceinline__ void stream_chunks(const Rows& rows, const Layout& ly
 }
 
 // K3 and K4 online (fused_encode_pool.py:389-414): gridDim.x = S CTAs per
-// batch row. CTA s streams chunks s, s+S, s+2S, ...
-// carrying (m, d, acc[H]) with the online rescaling (pool_fold) and leaves
-// the raw masked scores in w; the S partials are merged by
-// pool_combine_kernel, which also normalises w (:440-442).
+// batch row. CTA s streams chunks s, s+S, s+2S, ... and writes each
+// chunk's own partial (m_c, d_c, acc_c[H]) to part[b][c] and its raw masked
+// scores to w; pool_combine_kernel merges the row's partials in chunk
+// order and normalises w (:440-442), so S changes no bit of the result.
 template <class Rows>
 __global__ void __launch_bounds__(kBlock, 1)
     encode_pool_online_kernel(Rows rows, Layout ly, const float* __restrict__ mask,
                               const float* __restrict__ drop,
                               const float* __restrict__ W, const float* __restrict__ lns,
                               const float* __restrict__ lnb, const float* __restrict__ attn,
-                              float* __restrict__ cv, float* __restrict__ w,
-                              float* __restrict__ part) {
+                              float* __restrict__ w, float* __restrict__ part) {
   extern __shared__ __align__(16) char smem[];
   const Smem m = carve(smem, ly);
   const int b = blockIdx.y, H = ly.H;
   const size_t row0 = (size_t)b * ly.L;
-  c2v::pool_init(m.st, H);
+  float* part_b = part + (size_t)b * ly.n_chunks * (H + 2);
   stream_chunks(rows, ly, m, W, lns, lnb, attn, mask, drop, [&](int base, int n) {
-    c2v::pool_fold(m.enc, m.s, n, H, m.st, w + row0 + base);
+    c2v::pool_chunk_partial(m.enc, m.s, n, H, m.st, part_b + (size_t)(base / kChunk) * (H + 2),
+                            w + row0 + base, nullptr);
   });
-  c2v::pool_chunk_done(m.st, ly.L, H, b, cv, w, part);
 }
 
 // K4 two_pass, pass A (fused_encode_pool.py:416-425): gather, encode (times
@@ -678,29 +677,31 @@ __global__ void __launch_bounds__(kBlock, 1)
 // chunk is re-gathered and re-encoded (times the same keep-mask rows as in
 // pass A; stream_chunks indexes `drop` by the chunk's own base, so every
 // CTA of a row reads its chunks' rows) and summed as exp(w - M) * enc with
-// no rescaling; the denominator d = sum exp(w - M) accumulates beside it.
-// Partials (acc, M, d) are merged by pool_combine_kernel as in online.
+// no rescaling, its denominator d_c = sum exp(w - M) beside it. The
+// chunks' partials (acc_c, M, d_c) are merged by pool_combine_kernel as in
+// online.
 template <class Rows>
 __global__ void __launch_bounds__(kBlock, 1)
     encode_pool_fixed_max_kernel(Rows rows, Layout ly, const float* __restrict__ drop,
                                  const float* __restrict__ W,
                                  const float* __restrict__ lns, const float* __restrict__ lnb,
-                                 const float* __restrict__ rowmax, float* __restrict__ cv,
-                                 float* __restrict__ w, float* __restrict__ part) {
+                                 const float* __restrict__ rowmax, float* __restrict__ w,
+                                 float* __restrict__ part) {
   extern __shared__ __align__(16) char smem[];
   const Smem m = carve(smem, ly);
   const int b = blockIdx.y, H = ly.H;
   const size_t row0 = (size_t)b * ly.L;
-  c2v::pool_init(m.st, H);
-  if (threadIdx.x == 0) {
+  float* part_b = part + (size_t)b * ly.n_chunks * (H + 2);
+  if (threadIdx.x == 0) {  // read after stream_chunks' first barrier
     float mx = -INFINITY;
     for (int i = 0; i < (int)gridDim.x; ++i) mx = fmaxf(mx, rowmax[(size_t)b * gridDim.x + i]);
     m.st.stat[0] = mx;
   }
   stream_chunks(rows, ly, m, W, lns, lnb, nullptr, nullptr, drop, [&](int base, int n) {
-    c2v::pool_fold_fixed_max(m.enc, w + row0 + base, n, H, m.st);
+    c2v::pool_chunk_partial(m.enc, nullptr, n, H, m.st,
+                            part_b + (size_t)(base / kChunk) * (H + 2), w + row0 + base,
+                            m.st.stat);
   });
-  c2v::pool_chunk_done(m.st, ly.L, H, b, cv, w, part);
 }
 
 template <class K>
@@ -710,8 +711,8 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 }
 
 // mode: 0 = online (one kernel), 1 = two_pass (pass A, pass B); then the
-// combine over the S partials of each row. `part` is [B, S, H + 2]
-// (unused when S == 1), `rowmax` [B, S] (two_pass only); `drop` the
+// combine over the chunk partials of each row. `part` is [B, chunks, H + 2]
+// (chunks = ceil(L / kChunk)), `rowmax` [B, S] (two_pass only); `drop` the
 // [B, L, H] keep mask or null (both modes; two_pass reads it in both
 // passes).
 template <class Rows>
@@ -722,7 +723,7 @@ int launch_stream(const Rows& rows, int mode, const float* mask, const float* dr
                   void* stream) {
   if (B < 1 || B > 65535 || L < 1 || Et < 1 || Ep < 1 || H < 1) return (int)cudaErrorInvalidValue;
   const Layout ly = make_layout(rows, W, L, Et, Ep, H);
-  if (ly.smem > (int)c2v::kMaxSmem || S < 1 || S > ly.n_chunks || (S > 1 && part == nullptr) ||
+  if (ly.smem > (int)c2v::kMaxSmem || S < 1 || S > ly.n_chunks || part == nullptr ||
       (mode != 0 && mode != 1) || (mode == 1 && rowmax == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -733,7 +734,7 @@ int launch_stream(const Rows& rows, int mode, const float* mask, const float* dr
   if (mode == 0) {
     if ((err = allow_smem(encode_pool_online_kernel<Rows>, ly.smem))) return (int)err;
     encode_pool_online_kernel<Rows><<<grid, kBlock, ly.smem, s>>>(rows, ly, mask, drop, W, lns,
-                                                                     lnb, attn, cv, w, part);
+                                                                     lnb, attn, w, part);
     if ((err = cudaGetLastError())) return (int)err;
   } else {
     if ((err = allow_smem(encode_score_kernel<Rows>, ly.smem))) return (int)err;
@@ -742,10 +743,10 @@ int launch_stream(const Rows& rows, int mode, const float* mask, const float* dr
                                                                attn, w, rowmax);
     if ((err = cudaGetLastError())) return (int)err;
     encode_pool_fixed_max_kernel<Rows><<<grid, kBlock, ly.smem, s>>>(rows, ly, drop, W, lns,
-                                                                        lnb, rowmax, cv, w, part);
+                                                                        lnb, rowmax, w, part);
     if ((err = cudaGetLastError())) return (int)err;
   }
-  return (int)c2v::launch_combine_parts(part, S, B, L, H, cv, w, s);
+  return (int)c2v::launch_combine(part, ly.n_chunks, B, L, H, cv, w, s);
 }
 
 // Dispatch on the table storage: 0 = f32, 1 = bf16, 2 = int8 (+ per-row
@@ -778,8 +779,8 @@ const char* c2v_error_string(int code) { return cudaGetErrorString((cudaError_t)
 
 // K2: rows gathered before the kernel, row_dtype 0 = f32, 1 = bf16 (widened
 // in shared memory, two TF32 products); K4's online kernel on S CTAs per
-// batch row (1 <= S <= chunks of kChunk), `part` the [B, S, H + 2]
-// workspace (unused when S == 1), `drop` the [B, L, H] keep mask or null.
+// batch row (1 <= S <= chunks of kChunk), `part` the [B, chunks, H + 2]
+// workspace, `drop` the [B, L, H] keep mask or null.
 // Returns the launch's cudaError_t.
 int c2v_encode_pool_gathered(int row_dtype, const void* gs, const void* gp, const void* ge,
                              const float* mask, const float* drop, const float* W,
@@ -817,7 +818,7 @@ int c2v_encode_pool_fused(int table_dtype, const void* tv, const float* ts, cons
 
 // K4: the streamed-softmax chain with the gather inside. mode: 0 = online,
 // 1 = two_pass; S CTAs per batch row (1 <= S <= chunks of kChunk); `part`
-// [B, S, H + 2] and, for two_pass, `rowmax` [B, S] are workspaces; `drop`
+// [B, chunks, H + 2] and, for two_pass, `rowmax` [B, S] are workspaces; `drop`
 // as for K2, in either mode (two_pass applies it in both passes).
 // table_dtype as for K3. Returns the launches' cudaError_t.
 int c2v_encode_pool_stream(int mode, int table_dtype, const void* tv, const float* ts,

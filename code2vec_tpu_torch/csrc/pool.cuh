@@ -12,16 +12,19 @@
 // kernels' hard -inf for lane padding has no counterpart here: nothing is
 // padded, a chunk simply holds fewer than kChunk rows.
 //
-// The bag is split into chunks of kChunk contexts. A CTA folds its chunks
-// into a softmax partial — max m, denominator d = sum exp(s - m), weighted
-// sum acc[H] = sum exp(s - m) enc — and writes the raw scores to the
-// weights output. A row of one CTA finishes in place; otherwise
-// pool_combine_kernel merges the row's partials with the rescaling of the
-// online softmax (_make_fused_kernel's "online" mode,
+// The bag is split into chunks of kChunk contexts. Each chunk's CTA
+// writes the chunk's own softmax partial to the workspace — max m_c,
+// denominator d_c = sum exp(s - m_c), weighted sum acc_c[H] =
+// sum exp(s - m_c) enc — and the raw scores to the weights output; then
+// pool_combine_kernel merges a row's partials in chunk order with the
+// rescaling of the online softmax (_make_fused_kernel's "online" mode,
 // fused_encode_pool.py:392-442): M = max m_c, D = sum d_c exp(m_c - M),
-// cv = sum acc_c exp(m_c - M) / D, w = exp(s - M) / D. Shared memory stays
-// O(kChunk*H) at any bag length; the workspace is B * S * (H + 2) floats
-// for S CTAs per row, allocated by the caller.
+// cv = sum acc_c exp(m_c - M) / D, w = exp(s - M) / D. A row's result is
+// therefore a function of its bag alone, whichever CTA encoded which
+// chunk: the same request gives the same bits in a micro-batch of any
+// size (the hot-swap gate's invariant, JAX serve/swap.py:211-245). Shared
+// memory stays O(kChunk*H) at any bag length; the workspace is
+// B * chunks * (H + 2) floats, allocated by the caller.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,111 +62,50 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// One batch row's running pool state, in shared memory.
+// A CTA's pool scratch, in shared memory.
 struct PoolState {
-  float* acc;   // [H] running weighted sum of encoded rows
-  float* e;     // [kChunk] exp weights of the chunk being folded
-  float* stat;  // [4] running max m, denominator d, last rescale, pad
+  float* e;     // [kChunk] exp weights of the chunk being summed
+  float* stat;  // [4] the row max (two_pass pass B), pad
 };
 
-__host__ __device__ constexpr size_t pool_state_floats(int H) {
-  return (size_t)H + kChunk + 4;
+__host__ __device__ constexpr size_t pool_state_floats(int) { return (size_t)kChunk + 4; }
+
+__device__ __forceinline__ PoolState make_pool_state(float* base, int) {
+  return PoolState{base, base + kChunk};
 }
 
-__device__ __forceinline__ PoolState make_pool_state(float* base, int H) {
-  return PoolState{base, base + H, base + H + kChunk};
-}
-
-__device__ __forceinline__ void pool_init(PoolState st, int H) {
-  for (int h = threadIdx.x; h < H; h += blockDim.x) st.acc[h] = 0.f;
-  if (threadIdx.x == 0) {
-    st.stat[0] = -INFINITY;
-    st.stat[1] = 0.f;
-    st.stat[2] = 0.f;
-  }
-}
-
-// Fold a chunk of n (1..kChunk) scored rows into the state; the raw scores
-// go to w_chunk. Needs blockDim.x >= 32; ends synchronised.
-__device__ __forceinline__ void pool_fold(const float* enc, const float* s, int n, int H,
-                                          PoolState st, float* w_chunk) {
+// The partial of a chunk of n (1..kChunk) encoded rows to out ([H] acc,
+// then m, d). Online: m is the chunk's max score, the scores come from s
+// and go raw to w_chunk. With fixed_max (two_pass pass B,
+// fused_encode_pool.py:432-436) m is that max and the scores come from
+// w_chunk. Needs blockDim.x >= 32; ends synchronised.
+__device__ __forceinline__ void pool_chunk_partial(const float* enc, const float* s, int n,
+                                                   int H, PoolState st, float* out,
+                                                   float* w_chunk, const float* fixed_max) {
   if (threadIdx.x < 32) {
     const int lane = threadIdx.x;
-    const float sc = lane < n ? s[lane] : -INFINITY;
-    const float m_old = st.stat[0];
-    const float m_new = fmaxf(m_old, warp_max(sc));
-    const float ex = lane < n ? expf(sc - m_new) : 0.f;
+    const float sc = lane < n ? (fixed_max ? w_chunk[lane] : s[lane]) : -INFINITY;
+    const float m = fixed_max ? *fixed_max : warp_max(sc);
+    const float ex = lane < n ? expf(sc - m) : 0.f;
     const float esum = warp_sum(ex);
     st.e[lane] = ex;
-    if (lane < n) w_chunk[lane] = sc;
-    __syncwarp();  // every lane has read m_old before lane 0 overwrites it
+    if (!fixed_max && lane < n) w_chunk[lane] = sc;
     if (lane == 0) {
-      const float scale = expf(m_old - m_new);  // exp(-inf) = 0 on the first chunk
-      st.stat[0] = m_new;
-      st.stat[1] = st.stat[1] * scale + esum;
-      st.stat[2] = scale;
+      out[H] = m;
+      out[H + 1] = esum;
     }
   }
   __syncthreads();
-  // The chunk's sum joins the state in one add: a state folding many
-  // chunks (K4) then rounds once per chunk, not once per context.
-  const float scale = st.stat[2];
   for (int h = threadIdx.x; h < H; h += blockDim.x) {
     float a = 0.f;
     for (int c = 0; c < n; ++c) a = fmaf(st.e[c], enc[(size_t)c * H + h], a);
-    st.acc[h] = fmaf(st.acc[h], scale, a);
+    out[h] = a;
   }
   __syncthreads();
 }
 
-// Fold a chunk of n rows against a max fixed in advance in st.stat[0]
-// (two_pass pass B, fused_encode_pool.py:432-436): the raw scores come
-// from w_chunk, nothing is rescaled. Ends synchronised.
-__device__ __forceinline__ void pool_fold_fixed_max(const float* enc, const float* w_chunk, int n,
-                                                    int H, PoolState st) {
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const float ex = lane < n ? expf(w_chunk[lane] - st.stat[0]) : 0.f;
-    const float esum = warp_sum(ex);
-    st.e[lane] = ex;
-    if (lane == 0) st.stat[1] += esum;
-  }
-  __syncthreads();
-  for (int h = threadIdx.x; h < H; h += blockDim.x) {
-    float a = 0.f;
-    for (int c = 0; c < n; ++c) a = fmaf(st.e[c], enc[(size_t)c * H + h], a);
-    st.acc[h] += a;
-  }
-  __syncthreads();
-}
-
-// cv = acc / d and w = exp(s - m) / d over the row's L raw scores.
-__device__ __forceinline__ void pool_finish(PoolState st, int L, int H, float* cv_row,
-                                            float* w_row) {
-  const float m = st.stat[0], d = st.stat[1];
-  for (int h = threadIdx.x; h < H; h += blockDim.x) cv_row[h] = st.acc[h] / d;
-  for (int l = threadIdx.x; l < L; l += blockDim.x) w_row[l] = expf(w_row[l] - m) / d;
-}
-
-// End of a CTA (blockIdx.x = its part, gridDim.x = parts of the row): a
-// row of one part finishes in place, otherwise the partial (acc[H], m,
-// d) goes to part[b][blockIdx.x].
-__device__ __forceinline__ void pool_chunk_done(PoolState st, int L, int H, int b, float* cv,
-                                                float* w, float* part) {
-  if (gridDim.x == 1) {
-    pool_finish(st, L, H, cv + (size_t)b * H, w + (size_t)b * L);
-    return;
-  }
-  float* out = part + ((size_t)b * gridDim.x + blockIdx.x) * (H + 2);
-  for (int h = threadIdx.x; h < H; h += blockDim.x) out[h] = st.acc[h];
-  if (threadIdx.x == 0) {
-    out[H] = st.stat[0];
-    out[H + 1] = st.stat[1];
-  }
-}
-
-// Merge a row's chunk partials (one CTA per batch row) and normalise the
-// raw scores the chunk CTAs left in w.
+// Merge a row's chunk partials in chunk order (one CTA per batch row) and
+// normalise the raw scores the chunk CTAs left in w.
 static __global__ void pool_combine_kernel(const float* __restrict__ part, int n_chunks, int L,
                                            int H, float* __restrict__ cv, float* __restrict__ w) {
   extern __shared__ float scale[];  // [n_chunks] exp(m_c - M), then M, D
@@ -192,13 +134,12 @@ static __global__ void pool_combine_kernel(const float* __restrict__ part, int n
   for (int l = threadIdx.x; l < L; l += blockDim.x) w_b[l] = expf(w_b[l] - m) / d;
 }
 
-// Launch the combine step over the n_parts partials per row that the
-// kernel before it wrote (a no-op for one part: that row finished in place).
-static inline cudaError_t launch_combine_parts(const float* part, int n_parts, int B, int L, int H,
-                                               float* cv, float* w, cudaStream_t stream) {
-  if (n_parts == 1) return cudaSuccess;
-  pool_combine_kernel<<<B, block_threads(H), (n_parts + 2) * sizeof(float), stream>>>(
-      part, n_parts, L, H, cv, w);
+// Launch the combine step over the n_chunks partials per row that the
+// kernel before it wrote.
+static inline cudaError_t launch_combine(const float* part, int n_chunks, int B, int L, int H,
+                                         float* cv, float* w, cudaStream_t stream) {
+  pool_combine_kernel<<<B, block_threads(H), (n_chunks + 2) * sizeof(float), stream>>>(
+      part, n_chunks, L, H, cv, w);
   return cudaGetLastError();
 }
 

@@ -28,18 +28,16 @@ processes of one :class:`FeedPool`:
 
 The workers run numpy only: they touch no ``torch`` API, so forking a
 process whose CUDA context is live is safe. Start the pool before any
-thread of the run (the prefetcher's); :func:`guard_fork_safety` warns when
-a non-daemon thread is alive at that point.
+thread of the run (the prefetcher's); ``obs.sync.guard_fork_safety`` warns
+when a non-daemon thread is alive at that point.
 """
 
 from __future__ import annotations
 
 import collections
-import logging
 import multiprocessing
 import os
 import queue as queue_mod
-import threading
 import time
 import traceback
 import warnings
@@ -50,26 +48,11 @@ from multiprocessing import shared_memory
 import numpy as np
 
 from code2vec_tpu_torch.data.pipeline import BatchSource, execute_plan, plan_real_slots
+from code2vec_tpu_torch.obs.sync import guard_fork_safety
 
 __all__ = ["FeedPool", "FeedWorkerError", "ParallelFeed", "guard_fork_safety"]
 
-logger = logging.getLogger(__name__)
-
 _POLL_S = 0.2  # how often a waiting pull checks that the workers live
-
-
-def guard_fork_safety(where: str) -> list[str]:
-    """The live non-daemon threads other than the caller's, warned about
-    right before a ``fork``: a child inherits every lock they hold, locked
-    for good (JAX ``obs/sync.py:390``). Returns their names."""
-    offenders = sorted(t.name for t in threading.enumerate()
-                       if t.is_alive() and not t.daemon and t is not threading.current_thread())
-    if offenders:
-        logger.warning("%s: fork start-method requested while non-daemon threads are alive "
-                       "(%s); forked children inherit any locks those threads hold, "
-                       "permanently frozen: start worker pools before other threads",
-                       where, ", ".join(offenders))
-    return offenders
 
 
 class FeedWorkerError(RuntimeError):

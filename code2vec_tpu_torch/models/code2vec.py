@@ -44,6 +44,14 @@ f32 for the f32 head. The plain route's keep mask differs from flax
 0.2%), a difference of the stream as the draw's is. Parameters, gradients
 and the head stay f32.
 
+The plain encode of ``pool_only`` and of the plain forward is a library
+matmul, whose kernel cuBLAS chooses by the number of rows: on the card,
+with gradients off (serving, evaluation), it runs over slabs of exactly
+``ENCODE_SLAB_ROWS`` rows (:func:`encode_matmul`), so a context's encoding,
+and a request's code vector, does not depend on the micro-batch it rides
+in. Training, and the CPU (whose rows do not depend on the row count),
+keep one matmul.
+
 The lazy table optimizer (``train/table_opt.py``) trains through
 ``forward(embed_offsets=...)``: the tables enter detached and the zero
 offsets added to the gathered rows take their per-slot gradients.
@@ -64,6 +72,29 @@ from code2vec_tpu_torch.ops.attention import attention_pool, streaming_attention
 from code2vec_tpu_torch.ops.embed import GRAD_MODES, embedding_lookup
 from code2vec_tpu_torch.ops.fused_encode_pool import COMPUTE_DTYPES, DEFAULT_CHUNK_L, LN_EPS
 from code2vec_tpu_torch.ops.quant import TABLE_DTYPES, QuantTable, dequantize_rows
+
+# rows per library matmul of the plain encode on the card without gradients:
+# of 256-8,192 rows, the least summed cost over the parent's one matmul at
+# 1x200 and 64x200 (tools/kernel_ab.py --forward; each slab is a launch)
+ENCODE_SLAB_ROWS = 8192
+
+
+def encode_matmul(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """``x @ weight`` over the last dim of ``x [..., K]`` (``weight [K, N]``).
+    On the card with gradients off the rows go through cuBLAS in slabs of
+    exactly ``ENCODE_SLAB_ROWS`` (the last one zero-padded), so it runs the
+    same kernel on every row however many there are: a row's bits do not
+    depend on the batch (cuBLAS picks its kernel by the row count)."""
+    if not x.is_cuda or torch.is_grad_enabled():
+        return x @ weight
+    lead, k = x.shape[:-1], x.shape[-1]
+    rows = x.reshape(-1, k)
+    n = rows.shape[0]
+    slabs = -(-n // ENCODE_SLAB_ROWS)
+    padded = rows.new_zeros((slabs * ENCODE_SLAB_ROWS, k))
+    padded[:n] = rows
+    out = torch.cat([slab @ weight for slab in padded.split(ENCODE_SLAB_ROWS)])
+    return out[:n].reshape(*lead, weight.shape[-1])
 
 PALLAS_IMPLS = ("pool_only", "gather_split", "fused")
 PALLAS_SOFTMAX = ("auto", "materialize", "online", "two_pass")
@@ -325,10 +356,11 @@ class Code2Vec(nn.Module):
         if c.encoder_impl == "split":
             kern = self._dense_kernel().to(cd)
             et, ep = e_start.shape[-1], e_path.shape[-1]
-            contexts = e_start @ kern[:et] + e_path @ kern[et:et + ep] + e_end @ kern[et + ep:]
+            contexts = (encode_matmul(e_start, kern[:et]) + encode_matmul(e_path, kern[et:et + ep])
+                        + encode_matmul(e_end, kern[et + ep:]))
         elif c.encoder_impl == "concat":
-            contexts = F.linear(torch.cat([e_start, e_path, e_end], dim=-1),
-                                self.input_linear.weight.to(cd))
+            contexts = encode_matmul(torch.cat([e_start, e_path, e_end], dim=-1),
+                                     self.input_linear.weight.to(cd).t())
         else:
             raise ValueError(
                 f"unknown encoder_impl {c.encoder_impl!r}: expected 'concat' or 'split'"

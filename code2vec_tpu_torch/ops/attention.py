@@ -8,6 +8,18 @@ backward); the hand kernels of the same pool are ``ops/pool_kernel.py``.
 The pools keep the contexts' dtype as the JAX ones do: over bf16 contexts
 (and a bf16 ``attn_param``) the scores and the code vector are bf16
 einsums, the softmax is f32 and its weights are cast to bf16 for the sum.
+
+On the CPU, where a wrapper runs these plain versions in place of its
+kernel, a row's bits must not depend on the batch it rides in (the
+serving invariant the hot-swap gate holds, ``serve/swap.py``). There
+:func:`attention_pool` writes its two contractions as exact products
+summed in f32 over one axis (a library batched product may take another
+path at B = 1 than at B = 64), and the softmax's exponentials are
+evaluated in float64 and rounded back (:func:`elementwise`): PyTorch's
+CPU loops run vector code on most elements of a tensor and scalar code on
+the tail, whose exp differs in the last bit, so a row's weights would
+depend on where the row lies in the tensor and how wide it is padded. On
+the card the kernels serve, and the plain versions keep the einsums.
 """
 
 from __future__ import annotations
@@ -18,16 +30,33 @@ import torch
 NINF = -3.4e38
 
 
+def elementwise(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise exp: on the CPU evaluated in
+    float64 and rounded to ``x``'s dtype, so that an element's bits do not
+    depend on its position in the tensor (the vector and scalar code paths
+    agree once rounded); elsewhere in ``x``'s dtype."""
+    if x.device.type != "cpu":
+        return fn(x)
+    return fn(x.double()).to(x.dtype)
+
+
 def masked_attention_weights(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Softmax over the bag axis with PAD positions masked out.
 
     The mask arithmetic is ``s*m + (1-m)*NINF`` (model/model.py:93), not a
     ``where``: with every position masked the row degenerates to uniform
-    weights instead of NaN. Computed in f32.
+    weights instead of NaN. Computed in f32; on the CPU the exponentials
+    and their sum in float64, rounded once (a row padded wider then gives
+    the same weights, :func:`elementwise`).
     """
     scores = scores.float()
     mask = mask.float()
-    return torch.softmax(scores * mask + (1.0 - mask) * NINF, dim=-1)
+    z = scores * mask + (1.0 - mask) * NINF
+    if z.device.type != "cpu":
+        return torch.softmax(z, dim=-1)
+    z = z.double()
+    e = torch.exp(z - z.amax(dim=-1, keepdim=True))
+    return (e / e.sum(dim=-1, keepdim=True)).float()
 
 
 def attention_pool(
@@ -36,11 +65,16 @@ def attention_pool(
     attn_param: torch.Tensor,  # [E]
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Return ``(code_vector [B, E], attention [B, L])``."""
-    scores = torch.einsum("ble,e->bl", contexts, attn_param)
+    if contexts.device.type != "cpu":
+        scores = torch.einsum("ble,e->bl", contexts, attn_param)
+        attention = masked_attention_weights(scores, mask)
+        code_vector = torch.einsum("bl,ble->be", attention.to(contexts.dtype), contexts)
+        return code_vector, attention
+    dtype = contexts.dtype
+    ctx = contexts.float()
+    scores = (ctx * attn_param.float()).sum(-1).to(dtype)
     attention = masked_attention_weights(scores, mask)
-    code_vector = torch.einsum(
-        "bl,ble->be", attention.to(contexts.dtype), contexts
-    )
+    code_vector = (attention.to(dtype).float()[..., None] * ctx).sum(1).to(dtype)
     return code_vector, attention
 
 

@@ -23,8 +23,11 @@ Three kernels, one CUDA source (``csrc/fused_encode_pool.cu``):
   first, then re-gathers and re-encodes every chunk against it.
 
 On the card all three run one kernel grid: each batch row gets
-:func:`stream_ctas` CTAs, so the workspace is O(B * S * H) at any bag
-length.
+:func:`stream_ctas` CTAs, each chunk of 32 contexts leaves its own softmax
+partial (workspace ``[B, ceil(L / 32), H + 2]``) and a combine kernel
+merges a row's partials in chunk order, so a row's result is bitwise the
+same whatever S, and so whatever micro-batch the row rides in (the
+hot-swap gate's invariant, ``serve/swap.py``).
 
 :func:`reference_forward` is the plain version of the whole op (the
 counterpart of ``xla_reference_forward``) and of K2/K3;
@@ -73,7 +76,7 @@ import ctypes
 import torch
 
 from code2vec_tpu_torch.ops import _build
-from code2vec_tpu_torch.ops.attention import NINF, attention_pool
+from code2vec_tpu_torch.ops.attention import NINF, attention_pool, elementwise
 from code2vec_tpu_torch.ops.backend import count_launch, resolve
 from code2vec_tpu_torch.ops.embed import embedding_lookup
 from code2vec_tpu_torch.ops.quant import QuantTable
@@ -109,8 +112,8 @@ def stream_ctas(b: int, l: int, sm_count: int) -> int:
     """K2/K3/K4's CTAs per batch row: one wave of the card over the batch
     (a CTA holds W and two row buffers, ~219 KB of shared memory at the
     top11 widths, so one fits on an SM), never more than the bag's chunks.
-    It depends on B and the card, not on L beyond that cap, so the
-    workspace is bounded. The kernels take S from here alone."""
+    The kernels take S from here alone; S decides only which CTA encodes
+    which chunk, never the order in which a row's chunk partials merge."""
     chunks = -(-l // CHUNK)
     return max(1, min(chunks, sm_count // max(b, 1)))
 
@@ -254,8 +257,8 @@ def streamed_reference_forward(t_table, p_table, starts, paths, ends, mask, dens
             masked = scores(enc, lo, hi)
             w[:, lo:hi] = masked
             m_new = torch.maximum(m, masked.max(dim=-1, keepdim=True).values)
-            scale = torch.exp(m - m_new)
-            e = torch.exp(masked - m_new)
+            scale = elementwise(torch.exp, m - m_new)
+            e = elementwise(torch.exp, masked - m_new)
             d = d * scale + e.sum(-1, keepdim=True)
             acc = acc * scale + (e[:, :, None] * enc).sum(1)
             m = m_new
@@ -264,11 +267,11 @@ def streamed_reference_forward(t_table, p_table, starts, paths, ends, mask, dens
             masked = scores(encode(lo, hi), lo, hi)
             w[:, lo:hi] = masked
             m = torch.maximum(m, masked.max(dim=-1, keepdim=True).values)
-        d = torch.exp(w - m).sum(-1, keepdim=True)
+        d = elementwise(torch.exp, w - m).sum(-1, keepdim=True)
         for lo, hi in chunks:
-            e = torch.exp(w[:, lo:hi] - m)
+            e = elementwise(torch.exp, w[:, lo:hi] - m)
             acc = acc + (e[:, :, None] * encode(lo, hi)).sum(1)
-    return acc / d, torch.exp(w - m) / d
+    return acc / d, elementwise(torch.exp, w - m) / d
 
 
 def _lib():
@@ -323,8 +326,10 @@ def _launch(impl, softmax_mode, compute_dtype, t_table, p_table, starts, paths, 
     w = torch.empty((b, l), dtype=f32, device=dev)
     outs = [cv, w]
     n_ctas = stream_ctas(b, l, torch.cuda.get_device_properties(dev).multi_processor_count)
-    part = torch.empty((b, n_ctas, h + 2), dtype=f32, device=dev) if n_ctas > 1 else None
-    part_ptr = None if part is None else part.data_ptr()
+    # one softmax partial a chunk, merged in chunk order: a row's bits do
+    # not depend on S, so not on the micro-batch it rides in
+    part = torch.empty((b, -(-l // CHUNK), h + 2), dtype=f32, device=dev)
+    part_ptr = part.data_ptr()
     lib = _lib()
     name = kernel_name(impl, table_dtype, softmax_mode, drop is not None, compute_dtype)
     with torch.cuda.device(dev):

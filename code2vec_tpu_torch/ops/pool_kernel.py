@@ -53,11 +53,14 @@ CTX_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def pool_ctas(b: int, l: int, sm_count: int) -> int:
     """K1's CTAs per batch row, the size of the row's thread-block cluster:
     enough that each CTA's warps fetch their share of the bag in one round
-    of loads (``CONTEXTS_PER_CTA``), at most ``MAX_CLUSTER``, and one CTA
-    per row once the batch alone fills the card (``RESIDENT_CTAS_PER_SM``
-    CTAs on each of ``sm_count`` SMs)."""
-    fill = (sm_count * RESIDENT_CTAS_PER_SM) // max(b, 1)
-    return max(1, min(MAX_CLUSTER, -(-l // CONTEXTS_PER_CTA), fill))
+    of loads (``CONTEXTS_PER_CTA``), at most ``MAX_CLUSTER`` and at most
+    the card's resident CTAs (``RESIDENT_CTAS_PER_SM`` on each of
+    ``sm_count`` SMs). The batch ``b`` does not enter: the cluster fixes the
+    order in which a row's partials merge, so a row's bits would otherwise
+    depend on the micro-batch it rides in (the hot-swap gate's invariant);
+    a large batch runs in more waves instead."""
+    del b
+    return max(1, min(MAX_CLUSTER, -(-l // CONTEXTS_PER_CTA), sm_count * RESIDENT_CTAS_PER_SM))
 
 
 def _lib():

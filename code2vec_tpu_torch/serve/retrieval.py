@@ -15,6 +15,9 @@ one interface (``labels``/``n``/``dim``/``top_k``/``top_k_batch``/
 
 Query batches and k round up to powers of two (k capped at N), as the JAX
 backends key their compiled entry points; ``describe`` counts the buckets.
+``host_rows`` gives the unit rows as host numpy (the hot-swap gate's
+recall check, ``serve/swap.py``); ``close`` retires an index with the
+generation that owned it.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from code2vec_tpu_torch.ann.index import normalize_rows, pow2_bucket, require_full_f32
+from code2vec_tpu_torch.obs import handles
 from code2vec_tpu_torch.ops.backend import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -47,6 +51,7 @@ class RetrievalIndex:
         self.dim = int(rows.shape[1])
         self._rows = torch.from_numpy(normalize_rows(rows)).to(self.device)
         self._buckets: set[tuple[int, int]] = set()
+        handles.track(self, "retrieval_exact", name=f"{self.n}x{self.dim}")
 
     @classmethod
     def from_code_vec(cls, path: str, device: str | torch.device | None = None) -> "RetrievalIndex":
@@ -60,6 +65,15 @@ class RetrievalIndex:
 
     def _cache_size(self) -> int:
         return len(self._buckets)
+
+    def host_rows(self) -> np.ndarray:
+        """The unit rows ``[N, E]`` f32, copied off the card."""
+        return self._rows.cpu().numpy()
+
+    def close(self) -> None:
+        """Leave the handle ledger (idempotent); the rows go back to the
+        allocator with the generation that owns the index."""
+        handles.untrack(self)
 
     def describe(self) -> dict:
         """The health op's retrieval block."""
@@ -110,6 +124,7 @@ class AnnRetrievalIndex:
         self._rows = unit_rows  # unit-normalized; may be a memory-mapped view
         self._source = source
         self.searcher = AnnSearcher(index, n_probe=n_probe, shortlist=shortlist, device=device)
+        handles.track(self, "mmap_ann", name=source or f"{self.n}x{self.dim}")
 
     @classmethod
     def from_container(cls, path: str, *, n_probe: int | None = None,
@@ -128,6 +143,15 @@ class AnnRetrievalIndex:
                     index.meta["n_list"], index.meta["m"], probe, short)
         return cls(labels, rows, index, n_probe=probe, shortlist=short, source=path,
                    device=device)
+
+    def host_rows(self) -> np.ndarray:
+        """The container's unit rows ``[N, E]`` f32 (the re-rank rows)."""
+        return np.asarray(self._rows, np.float32)
+
+    def close(self) -> None:
+        """Leave the handle ledger (idempotent); the searcher's arrays on
+        the card and the row view go with the generation that owns it."""
+        handles.untrack(self)
 
     def describe(self) -> dict:
         out = {"backend": "ann", "size": self.n, "dim": self.dim, **self.searcher.describe()}

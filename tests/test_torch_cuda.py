@@ -105,8 +105,8 @@ def test_pool_kernel(dev, L, H):
 @pytest.mark.parametrize("L", [1, 31, 32, 33, 200, 257, 2048])
 @pytest.mark.parametrize("B", [1, 5, 64, 200])
 def test_pool_kernel_grid(dev, B, L, H):
-    """K1 on every cluster size pool_ctas gives (1 to 8 CTAs a row; one at
-    B = 200, more rows than SMs), the last row all-masked (uniform 1/L)."""
+    """K1 on every cluster size pool_ctas gives (1 to 8 CTAs a row, in
+    several waves at B = 200), the last row all-masked (uniform 1/L)."""
     from code2vec_tpu_torch.ops.attention import attention_pool
     from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
     from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel
@@ -133,13 +133,14 @@ def test_pool_kernel_grid(dev, B, L, H):
 
 def test_pool_kernel_scores_past_shared_memory(dev):
     """A CTA's share of a very long bag does not fit in shared memory
-    (60,000 contexts, one CTA a row since the batch fills the card): the
-    raw scores then go through w itself."""
+    (500,000 contexts over a cluster of 8, 62,500 scores a CTA): the raw
+    scores then go through w itself."""
     from code2vec_tpu_torch.ops.attention import attention_pool
-    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel, pool_ctas
+    from code2vec_tpu_torch.ops.pool_kernel import MAX_CLUSTER, attention_pool_kernel, pool_ctas
 
-    B, L, H = 530, 60_000, 4
-    assert pool_ctas(B, L, torch.cuda.get_device_properties(dev).multi_processor_count) == 1
+    B, L, H = 4, 500_000, 4
+    ctas = pool_ctas(B, L, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert ctas == MAX_CLUSTER and 4 * -(-L // ctas) > 227 * 1024
     g = torch.Generator(device=dev).manual_seed(5)
     ctx = torch.tanh(torch.randn(B, L, H, generator=g, device=dev))
     mask = (torch.rand(B, L, generator=g, device=dev) > 0.5).float()

@@ -23,8 +23,8 @@ H100_SMS = 132
 
 @pytest.mark.parametrize("B,L,ctas", [
     (1, 1, 1), (1, 37, 1), (1, 64, 1), (1, 65, 2), (1, 200, 4), (1, 257, 5), (1, 2048, 8),
-    (8, 200, 4), (64, 37, 1), (64, 200, 4), (64, 2048, 4), (200, 200, 1), (200, 2048, 1),
-    (10**4, 2048, 1),
+    (8, 200, 4), (64, 37, 1), (64, 200, 4), (64, 2048, 8), (200, 200, 4), (200, 2048, 8),
+    (10**4, 2048, 8),
 ])
 def test_pool_ctas_at_the_h100(B, L, ctas):
     assert pool_ctas(B, L, H100_SMS) == ctas
@@ -34,19 +34,22 @@ def test_pool_ctas_at_the_h100(B, L, ctas):
 @pytest.mark.parametrize("B", [1, 5, 64, 200])
 def test_pool_ctas_bounds(B, L):
     """1..MAX_CLUSTER CTAs, never more than the bag has rounds of
-    CONTEXTS_PER_CTA contexts, and the whole grid within the SMs'
-    resident CTAs whenever a row takes more than one."""
+    CONTEXTS_PER_CTA contexts, and the same at every batch size: the
+    cluster fixes the order in which a row's partials merge, so a row's
+    bits must not depend on the micro-batch it rides in."""
     ctas = pool_ctas(B, L, H100_SMS)
     assert 1 <= ctas <= MAX_CLUSTER
     assert ctas <= -(-L // CONTEXTS_PER_CTA)
-    if ctas > 1:
-        assert B * ctas <= H100_SMS * RESIDENT_CTAS_PER_SM
+    assert ctas == pool_ctas(1, L, H100_SMS)
 
 
 def test_pool_ctas_one_cta_when_the_batch_fills_the_card():
+    """A batch that fills the card no longer drops a row to one CTA (a
+    large batch runs in more waves instead); only a card with fewer
+    resident CTAs than a cluster caps it."""
     full = H100_SMS * RESIDENT_CTAS_PER_SM
-    assert pool_ctas(full, 2048, H100_SMS) == 1
-    assert pool_ctas(full // 2, 2048, H100_SMS) == 2
+    assert pool_ctas(full, 2048, H100_SMS) == MAX_CLUSTER
+    assert pool_ctas(full // 2, 2048, H100_SMS) == MAX_CLUSTER
     assert pool_ctas(1, 2048, 1) == RESIDENT_CTAS_PER_SM  # a one-SM card
 
 

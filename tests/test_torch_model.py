@@ -25,7 +25,7 @@ from code2vec_tpu import interop as jax_interop
 from code2vec_tpu.models.code2vec import Code2Vec as JaxCode2Vec
 from code2vec_tpu.models.code2vec import Code2VecConfig as JaxConfig
 from code2vec_tpu_torch import interop
-from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
+from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig, encode_matmul
 
 DIMS = dict(terminal_count=50, path_count=40, label_count=9,
             terminal_embed_size=8, path_embed_size=6, encode_size=12)
@@ -182,3 +182,18 @@ class TestInterop:
         sd = interop.state_dict_from_jax_params(params, cfg)
         with pytest.raises(ValueError, match="input_linear.weight"):
             interop.check_dims(sd, cfg.with_updates(encode_size=16))
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_encode_matmul_is_one_product_on_the_cpu(grad):
+    """The fixed encode slabs are for cuBLAS, which picks its kernel by the
+    row count: on the CPU (and with gradients on anywhere) the plain encode
+    is one product, bit for bit, and keeps its gradient."""
+    g = np.random.default_rng(3)
+    x = torch.from_numpy(g.standard_normal((5, 37, 30)).astype(np.float32))
+    w = torch.from_numpy(g.standard_normal((30, 16)).astype(np.float32)).requires_grad_(grad)
+    with torch.set_grad_enabled(grad):
+        out = encode_matmul(x, w)
+    assert out.shape == (5, 37, 16)
+    assert torch.equal(out, x @ w)
+    assert out.requires_grad == grad

@@ -5,8 +5,11 @@
 - Every port module imports in a fresh interpreter with those names
   blocked in ``sys.modules``.
 - Entry points not asked for the CPU raise when no GPU is visible: the
-  predictor, the server, the predict CLI, the extractor CLI and the index
-  builder CLI (``tools/ann_build.py``).
+  predictor, the server (stdio and HTTP), the fleet CLI's workers, the
+  predict CLI, the extractor CLI and the index builder CLI
+  (``tools/ann_build.py``).
+- The fleet router and the telemetry package import with ``torch``
+  blocked: the router opens no CUDA context.
 - The port's extractor builds from ``extractor/src`` alone and writes only
   under ``build/code2vec_tpu_torch/`` (never ``extractor/build``, which the
   JAX package's build uses, nor ``code2vec_tpu/_native``).
@@ -206,3 +209,72 @@ def test_extractor_reads_its_sources_and_writes_its_build_dir_only(monkeypatch, 
             assert Path(cmd[cmd.index("-I") + 1]) == src
     assert sorted(p.name for p in (tmp_path / "build").rglob("*") if p.is_file()) == \
         ["c2v-extract", "libc2v.so"]
+
+
+SERVE_CONTROL_MODULES = [
+    "obs/__init__.py", "obs/sync.py", "obs/handles.py", "obs/runtime.py", "obs/events.py",
+    "obs/trace.py", "obs/costs.py", "serve/swap.py", "serve/protocol.py", "serve/__main__.py",
+    "serve/fleet/__init__.py", "serve/fleet/__main__.py", "serve/fleet/slo.py",
+    "serve/fleet/cache.py", "serve/fleet/replica.py", "serve/fleet/router.py",
+]
+
+
+@pytest.mark.parametrize("name", SERVE_CONTROL_MODULES)
+def test_serve_control_modules_are_in_the_scan(name):
+    """The hot-swap, HTTP, telemetry and fleet modules exist in the port
+    and are among the files the AST scan and the blocked-import check
+    cover."""
+    path = PORT / name
+    assert path in FILES, path
+    assert not imported_roots(path) & set(BANNED), path
+
+
+def test_router_and_telemetry_import_without_torch():
+    """The fleet router and the obs package never open a CUDA context:
+    they import with ``torch`` (and jax) blocked, as JAX's router imports
+    without jax; so do the transports they use (``serve/protocol.py``)."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+        for sub in ("obs", "serve/fleet") for p in (PORT / sub).rglob("*.py")
+    ) + ["code2vec_tpu_torch.serve.protocol", "code2vec_tpu_torch.serve.swap"]
+    script = (
+        "import sys\n"
+        f"for name in {BANNED + ('torch',)!r}: sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "print('ok', len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(modules) >= 13
+
+
+def test_http_server_without_device_raises(no_gpu, tmp_path):
+    from code2vec_tpu_torch.serve.__main__ import build_parser, build_server
+
+    args = build_parser().parse_args([
+        "--model_path", str(tmp_path), "--terminal_idx_path", "t.txt",
+        "--path_idx_path", "p.txt", "--transport", "http", "--port", "0",
+    ])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_server(args)
+
+
+def test_fleet_workers_without_device_raise(no_gpu, tmp_path):
+    """A fleet worker runs on the card unless the fleet CLI is given
+    ``--device cpu``: without it, and with no GPU visible, the worker's
+    command exits with the device error before it serves."""
+    from code2vec_tpu_torch.serve.fleet.__main__ import build_parser, worker_argv
+
+    base = ["--model_path", str(tmp_path), "--terminal_idx_path", str(tmp_path / "t.txt"),
+            "--path_idx_path", str(tmp_path / "p.txt")]
+    argv = worker_argv(build_parser().parse_args(base), 0)
+    assert "--device" not in argv and argv[1:3] == ["-m", "code2vec_tpu_torch.serve"]
+    cpu = worker_argv(build_parser().parse_args(base + ["--device", "cpu"]), 0)
+    assert cpu[cpu.index("--device") + 1] == "cpu"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(argv, cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120, stdin=subprocess.DEVNULL)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr, proc.stderr[-2000:]

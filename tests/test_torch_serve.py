@@ -142,16 +142,31 @@ class TestServeMatchesJax:
 
 class TestServeBehaviour:
     def test_coalesced_equals_one_at_a_time(self, model_dir):
-        srv = server_for(model_dir[0], "--deadline_ms", "200")
+        """The hot-swap gate's invariant (JAX serve/swap.py:211-245): a
+        request's code vector from a micro-batch of 8 or 64 is bitwise its
+        batch-1 vector, over the ladder (bags of 1-16 contexts, padded to
+        the group's widest) and over the long-bag rung (17-32 contexts, K4's
+        plain version). On the CPU the two rungs' plain versions are
+        different formulas, so a group holds one kind; on the card K3 and
+        K4 online are one kernel and chip_smoke.py mixes them."""
+        srv = server_for(model_dir[0], "--deadline_ms", "40", "--batch_sizes", "1,8,64",
+                         "--longbag_widths", "32")
         try:
-            bags = [bag(n, seed=100 + n) for n in (3, 7, 12, 16, 2, 9)]
-            resolvers = [srv.handle_async({"op": "embed", "contexts": b.tolist()}) for b in bags]
-            coalesced = [r()["methods"][0] for r in resolvers]
-            assert max(e["timing"]["coalesced"] for e in coalesced) > 1
-            for b, entry in zip(bags, coalesced):
-                single = srv.handle({"op": "embed", "contexts": b.tolist()})["methods"][0]
-                np.testing.assert_allclose(entry["code_vector"], single["code_vector"],
-                                           rtol=1e-6, atol=1e-7)
+            rng = np.random.default_rng(5)
+            for lo, hi in ((1, 16), (17, 32)):
+                lengths = [lo, hi] + list(rng.integers(lo, hi + 1, 62))
+                bags = [bag(int(n), seed=100 + i) for i, n in enumerate(lengths)]
+                singles = [srv.handle({"op": "embed", "contexts": b.tolist()})["methods"][0]
+                           for b in bags]
+                assert {e["timing"]["batch"] for e in singles} == {1}
+                for size in (8, 64):
+                    resolvers = [srv.handle_async({"op": "embed", "contexts": b.tolist()})
+                                 for b in bags[:size]]
+                    coalesced = [r()["methods"][0] for r in resolvers]
+                    assert max(e["timing"]["batch"] for e in coalesced) == size
+                    for single, entry in zip(singles, coalesced):
+                        assert np.array_equal(np.asarray(entry["code_vector"], np.float32),
+                                              np.asarray(single["code_vector"], np.float32))
         finally:
             srv.close()
 
@@ -177,11 +192,22 @@ class TestServeBehaviour:
                               "language": "cobol"})
         assert resp["error_kind"] == "bad_request" and "unknown language" in resp["error"]
 
-    @pytest.mark.parametrize("op", ["neighbors", "reload", "bogus"])
-    def test_other_ops_are_errors(self, server, op):
-        # neighbors is served, but this server loaded no retrieval index
-        resp = server.handle({"op": op})
-        assert resp["error_kind"] == ("not_implemented" if op == "reload" else "bad_request")
+    @pytest.mark.parametrize("op", ["neighbors", "reload", "rollback", "bogus"])
+    def test_other_ops_are_errors(self, server, op, tmp_path):
+        # neighbors is served, but this server loaded no retrieval index; a
+        # reload of a dir that is not there fails its build (swap_failed)
+        # and leaves the active generation serving; there is nothing to
+        # roll back to before a swap
+        version = server.version
+        request = {"op": op}
+        if op == "reload":
+            request.update(model_path=str(tmp_path / "missing"), wait=True)
+        resp = server.handle(request)
+        assert resp["error_kind"] == ("swap_failed" if op == "reload" else "bad_request")
+        assert server.version == version
+        if op == "reload":
+            assert resp["swap"]["last_swap"]["outcome"] == "failed"
+            assert resp["swap"]["active_version"] == version
 
     def test_health_after_traffic(self, server):
         for n in (1, 9, 16, 30):
