@@ -69,7 +69,9 @@ the final result line is not printed):
    K1) 64 requests at each rung 25/50/100/200 (and 512/1024/2048 on the
    fused routes), each request's code vector from a micro-batch of 64 and
    of 8 bitwise its batch-1 vector, its logits within rtol 1e-5 / atol
-   1e-6, and one micro-batch mixing every rung likewise; (b) hot-swap: the
+   1e-6, and one micro-batch mixing every rung likewise; then the plain
+   route (the same weights, no kernel) the same way, its rows whose bits
+   move with the micro-batch counted and printed, not gated; (b) hot-swap: the
    model dir A (the serve phase's) served with a trickle of requests on a
    thread of its own, then a ``reload`` of B (random weights from seed 1,
    written beside it) polled through ``swap_status``, ``rollback``, a
@@ -112,6 +114,24 @@ the final result line is not printed):
    (online and two_pass, at B in {1, 8, 64} x L in {1, 37, 200, 513, 2048}
    plus the long-bag train shape 256 x 4096, against
    ``streamed_reference_forward`` with the same mask);
+7b. train_elastic (after train) — elastic training at the train phase's
+   recipe (7 steps an epoch), the corpus written as ``corpus.txt`` and
+   loaded as the CLI loads it: (a) fused with no mid-epoch save, with
+   ``--checkpoint_every_steps 3`` and the same with ``--async_checkpoint``:
+   the three histories (every metric but the clocks) and final weights
+   bitwise equal; the checkpoint's bytes, each save's blocking ms (the whole
+   save synchronously, the snapshot asynchronously), the persist seconds and
+   each run's ``epoch_seconds``; (b) ``train_step@11:raise`` (epoch 1's
+   4th step, after its step-3 save) and ``--resume``, which replays 3
+   batches: bitwise (a)'s, the replay's seconds; (c) pool_only (K1 + K1b)
+   with ``--prefetch_batches 2`` and ``train_step@9:sigterm``: ``train()``
+   returns, the slot's cursor at epoch 1 step 2, the seconds from the
+   signal to the return, the resume bitwise an uninterrupted pool_only
+   run; (d) the CLI in a subprocess, ``train_step@11:kill`` (exit -9) then
+   ``--resume`` (exit 0): its history bitwise (a)'s; (e) ``--device_epoch``
+   on fused, ``epoch_start@2:sigterm``: a boundary save, and its resume
+   bitwise an uninterrupted device run. Every run launches its route's
+   kernels (counts reset just before it, read just after);
 8. train_bucketed — bucketed training on ``bench.py``'s ``--bucket-ab``
    corpus (30,720 methods, mean 60 contexts, lognormal sigma 1.0, max 400,
    top11 widths; batch 1024, bag 200, the derived ladder, dropout 0.25, 2
@@ -260,13 +280,14 @@ the final result line is not printed):
    route, source, the TPU kernel it replaces, launches on its serve or
    train route (the masked K4's on the long-bag runs) plus those of the
    train_device phase's runs of the four routes, of the train_feed runs,
-   of every train_variable run, of the python_source phase and of the
-   serve_control phase, max error,
+   of every train_variable run, of the python_source phase, of the
+   serve_control phase and of the train_elastic runs, max error,
    times at the headline shape and the bound), then, last, the result
    line.
 
 With ``--json_out`` the per-shape kernel records and serving numbers are
-also written to that file.
+also written to that file. ``--phases a,b`` runs only those phases after
+device and build and prints no result line (for work on one phase).
 """
 
 from __future__ import annotations
@@ -1298,6 +1319,10 @@ COALESCE_ROUTES = [
     ("K1 f32", ["--pallas_impl", "pool_only"], ("pool",), BATCH_SIZES + (128,)),
 ]
 COALESCE_RTOL, COALESCE_ATOL = 1e-5, 1e-6  # logits (JAX serve/swap.py:233-240)
+# the plain route (no kernel: cuBLAS and PyTorch's own reductions) is not held
+# to the invariant: the rows whose bits move with the micro-batch are counted
+# and printed, not gated
+COALESCE_PLAIN = ("plain f32 (counted, not gated)", [], (), BATCH_SIZES)
 
 
 def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
@@ -1307,7 +1332,9 @@ def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
     its micro-batch sizes and one at a time through the engine; each
     request's code vector from every batch must equal its batch-1 vector
     bitwise, its logits within rtol 1e-5 / atol 1e-6. Every mismatch is
-    collected, then the check fails."""
+    collected, then the check fails. Last, the plain route (the same
+    weights without a kernel) is run the same way and its rows whose bits
+    move with the micro-batch are counted, not gated."""
     from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
     from code2vec_tpu_torch.predict import Predictor
     from code2vec_tpu_torch.serve.engine import ServingEngine
@@ -1315,7 +1342,9 @@ def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
     rungs = LADDER + LONGBAG_RUNGS
     c = TOP11
     out, bad = {}, []
-    for label, flags, keys, sizes in COALESCE_ROUTES:
+    for label, flags, keys, sizes in COALESCE_ROUTES + [COALESCE_PLAIN]:
+        gated = label != COALESCE_PLAIN[0]
+        report = bad if gated else []
         opts = dict(zip(flags[::2], flags[1::2]))
         impl = opts.get("--pallas_impl", "fused")
         longbag = LONGBAG_RUNGS if impl == "fused" else ()
@@ -1325,6 +1354,14 @@ def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
             device=device, pallas_impl=impl,
             pallas_softmax=opts.get("--pallas_softmax", "auto"), longbag_widths=longbag,
         )
+        if not gated:
+            from code2vec_tpu_torch.models.code2vec import Code2Vec
+
+            with torch.device("meta"):
+                plain = Code2Vec(predictor.config.with_updates(use_pallas=False))
+            plain.load_state_dict(predictor.model.state_dict(), assign=True)
+            predictor.model = plain.eval()
+            predictor.config = plain.config
         engine = ServingEngine(predictor, batch_sizes=sizes)
         engine.prepare()
         reset_launch_counts()
@@ -1351,17 +1388,17 @@ def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
                         ref_logits, ref_cv = singles[base + i][0][0], singles[base + i][1][0]
                         if not np.array_equal(cvs[i], ref_cv):
                             n_bits += 1
-                            if len(bad) < 40:
-                                bad.append(f"{label} width {width} batch {size}: request "
-                                           f"{base + i} ({lens[base + i]} contexts) max |cv "
-                                           f"- batch-1| {np.abs(cvs[i] - ref_cv).max():.3e}")
+                            if len(report) < 40:
+                                report.append(f"{label} width {width} batch {size}: request "
+                                              f"{base + i} ({lens[base + i]} contexts) max |cv "
+                                              f"- batch-1| {np.abs(cvs[i] - ref_cv).max():.3e}")
                         worst_logit = max(worst_logit,
                                           float(np.abs(logits[i] - ref_logits).max()))
                         if not np.allclose(logits[i], ref_logits, rtol=COALESCE_RTOL,
                                            atol=COALESCE_ATOL):
-                            bad.append(f"{label} width {width} batch {size}: request "
-                                       f"{base + i} logits beyond rtol {COALESCE_RTOL} / atol "
-                                       f"{COALESCE_ATOL}")
+                            report.append(f"{label} width {width} batch {size}: request "
+                                          f"{base + i} logits beyond rtol {COALESCE_RTOL} / "
+                                          f"atol {COALESCE_ATOL}")
             route["widths"][width] = {"cv_not_bitwise": n_bits,
                                       "max_abs_logit_diff": worst_logit}
             every.extend(zip(reqs, singles))
@@ -1376,7 +1413,7 @@ def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
                       for i, (_, single) in enumerate(mixed))
         route["mixed_widths"] = {"requests": len(mixed), "cv_not_bitwise": n_mixed}
         if n_mixed:
-            bad.append(f"{label}: {n_mixed}/{len(mixed)} vectors of a mixed-width batch differ "
+            report.append(f"{label}: {n_mixed}/{len(mixed)} vectors of a mixed-width batch differ "
                        "from batch-1")
         counts = launch_counts()
         missing = [k for k in keys if counts.get(k, 0) < 1]
@@ -1384,6 +1421,13 @@ def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
             bad.append(f"{label}: kernels {missing} never launched ({counts})")
         route.update(launches=counts, seconds=time.perf_counter() - t0)
         out[label] = route
+        if not gated:
+            moved = sum(w["cv_not_bitwise"] for w in route["widths"].values())
+            rows = len(sizes[1:]) * sizes[-1] * len(route["widths"])
+            route["rows_not_bitwise"] = moved + n_mixed
+            print(f"coalescing plain: {moved} of {rows} rows (and {n_mixed} of {len(mixed)} in "
+                  f"the mixed-width batch) whose code vector's bits move with the micro-batch; "
+                  f"not gated [{smi}]", flush=True)
         print(f"coalescing {label}: per width (vectors not bitwise of "
               f"{len(sizes[1:]) * sizes[-1]}, max |logit diff|): "
               f"{json.dumps(route['widths'])}, launches {counts} [{smi}]", flush=True)
@@ -2228,6 +2272,300 @@ def phase_train(torch, smi, dev, tmp: Path) -> dict:
     if served["launches"].get("fused_f32", 0) < 1:
         raise AssertionError("serving the trained dir never launched K3")
     out["served"] = served
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: elastic training (mid-epoch saves, async saves, kill / SIGTERM
+# and resume)
+# ---------------------------------------------------------------------------
+
+# what an epoch line carries beside its metrics, left out of the bitwise
+# comparisons: the clocks and speeds, the steps of the pass that ran (a
+# resumed epoch's tail), its replay of the cursor, and a device run's
+# staging (in the first epoch each run completes)
+ELASTIC_CLOCKS = ("epoch_seconds", "steps_per_s", "contexts_per_s", "train_steps",
+                  "replayed_batches", "replay_seconds", "stage_seconds", "staged_bytes")
+# route -> the kernels its training and its eval launch
+ELASTIC_KEYS = {"fused": ("fused_f32_masked", "fused_f32"), "pool_only": ("pool", "pool_bwd")}
+
+
+def write_raw_corpus(raw, root: Path) -> dict:
+    """``raw`` (the train phase's corpus) as ``corpus.txt`` with its vocab
+    files and no aliases: the corpus a CLI run reads."""
+    from code2vec_tpu_torch.formats.corpus_io import CorpusRecord, write_corpus_record
+    from code2vec_tpu_torch.formats.vocab_io import write_vocab_from_names
+
+    root.mkdir(parents=True, exist_ok=True)
+    paths = {"corpus": root / "corpus.txt", "path_idx": root / "path_idxs.txt",
+             "terminal_idx": root / "terminal_idxs.txt"}
+    with open(paths["corpus"], "w", encoding="utf-8") as f:
+        for i in range(len(raw.row_splits) - 1):
+            lo, hi = raw.row_splits[i], raw.row_splits[i + 1]
+            write_corpus_record(f, CorpusRecord(
+                id=i + 1, label=raw.label_names[raw.label_ids[i]],
+                path_contexts=list(zip(raw.starts[lo:hi].tolist(), raw.paths[lo:hi].tolist(),
+                                       raw.ends[lo:hi].tolist()))))
+    write_vocab_from_names(paths["terminal_idx"], raw.terminal_names)
+    write_vocab_from_names(paths["path_idx"], raw.path_names)
+    return {k: str(v) for k, v in paths.items()}
+
+
+def same_history(label, got, want):
+    """Every metric of every epoch bitwise the uninterrupted run's, but the
+    clocks (``ELASTIC_CLOCKS``)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} epochs vs the uninterrupted {len(want)}")
+    for g, w in zip(got, want):
+        keys = sorted((set(g) | set(w)) - set(ELASTIC_CLOCKS))
+        diff = [(k, g.get(k), w.get(k)) for k in keys if g.get(k) != w.get(k)]
+        if diff:
+            raise AssertionError(f"{label}: epoch {w['epoch']} differs from the uninterrupted "
+                                 f"run in {diff}")
+
+
+def same_weights(torch, label, got: dict, want: dict):
+    diff = [k for k in want if not torch.equal(got[k], want[k])]
+    if diff or got.keys() != want.keys():
+        raise AssertionError(f"{label}: the final weights differ from the uninterrupted run's "
+                             f"in {diff}")
+
+
+def elastic_run(torch, smi, dev, data, config, label, keys, out_dir: Path) -> dict:
+    """``train()`` once into ``out_dir``, the launch counts set to 0 just
+    before and read just after. A ``raise`` plan must raise its
+    ``FaultInjected`` (caught here only then); any other run must return.
+    Each of ``keys`` must have been launched. After a SIGTERM the seconds
+    from the request to the return are kept."""
+    from code2vec_tpu_torch import faultinject
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.train.loop import train
+    from code2vec_tpu_torch.train.preempt import preemption_guard
+
+    epochs = []
+    expect_raise = ":raise" in config.fault_plan
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    result = None
+    try:
+        result = train(config, data, str(out_dir), device=dev, on_epoch=epochs.append)
+    except faultinject.FaultInjected:
+        if not expect_raise:
+            raise
+    else:
+        if expect_raise:
+            raise AssertionError(f"elastic {label}: the plan {config.fault_plan} never fired")
+    end = time.perf_counter()
+    guard = preemption_guard()
+    counts = launch_counts()
+    missing = [k for k in keys if counts.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"elastic {label} never launched {missing}: {counts}")
+    if not all(math.isfinite(m["train_loss"]) for m in epochs):
+        raise AssertionError(f"elastic {label}: epochs {epochs}")
+    for m in epochs:
+        replay = (f", replayed {m['replayed_batches']} batches in {m['replay_seconds']:.4f} s"
+                  if "replayed_batches" in m else "")
+        print(f"elastic {label} epoch {m['epoch']}: loss {m['train_loss']:.6f} test_loss "
+              f"{m['test_loss']:.6f} f1 {m['f1']:.6f}, {m['train_steps']} steps, "
+              f"epoch_seconds {m['epoch_seconds']:.4f}{replay} [{smi}]", flush=True)
+    saves = result.checkpoint_saves if result is not None else []
+    for s in saves:
+        print(f"elastic {label}: save {s['slot']} at step {s['step']} "
+              f"({'async' if s['async'] else 'sync'}): blocking {s['blocking_ms']:.2f} ms, "
+              f"persist {s.get('persist_s', float('nan')):.3f} s [{smi}]", flush=True)
+    print(f"elastic {label}: {len(epochs)} epochs in {end - t0:.1f}s, launches {counts} "
+          f"[{smi}]", flush=True)
+    return {"result": result, "epochs": epochs, "launches": counts, "seconds": end - t0,
+            "saves": saves,
+            "sigterm_to_return": end - guard.requested_at if guard.requested() else None}
+
+
+def slot_cursor(torch, out_dir: Path) -> dict:
+    from code2vec_tpu_torch.checkpoint import slot_path
+
+    return torch.load(slot_path(str(out_dir), "last"), map_location="cpu", weights_only=False,
+                      mmap=True)["meta"]["cursor"]
+
+
+def phase_train_elastic(torch, smi, dev, tmp: Path) -> dict:
+    """Elastic training at the train phase's recipe (top11 widths, 8,192
+    methods, batch 1024, bag 200, dropout 0.25, 7 steps an epoch, 2
+    epochs), the corpus written as text and loaded as the CLI loads it:
+    (a) fused uninterrupted with no mid-epoch save, with a save every 3
+    steps, and the same async: the histories and weights bitwise equal; the
+    checkpoint's bytes, each save's blocking ms, the persist seconds and
+    epoch_seconds; (b) a raise at step 11 (epoch 1's 4th, after its step-3
+    save) and --resume: bitwise (a)'s; (c) pool_only prefetched, SIGTERM at
+    step 9: train() returns, the cursor at epoch 1 step 2, the seconds from
+    the signal to the return, the resume bitwise an uninterrupted pool_only
+    run; (d) the CLI in a subprocess killed at step 11 (exit -9) and
+    resumed (exit 0): (a)'s history; (e) device epochs, SIGTERM at the
+    second epoch_start: a boundary save and its resume bitwise an
+    uninterrupted device run."""
+    import os
+    import shutil
+
+    from code2vec_tpu_torch.checkpoint import slot_path
+    from code2vec_tpu_torch.data.pipeline import split_items
+    from code2vec_tpu_torch.data.reader import load_corpus
+    from code2vec_tpu_torch.train.config import TrainConfig
+
+    raw, _ = train_corpus()
+    root = tmp / "elastic"
+    t0 = time.perf_counter()
+    paths = write_raw_corpus(raw, root / "corpus")
+    data = load_corpus(paths["corpus"], paths["path_idx"], paths["terminal_idx"], cache=False)
+    print(f"elastic corpus: {data.n_items} methods written and loaded in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    config = TrainConfig(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                         max_path_length=BAG, batch_size=TRAIN_BATCH, dropout_prob=0.25,
+                         max_epoch=2, random_seed=0, print_sample_cycle=0)
+    train_idx, _ = split_items(data.n_items, np.random.default_rng(config.random_seed))
+    steps = -(-len(train_idx) // TRAIN_BATCH)
+    if steps != 7:
+        raise AssertionError(f"elastic: {steps} train steps an epoch, the plans assume 7")
+    fused = config.with_updates(**kernel_route("fused"))
+    out, runs = {"steps_per_epoch": steps}, []
+
+    def run(label, cfg, keys, name):
+        r = elastic_run(torch, smi, dev, data, cfg, label, keys, root / name)
+        runs.append(r["launches"])
+        return r
+
+    # (a) three uninterrupted runs
+    none = run("fused (a) no mid-epoch save", fused, ELASTIC_KEYS["fused"], "a_none")
+    sync = run("fused (a) sync every 3", fused.with_updates(checkpoint_every_steps=3),
+               ELASTIC_KEYS["fused"], "a_sync")
+    asyn = run("fused (a) async every 3",
+               fused.with_updates(checkpoint_every_steps=3, async_checkpoint=True),
+               ELASTIC_KEYS["fused"], "a_async")
+    ckpt_bytes = os.path.getsize(slot_path(str(root / "a_sync"), "best"))
+    ref_history = sync["result"].history
+    ref_weights = {k: v.clone() for k, v in sync["result"].model.state_dict().items()}
+    for name, r in (("no mid-epoch save", none), ("async", asyn)):
+        same_history(f"fused (a) {name}", r["result"].history, ref_history)
+        same_weights(torch, f"fused (a) {name}", r["result"].model.state_dict(), ref_weights)
+    mid = {name: [s for s in r["saves"] if s["slot"] == "last"]
+           for name, r in (("sync", sync), ("async", asyn))}
+    if [len(v) for v in mid.values()] != [4, 4] or not all(s["async"] for s in mid["async"]):
+        raise AssertionError(f"elastic (a): mid-epoch saves {mid}")
+    out["a"] = {"checkpoint_bytes": ckpt_bytes,
+                "epoch_seconds": {name: [m["epoch_seconds"] for m in r["epochs"]]
+                                  for name, r in (("none", none), ("sync", sync),
+                                                  ("async", asyn))},
+                "saves": {"sync": sync["saves"], "async": asyn["saves"]}}
+    print(f"elastic (a): checkpoint {ckpt_bytes} bytes; mid-epoch saves' blocking ms sync "
+          f"{[round(s['blocking_ms'], 2) for s in mid['sync']]} / async (the snapshot) "
+          f"{[round(s['blocking_ms'], 2) for s in mid['async']]}; persist s sync "
+          f"{[round(s['persist_s'], 3) for s in mid['sync']]} / async "
+          f"{[round(s['persist_s'], 3) for s in mid['async']]}; epoch_seconds: no mid-epoch "
+          f"save {out['a']['epoch_seconds']['none']}, sync every 3 "
+          f"{out['a']['epoch_seconds']['sync']}, async every 3 "
+          f"{out['a']['epoch_seconds']['async']}; the three histories and final weights "
+          f"bitwise equal [{smi}]", flush=True)
+    for name in ("a_none", "a_sync", "a_async"):
+        shutil.rmtree(root / name)
+    del none, sync, asyn
+
+    # (b) a raise at step 11, then --resume
+    every3 = fused.with_updates(checkpoint_every_steps=3)
+    run("fused (b) raise at step 11", every3.with_updates(fault_plan="train_step@11:raise"),
+        ELASTIC_KEYS["fused"][:1], "b")
+    cursor = slot_cursor(torch, root / "b")
+    if (cursor["epoch"], cursor["step"]) != (1, 3):
+        raise AssertionError(f"elastic (b): the slot's cursor {cursor['epoch'], cursor['step']}")
+    resumed = run("fused (b) resumed", every3.with_updates(resume=True), ELASTIC_KEYS["fused"],
+                  "b")
+    same_history("fused (b)", resumed["result"].history, ref_history)
+    same_weights(torch, "fused (b)", resumed["result"].model.state_dict(), ref_weights)
+    replay = resumed["result"].history[1]
+    out["b"] = {"replayed_batches": replay["replayed_batches"],
+                "replay_seconds": replay["replay_seconds"]}
+    print(f"elastic (b): the resume bitwise (a)'s; replayed {replay['replayed_batches']} "
+          f"batches in {replay['replay_seconds']:.4f} s [{smi}]", flush=True)
+    shutil.rmtree(root / "b")
+    del resumed
+
+    # (c) pool_only prefetched: SIGTERM at step 9, then --resume
+    pool = config.with_updates(**kernel_route("pool_only"), prefetch_batches=2)
+    whole = run("pool_only (c) uninterrupted", pool, ELASTIC_KEYS["pool_only"], "c_whole")
+    pre = run("pool_only (c) SIGTERM at step 9",
+              pool.with_updates(fault_plan="train_step@9:sigterm"), ELASTIC_KEYS["pool_only"],
+              "c")
+    cursor = slot_cursor(torch, root / "c")
+    if (pre["result"].epochs_run, cursor["epoch"], cursor["step"]) != (1, 1, 2) \
+            or pre["sigterm_to_return"] is None:
+        raise AssertionError(f"elastic (c): {pre['result'].epochs_run} epochs, cursor "
+                             f"{cursor['epoch'], cursor['step']}")
+    resumed = run("pool_only (c) resumed", pool.with_updates(resume=True),
+                  ELASTIC_KEYS["pool_only"], "c")
+    same_history("pool_only (c)", resumed["result"].history, whole["result"].history)
+    same_weights(torch, "pool_only (c)", resumed["result"].model.state_dict(),
+                 whole["result"].model.state_dict())
+    out["c"] = {"sigterm_to_return_seconds": pre["sigterm_to_return"]}
+    print(f"elastic (c): SIGTERM to train()'s return {pre['sigterm_to_return']:.3f} s (the "
+          f"step in flight, the cursor's save, the producer joined); the resume bitwise the "
+          f"uninterrupted run's [{smi}]", flush=True)
+    for name in ("c", "c_whole"):
+        shutil.rmtree(root / name)
+    del whole, pre, resumed
+
+    # (d) the CLI in a subprocess: SIGKILL at step 11, then --resume
+    cli_dir = root / "d"
+    argv = [sys.executable, "-m", "code2vec_tpu_torch", "--corpus_path", paths["corpus"],
+            "--path_idx_path", paths["path_idx"], "--terminal_idx_path", paths["terminal_idx"],
+            "--model_path", str(cli_dir), "--vectors_path", str(cli_dir / "code.vec"),
+            "--no_corpus_cache", "--terminal_embed_size", "100", "--path_embed_size", "100",
+            "--encode_size", "100", "--max_path_length", str(BAG), "--batch_size",
+            str(TRAIN_BATCH), "--dropout_prob", "0.25", "--max_epoch", "2", "--random_seed",
+            "0", "--print_sample_cycle", "0", "--use_pallas", "--pallas_impl", "fused",
+            "--checkpoint_every_steps", "3"]
+    env = {k: v for k, v in os.environ.items() if k != "C2V_FAULT_PLAN"}
+    lines, codes, secs = [], [], []
+    for extra in (["--fault_plan", "train_step@11:kill"], ["--resume"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv + extra, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=300)
+        secs.append(time.perf_counter() - t0)
+        codes.append(proc.returncode)
+        lines += [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+        if proc.returncode not in (-9, 0) or (extra[0] == "--resume") != (proc.returncode == 0):
+            raise AssertionError(f"elastic (d) {extra}: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    same_history("the CLI (d)", lines, ref_history)
+    out["d"] = {"exit_codes": codes, "seconds": secs}
+    print(f"elastic (d): the CLI exited {codes[0]} at step 11 ({secs[0]:.1f} s) and {codes[1]} "
+          f"resumed ({secs[1]:.1f} s, replayed {lines[1].get('replayed_batches')} batches); "
+          f"its history bitwise (a)'s [{smi}]", flush=True)
+    shutil.rmtree(cli_dir)
+
+    # (e) device epochs: SIGTERM at the second epoch_start, then --resume
+    device = fused.with_updates(device_epoch=True)
+    whole = run("fused (e) device epochs", device, ELASTIC_KEYS["fused"], "e_whole")
+    pre = run("fused (e) device epochs, SIGTERM at epoch_start 2",
+              device.with_updates(fault_plan="epoch_start@2:sigterm"), ELASTIC_KEYS["fused"],
+              "e")
+    cursor = slot_cursor(torch, root / "e")
+    if (pre["result"].epochs_run, cursor["epoch"], cursor["step"]) != (1, 1, 0):
+        raise AssertionError(f"elastic (e): {pre['result'].epochs_run} epochs, cursor "
+                             f"{cursor['epoch'], cursor['step']}")
+    resumed = run("fused (e) device epochs resumed", device.with_updates(resume=True),
+                  ELASTIC_KEYS["fused"], "e")
+    same_history("fused (e)", resumed["result"].history, whole["result"].history)
+    same_weights(torch, "fused (e)", resumed["result"].model.state_dict(),
+                 whole["result"].model.state_dict())
+    out["e"] = {"sigterm_to_return_seconds": pre["sigterm_to_return"]}
+    print(f"elastic (e): a boundary save at SIGTERM ({pre['sigterm_to_return']:.3f} s to the "
+          f"return); the resume bitwise the uninterrupted device run's [{smi}]", flush=True)
+    del whole, pre, resumed
+    shutil.rmtree(root)
+    out["launches"] = {}
+    for counts in runs:
+        for key, n in counts.items():
+            out["launches"][key] = out["launches"].get(key, 0) + n
+    print(f"train_elastic launches: {json.dumps(out['launches'])}", flush=True)
     return out
 
 
@@ -3979,7 +4317,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json_out", default=None,
                         help="also write the per-shape kernel records and serve numbers here")
+    parser.add_argument("--phases", default=None,
+                        help="run only these phases (comma list) after device and build, and "
+                             "print no result line: for working on one phase")
     args = parser.parse_args()
+    only = set(args.phases.split(",")) if args.phases else None
 
     import torch
 
@@ -3989,6 +4331,8 @@ def main() -> int:
     failed = []
 
     def phase(name, fn, *a):
+        if only is not None and name not in only | {"device", "build"}:
+            return None
         print(f"== phase {name}", flush=True)
         t0 = time.perf_counter()
         try:
@@ -4061,6 +4405,7 @@ def main() -> int:
         control = phase("serve_control", phase_serve_control, torch, smi, dev, model_dir / "ctl",
                         model_dir)
         trained = phase("train", phase_train, torch, smi, dev, model_dir)
+        elastic = phase("train_elastic", phase_train_elastic, torch, smi, dev, model_dir)
         bucketed = phase("train_bucketed", phase_train_bucketed, torch, smi, dev, model_dir)
         bf16_train = phase("train_bf16", phase_train_bf16, torch, smi, dev, model_dir, trained)
         lazy_train = phase("train_lazy", phase_train_lazy, torch, smi, dev, trained, bucketed,
@@ -4078,6 +4423,9 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
+    if only is not None:
+        print(f"chip_smoke: ran {sorted(only)} only; no result line", file=sys.stderr)
+        return 0
 
     routes = {**serve, **longbag}
     for route, keys in TRAIN_ROUTES.items():  # K1b and the masked K2/K3 train
@@ -4114,6 +4462,7 @@ def main() -> int:
         for key, n in run["launches"].items():
             feed_counts[key] = feed_counts.get(key, 0) + n
     print(f"train_feed launches: {json.dumps(feed_counts)}")
+    el_counts = elastic["launches"]  # the train_elastic phase's runs (printed there)
     line = []
     for name, rec in kernels.items():
         timed = next(r for r in rec["rows"] if (r["B"], r["L"]) == rec["timed"])
@@ -4123,7 +4472,8 @@ def main() -> int:
             "launches": (routes[rec["key"]]["launches"][rec["key"]]
                          + device_counts.get(rec["key"], 0) + var_counts.get(rec["key"], 0)
                          + py_counts.get(rec["key"], 0) + feed_counts.get(rec["key"], 0)
-                         + control["launches"].get(rec["key"], 0)),
+                         + control["launches"].get(rec["key"], 0)
+                         + el_counts.get(rec["key"], 0)),
             "max_abs_err": max(r["max_abs_err"] for r in rec["rows"]),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -4149,7 +4499,7 @@ def main() -> int:
             {"card": smi, "torch": torch.__version__, "launch_floor": floor, "kernels": kernels,
              "serve": serve,
              "longbag": longbag, "retrieval": retrieval, "serve_control": control,
-             "train": trained,
+             "train": trained, "train_elastic": elastic,
              "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train,
              "train_device": device_train, "train_feed": feed_train, "extract": extracted,
              "train_variable": variable,

@@ -32,9 +32,11 @@ Layout (each module names its JAX counterpart):
   corpus cache, synthetic corpora, epochs and batches of the method and
   variable tasks in RAM, streamed or from an mmap-backed corpus, the feed
   workers), ``metrics``, ``train`` (config, steps, the lazy table
-  optimizer, device-resident epochs, the host prefetcher, the epoch loop),
-  ``checkpoint``, ``export`` and ``cli`` — the training path (``python -m
-  code2vec_tpu_torch``), whose model dir the server serves as it stands.
+  optimizer, device-resident epochs, the host prefetcher, the SIGTERM
+  guard, the epoch loop), ``checkpoint`` (sync and async writers, mid-epoch
+  cursors), ``faultinject`` (the fault plan), ``export`` and ``cli`` — the
+  training path (``python -m code2vec_tpu_torch``), whose model dir the
+  server serves as it stands.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper runs its plain PyTorch version.

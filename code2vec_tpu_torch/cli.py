@@ -33,6 +33,11 @@ is a ``corpus.txt`` (parsed natively, then cached beside it unless
 ``--no_corpus_cache``) or a CSR container from ``python -m
 code2vec_tpu_torch.tools.corpus_convert`` (mmap-backed);
 ``--corpus_format`` fails when the file is not the format named.
+Elastic training: ``--checkpoint_every_steps N`` also saves every N steps
+with a mid-epoch cursor, so ``--resume`` continues inside the epoch;
+``--async_checkpoint`` writes saves on a thread behind a host snapshot;
+SIGTERM finishes the step in flight, saves and exits 0; ``--fault_plan``
+(or ``C2V_FAULT_PLAN``) schedules faults for recovery drills.
 
 Flags of features not ported yet are accepted with their default only and
 raise otherwise (``TrainConfig.validate``, ROADMAP §A.2); HPO, telemetry
@@ -128,7 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint_cycle", type=int, default=0,
                         help="also checkpoint the last slot every N epochs")
     parser.add_argument("--resume", action="store_true", default=False,
-                        help="resume at the epoch boundary of the checkpoint in --model_path")
+                        help="resume from the checkpoint in --model_path (inside its epoch when it "
+                             "holds a mid-epoch cursor)")
     parser.add_argument("--export_only", action="store_true", default=False,
                         help="restore the best checkpoint in --model_path and rewrite "
                              "--vectors_path (+ the test TSV) without training")
@@ -200,13 +206,26 @@ def build_parser() -> argparse.ArgumentParser:
                         help="disable the <corpus>.cache.npz sidecar that "
                              "makes repeat startups fast at top11 scale")
 
+    # elastic training (JAX cli.py:278-298)
+    parser.add_argument("--async_checkpoint", action="store_true", default=False,
+                        help="async checkpointing: the loop blocks only for "
+                             "the device-to-host snapshot; the disk write "
+                             "overlaps the next steps on a background thread")
+    parser.add_argument("--checkpoint_every_steps", type=int, default=0,
+                        help="also save the last slot every N train steps "
+                             "with a mid-epoch data cursor so --resume "
+                             "restarts inside the epoch (0 = epoch-boundary "
+                             "saves only)")
+    parser.add_argument("--fault_plan", type=str, default="",
+                        help="deterministic fault injection for recovery "
+                             "drills (code2vec_tpu_torch/faultinject.py), e.g. "
+                             "'train_step@10:sigterm,mid_save@1:raise' — "
+                             "crashes the process ON PURPOSE")
+
     # accepted at their defaults only: the features are not ported yet
     parser.add_argument("--data_axis", type=int, default=1)
     parser.add_argument("--model_axis", type=int, default=1)
     parser.add_argument("--context_axis", type=int, default=1)
-    parser.add_argument("--async_checkpoint", action="store_true", default=False)
-    parser.add_argument("--checkpoint_every_steps", type=int, default=0)
-    parser.add_argument("--fault_plan", type=str, default="")
     return parser
 
 

@@ -29,10 +29,10 @@ task, bounded RSS) or, for an mmap-backed CSR corpus and the method task,
 batches gathered straight from the mapped arrays. Each method-task source
 splits its stream into plans (every draw of the generator, made in the
 stream's order) and a pure build (:func:`execute_plan`), which
-``data/parallel_feed.py`` runs on worker processes. Not ported yet: the
-host-sharded lockstep feed (``scheduled_batches``, ``empty_batch``,
-``pad_batch_stream``; ROADMAP §A.2.9) and mid-epoch replay
-(``skip_batches``, §A.2.8).
+``data/parallel_feed.py`` runs on worker processes. :func:`skip_batches`
+replays an epoch's stream to a mid-epoch cursor (``:955-1000``). Not
+ported yet: the host-sharded lockstep feed (``scheduled_batches``,
+``empty_batch``, ``pad_batch_stream``; ROADMAP §A.2.9).
 """
 
 from __future__ import annotations
@@ -906,6 +906,43 @@ class MmapCorpusSource(BatchSource):
                 yield self._batch_plan(items, width, rng)
 
         return gen()
+
+
+def skip_batches(batches: Iterator[dict[str, np.ndarray]], n: int,
+                 expect_widths: dict[int, int] | None = None) -> Iterator[dict[str, np.ndarray]]:
+    """Consume the first ``n`` batches of an epoch stream and return the
+    rest: the mid-epoch resume's replay (JAX ``pipeline.py:955-1000``).
+
+    Every source's stream is a pure function of the generator's state at
+    :meth:`BatchSource.batches`, so the stream made again from the
+    cursor's state, less its first ``n`` batches, is bitwise where the
+    interrupted run stopped (the bucketed plans too, drawn up front from
+    the same generator). Only host batches are built and dropped: nothing
+    is enqueued on the card. A :class:`~code2vec_tpu_torch.data.
+    parallel_feed.ParallelFeed` stream hands each skipped batch's arena
+    slot back at the next pull, as it does for a consumed one.
+
+    ``expect_widths``: the cursor's batches per bucket width; a mismatch
+    means the ladder or the batch size changed since the save, and the
+    cursor cannot be honoured."""
+    it = iter(batches)
+    seen: dict[int, int] = {}
+    for i in range(n):
+        try:
+            batch = next(it)
+        except StopIteration:
+            raise ValueError(
+                f"mid-epoch cursor points past the epoch: batch {i} of {n} does not exist — "
+                "the corpus or batching config changed since the checkpoint was saved; "
+                "restart without --resume (or restore the original config)") from None
+        width = int(batch["paths"].shape[1])
+        seen[width] = seen.get(width, 0) + 1
+    if expect_widths is not None and seen != {int(w): c for w, c in expect_widths.items()}:
+        raise ValueError(
+            f"mid-epoch cursor bucket positions {expect_widths} do not match the replayed "
+            f"stream {seen}; the bucket ladder or batch size changed since the checkpoint was "
+            "saved — resume with the original settings or restart without --resume")
+    return it
 
 
 def make_batch_source(data, item_idx: np.ndarray, batch_size: int, max_contexts: int,

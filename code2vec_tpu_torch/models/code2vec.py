@@ -216,9 +216,14 @@ class Code2Vec(nn.Module):
 
     def dropout_generator(self, device: torch.device) -> torch.Generator:
         """The module's keep-mask generator on ``device`` (made from
-        ``dropout_seed`` on first use there); checkpoints save its state."""
+        ``dropout_seed`` on first use there); checkpoints save its state.
+        ``"cuda"`` names the current card, as ``"cuda:<index>"`` does: the
+        generator is the same one."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
         g = self._dropout_gen
-        if g is None or g.device != torch.device(device):
+        if g is None or g.device != device:
             g = torch.Generator(device=device)
             g.manual_seed(self.dropout_seed)
             self._dropout_gen = g

@@ -2,9 +2,9 @@
 
 Own copy of ``code2vec_tpu/train/config.py``: the same field names and
 defaults. Fields of features the port does not have yet (the mesh axes,
-``pallas_impl='auto'``, elastic training) stay, so a JAX configuration
-reads the same here, and :meth:`TrainConfig.validate` rejects them loudly
-when set instead of ignoring them (ROADMAP §A.2.8, §A.2.9, §A.7).
+``pallas_impl='auto'``) stay, so a JAX configuration reads the same here,
+and :meth:`TrainConfig.validate` rejects them loudly when set instead of
+ignoring them (ROADMAP §A.2.9, §A.7).
 """
 
 from __future__ import annotations
@@ -118,13 +118,19 @@ class TrainConfig:
     prefetch_batches: int = 0
     profile_steps: int = 0
 
+    # elastic training (checkpoint.py, train/preempt.py, faultinject.py):
+    # async_checkpoint persists saves on a thread behind a host snapshot;
+    # checkpoint_every_steps also saves the last slot every N train steps
+    # with a mid-epoch data cursor (0 = epoch boundaries only); fault_plan
+    # schedules faults for recovery drills (or C2V_FAULT_PLAN)
+    async_checkpoint: bool = False
+    checkpoint_every_steps: int = 0
+    fault_plan: str = ""
+
     # not ported yet: validate() rejects a value other than the default
     data_axis: int = 1
     model_axis: int = 1
     context_axis: int = 1
-    async_checkpoint: bool = False
-    checkpoint_every_steps: int = 0
-    fault_plan: str = ""
 
     def with_updates(self, **kw) -> "TrainConfig":
         return replace(self, **kw)
@@ -158,7 +164,8 @@ class TrainConfig:
                               ("table_update", TABLE_UPDATES), ("embed_grad", GRAD_MODES)):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
-        for name in ("stream_chunk_items", "feed_workers", "prefetch_batches", "profile_steps"):
+        for name in ("stream_chunk_items", "feed_workers", "prefetch_batches", "profile_steps",
+                     "checkpoint_every_steps"):
             if getattr(self, name) < 0:
                 raise ValueError(f"--{name} must be >= 0, got {getattr(self, name)}")
         if self.feed_workers and self.device_epoch:
@@ -168,9 +175,6 @@ class TrainConfig:
         unported = {
             "mesh axes > 1": max(self.data_axis, self.model_axis, self.context_axis) > 1,
             "pallas_impl='auto'": self.pallas_impl == "auto",
-            "async_checkpoint": self.async_checkpoint,
-            "checkpoint_every_steps": self.checkpoint_every_steps,
-            "fault_plan": self.fault_plan,
         }
         asked = [name for name, on in unported.items() if on]
         if asked:

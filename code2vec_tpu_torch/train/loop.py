@@ -28,7 +28,23 @@ and variable-name tasks, alone or together (method rows first):
   loss OR the accuracy improves (``:1724-1736``);
 - the optimizer of ``config.table_update`` (``train/step.make_optimizer``:
   the lazy table optimizer steps the tables' touched rows at every bag
-  width, fixed, bucketed or long) and the tables' ``embed_grad``.
+  width, fixed, bucketed or long) and the tables' ``embed_grad``;
+- elastic training (JAX ``:125-271``, ``:589-607``, ``:1132-1199``,
+  ``:1240-1255``, ``:1365-1445``, ``:1769-1790``): every save goes through
+  a :class:`~code2vec_tpu_torch.checkpoint.CheckpointWriter` (sync, or a
+  host snapshot and a persist thread with ``async_checkpoint``);
+  ``checkpoint_every_steps`` adds ``last``-slot saves inside an epoch with
+  a data cursor (:func:`_data_cursor`, :class:`_EpochCursorHook`); SIGTERM
+  (``train/preempt.py``) finishes the step in flight, saves and returns
+  normally; ``--resume`` restores the cursor's generator states and
+  replays the epoch's host stream to it (``data.pipeline.skip_batches``),
+  so the resumed run's history is the uninterrupted run's bit for bit.
+  The fault plan (``faultinject.py``) is installed from the config or
+  ``C2V_FAULT_PLAN`` at each call. Device epochs save at epoch boundaries
+  only, as in JAX. The one difference from JAX: the port's dropout stream
+  is a stateful generator, not a key a step, so each cursor carries the
+  dropout generator's state at its save step (under ``jax_rng``, JAX's
+  name for the run's random state).
 
 The numpy generator is drawn in the JAX loop's order (split; then per
 epoch the train subsample, the batch order, the test subsample), so both
@@ -39,8 +55,10 @@ of its first (warm) step.
 
 from __future__ import annotations
 
+import copy
 import json
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable
@@ -48,11 +66,12 @@ from typing import Callable
 import numpy as np
 import torch
 
+from code2vec_tpu_torch import faultinject
 from code2vec_tpu_torch.checkpoint import (
+    CheckpointWriter,
     TrainMeta,
     clear_checkpoints,
     restore_checkpoint,
-    save_checkpoint,
 )
 from code2vec_tpu_torch.data.parallel_feed import FeedPool, ParallelFeed
 from code2vec_tpu_torch.data.pipeline import (
@@ -63,6 +82,7 @@ from code2vec_tpu_torch.data.pipeline import (
     oov_rate,
     pad_stats,
     parse_bucket_ladder,
+    skip_batches,
     split_items,
     truncated_fraction_of_counts,
 )
@@ -81,10 +101,18 @@ from code2vec_tpu_torch.train.device_epoch import (
     stage_method_corpus,
     stage_variable_corpus,
 )
+from code2vec_tpu_torch.train.preempt import (
+    PreemptionStop,
+    coordinated_stop,
+    install_sigterm_handler,
+    preemption_guard,
+    restore_sigterm_handler,
+)
 from code2vec_tpu_torch.train.prefetch import StepProfiler, device_batches
 from code2vec_tpu_torch.train.step import (
     StepTally,
     eval_step,
+    fold_value,
     make_optimizer,
     to_device,
     train_step,
@@ -100,6 +128,87 @@ class TrainResult:
     epochs_run: int
     history: list[dict] = field(default_factory=list)
     model: Code2Vec | None = None
+    # the checkpoint writer's record of each save (CheckpointWriter.saves)
+    checkpoint_saves: list[dict] = field(default_factory=list)
+
+
+def _rng_state(np_rng: np.random.Generator) -> dict:
+    return copy.deepcopy(np_rng.bit_generator.state)
+
+
+def _data_cursor(epoch: int, step: int, feed_batch: int, np_rng_state: dict, jax_rng,
+                 loss_fold: tuple[float, float] = (0.0, 0.0),
+                 bucket_positions: dict | None = None) -> dict:
+    """The cursor, JAX's keys (``loop.py:125-149``), the one constructor
+    of mid-epoch and boundary saves. ``np_rng_state`` is the epoch's start
+    state (everything the epoch streams is a function of it), ``step`` the
+    batches consumed, ``feed_batch`` the batch size the replay must match,
+    ``jax_rng`` the dropout generator's state at the save step (a list of
+    its bytes), ``partial_train_loss`` the epoch's loss so far and
+    ``bucket_positions`` the batches consumed per width. One key is the
+    port's own: ``loss_fold``, the fold's ``(sum, compensation)`` state
+    (``train/step.fold_losses``), which a resumed epoch goes on from."""
+    return {
+        "epoch": int(epoch),
+        "step": int(step),
+        "feed_batch": int(feed_batch),
+        "np_rng_state": np_rng_state,
+        "jax_rng": None if jax_rng is None else [int(x) for x in jax_rng],
+        "partial_train_loss": fold_value(loss_fold),
+        "loss_fold": [float(x) for x in loss_fold],
+        "bucket_positions": dict(bucket_positions or {}),
+    }
+
+
+class _EpochCursorHook:
+    """The host pass's bookkeeping behind mid-epoch saves and graceful
+    preemption (JAX ``loop.py:152-271``). :meth:`after_step` counts the
+    epoch's steps (from the replayed cursor on) and the batches a width,
+    and saves the ``last`` slot with a cursor every ``every_steps`` steps
+    and when the SIGTERM guard is set, raising :class:`PreemptionStop`
+    after that save. :meth:`after_pass` re-checks the guard at the stream's
+    end: the prefetch producer drains on SIGTERM, so a stream may end
+    early, and that pass must not be recorded as an epoch. ``save`` (None
+    without a model dir) writes a slot; ``dropout_state`` reads the
+    dropout generator's state."""
+
+    def __init__(self, save, meta: TrainMeta, epoch: int, epoch_rng_state: dict,
+                 dropout_state, guard, feed_batch: int, every_steps: int = 0, skip: int = 0,
+                 widths: dict | None = None):
+        self.save = save
+        self.meta = meta
+        self.epoch = epoch
+        self.epoch_rng_state = epoch_rng_state
+        self.dropout_state = dropout_state
+        self.guard = guard
+        self.feed_batch = int(feed_batch)
+        self.every_steps = int(every_steps)
+        self.steps = int(skip)
+        self.widths = {int(w): int(c) for w, c in (widths or {}).items()}
+
+    def _save(self, tally: StepTally) -> None:
+        self.meta.epoch = self.epoch  # the resume re-enters this epoch
+        self.meta.cursor = _data_cursor(self.epoch, self.steps, self.feed_batch,
+                                        self.epoch_rng_state, self.dropout_state(),
+                                        tally.partial(), self.widths)
+        self.save("last")
+
+    def after_step(self, tally: StepTally, width: int) -> None:
+        self.widths[width] = self.widths.get(width, 0) + 1
+        self.steps += 1
+        self.meta.step += 1
+        periodic = bool(self.every_steps and self.steps % self.every_steps == 0)
+        stop = coordinated_stop(self.guard)
+        if self.save is not None and (stop or periodic):
+            self._save(tally)
+        if stop:
+            raise PreemptionStop(self.guard.reason or "requested")
+
+    def after_pass(self, tally: StepTally) -> None:
+        if coordinated_stop(self.guard):
+            if self.save is not None:
+                self._save(tally)
+            raise PreemptionStop(self.guard.reason or "requested")
 
 
 def model_config_from(config, data) -> Code2VecConfig:
@@ -150,19 +259,26 @@ def _sync(device) -> None:
 
 
 def _train_pass(model, optimizer, batches, class_weights, device, prefetch: int = 0,
-                profiler: StepProfiler | None = None) -> tuple[float, dict]:
-    """One epoch of host-fed train steps: ``(sum of the batch losses,
-    speed)``, the losses read back once (:class:`StepTally`). A batch's real
-    contexts are counted beside its copy, before the next pull may recycle
-    its host arrays; a profiled step is synchronized before and after."""
+                profiler: StepProfiler | None = None, hook: _EpochCursorHook | None = None,
+                loss_offset: float | tuple[float, float] = 0.0,
+                epoch: int | None = None) -> tuple[float, dict]:
+    """One epoch of host-fed train steps: ``(the left fold of the batch
+    losses from loss_offset, speed)``, the losses read back once
+    (:class:`StepTally`) unless a mid-epoch save reads the partial fold. A
+    batch's real contexts are counted beside its copy, before the next pull
+    may recycle its host arrays; a profiled step is synchronized before and
+    after. Each step passes the ``train_step`` fault point, then ``hook``
+    (which may save, and raise :class:`PreemptionStop`); ``loss_offset`` is
+    a resumed epoch's fold state, the pass covering the epoch's tail."""
     def feed(batch):
         valid = batch["example_mask"].astype(bool)
         return to_device(batch, device), int(np.count_nonzero(batch["starts"][valid]))
 
-    tally = StepTally(device)
+    tally = StepTally(device, loss_offset)
     step = 0
-    with device_batches(batches, feed, prefetch, profiler, device) as stream:
-        for _, (device_batch, contexts) in stream:
+    with device_batches(batches, feed, prefetch, profiler, device,
+                        drain_on_preemption=hook is not None) as stream:
+        for host_batch, (device_batch, contexts) in stream:
             sampled = profiler is not None and profiler.sampled(step)
             if sampled:
                 _sync(device)
@@ -172,9 +288,16 @@ def _train_pass(model, optimizer, batches, class_weights, device, prefetch: int 
                 _sync(device)
                 profiler.record_compute(step, (time.perf_counter() - t0) * 1e3)
             tally.add(loss, contexts)
+            faultinject.fault_point("train_step", step=step, epoch=epoch)
+            if hook is not None:
+                hook.after_step(tally, int(host_batch["paths"].shape[1]))
             step += 1
+    if hook is not None:
+        hook.after_pass(tally)
     if profiler is not None:
-        profiler.observe_epoch_length(step)
+        # the hook counts the whole epoch: a resumed pass's tail alone would
+        # shrink the sampling stride of the later epochs
+        profiler.observe_epoch_length(step if hook is None else hook.steps)
     return tally.result()
 
 
@@ -317,6 +440,13 @@ def train(
     from code2vec_tpu_torch.predict import save_inference_meta, save_model_file
 
     config.validate()
+    # elastic training: the fault plan (installed anew, its counters at 0, at
+    # each call), the SIGTERM guard and the save orchestrator
+    faultinject.install_plan(config.fault_plan or os.environ.get(faultinject.ENV_VAR))
+    guard = preemption_guard()
+    guard.clear()
+    writer = (CheckpointWriter(out_dir, async_save=config.async_checkpoint)
+              if out_dir is not None else None)
     # the tasks are fixed when the corpus is loaded: catch a mismatch (JAX loop.py:550-562)
     if (config.infer_method_name != data.infer_method
             or config.infer_variable_name != data.infer_variable):
@@ -366,6 +496,8 @@ def train(
                                 class_weights, dev) if config.device_epoch else None)
 
     meta = TrainMeta()
+    batch_size = config.batch_size
+    resume_cursor: dict | None = None
     if config.resume and out_dir is not None:
         restored = restore_checkpoint(out_dir, model, optimizer, np_rng,
                                       model_config.vocab_pad_multiple,
@@ -373,11 +505,34 @@ def train(
         if restored is not None:
             meta = restored
             logger.info("resumed from epoch %d (best_f1=%s)", meta.epoch, meta.best_f1)
+            resume_cursor, meta.cursor = meta.cursor, None
+        if resume_cursor is not None:
+            cursor_step = int(resume_cursor.get("step", 0))
+            if feed is not None and cursor_step > 0:
+                raise ValueError(
+                    "the checkpoint carries a mid-epoch cursor (a host-pipeline save), which "
+                    "--device_epoch cannot replay; resume without --device_epoch, or restart "
+                    "from an epoch-boundary checkpoint")
+            cursor_batch = int(resume_cursor.get("feed_batch", batch_size))
+            if cursor_step > 0 and cursor_batch != batch_size:
+                raise ValueError(
+                    f"the mid-epoch cursor was saved at batch size {cursor_batch} but this run "
+                    f"feeds {batch_size} rows per batch — the replay would skip the wrong "
+                    "examples; resume with the original batch size (the batching config "
+                    "changed since the checkpoint was saved), or restart without --resume")
+            # the interrupted epoch's START state: everything the epoch
+            # streams (subsample, batch order, bucket plan) is a function of it
+            np_rng.bit_generator.state = resume_cursor["np_rng_state"]
+            if resume_cursor.get("jax_rng") is not None:
+                model.dropout_generator(dev).set_state(
+                    torch.tensor(resume_cursor["jax_rng"], dtype=torch.uint8))
+            if cursor_step > 0:
+                logger.info("mid-epoch resume: replaying epoch %d to batch %d",
+                            resume_cursor["epoch"], cursor_step)
     elif out_dir is not None:
         clear_checkpoints(out_dir)
     meta.vocab_pad_multiple = model_config.vocab_pad_multiple
 
-    batch_size = config.batch_size
     profiler = None
     if config.profile_steps > 0:
         if feed is not None:
@@ -385,7 +540,29 @@ def train(
                            "mode enqueues whole chunks and is not profiled per step")
         else:
             profiler = StepProfiler(config.profile_steps)
+    if config.checkpoint_every_steps and feed is not None:
+        logger.warning("--checkpoint_every_steps is a host-pipeline feature; device-epoch runs "
+                       "dispatch whole chunks and save at epoch boundaries only")
+
+    def dropout_state():
+        return model.dropout_generator(dev).get_state().tolist()
+
+    def boundary_cursor(next_epoch: int) -> dict:
+        # step 0 and the CURRENT states, the ones the next epoch starts
+        # from: a boundary resume continues the stream bitwise too
+        return _data_cursor(next_epoch, 0, batch_size, _rng_state(np_rng), dropout_state())
+
+    def save(slot: str) -> None:
+        writer.save(slot, model, optimizer, meta, np_rng,
+                    sampler=feed.generator if feed else None)
+
+    f1, epochs_completed = 0.0, 0
+    start_epoch = meta.epoch
     pool = None
+    # installed here, just before the try whose finally restores it: a
+    # SIGTERM during the setup above takes the default disposition and
+    # leaves the previous checkpoint as it was
+    previous_sigterm = install_sigterm_handler()
     try:
         if feed is None:
             # the epochs are built at bag_width: the top rung in long-bag mode
@@ -412,14 +589,35 @@ def train(
                                np.random.default_rng([config.random_seed, 0xE902, epoch]),
                                config.shuffle_variable_indexes)
 
-        f1, epochs_completed = 0.0, 0
-        for epoch in range(meta.epoch, config.max_epoch):
+        for epoch in range(start_epoch, config.max_epoch):
+            faultinject.fault_point("epoch_start", epoch=epoch)
+            if coordinated_stop(guard):
+                # preempted between epochs (or on the device path, which has no
+                # step hook): save at the boundary and exit cleanly; a resume
+                # cursor still pending (SIGTERM during the setup) is saved as it
+                # is, since the model holds that cursor's mid-epoch state
+                if writer is not None:
+                    meta.epoch = epoch
+                    meta.cursor = (resume_cursor if resume_cursor is not None
+                                   else boundary_cursor(epoch))
+                    save("last")
+                raise PreemptionStop(guard.reason or "requested")
             epoch_start = time.perf_counter()
             if profiler is not None:
                 profiler.reset()
+            epoch_rng_state = _rng_state(np_rng)
+            skip, loss_offset, cursor_widths = 0, 0.0, None
+            if resume_cursor is not None and epoch == start_epoch:
+                skip = int(resume_cursor.get("step", 0))
+                loss_offset = tuple(resume_cursor.get("loss_fold")
+                                    or (resume_cursor.get("partial_train_loss", 0.0), 0.0))
+                cursor_widths = resume_cursor.get("bucket_positions") or None
+                resume_cursor = None
+            replay = None
             if feed is not None:
                 train_loss, speed = feed.runner.run_train_epoch(model, optimizer, feed.train,
                                                                 np_rng, feed.generator)
+                meta.step += speed["train_steps"]
                 test_loss, preds, _ = feed.runner.run_eval_epoch(model, feed.test, feed.generator)
                 accuracy, precision, recall, f1 = evaluate(config.eval_method, feed.expected,
                                                            preds, data.label_vocab)
@@ -427,9 +625,21 @@ def train(
                 train_epoch = test_epoch = None
                 source_pad = feed.pad
             else:
+                hook = _EpochCursorHook(save if writer is not None else None, meta, epoch,
+                                        epoch_rng_state, dropout_state, guard, batch_size,
+                                        config.checkpoint_every_steps, skip, cursor_widths)
+                train_batches = train_source.batches(np_rng, shuffle=True)
+                if skip:
+                    # the stream made again from the cursor's state, less the
+                    # batches the interrupted run consumed (host builds only)
+                    t0 = time.perf_counter()
+                    train_batches = skip_batches(train_batches, skip, expect_widths=cursor_widths)
+                    replay = {"replayed_batches": skip,
+                              "replay_seconds": time.perf_counter() - t0}
                 train_loss, speed = _train_pass(
-                    model, optimizer, train_source.batches(np_rng, shuffle=True), class_weights,
-                    dev, config.prefetch_batches, profiler)
+                    model, optimizer, train_batches, class_weights, dev,
+                    config.prefetch_batches, profiler, hook=hook, loss_offset=loss_offset,
+                    epoch=epoch)
                 test_loss, accuracy, precision, recall, f1 = evaluate_epoch(
                     config, data, model, test_source.batches(np_rng, shuffle=False),
                     class_weights, config.prefetch_batches)
@@ -452,6 +662,8 @@ def train(
             if truncated_ctx_fraction is not None:
                 metrics["truncated_context_fraction"] = truncated_ctx_fraction
             metrics.update(speed)
+            if replay is not None:
+                metrics.update(replay)  # a resumed epoch: its replay of the cursor
             if profiler is not None and profiler.summary() is not None:
                 # --profile_steps: the sampled steps' mean split (JAX loop.py:1589-1611)
                 metrics.update(profiler.summary())
@@ -494,8 +706,8 @@ def train(
 
             if save_slot is not None:
                 meta.epoch = epoch + 1
-                save_checkpoint(out_dir, save_slot, model, optimizer, meta, np_rng,
-                                sampler=feed.generator if feed else None)
+                meta.cursor = boundary_cursor(epoch + 1)
+                save(save_slot)
                 if save_slot == "best":
                     save_model_file(out_dir, model)
 
@@ -505,13 +717,32 @@ def train(
                     test_epoch = host_epoch(test_idx, epoch)
                 print_sample(data, model, test_epoch, batch_size, class_weights)
                 break
-
-        if epochs_completed == 0 and meta.history:
-            f1 = meta.history[-1].get("f1", 0.0)  # resumed a finished run
-        return TrainResult(
-            best_f1=meta.best_f1 if meta.best_f1 is not None else f1, final_f1=f1,
-            epochs_run=epochs_completed, history=meta.history, model=model,
-        )
+        # a persist failure fails the run, not a thread
+        if writer is not None:
+            writer.finish()
+    except PreemptionStop as stop:
+        # the checkpoint (with a model dir) is on disk: drain it and return
+        # normally, the graceful half of the SIGTERM contract
+        if writer is not None:
+            writer.finish()
+        logger.warning("preemption (%s): %s; exiting cleanly after %d completed epochs, "
+                       "%.3f s after the request", stop,
+                       "state saved" if writer is not None else "NO checkpoint written (no "
+                       "--model_path)", epochs_completed,
+                       time.perf_counter() - (guard.requested_at or time.perf_counter()))
     finally:
+        restore_sigterm_handler(previous_sigterm)
         if pool is not None:
             pool.close()
+        if writer is not None:
+            # joins the persist thread and logs a stored failure (finish()
+            # above raised it on the normal paths)
+            writer.close()
+
+    if epochs_completed == 0 and meta.history:
+        f1 = meta.history[-1].get("f1", 0.0)  # resumed a finished run
+    return TrainResult(
+        best_f1=meta.best_f1 if meta.best_f1 is not None else f1, final_f1=f1,
+        epochs_run=epochs_completed, history=meta.history, model=model,
+        checkpoint_saves=writer.saves if writer is not None else [],
+    )

@@ -20,7 +20,14 @@ queue:
 - **backpressure**: the queue holds ``depth`` ready batches;
 - **shutdown**: :meth:`HostPrefetcher.close` (or leaving the ``with``,
   on an exception too) stops the producer, closes the batch iterator (its
-  ``finally`` blocks run) and joins the thread.
+  ``finally`` blocks run) and joins the thread;
+- **preemption** (``drain_on_preemption``, train streams only; JAX
+  ``:223-283``): once the SIGTERM guard (``train/preempt.py``) is set the
+  producer ends the stream instead of building batches nobody will take;
+  the loop's cursor hook re-checks the guard at the stream's end, so a
+  drained pass is never recorded as an epoch. An eval stream always runs
+  to its end (a drained one would score a partial test split). The
+  producer passes the ``prefetch_produce`` fault point once a batch.
 
 :func:`device_batches` is the loops' one entry point: the prefetcher, or
 :class:`_SyncBatches`, its synchronous twin with the same pairs and stamps.
@@ -29,8 +36,7 @@ queue:
 host-build / H2D / feed-wait / compute milliseconds, fencing only those
 steps (the copy stream and the step are synchronized there). The split
 feeds ``--profile_steps``' columns of the epoch line; JAX's ``mfu`` column
-and its trace spans wait for the port's telemetry (ROADMAP §A.2.10), and
-the SIGTERM drain for elastic training (§A.2.8).
+and its trace spans wait for the port's telemetry (ROADMAP §A.2.10).
 """
 
 from __future__ import annotations
@@ -42,6 +48,9 @@ import traceback
 from typing import Callable, Iterable, Iterator
 
 import torch
+
+from code2vec_tpu_torch import faultinject
+from code2vec_tpu_torch.train.preempt import preemption_guard
 
 __all__ = ["HostPrefetcher", "StepProfiler", "device_batches"]
 
@@ -152,13 +161,14 @@ class HostPrefetcher:
 
     def __init__(self, batches: Iterable[dict], to_device: Callable[[dict], object],
                  depth: int = 2, profiler: StepProfiler | None = None,
-                 stream: "torch.cuda.Stream | None" = None):
+                 stream: "torch.cuda.Stream | None" = None, drain_on_preemption: bool = False):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
         self._batches = batches
         self._to_device = to_device
         self._profiler = profiler
         self._stream = stream
+        self._drain = bool(drain_on_preemption)
         # lock-free: the handoff is the queue's own condition plus a stop event
         self._queue: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
@@ -191,8 +201,13 @@ class HostPrefetcher:
     def _produce(self) -> None:
         it = iter(self._batches)
         step = 0
+        guard = preemption_guard()
         try:
             while not self._stop.is_set():
+                if self._drain and guard.requested():
+                    self._put(_End)  # SIGTERM: end the train stream here
+                    return
+                faultinject.fault_point("prefetch_produce", step=step)
                 t0 = time.perf_counter()
                 batch = next(it, _End)  # a yielded None must not end the stream
                 if batch is _End:
@@ -312,15 +327,16 @@ class _SyncBatches:
 
 def device_batches(batches: Iterable[dict], to_device: Callable[[dict], object],
                    prefetch: int = 0, profiler: StepProfiler | None = None,
-                   device: torch.device | None = None):
+                   device: torch.device | None = None, drain_on_preemption: bool = False):
     """The epoch loops' feed: a context manager iterating ``(host_batch,
     to_device(host_batch))`` pairs, prefetched ``prefetch`` deep on a
     thread (its copies on a CUDA stream of its own when ``device`` is a
     card) or synchronous for 0; the same pairs in the same order either
-    way."""
+    way. ``drain_on_preemption`` lets the producer end a TRAIN stream
+    early once the SIGTERM guard is set (JAX ``prefetch.py:436-456``)."""
     if prefetch > 0:
         stream = (torch.cuda.Stream(device) if device is not None
                   and torch.device(device).type == "cuda" else None)
         return HostPrefetcher(batches, to_device, depth=prefetch, profiler=profiler,
-                              stream=stream)
+                              stream=stream, drain_on_preemption=drain_on_preemption)
     return _SyncBatches(batches, to_device, profiler=profiler, device=device)

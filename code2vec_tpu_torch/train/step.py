@@ -22,6 +22,8 @@ Counterpart of ``code2vec_tpu/train/step.py``:
 
 from __future__ import annotations
 
+import math
+import sys
 import time
 
 import numpy as np
@@ -148,17 +150,50 @@ def table_update(optimizer: torch.optim.Optimizer) -> str:
     return "lazy" if isinstance(optimizer, LazyTableAdam) else "dense"
 
 
+# Python's sum() of floats from 3.12 on compensates (Neumaier); JAX's epoch
+# loss is such a sum, so the port's fold replays it step by step
+_COMPENSATED_SUM = sys.version_info >= (3, 12)
+
+
+def fold_losses(values, state: tuple[float, float]) -> tuple[float, float]:
+    """Fold ``values`` into ``state`` = ``(sum, compensation)`` in float64,
+    left to right, the additions of CPython's ``sum(values, start)`` (its
+    float loop, ``builtin_sum_impl``): the fold of a list in pieces equals
+    the fold of the whole."""
+    f, c = state
+    for x in values:
+        t = f + x
+        if _COMPENSATED_SUM:
+            c += (f - t) + x if abs(f) >= abs(x) else (x - t) + f
+        f = t
+    return f, c
+
+
+def fold_value(state: tuple[float, float]) -> float:
+    """The value ``sum()`` returns for a fold state."""
+    f, c = state
+    return f + c if c and math.isfinite(c) else f
+
+
 class StepTally:
-    """An epoch's train steps: their losses kept on the device (summed in
-    float64 when read, once) and the speed of the steps after the first
-    (warm) one, timed with CUDA events on a card (no synchronisation until
+    """An epoch's train steps: their losses kept on the device, summed as
+    JAX sums them (``loop.py:512-515``, ``float(sum(map(float, losses),
+    loss_offset))``): each f32 loss read as a Python float and folded left
+    in float64 from ``offset`` (a float, or a resumed epoch's fold state)
+    by :func:`fold_losses`, so a resumed epoch's total is bitwise the
+    uninterrupted one's; and the speed of the steps after the first (warm)
+    one, timed with CUDA events on a card (no synchronisation until
     :meth:`result`), the host clock on the CPU."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, offset: float | tuple[float, float] = 0.0):
         self.cuda = torch.device(device).type == "cuda"
         self.losses: list[torch.Tensor] = []
         self.contexts = 0  # real contexts of the steps after the first
         self.start = None
+        # the fold so far and how many of ``losses`` it covers
+        self._fold = ((float(offset), 0.0) if isinstance(offset, (int, float))
+                      else tuple(map(float, offset)))
+        self._summed = 0
 
     def _mark(self):
         if self.cuda:
@@ -176,12 +211,22 @@ class StepTally:
         else:
             self.contexts += contexts
 
+    def partial(self) -> tuple[float, float]:
+        """The fold state of the losses so far (a mid-epoch save's partial
+        sum): only the losses added since the last call are read back."""
+        new = self.losses[self._summed:]
+        if new:
+            self._fold = fold_losses(torch.stack(new).cpu().tolist(), self._fold)
+            self._summed = len(self.losses)
+        return self._fold
+
     def result(self) -> tuple[float, dict]:
-        """``(sum of the losses, speed)``: ``train_steps``, and
+        """``(the fold of the losses, speed)``: ``train_steps``, and
         ``steps_per_s`` / ``contexts_per_s`` over the steps after the
         first (None with fewer than two)."""
         if not self.losses:
-            return 0.0, {"train_steps": 0, "steps_per_s": None, "contexts_per_s": None}
+            return fold_value(self._fold), {"train_steps": 0, "steps_per_s": None,
+                                            "contexts_per_s": None}
         end = self._mark()
         if self.cuda:
             end.synchronize()
@@ -195,7 +240,7 @@ class StepTally:
             "steps_per_s": timed / seconds if ok else None,
             "contexts_per_s": self.contexts / seconds if ok else None,
         }
-        return float(torch.stack(self.losses).double().sum()), speed
+        return fold_value(self.partial()), speed
 
 
 def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, torch.Tensor]:

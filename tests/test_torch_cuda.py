@@ -1350,3 +1350,40 @@ def test_prefetch_on_the_card_feeds_the_sync_batches(dev, tmp_path, workers):
     for a, b in zip(want.history, fed.history):
         for key in ("train_loss", "test_loss"):
             np.testing.assert_allclose(b[key], a[key], rtol=1e-5)
+
+
+@pytest.mark.parametrize("async_save", [False, True], ids=["sync", "async"])
+def test_mid_epoch_kill_and_resume_on_the_card_is_bitwise(dev, tmp_path, async_save):
+    """A small fused run (masked K3, dropout 0.25 from the card's generator)
+    killed with ``raise`` at a step inside epoch 1, after that epoch's
+    mid-epoch save, and resumed on the card: the history and the final
+    weights bitwise the uninterrupted run's."""
+    from code2vec_tpu_torch import faultinject
+    from code2vec_tpu_torch.data import reader, synth
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.train import loop
+    from code2vec_tpu_torch.train.config import TrainConfig
+
+    paths = synth.generate_corpus_files(tmp_path, synth.SPECS["tiny"])
+    data = reader.load_corpus(paths["corpus"], paths["path_idx"], paths["terminal_idx"],
+                              cache=False, native=False)
+    cfg = TrainConfig(terminal_embed_size=32, path_embed_size=32, encode_size=64, batch_size=32,
+                      max_path_length=32, max_epoch=3, print_sample_cycle=0, checkpoint_cycle=1,
+                      dropout_prob=0.25, use_pallas=True, pallas_impl="fused",
+                      async_checkpoint=async_save)
+    whole = loop.train(cfg, data, str(tmp_path / "whole"), device=dev)
+    reset_launch_counts()
+    with pytest.raises(faultinject.FaultInjected):
+        loop.train(cfg.with_updates(checkpoint_every_steps=3, fault_plan="train_step@9:raise"),
+                   data, str(tmp_path / "killed"), device=dev)
+    resumed = loop.train(cfg.with_updates(resume=True), data, str(tmp_path / "killed"),
+                         device=dev)
+    assert launch_counts().get("fused_f32_masked", 0) >= 9
+    assert resumed.history[1]["replayed_batches"] == 3
+    assert len(resumed.history) == len(whole.history) == 3
+    for a, b in zip(whole.history, resumed.history):
+        for key in ("train_loss", "test_loss", "accuracy", "precision", "recall", "f1"):
+            assert a[key] == b[key], (a["epoch"], key, a[key], b[key])
+    want, got = whole.model.state_dict(), resumed.model.state_dict()
+    for k in want:
+        assert torch.equal(want[k], got[k]), k
