@@ -70,8 +70,8 @@ the final result line is not printed):
    fused routes), each request's code vector from a micro-batch of 64 and
    of 8 bitwise its batch-1 vector, its logits within rtol 1e-5 / atol
    1e-6, and one micro-batch mixing every rung likewise; then the plain
-   route (the same weights, no kernel) the same way, its rows whose bits
-   move with the micro-batch counted and printed, not gated; (b) hot-swap: the
+   route (the same weights, no kernel) the same way, held to the same
+   gate (0 rows may move, the mixed-width batch too); (b) hot-swap: the
    model dir A (the serve phase's) served with a trickle of requests on a
    thread of its own, then a ``reload`` of B (random weights from seed 1,
    written beside it) polled through ``swap_status``, ``rollback``, a
@@ -132,6 +132,32 @@ the final result line is not printed):
    on fused, ``epoch_start@2:sigterm``: a boundary save, and its resume
    bitwise an uninterrupted device run. Every run launches its route's
    kernels (counts reset just before it, read just after);
+7c. train_hpo (after train_elastic) — the search's paths: (a) K3 masked
+   (keep 0.5 and 0.9) and its VJP, K1 and K1b at B = 256, L = 200 and
+   H in {104, 105, 173, 256, 257, 300} (the last width whose W stays in
+   K2-K4's shared memory, the first streamed one, H % 4 != 0 on K1/K1b,
+   both sides of K1b's register cap), each against its plain version
+   (forwards within 1e-5, K1b's d_ctx within 1e-5 and d_attn within rtol
+   1e-4, the VJP within the train differential's bar) and timed; (b)
+   ``find_optimal_hyperparams`` on the train phase's corpus at the top11
+   widths, 4 trials of 2 epochs on fused (TPE after 2 startup trials,
+   median pruning after 1): per trial its params, state, value, warm
+   epoch_seconds, launches (reset at its ``trial`` event, read at its
+   ``trial_result``) and ``memory_allocated``; every trial launches K3
+   masked, no loss non-finite, no checkpoint or vectors written, memory
+   after the last trial within 64 MiB of the first's; then the space's
+   corners run as trials (encode 100 at batch 1024, encode 300 at batch
+   2048), their epoch_seconds; (c) the CLI on
+   pool_only with ``--env floyd --events_dir --trace_dir --profile_dir
+   --profile_steps 4 --prefetch_batches 2`` in a subprocess: the manifest
+   first, naming the card and its peak; the floyd lines equal to the epoch
+   events' metrics; device bytes in use above 0 and no recompile in each
+   epoch event; each sampled step's mfu in (0, 1]; the trace's
+   host_build / h2d / train_step / train_pass / eval_pass spans, the
+   producer's thread apart from the step's; the profiler's trace of epoch
+   2 naming K1's and K1b's kernels; (d) the projector TSVs of its
+   code.vec, one row a vector; and a two-trial search through the CLI
+   with ``--gpu 0 --num_workers 4``. Each part's seconds are printed;
 8. train_bucketed — bucketed training on ``bench.py``'s ``--bucket-ab``
    corpus (30,720 methods, mean 60 contexts, lognormal sigma 1.0, max 400,
    top11 widths; batch 1024, bag 200, the derived ladder, dropout 0.25, 2
@@ -281,7 +307,8 @@ the final result line is not printed):
    train route (the masked K4's on the long-bag runs) plus those of the
    train_device phase's runs of the four routes, of the train_feed runs,
    of every train_variable run, of the python_source phase, of the
-   serve_control phase and of the train_elastic runs, max error,
+   serve_control phase, of the train_elastic runs and of the train_hpo
+   trials (K1/K1b: the kernel events of its CLI run's profiled epoch), max error,
    times at the headline shape and the bound), then, last, the result
    line.
 
@@ -1319,10 +1346,9 @@ COALESCE_ROUTES = [
     ("K1 f32", ["--pallas_impl", "pool_only"], ("pool",), BATCH_SIZES + (128,)),
 ]
 COALESCE_RTOL, COALESCE_ATOL = 1e-5, 1e-6  # logits (JAX serve/swap.py:233-240)
-# the plain route (no kernel: cuBLAS and PyTorch's own reductions) is not held
-# to the invariant: the rows whose bits move with the micro-batch are counted
-# and printed, not gated
-COALESCE_PLAIN = ("plain f32 (counted, not gated)", [], (), BATCH_SIZES)
+# the plain route (no kernel: the encode in fixed cuBLAS slabs, the pool's
+# batch-free form with gradients off) is held to the same invariant
+COALESCE_PLAIN = ("plain f32", [], (), BATCH_SIZES)
 
 
 def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
@@ -1331,10 +1357,9 @@ def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
     top micro-batch (lengths in the rung's upper half), served at each of
     its micro-batch sizes and one at a time through the engine; each
     request's code vector from every batch must equal its batch-1 vector
-    bitwise, its logits within rtol 1e-5 / atol 1e-6. Every mismatch is
-    collected, then the check fails. Last, the plain route (the same
-    weights without a kernel) is run the same way and its rows whose bits
-    move with the micro-batch are counted, not gated."""
+    bitwise, its logits within rtol 1e-5 / atol 1e-6. Last, the plain
+    route (the same weights without a kernel) is run the same way and held
+    to the same gate. Every mismatch is collected, then the check fails."""
     from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
     from code2vec_tpu_torch.predict import Predictor
     from code2vec_tpu_torch.serve.engine import ServingEngine
@@ -1343,8 +1368,8 @@ def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
     c = TOP11
     out, bad = {}, []
     for label, flags, keys, sizes in COALESCE_ROUTES + [COALESCE_PLAIN]:
-        gated = label != COALESCE_PLAIN[0]
-        report = bad if gated else []
+        plain_route = label == COALESCE_PLAIN[0]
+        report = bad
         opts = dict(zip(flags[::2], flags[1::2]))
         impl = opts.get("--pallas_impl", "fused")
         longbag = LONGBAG_RUNGS if impl == "fused" else ()
@@ -1354,7 +1379,7 @@ def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
             device=device, pallas_impl=impl,
             pallas_softmax=opts.get("--pallas_softmax", "auto"), longbag_widths=longbag,
         )
-        if not gated:
+        if plain_route:
             from code2vec_tpu_torch.models.code2vec import Code2Vec
 
             with torch.device("meta"):
@@ -1421,13 +1446,13 @@ def coalescing_check(torch, model_dir: Path, device, smi) -> dict:
             bad.append(f"{label}: kernels {missing} never launched ({counts})")
         route.update(launches=counts, seconds=time.perf_counter() - t0)
         out[label] = route
-        if not gated:
+        if plain_route:
             moved = sum(w["cv_not_bitwise"] for w in route["widths"].values())
             rows = len(sizes[1:]) * sizes[-1] * len(route["widths"])
             route["rows_not_bitwise"] = moved + n_mixed
             print(f"coalescing plain: {moved} of {rows} rows (and {n_mixed} of {len(mixed)} in "
                   f"the mixed-width batch) whose code vector's bits move with the micro-batch; "
-                  f"not gated [{smi}]", flush=True)
+                  f"gated at 0 [{smi}]", flush=True)
         print(f"coalescing {label}: per width (vectors not bitwise of "
               f"{len(sizes[1:]) * sizes[-1]}, max |logit diff|): "
               f"{json.dumps(route['widths'])}, launches {counts} [{smi}]", flush=True)
@@ -2560,12 +2585,373 @@ def phase_train_elastic(torch, smi, dev, tmp: Path) -> dict:
     print(f"elastic (e): a boundary save at SIGTERM ({pre['sigterm_to_return']:.3f} s to the "
           f"return); the resume bitwise the uninterrupted device run's [{smi}]", flush=True)
     del whole, pre, resumed
-    shutil.rmtree(root)
+    for child in root.iterdir():
+        if child.name != "corpus":  # the corpus stays for train_hpo
+            shutil.rmtree(child)
+    out["corpus_paths"] = paths
     out["launches"] = {}
     for counts in runs:
         for key, n in counts.items():
             out["launches"][key] = out["launches"].get(key, 0) + n
     print(f"train_elastic launches: {json.dumps(out['launches'])}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: train_hpo — the search, the metric sinks, the telemetry, the projector
+# ---------------------------------------------------------------------------
+
+# the search's encode widths on the card: the last W-resident width of K2-K4
+# (104), the first streamed one (105), H % 4 != 0 (K1/K1b's scalar path:
+# 105, 173, 257) and both sides of K1b's register cap (256, 257), up to 300
+HPO_WIDTHS = (104, 105, 173, 256, 257, 300)
+HPO_KEEPS = (0.5, 0.9)
+HPO_SHAPE = (256, BAG)
+HPO_TRIALS = 4
+HPO_MEMORY_SLACK = 64 * 2**20  # bytes: memory after the last trial vs after the first
+# the train differential's bar on the VJP (train_differential)
+VJP_RTOL, VJP_ATOL = 1e-3, 1e-5
+
+
+def hpo_kernels(torch, dev, smi) -> dict:
+    """(a) K3 masked forward and its VJP, K1 and K1b at B = 256, L = 200
+    and each width of ``HPO_WIDTHS`` (keep 0.5 and 0.9 for K3), each held
+    against its plain version: forwards within ``TOL``, K1b's d_ctx within
+    ``TOL`` and d_attn within rtol 1e-4, the VJP within the train
+    differential's bar. K3 masked and K1 are timed at each width."""
+    from code2vec_tpu_torch.ops.attention import attention_pool, pool_backward_reference
+    from code2vec_tpu_torch.ops.fused_encode_pool import fused_encode_attend_pool, reference_forward
+    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel, pool_backward_kernel
+
+    c = TOP11
+    B, L = HPO_SHAPE
+    D = 2 * c["terminal_embed_size"] + c["path_embed_size"]
+    g = torch.Generator(device=dev).manual_seed(4242)
+    bench = KernelBench(torch, dev)
+    T = torch.randn(c["terminal_count"], c["terminal_embed_size"], generator=g, device=dev)
+    P = torch.randn(c["path_count"], c["path_embed_size"], generator=g, device=dev)
+    rows = []
+    for H in HPO_WIDTHS:
+        W = torch.randn(D, H, generator=g, device=dev) / math.sqrt(D)
+        lns = 1.0 + 0.1 * torch.randn(H, generator=g, device=dev)
+        lnb = 0.1 * torch.randn(H, generator=g, device=dev)
+        attn = 0.08 * torch.randn(H, generator=g, device=dev)
+        s, p, e, mask = id_inputs(torch, dev, g, B, L)
+        row = {"H": H, "B": B, "L": L}
+        for keep in HPO_KEEPS:
+            drop = torch.empty(B, L, H, device=dev).bernoulli_(keep, generator=g) / keep
+            margs = (T, P, s, p, e, mask)
+            cv, w = fused_encode_attend_pool(*margs, W, lns, lnb, attn, drop, impl="fused")
+            cv_ref, w_ref = reference_forward(*margs, W, lns, lnb, attn, drop)
+            torch.testing.assert_close(cv, cv_ref, rtol=TOL, atol=TOL,
+                                       msg=lambda m: f"K3 masked H={H} keep={keep}: {m}")
+            torch.testing.assert_close(w, w_ref, rtol=TOL, atol=TOL,
+                                       msg=lambda m: f"K3 masked H={H} keep={keep}: {m}")
+            # the VJP: K3's forward, then the op's backward, against autograd
+            # of the plain forward from the same parameters
+            g_cv = torch.randn(B, H, generator=g, device=dev)
+            g_w = torch.randn(B, L, generator=g, device=dev)
+            grads = []
+            for fn in (lambda *a: fused_encode_attend_pool(*margs, *a, drop, impl="fused"),
+                       lambda *a: reference_forward(*margs, *a, drop)):
+                leaves = [x.clone().requires_grad_() for x in (W, lns, lnb, attn)]
+                out_cv, out_w = fn(*leaves)
+                grads.append(torch.autograd.grad((out_cv, out_w), leaves, (g_cv, g_w)))
+            worst = 0.0
+            for name, got, want in zip(("W", "ln_scale", "ln_bias", "attn"), *grads):
+                torch.testing.assert_close(got, want, rtol=VJP_RTOL, atol=VJP_ATOL,
+                                           msg=lambda m: f"K3 VJP {name} H={H}: {m}")
+                worst = max(worst, (got - want).abs().max().item())
+            row[f"k3_masked_err_keep{keep}"] = max((cv - cv_ref).abs().max().item(),
+                                                   (w - w_ref).abs().max().item())
+            row[f"k3_vjp_err_keep{keep}"] = worst
+            if keep == HPO_KEEPS[0]:
+                row["k3_masked_ms"] = bench.time_ms(lambda: fused_encode_attend_pool(
+                    *margs, W, lns, lnb, attn, drop, impl="fused"))
+                row["k3_masked_plain_ms"] = bench.time_ms(
+                    lambda: reference_forward(*margs, W, lns, lnb, attn, drop))
+                nbytes, _, ops_s = encode_pool_bound(torch, s, p, e, mask, "f32", H)
+                row["k3_masked_bound_ms"] = bound_of(nbytes + 4 * B * L * H, ops_s)[0] * 1e3
+            del drop
+        ctx, cmask, a = pool_inputs(torch, dev, g, B, L, H)
+        cv, w = attention_pool_kernel(ctx, cmask, a)
+        cv_ref, w_ref = attention_pool(ctx, cmask, a)
+        torch.testing.assert_close(cv, cv_ref, rtol=TOL, atol=TOL, msg=f"K1 H={H}")
+        torch.testing.assert_close(w, w_ref, rtol=TOL, atol=TOL, msg=f"K1 H={H}")
+        g_cv = torch.randn(B, H, generator=g, device=dev)
+        g_w = torch.randn(B, L, generator=g, device=dev)
+        d_ctx, d_attn = pool_backward_kernel(ctx, cmask, a, w_ref, cv_ref, g_cv, g_w)
+        d_ctx_ref, d_attn_ref = pool_backward_reference(ctx, cmask, a, w_ref, g_cv, g_w)
+        torch.testing.assert_close(d_ctx, d_ctx_ref, rtol=0, atol=TOL, msg=f"K1b d_ctx H={H}")
+        torch.testing.assert_close(d_attn, d_attn_ref, rtol=1e-4, atol=TOL,
+                                   msg=f"K1b d_attn H={H}")
+        row.update(
+            k1_err=max((cv - cv_ref).abs().max().item(), (w - w_ref).abs().max().item()),
+            k1b_err=max((d_ctx - d_ctx_ref).abs().max().item(),
+                        (d_attn - d_attn_ref).abs().max().item()),
+            k1_ms=bench.time_ms(lambda: attention_pool_kernel(ctx, cmask, a)),
+            k1b_ms=bench.time_ms(lambda: pool_backward_kernel(ctx, cmask, a, w_ref, cv_ref,
+                                                              g_cv, g_w)),
+            k1_bound_ms=bound_of(pool_bound(B, L, H)[0], 0.0)[0] * 1e3,
+            k1b_bound_ms=bound_of(pool_bwd_bound(B, L, H)[0], 0.0)[0] * 1e3)
+        rows.append(row)
+        print(f"hpo (a) H={H}: K3 masked err {row['k3_masked_err_keep0.5']:.2e} / "
+              f"{row['k3_masked_err_keep0.9']:.2e} (keep 0.5 / 0.9), VJP err "
+              f"{row['k3_vjp_err_keep0.5']:.2e} / {row['k3_vjp_err_keep0.9']:.2e}, "
+              f"ms={row['k3_masked_ms']:.4f} plain_ms={row['k3_masked_plain_ms']:.4f} "
+              f"bound_ms={row['k3_masked_bound_ms']:.4f}; K1 err {row['k1_err']:.2e} "
+              f"ms={row['k1_ms']:.4f} bound_ms={row['k1_bound_ms']:.4f}; K1b err "
+              f"{row['k1b_err']:.2e} ms={row['k1b_ms']:.4f} bound_ms={row['k1b_bound_ms']:.4f} "
+              f"[{smi}]", flush=True)
+        del ctx, cmask, a, W
+    del T, P, bench
+    torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+def hpo_search(torch, smi, dev, data) -> dict:
+    """(b) ``find_optimal_hyperparams`` through the API on the train
+    phase's corpus at the top11 widths: 4 trials of 2 epochs on fused, TPE
+    after 2 startup trials, median pruning after 1. Per trial its params,
+    state, value, warm epoch_seconds, its launches (counts reset at its
+    ``trial`` event, read at its ``trial_result``) and ``memory_allocated``
+    after it. Every trial must launch K3 masked, no loss may be
+    non-finite, no checkpoint or vectors may be written, and the memory
+    after the last trial within 64 MiB of that after the first. Then the
+    space's two corners, run as a trial runs: encode 100 at batch 1024 and
+    encode 300 at batch 2048, their epoch_seconds."""
+    from code2vec_tpu_torch.hpo import MedianPruner, TPESampler, find_optimal_hyperparams
+    from code2vec_tpu_torch.obs.events import EventLog
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.loop import release_device_memory, train
+
+    base = TrainConfig(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                       max_path_length=BAG, batch_size=TRAIN_BATCH, dropout_prob=0.25,
+                       max_epoch=2, random_seed=0, print_sample_cycle=0, **kernel_route("fused"))
+    trials, bad = [], []
+    events = EventLog()
+
+    def watch(event):
+        kind = event["event"]
+        if kind == "trial":
+            reset_launch_counts()
+            trials.append({"number": event["number"], "params": event["params"], "epochs": []})
+        elif kind == "epoch" and trials:
+            trials[-1]["epochs"].append(event["metrics"])
+        elif kind == "checkpoint_saved":
+            bad.append(f"a trial saved a checkpoint: {event}")
+        elif kind == "trial_result":
+            torch.cuda.synchronize()
+            trials[-1].update(state=event["state"], value=event["value"],
+                              launches=launch_counts(),
+                              memory_allocated=torch.cuda.memory_allocated(dev))
+
+    events.subscribe(watch)
+    vec = ROOT / "output" / "code.vec"
+    vec_before = vec.stat().st_mtime if vec.exists() else None
+    t0 = time.perf_counter()
+    study = find_optimal_hyperparams(
+        data, base, n_trials=HPO_TRIALS, seed=0, pruner=MedianPruner(n_startup_trials=1),
+        sampler=TPESampler(n_startup_trials=2, seed=0), events=events, device=dev)
+    seconds = time.perf_counter() - t0
+    if (vec.stat().st_mtime if vec.exists() else None) != vec_before:
+        bad.append("a trial wrote output/code.vec")
+    for t in trials:
+        warm = t["epochs"][1]["epoch_seconds"] if len(t["epochs"]) > 1 else None
+        t["warm_epoch_seconds"] = warm
+        if t["launches"].get("fused_f32_masked", 0) < 1:
+            bad.append(f"trial {t['number']} never launched K3 masked: {t['launches']}")
+        if not all(math.isfinite(m["train_loss"]) and math.isfinite(m["test_loss"])
+                   for m in t["epochs"]):
+            bad.append(f"trial {t['number']}: a non-finite loss in {t['epochs']}")
+        print(f"hpo (b) trial {t['number']}: {t['state']} value {t['value']:.6f} params "
+              f"{json.dumps(t['params'])}; {len(t['epochs'])} epochs, warm epoch_seconds "
+              f"{warm}, train losses {[round(m['train_loss'], 6) for m in t['epochs']]}, "
+              f"launches {t['launches']}, memory_allocated {t['memory_allocated']} [{smi}]",
+              flush=True)
+    growth = trials[-1]["memory_allocated"] - trials[0]["memory_allocated"]
+    if len(trials) != HPO_TRIALS or growth > HPO_MEMORY_SLACK:
+        bad.append(f"{len(trials)} trials; memory after the last trial {growth} bytes above "
+                   "the first's")
+    if bad:
+        raise AssertionError("hpo (b):\n  " + "\n  ".join(bad))
+    print(f"hpo (b): {len(trials)} trials in {seconds:.1f} s, best #{study.best_trial.number} "
+          f"value {study.best_value:.6f}; memory after the last trial {growth:+d} bytes from "
+          f"the first's [{smi}]", flush=True)
+    launches = {}
+    for t in trials:
+        for key, n in t.pop("launches").items():
+            launches[key] = launches.get(key, 0) + n
+    # the search space's corners as trials would run them (report_fn set, so
+    # nothing saved): the top11 recipe's encode 100 at batch 1024, and the
+    # widest encode at the largest batch (4 steps, the last one short)
+    corners = {}
+    for H, B in ((100, 1024), (300, 2048)):
+        epochs = []
+        reset_launch_counts()
+        result = train(base.with_updates(encode_size=H, batch_size=B), data, device=dev,
+                       on_epoch=epochs.append, sinks=(), report_fn=lambda epoch, f1: None)
+        counts = launch_counts()
+        del result
+        release_device_memory()
+        if counts.get("fused_f32_masked", 0) < 1 or not all(
+                math.isfinite(m["train_loss"]) for m in epochs):
+            raise AssertionError(f"hpo (b) corner H={H} B={B}: {epochs}, launches {counts}")
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+        corners[f"H{H}_B{B}"] = {"epoch_seconds": [m["epoch_seconds"] for m in epochs],
+                                 "train_steps": epochs[-1]["train_steps"]}
+        print(f"hpo (b) corner encode {H} batch {B}: epoch_seconds "
+              f"{corners[f'H{H}_B{B}']['epoch_seconds']} (warm: the second), "
+              f"{epochs[-1]['train_steps']} train steps, launches {counts} [{smi}]", flush=True)
+    return {"trials": trials, "seconds": seconds, "memory_growth": growth,
+            "corners": corners, "launches": launches}
+
+
+def hpo_cli(smi, paths: dict, root: Path) -> dict:
+    """(c) the CLI with every telemetry flag (pool_only, 2 epochs,
+    prefetched, --profile_steps 4) in a subprocess, and its gates; then
+    (d) the projector export of its code.vec; then a two-trial search
+    through the CLI with the reference's --gpu and --num_workers."""
+    import os
+
+    from code2vec_tpu_torch.formats.vectors_io import read_code_vectors
+    from code2vec_tpu_torch.visualize import visualize_code_vectors
+
+    corpus = ["--corpus_path", paths["corpus"], "--path_idx_path", paths["path_idx"],
+              "--terminal_idx_path", paths["terminal_idx"], "--terminal_embed_size", "100",
+              "--path_embed_size", "100", "--encode_size", "100", "--max_path_length",
+              str(BAG), "--dropout_prob", "0.25", "--random_seed", "0",
+              "--print_sample_cycle", "0"]
+    dirs = {k: root / k for k in ("events", "trace", "profile", "model")}
+    argv = [sys.executable, "-m", "code2vec_tpu_torch", *corpus, "--batch_size",
+            str(TRAIN_BATCH), "--max_epoch", "2", "--use_pallas", "--pallas_impl", "pool_only",
+            "--env", "floyd", "--events_dir", str(dirs["events"]), "--trace_dir",
+            str(dirs["trace"]), "--profile_dir", str(dirs["profile"]), "--profile_steps", "4",
+            "--prefetch_batches", "2", "--model_path", str(dirs["model"]), "--vectors_path",
+            str(dirs["model"] / "code.vec")]
+    env = {k: v for k, v in os.environ.items() if k != "C2V_FAULT_PLAN"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True, timeout=400)
+    cli_seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"hpo (c): the CLI exited {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    bad = []
+    lines = [json.loads(x) for x in open(dirs["events"] / "events-p0.jsonl", encoding="utf-8")]
+    manifest = lines[0]
+    kind = manifest.get("device_kind", "")
+    if manifest["event"] != "manifest" or "H100" not in kind \
+            or not manifest.get("costs", {}).get("peak_flops_per_s"):
+        bad.append(f"the first line is not a manifest naming the card and its peak: "
+                   f"{ {k: manifest.get(k) for k in ('event', 'device_kind', 'costs')} }")
+    epochs = [e for e in lines if e["event"] == "epoch"]
+    floyd = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith('{"metric"')]
+    want = [{"metric": k, "value": v} for e in epochs for k, v in e["metrics"].items()]
+    want += [{"metric": "best_f1", "value": e["metrics"]["best_f1"]}
+             for e in lines if e["event"] == "best_f1"]
+    if sorted(map(json.dumps, floyd)) != sorted(map(json.dumps, want)):
+        bad.append(f"{len(floyd)} floyd lines differ from the {len(want)} event metrics")
+    for e in epochs:
+        device_bytes = e["memory"].get("device", {}).get("bytes_in_use", 0)
+        if device_bytes <= 0 or e["health"]["counters"].get("recompiles", 0) != 0:
+            bad.append(f"epoch {e['epoch']}: memory.device {e['memory'].get('device')}, "
+                       f"counters {e['health']['counters']}")
+    mfu = [e["mfu"] for e in lines if e["event"] == "step_sample" and "mfu" in e]
+    if not mfu or not all(0 < m <= 1 for m in mfu):
+        bad.append(f"step_sample mfu {mfu}")
+    trace = json.load(open(dirs["trace"] / "trace-p0.json", encoding="utf-8"))["traceEvents"]
+    spans = [e for e in trace if e.get("ph") == "X"]
+    names = {e["name"] for e in spans}
+    need = {"host_build", "h2d", "train_step", "train_pass", "eval_pass"}
+    producer = {e["tid"] for e in spans if e["name"] == "host_build"}
+    step = {e["tid"] for e in spans if e["name"] == "train_step"}
+    if not need <= names or not producer or producer & step:
+        bad.append(f"trace spans {sorted(names)}, producer tids {producer}, step tids {step}")
+    (profile_file,) = list(dirs["profile"].iterdir())
+    profiled = json.load(open(profile_file, encoding="utf-8"))["traceEvents"]
+    kernels = {}
+    for e in profiled:
+        name = e.get("name", "") if e.get("cat") == "kernel" else ""
+        k = ("pool_bwd_kernel" if "pool_bwd_kernel" in name
+             else "pool_kernel" if "pool_kernel" in name else None)
+        if k is not None:
+            kernels[k] = kernels.get(k, 0) + 1
+    if set(kernels) != {"pool_kernel", "pool_bwd_kernel"}:
+        bad.append(f"the profiler trace names {kernels} of K1 / K1b")
+    if bad:
+        raise AssertionError("hpo (c):\n  " + "\n  ".join(bad))
+    print(f"hpo (c): the CLI in {cli_seconds:.1f} s; manifest names {kind!r} at peak "
+          f"{manifest['costs']['peak_flops_per_s']:.4g} FLOP/s; {len(floyd)} floyd lines equal "
+          f"the epoch events; device bytes in use {[e['memory']['device']['bytes_in_use'] for e in epochs]}; "
+          f"recompiles 0; step_sample mfu {mfu}; spans {sorted(need)} with the producer's "
+          f"thread apart; the profiled epoch launched {kernels} [{smi}]", flush=True)
+
+    # (d) the projector export of the run's code.vec
+    labels, vectors = read_code_vectors(dirs["model"] / "code.vec")
+    t0 = time.perf_counter()
+    tsv = visualize_code_vectors(dirs["model"] / "code.vec", root / "projector")
+    projector_seconds = time.perf_counter() - t0
+    with open(tsv["vectors"], encoding="utf-8") as f:
+        n_rows = sum(1 for _ in f)
+    if n_rows != len(vectors) or not len(vectors):
+        raise AssertionError(f"hpo (d): {n_rows} TSV rows for {len(vectors)} vectors")
+    print(f"hpo (d): {n_rows} projector rows for {len(labels)} vectors of dim "
+          f"{vectors.shape[1]} in {projector_seconds:.2f} s", flush=True)
+
+    # the search through the CLI, with the reference's no-op flags
+    t0 = time.perf_counter()
+    search = subprocess.run([sys.executable, "-m", "code2vec_tpu_torch", *corpus,
+                             "--max_epoch", "1", "--use_pallas", "--pallas_impl", "fused",
+                             "--find_hyperparams", "--num_trials", "2", "--gpu", "0",
+                             "--num_workers", "4"], cwd=ROOT, env=env, capture_output=True,
+                            text=True, timeout=400)
+    search_seconds = time.perf_counter() - t0
+    if search.returncode != 0 or "Number of finished trials: 2" not in search.stderr:
+        raise AssertionError(f"hpo: the CLI search exited {search.returncode}\n"
+                             f"{search.stderr[-3000:]}")
+    print(f"hpo: the CLI search (--gpu 0 --num_workers 4) ran 2 trials in "
+          f"{search_seconds:.1f} s [{smi}]", flush=True)
+    return {"cli_seconds": cli_seconds, "mfu": mfu, "profiled_launches": kernels,
+            "projector_rows": n_rows, "projector_seconds": projector_seconds,
+            "search_cli_seconds": search_seconds}
+
+
+def phase_train_hpo(torch, smi, dev, tmp: Path, elastic) -> dict:
+    """The search's paths on the card: (a) the kernels at its widths, (b)
+    a seeded search through the API, (c) the CLI with every telemetry flag
+    and (d) the projector export; each part's seconds printed."""
+    import shutil
+
+    from code2vec_tpu_torch.data.reader import load_corpus
+
+    root = tmp / "hpo"
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    out["a"] = hpo_kernels(torch, dev, smi)
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = (elastic or {}).get("corpus_paths")
+    if paths is None:
+        paths = write_raw_corpus(train_corpus()[0], root / "corpus")
+    data = load_corpus(paths["corpus"], paths["path_idx"], paths["terminal_idx"], cache=False)
+    seconds["load"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b"] = hpo_search(torch, smi, dev, data)
+    seconds["b"] = time.perf_counter() - t0
+    del data
+    t0 = time.perf_counter()
+    out["c"] = hpo_cli(smi, paths, root)
+    seconds["c_d"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    out["launches"] = dict(out["b"]["launches"])
+    # K1/K1b of the pool_only CLI run: its profiled epoch's kernel events
+    for key, name in (("pool", "pool_kernel"), ("pool_bwd", "pool_bwd_kernel")):
+        out["launches"][key] = out["launches"].get(key, 0) + out["c"]["profiled_launches"][name]
+    print(f"train_hpo: seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}; "
+          f"launches {json.dumps(out['launches'])} [{smi}]", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
     return out
 
 
@@ -4406,6 +4792,7 @@ def main() -> int:
                         model_dir)
         trained = phase("train", phase_train, torch, smi, dev, model_dir)
         elastic = phase("train_elastic", phase_train_elastic, torch, smi, dev, model_dir)
+        searched = phase("train_hpo", phase_train_hpo, torch, smi, dev, model_dir, elastic)
         bucketed = phase("train_bucketed", phase_train_bucketed, torch, smi, dev, model_dir)
         bf16_train = phase("train_bf16", phase_train_bf16, torch, smi, dev, model_dir, trained)
         lazy_train = phase("train_lazy", phase_train_lazy, torch, smi, dev, trained, bucketed,
@@ -4463,6 +4850,7 @@ def main() -> int:
             feed_counts[key] = feed_counts.get(key, 0) + n
     print(f"train_feed launches: {json.dumps(feed_counts)}")
     el_counts = elastic["launches"]  # the train_elastic phase's runs (printed there)
+    hpo_counts = searched["launches"]  # the train_hpo phase's trials and CLI run (printed there)
     line = []
     for name, rec in kernels.items():
         timed = next(r for r in rec["rows"] if (r["B"], r["L"]) == rec["timed"])
@@ -4473,7 +4861,7 @@ def main() -> int:
                          + device_counts.get(rec["key"], 0) + var_counts.get(rec["key"], 0)
                          + py_counts.get(rec["key"], 0) + feed_counts.get(rec["key"], 0)
                          + control["launches"].get(rec["key"], 0)
-                         + el_counts.get(rec["key"], 0)),
+                         + el_counts.get(rec["key"], 0) + hpo_counts.get(rec["key"], 0)),
             "max_abs_err": max(r["max_abs_err"] for r in rec["rows"]),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -4499,7 +4887,7 @@ def main() -> int:
             {"card": smi, "torch": torch.__version__, "launch_floor": floor, "kernels": kernels,
              "serve": serve,
              "longbag": longbag, "retrieval": retrieval, "serve_control": control,
-             "train": trained, "train_elastic": elastic,
+             "train": trained, "train_elastic": elastic, "train_hpo": searched,
              "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train,
              "train_device": device_train, "train_feed": feed_train, "extract": extracted,
              "train_variable": variable,

@@ -236,11 +236,23 @@ class CheckpointWriter:
     the persist's seconds (set by the thread when it ends). An async
     snapshot of a card's state goes into page-locked buffers the writer
     keeps for the run (one set: the previous persist has ended before the
-    next snapshot is taken)."""
+    next snapshot is taken).
 
-    def __init__(self, out_dir: str, async_save: bool = False):
+    Telemetry (JAX ``checkpoint.py:493-556``): the whole sync save is a
+    ``checkpoint_save.persist`` span (``mode="sync"``); an async save is a
+    ``checkpoint_save.snapshot`` span on the loop's thread and a
+    ``checkpoint_save.persist`` span (``mode="async"``) on the persist
+    thread. Each save that reaches the disk emits ``checkpoint_saved``
+    (slot, path, step, ``async``, and the caller's fields) into
+    ``events``."""
+
+    def __init__(self, out_dir: str, async_save: bool = False, events=None, tracer=None):
+        from code2vec_tpu_torch.obs.trace import get_tracer
+
         self.out_dir = out_dir
         self.async_save = bool(async_save)
+        self.events = events
+        self.tracer = tracer or get_tracer()
         self.saves: list[dict] = []
         self._thread: threading.Thread | None = None
         self._failure: BaseException | None = None
@@ -278,47 +290,64 @@ class CheckpointWriter:
             logger.error("the async checkpoint persist failed", exc_info=failure)
 
     def save(self, slot: str, model, optimizer, meta: TrainMeta, np_rng: np.random.Generator,
-             sampler: torch.Generator | None = None) -> str:
+             sampler: torch.Generator | None = None, **event_fields) -> str:
         """Save into ``slot``; return the slot's path (asynchronously: the
-        path the persist in flight will publish)."""
+        path the persist in flight will publish). ``event_fields`` (the
+        epoch) ride the spans and the ``checkpoint_saved`` event."""
         self.wait()
         self.check()
         record = {"slot": slot, "async": self.async_save, "step": meta.step}
         self.saves.append(record)
         t0 = time.perf_counter()
         if not self.async_save:
-            path = save_checkpoint(self.out_dir, slot, model, optimizer, meta, np_rng, sampler)
+            with self.tracer.span("checkpoint_save.persist", category="checkpoint", slot=slot,
+                                  mode="sync", **event_fields):
+                path = save_checkpoint(self.out_dir, slot, model, optimizer, meta, np_rng,
+                                       sampler)
             record["blocking_ms"] = (time.perf_counter() - t0) * 1e3
             record["persist_s"] = record["blocking_ms"] / 1e3
+            self._emit(slot, path, record["step"], False, event_fields)
             return path
         faultinject.fault_point("pre_save", slot=slot)
-        state = snapshot_state(model, optimizer, meta, np_rng, sampler, self._pinned)
+        with self.tracer.span("checkpoint_save.snapshot", category="checkpoint", slot=slot,
+                              **event_fields):
+            state = snapshot_state(model, optimizer, meta, np_rng, sampler, self._pinned)
         record["blocking_ms"] = (time.perf_counter() - t0) * 1e3
-        self._thread = threading.Thread(target=self._persist, args=(slot, state, record),
+        self._thread = threading.Thread(target=self._persist,
+                                        args=(slot, state, record, event_fields),
                                         name="c2v-ckpt-persist", daemon=True)
         self._thread.start()
         return slot_path(self.out_dir, slot)
 
-    def _persist(self, slot: str, state: dict, record: dict) -> None:
+    def _persist(self, slot: str, state: dict, record: dict, event_fields: dict) -> None:
         t0 = time.perf_counter()
         try:
-            _publish(self.out_dir, slot, state)
+            with self.tracer.span("checkpoint_save.persist", category="checkpoint", slot=slot,
+                                  mode="async", **event_fields):
+                _publish(self.out_dir, slot, state)
             record["persist_s"] = time.perf_counter() - t0
+            self._emit(slot, slot_path(self.out_dir, slot), record["step"], True, event_fields)
         except BaseException as exc:  # noqa: BLE001 - re-raised in the loop
             with self._lock:
                 self._failure = exc
 
+    def _emit(self, slot, path, step, was_async, event_fields) -> None:
+        if self.events is not None:
+            self.events.emit("checkpoint_saved", slot=slot, path=str(path), step=int(step),
+                             **{"async": was_async}, **event_fields)
+
 
 def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generator,
                        vocab_pad_multiple: int, prefer_best: bool = False,
-                       sampler: torch.Generator | None = None) -> TrainMeta | None:
+                       sampler: torch.Generator | None = None,
+                       info: dict | None = None) -> TrainMeta | None:
     """Load the newest slot (the later epoch, then the later step; the
     best slot with ``prefer_best``) into ``model``, ``optimizer`` (may be
     None), ``np_rng`` and ``sampler`` (the device-epoch sampler's
     generator, may be None; a checkpoint of a host-path run holds no
     sampler state, and the sampler then stays freshly seeded, which is
     logged); return its meta (with its cursor), or None when there is
-    none. A slot file that does not load is skipped with a warning. An
+    none. ``info`` (a dict) receives the restored ``slot`` and ``path``. A slot file that does not load is skipped with a warning. An
     optimizer whose first moments are stored in another dtype than the
     checkpoint's, or that steps the tables otherwise (``--table_update``),
     raises with the flag that resumes it."""
@@ -333,9 +362,11 @@ def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generat
     if not found:
         return None
     if prefer_best and any(slot == "best" for slot, _, _ in found):
-        _, path, _ = next(f for f in found if f[0] == "best")
+        slot, path, _ = next(f for f in found if f[0] == "best")
     else:
-        _, path, _ = max(found, key=lambda f: f[2])
+        slot, path, _ = max(found, key=lambda f: f[2])
+    if info is not None:
+        info.update(slot=slot, path=path)
     state = _read(path)
     if state is None:
         return None

@@ -39,9 +39,23 @@ with a mid-epoch cursor, so ``--resume`` continues inside the epoch;
 SIGTERM finishes the step in flight, saves and exits 0; ``--fault_plan``
 (or ``C2V_FAULT_PLAN``) schedules faults for recovery drills.
 
-Flags of features not ported yet are accepted with their default only and
-raise otherwise (``TrainConfig.validate``, ROADMAP §A.2); HPO, telemetry
-and host sharding have no flag.
+The search: ``--find_hyperparams [--num_trials 100] [--hpo_sampler
+tpe|random]`` runs a seeded TPE (or random) search with median pruning
+(``hpo.py``) over the loaded corpus, each trial trained through the flags'
+route; no trial writes a checkpoint or vectors. Telemetry: ``--env floyd``
+adds one JSON line a metric on stdout, ``--env tensorboard`` TensorBoard
+scalars under ``--tensorboard_dir`` (needs tensorboardX);
+``--events_dir`` writes a JSONL event log (the run manifest first),
+``--trace_dir`` a Chrome trace of the training layers, ``--profile_dir``
+a ``torch.profiler`` trace of the second epoch (of the first trial in a
+search).
+
+The reference's ``--gpu`` and ``--num_workers`` are accepted and do
+nothing (the card is ``--device``; the host feed is ``--feed_workers``).
+JAX's TPU knobs ``--rng_impl``, ``--pallas_block_b`` and
+``--pallas_dma_depth``, and the flags of features not ported yet (the mesh
+axes), are accepted at their defaults and raise otherwise
+(``TrainConfig.validate``, ROADMAP §A.2).
 """
 
 from __future__ import annotations
@@ -99,6 +113,21 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cuda (the default) or cpu (the plain versions)")
     parser.add_argument("--no_cuda", action="store_true", default=False,
                         help="the reference's flag: same as --device cpu")
+    parser.add_argument("--gpu", type=str, default=None,
+                        help="no-op (the reference's flag; the card is --device)")
+    parser.add_argument("--num_workers", type=int, default=None,
+                        help="no-op (the reference's flag; the host feed is --feed_workers)")
+
+    # metric sinks and the search (main.py:66-71, JAX cli.py:92-105)
+    parser.add_argument("--env", type=str, default=None, choices=(None, "tensorboard", "floyd"),
+                        help="extra metric sink: tensorboard | floyd")
+    parser.add_argument("--tensorboard_dir", type=str, default="runs",
+                        help="scalar log dir for --env tensorboard")
+    parser.add_argument("--find_hyperparams", action="store_true", default=False,
+                        help="hyperparameter search over the reference's space instead of one run")
+    parser.add_argument("--hpo_sampler", type=str, default="tpe", choices=("tpe", "random"),
+                        help="the search's sampler (tpe is the reference's optuna default)")
+    parser.add_argument("--num_trials", type=int, default=100)
 
     parser.add_argument("--print_sample_cycle", type=int, default=10)
     parser.add_argument("--eval_method", type=str, default="subtoken",
@@ -118,6 +147,10 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=("pool_only", "gather_split", "fused", "auto"),
                         help="pool_only: K1/K1b after a plain encode; gather_split: K2; "
                              "fused: K3 ('auto' is not ported)")
+    parser.add_argument("--pallas_block_b", type=int, default=8,
+                        help="JAX's Pallas batch tile: 8 only (the card's kernels size their grids)")
+    parser.add_argument("--pallas_dma_depth", type=int, default=2,
+                        help="JAX's fused-kernel gather buffers: 2 only (K3 stages its own)")
     parser.add_argument("--pallas_chunk_l", type=int, default=128)
     parser.add_argument("--pallas_softmax", type=str, default="auto",
                         choices=("auto", "materialize", "online", "two_pass"))
@@ -221,6 +254,22 @@ def build_parser() -> argparse.ArgumentParser:
                              "drills (code2vec_tpu_torch/faultinject.py), e.g. "
                              "'train_step@10:sigterm,mid_save@1:raise' — "
                              "crashes the process ON PURPOSE")
+    parser.add_argument("--rng_impl", type=str, default="threefry2x32",
+                        choices=("threefry2x32", "rbg", "unsafe_rbg"),
+                        help="JAX's dropout PRNG: threefry2x32 only (the port's dropout stream "
+                             "is a torch.Generator)")
+
+    # telemetry (JAX cli.py:299-312)
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace of epoch 2 here")
+    parser.add_argument("--events_dir", type=str, default=None,
+                        help="write a per-process JSONL event log here (the run manifest "
+                             "first, then typed epoch / step_sample / checkpoint / eval / "
+                             "recompile / error events; obs/events.py)")
+    parser.add_argument("--trace_dir", type=str, default=None,
+                        help="write a Chrome trace_event JSON here (spans of the extractor, "
+                             "the input pipeline, the prefetch producer and the train / eval / "
+                             "checkpoint phases; obs/trace.py)")
 
     # accepted at their defaults only: the features are not ported yet
     parser.add_argument("--data_axis", type=int, default=1)
@@ -240,7 +289,7 @@ _CONFIG_FLAGS = (
     "adam_mu_dtype", "table_update", "embed_grad", "bucketed", "bucket_ladder", "max_contexts",
     "device_epoch", "device_chunk_batches", "sample_prefetch", "stream_chunk_items",
     "feed_workers", "prefetch_batches", "profile_steps", "async_checkpoint",
-    "checkpoint_every_steps", "fault_plan",
+    "checkpoint_every_steps", "fault_plan", "rng_impl", "pallas_block_b", "pallas_dma_depth",
 )
 
 
@@ -258,10 +307,63 @@ def device_from_args(args: argparse.Namespace) -> str | None:
     return args.device
 
 
+def sinks_from_args(args: argparse.Namespace) -> tuple:
+    from code2vec_tpu_torch.sinks import floyd_sink, logging_sink, tensorboard_sink
+
+    sinks = [logging_sink]
+    if args.env == "floyd":
+        sinks.append(floyd_sink)
+    elif args.env == "tensorboard":
+        sinks.append(tensorboard_sink(args.tensorboard_dir))
+    return tuple(sinks)
+
+
+def telemetry_from_args(args: argparse.Namespace):
+    """``(EventLog | None, Tracer | None)`` from ``--events_dir`` /
+    ``--trace_dir``; the tracer is also installed process-wide, so the
+    data layers' spans (the native parse, the epoch builds) land in it."""
+    events = tracer = None
+    if args.events_dir:
+        from code2vec_tpu_torch.obs.events import EventLog
+
+        events = EventLog(args.events_dir)
+    if args.trace_dir:
+        from code2vec_tpu_torch.obs.trace import Tracer, set_tracer
+
+        tracer = Tracer()
+        set_tracer(tracer)
+    return events, tracer
+
+
+def close_telemetry(args: argparse.Namespace, events, tracer) -> None:
+    """Export the trace and close the event log; a failure of either is
+    logged, so it neither masks an exception unwinding nor skips the other."""
+    if tracer is not None:
+        from code2vec_tpu_torch.obs.trace import set_tracer
+
+        set_tracer(None)
+        try:
+            path = tracer.export_dir(args.trace_dir)
+            logger.info("chrome trace written to %s (open in Perfetto or chrome://tracing)", path)
+        except Exception:
+            logger.warning("could not write the chrome trace to %s", args.trace_dir,
+                           exc_info=True)
+    if events is not None:
+        if events.path is not None:
+            logger.info("event log written to %s", events.path)
+        try:
+            events.close()
+        except Exception:
+            logger.warning("could not close the event log", exc_info=True)
+
+
 def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s: %(message)s",
                         datefmt="%m/%d/%Y %I:%M:%S %p")
     args = build_parser().parse_args(argv)
+    if args.gpu is not None or args.num_workers is not None:
+        logger.info("--gpu/--num_workers are no-ops here: the run's device is --device "
+                    "(default cuda), the host feed's processes --feed_workers")
     config = config_from_args(args)
     config.validate(training=not args.export_only)
     device = device_from_args(args)
@@ -280,6 +382,8 @@ def main(argv: list[str] | None = None) -> int:
         args.corpus_path = paths["corpus"]
         args.path_idx_path = paths["path_idx"]
         args.terminal_idx_path = paths["terminal_idx"]
+    # installed before the corpus load, so the parse and build spans land
+    events, tracer = telemetry_from_args(args)
     try:
         if args.corpus_format != "auto":
             # fail loudly when the file is not what the flag says (a text path
@@ -295,6 +399,19 @@ def main(argv: list[str] | None = None) -> int:
                            infer_method=args.infer_method_name,
                            infer_variable=args.infer_variable_name,
                            cache=not args.no_corpus_cache)
+        if args.find_hyperparams:
+            from code2vec_tpu_torch.hpo import find_optimal_hyperparams
+
+            study = find_optimal_hyperparams(
+                data, config, n_trials=args.num_trials, seed=args.random_seed,
+                sampler=args.hpo_sampler, events=events, device=device,
+                sinks=sinks_from_args(args), profile_dir=args.profile_dir)
+            best = study.best_trial
+            logger.info("Number of finished trials: %d", len(study.trials))
+            logger.info("Best trial value: %s", best.value)
+            for key, value in best.params.items():
+                logger.info("    %s: %s", key, value)
+            return 0
         os.makedirs(args.model_path, exist_ok=True)
         for out_file in (args.vectors_path, args.test_result_path):
             if out_file and os.path.dirname(out_file):
@@ -313,10 +430,13 @@ def main(argv: list[str] | None = None) -> int:
 
         result = train(config, data, out_dir=args.model_path, vectors_path=args.vectors_path,
                        test_result_path=args.test_result_path, device=device,
-                       on_epoch=lambda m: print(json.dumps(m), flush=True))
+                       on_epoch=lambda m: print(json.dumps(m), flush=True),
+                       sinks=sinks_from_args(args), profile_dir=args.profile_dir,
+                       events=events, tracer=tracer)
         logger.info("done: best_f1=%s after %d epochs", result.best_f1, result.epochs_run)
         return 0
     finally:
+        close_telemetry(args, events, tracer)
         if synth_dir is not None:
             synth_dir.cleanup()
 

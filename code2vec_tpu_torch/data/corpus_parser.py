@@ -55,8 +55,11 @@ def parse_corpus_native(path: str | os.PathLike):
     an id of -1 where a record has no ``#id`` line), the records' ``(label,
     source | None)`` and their ``[(original, alias), ...]``. Raises
     RuntimeError when the parse fails."""
+    from code2vec_tpu_torch.obs.trace import get_tracer
+
     lib = _library()
-    ptr = lib.c2v_parse_corpus(os.fspath(path).encode())
+    with get_tracer().span("parse_corpus_native", category="extract"):
+        ptr = lib.c2v_parse_corpus(os.fspath(path).encode())
     if not ptr:
         raise RuntimeError("native corpus parse failed: " + lib.c2v_last_error().decode("utf-8"))
     try:

@@ -120,6 +120,9 @@ class _ArenaLayout:
 def _feed_worker_main(arrays, shms, layout, task_q, result_q):
     """A worker: take ``(gen, seq, slot, plan)``, build, write the batch
     into the slot, post the result (or the error with its traceback)."""
+    from code2vec_tpu_torch.obs.trace import set_tracer
+
+    set_tracer(None)  # a forked copy of the parent's tracer is never exported
     bufs = [shm.buf for shm in shms]
     while True:
         task = task_q.get()
@@ -139,15 +142,20 @@ def _feed_worker_main(arrays, shms, layout, task_q, result_q):
 class FeedPool:
     """``n_workers`` forked builders and a shared-memory arena, shared by
     every :class:`ParallelFeed` of a run (the train and test splits). One
-    stream runs at a time, as the epoch loop runs them."""
+    stream runs at a time, as the epoch loop runs them. With ``health``
+    (``obs.runtime.RuntimeHealth``) each pull sets the ``feed.queue_depth``
+    gauge (batches built and waiting) and counts a pull that had to wait
+    on the workers in ``feed.starved_steps``."""
 
-    def __init__(self, data, n_workers: int, batch_size: int, max_width: int, slots: int = 0):
+    def __init__(self, data, n_workers: int, batch_size: int, max_width: int, slots: int = 0,
+                 health=None):
         if n_workers < 1:
             raise ValueError(f"feed_workers must be >= 1, got {n_workers}")
         if os.name != "posix":
             raise ValueError("--feed_workers requires fork-capable multiprocessing (POSIX); "
                              "use --feed_workers 0 here")
         self.n_workers = int(n_workers)
+        self._health = health
         # every worker can build while a full reorder window and the
         # delivered batch stay held
         self.slots = int(slots) if slots else 2 * self.n_workers + 2
@@ -340,6 +348,10 @@ class _FeedStream:
             self._handle(msg)
             self._submit_more()
         self.last_wait_ms = (time.perf_counter() - t0) * 1e3 if waited else 0.0
+        if pool._health is not None:
+            pool._health.gauge("feed.queue_depth").set(len(self._ready))
+            if waited:
+                pool._health.counter("feed.starved_steps").inc()
         slot, width = self._ready.pop(self._next_seq)
         self._next_seq += 1
         views = pool._layout.views(pool._shms[slot].buf, width)

@@ -43,6 +43,7 @@ from typing import Iterator
 import numpy as np
 
 from code2vec_tpu_torch import PAD_INDEX, QUESTION_TOKEN_INDEX
+from code2vec_tpu_torch.obs.trace import get_tracer
 
 
 @dataclass
@@ -117,6 +118,11 @@ def build_method_epoch(data, item_idx: np.ndarray, max_contexts: int,
     (model/dataset_builder.py:122-150). ``data`` is anything with the CSR
     arrays, ``ids``, ``labels`` and ``method_token_index`` (a worker's
     slim view too)."""
+    with get_tracer().span("build_method_epoch", category="data", items=len(item_idx)):
+        return _build_method_epoch(data, item_idx, max_contexts, rng, context_order)
+
+
+def _build_method_epoch(data, item_idx, max_contexts, rng, context_order) -> EpochArrays:
     n = len(item_idx)
     flat, row, col = _segment_subsample(data.row_splits, item_idx, max_contexts, rng,
                                         context_order)
@@ -167,6 +173,13 @@ def build_variable_epoch(data, item_idx: np.ndarray, max_contexts: int,
     contexts are looked at, so an alias that no context touches gets an
     all-PAD row. JAX ``pipeline.py:225-355`` draw for draw; under
     ``context_order="corpus"`` the permutation is drawn and not applied."""
+    with get_tracer().span("build_variable_epoch", category="data", items=len(item_idx)):
+        return _build_variable_epoch(data, item_idx, max_contexts, rng,
+                                     shuffle_variable_indexes, context_order)
+
+
+def _build_variable_epoch(data, item_idx, max_contexts, rng, shuffle_variable_indexes,
+                          context_order) -> EpochArrays:
     variable_indexes = data.variable_indexes
     perm_map = None
     if not shuffle_variable_indexes and len(variable_indexes):
@@ -557,7 +570,9 @@ def iter_streaming_batches(epoch_builder, item_idx: np.ndarray, batch_size: int,
         return rest
 
     for lo in range(0, len(order), chunk_items):
-        chunk = epoch_builder(item_idx[order[lo:lo + chunk_items]])
+        chunk_idx = item_idx[order[lo:lo + chunk_items]]
+        with get_tracer().span("stream_chunk", category="data", items=len(chunk_idx)):
+            chunk = epoch_builder(chunk_idx)
         if carry is not None and len(carry):
             chunk = _concat_epochs([carry, chunk])
         # the remainder comes back as emit()'s return value
@@ -577,7 +592,9 @@ def _iter_streaming_bucketed_batches(epoch_builder, item_idx: np.ndarray,
     order = rng.permutation(len(item_idx)) if shuffle else np.arange(len(item_idx))
     carry: list[EpochArrays | None] = [None] * len(ladder)
     for lo in range(0, len(order), chunk_items):
-        chunk = epoch_builder(item_idx[order[lo:lo + chunk_items]])
+        chunk_idx = item_idx[order[lo:lo + chunk_items]]
+        with get_tracer().span("stream_chunk", category="data", items=len(chunk_idx)):
+            chunk = epoch_builder(chunk_idx)
         final = lo + chunk_items >= len(order)
         bucket_of = assign_buckets(epoch_context_counts(chunk), ladder)
         plans: list[tuple[int, EpochArrays]] = []

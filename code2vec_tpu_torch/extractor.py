@@ -121,9 +121,12 @@ def build_extractor() -> Path:
             if cxx is None:
                 raise RuntimeError("g++ not found on PATH: the extractor of code2vec_tpu_torch "
                                    "is built from extractor/src at first use")
+            from code2vec_tpu_torch.obs.trace import get_tracer
+
             tmp = Path(tempfile.mkdtemp(prefix=f"{out_dir.name}.tmp", dir=BUILD_ROOT))
             try:
-                _compile(cxx, tmp)
+                with get_tracer().span("extractor_build", category="extract"):
+                    _compile(cxx, tmp)
                 os.rename(tmp, out_dir)
             finally:
                 shutil.rmtree(tmp, ignore_errors=True)
@@ -247,7 +250,10 @@ def extract_dataset(dataset_dir: str | os.PathLike, source_dir: str | os.PathLik
     if method_declarations:
         cmd += ["--method-declarations", method_declarations]
     cmd += list(extra_args)
-    return subprocess.run(cmd, check=True, capture_output=True, text=True)
+    from code2vec_tpu_torch.obs.trace import get_tracer
+
+    with get_tracer().span("extract_dataset", category="extract", dataset_dir=str(dataset_dir)):
+        return subprocess.run(cmd, check=True, capture_output=True, text=True)
 
 
 def _py_config_from_flags(args, extra):

@@ -1,15 +1,16 @@
-"""Serving telemetry: events, spans, runtime health, costs, locks, handles.
+"""Telemetry: events, spans, runtime health, costs, locks, handles.
 
-Counterpart of ``code2vec_tpu/obs``, the serving half. Standard library
-only (no ``torch``), so the fleet router imports it too:
+Counterpart of ``code2vec_tpu/obs``, for serving and training. Standard
+library only (no ``torch``), so the fleet router imports it too:
 
 - :mod:`events` — a per-process JSONL event log opened with a run manifest;
 - :mod:`trace` — spans exportable as Chrome ``trace_event`` JSON, and the
   cross-process request trace context;
 - :mod:`runtime` — the counters/gauges/latency registry, its Prometheus
-  exposition and the slow-request flight recorder;
-- :mod:`costs` — analytic forward costs, device-time accounting, MFU and
-  fleet capacity;
+  exposition, the slow-request flight recorder, and the trainer's
+  recompile detector and memory sampler;
+- :mod:`costs` — analytic forward and train-step costs, device-time
+  accounting, MFU and fleet capacity;
 - :mod:`sync` — the lock factory and its opt-in order sanitizer
   (``C2V_SYNC_DEBUG``);
 - :mod:`handles` — the opt-in open-handle ledger (``C2V_HANDLE_DEBUG``).

@@ -43,6 +43,7 @@ __all__ = [
     "detect_device_kind",
     "fleet_capacity",
     "peak_flops",
+    "train_step_cost",
 ]
 
 # Per-device-kind peak FLOP/s in the precision the port's encode runs in:
@@ -149,6 +150,33 @@ def analytic_forward_cost(
         "arithmetic_intensity": flops / bytes_accessed if bytes_accessed else None,
         "cost_source": "analytic",
     }
+
+
+def train_step_cost(forward_cost: dict[str, Any], multiplier: float = 3.0) -> dict[str, Any]:
+    """A train step's cost from its forward's (forward + backward ~ 3x
+    the forward's FLOPs and bytes)."""
+    flops = forward_cost.get("flops")
+    bytes_accessed = forward_cost.get("bytes_accessed")
+    flops = flops * multiplier if flops else None
+    bytes_accessed = bytes_accessed * multiplier if bytes_accessed else None
+    intensity = flops / bytes_accessed if flops and bytes_accessed else None
+    return {
+        "flops": flops,
+        "bytes_accessed": bytes_accessed,
+        "arithmetic_intensity": intensity,
+        "cost_source": "analytic",
+    }
+
+
+def _coerce_flops(value: Any) -> float | None:
+    """A positive finite FLOP count, or None."""
+    try:
+        value = float(value)
+    except (TypeError, ValueError):
+        return None
+    if value != value or value <= 0 or value == float("inf"):  # NaN, <= 0, inf
+        return None
+    return value
 
 
 # ---------------------------------------------------------------------------

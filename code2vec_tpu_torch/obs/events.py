@@ -1,8 +1,9 @@
 """Structured event log: one JSONL file per process.
 
-Counterpart of ``code2vec_tpu/obs/events.py``, the serving part. The log
-opens with a **run manifest** (run id, process index/count, package
-version, and the server's or fleet's topology block) and then carries
+Counterpart of ``code2vec_tpu/obs/events.py``. The log opens with a **run
+manifest** (run id, process index/count, package version, and the
+training run's config, corpus, costs and device blocks, or the server's or
+fleet's topology block) and then carries
 typed events with monotonic timestamps. Schema of every line::
 
     {"event": <type>, "seq": N, "t_ms": <monotonic ms since log open>,
@@ -10,6 +11,15 @@ typed events with monotonic timestamps. Schema of every line::
 
 ``seq`` is strictly increasing per process — emitters on other threads
 serialize through one lock, so the file order IS the emission order.
+
+Event types written by the train loop (``train/loop.py``): ``manifest``,
+``epoch`` (the full per-epoch metrics dict, a memory snapshot and the
+health counters), ``best_f1``, ``step_sample`` (per profiled step: host
+build / H2D / feed wait / compute ms and ``mfu``), ``eval``,
+``checkpoint_saved`` (slot, path, step, whether the persist ran async),
+``checkpoint_restored``, ``preempted`` (a clean SIGTERM exit),
+``recompile`` (obs.runtime.RecompileDetector) and ``error``; the search
+(``hpo.py``) adds ``trial`` and ``trial_result``.
 
 The serving side (``serve/``) writes ``serve_executable`` (one per warmed
 shape, with the model version), the hot-swap state machine's
@@ -32,9 +42,14 @@ golden-validation report ride the commit event), and the fleet router's
 - ``lock_order_violation`` (obs.sync, under ``C2V_SYNC_DEBUG``) and
   ``handle_leak`` (obs.handles, under ``C2V_HANDLE_DEBUG``).
 
-The file gets the strict-JSON form of each event: non-finite floats
-serialize as ``null`` plus a sibling ``<key>_raw`` string; consumers
-(:meth:`EventLog.subscribe`) receive the raw record.
+**Sinks are consumers of this stream**: :func:`sink_consumer` adapts the
+``(epoch, metrics)`` metric sinks (``code2vec_tpu_torch.sinks``) into an
+event consumer, and the train loop emits metrics only as events, so the
+sinks' output and the event log derive from one dict. The file gets the
+strict-JSON form of each event: non-finite floats serialize as ``null``
+plus a sibling ``<key>_raw`` string; consumers (:meth:`EventLog.subscribe`)
+receive the raw record (see :func:`metric_record` for the per-metric line
+the sinks print).
 """
 
 from __future__ import annotations
@@ -50,7 +65,7 @@ from typing import Callable
 
 from code2vec_tpu_torch.obs import handles
 
-__all__ = ["EventLog", "run_manifest", "sanitize"]
+__all__ = ["EventLog", "metric_record", "run_manifest", "sanitize", "sink_consumer"]
 
 
 def resolve_process_index() -> int:
@@ -120,6 +135,18 @@ def sanitize(obj):
     return str(obj)
 
 
+def metric_record(name: str, value) -> dict:
+    """The ``{"metric": name, "value": value}`` line the floyd and logging
+    sinks print, strict JSON: a non-finite value serializes as ``null``
+    with the original in a string ``"raw"`` field."""
+    value = _scalar(value)
+    record = {"metric": name, "value": value}
+    if isinstance(value, float) and not math.isfinite(value):
+        record["value"] = None
+        record["raw"] = repr(value)
+    return record
+
+
 def _run_id() -> str:
     """``C2V_RUN_ID`` when set, else a timestamped random id."""
     pinned = os.environ.get("C2V_RUN_ID")
@@ -128,9 +155,14 @@ def _run_id() -> str:
     return f"{time.strftime('%Y%m%d-%H%M%S')}-{uuid.uuid4().hex[:8]}"
 
 
-def run_manifest(**extra) -> dict:
+def run_manifest(config=None, **extra) -> dict:
     """The run manifest: package version, process identity, run id, and
-    the caller's blocks (``serve={...}`` or ``fleet={...}``)."""
+    the caller's blocks (``serve={...}`` or ``fleet={...}``). A training
+    run's manifest (``config`` given) also carries the config as a plain
+    dict and ``mesh_shape`` (None: the port runs one device a process);
+    the loop adds its corpus, costs and device blocks."""
+    import dataclasses
+
     import code2vec_tpu_torch
 
     manifest = {
@@ -141,6 +173,10 @@ def run_manifest(**extra) -> dict:
         "process_count": _process_count(),
         "run_id": _run_id(),
     }
+    if config is not None:
+        manifest["mesh_shape"] = None
+        manifest["config"] = (dataclasses.asdict(config) if dataclasses.is_dataclass(config)
+                              else dict(config))
     manifest.update(extra)
     return manifest
 
@@ -189,6 +225,12 @@ class EventLog:
         handles.track(self, "event_log", name=self.path)
         return self._file
 
+    @property
+    def observed(self) -> bool:
+        """Whether emissions go anywhere: a backing file or a consumer.
+        The train loop builds no manifest when nobody would see it."""
+        return self._events_dir is not None or bool(self._consumers)
+
     # ---- consumers -----------------------------------------------------
     def subscribe(self, consumer: Callable[[dict], None]) -> Callable:
         """Register ``consumer(event_dict)``; returns it for unsubscribe."""
@@ -223,14 +265,14 @@ class EventLog:
                 consumer(record)
         return record
 
-    def write_manifest(self, **extra) -> dict | None:
+    def write_manifest(self, config=None, **extra) -> dict | None:
         """Emit the run manifest as the log's first event (idempotent —
         only the first call writes)."""
         with self._lock:
             if self._manifest_written:
                 return None
             self._manifest_written = True
-            manifest = run_manifest(**extra)
+            manifest = run_manifest(config=config, **extra)
             if self.run_id is None:
                 self.run_id = manifest["run_id"]
             else:
@@ -250,3 +292,17 @@ class EventLog:
 
     def __exit__(self, *exc_info) -> None:
         self.close()
+
+
+def sink_consumer(sinks) -> Callable[[dict], None]:
+    """Adapt ``(epoch, metrics)`` metric sinks into an event consumer: the
+    ``epoch`` and ``best_f1`` events carry an ``epoch`` and a ``metrics``
+    pair, and each sink sees exactly that dict (non-finite values intact:
+    strict JSON is each sink's own concern)."""
+
+    def consume(event: dict) -> None:
+        if event.get("event") in ("epoch", "best_f1") and "metrics" in event:
+            for sink in sinks:
+                sink(event["epoch"], event["metrics"])
+
+    return consume

@@ -1,17 +1,18 @@
 """Runtime health: counters, gauges, latency histograms, the Prometheus
 exposition and the slow-request flight recorder.
 
-Counterpart of ``code2vec_tpu/obs/runtime.py``, the serving half: the
-registry (:class:`RuntimeHealth`, :func:`global_health`) every serving
+Counterpart of ``code2vec_tpu/obs/runtime.py``: the registry
+(:class:`RuntimeHealth`, :func:`global_health`) every serving and training
 layer records into, its Prometheus text exposition
 (:func:`prometheus_text`, :func:`parse_prometheus_text`, the
-``c2v_build_info`` gauge naming torch, CUDA and the card) and the
-:class:`FlightRecorder`. Metric names are the JAX package's, so one
-dashboard reads both. The training half (the recompile detector, which is
-jax's, and the memory sampler) is not ported: the serving engine counts
-its own post-warmup first runs.
+``c2v_build_info`` gauge naming torch, CUDA and the card), the
+:class:`FlightRecorder`, and the training half: the
+:class:`RecompileDetector` and the per-epoch memory sampler
+(:func:`memory_snapshot`). Metric names are the JAX package's, so one
+dashboard reads both.
 
-Standard library only: the fleet router imports it without ``torch``.
+Standard library only: the fleet router imports it without ``torch``
+(the device memory sampler reads torch only when the process has it).
 """
 
 from __future__ import annotations
@@ -37,10 +38,15 @@ __all__ = [
     "Gauge",
     "LatencyHistogram",
     "NamespacedHealth",
+    "RecompileDetector",
     "RuntimeHealth",
     "build_info",
     "build_info_text",
+    "device_memory_stats",
     "global_health",
+    "host_cpu_fingerprint",
+    "host_rss_bytes",
+    "memory_snapshot",
     "parse_prometheus_text",
     "prometheus_metric_name",
     "prometheus_text",
@@ -634,3 +640,161 @@ def global_health() -> RuntimeHealth:
         if _global_health is None:
             _global_health = RuntimeHealth()
         return _global_health
+
+
+class RecompileDetector:
+    """Count post-warmup first sightings of a new step input signature.
+
+    JAX counts ``jax.jit`` cache misses of its train and eval steps. The
+    port compiles nothing at run time, but a new ``(batch, width, dtype)``
+    of a step is what a miss would be there: a shape the run did not plan
+    for (a cuBLAS heuristic, a kernel grid, an allocator bucket met for the
+    first time). The loop reports each step's signature through
+    :meth:`observe`; :meth:`check` (once an epoch) compares the count of
+    distinct signatures with the last check's. The first check is the
+    warmup, unless ``expected_compiles`` (the ladder's rungs) gives the
+    budget: growth within it is silent at every check. Growth beyond fires
+    the ``recompiles`` counter, a ``recompile`` trace mark and event, as
+    JAX's does. A steady-shape run stays at 0."""
+
+    def __init__(self, events=None, health: RuntimeHealth | None = None):
+        self._events = events
+        self._counter = health.counter("recompiles") if health is not None else Counter()
+        # name -> [set of signatures seen, last checked count or None (pre-warmup)]
+        self._tracked: dict[str, list] = {}
+
+    def track(self, name: str, expected_compiles: int | None = None) -> None:
+        baseline = None
+        if expected_compiles is not None:
+            if expected_compiles < 1:
+                raise ValueError(f"expected_compiles must be >= 1, got {expected_compiles}")
+            baseline = int(expected_compiles)
+        self._tracked[name] = [set(), baseline]
+
+    def observe(self, name: str, signature) -> None:
+        """Record one call's input signature (a set insert: per step)."""
+        slot = self._tracked.get(name)
+        if slot is not None:
+            slot[0].add(signature)
+
+    @property
+    def recompile_count(self) -> int:
+        return self._counter.value
+
+    def check(self, epoch: int | None = None) -> int:
+        """Compare every tracked step's signature count with the last
+        check's; return the new post-warmup signatures found."""
+        new = 0
+        for name, slot in self._tracked.items():
+            size, last = len(slot[0]), slot[1]
+            if last is None:
+                slot[1] = size  # warmup: the expected first shapes
+                continue
+            if size > last:
+                delta = size - last
+                new += delta
+                self._counter.inc(delta)
+                from code2vec_tpu_torch.obs.trace import get_tracer
+
+                get_tracer().instant("recompile", category="health", fn=name, delta=delta)
+                logger.warning("recompile detected: %s saw %d new input signatures (%d -> %d; "
+                               "batch shape/dtype churn?)", name, delta, last, size)
+                if self._events is not None:
+                    fields = {"fn": name, "cache_size": size, "delta": delta, "lint_hints": []}
+                    if epoch is not None:
+                        fields["epoch"] = epoch
+                    self._events.emit("recompile", **fields)
+                slot[1] = size
+        return new
+
+
+def host_cpu_fingerprint() -> str:
+    """8-hex digest of the host's CPU feature set (ISA flags + arch):
+    stable within a host, different across CPU populations. Standard
+    library only."""
+    import hashlib
+    import platform
+
+    parts = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo", encoding="utf-8") as f:
+            for line in f:
+                # x86 exposes "flags", arm64 "Features"; sorted so the
+                # kernel's ordering does not churn the digest
+                if line.startswith(("flags", "Features")):
+                    parts.append(" ".join(sorted(line.split(":", 1)[1].split())))
+                    break
+    except OSError:
+        parts.append(platform.processor() or "")
+    return hashlib.sha1("|".join(parts).encode()).hexdigest()[:8]
+
+
+def host_rss_bytes() -> int | None:
+    """Current resident set size, or None off Linux."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * os.sysconf("SC_PAGE_SIZE")
+    except (OSError, ValueError, IndexError):  # pragma: no cover - non-Linux
+        return None
+
+
+def _host_peak_rss_bytes() -> int | None:
+    try:
+        import resource
+        import sys
+
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        # Linux reports ru_maxrss in KiB; macOS/BSD in bytes
+        return peak * 1024 if sys.platform.startswith("linux") else peak
+    except Exception:  # pragma: no cover - a platform without resource
+        return None
+
+
+def device_memory_stats(device=None) -> dict | None:
+    """The card's allocator numbers for ``device`` (a ``torch.device`` or
+    its string; the current card when None): ``bytes_in_use`` and
+    ``peak_bytes_in_use`` from ``torch.cuda.memory_stats``, ``bytes_limit``
+    the card's memory. None on the CPU, or when the process has not
+    imported torch or initialized CUDA (never imports torch itself)."""
+    import sys
+
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return None
+    try:
+        if device is not None and torch.device(device).type != "cuda":
+            return None
+        if not torch.cuda.is_initialized():
+            return None
+        index = torch.device(device).index if device is not None else None
+        index = torch.cuda.current_device() if index is None else index
+        stats = torch.cuda.memory_stats(index)
+        return {
+            "device_kind": torch.cuda.get_device_name(index),
+            "n_devices": 1,
+            "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
+            "bytes_limit": int(torch.cuda.get_device_properties(index).total_memory),
+        }
+    except Exception:  # the per-epoch sampler must never end a run
+        return None
+
+
+def memory_snapshot(health: RuntimeHealth | None = None, device=None) -> dict:
+    """One host and device memory sample (``device``: the run's card);
+    mirrored into ``health`` gauges when given. Taken at epoch ends."""
+    snap: dict = {
+        "host_rss_bytes": host_rss_bytes(),
+        "host_peak_rss_bytes": _host_peak_rss_bytes(),
+    }
+    stats = device_memory_stats(device)
+    if stats is not None:
+        snap["device"] = stats
+    if health is not None:
+        for key in ("host_rss_bytes", "host_peak_rss_bytes"):
+            if snap[key] is not None:
+                health.gauge(key).set(snap[key])
+        if stats is not None:
+            health.gauge("device_bytes_in_use").set(stats["bytes_in_use"])
+    return snap

@@ -18,8 +18,16 @@ path at B = 1 than at B = 64), and the softmax's exponentials are
 evaluated in float64 and rounded back (:func:`elementwise`): PyTorch's
 CPU loops run vector code on most elements of a tensor and scalar code on
 the tail, whose exp differs in the last bit, so a row's weights would
-depend on where the row lies in the tensor and how wide it is padded. On
-the card the kernels serve, and the plain versions keep the einsums.
+depend on where the row lies in the tensor and how wide it is padded.
+
+On the card the plain pool keeps its einsums while gradients are on (a
+training step needs no invariance). With gradients off (serving, eval)
+it runs :func:`batch_free_attention_pool`: exact products, and every sum
+a pairwise tree of elementwise adds over one axis, whose order depends on
+that axis alone. A library reduction (cuBLAS, ``torch.sum``) may split a
+row's work otherwise at B = 1 than at B = 64, so the bits of a row would
+move with its micro-batch; a tree of elementwise adds cannot, and zero
+padding of the bag leaves its sums unchanged.
 """
 
 from __future__ import annotations
@@ -59,6 +67,42 @@ def masked_attention_weights(scores: torch.Tensor, mask: torch.Tensor) -> torch.
     return (e / e.sum(dim=-1, keepdim=True)).float()
 
 
+def tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum of ``x`` over ``dim`` as a pairwise tree of elementwise
+    adds: elements ``2i`` and ``2i + 1`` of each level are added, an odd
+    level gains a zero at its end. Each element's order of additions is a
+    function of the axis's length alone, and trailing zeros leave the sum
+    as it is (a bag padded wider sums to the same bits)."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, x.new_zeros((1, *x.shape[1:]))])
+        x = x[0::2] + x[1::2]
+    return x[0]
+
+
+def batch_free_attention_pool(
+    contexts: torch.Tensor,  # [B, L, E]
+    mask: torch.Tensor,  # [B, L]
+    attn_param: torch.Tensor,  # [E]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`attention_pool` with no reduction whose order depends on the
+    batch: the scores, the softmax's denominator and the weighted sum are
+    :func:`tree_sum` s of exact f32 products, the max is exact in any
+    order and the exponentials are elementwise. Widened to f32 and rounded
+    back to the contexts' dtype, as the CPU form. The card's plain pool
+    with gradients off; it runs on the CPU too."""
+    dtype = contexts.dtype
+    ctx = contexts.float()
+    scores = tree_sum(ctx * attn_param.float(), -1).to(dtype).float()
+    m = mask.float()
+    z = scores * m + (1.0 - m) * NINF
+    e = torch.exp(z - z.amax(dim=-1, keepdim=True))
+    attention = e / tree_sum(e, -1)[:, None]
+    code_vector = tree_sum(attention.to(dtype).float()[..., None] * ctx, 1).to(dtype)
+    return code_vector, attention
+
+
 def attention_pool(
     contexts: torch.Tensor,  # [B, L, E]
     mask: torch.Tensor,  # [B, L] (1 = real, 0 = PAD)
@@ -66,6 +110,8 @@ def attention_pool(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Return ``(code_vector [B, E], attention [B, L])``."""
     if contexts.device.type != "cpu":
+        if not torch.is_grad_enabled():
+            return batch_free_attention_pool(contexts, mask, attn_param)
         scores = torch.einsum("ble,e->bl", contexts, attn_param)
         attention = masked_attention_weights(scores, mask)
         code_vector = torch.einsum("bl,ble->be", attention.to(contexts.dtype), contexts)

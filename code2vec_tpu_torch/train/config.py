@@ -1,10 +1,13 @@
 """Training configuration (the reference's Option, main.py:93-115).
 
 Own copy of ``code2vec_tpu/train/config.py``: the same field names and
-defaults. Fields of features the port does not have yet (the mesh axes,
-``pallas_impl='auto'``) stay, so a JAX configuration reads the same here,
-and :meth:`TrainConfig.validate` rejects them loudly when set instead of
-ignoring them (ROADMAP §A.2.9, §A.7).
+defaults, so a JAX configuration reads the same here. Fields of features
+the port does not have yet (the mesh axes, ``shard_staged_corpus``,
+``pallas_impl='auto'`` and ``autotune_cache``) and the TPU knobs with no
+meaning on the card (``pallas_block_b``, ``pallas_dma_depth``,
+``rng_impl``) stay at their defaults: :meth:`TrainConfig.validate`
+rejects any other value loudly instead of ignoring it (ROADMAP §A.2.9,
+§A.7).
 """
 
 from __future__ import annotations
@@ -60,7 +63,11 @@ class TrainConfig:
 
     # kernel routes of the forward and their knobs
     use_pallas: bool = False
+    # the Pallas kernel's batch tile: the card's kernels size their own grids
+    pallas_block_b: int = 8
     pallas_impl: str = "pool_only"  # pool_only (K1) | gather_split (K2) | fused (K3)
+    # the fused Pallas kernel's gather buffers: K3 stages its rows with cp.async
+    pallas_dma_depth: int = 2
     pallas_chunk_l: int = 128
     pallas_softmax: str = "auto"
     # embedding storage of eval/export forwards; training takes f32 only
@@ -71,6 +78,10 @@ class TrainConfig:
     # (ops/embed.py)
     embed_grad: str = "dense"
     vocab_pad_multiple: int = 0  # 0 = 1 (no model axis here)
+    # the kernel-schedule cache of pallas_impl='auto' (not ported)
+    autotune_cache: str = ""
+    # JAX's dropout PRNG; the port's dropout stream is a torch.Generator
+    rng_impl: str = "threefry2x32"
 
     # checkpoints: best-F1 always, plus the last slot every N epochs
     resume: bool = False
@@ -131,6 +142,7 @@ class TrainConfig:
     data_axis: int = 1
     model_axis: int = 1
     context_axis: int = 1
+    shard_staged_corpus: bool = False
 
     def with_updates(self, **kw) -> "TrainConfig":
         return replace(self, **kw)
@@ -172,9 +184,25 @@ class TrainConfig:
             raise ValueError("--feed_workers parallelizes the HOST batch pipeline; "
                              "--device_epoch samples batches on device and has no host builds "
                              "to parallelize: drop one flag")
+        # TPU knobs with no counterpart on the card: JAX's defaults only
+        tpu_only = {
+            "rng_impl": ("threefry2x32", "the port's dropout stream is a torch.Generator "
+                         "(Philox on the card); JAX's PRNG implementations do not exist here"),
+            "pallas_block_b": (8, "the Pallas kernel's batch tile; the card's kernels size "
+                               "their own grids from the batch and bag"),
+            "pallas_dma_depth": (2, "the fused Pallas kernel's gather buffers; K3 stages its "
+                                 "rows with cp.async in buffers of its own"),
+        }
+        for name, (default, why) in tpu_only.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} has no meaning on the card ({why}); "
+                    f"leave it at {default!r}")
         unported = {
             "mesh axes > 1": max(self.data_axis, self.model_axis, self.context_axis) > 1,
+            "shard_staged_corpus": self.shard_staged_corpus,
             "pallas_impl='auto'": self.pallas_impl == "auto",
+            "autotune_cache": bool(self.autotune_cache),
         }
         asked = [name for name, on in unported.items() if on]
         if asked:

@@ -46,6 +46,22 @@ and variable-name tasks, alone or together (method rows first):
   dropout generator's state at its save step (under ``jax_rng``, JAX's
   name for the run's random state).
 
+Telemetry (JAX ``:519-548``, ``:1255-1830``): the epoch's metrics go out
+only as ``epoch`` and ``best_f1`` events of one ``obs.events.EventLog``
+(a dispatch-only one when none is given), to which the ``sinks``
+(``sinks.py``) are subscribed for the call and closed at its end; the log
+opens with the run manifest (config, corpus, the analytic step costs of
+each ladder rung with the card's peak, the card). The process-wide tracer
+gets ``train_pass``, ``train_step`` (the first and the profiled steps),
+``eval_pass``, ``stage_corpus``, ``resume_replay``, ``export_vectors`` and
+``checkpoint_save`` spans; ``RecompileDetector`` counts the train and eval
+steps' input signatures that appear after the warmup; each ``epoch`` event
+carries a memory snapshot and the health counters. ``report_fn(epoch,
+f1)`` (the search's pruning hook) may raise :class:`StopTraining`, which
+ends the run normally; while it is set no checkpoint, vector export or
+sample print is made. ``profile_dir`` gets a ``torch.profiler`` trace
+(CPU and, on the card, CUDA activity) of the second epoch run.
+
 The numpy generator is drawn in the JAX loop's order (split; then per
 epoch the train subsample, the batch order, the test subsample), so both
 trainers see the same batches from the same seed. Each epoch's line also
@@ -55,8 +71,8 @@ of its first (warm) step.
 
 from __future__ import annotations
 
+import contextlib
 import copy
-import json
 import logging
 import os
 import time
@@ -88,7 +104,12 @@ from code2vec_tpu_torch.data.pipeline import (
 )
 from code2vec_tpu_torch.metrics import evaluate
 from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
+from code2vec_tpu_torch.obs import costs as obs_costs
+from code2vec_tpu_torch.obs.events import EventLog, sink_consumer
+from code2vec_tpu_torch.obs.runtime import RecompileDetector, RuntimeHealth, memory_snapshot
+from code2vec_tpu_torch.obs.trace import get_tracer, set_tracer
 from code2vec_tpu_torch.ops.backend import resolve_device
+from code2vec_tpu_torch.sinks import MetricSink, logging_sink
 from code2vec_tpu_torch.train.device_epoch import (
     BucketedEpochRunner,
     BucketedStagedCorpus,
@@ -119,6 +140,13 @@ from code2vec_tpu_torch.train.step import (
 )
 
 logger = logging.getLogger(__name__)
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+class StopTraining(Exception):
+    """Raised by a ``report_fn`` to end training early (the search's
+    pruning hook); ``train()`` returns normally."""
 
 
 @dataclass
@@ -191,7 +219,9 @@ class _EpochCursorHook:
         self.meta.cursor = _data_cursor(self.epoch, self.steps, self.feed_batch,
                                         self.epoch_rng_state, self.dropout_state(),
                                         tally.partial(), self.widths)
-        self.save("last")
+        with get_tracer().span("checkpoint_save", category="checkpoint", epoch=self.epoch,
+                               slot="last", mid_epoch=True):
+            self.save("last", epoch=self.epoch, mid_epoch=True)
 
     def after_step(self, tally: StepTally, width: int) -> None:
         self.widths[width] = self.widths.get(width, 0) + 1
@@ -258,42 +288,96 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def device_kind(device: torch.device) -> str:
+    """The run's device as the manifest and the peak table name it."""
+    if device.type == "cuda":
+        return str(torch.cuda.get_device_name(device))
+    return device.type
+
+
+def release_device_memory() -> None:
+    """Return the caching allocator's free blocks to the card (between the
+    search's trials, once the last trial's tensors are gone)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def _step_cost(model_config, batch: int, width: int) -> dict:
+    """A train step's analytic forward + backward cost at ``[batch, width]``."""
+    fwd = obs_costs.analytic_forward_cost(
+        batch, width, terminal_embed=model_config.terminal_embed_size,
+        path_embed=model_config.path_embed_size, encode=model_config.encode_size,
+        labels=model_config.padded(model_config.label_count))
+    return obs_costs.train_step_cost(fwd)
+
+
+def _manifest_costs(config, model_config, bucket_ladder, kind: str) -> dict:
+    """The manifest's static cost block (JAX ``loop.py:386-412``): one
+    step cost per ladder rung at the configured batch size, and the card's
+    peak the ``mfu`` column divides by."""
+    widths = list(bucket_ladder) if bucket_ladder else [config.max_path_length]
+    return {"device_kind": kind, "peak_flops_per_s": obs_costs.peak_flops(kind),
+            "cost_source": "analytic",
+            "train_step": {str(w): _step_cost(model_config, config.batch_size, w)
+                           for w in widths}}
+
+
+def _signature(batch: dict, dtype) -> tuple:
+    """A step's input signature for the recompile detector."""
+    return (*batch["paths"].shape, str(dtype))
+
+
 def _train_pass(model, optimizer, batches, class_weights, device, prefetch: int = 0,
                 profiler: StepProfiler | None = None, hook: _EpochCursorHook | None = None,
                 loss_offset: float | tuple[float, float] = 0.0,
-                epoch: int | None = None) -> tuple[float, dict]:
+                epoch: int | None = None, recompiles: RecompileDetector | None = None
+                ) -> tuple[float, dict]:
     """One epoch of host-fed train steps: ``(the left fold of the batch
     losses from loss_offset, speed)``, the losses read back once
     (:class:`StepTally`) unless a mid-epoch save reads the partial fold. A
     batch's real contexts are counted beside its copy, before the next pull
     may recycle its host arrays; a profiled step is synchronized before and
-    after. Each step passes the ``train_step`` fault point, then ``hook``
-    (which may save, and raise :class:`PreemptionStop`); ``loss_offset`` is
-    a resumed epoch's fold state, the pass covering the epoch's tail."""
+    after, and its analytic FLOPs feed the profiler's ``mfu``. Each step
+    passes the ``train_step`` fault point, then ``hook`` (which may save,
+    and raise :class:`PreemptionStop`); ``loss_offset`` is a resumed
+    epoch's fold state, the pass covering the epoch's tail. The pass is a
+    ``train_pass`` span, its first and profiled steps ``train_step``
+    spans (synchronized, so the span covers the device's work)."""
     def feed(batch):
         valid = batch["example_mask"].astype(bool)
         return to_device(batch, device), int(np.count_nonzero(batch["starts"][valid]))
 
+    tracer = get_tracer()
+    dtype = model.config.dtype
     tally = StepTally(device, loss_offset)
     step = 0
-    with device_batches(batches, feed, prefetch, profiler, device,
-                        drain_on_preemption=hook is not None) as stream:
-        for host_batch, (device_batch, contexts) in stream:
-            sampled = profiler is not None and profiler.sampled(step)
-            if sampled:
-                _sync(device)
-            t0 = time.perf_counter()
-            loss = train_step(model, optimizer, device_batch, class_weights)
-            if sampled:
-                _sync(device)
-                profiler.record_compute(step, (time.perf_counter() - t0) * 1e3)
-            tally.add(loss, contexts)
-            faultinject.fault_point("train_step", step=step, epoch=epoch)
-            if hook is not None:
-                hook.after_step(tally, int(host_batch["paths"].shape[1]))
-            step += 1
-    if hook is not None:
-        hook.after_pass(tally)
+    with tracer.span("train_pass", category="train", epoch=epoch):
+        with device_batches(batches, feed, prefetch, profiler, device,
+                            drain_on_preemption=hook is not None) as stream:
+            for host_batch, (device_batch, contexts) in stream:
+                sampled = profiler is not None and profiler.sampled(step)
+                spanned = (step == 0 and tracer.enabled) or sampled
+                if recompiles is not None:
+                    recompiles.observe("train_step", _signature(host_batch, dtype))
+                if sampled:
+                    _sync(device)
+                with (tracer.span("train_step", category="train", step=step) if spanned
+                      else _NO_SPAN):
+                    t0 = time.perf_counter()
+                    loss = train_step(model, optimizer, device_batch, class_weights)
+                    if spanned:
+                        _sync(device)
+                if sampled:
+                    b, w = host_batch["paths"].shape
+                    profiler.record_compute(step, (time.perf_counter() - t0) * 1e3,
+                                            flops=_step_cost(model.config, b, w)["flops"])
+                tally.add(loss, contexts)
+                faultinject.fault_point("train_step", step=step, epoch=epoch)
+                if hook is not None:
+                    hook.after_step(tally, int(host_batch["paths"].shape[1]))
+                step += 1
+        if hook is not None:
+            hook.after_pass(tally)
     if profiler is not None:
         # the hook counts the whole epoch: a resumed pass's tail alone would
         # shrink the sampling stride of the later epochs
@@ -329,16 +413,22 @@ def resolve_ladder(config, data) -> tuple[tuple[int, ...] | None, int]:
     return ladder, bag_width
 
 
-def evaluate_epoch(config, data, model, batches, class_weights, prefetch: int = 0):
-    """The test pass over ``batches``: ``(loss, accuracy, precision,
-    recall, f1)``, the loss the sum of the batch means (reference
-    main.py:283-284). Only a batch's per-row fields are read after the
-    next pull (a feed worker delivers those as owned copies)."""
+def evaluate_epoch(config, data, model, batches, class_weights, prefetch: int = 0,
+                   epoch: int | None = None, recompiles: RecompileDetector | None = None):
+    """The test pass over ``batches`` (an ``eval_pass`` span): ``(loss,
+    accuracy, precision, recall, f1)``, the loss the sum of the batch
+    means (reference main.py:283-284). Only a batch's per-row fields are
+    read after the next pull (a feed worker delivers those as owned
+    copies)."""
     device = class_weights.device
+    dtype = model.config.dtype
     losses, expected, actual = [], [], []
-    with device_batches(batches, lambda b: to_device(b, device), prefetch,
-                        device=device) as stream:
+    with get_tracer().span("eval_pass", category="eval", epoch=epoch), \
+            device_batches(batches, lambda b: to_device(b, device), prefetch,
+                           device=device) as stream:
         for batch, device_batch in stream:
+            if recompiles is not None:
+                recompiles.observe("eval_step", _signature(batch, dtype))
             out = eval_step(model, device_batch, class_weights)
             valid = batch["example_mask"].astype(bool)
             losses.append(out["loss"])
@@ -392,8 +482,10 @@ def stage_device_epochs(config, data, train_idx, test_idx, np_rng, ladder, class
     accounting is corpus-static: the sampler fills ``min(count, width)``
     slots a row every epoch (JAX ``:1096-1114``)."""
     t0 = time.perf_counter()
-    host_train = stage_host(data, train_idx, np_rng)
-    host_test = stage_host(data, test_idx, np_rng)
+    with get_tracer().span("stage_corpus", category="train", items=len(train_idx)):
+        host_train = stage_host(data, train_idx, np_rng)
+    with get_tracer().span("stage_corpus", category="train", items=len(test_idx)):
+        host_test = stage_host(data, test_idx, np_rng)
     b, chunk, prefetch = config.batch_size, config.device_chunk_batches, config.sample_prefetch
     shuffle = config.shuffle_variable_indexes
     if ladder is not None:
@@ -429,24 +521,50 @@ def train(
     device: str | torch.device | None = None,
     initial_state_dict: dict | None = None,
     on_epoch: Callable[[dict], None] | None = None,
+    sinks: tuple[MetricSink, ...] = (logging_sink,),
+    report_fn: Callable[[int, float], None] | None = None,
+    profile_dir: str | None = None,
+    events: EventLog | None = None,
+    tracer=None,
 ) -> TrainResult:
     """Train on a loaded corpus; the model runs on ``device`` (the card
     unless ``"cpu"`` is asked for). ``initial_state_dict`` replaces the
     seeded initialization (parity runs start from the JAX run's weights).
-    ``on_epoch`` receives each epoch's metrics. With ``out_dir`` the dir
-    becomes a served model dir (``model_meta.json``, ``label_vocab.txt``,
-    ``code2vec.model`` of the best epoch) holding the checkpoints."""
+    ``on_epoch`` receives each epoch's metrics (the dict the ``epoch``
+    event and the ``sinks`` carry, with its ``epoch``). With ``out_dir``
+    the dir becomes a served model dir (``model_meta.json``,
+    ``label_vocab.txt``, ``code2vec.model`` of the best epoch) holding the
+    checkpoints.
+
+    ``events`` / ``tracer`` wire the run into the telemetry (the CLI
+    builds them from ``--events_dir`` / ``--trace_dir``); by default a
+    dispatch-only log (the sinks still ride its stream) and the
+    process-wide tracer. The caller closes and exports both. Sinks with a
+    ``close()`` are closed at the end of this call. ``report_fn(epoch,
+    f1)`` runs after each epoch's event and may raise
+    :class:`StopTraining`; while it is set nothing is saved or exported.
+    ``profile_dir`` gets a ``torch.profiler`` trace of the second epoch run
+    (not the first, where the kernels build)."""
     from code2vec_tpu_torch.export import print_sample, write_code_vectors
     from code2vec_tpu_torch.predict import save_inference_meta, save_model_file
 
     config.validate()
+    if events is None:
+        events = EventLog()  # dispatch-only: the sinks still ride the stream
+    if tracer is None:
+        tracer = get_tracer()
+    health = RuntimeHealth()
+    recompiles = RecompileDetector(events=events, health=health)
+    # a search trial (report_fn) saves and exports nothing (JAX loop.py:1380, :1667-1717)
+    saving = report_fn is None
     # elastic training: the fault plan (installed anew, its counters at 0, at
     # each call), the SIGTERM guard and the save orchestrator
     faultinject.install_plan(config.fault_plan or os.environ.get(faultinject.ENV_VAR))
     guard = preemption_guard()
     guard.clear()
-    writer = (CheckpointWriter(out_dir, async_save=config.async_checkpoint)
-              if out_dir is not None else None)
+    writer = (CheckpointWriter(out_dir, async_save=config.async_checkpoint, events=events,
+                               tracer=tracer)
+              if out_dir is not None and saving else None)
     # the tasks are fixed when the corpus is loaded: catch a mismatch (JAX loop.py:550-562)
     if (config.infer_method_name != data.infer_method
             or config.infer_variable_name != data.infer_variable):
@@ -458,6 +576,7 @@ def train(
             "pass matching flags to load_corpus"
         )
     dev = resolve_device(device)
+    kind = device_kind(dev)
     if config.feed_workers and data.infer_variable:
         raise ValueError("--feed_workers supports the method task only: the variable-name "
                          "expansion interleaves per-item rng draws with data-dependent row "
@@ -476,7 +595,7 @@ def train(
         if data.infer_method and len(train_idx) else None)
     model_config = model_config_from(config, data)
     class_weights = class_weights_from(config, data, dev)
-    if out_dir is not None:
+    if out_dir is not None and saving:
         # a fixed-L run records a corpus-derived ladder, so a server needs no
         # corpus to pick its shapes
         save_inference_meta(
@@ -492,6 +611,26 @@ def train(
     model.to(dev)
     model.seed_dropout(config.random_seed)
     optimizer = make_optimizer(model, config)
+    # the event log's first line (idempotent: a search wrote its own first);
+    # built only when someone reads it
+    if events.observed:
+        events.write_manifest(
+            config=config,
+            backend=dev.type,
+            device_kind=kind,
+            local_device_count=1,
+            global_device_count=1,
+            corpus={"n_items": data.n_items, "terminal_vocab": len(data.terminal_vocab),
+                    "path_vocab": len(data.path_vocab), "label_vocab": len(data.label_vocab),
+                    "shard": None},
+            # the analytic cost of each rung's step and the peak mfu divides by
+            costs=_manifest_costs(config, model_config, bucket_ladder, kind),
+        )
+    # static [B, L] shapes are the design: a bucketed run meets one shape a
+    # rung, its whole budget; anything beyond is churn
+    expected = len(bucket_ladder) if bucket_ladder else None
+    recompiles.track("train_step", expected_compiles=expected)
+    recompiles.track("eval_step", expected_compiles=expected)
     feed = (stage_device_epochs(config, data, train_idx, test_idx, np_rng, bucket_ladder,
                                 class_weights, dev) if config.device_epoch else None)
 
@@ -499,11 +638,16 @@ def train(
     batch_size = config.batch_size
     resume_cursor: dict | None = None
     if config.resume and out_dir is not None:
+        restored_from: dict = {}
         restored = restore_checkpoint(out_dir, model, optimizer, np_rng,
                                       model_config.vocab_pad_multiple,
-                                      sampler=feed.generator if feed else None)
+                                      sampler=feed.generator if feed else None,
+                                      info=restored_from)
         if restored is not None:
             meta = restored
+            events.emit("checkpoint_restored", slot=restored_from["slot"],
+                        path=restored_from["path"], step=int(meta.step), mesh_shape=None,
+                        saved_mesh_shape=None, resharded=False)
             logger.info("resumed from epoch %d (best_f1=%s)", meta.epoch, meta.best_f1)
             resume_cursor, meta.cursor = meta.cursor, None
         if resume_cursor is not None:
@@ -529,7 +673,7 @@ def train(
             if cursor_step > 0:
                 logger.info("mid-epoch resume: replaying epoch %d to batch %d",
                             resume_cursor["epoch"], cursor_step)
-    elif out_dir is not None:
+    elif out_dir is not None and saving:
         clear_checkpoints(out_dir)
     meta.vocab_pad_multiple = model_config.vocab_pad_multiple
 
@@ -539,7 +683,8 @@ def train(
             logger.warning("--profile_steps attributes the host input pipeline; device-epoch "
                            "mode enqueues whole chunks and is not profiled per step")
         else:
-            profiler = StepProfiler(config.profile_steps)
+            # the sampled steps' mfu: analytic FLOPs over the card's peak
+            profiler = StepProfiler(config.profile_steps, peak_flops=obs_costs.peak_flops(kind))
     if config.checkpoint_every_steps and feed is not None:
         logger.warning("--checkpoint_every_steps is a host-pipeline feature; device-epoch runs "
                        "dispatch whole chunks and save at epoch boundaries only")
@@ -552,13 +697,21 @@ def train(
         # from: a boundary resume continues the stream bitwise too
         return _data_cursor(next_epoch, 0, batch_size, _rng_state(np_rng), dropout_state())
 
-    def save(slot: str) -> None:
+    def save(slot: str, **event_fields) -> None:
         writer.save(slot, model, optimizer, meta, np_rng,
-                    sampler=feed.generator if feed else None)
+                    sampler=feed.generator if feed else None, **event_fields)
 
     f1, epochs_completed = 0.0, 0
-    start_epoch = meta.epoch
+    start_epoch = epoch = meta.epoch
     pool = None
+    profile = None
+    # the sinks consume the SAME stream the event log records; subscribed
+    # here, just before the try whose finally unsubscribes them, and the
+    # run's tracer installed process-wide (for the data layers' spans) the
+    # same way
+    sinks_on_stream = events.subscribe(sink_consumer(sinks))
+    restore_tracer = tracer is not get_tracer()
+    previous_tracer = set_tracer(tracer) if restore_tracer else None
     # installed here, just before the try whose finally restores it: a
     # SIGTERM during the setup above takes the default disposition and
     # leaves the previous checkpoint as it was
@@ -573,7 +726,7 @@ def train(
             if config.feed_workers:
                 # one pool for both splits, forked before any thread of the run
                 pool = FeedPool(data, config.feed_workers, batch_size,
-                                int(train_source.ladder[-1]))
+                                int(train_source.ladder[-1]), health=health)
                 train_source = ParallelFeed(train_source, pool)
                 test_source = ParallelFeed(test_source, pool)
                 logger.info("parallel host ingest: %d feed workers, %d arena slots",
@@ -600,8 +753,12 @@ def train(
                     meta.epoch = epoch
                     meta.cursor = (resume_cursor if resume_cursor is not None
                                    else boundary_cursor(epoch))
-                    save("last")
+                    with tracer.span("checkpoint_save", category="checkpoint", epoch=epoch,
+                                     slot="last"):
+                        save("last", epoch=epoch)
                 raise PreemptionStop(guard.reason or "requested")
+            if profile_dir is not None and epoch == start_epoch + 1:
+                profile = _start_profile(dev)
             epoch_start = time.perf_counter()
             if profiler is not None:
                 profiler.reset()
@@ -615,10 +772,14 @@ def train(
                 resume_cursor = None
             replay = None
             if feed is not None:
-                train_loss, speed = feed.runner.run_train_epoch(model, optimizer, feed.train,
-                                                                np_rng, feed.generator)
+                with tracer.span("train_pass", category="train", epoch=epoch,
+                                 mode="device_epoch"):
+                    train_loss, speed = feed.runner.run_train_epoch(model, optimizer, feed.train,
+                                                                    np_rng, feed.generator)
                 meta.step += speed["train_steps"]
-                test_loss, preds, _ = feed.runner.run_eval_epoch(model, feed.test, feed.generator)
+                with tracer.span("eval_pass", category="eval", epoch=epoch, mode="device_epoch"):
+                    test_loss, preds, _ = feed.runner.run_eval_epoch(model, feed.test,
+                                                                     feed.generator)
                 accuracy, precision, recall, f1 = evaluate(config.eval_method, feed.expected,
                                                            preds, data.label_vocab)
                 # built on demand for the export and print_sample
@@ -633,16 +794,18 @@ def train(
                     # the stream made again from the cursor's state, less the
                     # batches the interrupted run consumed (host builds only)
                     t0 = time.perf_counter()
-                    train_batches = skip_batches(train_batches, skip, expect_widths=cursor_widths)
+                    with tracer.span("resume_replay", category="train", epoch=epoch, skip=skip):
+                        train_batches = skip_batches(train_batches, skip,
+                                                     expect_widths=cursor_widths)
                     replay = {"replayed_batches": skip,
                               "replay_seconds": time.perf_counter() - t0}
                 train_loss, speed = _train_pass(
                     model, optimizer, train_batches, class_weights, dev,
                     config.prefetch_batches, profiler, hook=hook, loss_offset=loss_offset,
-                    epoch=epoch)
+                    epoch=epoch, recompiles=recompiles)
                 test_loss, accuracy, precision, recall, f1 = evaluate_epoch(
                     config, data, model, test_source.batches(np_rng, shuffle=False),
-                    class_weights, config.prefetch_batches)
+                    class_weights, config.prefetch_batches, epoch=epoch, recompiles=recompiles)
                 # the epochs the passes were fed (the in-RAM source's; None from
                 # the others), reused by the export and print_sample
                 train_epoch, test_epoch = train_source.last_epoch, test_source.last_epoch
@@ -659,39 +822,59 @@ def train(
                 # real context slots over the slots fed (1.0 = no PAD slot encoded)
                 real, slots = source_pad
                 metrics["pad_efficiency"] = real / slots if slots else 1.0
+                health.gauge("pad_efficiency").set(metrics["pad_efficiency"])
             if truncated_ctx_fraction is not None:
                 metrics["truncated_context_fraction"] = truncated_ctx_fraction
+                health.gauge("truncated_context_fraction").set(truncated_ctx_fraction)
             metrics.update(speed)
             if replay is not None:
                 metrics.update(replay)  # a resumed epoch: its replay of the cursor
-            if profiler is not None and profiler.summary() is not None:
-                # --profile_steps: the sampled steps' mean split (JAX loop.py:1589-1611)
-                metrics.update(profiler.summary())
+            if profiler is not None:
+                attribution = profiler.summary()
+                if attribution is not None:
+                    # --profile_steps: the sampled steps' mean split (JAX loop.py:1589-1611)
+                    metrics.update(attribution)
+                for rec in profiler.per_step():
+                    events.emit("step_sample", epoch=epoch, **rec)
+            if profile is not None:
+                _stop_profile(profile, profile_dir, epoch)
+                profile = None
             epochs_completed += 1
             meta.history.append({"epoch": epoch, **metrics})
+            events.emit("eval", epoch=epoch, metrics={
+                k: metrics[k] for k in ("test_loss", "accuracy", "precision", "recall", "f1")})
+            # the recompile check first, so this epoch's own count is in the
+            # health block its epoch event carries
+            recompiles.check(epoch)
+            # the sinks consume this same emission (sink_consumer above)
+            events.emit("epoch", epoch=epoch, metrics=metrics,
+                        memory=memory_snapshot(health, dev), health=health.snapshot())
             if on_epoch is not None:
                 on_epoch({"epoch": epoch, **metrics})
-            else:
-                logger.info("epoch %s", json.dumps({"epoch": epoch, **metrics}))
+            if report_fn is not None:
+                report_fn(epoch, f1)  # may raise StopTraining (the search's pruning)
 
-            if epoch > 1 and config.print_sample_cycle and epoch % config.print_sample_cycle == 0:
+            if (epoch > 1 and config.print_sample_cycle and epoch % config.print_sample_cycle == 0
+                    and saving):
                 if test_epoch is None:
                     test_epoch = host_epoch(test_idx, epoch)
                 print_sample(data, model, test_epoch, batch_size, class_weights)
 
             if meta.best_f1 is None or meta.best_f1 < f1:
+                events.emit("best_f1", epoch=epoch, metrics={"best_f1": f1})
                 meta.best_f1 = f1
-                if vectors_path is not None:
+                if vectors_path is not None and saving:
                     if train_epoch is None:
                         train_epoch = host_epoch(train_idx, epoch)
                     if test_epoch is None:
                         test_epoch = host_epoch(test_idx, epoch)
-                    write_code_vectors(data, model, train_epoch, test_epoch, batch_size,
-                                       vectors_path, config.encode_size, class_weights,
-                                       test_result_path)
-                save_slot = "best" if out_dir is not None else None
+                    with tracer.span("export_vectors", category="export", epoch=epoch):
+                        write_code_vectors(data, model, train_epoch, test_epoch, batch_size,
+                                           vectors_path, config.encode_size, class_weights,
+                                           test_result_path)
+                save_slot = "best" if writer is not None else None
             else:
-                periodic = (out_dir is not None and bool(config.checkpoint_cycle)
+                periodic = (writer is not None and bool(config.checkpoint_cycle)
                             and (epoch + 1) % config.checkpoint_cycle == 0)
                 save_slot = "last" if periodic else None
 
@@ -707,7 +890,9 @@ def train(
             if save_slot is not None:
                 meta.epoch = epoch + 1
                 meta.cursor = boundary_cursor(epoch + 1)
-                save(save_slot)
+                with tracer.span("checkpoint_save", category="checkpoint", epoch=epoch,
+                                 slot=save_slot):
+                    save(save_slot, epoch=epoch)
                 if save_slot == "best":
                     save_model_file(out_dir, model)
 
@@ -720,16 +905,26 @@ def train(
         # a persist failure fails the run, not a thread
         if writer is not None:
             writer.finish()
+    except StopTraining:
+        if writer is not None:
+            writer.finish()
     except PreemptionStop as stop:
         # the checkpoint (with a model dir) is on disk: drain it and return
         # normally, the graceful half of the SIGTERM contract
         if writer is not None:
             writer.finish()
+        events.emit("preempted", epoch=epoch, reason=str(stop))
         logger.warning("preemption (%s): %s; exiting cleanly after %d completed epochs, "
                        "%.3f s after the request", stop,
                        "state saved" if writer is not None else "NO checkpoint written (no "
-                       "--model_path)", epochs_completed,
+                       "--model_path, or a search trial)", epochs_completed,
                        time.perf_counter() - (guard.requested_at or time.perf_counter()))
+    except Exception as exc:
+        try:
+            events.emit("error", epoch=epoch, error=f"{type(exc).__name__}: {exc}")
+        except Exception:  # telemetry must not mask the real failure
+            logger.warning("could not emit the error event", exc_info=True)
+        raise
     finally:
         restore_sigterm_handler(previous_sigterm)
         if pool is not None:
@@ -738,6 +933,24 @@ def train(
             # joins the persist thread and logs a stored failure (finish()
             # above raised it on the normal paths)
             writer.close()
+        if restore_tracer:
+            set_tracer(previous_tracer)
+        events.unsubscribe(sinks_on_stream)
+        # a sink with a buffered backend has a close() (tensorboard_sink);
+        # one failing sink must not mask the result
+        for sink in sinks:
+            closer = getattr(sink, "close", None)
+            if closer is not None:
+                try:
+                    closer()
+                except Exception:
+                    logger.warning("sink close() failed", exc_info=True)
+        if profile is not None:
+            # an epoch that raised: stop the profiler, keep what it traced
+            try:
+                _stop_profile(profile, profile_dir, epoch)
+            except Exception:
+                logger.warning("could not write the profiler trace", exc_info=True)
 
     if epochs_completed == 0 and meta.history:
         f1 = meta.history[-1].get("f1", 0.0)  # resumed a finished run
@@ -746,3 +959,25 @@ def train(
         epochs_run=epochs_completed, history=meta.history, model=model,
         checkpoint_saves=writer.saves if writer is not None else [],
     )
+
+
+def _start_profile(device: torch.device):
+    """A started ``torch.profiler`` of the CPU and, on the card, CUDA."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profile = torch.profiler.profile(activities=activities)
+    profile.start()
+    return profile
+
+
+def _stop_profile(profile, profile_dir: str, epoch: int) -> str:
+    """Stop ``profile`` and write its Chrome trace into ``profile_dir``."""
+    profile.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    from code2vec_tpu_torch.obs.events import resolve_process_index
+
+    path = os.path.join(profile_dir, f"profile-p{resolve_process_index()}-epoch{epoch}.json")
+    profile.export_chrome_trace(path)
+    logger.info("torch.profiler trace of epoch %d written to %s", epoch, path)
+    return path

@@ -35,12 +35,20 @@ queue:
 :class:`StepProfiler` splits ~``sample_steps`` steps an epoch into
 host-build / H2D / feed-wait / compute milliseconds, fencing only those
 steps (the copy stream and the step are synchronized there). The split
-feeds ``--profile_steps``' columns of the epoch line; JAX's ``mfu`` column
-and its trace spans wait for the port's telemetry (ROADMAP §A.2.10).
+feeds ``--profile_steps``' columns of the epoch line; with ``peak_flops``
+set and each sampled step's analytic FLOPs recorded, a sampled step also
+gets an ``mfu`` column (achieved FLOP/s over the card's peak).
+
+Tracing (the process-wide tracer, ``obs/trace.py``): the first steps,
+every 64th after and the profiler's sampled ones get ``host_build`` and
+``h2d`` spans (on the producer's thread when prefetching, with the queue's
+depth at the pull), never every step, so a long epoch does not flood the
+tracer's buffer.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -50,9 +58,23 @@ from typing import Callable, Iterable, Iterator
 import torch
 
 from code2vec_tpu_torch import faultinject
+from code2vec_tpu_torch.obs.costs import _coerce_flops
+from code2vec_tpu_torch.obs.trace import get_tracer
 from code2vec_tpu_torch.train.preempt import preemption_guard
 
 __all__ = ["HostPrefetcher", "StepProfiler", "device_batches"]
+
+_SPAN_WARMUP_STEPS = 8
+_SPAN_STRIDE = 64
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _span_step(step: int, profiler: "StepProfiler | None") -> bool:
+    """Whether this step's host_build and h2d get trace spans: the first
+    steps, every ``_SPAN_STRIDE``-th after, and the profiler's sampled
+    steps (JAX ``prefetch.py:59-70``)."""
+    return (step < _SPAN_WARMUP_STEPS or step % _SPAN_STRIDE == 0
+            or (profiler is not None and profiler.sampled(step)))
 
 
 def _tensors(out) -> Iterator[torch.Tensor]:
@@ -87,14 +109,17 @@ class StepProfiler:
     :meth:`observe_epoch_length` the next :meth:`reset` spreads them over
     the whole epoch. :meth:`sampled` is a function of the step index alone,
     so the producer and consumer threads agree without a lock; they write
-    different keys, and :meth:`summary` reads after the producer joined."""
+    different keys, and :meth:`summary` reads after the producer joined.
+    ``peak_flops`` (``obs.costs.peak_flops`` of the run's card) with a
+    step's ``flops`` gives that step an ``mfu`` column."""
 
-    def __init__(self, sample_steps: int = 0):
+    def __init__(self, sample_steps: int = 0, peak_flops: float | None = None):
         self.sample_steps = int(sample_steps)
         self.stride = 1
         self._next_stride = 1
         self._host: dict[int, tuple[float, float, float]] = {}
-        self._compute: dict[int, float] = {}
+        self._compute: dict[int, tuple[float, float | None]] = {}
+        self.peak_flops = peak_flops
 
     def sampled(self, step: int) -> bool:
         if self.sample_steps <= 0:
@@ -109,16 +134,21 @@ class StepProfiler:
                     feed_wait_ms: float = 0.0) -> None:
         self._host[step] = (host_build_ms, h2d_ms, feed_wait_ms)
 
-    def record_compute(self, step: int, compute_ms: float) -> None:
-        self._compute[step] = compute_ms
+    def record_compute(self, step: int, compute_ms: float, flops: float | None = None) -> None:
+        """``flops``: the step's analytic forward + backward FLOPs."""
+        self._compute[step] = (compute_ms, flops)
 
     def per_step(self) -> list[dict[str, float]]:
         out = []
         for step in sorted(self._compute):
             build, h2d, feed_wait = self._host.get(step, (0.0, 0.0, 0.0))
-            out.append({"step": step, "host_build_ms": round(build, 3), "h2d_ms": round(h2d, 3),
-                        "feed_wait_ms": round(feed_wait, 3),
-                        "compute_ms": round(self._compute[step], 3)})
+            compute_ms, flops = self._compute[step]
+            rec = {"step": step, "host_build_ms": round(build, 3), "h2d_ms": round(h2d, 3),
+                   "feed_wait_ms": round(feed_wait, 3), "compute_ms": round(compute_ms, 3)}
+            flops = _coerce_flops(flops)
+            if flops and self.peak_flops and compute_ms > 0:
+                rec["mfu"] = round(flops / (compute_ms / 1e3) / self.peak_flops, 9)
+            out.append(rec)
         return out
 
     def summary(self) -> dict[str, float] | None:
@@ -130,6 +160,9 @@ class StepProfiler:
         out = {key: round(sum(s[key] for s in steps) / n, 3)
                for key in ("host_build_ms", "h2d_ms", "feed_wait_ms", "compute_ms")}
         out["profiled_steps"] = n
+        with_mfu = [s["mfu"] for s in steps if "mfu" in s]
+        if with_mfu:
+            out["mfu"] = round(sum(with_mfu) / len(with_mfu), 9)
         return out
 
     def reset(self) -> None:
@@ -202,25 +235,33 @@ class HostPrefetcher:
         it = iter(self._batches)
         step = 0
         guard = preemption_guard()
+        tracer = get_tracer()
         try:
             while not self._stop.is_set():
                 if self._drain and guard.requested():
                     self._put(_End)  # SIGTERM: end the train stream here
                     return
                 faultinject.fault_point("prefetch_produce", step=step)
-                t0 = time.perf_counter()
-                batch = next(it, _End)  # a yielded None must not end the stream
+                # the queue's depth at this pull: how far ahead the producer runs
+                spanned = _span_step(step, self._profiler)
+                depth = self._queue.qsize()
+                with (tracer.span("host_build", step=step, queue_depth=depth) if spanned
+                      else _NO_SPAN):
+                    t0 = time.perf_counter()
+                    batch = next(it, _End)  # a yielded None must not end the stream
                 if batch is _End:
                     self._put(_End)
                     return
                 feed_wait_ms = getattr(it, "last_wait_ms", 0.0)
                 t1 = time.perf_counter()
-                out, ready = self._copy(batch)
-                if self._profiler is not None and self._profiler.sampled(step):
-                    if ready is not None:
-                        ready.synchronize()
-                    self._profiler.record_host(step, (t1 - t0) * 1e3,
-                                               (time.perf_counter() - t1) * 1e3, feed_wait_ms)
+                with tracer.span("h2d", step=step, queue_depth=depth) if spanned else _NO_SPAN:
+                    out, ready = self._copy(batch)
+                    if self._profiler is not None and self._profiler.sampled(step):
+                        if ready is not None:
+                            ready.synchronize()
+                        self._profiler.record_host(step, (t1 - t0) * 1e3,
+                                                   (time.perf_counter() - t1) * 1e3,
+                                                   feed_wait_ms)
                 if not self._put((batch, out, ready)):
                     return
                 step += 1
@@ -296,8 +337,11 @@ class _SyncBatches:
         return self
 
     def __next__(self) -> tuple[dict, object]:
+        tracer = get_tracer()
+        spanned = _span_step(self._step, self._profiler)
         t0 = time.perf_counter()
-        batch = next(self._it)  # StopIteration ends the epoch
+        with tracer.span("host_build", step=self._step) if spanned else _NO_SPAN:
+            batch = next(self._it)  # StopIteration ends the epoch
         feed_wait_ms = getattr(self._it, "last_wait_ms", 0.0)
         sampled = self._profiler is not None and self._profiler.sampled(self._step)
         if sampled and self._device is not None and self._device.type == "cuda":
@@ -305,11 +349,12 @@ class _SyncBatches:
             # stream: drain them first, so h2d_ms is the copy's own time
             torch.cuda.current_stream(self._device).synchronize()
         t1 = time.perf_counter()
-        out = self._to_device(batch)
-        if sampled:
-            _sync_current_stream(out)
-            self._profiler.record_host(self._step, (t1 - t0) * 1e3,
-                                       (time.perf_counter() - t1) * 1e3, feed_wait_ms)
+        with tracer.span("h2d", step=self._step) if spanned else _NO_SPAN:
+            out = self._to_device(batch)
+            if sampled:
+                _sync_current_stream(out)
+                self._profiler.record_host(self._step, (t1 - t0) * 1e3,
+                                           (time.perf_counter() - t1) * 1e3, feed_wait_ms)
         self._step += 1
         return batch, out
 
