@@ -158,6 +158,25 @@ the final result line is not printed):
    2 naming K1's and K1b's kernels; (d) the projector TSVs of its
    code.vec, one row a vector; and a two-trial search through the CLI
    with ``--gpu 0 --num_workers 4``. Each part's seconds are printed;
+7d. train_mesh (after train_hpo) — the ``(data, model, ctx)`` mesh: (a)
+   the port's collective Functions (``parallel/distributed.py``) and their
+   backwards over an NCCL group of one rank on ``cuda:0``, the NCCL version
+   printed; (b) two processes this script starts (``--mesh_worker``), each
+   ``LOCAL_RANK`` 0 with a gloo group formed before ``train()``,
+   time-sliced on the one card, through the train phase's corpus and recipe
+   (top11 widths, batch 1024, bag 200, dropout 0.25, one epoch, tables
+   padded to 2): data=2 on fused (K3 masked and its VJP, K3 in eval) and on
+   pool_only (K1/K1b), model=2 on fused and on gather_split (K2 masked over
+   the row-sharded gather), ``--host_shard_corpus`` at data=2,
+   ``--device_epoch --shard_staged_corpus`` at data=2, and a mid-epoch save
+   at data=2 (SIGTERM to rank 0 after step 4, the ranks' common stop)
+   restored onto model=2 and resumed. The ranks' per-step losses equal
+   bitwise; data=2 and model=2 on fused and pool_only within rtol 2e-5 a
+   step of the same run at world 1; each rank of the sharded staging holds
+   0.4-0.6 of the bytes; every restored tensor bitwise the saved one, the
+   resumed steps and epoch loss within rtol 2e-5 of world 1. Printed: a
+   profiled data=2 step's ms and its gradient all-reduce's ms and bytes
+   (gloo on one time-sliced card, not NCCL across cards);
 8. train_bucketed — bucketed training on ``bench.py``'s ``--bucket-ab``
    corpus (30,720 methods, mean 60 contexts, lognormal sigma 1.0, max 400,
    top11 widths; batch 1024, bag 200, the derived ladder, dropout 0.25, 2
@@ -307,8 +326,9 @@ the final result line is not printed):
    train route (the masked K4's on the long-bag runs) plus those of the
    train_device phase's runs of the four routes, of the train_feed runs,
    of every train_variable run, of the python_source phase, of the
-   serve_control phase, of the train_elastic runs and of the train_hpo
-   trials (K1/K1b: the kernel events of its CLI run's profiled epoch), max error,
+   serve_control phase, of the train_elastic runs, of the train_hpo
+   trials (K1/K1b: the kernel events of its CLI run's profiled epoch) and
+   of both ranks of the train_mesh runs, max error,
    times at the headline shape and the bound), then, last, the result
    line.
 
@@ -2956,6 +2976,418 @@ def phase_train_hpo(torch, smi, dev, tmp: Path, elastic) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7d: train_mesh — the (data, model, ctx) mesh: NCCL at world 1, then
+# two gloo ranks time-sliced on the one card
+# ---------------------------------------------------------------------------
+
+# the train phase's recipe, one epoch, the tables padded to 2 so one world-1
+# run is the reference of every mesh shape (vocab_pad_multiple auto follows
+# model_axis)
+MESH_RECIPE = dict(terminal_embed_size=100, path_embed_size=100, encode_size=100,
+                   max_path_length=BAG, batch_size=TRAIN_BATCH, dropout_prob=0.25, max_epoch=1,
+                   random_seed=0, print_sample_cycle=0, vocab_pad_multiple=2)
+MESH_SIGTERM_STEP = 4
+# run -> (config updates, the kernels it must launch, world-1 reference route or None)
+MESH_RUNS = {
+    "data2_fused": (dict(data_axis=2, profile_steps=3, **kernel_route("fused")),
+                    ("fused_f32_masked", "fused_f32"), "fused"),
+    "data2_pool_only": (dict(data_axis=2, **kernel_route("pool_only")), ("pool", "pool_bwd"),
+                        "pool_only"),
+    "model2_fused": (dict(model_axis=2, **kernel_route("fused")),
+                     ("fused_f32_masked", "fused_f32"), "fused"),
+    "model2_gather_split": (dict(model_axis=2, **kernel_route("gather_split")),
+                            ("gather_split_masked", "gather_split"), "gather_split"),
+    "host_shard": (dict(data_axis=2, **kernel_route("fused")), ("fused_f32_masked",), None),
+    "device_shard": (dict(data_axis=2, device_epoch=True, shard_staged_corpus=True,
+                          **kernel_route("fused")), ("fused_f32_masked", "fused_f32"), None),
+    # a mid-epoch save at data=2 (SIGTERM to rank 0 after step 4, the ranks'
+    # common stop at the periodic save there), resumed at model=2
+    "reshape_save": (dict(data_axis=2, checkpoint_every_steps=MESH_SIGTERM_STEP,
+                          **kernel_route("fused")),
+                     ("fused_f32_masked",), None),
+    "reshape_resume": (dict(model_axis=2, resume=True, **kernel_route("fused")),
+                       ("fused_f32_masked", "fused_f32"), None),
+}
+MESH_WORKER_TIMEOUT_S = 300
+
+
+def record_steps(torch):
+    """Patch the loop's and the device runner's step to record each step's
+    loss (read back at once): ``(losses list, undo)``."""
+    from code2vec_tpu_torch.train import device_epoch, loop
+
+    losses, real = [], loop.train_step
+
+    def recording(model, optimizer, batch, class_weights):
+        loss = real(model, optimizer, batch, class_weights)
+        losses.append(float(loss))
+        return loss
+
+    loop.train_step = device_epoch.train_step = recording
+
+    def undo():
+        loop.train_step = device_epoch.train_step = real
+
+    return losses, undo
+
+
+def mesh_worker(spec_path: str, rank: int) -> int:
+    """One rank of the train_mesh phase's pair: a gloo group over the one
+    card (``LOCAL_RANK`` 0 on both), formed before ``train()``, then every
+    run of the spec; each run's epochs, per-step losses, launches and the
+    data axis's gradient all-reduces (ms and bytes) saved for the parent."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    spec = json.loads(Path(spec_path).read_text())
+    os.environ["LOCAL_RANK"] = "0"
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dist.init_process_group("gloo", init_method="file://" + spec["init"], rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=120))
+    from code2vec_tpu_torch.checkpoint import restore_checkpoint, slot_path
+    from code2vec_tpu_torch.data.reader import load_corpus
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.parallel import step as pstep
+    from code2vec_tpu_torch.parallel.mesh import make_mesh
+    from code2vec_tpu_torch.parallel.shardings import shard_model, unshard_state
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.loop import model_config_from, train
+    from code2vec_tpu_torch.train.step import make_optimizer
+
+    paths = spec["corpus"]
+    args = (paths["corpus"], paths["path_idx"], paths["terminal_idx"])
+    data = load_corpus(*args, cache=False)
+    losses, _ = record_steps(torch)
+    syncs, real_sync = [], pstep.sync_gradients
+
+    def timed_sync(model, mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = real_sync(model, mesh)
+        torch.cuda.synchronize()
+        syncs.append(((time.perf_counter() - t0) * 1e3, moved))
+        return moved
+
+    pstep.sync_gradients = timed_sync
+    out = {}
+    try:
+        for name in spec["runs"]:
+            updates = dict(MESH_RUNS[name][0])
+            out_dir = spec["ckpt"] if name.startswith("reshape") else None
+            if name == "reshape_save" and rank == 0:
+                updates["fault_plan"] = f"train_step@{MESH_SIGTERM_STEP}:sigterm"
+            config = TrainConfig(**MESH_RECIPE, **updates)
+            run_data = (load_corpus(*args, cache=False, shard=(rank, 2)) if name == "host_shard"
+                        else data)
+            rec = {}
+            if name == "reshape_resume":
+                # every tensor restored onto model=2 equals the data=2 save's bitwise
+                mesh = make_mesh(1, 2, 1)
+                model = Code2Vec(model_config_from(config, data)).to("cuda")
+                shard_model(model, mesh)
+                opt = make_optimizer(model, config)
+                info = {}
+                restore_checkpoint(out_dir, model, opt, np.random.default_rng(0), 2, mesh=mesh,
+                                   info=info)
+                msd, osd = unshard_state(mesh, model, opt)
+                saved = torch.load(slot_path(out_dir, info["slot"]), map_location="cpu",
+                                   weights_only=False)
+                same = all(torch.equal(msd[k].cpu(), v) for k, v in saved["model"].items())
+                for i, st in saved["optimizer"]["state"].items():
+                    for k, v in st.items():
+                        got = osd["state"][i][k]
+                        same &= (torch.equal(got.cpu(), v) if isinstance(v, torch.Tensor)
+                                 else got == v)
+                rec["restore"] = {"bitwise": bool(same), "slot": info["slot"],
+                                  "saved_mesh_shape": info["saved_mesh_shape"],
+                                  "resharded": info["resharded"],
+                                  "cursor_step": saved["meta"]["cursor"]["step"]}
+                del model, opt, msd, osd, saved
+                torch.cuda.empty_cache()
+            epochs = []
+            losses.clear()
+            syncs.clear()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            result = train(config, run_data, out_dir, device="cuda", on_epoch=epochs.append,
+                           sinks=())
+            torch.cuda.synchronize()
+            rec.update(epochs=epochs, losses=list(losses), launches=launch_counts(),
+                       seconds=time.perf_counter() - t0, syncs=list(syncs),
+                       history=result.history)
+            out[name] = rec
+            print(f"mesh rank {rank} {name}: {len(losses)} steps in {rec['seconds']:.1f} s, "
+                  f"launches {rec['launches']}", flush=True)
+            del result
+            torch.cuda.empty_cache()
+    finally:
+        pstep.sync_gradients = real_sync
+        Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(out))
+        dist.destroy_process_group()
+    return 0
+
+
+def mesh_nccl_world1(torch, tmp: Path) -> dict:
+    """(a) The port's collective Functions over an NCCL group of one rank on
+    ``cuda:0``: each equals its expected value (the identity at world 1,
+    forward and backward)."""
+    import torch.distributed as dist
+
+    from code2vec_tpu_torch.parallel import distributed as pd
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp / 'nccl-rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        g = dist.group.WORLD
+        dev = torch.device("cuda", 0)
+        x = torch.randn(4, 6, device=dev, requires_grad=True)
+        checks = {}
+        y = pd.reduce_from_group(x, g)
+        (gy,) = torch.autograd.grad(y, x, torch.ones_like(y))
+        checks["reduce_from_group"] = bool(torch.equal(y, x) and torch.equal(gy, torch.ones_like(x)))
+        y = pd.copy_to_group(x, g)
+        (gy,) = torch.autograd.grad(y, x, 2 * torch.ones_like(y))
+        checks["copy_to_group"] = bool(torch.equal(y, x) and torch.equal(gy, 2 * torch.ones_like(x)))
+        for dim in (0, 1):
+            y = pd.gather_from_group(x, g, dim)
+            cot = torch.randn_like(y)
+            (gy,) = torch.autograd.grad(y, x, cot)
+            checks[f"gather_from_group dim {dim}"] = bool(torch.equal(y, x)
+                                                          and torch.equal(gy, cot))
+        checks["all_reduce_max"] = bool(torch.equal(pd.all_reduce_max(x, g), x.detach()))
+        checks["all_reduce_sum"] = bool(torch.equal(pd.all_reduce_sum(x, g), x.detach()))
+        checks["broadcast_flag"] = pd.broadcast_flag(True) and not pd.broadcast_flag(False)
+        checks["allgather_to_host"] = bool(np.array_equal(
+            pd.allgather_to_host(np.arange(5), pd_mesh_world1()), np.arange(5)))
+        pd.barrier()
+    finally:
+        dist.destroy_process_group()
+    version = ".".join(map(str, torch.cuda.nccl.version()))
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"mesh (a): the collectives over NCCL at world 1 failed {bad}")
+    print(f"mesh (a): NCCL {version} at world 1 on cuda:0: {len(checks)} collective checks "
+          f"pass ({', '.join(checks)})", flush=True)
+    return {"nccl_version": version, "checks": checks}
+
+
+def pd_mesh_world1():
+    """A one-rank mesh whose data line is the world group (NCCL at world 1)."""
+    import torch.distributed as dist
+
+    from code2vec_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh(grid=np.zeros((1, 1, 1), np.int64), rank=0, groups={"data": dist.group.WORLD})
+
+
+def mesh_rows_check(torch, dev, smi) -> dict:
+    """K2 through ``encode_attend_pool_rows``, the wrapper ``gather_split``
+    launches on a row-sharded mesh (its rows from the model line's
+    all-reduce), at the main path's shape and the recipe's widths: f32 and
+    bf16 rows, with and without the keep mask, each held against
+    ``encode_pool_reference`` on the same rows at the K2 tolerance."""
+    from code2vec_tpu_torch.ops.fused_encode_pool import (
+        encode_attend_pool_rows,
+        encode_pool_reference,
+    )
+
+    B, L = TRAIN_SHAPE
+    et, ep, H = (MESH_RECIPE[k] for k in ("terminal_embed_size", "path_embed_size",
+                                           "encode_size"))
+    D = 2 * et + ep
+    g = torch.Generator(device=dev).manual_seed(1717)
+    rows = [torch.randn(B, L, w, generator=g, device=dev) for w in (et, ep, et)]
+    mask = bag_keep(torch, dev, g, B, L).float()
+    params = (torch.randn(D, H, generator=g, device=dev) / math.sqrt(D),
+              1.0 + 0.1 * torch.randn(H, generator=g, device=dev),
+              0.1 * torch.randn(H, generator=g, device=dev),
+              0.08 * torch.randn(H, generator=g, device=dev))
+    drop = torch.empty(B, L, H, device=dev).bernoulli_(KEEP, generator=g) / KEEP
+    out = {}
+    for cd, label in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        cast = [r.to(cd) for r in rows]
+        for keep in (None, drop):
+            name = f"{label}{'' if keep is None else ' masked'}"
+            cv, w = encode_attend_pool_rows(*cast, mask, *params, keep, compute_dtype=cd)
+            cv_ref, w_ref = encode_pool_reference(*cast, mask, *params, keep)
+            torch.cuda.synchronize()
+            if not (torch.isfinite(cv).all() and torch.isfinite(w).all()):
+                raise AssertionError(f"mesh K2 over rows {name}: non-finite output")
+            torch.testing.assert_close(cv, cv_ref, rtol=TOL, atol=TOL)
+            torch.testing.assert_close(w, w_ref, rtol=TOL, atol=TOL)
+            out[name] = max((cv - cv_ref).abs().max().item(), (w - w_ref).abs().max().item())
+    print(f"mesh K2 over gathered rows (encode_attend_pool_rows) at {(B, L)}, widths "
+          f"{(et, ep, et)} -> {H}, against encode_pool_reference within rtol=atol={TOL}: "
+          + ", ".join(f"{k} max_abs_err={v:.3e}" for k, v in out.items()) + f" [{smi}]",
+          flush=True)
+    return out
+
+
+def mesh_references(torch, dev, data) -> dict:
+    """The world-1 runs the mesh runs are held against: fused, pool_only
+    and gather_split at the recipe, each step's loss recorded."""
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.loop import train
+
+    refs = {}
+    for route in ("fused", "pool_only", "gather_split"):
+        losses, undo = record_steps(torch)
+        try:
+            epochs = []
+            train(TrainConfig(**MESH_RECIPE, **kernel_route(route)), data, device=dev,
+                  on_epoch=epochs.append, sinks=())
+        finally:
+            undo()
+        refs[route] = {"losses": list(losses), "epochs": epochs}
+        print(f"mesh reference world 1 {route}: step losses "
+              f"{[round(x, 6) for x in losses]}", flush=True)
+    return refs
+
+
+def rel_gap(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want))) if len(want) else 0.0
+
+
+def phase_train_mesh(torch, smi, dev, tmp: Path, elastic) -> dict:
+    """(a) NCCL at world 1, and K2 over gathered rows against its plain
+    version; (b) two gloo ranks on the one card, each a
+    process this script starts (``LOCAL_RANK`` 0), through every run of
+    ``MESH_RUNS``: the ranks' per-step losses bitwise equal, data=2 and
+    model=2 within rtol 2e-5 of the world-1 run of their route, the host-sharded and the
+    sharded device-epoch runs, the reshape restore bitwise; a data=2 step's
+    device and collective ms and the bytes it all-reduces (gloo on one
+    time-sliced card, not NCCL across cards)."""
+    import shutil
+
+    from code2vec_tpu_torch.data.reader import load_corpus
+
+    root = tmp / "mesh"
+    root.mkdir(parents=True, exist_ok=True)
+    out = {"a": mesh_nccl_world1(torch, root), "rows_kernel": mesh_rows_check(torch, dev, smi)}
+    paths = (elastic or {}).get("corpus_paths")
+    if paths is None:
+        paths = write_raw_corpus(train_corpus()[0], root / "corpus")
+    data = load_corpus(paths["corpus"], paths["path_idx"], paths["terminal_idx"], cache=False)
+    refs = mesh_references(torch, dev, data)
+    del data
+    torch.cuda.empty_cache()
+    spec = {"init": str(root / "gloo-rendezvous"), "out": str(root), "corpus": paths,
+            "ckpt": str(root / "ckpt"), "runs": list(MESH_RUNS)}
+    (root / "spec.json").write_text(json.dumps(spec))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh_worker",
+                               str(root / "spec.json"), str(r)],
+                              stdout=open(root / f"rank{r}.log", "w"), stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        for proc in procs:
+            proc.wait(timeout=MESH_WORKER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    for r, proc in enumerate(procs):
+        log = (root / f"rank{r}.log").read_text()
+        print("\n".join(f"  [rank {r}] {line}" for line in log.splitlines()
+                        if line.startswith("mesh rank") or "Error" in line
+                        or "Traceback" in line)[-4000:], flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"mesh (b): rank {r} exited {proc.returncode}:\n{log[-6000:]}")
+    ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(2)]
+    bad, runs = [], {}
+    for name, (_, keys, ref) in MESH_RUNS.items():
+        r0, r1 = ranks[0][name], ranks[1][name]
+        metrics = ("train_loss", "test_loss", "accuracy", "f1")
+        if r0["losses"] != r1["losses"] or [[e[k] for k in metrics] for e in r0["epochs"]] != \
+                [[e[k] for k in metrics] for e in r1["epochs"]]:
+            bad.append(f"{name}: the ranks' losses differ")
+        if not all(math.isfinite(x) for x in r0["losses"]) or not r0["losses"]:
+            bad.append(f"{name}: losses {r0['losses']}")
+        missing = [k for k in keys if r0["launches"].get(k, 0) < 1 or r1["launches"].get(k, 0) < 1]
+        if missing:
+            bad.append(f"{name}: never launched {missing} ({r0['launches']})")
+        gap = None
+        if ref is not None:
+            gap = rel_gap(r0["losses"], refs[ref]["losses"])
+            if gap > 2e-5:
+                bad.append(f"{name}: step losses {gap:.3e} from world 1 ({ref}), bar 2e-5")
+        runs[name] = {"losses": r0["losses"], "launches": [r0["launches"], r1["launches"]],
+                      "seconds": [r0["seconds"], r1["seconds"]], "gap_to_world1": gap,
+                      "epochs": [r0["epochs"], r1["epochs"]]}
+        print(f"mesh (b) {name}: {len(r0['losses'])} steps, ranks bitwise "
+              f"{r0['losses'] == r1['losses']}, gap to world 1 "
+              f"{'-' if gap is None else f'{gap:.3e}'}, seconds {r0['seconds']:.1f}, "
+              f"rank 0 launches {r0['launches']} [{smi}]", flush=True)
+    # the host-sharded feed and the sharded staging: each rank its share
+    shard = ranks[0]["host_shard"]["epochs"][0], ranks[1]["host_shard"]["epochs"][0]
+    if shard[0]["train_loss"] != shard[1]["train_loss"] or shard[0]["f1"] != shard[1]["f1"]:
+        bad.append("host_shard: the ranks' epoch metrics differ")
+    staged = [ranks[r]["device_shard"]["epochs"][0]["staged_bytes"] for r in range(2)]
+    share = staged[0] / sum(staged)
+    if not 0.4 <= share <= 0.6:
+        bad.append(f"device_shard: staged bytes {staged} (rank 0's share {share:.3f})")
+    # the reshape: restored bitwise onto model=2, the resumed tail within rtol
+    # 2e-5 of the world-1 run's steps and epoch loss
+    restore = ranks[0]["reshape_resume"]["restore"]
+    tail = ranks[0]["reshape_resume"]["losses"]
+    want_tail = refs["fused"]["losses"][MESH_SIGTERM_STEP:]
+    tail_gap = rel_gap(tail, want_tail)
+    epoch_gap = rel_gap([ranks[0]["reshape_resume"]["epochs"][0]["train_loss"]],
+                        [refs["fused"]["epochs"][0]["train_loss"]])
+    saved_steps = len(ranks[0]["reshape_save"]["losses"])
+    if not (restore["bitwise"] and restore["cursor_step"] == MESH_SIGTERM_STEP
+            and saved_steps == MESH_SIGTERM_STEP and restore["resharded"]
+            and len(tail) == len(want_tail)):
+        bad.append(f"reshape: restore {restore}, {saved_steps} steps saved, tail {len(tail)}")
+    if max(tail_gap, epoch_gap) > 2e-5:
+        bad.append(f"reshape: resumed losses {tail_gap:.3e} / epoch {epoch_gap:.3e} from "
+                   "world 1, bar 2e-5")
+    # a data=2 step: the device ms (the profiled steps' compute less the
+    # all-reduce) and the collective ms, gloo on one time-sliced card
+    d2 = ranks[0]["data2_fused"]
+    sync_ms = [ms for ms, _ in d2["syncs"]]
+    grad_bytes = d2["syncs"][0][1] if d2["syncs"] else 0
+    compute_ms = d2["epochs"][0].get("compute_ms")
+    collective_ms = float(np.median(sync_ms)) if sync_ms else None
+    out["b"] = {"runs": runs, "seconds": seconds, "staged_bytes": staged,
+                "restore": restore, "reshape_tail_gap": tail_gap, "reshape_epoch_gap": epoch_gap,
+                "data2_step": {"compute_ms": compute_ms, "collective_ms": collective_ms,
+                               "device_ms": (None if compute_ms is None or collective_ms is None
+                                             else compute_ms - collective_ms),
+                               "all_reduce_bytes": grad_bytes, "sync_ms": sync_ms}}
+    print(f"mesh (b): the pair ran {len(MESH_RUNS)} runs in {seconds:.1f} s; host-sharded "
+          f"epoch loss {shard[0]['train_loss']:.6f} on both ranks; sharded staging "
+          f"{staged} bytes (rank 0 {share:.3f} of the sum); reshape: restore {restore}, the "
+          f"resumed steps {tail_gap:.3e} and the epoch loss {epoch_gap:.3e} from world 1 "
+          f"[{smi}]", flush=True)
+    print(f"mesh (b) data=2 step, gloo on one time-sliced card (not NCCL across cards): "
+          f"profiled step {compute_ms} ms of which the gradient all-reduce "
+          f"{collective_ms} ms (median of {len(sync_ms)}), so device+host {out['b']['data2_step']['device_ms']} ms; "
+          f"{grad_bytes} bytes all-reduced a step [{smi}]", flush=True)
+    if bad:
+        raise AssertionError("train_mesh:\n  " + "\n  ".join(bad))
+    out["launches"] = {}
+    for r in range(2):
+        for rec in ranks[r].values():
+            for key, n in rec["launches"].items():
+                out["launches"][key] = out["launches"].get(key, 0) + n
+    print(f"train_mesh launches (both ranks): {json.dumps(out['launches'])}", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8: bucketed and long-bag training
 # ---------------------------------------------------------------------------
 
@@ -4706,7 +5138,11 @@ def main() -> int:
     parser.add_argument("--phases", default=None,
                         help="run only these phases (comma list) after device and build, and "
                              "print no result line: for working on one phase")
+    parser.add_argument("--mesh_worker", nargs=2, metavar=("SPEC", "RANK"), default=None,
+                        help=argparse.SUPPRESS)  # one rank of the train_mesh phase's pair
     args = parser.parse_args()
+    if args.mesh_worker is not None:
+        return mesh_worker(args.mesh_worker[0], int(args.mesh_worker[1]))
     only = set(args.phases.split(",")) if args.phases else None
 
     import torch
@@ -4793,6 +5229,7 @@ def main() -> int:
         trained = phase("train", phase_train, torch, smi, dev, model_dir)
         elastic = phase("train_elastic", phase_train_elastic, torch, smi, dev, model_dir)
         searched = phase("train_hpo", phase_train_hpo, torch, smi, dev, model_dir, elastic)
+        meshed = phase("train_mesh", phase_train_mesh, torch, smi, dev, model_dir, elastic)
         bucketed = phase("train_bucketed", phase_train_bucketed, torch, smi, dev, model_dir)
         bf16_train = phase("train_bf16", phase_train_bf16, torch, smi, dev, model_dir, trained)
         lazy_train = phase("train_lazy", phase_train_lazy, torch, smi, dev, trained, bucketed,
@@ -4851,6 +5288,7 @@ def main() -> int:
     print(f"train_feed launches: {json.dumps(feed_counts)}")
     el_counts = elastic["launches"]  # the train_elastic phase's runs (printed there)
     hpo_counts = searched["launches"]  # the train_hpo phase's trials and CLI run (printed there)
+    mesh_counts = meshed["launches"]  # the train_mesh phase's runs, both ranks (printed there)
     line = []
     for name, rec in kernels.items():
         timed = next(r for r in rec["rows"] if (r["B"], r["L"]) == rec["timed"])
@@ -4861,7 +5299,8 @@ def main() -> int:
                          + device_counts.get(rec["key"], 0) + var_counts.get(rec["key"], 0)
                          + py_counts.get(rec["key"], 0) + feed_counts.get(rec["key"], 0)
                          + control["launches"].get(rec["key"], 0)
-                         + el_counts.get(rec["key"], 0) + hpo_counts.get(rec["key"], 0)),
+                         + el_counts.get(rec["key"], 0) + hpo_counts.get(rec["key"], 0)
+                         + mesh_counts.get(rec["key"], 0)),
             "max_abs_err": max(r["max_abs_err"] for r in rec["rows"]),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -4888,6 +5327,7 @@ def main() -> int:
              "serve": serve,
              "longbag": longbag, "retrieval": retrieval, "serve_control": control,
              "train": trained, "train_elastic": elastic, "train_hpo": searched,
+             "train_mesh": meshed,
              "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train,
              "train_device": device_train, "train_feed": feed_train, "extract": extracted,
              "train_variable": variable,

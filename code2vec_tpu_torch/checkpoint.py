@@ -34,6 +34,17 @@ returns the live tensors the next optimizer step updates in place) and a
 persist thread, at most one save in flight; a persist failure is stored
 and re-raised at the next save or at :meth:`CheckpointWriter.finish`.
 
+On a mesh (a model given ``parallel/shardings.shard_model``) a slot holds
+global tensors: every rank gathers its shards over the model line, rank 0
+writes the file JAX's orbax write would hold plus a
+``checkpoint_<slot>.shardings.json`` sidecar in JAX's ``pytree_spec_doc``
+format (also kept in the file), and the ranks then meet at a barrier. The
+async writer persists on rank 0 only. On restore every rank reads the
+file, validates the saved specs against its mesh (SC001, SC002) and
+slices its shards of the global tensors (JAX's divisibility rule), so a
+restore onto another mesh shape (``saved_mesh_shape``) is a re-slice (JAX
+``checkpoint.py:19-20``, ``:616-731``).
+
 The optimizer's first moments are saved in their own dtype (bf16 with
 ``--adam_mu_dtype bfloat16``); a resume under the other dtype raises, as the
 JAX restore does, and so does a resume under the other ``--table_update``
@@ -43,6 +54,7 @@ JAX restore does, and so does a resume under the other ``--table_update``
 from __future__ import annotations
 
 import copy
+import json
 import logging
 import os
 import pickle
@@ -97,6 +109,26 @@ def slot_path(out_dir: str, slot: str) -> str:
     return os.path.join(out_dir, f"checkpoint_{slot}.pt")
 
 
+def sidecar_path(out_dir: str, slot: str) -> str:
+    """The slot's ``shardings.json`` sidecar (a mesh run's)."""
+    return os.path.join(out_dir, f"checkpoint_{slot}.shardings.json")
+
+
+def _writes(model) -> bool:
+    """Whether this rank writes the model dir: rank 0 of a mesh, or a run
+    without one."""
+    mesh = getattr(model, "mesh", None)
+    return mesh is None or mesh.rank == 0
+
+
+def _meet(model) -> None:
+    """A mesh's ranks wait for each other (a save is on disk for all)."""
+    if getattr(model, "mesh", None) is not None:
+        from code2vec_tpu_torch.parallel.distributed import barrier
+
+        barrier()
+
+
 def _slot_key(meta: dict) -> tuple[int, int]:
     """The order of two saves: the later epoch, then the later step (a
     mid-epoch save re-enters its epoch, so it sorts after the boundary
@@ -114,9 +146,19 @@ def _state_dict(model, optimizer, meta: TrainMeta, np_rng: np.random.Generator,
     meta.adam_mu_dtype = adam_mu_dtype(optimizer)
     meta.table_update = table_update(optimizer)
     gen = model.dropout_generator(next(model.parameters()).device)
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        model_sd, optim_sd, doc = model.state_dict(), optimizer.state_dict(), None
+    else:
+        from code2vec_tpu_torch.parallel.shardings import pytree_spec_doc, unshard_state
+
+        # collective: every rank gathers its shards to the global tensors
+        model_sd, optim_sd = unshard_state(mesh, model, optimizer)
+        doc = pytree_spec_doc(mesh, model, optimizer)
     return {
-        "model": model.state_dict(),
-        "optimizer": optimizer.state_dict(),
+        "model": model_sd,
+        "optimizer": optim_sd,
+        "shardings": doc,
         "meta": asdict(meta),
         "np_rng_state": copy.deepcopy(np_rng.bit_generator.state),
         "dropout_rng_state": gen.get_state(),
@@ -176,6 +218,11 @@ def _publish(out_dir: str, slot: str, state: dict) -> str:
     torch.save(state, tmp)
     faultinject.fault_point("mid_save", slot=slot, step=step)
     os.replace(tmp, path)
+    if state.get("shardings") is not None:
+        sidecar = sidecar_path(out_dir, slot)
+        with open(f"{sidecar}.tmp{os.getpid()}", "w", encoding="utf-8") as f:
+            json.dump(state["shardings"], f, indent=1)
+        os.replace(f"{sidecar}.tmp{os.getpid()}", sidecar)
     if slot == "best":
         last = slot_path(out_dir, "last")
         if os.path.exists(last):
@@ -191,7 +238,10 @@ def save_checkpoint(out_dir: str, slot: str, model, optimizer, meta: TrainMeta,
     """Write ``slot`` synchronously and atomically. ``sampler`` is the
     device-epoch sampler's generator, if any."""
     faultinject.fault_point("pre_save", slot=slot)
-    return _publish(out_dir, slot, _state_dict(model, optimizer, meta, np_rng, sampler))
+    state = _state_dict(model, optimizer, meta, np_rng, sampler)
+    path = _publish(out_dir, slot, state) if _writes(model) else slot_path(out_dir, slot)
+    _meet(model)
+    return path
 
 
 def sweep_staging_files(out_dir: str) -> None:
@@ -214,9 +264,9 @@ def clear_checkpoints(out_dir: str) -> None:
     run in the same dir could otherwise win a later ``--resume``. Staging
     files are swept too."""
     for slot in SLOTS:
-        path = slot_path(out_dir, slot)
-        if os.path.exists(path):
-            os.remove(path)
+        for path in (slot_path(out_dir, slot), sidecar_path(out_dir, slot)):
+            if os.path.exists(path):
+                os.remove(path)
     sweep_staging_files(out_dir)
 
 
@@ -274,11 +324,13 @@ class CheckpointWriter:
             thread.join()
             self._thread = None
 
-    def finish(self) -> None:
+    def finish(self, model=None) -> None:
         """Drain the save in flight and raise its failure: the loop's
-        barrier on a normal end."""
+        barrier on a normal end (and, on a mesh, the ranks' barrier)."""
         self.wait()
         self.check()
+        if model is not None:
+            _meet(model)
 
     def close(self) -> None:
         """The ``finally`` form: drain and log a failure, so an exception
@@ -306,13 +358,16 @@ class CheckpointWriter:
                                        sampler)
             record["blocking_ms"] = (time.perf_counter() - t0) * 1e3
             record["persist_s"] = record["blocking_ms"] / 1e3
-            self._emit(slot, path, record["step"], False, event_fields)
+            if _writes(model):
+                self._emit(slot, path, record["step"], False, event_fields)
             return path
         faultinject.fault_point("pre_save", slot=slot)
         with self.tracer.span("checkpoint_save.snapshot", category="checkpoint", slot=slot,
                               **event_fields):
             state = snapshot_state(model, optimizer, meta, np_rng, sampler, self._pinned)
         record["blocking_ms"] = (time.perf_counter() - t0) * 1e3
+        if not _writes(model):
+            return slot_path(self.out_dir, slot)  # rank 0 persists a mesh's save
         self._thread = threading.Thread(target=self._persist,
                                         args=(slot, state, record, event_fields),
                                         name="c2v-ckpt-persist", daemon=True)
@@ -340,14 +395,18 @@ class CheckpointWriter:
 def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generator,
                        vocab_pad_multiple: int, prefer_best: bool = False,
                        sampler: torch.Generator | None = None,
-                       info: dict | None = None) -> TrainMeta | None:
+                       info: dict | None = None, mesh=None) -> TrainMeta | None:
     """Load the newest slot (the later epoch, then the later step; the
     best slot with ``prefer_best``) into ``model``, ``optimizer`` (may be
     None), ``np_rng`` and ``sampler`` (the device-epoch sampler's
     generator, may be None; a checkpoint of a host-path run holds no
     sampler state, and the sampler then stays freshly seeded, which is
     logged); return its meta (with its cursor), or None when there is
-    none. ``info`` (a dict) receives the restored ``slot`` and ``path``. A slot file that does not load is skipped with a warning. An
+    none. ``info`` (a dict) receives the restored ``slot``, ``path``,
+    ``saved_mesh_shape`` and ``resharded``. ``mesh``: the restoring run's
+    (``model`` sharded on it): the saved specs are validated against it and
+    the global tensors sliced to its shards (a checkpoint of another mesh
+    shape, or of one device, restores by re-slicing). A slot file that does not load is skipped with a warning. An
     optimizer whose first moments are stored in another dtype than the
     checkpoint's, or that steps the tables otherwise (``--table_update``),
     raises with the flag that resumes it."""
@@ -394,9 +453,26 @@ def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generat
                 f"the checkpoint in {out_dir} stores Adam first moments as {saved_mu} but "
                 f"this run uses {want_mu}; pass --adam_mu_dtype {saved_mu} to resume it"
             )
-    model.load_state_dict(state["model"])
+    model_sd, optim_sd = state["model"], state["optimizer"]
+    doc = state.get("shardings")
+    saved_mesh_shape = doc.get("mesh_shape") if doc else None
+    if mesh is not None:
+        from code2vec_tpu_torch.parallel.shardings import shard_state, validate_runtime_spec
+
+        problems = [p for key, entries in ((doc or {}).get("specs") or {}).items() if entries
+                    for p in validate_runtime_spec(entries, mesh.axis_names, context=key)]
+        if problems:
+            raise ValueError(f"the checkpoint in {path} carries specs that do not fit the "
+                             "restore mesh:\n  " + "\n  ".join(problems))
+        model_sd, optim_sd = shard_state(mesh, model, model_sd, optimizer,
+                                         optim_sd if optimizer is not None else None)
+    if info is not None:
+        info.update(saved_mesh_shape=saved_mesh_shape,
+                    resharded=saved_mesh_shape != (dict(mesh.shape) if mesh is not None
+                                                   else None))
+    model.load_state_dict(model_sd)
     if optimizer is not None:
-        optimizer.load_state_dict(state["optimizer"])
+        optimizer.load_state_dict(optim_sd)
     np_rng.bit_generator.state = state["np_rng_state"]
     device = next(model.parameters()).device
     model.dropout_generator(device).set_state(state["dropout_rng_state"])

@@ -50,12 +50,23 @@ scalars under ``--tensorboard_dir`` (needs tensorboardX);
 a ``torch.profiler`` trace of the second epoch (of the first trial in a
 search).
 
+Several cards (JAX ``cli.py:168-186``, ``:246-252``, ``:511-535``):
+``torchrun --nproc_per_node N -m code2vec_tpu_torch --data_axis D
+--model_axis M --context_axis C`` with ``D * M * C == N`` trains on the
+``(data, model, ctx)`` mesh (``parallel/``), each rank on
+``cuda:LOCAL_RANK``: the process group is formed from torchrun's (or JAX's
+``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``) environment,
+NCCL on the card, gloo with ``--device cpu``. ``--host_shard_corpus``
+loads each feed group's round-robin share of the corpus;
+``--shard_staged_corpus`` (with ``--device_epoch``) stages each rank's
+share on its card.
+
 The reference's ``--gpu`` and ``--num_workers`` are accepted and do
 nothing (the card is ``--device``; the host feed is ``--feed_workers``).
 JAX's TPU knobs ``--rng_impl``, ``--pallas_block_b`` and
-``--pallas_dma_depth``, and the flags of features not ported yet (the mesh
-axes), are accepted at their defaults and raise otherwise
-(``TrainConfig.validate``, ROADMAP §A.2).
+``--pallas_dma_depth``, and ``--pallas_impl auto`` (the autotuner, not
+ported yet), are accepted at their defaults and raise otherwise
+(``TrainConfig.validate``, ROADMAP §A.7).
 """
 
 from __future__ import annotations
@@ -271,10 +282,21 @@ def build_parser() -> argparse.ArgumentParser:
                              "the input pipeline, the prefetch producer and the train / eval / "
                              "checkpoint phases; obs/trace.py)")
 
-    # accepted at their defaults only: the features are not ported yet
-    parser.add_argument("--data_axis", type=int, default=1)
-    parser.add_argument("--model_axis", type=int, default=1)
-    parser.add_argument("--context_axis", type=int, default=1)
+    # the mesh (parallel/; JAX cli.py:168-186, :246-252)
+    parser.add_argument("--data_axis", type=int, default=1,
+                        help="mesh data-parallel axis size")
+    parser.add_argument("--model_axis", type=int, default=1,
+                        help="mesh model-parallel axis size (shards the vocab tables and the "
+                             "label head)")
+    parser.add_argument("--context_axis", type=int, default=1,
+                        help="mesh context-parallel axis size (shards the bag)")
+    parser.add_argument("--host_shard_corpus", action="store_true", default=False,
+                        help="each feed group (the ranks of one data coordinate) loads only "
+                             "its round-robin share of the corpus")
+    parser.add_argument("--shard_staged_corpus", action="store_true", default=False,
+                        help="partition the device-staged corpus over the data axis instead "
+                             "of replicating it (each card holds ~1/data_axis; needs "
+                             "--device_epoch, context_axis 1)")
     return parser
 
 
@@ -290,6 +312,7 @@ _CONFIG_FLAGS = (
     "device_epoch", "device_chunk_batches", "sample_prefetch", "stream_chunk_items",
     "feed_workers", "prefetch_batches", "profile_steps", "async_checkpoint",
     "checkpoint_every_steps", "fault_plan", "rng_impl", "pallas_block_b", "pallas_dma_depth",
+    "shard_staged_corpus",
 )
 
 
@@ -357,6 +380,30 @@ def close_telemetry(args: argparse.Namespace, events, tracer) -> None:
             logger.warning("could not close the event log", exc_info=True)
 
 
+def _host_shard(args: argparse.Namespace) -> tuple[int, int] | None:
+    """``--host_shard_corpus``'s ``(feed group, groups)``: the rank's data
+    coordinate on the mesh (JAX ``cli.py:511-547``), not its rank, so the
+    ranks of one data coordinate load the same share."""
+    if not args.host_shard_corpus:
+        return None
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if world == 1:
+        logger.warning("--host_shard_corpus with a single process: launch with torchrun "
+                       "--nproc_per_node N to form the process group; loading the full corpus")
+        return None
+    if args.data_axis * args.model_axis * args.context_axis <= 1:
+        raise SystemExit("--host_shard_corpus requires mesh axes (--data_axis / --model_axis / "
+                         "--context_axis)")
+    from code2vec_tpu_torch.parallel.mesh import mesh_grid
+
+    import numpy as np
+
+    grid = mesh_grid(args.data_axis, args.model_axis, args.context_axis, world)
+    return int(np.argwhere(grid == dist.get_rank())[0][0]), args.data_axis
+
+
 def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s: %(message)s",
                         datefmt="%m/%d/%Y %I:%M:%S %p")
@@ -367,6 +414,11 @@ def main(argv: list[str] | None = None) -> int:
     config = config_from_args(args)
     config.validate(training=not args.export_only)
     device = device_from_args(args)
+    # the process group of a mesh run (torchrun's environment; a no-op alone)
+    from code2vec_tpu_torch.parallel.distributed import initialize_from_env
+
+    formed = initialize_from_env(device)
+    shard = _host_shard(args)
 
     from code2vec_tpu_torch.data.reader import load_corpus
 
@@ -398,7 +450,7 @@ def main(argv: list[str] | None = None) -> int:
         data = load_corpus(args.corpus_path, args.path_idx_path, args.terminal_idx_path,
                            infer_method=args.infer_method_name,
                            infer_variable=args.infer_variable_name,
-                           cache=not args.no_corpus_cache)
+                           cache=not args.no_corpus_cache, shard=shard)
         if args.find_hyperparams:
             from code2vec_tpu_torch.hpo import find_optimal_hyperparams
 
@@ -439,6 +491,12 @@ def main(argv: list[str] | None = None) -> int:
         close_telemetry(args, events, tracer)
         if synth_dir is not None:
             synth_dir.cleanup()
+        if formed:
+            # the group's transport threads stop here, not in the
+            # interpreter's teardown (where gloo's can abort the process)
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -30,9 +30,12 @@ batches gathered straight from the mapped arrays. Each method-task source
 splits its stream into plans (every draw of the generator, made in the
 stream's order) and a pure build (:func:`execute_plan`), which
 ``data/parallel_feed.py`` runs on worker processes. :func:`skip_batches`
-replays an epoch's stream to a mid-epoch cursor (``:955-1000``). Not
-ported yet: the host-sharded lockstep feed (``scheduled_batches``,
-``empty_batch``, ``pad_batch_stream``; ROADMAP §A.2.9).
+replays an epoch's stream to a mid-epoch cursor (``:955-1000``). The
+host-sharded lockstep feed of a mesh: :func:`empty_batch` and
+:func:`pad_batch_stream` (``:1002``, ``:1015``) pad a short shard's stream
+with masked batches, and ``scheduled_batches`` (the in-RAM and mmap-CSR
+sources, :func:`iter_scheduled_bucketed_batches`; ``:761``, ``:1186``,
+``:1497``) follows a bucket-width schedule every feed group agrees on.
 """
 
 from __future__ import annotations
@@ -69,10 +72,14 @@ def split_items(n_items: int, rng: np.random.Generator,
     return perm[test_count:], perm[:test_count]
 
 
-def flat_context_indices(row_splits: np.ndarray, item_idx: np.ndarray
+def flat_context_indices(row_splits: np.ndarray, item_idx: np.ndarray,
+                         row_base: np.ndarray | None = None
                          ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Vectorized CSR row gather: for the selected items, the flat indices
-    of all their contexts and each one's (segment, position in segment)."""
+    of all their contexts and each one's (segment, position in segment).
+    ``row_base`` (a host-sharded mmap corpus, ``CorpusData.row_base``):
+    each item's first context in the flat arrays, where its local
+    ``row_splits`` do not say it."""
     counts = (row_splits[item_idx + 1] - row_splits[item_idx]).astype(np.int64)
     total = int(counts.sum())
     if total == 0:
@@ -81,7 +88,8 @@ def flat_context_indices(row_splits: np.ndarray, item_idx: np.ndarray
     seg = np.repeat(np.arange(len(item_idx), dtype=np.int64), counts)
     seg_starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
     within = np.arange(total, dtype=np.int64) - np.repeat(seg_starts, counts)
-    flat = np.repeat(row_splits[item_idx], counts) + within
+    base = row_splits[item_idx] if row_base is None else row_base[item_idx]
+    flat = np.repeat(base, counts) + within
     return flat, seg, within
 
 
@@ -89,7 +97,8 @@ CONTEXT_ORDERS = ("shuffled", "corpus")
 
 
 def _segment_subsample(row_splits: np.ndarray, item_idx: np.ndarray, max_contexts: int,
-                       rng: np.random.Generator, context_order: str = "shuffled"
+                       rng: np.random.Generator, context_order: str = "shuffled",
+                       row_base: np.ndarray | None = None
                        ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Up to ``max_contexts`` random contexts per selected item:
     ``(flat_idx, out_row, out_col)``. "Shuffle each method's contexts, keep
@@ -98,7 +107,7 @@ def _segment_subsample(row_splits: np.ndarray, item_idx: np.ndarray, max_context
     ``context_order="corpus"`` puts the kept contexts back in corpus order:
     the same draws and the same kept subset, only their places in the row
     change, so rows built at different stream positions compare bitwise."""
-    flat, seg, within = flat_context_indices(row_splits, item_idx)
+    flat, seg, within = flat_context_indices(row_splits, item_idx, row_base)
     if len(flat) == 0:
         return flat, seg, within
     order = np.lexsort((rng.random(len(flat)), seg))
@@ -125,7 +134,7 @@ def build_method_epoch(data, item_idx: np.ndarray, max_contexts: int,
 def _build_method_epoch(data, item_idx, max_contexts, rng, context_order) -> EpochArrays:
     n = len(item_idx)
     flat, row, col = _segment_subsample(data.row_splits, item_idx, max_contexts, rng,
-                                        context_order)
+                                        context_order, getattr(data, "row_base", None))
     starts = np.full((n, max_contexts), PAD_INDEX, np.int32)
     paths = np.full((n, max_contexts), PAD_INDEX, np.int32)
     ends = np.full((n, max_contexts), PAD_INDEX, np.int32)
@@ -153,7 +162,9 @@ def variable_items(data, item_idx: np.ndarray):
         if not alias_names:
             continue
         alias_idx = np.asarray([terminal_stoi[a] for a in alias_names], dtype=np.int32)
-        lo, hi = int(data.row_splits[i]), int(data.row_splits[i + 1])
+        base = getattr(data, "row_base", None)
+        lo = int(data.row_splits[i] if base is None else base[i])
+        hi = lo + int(data.row_splits[i + 1] - data.row_splits[i])
         s, p, e = data.starts[lo:hi], data.paths[lo:hi], data.ends[lo:hi]
         touches = np.isin(s, alias_idx) | np.isin(e, alias_idx)
         yield i, alias_names, alias_idx, s[touches], p[touches], e[touches]
@@ -540,6 +551,62 @@ def bucket_batch_counts(counts: np.ndarray, ladder: tuple[int, ...],
     return -(-members // batch_size)
 
 
+def iter_scheduled_bucketed_batches(epoch: EpochArrays, ladder: tuple[int, ...],
+                                    batch_size: int, schedule: np.ndarray,
+                                    rng: np.random.Generator | None = None
+                                    ) -> Iterator[dict[str, np.ndarray]]:
+    """Bucketed batches following a width ``schedule`` agreed by every feed
+    group (one width a step; JAX ``:761``): a group whose rows of a width
+    run out emits :func:`empty_batch` es for the rest of that width's
+    steps, so every rank enters the same collectives in lockstep. ``rng``
+    shuffles each bucket's members (None: in order)."""
+    bucket_of = assign_buckets(epoch_context_counts(epoch), ladder)
+    queues: dict[int, np.ndarray] = {}
+    heads: dict[int, int] = {}
+    for b, width in enumerate(ladder):
+        members = np.flatnonzero(bucket_of == b)
+        if rng is not None:
+            members = members[rng.permutation(len(members))]
+        queues[int(width)] = members
+        heads[int(width)] = 0
+    for width in schedule:
+        width = int(width)
+        members, head = queues[width], heads[width]
+        idx = members[head:head + batch_size]
+        heads[width] = head + len(idx)
+        if len(idx) == 0:
+            yield empty_batch(batch_size, width)
+        else:
+            yield _bucket_batch(epoch, idx, width, batch_size)
+
+
+def empty_batch(batch_size: int, max_contexts: int) -> dict[str, np.ndarray]:
+    """A fully masked all-PAD batch: the step a rank whose shard ran out
+    still takes, so it enters every collective (JAX ``:1002``)."""
+    bag = (batch_size, max_contexts)
+    return {
+        "ids": np.zeros(batch_size, np.int64),
+        "starts": np.full(bag, PAD_INDEX, np.int32),
+        "paths": np.full(bag, PAD_INDEX, np.int32),
+        "ends": np.full(bag, PAD_INDEX, np.int32),
+        "labels": np.zeros(batch_size, np.int32),
+        "example_mask": np.zeros(batch_size, np.float32),
+    }
+
+
+def pad_batch_stream(batches: Iterator[dict[str, np.ndarray]], n_steps: int,
+                     template: dict[str, np.ndarray]) -> Iterator[dict[str, np.ndarray]]:
+    """Exactly ``n_steps`` batches: ``batches``, then ``template`` (an
+    :func:`empty_batch`) until the count is reached (JAX ``:1015``)."""
+    count = 0
+    for batch in batches:
+        count += 1
+        yield batch
+    while count < n_steps:
+        count += 1
+        yield template
+
+
 def iter_streaming_batches(epoch_builder, item_idx: np.ndarray, batch_size: int,
                            rng: np.random.Generator, chunk_items: int = 65536,
                            pad_final: bool = True, shuffle: bool = True,
@@ -663,6 +730,15 @@ class BatchSource:
             f"{type(self).__name__} has no batch-plan split; --feed_workers supports the "
             "in-RAM, streaming and mmap-CSR method-task sources")
 
+    def scheduled_batches(self, rng: np.random.Generator, schedule: np.ndarray,
+                          shuffle: bool = True) -> Iterator[dict[str, np.ndarray]]:
+        """The stream following an agreed width ``schedule`` (host-sharded
+        bucketed lockstep; JAX ``:1074``)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} cannot follow an external width schedule (host-sharded "
+            "bucketed feeding); use the in-RAM or mmap-CSR source (convert the corpus with "
+            "tools/corpus_convert.py and pass --corpus_format csr)")
+
     def pad_stats(self) -> tuple[int, int] | None:
         return self._last_pad
 
@@ -723,6 +799,17 @@ class EpochSource(BatchSource):
                                                  rng=order, pad_final=True)
             else:
                 yield from iter_batches(epoch, self.batch_size, rng=order, pad_final=True)
+
+        return gen()
+
+    def scheduled_batches(self, rng: np.random.Generator, schedule: np.ndarray,
+                          shuffle: bool = True):
+        def gen():
+            epoch = build_epoch(self.data, self.item_idx, self.max_contexts, rng, self._svi,
+                                self._context_order)
+            self.last_epoch = epoch
+            yield from iter_scheduled_bucketed_batches(epoch, self.ladder, self.batch_size,
+                                                       schedule, rng=rng if shuffle else None)
 
         return gen()
 
@@ -923,6 +1010,32 @@ class MmapCorpusSource(BatchSource):
                 yield self._batch_plan(items, width, rng)
 
         return gen()
+
+    def scheduled_batches(self, rng: np.random.Generator, schedule: np.ndarray,
+                          shuffle: bool = True):
+        """The plan is random access, so any schedule order costs no
+        buffering (JAX ``:1497``)."""
+        def gen():
+            bucket_of = assign_buckets(self._counts, self.ladder)
+            queues: dict[int, np.ndarray] = {}
+            heads: dict[int, int] = {}
+            for k, width in enumerate(self.ladder):
+                members = self.item_idx[bucket_of == k]
+                if shuffle:
+                    members = members[rng.permutation(len(members))]
+                queues[int(width)] = members
+                heads[int(width)] = 0
+            for width in schedule:
+                width = int(width)
+                members, head = queues[width], heads[width]
+                items = members[head:head + self.batch_size]
+                heads[width] = head + len(items)
+                if len(items) == 0:
+                    yield empty_batch(self.batch_size, width)
+                else:
+                    yield execute_plan(self.data, self._batch_plan(items, width, rng))
+
+        return self._accounted(gen())
 
 
 def skip_batches(batches: Iterator[dict[str, np.ndarray]], n: int,

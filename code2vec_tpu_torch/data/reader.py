@@ -18,7 +18,11 @@ every route:
 - a CSR container (``formats/corpus_io.py``) is detected by its magic and
   opened mmap-backed (:func:`load_corpus_csr`): no parse, no cache.
 
-Host sharding (``shard``) is not ported yet and raises (ROADMAP §A.2.9).
+Host sharding (``shard=(index, count)``, JAX ``:73-106``, ``:372``): a
+feed group of a mesh loads only the records ``i % count == index`` (the
+label vocab still from every record, so it is the same on every rank);
+a sharded CSR container keeps the whole mapped arrays and reaches its
+items through ``row_base``.
 """
 
 from __future__ import annotations
@@ -72,10 +76,33 @@ class CorpusData:
     # gather pages only the rows it touches, and make_batch_source picks
     # the feed that never materializes an epoch
     mmap_backed: bool = False
+    # each local item's first context in the flat arrays when it differs
+    # from ``row_splits[:-1]``: a sharded mmap corpus keeps the whole mapped
+    # arrays with LOCAL row_splits (None: contiguous)
+    row_base: np.ndarray | None = None
+    # host sharding: (index, count) when loaded with load_corpus(shard=...),
+    # holding records i % count == index; vocabs stay global
+    shard: tuple[int, int] | None = None
+    global_n_items: int = -1
 
     @property
     def n_items(self) -> int:
         return len(self.row_splits) - 1
+
+    def local_rows_of_global(self, global_idx: np.ndarray) -> np.ndarray:
+        """A GLOBAL item-index array (a split every rank draws alike)
+        filtered to this shard, in order, as LOCAL rows (JAX ``:91``)."""
+        if self.shard is None:
+            return np.asarray(global_idx)
+        index, count = self.shard
+        g = np.asarray(global_idx)
+        return g[g % count == index] // count
+
+    def global_of_local(self, local_idx: np.ndarray) -> np.ndarray:
+        if self.shard is None:
+            return np.asarray(local_idx)
+        index, count = self.shard
+        return np.asarray(local_idx) * count + index
 
     @property
     def n_contexts(self) -> int:
@@ -116,16 +143,16 @@ def _variable_indexes_of(terminal_vocab: Vocab) -> np.ndarray:
 
 
 def _cache_fingerprint(corpus_path, path_idx_path, terminal_idx_path, infer_method,
-                       infer_variable) -> dict:
-    """What a cache is valid for (JAX ``reader.py:123``; ``shard`` is
-    always None here)."""
+                       infer_variable, shard=None) -> dict:
+    """What a cache is valid for (JAX ``reader.py:123``)."""
     def stat(p):
         st = os.stat(p)
         return [int(st.st_size), int(st.st_mtime_ns)]
 
     return {"version": 1, "corpus": stat(corpus_path), "path_idx": stat(path_idx_path),
             "terminal_idx": stat(terminal_idx_path), "infer_method": infer_method,
-            "infer_variable": infer_variable, "shard": None}
+            "infer_variable": infer_variable,
+            "shard": list(shard) if shard is not None else None}
 
 
 _CACHE_ARRAY_KEYS = ("starts", "paths", "ends", "row_splits", "ids", "labels",
@@ -173,7 +200,9 @@ def _write_cache(corpus_path, fingerprint, data: CorpusData) -> None:
         with open(meta_path + tmp_suffix, "w", encoding="utf-8") as f:
             json.dump({"fingerprint": fingerprint, "label_vocab": data.label_vocab.to_state(),
                        "normalized_labels": data.normalized_labels, "sources": data.sources,
-                       "aliases": data.aliases, "shard": None, "global_n_items": data.n_items},
+                       "aliases": data.aliases,
+                       "shard": list(data.shard) if data.shard else None,
+                       "global_n_items": data.global_n_items},
                       f)
         os.replace(meta_path + tmp_suffix, meta_path)
         logger.info("wrote corpus cache: %s", npz_path)
@@ -192,12 +221,15 @@ def load_corpus_csr(
     terminal_idx_path: str | os.PathLike,
     infer_method: bool = True,
     infer_variable: bool = False,
+    shard: tuple[int, int] | None = None,
 ) -> CorpusData:
     """A CSR container as an mmap-backed :class:`CorpusData` (JAX
     ``reader.py:263``): the context arrays stay views of the file (stored
     ``@question``-shifted, so they feed training as they are); only the
     O(items) bookkeeping and the label/alias pass materialize. A container
-    written with another shift is shifted once into RAM (logged)."""
+    written with another shift is shifted once into RAM (logged).
+    ``shard=(index, count)`` keeps the whole mapped arrays and maps this
+    shard's items onto them with local ``row_splits`` and ``row_base``."""
     corpus = open_corpus_csr(corpus_path)
     path_vocab, terminal_vocab = _read_vocabs(path_idx_path, terminal_idx_path)
     if corpus.terminal_shift == QUESTION_TOKEN_INDEX:
@@ -221,24 +253,41 @@ def load_corpus_csr(
     if missing_id.any():
         ids = ids.copy()
         ids[missing_id] = np.nonzero(missing_id)[0]
+    global_splits = corpus.row_splits
+    row_splits, row_base = global_splits.astype(np.int64), None
+    if shard is not None:
+        index, count = shard
+        local = np.arange(index, n, count)
+        row_splits = np.zeros(len(local) + 1, np.int64)
+        np.cumsum(np.diff(global_splits)[local], out=row_splits[1:])
+        row_base = global_splits[local].astype(np.int64)
+        ids = ids[local]
+        labels, normalized_labels, sources, aliases = (
+            x[index::count] for x in (labels, normalized_labels, sources, aliases))
     data = CorpusData(
-        starts=starts, paths=paths, ends=ends, row_splits=corpus.row_splits.astype(np.int64),
+        starts=starts, paths=paths, ends=ends, row_splits=row_splits,
         ids=ids, labels=np.asarray(labels, dtype=np.int32), normalized_labels=normalized_labels,
         sources=sources, aliases=aliases, terminal_vocab=terminal_vocab, path_vocab=path_vocab,
         label_vocab=label_vocab, infer_method=infer_method, infer_variable=infer_variable,
         variable_indexes=_variable_indexes_of(terminal_vocab), mmap_backed=mmap_backed,
+        row_base=row_base, shard=shard, global_n_items=n,
     )
     logger.info("corpus (csr mmap): %d items, %d contexts", data.n_items, data.n_contexts)
     return data
 
 
-def _parse_python(corpus_path):
-    """The Python parser: the arrays (raw ids) and the per-record fields."""
+def _parse_python(corpus_path, shard=None):
+    """The Python parser: the arrays (raw ids) and the per-record fields;
+    with ``shard`` only the shard's records' contexts are kept (ids
+    too), every record's header read."""
     starts, paths, ends, counts, id_list, headers, var_lists = [], [], [], [], [], [], []
     for record in iter_corpus_records(corpus_path):
-        id_list.append(record.id if record.id is not None else len(headers))
+        index = len(headers)
         headers.append((record.label or "", record.source))
         var_lists.append(record.aliases)
+        if shard is not None and index % shard[1] != shard[0]:
+            continue  # the context arrays stay 1/count a rank
+        id_list.append(record.id if record.id is not None else index)
         contexts = np.asarray(record.path_contexts, dtype=np.int32).reshape(-1, 3)
         starts.append(contexts[:, 0])
         paths.append(contexts[:, 1])
@@ -273,6 +322,18 @@ def _parse_native(corpus_path):
     return starts, paths, ends, row_splits, ids, headers, var_lists
 
 
+def _shard_parsed(parsed, shard):
+    """The native parse's arrays cut to the shard's records (a vectorized
+    CSR row gather); the headers stay whole."""
+    starts, paths, ends, row_splits, ids, headers, var_lists = parsed
+    local = np.arange(shard[0], len(row_splits) - 1, shard[1])
+    counts = np.diff(row_splits)[local]
+    new_splits = np.zeros(len(local) + 1, np.int64)
+    np.cumsum(counts, out=new_splits[1:])
+    flat = np.repeat(row_splits[local] - new_splits[:-1], counts) + np.arange(int(counts.sum()))
+    return (starts[flat], paths[flat], ends[flat], new_splits, ids[local], headers, var_lists)
+
+
 def load_corpus(
     corpus_path: str | os.PathLike,
     path_idx_path: str | os.PathLike,
@@ -287,15 +348,16 @@ def load_corpus(
     CSR container through :func:`load_corpus_csr`; a text corpus from the
     cache when it is valid, else parsed (``native``: the C++ parser, else
     or on its failure the Python one) and cached (``cache``). Every route
-    gives the same arrays. ``shard`` is not ported and raises."""
-    if shard is not None:
-        raise NotImplementedError("load_corpus: host sharding is not ported yet (ROADMAP "
-                                  "§A.2.9); load the whole corpus")
+    gives the same arrays. ``shard=(index, count)`` keeps the records
+    ``i % count == index`` (JAX ``load_corpus``): the Python parser skips
+    the others' contexts as it reads, the native one parses all and slices;
+    the label vocab comes from every record."""
     if is_csr_corpus(corpus_path):
         return load_corpus_csr(corpus_path, path_idx_path, terminal_idx_path,
-                               infer_method=infer_method, infer_variable=infer_variable)
+                               infer_method=infer_method, infer_variable=infer_variable,
+                               shard=shard)
     fingerprint = (_cache_fingerprint(corpus_path, path_idx_path, terminal_idx_path,
-                                      infer_method, infer_variable) if cache else None)
+                                      infer_method, infer_variable, shard) if cache else None)
     cached = _try_load_cache(corpus_path, fingerprint) if cache else None
     path_vocab, terminal_vocab = _read_vocabs(path_idx_path, terminal_idx_path)
     if cached is not None:
@@ -306,23 +368,32 @@ def load_corpus(
             aliases=meta["aliases"], terminal_vocab=terminal_vocab, path_vocab=path_vocab,
             label_vocab=Vocab.from_state(meta["label_vocab"]), infer_method=infer_method,
             infer_variable=infer_variable,
+            shard=tuple(meta["shard"]) if meta.get("shard") else None,
+            global_n_items=meta.get("global_n_items", -1),
         )
         logger.info("corpus (cached): %d items, %d contexts", data.n_items, data.n_contexts)
         return data
     parsed = _parse_native(corpus_path) if native else None
     parser = "native parse" if parsed is not None else "python parse"
     if parsed is None:
-        parsed = _parse_python(corpus_path)
+        parsed = _parse_python(corpus_path, shard)
+    elif shard is not None:
+        parsed = _shard_parsed(parsed, shard)
     raw_starts, paths, raw_ends, row_splits, ids, headers, var_lists = parsed
     label_vocab, labels, normalized_labels, sources, aliases = _build_label_state(
         headers, var_lists, infer_method, infer_variable)
+    if shard is not None:
+        index, count = shard
+        labels, normalized_labels, sources, aliases = (
+            x[index::count] for x in (labels, normalized_labels, sources, aliases))
     data = CorpusData(
         starts=raw_starts + QUESTION_TOKEN_INDEX, paths=paths,
         ends=raw_ends + QUESTION_TOKEN_INDEX, row_splits=row_splits, ids=ids,
         labels=np.asarray(labels, dtype=np.int32), normalized_labels=normalized_labels,
         sources=sources, aliases=aliases, terminal_vocab=terminal_vocab, path_vocab=path_vocab,
         label_vocab=label_vocab, infer_method=infer_method, infer_variable=infer_variable,
-        variable_indexes=_variable_indexes_of(terminal_vocab),
+        variable_indexes=_variable_indexes_of(terminal_vocab), shard=shard,
+        global_n_items=len(headers),
     )
     logger.info("corpus (%s): %d items, %d contexts; vocabs: %d terminals, %d paths, "
                 "%d labels", parser, data.n_items, data.n_contexts, len(terminal_vocab),

@@ -30,14 +30,39 @@ from code2vec_tpu_torch.train.step import eval_step, to_device
 logger = logging.getLogger(__name__)
 
 
+def _eval_whole(model, batch: dict, class_weights, quant_tables=None) -> dict:
+    """The eval step's outputs of a whole host batch. On a mesh (every rank
+    calls it with the same batch) each rank runs its rows and bag columns
+    and the outputs are all-gathered over the data line (the attention
+    over the ctx line too)."""
+    device = class_weights.device
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return eval_step(model, to_device(batch, device), class_weights, quant_tables)
+    from code2vec_tpu_torch.parallel.distributed import _all_gather, global_batch
+
+    out = eval_step(model, to_device(global_batch(mesh, batch), device), class_weights,
+                    quant_tables)
+    data_group, ctx_group = mesh.group("data"), mesh.group("ctx")
+    whole = {k: (v if data_group is None or k == "loss" else _all_gather(v, data_group, 0))
+             for k, v in out.items()}
+    if ctx_group is not None:
+        whole["attention"] = _all_gather(whole["attention"], ctx_group, 1)
+    return whole
+
+
+def _writes(model) -> bool:
+    mesh = getattr(model, "mesh", None)
+    return mesh is None or mesh.rank == 0
+
+
 def _forward_all(model, epoch: EpochArrays, batch_size: int, class_weights,
                  quant_tables=None):
     """The eval step over every example: host arrays ``(labels, ids, preds,
     max_logit, code_vectors)``, padding rows removed."""
-    device = class_weights.device
     labels, ids, outs = [], [], []
     for batch in iter_batches(epoch, batch_size, rng=None, pad_final=True):
-        out = eval_step(model, to_device(batch, device), class_weights, quant_tables)
+        out = _eval_whole(model, batch, class_weights, quant_tables)
         valid = batch["example_mask"].astype(bool)
         labels.append(batch["labels"][valid])
         ids.append(batch["ids"][valid])
@@ -52,20 +77,25 @@ def write_code_vectors(data, model, train_epoch: EpochArrays, test_epoch: EpochA
                        test_result_path: str | None = None, quant_tables=None):
     """Rewrite ``code.vec`` (train rows, then test rows) and optionally the
     test TSV. The header counts the rows written. Returns the test split's
-    ``(labels, preds)``."""
-    write_code_vectors_header(vectors_path, len(train_epoch) + len(test_epoch), encode_size)
+    ``(labels, preds)``. On a mesh every rank runs the forward and rank 0
+    writes (JAX ``export.py:80``)."""
+    writes = _writes(model)
+    if writes:
+        write_code_vectors_header(vectors_path, len(train_epoch) + len(test_epoch), encode_size)
     itos = data.label_vocab.itos
     test_labels = test_preds = np.zeros(0, np.int32)
     for split_epoch, is_test in ((train_epoch, False), (test_epoch, True)):
         if len(split_epoch) == 0:
             # an empty test split still leaves the TSV asked for
-            if is_test and test_result_path is not None:
+            if is_test and test_result_path is not None and writes:
                 open(test_result_path, "w", encoding="utf-8").close()
             continue
         labels, ids, preds, max_logit, vectors = _forward_all(
             model, split_epoch, batch_size, class_weights, quant_tables)
         if is_test:
             test_labels, test_preds = labels, preds
+        if not writes:
+            continue
         label_names = [itos[int(label)] for label in labels]
         append_code_vectors(vectors_path, label_names, vectors)
         if is_test and test_result_path is not None:
@@ -78,12 +108,11 @@ def write_code_vectors(data, model, train_epoch: EpochArrays, test_epoch: EpochA
 def print_sample(data, model, test_epoch: EpochArrays, batch_size: int, class_weights) -> None:
     """Log one correctly predicted test example with each real context's
     attention weight (reference: main.py:362-390)."""
-    device = class_weights.device
     terminal_itos = data.terminal_vocab.itos
     path_itos = data.path_vocab.itos
     label_itos = data.label_vocab.itos
     for batch in iter_batches(test_epoch, batch_size, rng=None, pad_final=True):
-        out = eval_step(model, to_device(batch, device), class_weights)
+        out = _eval_whole(model, batch, class_weights)
         preds = out["preds"].cpu().numpy()
         attn = out["attention"].cpu().numpy()
         hits = np.nonzero((preds == batch["labels"]) & batch["example_mask"].astype(bool))[0]
@@ -129,17 +158,27 @@ def export_from_checkpoint(config, data, out_dir: str, vectors_path: str,
     from code2vec_tpu_torch.metrics import evaluate
     from code2vec_tpu_torch.models.code2vec import Code2Vec
     from code2vec_tpu_torch.ops.backend import resolve_device
-    from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
+    from code2vec_tpu_torch.train.loop import build_mesh, class_weights_from, model_config_from
 
     config.validate(training=False)
     dev = resolve_device(device)
+    # on a mesh (JAX builds it for the export pass too) every rank runs the
+    # forward over its shards and rank 0 writes
+    mesh = build_mesh(config)
+    if mesh is not None:
+        from code2vec_tpu_torch.parallel.distributed import rank_device
+        from code2vec_tpu_torch.parallel.shardings import shard_model
+
+        dev = rank_device(dev)
     np_rng = np.random.default_rng(config.random_seed)
     train_idx, test_idx = split_items(data.n_items, np_rng)
     model_config = model_config_from(config, data)
     with torch.device(dev):
         model = Code2Vec(model_config.with_updates(table_dtype="f32"))
+    if mesh is not None:
+        shard_model(model, mesh)
     meta = restore_checkpoint(out_dir, model, None, np.random.default_rng(0),
-                              model_config.vocab_pad_multiple, prefer_best=True)
+                              model_config.vocab_pad_multiple, prefer_best=True, mesh=mesh)
     if meta is None:
         raise FileNotFoundError(f"no checkpoint found under {out_dir}")
     logger.info("restored checkpoint (epoch %d, best_f1=%s)", meta.epoch, meta.best_f1)

@@ -15,7 +15,9 @@ model/model.py:21-42) is what the port's ``Code2Vec`` holds:
     output_linear (margin Parameter)   <-> output_margin_weight
 
 :func:`state_dict_from_jax_params` keeps the tree's shapes, vocab padding
-included, so the round trip tree -> state_dict -> tree is exact.
+included, so the round trip tree -> state_dict -> tree is exact; on a mesh
+:func:`rank_state_dict_from_jax_params` carries the tree to one rank's
+shards and :func:`jax_params_from_rank_state_dict` back, as exactly.
 The file-level head of ``models/hierarchical.py`` carries its one
 parameter both ways (:func:`hierarchical_state_dict_from_jax_params`,
 :func:`jax_params_from_hierarchical_state_dict`):
@@ -97,6 +99,41 @@ def jax_params_from_state_dict(sd: dict, config) -> dict:
             "bias": a("output_linear.bias"),
         }
     return tree
+
+
+def _mesh_entries(config, mesh) -> dict[str, list]:
+    """Each key's spec on ``mesh`` over ``config``'s padded global shapes."""
+    from code2vec_tpu_torch.parallel.shardings import spec_for_param
+
+    c = config
+    labels = (c.padded(c.label_count), c.encode_size)
+    shapes = {"terminal_embedding.weight": (c.padded(c.terminal_count), c.terminal_embed_size),
+              "path_embedding.weight": (c.padded(c.path_count), c.path_embed_size),
+              "output_linear.weight": labels, "output_linear": labels,
+              "output_linear.bias": labels[:1]}
+    return {k: spec_for_param(k, mesh.shape, shape) for k, shape in shapes.items()}
+
+
+def rank_state_dict_from_jax_params(params: dict, config, mesh) -> dict[str, torch.Tensor]:
+    """A JAX param tree (global, padded to ``config.vocab_pad_multiple``,
+    the model axis by default) -> this rank's shards of the port's
+    ``state_dict`` on ``mesh`` (``parallel/shardings.py``'s rules)."""
+    from code2vec_tpu_torch.parallel.shardings import shard_tensor
+
+    entries = _mesh_entries(config, mesh)
+    return {k: shard_tensor(v, entries.get(k), mesh)
+            for k, v in state_dict_from_jax_params(params, config).items()}
+
+
+def jax_params_from_rank_state_dict(sd: dict, config, mesh) -> dict:
+    """Inverse of :func:`rank_state_dict_from_jax_params`: the shards
+    all-gathered over the model line (every rank calls it), then the numpy
+    param tree; exact, the padding rows included."""
+    from code2vec_tpu_torch.parallel.shardings import unshard_tensor
+
+    entries = _mesh_entries(config, mesh)
+    return jax_params_from_state_dict(
+        {k: unshard_tensor(v.detach(), entries.get(k), mesh) for k, v in sd.items()}, config)
 
 
 def hierarchical_state_dict_from_jax_params(params: dict) -> dict[str, torch.Tensor]:

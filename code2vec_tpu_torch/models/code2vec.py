@@ -57,6 +57,16 @@ The lazy table optimizer (``train/table_opt.py``) trains through
 offsets added to the gathered rows take their per-slot gradients.
 ``embed_grad`` is JAX's choice of the dense tables' backward; every mode
 runs ``F.embedding``'s, which already is a segment sum (``ops/embed.py``).
+
+On a mesh (``parallel/shardings.shard_model`` sets ``mesh``) the forward
+inserts what GSPMD inserts for the JAX model: a row-sharded table's rows
+are gathered locally and all-reduced over the model line (identity
+backward; K2 on ``gather_split`` and K1 on ``pool_only`` take them from
+there), K3 gets both tables all-gathered whole, the column-sharded head's
+logits are all-gathered along the labels (the code vector entering it
+all-reduces its gradient), a ctx-sharded bag pools through
+``parallel/context.py``, and the keep mask is the global batch's draw,
+sliced to this rank's rows and bag columns.
 """
 
 from __future__ import annotations
@@ -182,6 +192,10 @@ class Code2Vec(nn.Module):
         else:
             self.output_linear = nn.Linear(c.encode_size, c.padded(c.label_count))
         self._dense_kernel_cache = None
+        # a mesh (parallel/shardings.shard_model): the sharded parameters'
+        # specs; None on one device
+        self.mesh = None
+        self.shard_entries: dict[str, list] = {}
         self.dropout_seed = 0
         self._dropout_gen: torch.Generator | None = None
         self.reset_parameters()
@@ -236,8 +250,18 @@ class Code2Vec(nn.Module):
         if not (self.training and 0.0 < p < 1.0):
             return None
         keep = 1.0 - p
-        m = torch.empty(shape, dtype=torch.float32, device=device)
-        return m.bernoulli_(keep, generator=self.dropout_generator(device)) / keep
+        mesh = self.mesh
+        if mesh is None:
+            m = torch.empty(shape, dtype=torch.float32, device=device)
+            return m.bernoulli_(keep, generator=self.dropout_generator(device)) / keep
+        # replicated like JAX's dropout key: every rank draws the global
+        # batch's mask from the same state and keeps its rows and bag columns
+        b, l, h = shape
+        nd, nc = mesh.shape["data"], mesh.shape["ctx"]
+        d, c = mesh.coords["data"], mesh.coords["ctx"]
+        m = torch.empty((b * nd, l * nc, h), dtype=torch.float32, device=device)
+        m.bernoulli_(keep, generator=self.dropout_generator(device))
+        return m[d * b:(d + 1) * b, c * l:(c + 1) * l] / keep
 
     def _dense_kernel(self) -> torch.Tensor:
         """``input_linear.weight`` in the kernels' [in, out] layout. With
@@ -279,8 +303,11 @@ class Code2Vec(nn.Module):
         if dt == "f32":
             return None
         with torch.no_grad():
-            return (quantize_table(self.terminal_embedding.weight, dt),
-                    quantize_table(self.path_embedding.weight, dt))
+            # a mesh's row shards are quantized whole: a quantized table is
+            # gathered by global id (the eval and export forwards)
+            return (quantize_table(self._whole_table(self.terminal_embedding.weight,
+                                                     "terminal"), dt),
+                    quantize_table(self._whole_table(self.path_embedding.weight, "path"), dt))
 
     def forward(
         self,
@@ -315,11 +342,31 @@ class Code2Vec(nn.Module):
             t_store, p_store = self.quantize_tables()
         mask = (starts > 0).float()  # PAD = 0 (model/model.py:64)
         impl, softmax_mode = self.resolve_kernel(starts.shape[1])
-        if impl in ("fused", "gather_split"):
+        if impl == "gather_split" and self._row_sharded():
+            # a mesh's row-sharded tables: K2 takes its rows from the sharded
+            # gather (the model line's all-reduce)
+            from code2vec_tpu_torch.ops.fused_encode_pool import encode_attend_pool_rows
+
+            cd = c.dtype
+            drop = self._keep_mask((*starts.shape, c.encode_size), starts.device)
+            e_se = self._lookup(t_store, torch.cat([starts, ends], dim=1), sharded="terminal")
+            e_path = self._lookup(p_store, paths, sharded="path")
+            if embed_offsets is not None:
+                e_se, e_path = e_se + embed_offsets[0], e_path + embed_offsets[1]
+            e_start, e_end = e_se.chunk(2, dim=1)
+            code_vector, attention = encode_attend_pool_rows(
+                e_start, e_path, e_end, mask, self._dense_kernel(), self.input_layer_norm.weight,
+                self.input_layer_norm.bias, self.attention_parameter, drop, compute_dtype=cd)
+        elif impl in ("fused", "gather_split"):
             from code2vec_tpu_torch.ops.fused_encode_pool import fused_encode_attend_pool
 
             drop = self._keep_mask((*starts.shape, c.encode_size), starts.device)
             off_se, off_p = embed_offsets if embed_offsets is not None else (None, None)
+            # a mesh's row-sharded tables reach K3 whole, all-gathered over
+            # the model line (JAX's fused op declares them replicated); the
+            # backward keeps this rank's rows of the table gradient
+            t_store, p_store = self._whole_table(t_store, "terminal"), \
+                self._whole_table(p_store, "path")
             code_vector, attention = fused_encode_attend_pool(
                 t_store, p_store, starts, paths, ends, mask,
                 self._dense_kernel(), self.input_layer_norm.weight,
@@ -334,13 +381,63 @@ class Code2Vec(nn.Module):
         if c.angular_margin_loss:
             logits = self._angular_margin_head(code_vector, labels)
         else:
-            logits = self.output_linear(code_vector)[:, : c.label_count]
+            head_in = self._head_input(code_vector)
+            logits = self._gather_logits(self.output_linear(head_in))[:, : c.label_count]
         return logits, code_vector, attention
 
-    def _lookup(self, store, ids: torch.Tensor) -> torch.Tensor:
-        """Rows at ``ids`` in the compute dtype (a gather, then the cast)."""
+    # -- a mesh's model axis (parallel/shardings.py) ------------------------
+
+    def _sharded(self, key: str) -> bool:
+        return self.mesh is not None and "model" in (self.shard_entries.get(key) or ())
+
+    def _row_sharded(self) -> bool:
+        return self._sharded("terminal_embedding.weight") or self._sharded("path_embedding.weight")
+
+    def _model_group(self):
+        return self.mesh.group("model") if self.mesh is not None else None
+
+    def _whole_table(self, store, which: str):
+        """A row-sharded f32 table all-gathered to its global rows."""
+        if not self._sharded(f"{which}_embedding.weight") or isinstance(store, QuantTable):
+            return store
+        from code2vec_tpu_torch.parallel.distributed import gather_from_group
+
+        return gather_from_group(store, self._model_group(), 0)
+
+    def _head_input(self, code_vector: torch.Tensor) -> torch.Tensor:
+        """The code vector entering a column-sharded head: the identity, its
+        gradient all-reduced over the model line (each rank's head columns
+        give a partial one)."""
+        if not self._sharded("output_linear.weight") and not self._sharded("output_linear"):
+            return code_vector
+        from code2vec_tpu_torch.parallel.distributed import copy_to_group
+
+        return copy_to_group(code_vector, self._model_group())
+
+    def _gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """This rank's label columns all-gathered along the label axis."""
+        if not self._sharded("output_linear.weight") and not self._sharded("output_linear"):
+            return logits
+        from code2vec_tpu_torch.parallel.distributed import gather_from_group
+
+        return gather_from_group(logits, self._model_group(), -1)
+
+    def _lookup(self, store, ids: torch.Tensor, sharded: str | None = None) -> torch.Tensor:
+        """Rows at ``ids`` in the compute dtype (a gather, then the cast). A
+        row-sharded table (``sharded`` names it) gathers the ids in this
+        rank's rows, zeros elsewhere, all-reduced over the model line with
+        the identity backward: each row is one rank's value plus zeros."""
         if isinstance(store, QuantTable):
             return dequantize_rows(store, ids).to(self.config.dtype)
+        if sharded is not None and self._sharded(f"{sharded}_embedding.weight"):
+            from code2vec_tpu_torch.parallel.distributed import reduce_from_group
+
+            rows = store.shape[0]
+            local = ids - self.mesh.coords["model"] * rows
+            inside = (local >= 0) & (local < rows)
+            got = embedding_lookup(store, torch.where(inside, local, 0), self.config.embed_grad)
+            got = torch.where(inside[..., None], got, 0.0)
+            return reduce_from_group(got, self._model_group()).to(self.config.dtype)
         return embedding_lookup(store, ids, self.config.embed_grad).to(self.config.dtype)
 
     def _unfused_forward(self, t_store, p_store, starts, paths, ends, mask, impl,
@@ -353,8 +450,8 @@ class Code2Vec(nn.Module):
         as JAX ``_unfused_forward`` does."""
         c = self.config
         cd = c.dtype
-        e_se = self._lookup(t_store, torch.cat([starts, ends], dim=1))
-        e_path = self._lookup(p_store, paths)
+        e_se = self._lookup(t_store, torch.cat([starts, ends], dim=1), sharded="terminal")
+        e_path = self._lookup(p_store, paths, sharded="path")
         if embed_offsets is not None:
             e_se, e_path = e_se + embed_offsets[0], e_path + embed_offsets[1]
         e_start, e_end = e_se.chunk(2, dim=1)
@@ -375,7 +472,14 @@ class Code2Vec(nn.Module):
         if drop is not None:
             contexts = contexts * drop.to(cd)
         attn = self.attention_parameter.to(cd)
-        if impl == "pool_only":
+        if self.mesh is not None and self.mesh.shape["ctx"] > 1:
+            # a ctx-sharded bag: the streaming pool over the ctx line (plain
+            # route only, as in JAX: build_mesh rejects use_pallas with it)
+            from code2vec_tpu_torch.parallel.context import context_parallel_attention_pool
+
+            code_vector, attention = context_parallel_attention_pool(self.mesh, contexts, mask,
+                                                                     attn)
+        elif impl == "pool_only":
             from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel
 
             code_vector, attention = attention_pool_kernel(contexts, mask, attn)
@@ -395,9 +499,10 @@ class Code2Vec(nn.Module):
         scaled cosine."""
         c = self.config
         weight = self.output_linear
+        code_vector = self._head_input(code_vector)
         ncv = code_vector / (code_vector.norm(dim=-1, keepdim=True) + 1e-12)
         nw = weight / (weight.norm(dim=-1, keepdim=True) + 1e-12)
-        cosine = (ncv @ nw.t())[:, : c.label_count]
+        cosine = self._gather_logits(ncv @ nw.t())[:, : c.label_count]
         if labels is None:
             return cosine * c.inverse_temp
         sine = torch.sqrt(torch.clamp(1.0 - cosine**2, 0.0, 1.0))

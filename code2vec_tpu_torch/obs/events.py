@@ -155,12 +155,13 @@ def _run_id() -> str:
     return f"{time.strftime('%Y%m%d-%H%M%S')}-{uuid.uuid4().hex[:8]}"
 
 
-def run_manifest(config=None, **extra) -> dict:
+def run_manifest(config=None, mesh=None, **extra) -> dict:
     """The run manifest: package version, process identity, run id, and
     the caller's blocks (``serve={...}`` or ``fleet={...}``). A training
     run's manifest (``config`` given) also carries the config as a plain
-    dict and ``mesh_shape`` (None: the port runs one device a process);
-    the loop adds its corpus, costs and device blocks."""
+    dict and ``mesh_shape`` (``{axis: size}`` of a ``parallel.mesh.Mesh``,
+    None on one device, JAX ``run_manifest(config, mesh)``); the loop adds
+    its corpus, costs and device blocks."""
     import dataclasses
 
     import code2vec_tpu_torch
@@ -173,8 +174,9 @@ def run_manifest(config=None, **extra) -> dict:
         "process_count": _process_count(),
         "run_id": _run_id(),
     }
+    if config is not None or mesh is not None:
+        manifest["mesh_shape"] = dict(mesh.shape) if mesh is not None else None
     if config is not None:
-        manifest["mesh_shape"] = None
         manifest["config"] = (dataclasses.asdict(config) if dataclasses.is_dataclass(config)
                               else dict(config))
     manifest.update(extra)

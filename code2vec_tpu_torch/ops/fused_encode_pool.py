@@ -302,85 +302,112 @@ def _check(name: str, t: torch.Tensor, dtype, shape, dev) -> torch.Tensor:
     return t.contiguous()
 
 
-def _launch(impl, softmax_mode, compute_dtype, t_table, p_table, starts, paths, ends, mask,
-            dense_kernel, ln_scale, ln_bias, attn_param, drop_mask=None, off_se=None, off_p=None):
-    t_vals, t_scale, table_dtype = split_table(t_table)
-    p_vals, p_scale, _ = split_table(p_table)
-    dev = starts.device
-    b, l = starts.shape
-    et, ep = t_vals.shape[1], p_vals.shape[1]
-    h = dense_kernel.shape[-1]
+def _launch_setup(b, l, h, et, ep, mask, drop_mask, dense_kernel, ln_scale, ln_bias,
+                  attn_param, dev):
+    """The checked mask, keep mask and parameters, the outputs and the
+    softmax-partials workspace of one launch, and its CTAs a row."""
     if b < 1 or l < 1:
         raise ValueError(f"encode-pool kernel: empty batch or bag, ids {(b, l)}")
     f32 = torch.float32
     msk = _check("mask", mask, f32, (b, l), dev)
     drop = None if drop_mask is None else _check("drop_mask", drop_mask, f32, (b, l, h), dev)
-    drop_ptr = None if drop is None else drop.data_ptr()
     params = [
         _check("dense_kernel", dense_kernel, f32, (2 * et + ep, h), dev),
         _check("ln_scale", ln_scale, f32, (h,), dev),
         _check("ln_bias", ln_bias, f32, (h,), dev),
         _check("attn_param", attn_param, f32, (h,), dev),
     ]
-    cv = torch.empty((b, h), dtype=f32, device=dev)
-    w = torch.empty((b, l), dtype=f32, device=dev)
-    outs = [cv, w]
+    outs = [torch.empty((b, h), dtype=f32, device=dev), torch.empty((b, l), dtype=f32, device=dev)]
     n_ctas = stream_ctas(b, l, torch.cuda.get_device_properties(dev).multi_processor_count)
     # one softmax partial a chunk, merged in chunk order: a row's bits do
     # not depend on S, so not on the micro-batch it rides in
     part = torch.empty((b, -(-l // CHUNK), h + 2), dtype=f32, device=dev)
+    return msk, drop, params, outs, part, n_ctas
+
+
+def _launch_gathered(gs, gp, ge, mask, dense_kernel, ln_scale, ln_bias, attn_param,
+                     drop_mask=None, compute_dtype: torch.dtype = torch.float32):
+    """K2 over rows gathered outside it, in ``compute_dtype``."""
+    dev = gs.device
+    b, l, et = gs.shape
+    ep, h = gp.shape[-1], dense_kernel.shape[-1]
+    msk, drop, params, outs, part, n_ctas = _launch_setup(
+        b, l, h, et, ep, mask, drop_mask, dense_kernel, ln_scale, ln_bias, attn_param, dev)
+    cd = compute_dtype  # f32 or bf16 (checked by the callers)
+    rows = [
+        _check("g_start", gs, cd, (b, l, et), dev),
+        _check("g_path", gp, cd, (b, l, ep), dev),
+        _check("g_end", ge, cd, (b, l, et), dev),
+    ]
+    lib = _lib()
+    name = kernel_name("gather_split", "f32", "materialize", drop is not None, cd)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.c2v_encode_pool_gathered(
+            _ROW_CODES[cd], *(t.data_ptr() for t in rows + [msk]),
+            None if drop is None else drop.data_ptr(),
+            *(t.data_ptr() for t in params + outs),
+            part.data_ptr(), b, l, et, ep, h, n_ctas, stream,
+        )
+    _build.check(lib, code, f"encode-pool kernel launch ({name})")
+    count_launch(name)
+    return tuple(outs)
+
+
+def _launch(impl, softmax_mode, compute_dtype, t_table, p_table, starts, paths, ends, mask,
+            dense_kernel, ln_scale, ln_bias, attn_param, drop_mask=None, off_se=None, off_p=None):
+    if impl == "gather_split":
+        rows = gathered_rows(t_table, p_table, starts, paths, ends, off_se, off_p, compute_dtype)
+        return _launch_gathered(*rows, mask, dense_kernel, ln_scale, ln_bias, attn_param,
+                                drop_mask, compute_dtype)
+    t_vals, t_scale, table_dtype = split_table(t_table)
+    p_vals, p_scale, _ = split_table(p_table)
+    dev = starts.device
+    b, l = starts.shape
+    et, ep = t_vals.shape[1], p_vals.shape[1]
+    h = dense_kernel.shape[-1]
+    f32 = torch.float32
+    msk, drop, params, outs, part, n_ctas = _launch_setup(
+        b, l, h, et, ep, mask, drop_mask, dense_kernel, ln_scale, ln_bias, attn_param, dev)
+    drop_ptr = None if drop is None else drop.data_ptr()
     part_ptr = part.data_ptr()
     lib = _lib()
     name = kernel_name(impl, table_dtype, softmax_mode, drop is not None, compute_dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if impl == "gather_split":
-            cd = compute_dtype  # f32 or bf16 (checked by fused_encode_attend_pool)
-            gs, gp, ge = gathered_rows(t_table, p_table, starts, paths, ends, off_se, off_p, cd)
-            rows = [
-                _check("g_start", gs, cd, (b, l, et), dev),
-                _check("g_path", gp, cd, (b, l, ep), dev),
-                _check("g_end", ge, cd, (b, l, et), dev),
-            ]
-            code = lib.c2v_encode_pool_gathered(
-                _ROW_CODES[cd], *(t.data_ptr() for t in rows + [msk]), drop_ptr,
-                *(t.data_ptr() for t in params + outs),
-                part_ptr, b, l, et, ep, h, n_ctas, stream,
+        store = {"f32": f32, "bf16": torch.bfloat16, "int8": torch.int8}[table_dtype]
+        tv = _check("terminal table", t_vals, store, t_vals.shape, dev)
+        pv = _check("path table", p_vals, store, p_vals.shape, dev)
+        ts = ps = None
+        if table_dtype == "int8":
+            ts = _check("terminal scale", t_scale, f32, (tv.shape[0], 1), dev)
+            ps = _check("path scale", p_scale, f32, (pv.shape[0], 1), dev)
+        ids = [
+            _check(n, x.to(torch.int32), torch.int32, (b, l), dev)
+            for n, x in (("starts", starts), ("paths", paths), ("ends", ends))
+        ]
+        tables = (
+            _TABLE_CODES[table_dtype], tv.data_ptr(),
+            ts.data_ptr() if ts is not None else None, pv.data_ptr(),
+            ps.data_ptr() if ps is not None else None, tv.shape[0], pv.shape[0],
+        )
+        ptrs = ([t.data_ptr() for t in ids + [msk]] + [drop_ptr]
+                + [t.data_ptr() for t in params + outs])
+        if softmax_mode == "materialize":
+            code = lib.c2v_encode_pool_fused(
+                *tables, *ptrs, part_ptr, b, l, et, ep, h, n_ctas, stream,
             )
         else:
-            store = {"f32": f32, "bf16": torch.bfloat16, "int8": torch.int8}[table_dtype]
-            tv = _check("terminal table", t_vals, store, t_vals.shape, dev)
-            pv = _check("path table", p_vals, store, p_vals.shape, dev)
-            ts = ps = None
-            if table_dtype == "int8":
-                ts = _check("terminal scale", t_scale, f32, (tv.shape[0], 1), dev)
-                ps = _check("path scale", p_scale, f32, (pv.shape[0], 1), dev)
-            ids = [
-                _check(n, x.to(torch.int32), torch.int32, (b, l), dev)
-                for n, x in (("starts", starts), ("paths", paths), ("ends", ends))
-            ]
-            tables = (
-                _TABLE_CODES[table_dtype], tv.data_ptr(),
-                ts.data_ptr() if ts is not None else None, pv.data_ptr(),
-                ps.data_ptr() if ps is not None else None, tv.shape[0], pv.shape[0],
+            rowmax = (torch.empty((b, n_ctas), dtype=f32, device=dev)
+                      if softmax_mode == "two_pass" else None)
+            code = lib.c2v_encode_pool_stream(
+                _STREAM_MODES[softmax_mode], *tables, *ptrs, part_ptr,
+                None if rowmax is None else rowmax.data_ptr(),
+                b, l, et, ep, h, n_ctas, stream,
             )
-            ptrs = ([t.data_ptr() for t in ids + [msk]] + [drop_ptr]
-                    + [t.data_ptr() for t in params + outs])
-            if softmax_mode == "materialize":
-                code = lib.c2v_encode_pool_fused(
-                    *tables, *ptrs, part_ptr, b, l, et, ep, h, n_ctas, stream,
-                )
-            else:
-                rowmax = (torch.empty((b, n_ctas), dtype=f32, device=dev)
-                          if softmax_mode == "two_pass" else None)
-                code = lib.c2v_encode_pool_stream(
-                    _STREAM_MODES[softmax_mode], *tables, *ptrs, part_ptr,
-                    None if rowmax is None else rowmax.data_ptr(),
-                    b, l, et, ep, h, n_ctas, stream,
-                )
     _build.check(lib, code, f"encode-pool kernel launch ({name})")
     count_launch(name)
-    return cv, w
+    return tuple(outs)
 
 
 def _forward(impl, softmax_mode, chunk_l, backend, compute_dtype, args):
@@ -431,18 +458,27 @@ class _EncodePool(torch.autograd.Function):
         args = [t if t is not None else c for t, c in zip(ctx.saved_tensors, ctx.constants)]
         needs = ctx.needs_input_grad[5:]
         diff = [i for i in _DIFF_ARGS.values() if needs[i]]
-        grads = [None] * len(args)
-        outs = [(o, g) for o, g in zip((0, 1), (g_cv, g_w)) if g is not None]
-        if diff and outs:
-            with torch.enable_grad():
-                for i in diff:
-                    args[i] = args[i].detach().requires_grad_(True)
-                values = reference_forward(*args, compute_dtype=ctx.compute_dtype)
-                got = torch.autograd.grad([values[o] for o, _ in outs], [args[i] for i in diff],
-                                          [g for _, g in outs], allow_unused=True)
-            for i, g in zip(diff, got):
-                grads[i] = g if g is not None else torch.zeros_like(args[i])
+        grads = _recompute_vjp(reference_forward, ctx.compute_dtype, args, diff, g_cv, g_w)
         return (None, None, None, None, None, *grads)
+
+
+def _recompute_vjp(forward, compute_dtype, args, diff, g_cv, g_w) -> list:
+    """The gradients of ``forward(*args)`` recomputed under autograd, at the
+    cotangents given, with respect to the args at positions ``diff`` (None
+    elsewhere; zeros for an input the outputs do not reach)."""
+    args = list(args)
+    grads = [None] * len(args)
+    outs = [(o, g) for o, g in zip((0, 1), (g_cv, g_w)) if g is not None]
+    if diff and outs:
+        with torch.enable_grad():
+            for i in diff:
+                args[i] = args[i].detach().requires_grad_(True)
+            values = forward(*args, compute_dtype=compute_dtype)
+            got = torch.autograd.grad([values[o] for o, _ in outs], [args[i] for i in diff],
+                                      [g for _, g in outs], allow_unused=True)
+        for i, g in zip(diff, got):
+            grads[i] = g if g is not None else torch.zeros_like(args[i])
+    return grads
 
 
 def fused_encode_attend_pool(
@@ -513,3 +549,47 @@ def fused_encode_attend_pool(
     if wants_grad:
         return _EncodePool.apply(impl, softmax_mode, chunk_l, backend, compute_dtype, *args)
     return _forward(impl, softmax_mode, chunk_l, backend, compute_dtype, args)
+
+
+class _EncodePoolRows(torch.autograd.Function):
+    """K2 over rows gathered outside the op (a mesh's row-sharded gather);
+    the backward differentiates the recomputed :func:`encode_pool_reference`
+    in the rows and the parameters, as :class:`_EncodePool` does."""
+
+    @staticmethod
+    def forward(ctx, compute_dtype, backend, *args):
+        ctx.compute_dtype = compute_dtype
+        ctx.save_for_backward(*args)
+        ctx.set_materialize_grads(False)
+        return _rows_forward(compute_dtype, backend, args)
+
+    @staticmethod
+    def backward(ctx, g_cv, g_w):
+        diff = [i for i, need in enumerate(ctx.needs_input_grad[2:]) if need]
+        grads = _recompute_vjp(encode_pool_reference, ctx.compute_dtype, ctx.saved_tensors, diff,
+                               g_cv, g_w)
+        return (None, None, *grads)
+
+
+def _rows_forward(compute_dtype, backend, args):
+    if resolve(args[0], backend) == "cpu":
+        return encode_pool_reference(*args)
+    return _launch_gathered(*args, compute_dtype=compute_dtype)
+
+
+def encode_attend_pool_rows(gs, gp, ge, mask, dense_kernel, ln_scale, ln_bias, attn_param,
+                            drop_mask=None, *, compute_dtype: torch.dtype = torch.float32,
+                            backend: str | None = None):
+    """``gather_split``'s chain over rows gathered by the caller (``gs``,
+    ``gp``, ``ge`` ``[B, L, E]`` in ``compute_dtype``): K2 for CUDA
+    tensors, :func:`encode_pool_reference` (the f32 encode and pool of the
+    rows widened, ``split_reference_forward``'s numerics) for CPU tensors;
+    differentiable in the rows and the parameters."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
+    args = (gs, gp, ge, mask, dense_kernel, ln_scale, ln_bias, attn_param)
+    if drop_mask is not None:
+        args += (drop_mask,)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return _EncodePoolRows.apply(compute_dtype, backend, *args)
+    return _rows_forward(compute_dtype, backend, args)

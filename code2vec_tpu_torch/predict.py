@@ -87,7 +87,16 @@ def save_model_file(out_dir: str, model) -> str:
     rows sliced off), the file the :class:`Predictor` loads."""
     from code2vec_tpu_torch import interop
 
-    return interop.save_state_dict(model.state_dict(), out_dir, model.config)
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return interop.save_state_dict(model.state_dict(), out_dir, model.config)
+    from code2vec_tpu_torch.parallel.shardings import unshard_state
+
+    # a mesh's shards gathered (every rank calls this), rank 0 writes
+    sd = unshard_state(mesh, model, None)[0]
+    if mesh.rank == 0:
+        return interop.save_state_dict(sd, out_dir, model.config)
+    return os.path.join(out_dir, interop.MODEL_FILE)
 
 
 def softmax_top_k(logits: np.ndarray, n_labels: int, top_k: int) -> list[tuple[int, float]]:

@@ -2,12 +2,12 @@
 
 Own copy of ``code2vec_tpu/train/config.py``: the same field names and
 defaults, so a JAX configuration reads the same here. Fields of features
-the port does not have yet (the mesh axes, ``shard_staged_corpus``,
-``pallas_impl='auto'`` and ``autotune_cache``) and the TPU knobs with no
+the port does not have yet (``pallas_impl='auto'`` and
+``autotune_cache``, ROADMAP §A.7), one combination of the mesh (lazy
+tables over ``model_axis > 1``, ROADMAP §A.2.12) and the TPU knobs with no
 meaning on the card (``pallas_block_b``, ``pallas_dma_depth``,
 ``rng_impl``) stay at their defaults: :meth:`TrainConfig.validate`
-rejects any other value loudly instead of ignoring it (ROADMAP §A.2.9,
-§A.7).
+rejects any other value loudly instead of ignoring it.
 """
 
 from __future__ import annotations
@@ -77,7 +77,9 @@ class TrainConfig:
     # JAX's choice of the tables' dense backward; here every mode is F.embedding's
     # (ops/embed.py)
     embed_grad: str = "dense"
-    vocab_pad_multiple: int = 0  # 0 = 1 (no model axis here)
+    # pad the tables and the head to this multiple so they shard evenly over
+    # the model axis; 0 = auto (model_axis); checkpoint shapes depend on it
+    vocab_pad_multiple: int = 0
     # the kernel-schedule cache of pallas_impl='auto' (not ported)
     autotune_cache: str = ""
     # JAX's dropout PRNG; the port's dropout stream is a torch.Generator
@@ -138,7 +140,10 @@ class TrainConfig:
     checkpoint_every_steps: int = 0
     fault_plan: str = ""
 
-    # not ported yet: validate() rejects a value other than the default
+    # the (data, model, ctx) mesh of one torch.distributed rank a card
+    # (parallel/): the batch over data, the tables and the head over model,
+    # the bag over ctx; shard_staged_corpus partitions the device-staged
+    # corpus over the data axis (each rank stages ~1/data_axis of it)
     data_axis: int = 1
     model_axis: int = 1
     context_axis: int = 1
@@ -198,17 +203,27 @@ class TrainConfig:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} has no meaning on the card ({why}); "
                     f"leave it at {default!r}")
+        for name in ("data_axis", "model_axis", "context_axis"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"--{name} must be >= 1, got {getattr(self, name)}")
+        if self.shard_staged_corpus and not self.device_epoch:
+            raise ValueError("--shard_staged_corpus shards the device-staged corpus; it "
+                             "requires --device_epoch")
         unported = {
-            "mesh axes > 1": max(self.data_axis, self.model_axis, self.context_axis) > 1,
-            "shard_staged_corpus": self.shard_staged_corpus,
             "pallas_impl='auto'": self.pallas_impl == "auto",
             "autotune_cache": bool(self.autotune_cache),
         }
         asked = [name for name, on in unported.items() if on]
         if asked:
             raise NotImplementedError(
-                f"not ported to code2vec_tpu_torch yet (ROADMAP §A.2): {', '.join(asked)}"
+                f"not ported to code2vec_tpu_torch yet (ROADMAP §A.7): {', '.join(asked)}"
             )
+        if self.table_update == "lazy" and self.model_axis > 1:
+            raise NotImplementedError(
+                "--table_update lazy with --model_axis > 1 is not ported (ROADMAP §A.2.12): the "
+                "touched rows of a row-sharded table would need their ids mapped to each "
+                "model rank's shard and its moments; use --table_update dense, or lazy tables "
+                "over the data and context axes")
         if not (self.infer_method_name or self.infer_variable_name):
             raise ValueError("no task: turn on infer_method_name, infer_variable_name or both")
         if training and self.table_dtype != "f32":

@@ -87,11 +87,13 @@ class StagedCorpus:
 
 
 def _check_device_total(total: int) -> None:
-    """The sampler indexes with int32 ``row_splits``."""
+    """The sampler indexes with int32 ``row_splits``: per shard under
+    ``shard_staged_corpus``."""
     if total >= 2**31:
         raise ValueError(
-            f"staged corpus has {total} contexts; device row_splits are int32: stage a "
-            "subset (the sharded staging is not ported yet, ROADMAP §A.2)"
+            f"staged corpus (or shard) has {total} contexts; device row_splits are int32: "
+            "shard the staging over more ranks (--shard_staged_corpus with a larger "
+            "--data_axis) or stage a subset"
         )
 
 
@@ -332,17 +334,21 @@ def remaps(corpus: StagedCorpus, shuffle_variable_ids: bool) -> bool:
 
 
 def sample_batch(corpus: StagedCorpus, rows: torch.Tensor, row_valid: torch.Tensor, bag: int,
-                 generator: torch.Generator,
-                 shuffle_variable_ids: bool = False) -> dict[str, torch.Tensor]:
+                 generator: torch.Generator, shuffle_variable_ids: bool = False,
+                 draw: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
     """:func:`sample_batch_from_shift` with the shifts, then (when the
     corpus :func:`remaps`) the ``[B, V]`` uniform draw, from ``generator``
-    on the corpus's device."""
+    on the corpus's device. ``draw=(n, offset)``: draw ``n`` rows' values
+    and take the ``B`` from ``offset`` (a shard's slice of the global
+    batch's draw, so every rank's generator stays in one state)."""
     dev = corpus.contexts.device
-    shift = torch.randint(0, SHIFT_HIGH, (rows.shape[0], 1), generator=generator, device=dev)
+    b = rows.shape[0]
+    n, lo = draw if draw is not None else (b, 0)
+    shift = torch.randint(0, SHIFT_HIGH, (n, 1), generator=generator, device=dev)[lo:lo + b]
     if not remaps(corpus, shuffle_variable_ids):
         return sample_batch_from_shift(corpus.contexts, corpus.row_splits, corpus.labels, rows,
                                        row_valid, bag, shift)
-    u = torch.rand((rows.shape[0], corpus.remap_ids.shape[0]), generator=generator, device=dev)
+    u = torch.rand((n, corpus.remap_ids.shape[0]), generator=generator, device=dev)[lo:lo + b]
     return sample_batch_from_shift(corpus.contexts, corpus.row_splits, corpus.labels, rows,
                                    row_valid, bag, shift, corpus.remap_ids, corpus.remap_flags, u)
 
@@ -389,13 +395,33 @@ class EpochRunner:
 
     def __init__(self, class_weights: torch.Tensor, batch_size: int, bag: int,
                  chunk_batches: int = 16, sample_prefetch: bool = False,
-                 shuffle_variable_ids: bool = False):
+                 shuffle_variable_ids: bool = False, mesh=None):
         self.class_weights = class_weights
         self.batch_size = int(batch_size)
         self.bag = int(bag)
         self.chunk_batches = int(chunk_batches)
         self.sample_prefetch = bool(sample_prefetch)
         self.shuffle_variable_ids = bool(shuffle_variable_ids)
+        # a replicated staging on a mesh: each rank keeps its part of the
+        # global batch sampled alike everywhere
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._draw = None  # (rows drawn, offset): a sharded runner's slice
+
+    def _place(self, batch: dict) -> dict:
+        if self.mesh is None or self._draw is not None:
+            return batch
+        from code2vec_tpu_torch.parallel.distributed import global_batch
+
+        return global_batch(self.mesh, batch)
+
+    def _gather_preds(self, preds: torch.Tensor) -> torch.Tensor:
+        """A replicated staging's predictions of the whole global batch."""
+        if self.mesh is None or self._draw is not None:
+            return preds
+        from code2vec_tpu_torch.parallel.distributed import _all_gather
+
+        group = self.mesh.group("data")
+        return preds if group is None else _all_gather(preds, group, 0)
 
     def _chunk_plan(self, n_rows: int) -> list[tuple[int, int, int]]:
         """``[(row_lo, n_batches, n_valid_rows)]`` over ``ceil(n / B)``
@@ -413,7 +439,8 @@ class EpochRunner:
         rows = order[row_lo:row_lo + nb * self.batch_size]
         if len(rows) < nb * self.batch_size:
             # the masked tail repeats order[0], as iter_batches pads
-            fill = np.full(nb * self.batch_size - len(rows), order[0], rows.dtype)
+            fill = np.full(nb * self.batch_size - len(rows), order[0] if len(order) else 0,
+                           rows.dtype)
             rows = np.concatenate([rows, fill])
         return rows.astype(np.int32)
 
@@ -430,8 +457,9 @@ class EpochRunner:
         b = self.batch_size
 
         def sample(i):
-            return sample_batch(corpus, rows[i * b:(i + 1) * b], valid[i * b:(i + 1) * b],
-                                self.bag, generator, self.shuffle_variable_ids)
+            return self._place(sample_batch(corpus, rows[i * b:(i + 1) * b],
+                                            valid[i * b:(i + 1) * b], self.bag, generator,
+                                            self.shuffle_variable_ids, self._draw))
 
         if not self.sample_prefetch:
             for i in range(nb):
@@ -490,7 +518,8 @@ class EpochRunner:
             for i, batch in enumerate(batches):
                 out = eval_step(model, batch, self.class_weights)
                 k = min(self.batch_size, n_valid - i * self.batch_size)
-                outs.append((out["loss"], out["preds"][:k], out["max_logit"][:k]))
+                outs.append((out["loss"], self._gather_preds(out["preds"])[:k],
+                             self._gather_preds(out["max_logit"])[:k]))
 
     def run_eval_epoch(self, model, corpus: StagedCorpus,
                        generator: torch.Generator) -> tuple[float, np.ndarray, np.ndarray]:
@@ -517,18 +546,22 @@ class BucketedEpochRunner:
     bucket then drawing its own method order; eval takes them in ladder
     order, the order of :meth:`BucketedStagedCorpus.host_labels`."""
 
+    runner = EpochRunner  # the runner of one bucket
+
     def __init__(self, class_weights: torch.Tensor, batch_size: int, ladder: tuple[int, ...],
                  chunk_batches: int = 16, sample_prefetch: bool = False,
-                 shuffle_variable_ids: bool = False):
+                 shuffle_variable_ids: bool = False, mesh=None):
         self.ladder = tuple(ladder)
-        self._runners = {width: EpochRunner(class_weights, batch_size, width, chunk_batches,
-                                            sample_prefetch, shuffle_variable_ids)
+        self.mesh = mesh
+        self._runners = {width: self.runner(class_weights, batch_size, width, chunk_batches,
+                                            sample_prefetch, shuffle_variable_ids, mesh)
                          for width in self.ladder}
 
     def run_train_epoch(self, model, optimizer, corpus: BucketedStagedCorpus,
                         rng: np.random.Generator,
                         generator: torch.Generator) -> tuple[float, dict]:
-        tally = StepTally(corpus.buckets[0][1].contexts.device)
+        staged = corpus.buckets[0][1]  # a sharded bucket's rows are its ``local`` share
+        tally = StepTally(getattr(staged, "local", staged).contexts.device)
         for i in rng.permutation(len(corpus.buckets)):
             width, staged = corpus.buckets[int(i)]
             self._runners[width].train_epoch(model, optimizer, staged, rng, generator, tally)
@@ -540,3 +573,231 @@ class BucketedEpochRunner:
         for width, staged in corpus.buckets:
             self._runners[width].eval_epoch(model, staged, generator, outs)
         return eval_results(outs)
+
+
+# ---------------------------------------------------------------------------
+# sharded staging (shard_staged_corpus): each rank holds its data share
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ShardedStagedCorpus:
+    """A split partitioned over the mesh's data axis (JAX ``:286``): this
+    rank holds ``local``, its coordinate's snake-dealt share
+    (:func:`partition_items_balanced`), on its card; every rank knows every
+    share's item count (``shard_counts``), which sets the epoch's length."""
+
+    local: StagedCorpus
+    shard_counts: np.ndarray  # int64 [data] items a share
+    n_items: int  # every share's items
+    total_contexts: int  # every share's contexts
+    host_labels: np.ndarray  # this share's labels, on the host
+
+    @property
+    def n_contexts(self) -> int:
+        return self.total_contexts
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes this rank stages."""
+        return self.local.nbytes
+
+    def flat_labels(self, mesh) -> np.ndarray:
+        """Every share's labels in share order: the ``expected`` array of
+        :meth:`ShardedEpochRunner.run_eval_epoch`'s predictions."""
+        from code2vec_tpu_torch.parallel.distributed import allgather_to_host
+
+        return allgather_to_host(self.host_labels, mesh)
+
+
+def partition_items_balanced(counts: np.ndarray, n_shards: int) -> list[np.ndarray]:
+    """Deal item positions to shards in a snake over descending context
+    counts (JAX ``:323``): item counts equal within one, context loads
+    close."""
+    n = len(counts)
+    order = np.argsort(-np.asarray(counts), kind="stable")
+    pos_in_round = np.arange(n) % (2 * n_shards)
+    shard = np.where(pos_in_round < n_shards, pos_in_round, 2 * n_shards - 1 - pos_in_round)
+    return [np.sort(order[shard == s]).astype(np.int64) for s in range(n_shards)]
+
+
+def _host_rows(staged: StagedCorpus, members: np.ndarray) -> StagedCorpus:
+    """Rows ``members`` of a host staging, as a host staging of their own."""
+    rs = np.asarray(staged.row_splits).astype(np.int64)
+    counts = np.diff(rs)[members]
+    flat, _, _ = flat_context_indices(rs, members)
+    splits = np.zeros(len(members) + 1, np.int64)
+    np.cumsum(counts, out=splits[1:])
+    flags = None if staged.remap_flags is None else np.asarray(staged.remap_flags)[members]
+    return StagedCorpus(contexts=np.asarray(staged.contexts)[flat], row_splits=splits,
+                        labels=np.asarray(staged.labels)[members], n_items=len(members),
+                        counts=counts.astype(np.int64), remap_ids=staged.remap_ids,
+                        remap_flags=flags)
+
+
+def shard_staged(staged: StagedCorpus, mesh, device: str | torch.device) -> ShardedStagedCorpus:
+    """A host staging partitioned over the mesh's data axis (JAX
+    ``shard_staged``, ``:386``): this rank places only its share on
+    ``device`` (the 2^31 check is per share)."""
+    n_shards, me = mesh.shape["data"], mesh.coords["data"]
+    counts = np.diff(np.asarray(staged.row_splits).astype(np.int64))
+    groups = partition_items_balanced(counts, n_shards)
+    mine = _host_rows(staged, groups[me])
+    local = mine
+    if mine.n_items == 0:
+        # a share with no rows (a bucket smaller than the data axis) still
+        # steps masked batches: one empty row over one PAD context to sample
+        local = StagedCorpus(contexts=np.zeros((1, 3), np.int32),
+                             row_splits=np.zeros(2, np.int64), labels=np.zeros(1, np.int32),
+                             n_items=1, counts=np.zeros(1, np.int64),
+                             remap_ids=staged.remap_ids,
+                             remap_flags=None if staged.remap_flags is None
+                             else np.zeros(1, np.int32))
+    return ShardedStagedCorpus(local=place_staged(local, device),
+                               shard_counts=np.asarray([len(g) for g in groups], np.int64),
+                               n_items=staged.n_items, total_contexts=int(counts.sum()),
+                               host_labels=np.asarray(mine.labels))
+
+
+@dataclass
+class BucketedShardedStagedCorpus:
+    """Each ladder bucket sharded over the data axis (JAX ``:1005``)."""
+
+    buckets: list[tuple[int, ShardedStagedCorpus]]
+
+    @property
+    def n_items(self) -> int:
+        return sum(s.n_items for _, s in self.buckets)
+
+    @property
+    def n_contexts(self) -> int:
+        return sum(s.n_contexts for _, s in self.buckets)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(s.nbytes for _, s in self.buckets)
+
+    def flat_labels(self, mesh) -> np.ndarray:
+        return (np.concatenate([s.flat_labels(mesh) for _, s in self.buckets]) if self.buckets
+                else np.zeros(0, np.int32))
+
+
+def bucket_shard_staged(staged: StagedCorpus, ladder: tuple[int, ...], mesh,
+                        device: str | torch.device) -> BucketedShardedStagedCorpus:
+    """Ladder-partition a host staging, then shard each bucket (JAX
+    ``:1038``)."""
+    return BucketedShardedStagedCorpus(buckets=[
+        (width, shard_staged(sub, mesh, device))
+        for width, sub in _bucket_host_partition(staged, ladder)])
+
+
+class ShardedEpochRunner(EpochRunner):
+    """Epochs over a :class:`ShardedStagedCorpus` (JAX ``:1142``): each step
+    samples ``B / data`` rows from this rank's share (stratified by share,
+    as DDP and the host-sharded feed sample); the epoch runs
+    ``ceil(largest share / (B / data))`` steps on every rank, a shorter
+    share's tail masked. Data and model axes; ``ctx`` must be 1."""
+
+    def __init__(self, class_weights: torch.Tensor, batch_size: int, bag: int,
+                 chunk_batches: int = 16, sample_prefetch: bool = False,
+                 shuffle_variable_ids: bool = False, mesh=None):
+        if mesh is None:
+            raise ValueError("ShardedEpochRunner needs a mesh")
+        if mesh.shape["ctx"] > 1:
+            raise ValueError("sharded corpus staging composes with data/model axes; a "
+                             "ctx-sharded bag needs replicated staging or the host pipeline")
+        n_shards = mesh.shape["data"]
+        if batch_size % n_shards:
+            raise ValueError(f"batch_size {batch_size} not divisible by data axis {n_shards}")
+        super().__init__(class_weights, batch_size // n_shards, bag, chunk_batches,
+                         sample_prefetch, shuffle_variable_ids)
+        self.mesh = mesh
+        self.n_shards, self.shard = n_shards, mesh.coords["data"]
+        self._draw = (batch_size, self.shard * self.batch_size)
+
+    def _plan(self, counts: np.ndarray) -> list[tuple[int, int, int]]:
+        """``[(row_lo, n_batches, n_valid_rows)]`` of this share over the
+        largest share's batches."""
+        per, mine = self.batch_size, int(counts[self.shard])
+        nb_total = max(-(-int(counts.max()) // per), 1)
+        plan, lo = [], 0
+        while lo < nb_total:
+            nb = min(self.chunk_batches, nb_total - lo)
+            row_lo = lo * per
+            plan.append((row_lo, nb, max(min(mine - row_lo, nb * per), 0)))
+            lo += nb
+        return plan
+
+    def train_epoch(self, model, optimizer, corpus: ShardedStagedCorpus, rng, generator,
+                    tally: StepTally) -> None:
+        # every rank draws every share's order: the host generator stays one
+        orders = [rng.permutation(int(c)) for c in corpus.shard_counts]
+        order = orders[self.shard]
+        for row_lo, nb, n_valid in self._plan(corpus.shard_counts):
+            self.train_chunk(model, optimizer, corpus.local, order, row_lo, nb, n_valid,
+                             generator, tally)
+
+    def run_train_epoch(self, model, optimizer, corpus: ShardedStagedCorpus, rng, generator):
+        tally = StepTally(corpus.local.contexts.device)
+        self.train_epoch(model, optimizer, corpus, rng, generator, tally)
+        return tally.result()
+
+    def eval_epoch(self, model, corpus: ShardedStagedCorpus, generator, acc: list) -> None:
+        """Enqueue one eval pass, each share in its own order; ``acc`` gets
+        ``(loss, global valid rows, this share's preds, max logits)`` a
+        batch."""
+        counts, per = corpus.shard_counts, self.batch_size
+        order = np.arange(int(counts[self.shard]))
+        for row_lo, nb, n_valid in self._plan(counts):
+            batches = self._batches(corpus.local, order, row_lo, nb, n_valid, generator)
+            for i, batch in enumerate(batches):
+                out = eval_step(model, batch, self.class_weights)
+                lo = row_lo + i * per
+                rows = int(np.clip(counts - lo, 0, per).sum())
+                k = max(min(per, n_valid - i * per), 0)
+                acc.append((out["loss"], rows, out["preds"][:k], out["max_logit"][:k]))
+
+    def run_eval_epoch(self, model, corpus: ShardedStagedCorpus, generator):
+        """``(loss, preds, max_logits)``, the predictions in share order
+        (:meth:`ShardedStagedCorpus.flat_labels`), the loss JAX's: the
+        batch means weighted by their valid rows, times ``ceil(N / B)``."""
+        acc: list = []
+        self.eval_epoch(model, corpus, generator, acc)
+        return sharded_eval_results(acc, int(corpus.shard_counts.sum()),
+                                    self.batch_size * self.n_shards, self.mesh)
+
+
+def sharded_eval_results(acc: list, n_total: int, global_batch: int, mesh):
+    from code2vec_tpu_torch.parallel.distributed import allgather_to_host
+
+    if not acc:
+        return 0.0, np.zeros(0, np.int64), np.zeros(0, np.float32)
+    losses = torch.stack([a[0] for a in acc]).double().cpu().numpy()
+    rows = np.asarray([a[1] for a in acc], np.float64)
+    mean = float(losses @ rows) / max(float(rows.sum()), 1.0)
+    preds = allgather_to_host(torch.cat([a[2] for a in acc]), mesh)
+    max_logits = allgather_to_host(torch.cat([a[3] for a in acc]).float(), mesh)
+    return mean * max(-(-n_total // global_batch), 1), preds, max_logits
+
+
+class BucketedShardedEpochRunner(BucketedEpochRunner):
+    """:class:`ShardedEpochRunner` a ladder bucket (JAX ``:1441``): training
+    takes the buckets in ``rng.permutation(len(buckets))`` order, eval in
+    ladder order, the order of :meth:`BucketedShardedStagedCorpus.flat_labels`."""
+
+    runner = ShardedEpochRunner
+
+    def run_eval_epoch(self, model, corpus: BucketedShardedStagedCorpus, generator):
+        loss, preds, logits = 0.0, [], []
+        for width, staged in corpus.buckets:
+            runner = self._runners[width]
+            acc: list = []
+            runner.eval_epoch(model, staged, generator, acc)
+            b_loss, b_preds, b_logits = sharded_eval_results(
+                acc, int(staged.shard_counts.sum()), runner.batch_size * runner.n_shards,
+                self.mesh)
+            loss += b_loss
+            preds.append(b_preds)
+            logits.append(b_logits)
+        return (loss, np.concatenate(preds) if preds else np.zeros(0, np.int64),
+                np.concatenate(logits) if logits else np.zeros(0, np.float32))

@@ -94,8 +94,10 @@ from code2vec_tpu_torch.data.pipeline import (
     build_epoch,
     derive_bucket_ladder,
     derive_longbag_ladder,
+    empty_batch,
     make_batch_source,
     oov_rate,
+    pad_batch_stream,
     pad_stats,
     parse_bucket_ladder,
     skip_batches,
@@ -112,13 +114,17 @@ from code2vec_tpu_torch.ops.backend import resolve_device
 from code2vec_tpu_torch.sinks import MetricSink, logging_sink
 from code2vec_tpu_torch.train.device_epoch import (
     BucketedEpochRunner,
+    BucketedShardedEpochRunner,
     BucketedStagedCorpus,
     EpochRunner,
+    ShardedEpochRunner,
     StagedCorpus,
+    bucket_shard_staged,
     bucket_staged,
     concat_staged,
     place_staged,
     sampler_generator,
+    shard_staged,
     stage_method_corpus,
     stage_variable_corpus,
 )
@@ -193,7 +199,8 @@ class _EpochCursorHook:
     preemption (JAX ``loop.py:152-271``). :meth:`after_step` counts the
     epoch's steps (from the replayed cursor on) and the batches a width,
     and saves the ``last`` slot with a cursor every ``every_steps`` steps
-    and when the SIGTERM guard is set, raising :class:`PreemptionStop`
+    and when the SIGTERM guard is set (on a mesh, read at those saves
+    only: :meth:`_should_stop`), raising :class:`PreemptionStop`
     after that save. :meth:`after_pass` re-checks the guard at the stream's
     end: the prefetch producer drains on SIGTERM, so a stream may end
     early, and that pass must not be recorded as an epoch. ``save`` (None
@@ -202,8 +209,9 @@ class _EpochCursorHook:
 
     def __init__(self, save, meta: TrainMeta, epoch: int, epoch_rng_state: dict,
                  dropout_state, guard, feed_batch: int, every_steps: int = 0, skip: int = 0,
-                 widths: dict | None = None):
+                 widths: dict | None = None, mesh=None):
         self.save = save
+        self.mesh = mesh
         self.meta = meta
         self.epoch = epoch
         self.epoch_rng_state = epoch_rng_state
@@ -223,19 +231,30 @@ class _EpochCursorHook:
                                slot="last", mid_epoch=True):
             self.save("last", epoch=self.epoch, mid_epoch=True)
 
+    def _should_stop(self, at_collective_point: bool) -> bool:
+        """Act on the guard: every step on one rank, but on a mesh of
+        several ranks only at the points every rank reaches at the same step
+        (the periodic-save steps and the stream's end; JAX ``loop.py:240-252``).
+        There :func:`coordinated_stop` agrees on rank 0's flag through a
+        broadcast, whose readback would otherwise sync host and device every
+        step."""
+        if self.mesh is None or self.mesh.size == 1:
+            return self.guard.requested()
+        return at_collective_point and coordinated_stop(self.guard, self.mesh)
+
     def after_step(self, tally: StepTally, width: int) -> None:
         self.widths[width] = self.widths.get(width, 0) + 1
         self.steps += 1
         self.meta.step += 1
         periodic = bool(self.every_steps and self.steps % self.every_steps == 0)
-        stop = coordinated_stop(self.guard)
+        stop = self._should_stop(periodic)
         if self.save is not None and (stop or periodic):
             self._save(tally)
         if stop:
             raise PreemptionStop(self.guard.reason or "requested")
 
     def after_pass(self, tally: StepTally) -> None:
-        if coordinated_stop(self.guard):
+        if self._should_stop(True):
             if self.save is not None:
                 self._save(tally)
             raise PreemptionStop(self.guard.reason or "requested")
@@ -264,9 +283,80 @@ def model_config_from(config, data) -> Code2VecConfig:
         table_dtype=config.table_dtype,
         attn_impl=config.attn_impl,
         encoder_impl=config.encoder_impl,
-        vocab_pad_multiple=config.vocab_pad_multiple or 1,
+        vocab_pad_multiple=config.vocab_pad_multiple or max(config.model_axis, 1),
         embed_grad=config.embed_grad,
     )
+
+
+def build_mesh(config):
+    """The ``(data, model, ctx)`` mesh of the config's axes over the
+    process group, with JAX ``build_mesh``'s checks (``loop.py:323-366``);
+    None when every axis is 1. Without a group of that many ranks it
+    raises, naming torchrun."""
+    if config.data_axis * config.model_axis * config.context_axis <= 1:
+        return None
+    if config.use_pallas and config.context_axis > 1:
+        raise ValueError(
+            "use_pallas with context_axis > 1 is not supported: every "
+            "Pallas kernel variant (--pallas_impl pool_only | gather_split "
+            "| fused | auto) pools the whole bag per device; drop "
+            "--use_pallas (and its --pallas_impl/--pallas_block_b/"
+            "--pallas_dma_depth knobs) to use the XLA path (default) for "
+            "context parallelism"
+        )
+    if config.batch_size % config.data_axis:
+        raise ValueError(f"batch_size {config.batch_size} not divisible by data_axis "
+                         f"{config.data_axis}")
+    if config.max_path_length % config.context_axis:
+        raise ValueError(f"max_path_length {config.max_path_length} not divisible by "
+                         f"context_axis {config.context_axis}")
+    from code2vec_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(data=config.data_axis, model=config.model_axis, ctx=config.context_axis)
+
+
+def host_shard_batch(config, data, mesh) -> int:
+    """The rows a feed group builds a step from its corpus shard, after
+    JAX's checks of the host-sharded feed (``loop.py:665``, ``:833-876``,
+    ``:1243``, ``:1308``)."""
+    from code2vec_tpu_torch.parallel.distributed import feed_groups
+
+    feed_group, n_feed_groups = feed_groups(mesh)
+    if tuple(data.shard) != (feed_group, n_feed_groups):
+        raise ValueError(
+            f"corpus shard {data.shard} does not match this process's feed group "
+            f"({feed_group}, {n_feed_groups}); shard the corpus with "
+            "load_corpus(shard=feed_groups(mesh)) — NOT by process index when the "
+            "model/ctx axes span processes")
+    if config.batch_size % n_feed_groups:
+        raise ValueError(f"batch_size {config.batch_size} not divisible by "
+                         f"{n_feed_groups} feed groups")
+    if data.infer_variable:
+        raise ValueError("host-sharded feeding supports the method task only; load the "
+                         "corpus unsharded for infer_variable runs")
+    if config.bucketed and config.stream_chunk_items:
+        raise ValueError(
+            "--bucketed + host-sharded feeding + --stream_chunk_items: a chunked text "
+            "stream cannot follow the global bucket-width schedule; convert the corpus "
+            "with tools/corpus_convert.py and feed it as --corpus_format csr (mmap "
+            "batches are random-access, so the combination needs no streaming), or drop "
+            "one flag")
+    if config.checkpoint_every_steps:
+        raise ValueError(
+            "--checkpoint_every_steps does not compose with host-sharded feeding: the "
+            "mid-epoch cursor records one host RNG state, but each feed group draws its "
+            "own stream; use --checkpoint_cycle (epoch-boundary saves) instead")
+    if config.feed_workers:
+        raise ValueError(
+            "--feed_workers does not compose with host-sharded feeding (the lockstep "
+            "width schedule pads per host); each host already builds only 1/n_groups of "
+            "every batch — drop --feed_workers or feed unsharded")
+    if config.max_contexts == 0:
+        raise ValueError(
+            "--max_contexts 0 with a host-sharded corpus would derive a different longbag "
+            "ladder on every host (each sees only its shard's length histogram); load the "
+            "corpus unsharded or pin the full ladder explicitly in a follow-up run")
+    return config.batch_size // n_feed_groups
 
 
 def class_weights_from(config, data, device=None) -> torch.Tensor:
@@ -330,8 +420,8 @@ def _signature(batch: dict, dtype) -> tuple:
 def _train_pass(model, optimizer, batches, class_weights, device, prefetch: int = 0,
                 profiler: StepProfiler | None = None, hook: _EpochCursorHook | None = None,
                 loss_offset: float | tuple[float, float] = 0.0,
-                epoch: int | None = None, recompiles: RecompileDetector | None = None
-                ) -> tuple[float, dict]:
+                epoch: int | None = None, recompiles: RecompileDetector | None = None,
+                place=None) -> tuple[float, dict]:
     """One epoch of host-fed train steps: ``(the left fold of the batch
     losses from loss_offset, speed)``, the losses read back once
     (:class:`StepTally`) unless a mid-epoch save reads the partial fold. A
@@ -342,8 +432,12 @@ def _train_pass(model, optimizer, batches, class_weights, device, prefetch: int 
     and raise :class:`PreemptionStop`); ``loss_offset`` is a resumed
     epoch's fold state, the pass covering the epoch's tail. The pass is a
     ``train_pass`` span, its first and profiled steps ``train_step``
-    spans (synchronized, so the span covers the device's work)."""
+    spans (synchronized, so the span covers the device's work). ``place``
+    (a mesh) cuts a host batch to this rank's rows and bag columns before
+    its copy."""
     def feed(batch):
+        if place is not None:
+            batch = place(batch)
         valid = batch["example_mask"].astype(bool)
         return to_device(batch, device), int(np.count_nonzero(batch["starts"][valid]))
 
@@ -352,8 +446,11 @@ def _train_pass(model, optimizer, batches, class_weights, device, prefetch: int 
     tally = StepTally(device, loss_offset)
     step = 0
     with tracer.span("train_pass", category="train", epoch=epoch):
+        # on a mesh a stop is the ranks' common decision (the hook's
+        # broadcast): a producer draining on its own rank's flag would leave
+        # the others in a collective
         with device_batches(batches, feed, prefetch, profiler, device,
-                            drain_on_preemption=hook is not None) as stream:
+                            drain_on_preemption=hook is not None and place is None) as stream:
             for host_batch, (device_batch, contexts) in stream:
                 sampled = profiler is not None and profiler.sampled(step)
                 spanned = (step == 0 and tracer.enabled) or sampled
@@ -385,7 +482,8 @@ def _train_pass(model, optimizer, batches, class_weights, device, prefetch: int 
     return tally.result()
 
 
-def resolve_ladder(config, data) -> tuple[tuple[int, ...] | None, int]:
+def resolve_ladder(config, data, counts: np.ndarray | None = None
+                   ) -> tuple[tuple[int, ...] | None, int]:
     """``(bucket ladder or None, epoch-build context cap)``: the explicit
     ``bucket_ladder`` or one derived from the corpus's length histogram
     when ``bucketed``; with ``max_contexts == 0`` the long-bag rungs above
@@ -393,8 +491,10 @@ def resolve_ladder(config, data) -> tuple[tuple[int, ...] | None, int]:
     cap rises to the top rung (JAX ``loop.py:617-690``). The histogram is
     the methods' context counts even when the corpus trains the variable
     task only, as in JAX (``:627-629``): a variable row's contexts are a
-    subset of its method's."""
-    counts = np.diff(data.row_splits)
+    subset of its method's. ``counts`` replaces the corpus's counts (a
+    host-sharded run derives its ladder from every shard's, gathered, so
+    the feed groups agree on it)."""
+    counts = np.diff(data.row_splits) if counts is None else counts
     ladder = None
     if config.bucketed:
         ladder = parse_bucket_ladder(config.bucket_ladder, config.max_path_length)
@@ -414,30 +514,49 @@ def resolve_ladder(config, data) -> tuple[tuple[int, ...] | None, int]:
 
 
 def evaluate_epoch(config, data, model, batches, class_weights, prefetch: int = 0,
-                   epoch: int | None = None, recompiles: RecompileDetector | None = None):
+                   epoch: int | None = None, recompiles: RecompileDetector | None = None,
+                   place=None, gather_hosts: bool = False):
     """The test pass over ``batches`` (an ``eval_pass`` span): ``(loss,
     accuracy, precision, recall, f1)``, the loss the sum of the batch
     means (reference main.py:283-284). Only a batch's per-row fields are
     read after the next pull (a feed worker delivers those as owned
-    copies)."""
+    copies). On a mesh (``place`` cuts this rank's part of a host batch)
+    the predictions are all-gathered over the data line (JAX
+    ``_evaluate_batches``): every rank of a replicated feed gets the whole
+    batch's; with ``gather_hosts`` (a host-sharded feed, each feed group
+    holding its own rows) the labels and predictions of the pass are
+    all-gathered at its end. Every rank computes the same F1."""
+    from code2vec_tpu_torch.parallel.distributed import _all_gather, allgather_to_host
+
     device = class_weights.device
     dtype = model.config.dtype
+    mesh = getattr(model, "mesh", None)
+    data_group = mesh.group("data") if mesh is not None else None
+
+    def feed(batch):
+        return to_device(place(batch) if place is not None else batch, device)
+
     losses, expected, actual = [], [], []
     with get_tracer().span("eval_pass", category="eval", epoch=epoch), \
-            device_batches(batches, lambda b: to_device(b, device), prefetch,
-                           device=device) as stream:
+            device_batches(batches, feed, prefetch, device=device) as stream:
         for batch, device_batch in stream:
             if recompiles is not None:
                 recompiles.observe("eval_step", _signature(batch, dtype))
             out = eval_step(model, device_batch, class_weights)
+            preds = out["preds"]
+            if data_group is not None and not gather_hosts:
+                preds = _all_gather(preds, data_group, 0)
             valid = batch["example_mask"].astype(bool)
             losses.append(out["loss"])
             expected.append(batch["labels"][valid])
-            actual.append((out["preds"], valid))
+            actual.append((preds, valid))
     test_loss = float(torch.stack(losses).double().sum()) if losses else 0.0
     expected = np.concatenate(expected) if expected else np.zeros(0, np.int32)
     actual = (np.concatenate([p.cpu().numpy()[v] for p, v in actual]) if actual
               else np.zeros(0, np.int64))
+    if gather_hosts and mesh is not None:
+        expected = allgather_to_host(expected, mesh)
+        actual = allgather_to_host(actual, mesh)
     return (test_loss, *evaluate(config.eval_method, expected, actual, data.label_vocab))
 
 
@@ -475,12 +594,14 @@ def stage_host(data, item_idx, np_rng) -> StagedCorpus:
 
 
 def stage_device_epochs(config, data, train_idx, test_idx, np_rng, ladder, class_weights,
-                        device) -> DeviceEpochs:
+                        device, mesh=None) -> DeviceEpochs:
     """Stage the train then the test split (drawing ``np_rng`` in JAX
     ``loop.py:1017-1037``'s order, so before a restore) and build the
     runner: bucketed over ``ladder``, else at ``max_path_length``. The pad
     accounting is corpus-static: the sampler fills ``min(count, width)``
-    slots a row every epoch (JAX ``:1096-1114``)."""
+    slots a row every epoch (JAX ``:1096-1114``). On a mesh every rank
+    stages the whole split (replicated), or with ``shard_staged_corpus``
+    only its data coordinate's share of both splits (JAX ``:1055-1083``)."""
     t0 = time.perf_counter()
     with get_tracer().span("stage_corpus", category="train", items=len(train_idx)):
         host_train = stage_host(data, train_idx, np_rng)
@@ -488,24 +609,45 @@ def stage_device_epochs(config, data, train_idx, test_idx, np_rng, ladder, class
         host_test = stage_host(data, test_idx, np_rng)
     b, chunk, prefetch = config.batch_size, config.device_chunk_batches, config.sample_prefetch
     shuffle = config.shuffle_variable_indexes
-    if ladder is not None:
+    if config.shard_staged_corpus:
+        if mesh is None:
+            raise ValueError("--shard_staged_corpus needs mesh axes (--data_axis > 1)")
+        if ladder is not None:
+            staged_train = bucket_shard_staged(host_train, ladder, mesh, device)
+            staged_test = bucket_shard_staged(host_test, ladder, mesh, device)
+            runner = BucketedShardedEpochRunner(class_weights, b, ladder, chunk, prefetch,
+                                                shuffle, mesh)
+        else:
+            ladder = (config.max_path_length,)
+            staged_train = shard_staged(host_train, mesh, device)
+            staged_test = shard_staged(host_test, mesh, device)
+            runner = ShardedEpochRunner(class_weights, b, config.max_path_length, chunk,
+                                        prefetch, shuffle, mesh)
+        # static for the run: the share-order labels, gathered once
+        expected = staged_test.flat_labels(mesh)
+        # the pad accounting counts the whole split, every share's rows
+        counts = np.diff(np.asarray(host_train.row_splits).astype(np.int64))
+    elif ladder is not None:
         staged_train = bucket_staged(host_train, ladder, device)
         staged_test = bucket_staged(host_test, ladder, device)
         expected = staged_test.host_labels()
-        runner = BucketedEpochRunner(class_weights, b, ladder, chunk, prefetch, shuffle)
+        runner = BucketedEpochRunner(class_weights, b, ladder, chunk, prefetch, shuffle, mesh)
+        counts = staged_train.counts
     else:
         ladder = (config.max_path_length,)
         staged_train = place_staged(host_train, device)
         staged_test = place_staged(host_test, device)
         expected = host_test.labels
-        runner = EpochRunner(class_weights, b, config.max_path_length, chunk, prefetch, shuffle)
+        runner = EpochRunner(class_weights, b, config.max_path_length, chunk, prefetch, shuffle,
+                             mesh)
+        counts = staged_train.counts
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     feed = DeviceEpochs(runner=runner, train=staged_train, test=staged_test, expected=expected,
-                        pad=pad_stats(staged_train.counts, ladder, b),
+                        pad=pad_stats(counts, ladder, b),
                         generator=sampler_generator(config.random_seed, device),
                         stage_seconds=time.perf_counter() - t0)
-    logger.info("device epochs: staged %d train / %d test contexts (%d bytes) on %s in %.3fs",
+    logger.info("device epochs: staged %d train / %d test contexts (%d bytes here) on %s in %.3fs",
                 staged_train.n_contexts, staged_test.n_contexts, feed.staged_bytes, device,
                 feed.stage_seconds)
     return feed
@@ -576,15 +718,43 @@ def train(
             "pass matching flags to load_corpus"
         )
     dev = resolve_device(device)
+    # the mesh (JAX build_mesh): one rank a card, cuda:LOCAL_RANK
+    mesh = build_mesh(config)
+    if mesh is not None:
+        from code2vec_tpu_torch.parallel.distributed import rank_device
+
+        dev = rank_device(dev)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
     kind = device_kind(dev)
+    writes = mesh is None or mesh.rank == 0  # rank 0 writes the model dir
+    # host-sharded feeding (JAX loop.py:826-901): each feed group (the ranks
+    # of one data coordinate) builds its own B / data rows from its shard
+    sharded_feed = data.shard is not None and mesh is not None
+    if data.shard is not None and mesh is None and data.shard[1] > 1:
+        raise ValueError("a host-sharded corpus requires mesh axes")
+    feed_batch = host_shard_batch(config, data, mesh) if sharded_feed else config.batch_size
     if config.feed_workers and data.infer_variable:
         raise ValueError("--feed_workers supports the method task only: the variable-name "
                          "expansion interleaves per-item rng draws with data-dependent row "
                          "counts, so its builds cannot be planned ahead for workers; run "
                          "variable-task corpora with --feed_workers 0")
-    bucket_ladder, bag_width = resolve_ladder(config, data)
+    ladder_counts = None
+    if sharded_feed and config.bucketed and not config.bucket_ladder:
+        from code2vec_tpu_torch.parallel.distributed import allgather_to_host
+
+        ladder_counts = allgather_to_host(np.diff(data.row_splits), mesh)
+    bucket_ladder, bag_width = resolve_ladder(config, data, ladder_counts)
     np_rng = np.random.default_rng(config.random_seed)
-    train_idx, test_idx = split_items(data.n_items, np_rng)
+    global_train = global_test = None
+    if data.shard is None:
+        train_idx, test_idx = split_items(data.n_items, np_rng)
+    else:
+        # every rank draws the same GLOBAL split and keeps its shard's rows,
+        # so a method's train/test membership does not depend on the rank
+        global_train, global_test = split_items(data.global_n_items, np_rng)
+        train_idx = data.local_rows_of_global(global_train)
+        test_idx = data.local_rows_of_global(global_test)
     logger.info("train items: %d, test items: %d", len(train_idx), len(test_idx))
     logger.info("OOV rate: %s",
                 oov_rate(data, train_idx, test_idx, exact=config.eval_method == "exact"))
@@ -595,7 +765,7 @@ def train(
         if data.infer_method and len(train_idx) else None)
     model_config = model_config_from(config, data)
     class_weights = class_weights_from(config, data, dev)
-    if out_dir is not None and saving:
+    if out_dir is not None and saving and writes:
         # a fixed-L run records a corpus-derived ladder, so a server needs no
         # corpus to pick its shapes
         save_inference_meta(
@@ -610,19 +780,26 @@ def train(
         model.reset_parameters(torch.Generator().manual_seed(config.random_seed))
     model.to(dev)
     model.seed_dropout(config.random_seed)
+    if mesh is not None:
+        from code2vec_tpu_torch.parallel.shardings import shard_model
+
+        # built whole (the seeded init of one device), then sliced: every
+        # mesh starts from the world-1 weights
+        shard_model(model, mesh)
     optimizer = make_optimizer(model, config)
     # the event log's first line (idempotent: a search wrote its own first);
     # built only when someone reads it
     if events.observed:
+        from code2vec_tpu_torch.parallel.distributed import process_info
+
         events.write_manifest(
             config=config,
-            backend=dev.type,
-            device_kind=kind,
-            local_device_count=1,
-            global_device_count=1,
+            # who this process is: its rank, the group's backend, the card
+            **process_info(dev),
+            mesh=mesh,
             corpus={"n_items": data.n_items, "terminal_vocab": len(data.terminal_vocab),
                     "path_vocab": len(data.path_vocab), "label_vocab": len(data.label_vocab),
-                    "shard": None},
+                    "shard": list(data.shard) if data.shard is not None else None},
             # the analytic cost of each rung's step and the peak mfu divides by
             costs=_manifest_costs(config, model_config, bucket_ladder, kind),
         )
@@ -631,25 +808,40 @@ def train(
     expected = len(bucket_ladder) if bucket_ladder else None
     recompiles.track("train_step", expected_compiles=expected)
     recompiles.track("eval_step", expected_compiles=expected)
+    if config.device_epoch and sharded_feed:
+        # JAX loop.py:1083: a host-sharded corpus feeds from the host
+        logger.warning("device_epoch requested with a host-sharded corpus; using the host "
+                       "pipeline")
     feed = (stage_device_epochs(config, data, train_idx, test_idx, np_rng, bucket_ladder,
-                                class_weights, dev) if config.device_epoch else None)
+                                class_weights, dev, mesh)
+            if config.device_epoch and not sharded_feed else None)
 
     meta = TrainMeta()
     batch_size = config.batch_size
     resume_cursor: dict | None = None
     if config.resume and out_dir is not None:
         restored_from: dict = {}
+        # mesh-aware: the saved global tensors re-sliced to this run's mesh,
+        # so a run saved on one mesh shape resumes on another
         restored = restore_checkpoint(out_dir, model, optimizer, np_rng,
                                       model_config.vocab_pad_multiple,
                                       sampler=feed.generator if feed else None,
-                                      info=restored_from)
+                                      info=restored_from, mesh=mesh)
         if restored is not None:
             meta = restored
             events.emit("checkpoint_restored", slot=restored_from["slot"],
-                        path=restored_from["path"], step=int(meta.step), mesh_shape=None,
-                        saved_mesh_shape=None, resharded=False)
+                        path=restored_from["path"], step=int(meta.step),
+                        mesh_shape=dict(mesh.shape) if mesh is not None else None,
+                        saved_mesh_shape=restored_from.get("saved_mesh_shape"),
+                        resharded=bool(restored_from.get("resharded")))
             logger.info("resumed from epoch %d (best_f1=%s)", meta.epoch, meta.best_f1)
             resume_cursor, meta.cursor = meta.cursor, None
+            if resume_cursor is not None and sharded_feed:
+                # the cursor holds one host generator state, but each feed
+                # group draws its own stream (JAX loop.py:1154)
+                logger.warning("ignoring the checkpoint's data cursor under host-sharded "
+                               "feeding; resuming at the epoch boundary")
+                resume_cursor = None
         if resume_cursor is not None:
             cursor_step = int(resume_cursor.get("step", 0))
             if feed is not None and cursor_step > 0:
@@ -657,11 +849,11 @@ def train(
                     "the checkpoint carries a mid-epoch cursor (a host-pipeline save), which "
                     "--device_epoch cannot replay; resume without --device_epoch, or restart "
                     "from an epoch-boundary checkpoint")
-            cursor_batch = int(resume_cursor.get("feed_batch", batch_size))
-            if cursor_step > 0 and cursor_batch != batch_size:
+            cursor_batch = int(resume_cursor.get("feed_batch", feed_batch))
+            if cursor_step > 0 and cursor_batch != feed_batch:
                 raise ValueError(
                     f"the mid-epoch cursor was saved at batch size {cursor_batch} but this run "
-                    f"feeds {batch_size} rows per batch — the replay would skip the wrong "
+                    f"feeds {feed_batch} rows per batch — the replay would skip the wrong "
                     "examples; resume with the original batch size (the batching config "
                     "changed since the checkpoint was saved), or restart without --resume")
             # the interrupted epoch's START state: everything the epoch
@@ -673,9 +865,54 @@ def train(
             if cursor_step > 0:
                 logger.info("mid-epoch resume: replaying epoch %d to batch %d",
                             resume_cursor["epoch"], cursor_step)
-    elif out_dir is not None and saving:
+    elif out_dir is not None and saving and writes:
         clear_checkpoints(out_dir)
     meta.vocab_pad_multiple = model_config.vocab_pad_multiple
+    place = None
+    if mesh is not None:
+        from code2vec_tpu_torch.parallel.distributed import global_batch, local_to_global_batch
+
+        # a host batch cut to this rank's rows (a replicated feed) and bag columns
+        def place(batch, cut=local_to_global_batch if sharded_feed else global_batch):
+            return cut(mesh, batch)
+    # host-sharded lockstep (JAX loop.py:895-944): every rank runs the same
+    # steps; a short shard pads with masked batches, a bucketed epoch follows
+    # one width schedule every group agrees on
+    n_groups = mesh.shape["data"] if sharded_feed else 1
+
+    def synced_steps(global_idx: np.ndarray) -> int:
+        shares = np.bincount(np.asarray(global_idx) % n_groups, minlength=n_groups)
+        return max(-(-int(shares.max()) // feed_batch), 1)
+
+    def global_width_counts(local_idx: np.ndarray) -> np.ndarray:
+        from code2vec_tpu_torch.data.pipeline import bucket_batch_counts
+        from code2vec_tpu_torch.parallel.distributed import allgather_to_host
+
+        local_idx = np.asarray(local_idx)
+        counts = data.row_splits[local_idx + 1] - data.row_splits[local_idx]
+        mine = bucket_batch_counts(np.minimum(counts, bucket_ladder[-1]), bucket_ladder,
+                                   feed_batch).astype(np.int64)
+        return allgather_to_host(mine, mesh).reshape(n_groups, -1).max(axis=0)
+
+    def width_schedule(width_counts: np.ndarray, epoch: int, shuffled: bool) -> np.ndarray:
+        """The epoch's width sequence, the same on every rank: drawn from
+        a generator of (run seed, epoch), not the per-group streams."""
+        widths = np.repeat(np.asarray(bucket_ladder), width_counts)
+        if shuffled:
+            srng = np.random.default_rng([config.random_seed, 0x5EED, epoch])
+            widths = widths[srng.permutation(len(widths))]
+        return widths
+
+    train_width_counts = test_width_counts = None
+    if sharded_feed and bucket_ladder is not None:
+        train_width_counts = global_width_counts(train_idx)
+        test_width_counts = global_width_counts(test_idx)
+
+    def sharded_wrap(batches, global_idx):
+        if not sharded_feed:
+            return batches
+        return pad_batch_stream(batches, synced_steps(global_idx),
+                                empty_batch(feed_batch, config.max_path_length))
 
     profiler = None
     if config.profile_steps > 0:
@@ -695,7 +932,7 @@ def train(
     def boundary_cursor(next_epoch: int) -> dict:
         # step 0 and the CURRENT states, the ones the next epoch starts
         # from: a boundary resume continues the stream bitwise too
-        return _data_cursor(next_epoch, 0, batch_size, _rng_state(np_rng), dropout_state())
+        return _data_cursor(next_epoch, 0, feed_batch, _rng_state(np_rng), dropout_state())
 
     def save(slot: str, **event_fields) -> None:
         writer.save(slot, model, optimizer, meta, np_rng,
@@ -721,8 +958,8 @@ def train(
             # the epochs are built at bag_width: the top rung in long-bag mode
             source_kw = dict(ladder=bucket_ladder, stream_chunk_items=config.stream_chunk_items,
                              shuffle_variable_indexes=config.shuffle_variable_indexes)
-            train_source = make_batch_source(data, train_idx, batch_size, bag_width, **source_kw)
-            test_source = make_batch_source(data, test_idx, batch_size, bag_width, **source_kw)
+            train_source = make_batch_source(data, train_idx, feed_batch, bag_width, **source_kw)
+            test_source = make_batch_source(data, test_idx, feed_batch, bag_width, **source_kw)
             if config.feed_workers:
                 # one pool for both splits, forked before any thread of the run
                 pool = FeedPool(data, config.feed_workers, batch_size,
@@ -744,7 +981,7 @@ def train(
 
         for epoch in range(start_epoch, config.max_epoch):
             faultinject.fault_point("epoch_start", epoch=epoch)
-            if coordinated_stop(guard):
+            if coordinated_stop(guard, mesh):
                 # preempted between epochs (or on the device path, which has no
                 # step hook): save at the boundary and exit cleanly; a resume
                 # cursor still pending (SIGTERM during the setup) is saved as it
@@ -787,9 +1024,15 @@ def train(
                 source_pad = feed.pad
             else:
                 hook = _EpochCursorHook(save if writer is not None else None, meta, epoch,
-                                        epoch_rng_state, dropout_state, guard, batch_size,
-                                        config.checkpoint_every_steps, skip, cursor_widths)
-                train_batches = train_source.batches(np_rng, shuffle=True)
+                                        epoch_rng_state, dropout_state, guard, feed_batch,
+                                        config.checkpoint_every_steps, skip, cursor_widths,
+                                        mesh=mesh)
+                if train_width_counts is not None:
+                    train_batches = train_source.scheduled_batches(
+                        np_rng, width_schedule(train_width_counts, epoch, True))
+                else:
+                    train_batches = sharded_wrap(train_source.batches(np_rng, shuffle=True),
+                                                 global_train)
                 if skip:
                     # the stream made again from the cursor's state, less the
                     # batches the interrupted run consumed (host builds only)
@@ -802,10 +1045,17 @@ def train(
                 train_loss, speed = _train_pass(
                     model, optimizer, train_batches, class_weights, dev,
                     config.prefetch_batches, profiler, hook=hook, loss_offset=loss_offset,
-                    epoch=epoch, recompiles=recompiles)
+                    epoch=epoch, recompiles=recompiles, place=place)
+                if test_width_counts is not None:
+                    test_batches = test_source.scheduled_batches(
+                        np_rng, width_schedule(test_width_counts, epoch, False), shuffle=False)
+                else:
+                    test_batches = sharded_wrap(test_source.batches(np_rng, shuffle=False),
+                                                global_test)
                 test_loss, accuracy, precision, recall, f1 = evaluate_epoch(
-                    config, data, model, test_source.batches(np_rng, shuffle=False),
-                    class_weights, config.prefetch_batches, epoch=epoch, recompiles=recompiles)
+                    config, data, model, test_batches, class_weights, config.prefetch_batches,
+                    epoch=epoch, recompiles=recompiles, place=place,
+                    gather_hosts=sharded_feed)
                 # the epochs the passes were fed (the in-RAM source's; None from
                 # the others), reused by the export and print_sample
                 train_epoch, test_epoch = train_source.last_epoch, test_source.last_epoch
@@ -855,7 +1105,7 @@ def train(
                 report_fn(epoch, f1)  # may raise StopTraining (the search's pruning)
 
             if (epoch > 1 and config.print_sample_cycle and epoch % config.print_sample_cycle == 0
-                    and saving):
+                    and saving and not sharded_feed):  # samples need whole batches
                 if test_epoch is None:
                     test_epoch = host_epoch(test_idx, epoch)
                 print_sample(data, model, test_epoch, batch_size, class_weights)
@@ -863,7 +1113,12 @@ def train(
             if meta.best_f1 is None or meta.best_f1 < f1:
                 events.emit("best_f1", epoch=epoch, metrics={"best_f1": f1})
                 meta.best_f1 = f1
-                if vectors_path is not None and saving:
+                if sharded_feed and vectors_path is not None:
+                    logger.warning(
+                        "vector export is not supported with host-sharded feeding (each feed "
+                        "group holds 1/%d of the corpus); run a single-host export pass on the "
+                        "saved checkpoint", n_groups)
+                elif vectors_path is not None and saving:
                     if train_epoch is None:
                         train_epoch = host_epoch(train_idx, epoch)
                     if test_epoch is None:
@@ -898,21 +1153,22 @@ def train(
 
             if meta.bad_count > config.early_stop_patience:
                 logger.info("early stop loss:%s, bad:%d", train_loss, meta.bad_count)
-                if test_epoch is None:
-                    test_epoch = host_epoch(test_idx, epoch)
-                print_sample(data, model, test_epoch, batch_size, class_weights)
+                if not sharded_feed:
+                    if test_epoch is None:
+                        test_epoch = host_epoch(test_idx, epoch)
+                    print_sample(data, model, test_epoch, batch_size, class_weights)
                 break
         # a persist failure fails the run, not a thread
         if writer is not None:
-            writer.finish()
+            writer.finish(model)
     except StopTraining:
         if writer is not None:
-            writer.finish()
+            writer.finish(model)
     except PreemptionStop as stop:
         # the checkpoint (with a model dir) is on disk: drain it and return
         # normally, the graceful half of the SIGTERM contract
         if writer is not None:
-            writer.finish()
+            writer.finish(model)
         events.emit("preempted", epoch=epoch, reason=str(stop))
         logger.warning("preemption (%s): %s; exiting cleanly after %d completed epochs, "
                        "%.3f s after the request", stop,

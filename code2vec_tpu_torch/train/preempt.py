@@ -22,9 +22,8 @@ Signal handlers are a main-thread facility: when ``train()`` runs on
 another thread, installing is a no-op and SIGTERM keeps its disposition
 (preemption safety then rests on the periodic saves). This handler is the
 trainer's own; the server's SIGTERM drain is ``serve/protocol.
-run_transport``'s. :func:`coordinated_stop` is the local flag: the
-multi-process agreement on it goes with ``torch.distributed`` (ROADMAP
-§A.2.9).
+run_transport``'s. :func:`coordinated_stop` is the local flag on one
+rank and rank 0's flag, broadcast, on a mesh of several.
 """
 
 from __future__ import annotations
@@ -86,9 +85,21 @@ def preemption_guard() -> PreemptionGuard:
     return _GUARD
 
 
-def coordinated_stop(guard: PreemptionGuard) -> bool:
-    """Whether to act on the guard: one process reads its own flag."""
-    return guard.requested()
+def coordinated_stop(guard: PreemptionGuard, mesh=None) -> bool:
+    """Whether to act on the guard, process-collectively (JAX ``:83-107``).
+    One process reads its own flag. On a mesh of several ranks the flag
+    flips at signal delivery, which differs between ranks by whole steps,
+    while the save it triggers is collective: the ranks agree on rank 0's
+    flag through one tiny broadcast (a preemption reaches every rank, so
+    rank 0's flag is the group's). Call it only where every rank arrives
+    at the same step (a periodic-save step, a stream's end, an epoch
+    boundary): the broadcast is itself a collective, and its readback
+    syncs the host with the device."""
+    if mesh is None or mesh.size == 1:
+        return guard.requested()
+    from code2vec_tpu_torch.parallel.distributed import broadcast_flag
+
+    return broadcast_flag(guard.requested())
 
 
 def install_sigterm_handler():

@@ -13,6 +13,10 @@ Counterpart of ``code2vec_tpu/train/step.py``:
   mu_dtype="bfloat16")`` does (``torch.optim.Adam`` keeps its moments in
   the parameters' dtype);
 - the margin head gets the labels in training (``needs_labels``);
+- on a mesh (``model.mesh``, ``parallel/shardings.shard_model``) the
+  loss's denominator is the global batch's and the gradients are
+  all-reduced before the optimizer steps (``parallel/step.py``): JAX's
+  sharded step (its ``parallel/step.py`` over ``train/step.py:182-260``);
 - ``table_update="lazy"`` (JAX ``build_train_step_fn`` ``:238-296``): the
   step differentiates zero offsets added to the gathered rows instead of
   the tables, which enter as constants, and hands the offsets' gradients
@@ -30,17 +34,29 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from code2vec_tpu_torch.parallel.distributed import all_reduce_sum
+from code2vec_tpu_torch.parallel.mesh import AXIS_DATA
 from code2vec_tpu_torch.train.table_opt import LazyTableAdam
 
 BATCH_KEYS = ("starts", "paths", "ends", "labels", "example_mask")
 
 
 def weighted_nll(logits: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor,
-                 example_mask: torch.Tensor) -> torch.Tensor:
+                 example_mask: torch.Tensor, group=None) -> torch.Tensor:
+    """``sum(w nll) / max(sum(w), 1e-12)``. With ``group`` (the data line of
+    a mesh, each rank holding its rows) the denominator is the global
+    batch's, all-reduced first, so the ranks' values add up to the global
+    loss and their gradients to its gradient (a mean of per-rank means
+    would be another loss whenever the ranks' weight sums differ)."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(1, labels.long()[:, None])[:, 0]
     w = class_weights[labels.long()] * example_mask
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    return (nll * w).sum() / torch.clamp(all_reduce_sum(w.sum(), group), min=1e-12)
+
+
+def _data_group(model):
+    mesh = getattr(model, "mesh", None)
+    return None if mesh is None else mesh.group(AXIS_DATA)
 
 
 MU_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -269,9 +285,11 @@ def forward_backward(model, batch: dict[str, torch.Tensor], class_weights: torch
     logits, _, _ = model(batch["starts"], batch["paths"], batch["ends"],
                          labels=labels if model.config.angular_margin_loss else None,
                          embed_offsets=embed_offsets)
-    loss = weighted_nll(logits, labels, class_weights, batch["example_mask"])
+    group = _data_group(model)
+    loss = weighted_nll(logits, labels, class_weights, batch["example_mask"], group)
     loss.backward()
-    return loss.detach()
+    # on a mesh: the global loss, the same on every rank
+    return all_reduce_sum(loss.detach(), group)
 
 
 def zero_offsets(config, shape, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -306,11 +324,21 @@ def train_step(model, optimizer, batch: dict[str, torch.Tensor],
     """One optimizer step (lazy when ``optimizer`` is a
     :class:`LazyTableAdam`); returns the batch's loss on the device."""
     optimizer.zero_grad(set_to_none=True)
+    mesh = getattr(model, "mesh", None)
     if isinstance(optimizer, LazyTableAdam):
         loss, table_grads = lazy_forward_backward(model, batch, class_weights)
+        if mesh is not None:
+            from code2vec_tpu_torch.parallel.step import gather_slot_grads, sync_gradients
+
+            sync_gradients(model, mesh)
+            table_grads = gather_slot_grads(table_grads, mesh)
         optimizer.step(table_grads)
     else:
         loss = forward_backward(model, batch, class_weights)
+        if mesh is not None:
+            from code2vec_tpu_torch.parallel.step import sync_gradients
+
+            sync_gradients(model, mesh)
         optimizer.step()
     return loss
 
@@ -326,8 +354,11 @@ def eval_step(model, batch: dict[str, torch.Tensor], class_weights: torch.Tensor
     logits, code_vector, attention = model(
         batch["starts"], batch["paths"], batch["ends"],
         labels=labels if model.config.angular_margin_loss else None, quant_tables=quant_tables)
+    group = _data_group(model)
     return {
-        "loss": weighted_nll(logits, labels, class_weights, batch["example_mask"]),
+        # on a mesh the global batch's loss; the per-row outputs stay this rank's
+        "loss": all_reduce_sum(
+            weighted_nll(logits, labels, class_weights, batch["example_mask"], group), group),
         "preds": logits.argmax(dim=-1),
         "max_logit": logits.amax(dim=-1),
         "code_vector": code_vector,

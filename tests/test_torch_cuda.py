@@ -1387,3 +1387,42 @@ def test_mid_epoch_kill_and_resume_on_the_card_is_bitwise(dev, tmp_path, async_s
     want, got = whole.model.state_dict(), resumed.model.state_dict()
     for k in want:
         assert torch.equal(want[k], got[k]), k
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True], ids=["keep", "masked"])
+def test_k2_over_rows_gathered_outside_is_gather_split(dev, cd, masked):
+    """A mesh's row-sharded tables hand K2 rows gathered outside the op
+    (``encode_attend_pool_rows``): the same launch as ``gather_split``'s,
+    bitwise, and its backward is the recomputed plain version's."""
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.fused_encode_pool import (
+        encode_attend_pool_rows,
+        encode_pool_reference,
+        fused_encode_attend_pool,
+        gathered_rows,
+        kernel_name,
+    )
+
+    t, p, s, pa, e, mask, params = ids_and_tables(dev, 8, 200, 100, 100, 100, seed=5)
+    drop = None
+    if masked:
+        g = torch.Generator(device=dev).manual_seed(9)
+        drop = torch.empty(8, 200, 100, device=dev).bernoulli_(0.75, generator=g) / 0.75
+    rows = gathered_rows(t, p, s, pa, e, dtype=cd)
+    reset_launch_counts()
+    cv, w = encode_attend_pool_rows(*rows, mask, *params, drop, compute_dtype=cd)
+    want = fused_encode_attend_pool(t, p, s, pa, e, mask, *params, drop, impl="gather_split",
+                                    compute_dtype=cd)
+    key = kernel_name("gather_split", "f32", "materialize", masked, cd)
+    assert launch_counts() == {key: 2}
+    assert torch.equal(cv, want[0]) and torch.equal(w, want[1])
+    leaves = [r.detach().requires_grad_() for r in rows] + [
+        x.detach().requires_grad_() for x in params]
+    cv, _ = encode_attend_pool_rows(*leaves[:3], mask, *leaves[3:], drop, compute_dtype=cd)
+    got = torch.autograd.grad(cv.sum(), leaves)
+    ref_leaves = [x.detach().requires_grad_() for x in leaves]
+    ref, _ = encode_pool_reference(*ref_leaves[:3], mask, *ref_leaves[3:], drop,
+                                   compute_dtype=cd)
+    for a, b in zip(got, torch.autograd.grad(ref.sum(), ref_leaves)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

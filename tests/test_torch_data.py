@@ -136,11 +136,22 @@ def test_build_epoch_refuses_the_variable_task(tiny):
 @pytest.mark.parametrize("kw", [{"cache": True, "shard": (0, 2)},
                                 {"native": True, "shard": (1, 2)}, {"shard": (0, 2)}])
 def test_load_corpus_refuses_what_is_not_ported(tiny, kw):
-    """Host sharding, on the cached, the native and the default route (the
-    cache and the native parser are ported: tests/test_torch_ooc.py)."""
+    """Host sharding is ported now (tests/test_torch_mesh_data.py holds it
+    against JAX's): on the cached, the native and the default route a shard
+    keeps the records ``i % count == index``, with the whole corpus's label
+    vocab."""
     p = tiny["port_paths"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        reader.load_corpus(p["corpus"], p["path_idx"], p["terminal_idx"], **kw)
+    whole = reader.load_corpus(p["corpus"], p["path_idx"], p["terminal_idx"], cache=False)
+    part = reader.load_corpus(p["corpus"], p["path_idx"], p["terminal_idx"], **kw)
+    index, count = kw["shard"]
+    assert part.shard == (index, count) and part.global_n_items == whole.n_items
+    assert part.label_vocab.itos == whole.label_vocab.itos
+    rows = np.arange(index, whole.n_items, count)
+    assert np.array_equal(part.labels, whole.labels[rows])
+    assert np.array_equal(part.ids, whole.ids[rows])
+    assert np.array_equal(np.diff(part.row_splits), np.diff(whole.row_splits)[rows])
+    lo, hi = whole.row_splits[rows[-1]], whole.row_splits[rows[-1] + 1]
+    assert np.array_equal(part.paths[part.row_splits[-2]:], whole.paths[lo:hi])
 
 
 def test_load_corpus_refuses_a_csr_container(tiny, tmp_path):

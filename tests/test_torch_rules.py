@@ -46,6 +46,14 @@ def test_no_jax_imports(path):
     assert not imported_roots(path) & set(BANNED), path
 
 
+def test_the_parallel_package_is_scanned():
+    """The mesh modules (``parallel/``) are among the scanned files, as
+    every module of the port is (``rglob``)."""
+    names = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
+    assert {f"parallel/{m}.py" for m in ("__init__", "mesh", "distributed", "shardings",
+                                         "step", "context")} <= names
+
+
 def test_every_module_imports_with_jax_blocked():
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")

@@ -71,9 +71,8 @@ def options(parser) -> set[str]:
     return {o for action in parser._actions for o in action.option_strings}
 
 
-# the flags of features the port has not yet: multi-device (ROADMAP A.2.9)
-# and the autotuner (A.7)
-NOT_PORTED = {"--host_shard_corpus", "--shard_staged_corpus", "--autotune_cache"}
+# the flag of the feature the port has not yet: the autotuner (ROADMAP A.7)
+NOT_PORTED = {"--autotune_cache"}
 
 
 def test_every_jax_flag_is_in_the_ports_parser():
