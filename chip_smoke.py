@@ -177,6 +177,25 @@ the final result line is not printed):
    resumed steps and epoch loss within rtol 2e-5 of world 1. Printed: a
    profiled data=2 step's ms and its gradient all-reduce's ms and bytes
    (gloo on one time-sliced card, not NCCL across cards);
+7e. autotune (after train_mesh) — the kernel-schedule autotuner at the
+   top11 widths (synthetic tables of 360,633 rows): (a) six forward keys
+   (1024 x 200 f32; 1 x 200 and 64 x 200, f32 and int8 tables; 64 x 1024
+   f32) and the retrieval index's LUT key (m 20, n_list 1,000, its
+   capacity, shortlist 256) tuned into a fresh cache file, every variant
+   (plain, K1, K2, K3, K4 online and two_pass; K5) timed, one line a key
+   with each variant's ms, its winner (gated: the fastest finite timing)
+   and its skips (one not in ``AT_EXPECTED_SKIPS`` fails); each variant's
+   code vectors at 64 x 200 within the serve bar of the plain route's; (b)
+   the tuner's CLI again with ``--expect-cached`` (the LUT key as ``python
+   -m``): exit 0, no timing run; (c) one epoch of the train phase's corpus
+   and recipe through the CLI with ``--pallas_impl auto --autotune_cache``
+   and on the fixed route the 1024 x 200 schedule names: every step's loss
+   bitwise equal, the auto run's launches that route's kernels and no
+   other; (d) engines under ``pallas_impl="auto"`` over the serve phase's
+   model dir (f32 and int8 tables, batch 1 and 64 at width 200): every
+   shape's provenance cached with its tuned schedule, its answers bitwise
+   the fixed route's; (e) a searcher built with the cache: K5 launched,
+   shortlists equal to the default searcher's;
 8. train_bucketed — bucketed training on ``bench.py``'s ``--bucket-ab``
    corpus (30,720 methods, mean 60 contexts, lognormal sigma 1.0, max 400,
    top11 widths; batch 1024, bag 200, the derived ladder, dropout 0.25, 2
@@ -245,7 +264,7 @@ the final result line is not printed):
    epoch's time goes (the train pass's enqueue and read, the eval pass,
    the F1 on the host, the device's busy time over a train pass);
 11b. train_feed (after train_device) — the host feed on ``bench.py``'s
-   training generator at 32,768 methods (mean 120 contexts, max 400, seed
+   training generator at 16,384 methods (mean 120 contexts, max 400, seed
    0; the train phase's widths, batch 1024, bag 200, dropout 0.25, 2
    epochs, ``--profile_steps 8``): the corpus written as ``corpus.txt``,
    converted to a CSR container by the port's ``tools/corpus_convert.py``
@@ -327,8 +346,9 @@ the final result line is not printed):
    train_device phase's runs of the four routes, of the train_feed runs,
    of every train_variable run, of the python_source phase, of the
    serve_control phase, of the train_elastic runs, of the train_hpo
-   trials (K1/K1b: the kernel events of its CLI run's profiled epoch) and
-   of both ranks of the train_mesh runs, max error,
+   trials (K1/K1b: the kernel events of its CLI run's profiled epoch), of
+   both ranks of the train_mesh runs and of the autotune phase's search,
+   auto training, engines and searcher, max error,
    times at the headline shape and the bound), then, last, the result
    line.
 
@@ -3011,16 +3031,20 @@ MESH_RUNS = {
 MESH_WORKER_TIMEOUT_S = 300
 
 
-def record_steps(torch):
+def record_steps(torch, step_ms: list | None = None):
     """Patch the loop's and the device runner's step to record each step's
-    loss (read back at once): ``(losses list, undo)``."""
+    loss (read back at once), and into ``step_ms`` its wall ms up to that
+    read: ``(losses list, undo)``."""
     from code2vec_tpu_torch.train import device_epoch, loop
 
     losses, real = [], loop.train_step
 
     def recording(model, optimizer, batch, class_weights):
+        t0 = time.perf_counter()
         loss = real(model, optimizer, batch, class_weights)
         losses.append(float(loss))
+        if step_ms is not None:
+            step_ms.append((time.perf_counter() - t0) * 1e3)
         return loss
 
     loop.train_step = device_epoch.train_step = recording
@@ -3384,6 +3408,389 @@ def phase_train_mesh(torch, smi, dev, tmp: Path, elastic) -> dict:
                 out["launches"][key] = out["launches"].get(key, 0) + n
     print(f"train_mesh launches (both ranks): {json.dumps(out['launches'])}", flush=True)
     shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7e: autotune — the kernel-schedule autotuner and pallas_impl="auto"
+# ---------------------------------------------------------------------------
+
+# the keys tuned at the top11 widths: (batch, width, table dtype) — training,
+# serving at batch 1 and 64 (f32 and int8 tables), a long bag
+AT_KEYS = [(TRAIN_BATCH, BAG, "f32"), (1, BAG, "f32"), (1, BAG, "int8"), (64, BAG, "f32"),
+           (64, BAG, "int8"), (64, 1024, "f32")]
+AT_HOLD_KEY = (64, BAG, "f32")  # each variant's code vectors held to the plain route here
+AT_SERVE_BATCHES = (1, 64)
+AT_DEVICE = "cuda"  # the --device of the phase's trainer runs
+# variant labels PERF.md names beforehand as expected to raise, with the
+# reason: none (every route runs at every key on the card)
+AT_EXPECTED_SKIPS: dict[str, str] = {}
+# (impl, softmax) -> the kernels a training run on that route launches (the
+# masked train step's and the eval pass's)
+AT_TRAIN_KERNELS = {
+    ("xla", "materialize"): (),
+    ("pool_only", "materialize"): ("pool", "pool_bwd"),
+    ("gather_split", "materialize"): ("gather_split_masked", "gather_split"),
+    ("fused", "materialize"): ("fused_f32_masked", "fused_f32"),
+    ("fused", "online"): ("online_f32_masked", "online_f32"),
+    ("fused", "two_pass"): ("two_pass_f32_masked", "two_pass_f32"),
+}
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    for key, n in counts.items():
+        total[key] = total.get(key, 0) + n
+    return total
+
+
+def autotune_search(torch, smi, dev, cache_path: Path, lut_key, launches: dict) -> dict:
+    """(a) every variant of the forward keys and the LUT key timed into a
+    fresh cache: one line a key, the winner gated to be the fastest finite
+    timing, every skip listed (one not in ``AT_EXPECTED_SKIPS`` fails);
+    then each variant's code vectors at ``AT_HOLD_KEY`` against the plain
+    route's (the serve phase's bar)."""
+    import contextlib
+    import io
+
+    from code2vec_tpu_torch.ops import autotune as at
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+
+    c = TOP11
+    kind = at.device_kind(dev)
+    keys = [at.ShapeKey(kind, b, w, c["terminal_embed_size"], c["path_embed_size"],
+                        c["encode_size"], dt) for b, w, dt in AT_KEYS]
+    memo: dict = {}
+    err = io.StringIO()
+    reset_launch_counts()
+    before = at.counters_snapshot()
+    with contextlib.redirect_stderr(err):
+        found = at.autotune(keys, cache=at.ScheduleCache(str(cache_path)),
+                            vocab=c["terminal_count"], device=dev, inputs_memo=memo)
+        found.update(at.autotune_lut([lut_key], cache=at.ScheduleCache(str(cache_path)),
+                                     device=dev))
+    torch.cuda.synchronize()
+    add_counts(launches, launch_counts())
+    counters = {k: v - before[k] for k, v in at.counters_snapshot().items()}
+    skip_lines = [x for x in err.getvalue().splitlines() if x.startswith("autotune:")]
+    entries = json.loads(cache_path.read_text())["entries"]
+    out, bad = {}, []
+    for key in keys + [lut_key]:
+        entry = entries[key.cache_key()]
+        timings = entry["timings_ms"]
+        sched = found[key.cache_key()]
+        if isinstance(key, at.ShapeKey):
+            space = [at._variant_label(v) for v in at.enumerate_variants(
+                key.batch, key.width, key.table_dtype, dev)]
+            winner = at._variant_label(sched)
+        else:
+            space = [at._lut_variant_label(v) for v in at.enumerate_lut_variants(
+                key.capacity, dev)]
+            winner = at._lut_variant_label(sched)
+        skips = sorted(k for k, t in timings.items() if not math.isfinite(t))
+        finite = {k: t for k, t in timings.items() if math.isfinite(t)}
+        fastest = min(finite, key=finite.get) if finite else None
+        if sorted(timings) != sorted(space):
+            bad.append(f"{key.cache_key()}: timed {sorted(timings)}, the space is {space}")
+        if winner != fastest:
+            bad.append(f"{key.cache_key()}: the winner {winner} is not the fastest {fastest}")
+        unexpected = [s for s in skips if s not in AT_EXPECTED_SKIPS]
+        if unexpected:
+            bad.append(f"{key.cache_key()}: unexpected skips {unexpected}")
+        out[key.cache_key()] = {"timings_ms": timings, "winner": winner,
+                                "schedule": sched.to_dict(), "skips": skips}
+        print(f"autotune {key.cache_key()}: "
+              + ", ".join(f"{k} {t}" for k, t in timings.items())
+              + f" -> {winner}; skips: {skips or 'none'} [{smi}]", flush=True)
+    for line in skip_lines:
+        print(f"  {line}", flush=True)
+    if counters["autotune_timing_run"] != sum(len(v["timings_ms"]) for v in out.values()):
+        bad.append(f"timing runs {counters} vs the timings written")
+
+    # outside the timing: every variant's code vectors at one key, against the plain route
+    hold = next(k for k in keys if (k.batch, k.width, k.table_dtype) == AT_HOLD_KEY)
+    inputs = at._synth_inputs(hold, c["terminal_count"], device=dev, memo=memo)
+    ref = inputs.forward(at.KernelSchedule(impl="xla", backend="gpu"))[1].cpu().numpy()
+    held = {}
+    for variant in at.enumerate_variants(hold.batch, hold.width, hold.table_dtype, dev):
+        cv = inputs.forward(variant)[1].cpu().numpy()
+        held[at._variant_label(variant)] = float(np.abs(cv - ref).max())
+        if not np.allclose(cv, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+            bad.append(f"{at._variant_label(variant)} at {hold.cache_key()}: code vectors "
+                       f"{held[at._variant_label(variant)]:.3e} from the plain route's")
+    print(f"autotune (a) at {hold.cache_key()}: max |cv - plain| per variant "
+          f"{json.dumps(held)} (rtol {SERVE_RTOL}, atol {SERVE_ATOL}) [{smi}]", flush=True)
+    del inputs, memo
+    if bad:
+        raise AssertionError("autotune (a): " + "; ".join(bad))
+    return {"keys": out, "counters": counters, "held_max_abs_err": held,
+            "skip_lines": skip_lines}
+
+
+def autotune_expect_cached(cache_path: Path, lut_key) -> dict:
+    """(b) the tuner's CLI again over every key with ``--expect-cached``:
+    the forward groups in process, the LUT key as ``python -m``; each exit
+    0 with no timing run."""
+    import contextlib
+    import io
+
+    from code2vec_tpu_torch.ops import autotune as at
+
+    c = TOP11
+    dims = ["--terminal-embed", str(c["terminal_embed_size"]), "--path-embed",
+            str(c["path_embed_size"]), "--encode", str(c["encode_size"]), "--cache",
+            str(cache_path), "--expect-cached", "--backend", "gpu"]
+    groups = {}
+    for b, w, dt in AT_KEYS:
+        groups.setdefault((b, w), []).append(dt)
+    runs = []
+    for (b, w), dts in groups.items():
+        argv = ["--batch", str(b), "--widths", str(w), "--table-dtypes", ",".join(dts), *dims]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = at.main(argv)
+        runs.append((" ".join(argv[:6]), rc, json.loads(out.getvalue().splitlines()[-1])))
+    argv = [sys.executable, "-m", "code2vec_tpu_torch.ops.autotune", "--lut", "--lut-m",
+            str(lut_key.m), "--lut-n-list", str(lut_key.n_list), "--lut-capacity",
+            str(lut_key.capacity), "--lut-shortlist", str(lut_key.shortlist), "--cache",
+            str(cache_path), "--expect-cached", "--backend", "gpu"]
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    runs.append(("--lut (python -m)", proc.returncode, json.loads(lines[-1]) if lines else {}))
+    bad = [(name, rc, rec.get("counters")) for name, rc, rec in runs
+           if rc != 0 or rec.get("counters", {}).get("autotune_timing_run") != 0
+           or rec.get("counters", {}).get("autotune_cache_miss") != 0]
+    for name, rc, rec in runs:
+        print(f"autotune (b) {name} --expect-cached: exit {rc}, counters "
+              f"{json.dumps(rec.get('counters'))}", flush=True)
+    if bad:
+        raise AssertionError(f"autotune (b): {bad}\n{proc.stderr[-2000:]}")
+    return {"runs": [{"args": name, "rc": rc, "counters": rec.get("counters")}
+                     for name, rc, rec in runs]}
+
+
+def autotune_train(torch, smi, corpus: dict, root: Path, cache_path: Path, schedule: dict,
+                   launches: dict) -> dict:
+    """(c) one epoch of the train phase's corpus and recipe through the CLI
+    with ``--pallas_impl auto --autotune_cache``, then on the fixed route
+    the 1024x200 schedule names: every step's loss bitwise equal, and the
+    auto run's launches exactly that route's kernels. The tuner ranks
+    routes by their forward alone, so an epoch on ``pool_only`` and one on
+    the plain route follow (where the schedule names neither), each warm
+    step's ms beside the picked route's: reported, not gated."""
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+
+    route = (schedule["impl"], schedule["softmax"])
+    common = ["--corpus_path", corpus["corpus"], "--path_idx_path", corpus["path_idx"],
+              "--terminal_idx_path", corpus["terminal_idx"], "--terminal_embed_size", "100",
+              "--path_embed_size", "100", "--encode_size", "100", "--max_path_length",
+              str(BAG), "--batch_size", str(TRAIN_BATCH), "--dropout_prob", "0.25",
+              "--random_seed", "0", "--print_sample_cycle", "0", "--max_epoch", "1",
+              "--device", AT_DEVICE]
+    fixed_flags = ([] if route[0] == "xla" else
+                   ["--use_pallas", "--pallas_impl", route[0], "--pallas_softmax", route[1]])
+    others = [(name, flags) for name, impl, flags in (
+        ("pool_only", "pool_only", ["--use_pallas", "--pallas_impl", "pool_only"]),
+        ("plain", "xla", [])) if impl != route[0]]
+    runs = {}
+    for name, flags in (("auto", ["--use_pallas", "--pallas_impl", "auto",
+                                  "--autotune_cache", str(cache_path)]),
+                        ("fixed", fixed_flags), *others):
+        out = root / f"train_{name}"
+        step_ms = []
+        losses, undo = record_steps(torch, step_ms)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(common + flags + ["--model_path", str(out), "--vectors_path",
+                                            str(out / "code.vec")])
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        warm = float(np.median(step_ms[1:])) if len(step_ms) > 1 else float("nan")
+        runs[name] = {"rc": rc, "losses": losses, "launches": launch_counts(),
+                      "seconds": time.perf_counter() - t0, "warm_step_ms": warm,
+                      "step_ms": step_ms}
+        print(f"autotune (c) {name} ({' '.join(flags[:5])}): exit {rc}, {len(losses)} steps, "
+              f"losses {losses}, launches {runs[name]['launches']}, warm step "
+              f"{warm:.3f} ms (median of steps 2-{len(step_ms)}; each "
+              f"{[round(x, 3) for x in step_ms]}), {runs[name]['seconds']:.1f}s [{smi}]",
+              flush=True)
+    add_counts(launches, runs["auto"]["launches"])
+    want = set(AT_TRAIN_KERNELS[route])
+    bad = []
+    if any(r["rc"] for r in runs.values()):
+        bad.append(f"exit codes {({k: r['rc'] for k, r in runs.items()})}")
+    if not runs["auto"]["losses"] or runs["auto"]["losses"] != runs["fixed"]["losses"]:
+        bad.append(f"auto losses {runs['auto']['losses']} vs {route} "
+                   f"{runs['fixed']['losses']}")
+    if set(runs["auto"]["launches"]) != want or runs["auto"]["launches"] != \
+            runs["fixed"]["launches"]:
+        bad.append(f"auto launched {runs['auto']['launches']}, {route} "
+                   f"{runs['fixed']['launches']}, expected the kernels {sorted(want)}")
+    if bad:
+        raise AssertionError(f"autotune (c) on {route}: " + "; ".join(bad))
+    return {"route": list(route),
+            **{k: {x: v[x] for x in ("losses", "launches", "seconds", "warm_step_ms")}
+               for k, v in runs.items()}}
+
+
+def autotune_serve(torch, smi, dev, model_dir: Path, cache_path: Path, tuned: dict,
+                   launches: dict) -> dict:
+    """(d) an engine under ``pallas_impl="auto"`` per table dtype, batch
+    1 and 64 at width 200: every shape's provenance says cached with the
+    tuned schedule, and its answers equal the fixed route's bitwise."""
+    from code2vec_tpu_torch.models.code2vec import Code2Vec, route_config
+    from code2vec_tpu_torch.ops import autotune as at
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.predict import Predictor
+    from code2vec_tpu_torch.serve.engine import ServingEngine
+
+    c = TOP11
+    kind = at.device_kind(dev)
+    rng = np.random.default_rng(11)
+    out, bad = {}, []
+    for dt in ("f32", "int8"):
+        # the engine's warm runs and answers count; the fixed-route
+        # reference forward below is reset away before the next shape
+        reset_launch_counts()
+        predictor = Predictor(str(model_dir), str(model_dir / "terminal_idxs.txt"),
+                              str(model_dir / "path_idxs.txt"), table_dtype=dt, device=dev,
+                              pallas_impl="auto", autotune_cache=str(cache_path))
+        engine = ServingEngine(predictor, batch_sizes=AT_SERVE_BATCHES, ladder=(BAG,))
+        records = {(r["batch"], r["width"]): r for r in engine.prepare()}
+        for b in AT_SERVE_BATCHES:
+            rec = records[(b, BAG)]
+            key = at.ShapeKey(kind, b, BAG, c["terminal_embed_size"], c["path_embed_size"],
+                              c["encode_size"], dt).cache_key()
+            want = {**tuned[key]["schedule"], "source": "cache"}
+            if not rec["schedule_cached"] or rec["schedule"] != want:
+                bad.append(f"{key}: provenance {rec['schedule']} cached "
+                           f"{rec['schedule_cached']}, tuned {want}")
+                continue
+            lengths = rng.integers(1, BAG + 1, b)
+            ids = np.zeros((3, b, BAG), np.int32)
+            for i, n in enumerate(lengths):
+                ids[0, i, :n] = rng.integers(1, c["terminal_count"], n)
+                ids[1, i, :n] = rng.integers(1, c["path_count"], n)
+                ids[2, i, :n] = rng.integers(0, c["terminal_count"], n)
+            got = engine.run(*ids)
+            torch.cuda.synchronize()
+            add_counts(launches, launch_counts())
+            with torch.device("meta"):
+                fixed = Code2Vec(route_config(predictor.config,
+                                              at.KernelSchedule.from_dict(rec["schedule"])))
+            fixed.load_state_dict(predictor.model.state_dict(), assign=True)
+            fixed.eval()
+            with torch.inference_mode():
+                ref = fixed(*(torch.from_numpy(x).to(dev) for x in ids),
+                            quant_tables=predictor.quant_tables)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            same = all(np.array_equal(g, r.cpu().numpy()) for g, r in zip(got, ref))
+            if not same:
+                bad.append(f"{key}: the engine's answers differ from {rec['schedule']['impl']}"
+                           f"/{rec['schedule']['softmax']}'s")
+            out[key] = {"schedule": rec["schedule"], "bitwise": same,
+                        "warm_ms": rec["compile_ms"]}
+            print(f"autotune (d) {key}: provenance cached {rec['schedule']['impl']}/"
+                  f"{rec['schedule']['softmax']}, {b} rows bitwise the fixed route's: {same} "
+                  f"[{smi}]", flush=True)
+        torch.cuda.synchronize()
+        add_counts(launches, launch_counts())  # nonzero only if a shape failed its provenance
+        del engine, predictor
+    if bad:
+        raise AssertionError("autotune (d): " + "; ".join(bad))
+    return out
+
+
+def autotune_search_ann(torch, smi, dev, index, cache_path: Path, launches: dict) -> dict:
+    """(e) a searcher built with the cache runs K5 and short-lists what the
+    default searcher does."""
+    from code2vec_tpu_torch.ann.index import AnnSearcher
+    from code2vec_tpu_torch.ops import autotune as at
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+
+    tuned = AnnSearcher(index, n_probe=ANN_PROBE, shortlist=ANN_SHORTLIST, device=dev,
+                        cache=at.ScheduleCache(str(cache_path)))
+    default = AnnSearcher(index, n_probe=ANN_PROBE, shortlist=ANN_SHORTLIST, device=dev,
+                          schedule=at.default_lut_schedule(dev))
+    rng = np.random.default_rng(5)
+    queries = rng.normal(size=(ANN_QUERIES, index.meta["dim"])).astype(np.float32)
+    reset_launch_counts()
+    got = [tuned.search(q[None]) for q in queries]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    add_counts(launches, counts)
+    want = [default.search(q[None]) for q in queries]
+    same = all(same_shortlist(a[0], a[1], b[0], b[1]) for a, b in zip(got, want))
+    desc = tuned.describe()
+    print(f"autotune (e): the searcher's schedule {desc['schedule']}, K5 launches "
+          f"{counts.get('lut_score', 0)} over {ANN_QUERIES} queries, shortlists equal to the "
+          f"default searcher's: {same} [{smi}]", flush=True)
+    if desc["schedule"]["source"] != "cache" or desc["schedule"]["impl"] != "pallas" \
+            or counts.get("lut_score", 0) < 1 or not same:
+        raise AssertionError(f"autotune (e): schedule {desc['schedule']}, launches {counts}, "
+                             f"same shortlists {same}")
+    return {"schedule": desc["schedule"], "launches": counts.get("lut_score", 0)}
+
+
+def phase_autotune(torch, smi, dev, tmp: Path, model_dir: Path, elastic) -> dict:
+    """The autotuner on the card at the top11 widths: (a) tune the six
+    forward keys and the retrieval index's LUT key into a fresh cache, (b)
+    the CLI's ``--expect-cached`` rerun, (c) one epoch of the train recipe
+    under ``--pallas_impl auto`` against the fixed route, (d) engines under
+    ``auto`` (f32 and int8 tables), (e) a searcher built with the cache.
+    Needs the retrieval phase's index in ``model_dir``; the train corpus
+    comes from train_elastic (written here when that phase did not run)."""
+    import shutil
+
+    from code2vec_tpu_torch.ann.index import load_index
+    from code2vec_tpu_torch.ops import autotune as at
+
+    root = tmp / "autotune"
+    root.mkdir(parents=True, exist_ok=True)
+    cache_path = root / "schedules.json"
+    index_path = model_dir / "ann.index"
+    if not index_path.exists():
+        raise RuntimeError(f"{index_path} is missing: run the retrieval phase first")
+    index, _, _ = load_index(str(index_path))
+    meta = index.meta
+    lut_key = at.LutShapeKey(at.device_kind(dev), meta["m"], meta["n_list"], meta["capacity"],
+                             ANN_SHORTLIST)
+    corpus = (elastic or {}).get("corpus_paths")
+    if corpus is None:
+        raw, _ = train_corpus()
+        corpus = write_raw_corpus(raw, root / "corpus")
+    launches: dict = {}
+    seconds = {}
+    out = {}
+    try:
+        for part, fn, args in (
+                ("a", autotune_search, (torch, smi, dev, cache_path, lut_key, launches)),
+                ("b", autotune_expect_cached, (cache_path, lut_key)),
+        ):
+            t0 = time.perf_counter()
+            out[part] = fn(*args)
+            seconds[part] = time.perf_counter() - t0
+        train_key = next(k for k in out["a"]["keys"] if f"|b={TRAIN_BATCH}|" in k)
+        for part, fn, args in (
+                ("c", autotune_train, (torch, smi, corpus, root, cache_path,
+                                       out["a"]["keys"][train_key]["schedule"], launches)),
+                ("d", autotune_serve, (torch, smi, dev, model_dir, cache_path,
+                                       out["a"]["keys"], launches)),
+                ("e", autotune_search_ann, (torch, smi, dev, index, cache_path, launches)),
+        ):
+            t0 = time.perf_counter()
+            out[part] = fn(*args)
+            seconds[part] = time.perf_counter() - t0
+    finally:
+        at.reset_cache()
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = seconds
+    out["launches"] = launches
+    print(f"autotune seconds per part {json.dumps({k: round(v, 2) for k, v in seconds.items()})}"
+          f"; launches {json.dumps(launches)} [{smi}]", flush=True)
     return out
 
 
@@ -4115,7 +4522,9 @@ def phase_train_device(torch, smi, dev, host_train, host_bucketed, host_lazy) ->
 # phase 11b: the host feed and out-of-core corpora
 # ---------------------------------------------------------------------------
 
-FEED_METHODS = 32_768  # bench.py's training generator at 32,768 methods
+# bench.py's training generator at 16,384 methods: cut from 32,768 to keep the whole
+# script inside its window once the autotune phase runs
+FEED_METHODS = 16_384
 FEED_SLICE = 4_096  # the Python parser's slice
 FEED_STREAM_CHUNK = 8_192
 FEED_PROFILE_STEPS = 8
@@ -4262,7 +4671,7 @@ def same_stream(label, run, ref):
 
 def phase_train_feed(torch, smi, dev, tmp: Path, device_train) -> dict:
     """The host feed at the train recipe's widths on bench.py's training
-    generator at 32,768 methods: the corpus written as text, converted to a
+    generator at 16,384 methods: the corpus written as text, converted to a
     CSR container by the port's tool, loaded through the native parser and
     then the cache; fused trained synchronously, with --prefetch_batches 2,
     with --feed_workers W, both, from the container (fixed, then bucketed)
@@ -5230,6 +5639,8 @@ def main() -> int:
         elastic = phase("train_elastic", phase_train_elastic, torch, smi, dev, model_dir)
         searched = phase("train_hpo", phase_train_hpo, torch, smi, dev, model_dir, elastic)
         meshed = phase("train_mesh", phase_train_mesh, torch, smi, dev, model_dir, elastic)
+        tuned = phase("autotune", phase_autotune, torch, smi, dev, model_dir, model_dir,
+                      elastic)
         bucketed = phase("train_bucketed", phase_train_bucketed, torch, smi, dev, model_dir)
         bf16_train = phase("train_bf16", phase_train_bf16, torch, smi, dev, model_dir, trained)
         lazy_train = phase("train_lazy", phase_train_lazy, torch, smi, dev, trained, bucketed,
@@ -5289,6 +5700,7 @@ def main() -> int:
     el_counts = elastic["launches"]  # the train_elastic phase's runs (printed there)
     hpo_counts = searched["launches"]  # the train_hpo phase's trials and CLI run (printed there)
     mesh_counts = meshed["launches"]  # the train_mesh phase's runs, both ranks (printed there)
+    at_counts = tuned["launches"]  # the autotune phase's search, auto training, serving, search
     line = []
     for name, rec in kernels.items():
         timed = next(r for r in rec["rows"] if (r["B"], r["L"]) == rec["timed"])
@@ -5300,7 +5712,7 @@ def main() -> int:
                          + py_counts.get(rec["key"], 0) + feed_counts.get(rec["key"], 0)
                          + control["launches"].get(rec["key"], 0)
                          + el_counts.get(rec["key"], 0) + hpo_counts.get(rec["key"], 0)
-                         + mesh_counts.get(rec["key"], 0)),
+                         + mesh_counts.get(rec["key"], 0) + at_counts.get(rec["key"], 0)),
             "max_abs_err": max(r["max_abs_err"] for r in rec["rows"]),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -5315,7 +5727,8 @@ def main() -> int:
         "source": "code2vec_tpu_torch/csrc/lut_score.cu",
         "replaces": "code2vec_tpu/ann/lut_kernel.py:206",
         "launches": (retrieval["launches"]["lut_score"] + py_counts.get("lut_score", 0)
-                     + control["launches"].get("lut_score", 0)),
+                     + control["launches"].get("lut_score", 0)
+                     + at_counts.get("lut_score", 0)),
         "max_abs_err": max(r["max_abs_err"] for r in k5),
         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"], "library_ms": None,
@@ -5327,7 +5740,7 @@ def main() -> int:
              "serve": serve,
              "longbag": longbag, "retrieval": retrieval, "serve_control": control,
              "train": trained, "train_elastic": elastic, "train_hpo": searched,
-             "train_mesh": meshed,
+             "train_mesh": meshed, "autotune": tuned,
              "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train,
              "train_device": device_train, "train_feed": feed_train, "extract": extracted,
              "train_variable": variable,

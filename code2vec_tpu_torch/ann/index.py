@@ -178,10 +178,19 @@ class AnnSearcher:
 
     ``n_probe`` is clamped to the non-empty cells and ``shortlist`` to the
     probed slots; empty cells get a ``-inf`` coarse bias (never probed) and
-    pad slots a ``-inf`` row bias (never short-listed)."""
+    pad slots a ``-inf`` row bias (never short-listed).
+
+    ``schedule`` (an ``ops.autotune.LutSchedule``), else the LUT schedule
+    the autotuner's ``cache`` (default: the process's) holds for this
+    index's ``(m, n_list, capacity, shortlist)``, as JAX's searcher looks it
+    up: K5 (``pallas``) on the card, the plain version (``xla``) on the
+    CPU, the only routes each device has; :meth:`describe` reports it."""
 
     def __init__(self, index: IvfPqIndex, *, n_probe: int = 8, shortlist: int = 128,
-                 device: str | torch.device | None = None) -> None:
+                 device: str | torch.device | None = None, schedule=None,
+                 cache=None) -> None:
+        from code2vec_tpu_torch.ops.autotune import lookup_lut_schedule, unrunnable
+
         self.device = resolve_device(device)
         meta = index.meta
         self.meta = meta
@@ -192,6 +201,11 @@ class AnnSearcher:
         counts = np.asarray(index.cell_counts, np.int64)
         self.n_probe = max(min(int(n_probe), int((counts > 0).sum())), 1)
         self.shortlist = max(min(int(shortlist), self.n_probe * self.capacity), 1)
+        why = None if schedule is None else unrunnable(schedule, self.device)
+        if why is not None:
+            raise ValueError(f"LUT schedule {schedule} cannot run on {self.device}: {why}")
+        self.schedule = schedule or lookup_lut_schedule(
+            self.m, self.n_list, self.capacity, self.shortlist, cache=cache, device=self.device)
         self._counts = counts
         self._centroids_host = np.ascontiguousarray(index.centroids, np.float32)
         ids = np.ascontiguousarray(index.ids, np.int32)
@@ -231,6 +245,8 @@ class AnnSearcher:
             "shortlist": self.shortlist,
             "m": self.m,
             "capacity": self.capacity,
+            "schedule": self.schedule.to_dict(),
+            "kernel_backend": "gpu" if self.device.type == "cuda" else "cpu",
             "kernel_route": self.device.type,
             "search_executables": self._cache_size(),
         }

@@ -61,12 +61,16 @@ loads each feed group's round-robin share of the corpus;
 ``--shard_staged_corpus`` (with ``--device_epoch``) stages each rank's
 share on its card.
 
+``--use_pallas --pallas_impl auto [--autotune_cache FILE]`` runs each
+``(batch, width)`` on the route the autotuner's cache names for it (``python
+-m code2vec_tpu_torch.ops.autotune`` fills the file; a miss runs
+``pool_only``).
+
 The reference's ``--gpu`` and ``--num_workers`` are accepted and do
 nothing (the card is ``--device``; the host feed is ``--feed_workers``).
 JAX's TPU knobs ``--rng_impl``, ``--pallas_block_b`` and
-``--pallas_dma_depth``, and ``--pallas_impl auto`` (the autotuner, not
-ported yet), are accepted at their defaults and raise otherwise
-(``TrainConfig.validate``, ROADMAP §A.7).
+``--pallas_dma_depth`` are accepted at their defaults and raise otherwise
+(``TrainConfig.validate``).
 """
 
 from __future__ import annotations
@@ -157,7 +161,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--pallas_impl", type=str, default="pool_only",
                         choices=("pool_only", "gather_split", "fused", "auto"),
                         help="pool_only: K1/K1b after a plain encode; gather_split: K2; "
-                             "fused: K3 ('auto' is not ported)")
+                             "fused: K3; auto: each shape's route from --autotune_cache")
     parser.add_argument("--pallas_block_b", type=int, default=8,
                         help="JAX's Pallas batch tile: 8 only (the card's kernels size their grids)")
     parser.add_argument("--pallas_dma_depth", type=int, default=2,
@@ -168,6 +172,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--table_dtype", type=str, default="f32",
                         choices=("f32", "bf16", "int8"),
                         help="embedding storage of --export_only; training takes f32")
+    parser.add_argument("--autotune_cache", type=str, default="",
+                        help="kernel-schedule cache of --pallas_impl auto (default "
+                             "$C2V_AUTOTUNE_CACHE or ~/.cache/code2vec_tpu/"
+                             "autotune_schedules.json; fill it with python -m "
+                             "code2vec_tpu_torch.ops.autotune)")
     parser.add_argument("--attn_impl", type=str, default="xla", choices=("xla", "streaming"))
     parser.add_argument("--encoder_impl", type=str, default="concat",
                         choices=("concat", "split"))
@@ -312,7 +321,7 @@ _CONFIG_FLAGS = (
     "device_epoch", "device_chunk_batches", "sample_prefetch", "stream_chunk_items",
     "feed_workers", "prefetch_batches", "profile_steps", "async_checkpoint",
     "checkpoint_every_steps", "fault_plan", "rng_impl", "pallas_block_b", "pallas_dma_depth",
-    "shard_staged_corpus",
+    "shard_staged_corpus", "autotune_cache",
 )
 
 

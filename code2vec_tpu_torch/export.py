@@ -25,6 +25,7 @@ from code2vec_tpu_torch.formats.vectors_io import (
     write_code_vectors_header,
     write_test_results,
 )
+from code2vec_tpu_torch.ops.autotune import pin_cache
 from code2vec_tpu_torch.train.step import eval_step, to_device
 
 logger = logging.getLogger(__name__)
@@ -161,6 +162,9 @@ def export_from_checkpoint(config, data, out_dir: str, vectors_path: str,
     from code2vec_tpu_torch.train.loop import build_mesh, class_weights_from, model_config_from
 
     config.validate(training=False)
+    # pin the schedule cache before the first forward, as train() does (JAX
+    # export.py:225-229): --pallas_impl auto reads the file the run tuned into
+    pin_cache(config.autotune_cache)
     dev = resolve_device(device)
     # on a mesh (JAX builds it for the export pass too) every rank runs the
     # forward over its shards and rank 0 writes

@@ -16,11 +16,14 @@ like the JAX model's and the logits are sliced to ``label_count``.
 
 ``use_pallas`` + ``pallas_impl`` select the same kernel routes as the JAX
 config: ``pool_only`` (K1 after a plain encode), ``gather_split`` (K2) or
-``fused`` (K3); without ``use_pallas`` the forward is plain PyTorch. Bag
-widths above ``longbag_width`` are long-bag shapes: they are forced to the
-fused kernel with a streamed softmax (K4), as the JAX model's
-``_resolve_kernel`` does. On the CPU every kernel route runs its plain
-version.
+``fused`` (K3); without ``use_pallas`` the forward is plain PyTorch.
+``pallas_impl="auto"`` looks each ``(batch, width)`` up in the autotuner's
+schedule cache (``ops/autotune.py``) once, keyed on the global batch on a
+mesh, and runs the route it names (``xla`` is the plain route); a miss
+runs ``pool_only``. Bag widths above ``longbag_width`` are long-bag
+shapes: they are forced to the fused kernel with a streamed softmax (K4),
+as the JAX model's ``_resolve_kernel`` does. On the CPU every kernel route
+runs its plain version.
 
 Training (``model.train()`` with ``0 < dropout_prob < 1``): the dropout
 keep mask is drawn with ``torch.bernoulli`` from the module's own
@@ -106,7 +109,7 @@ def encode_matmul(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     out = torch.cat([slab @ weight for slab in padded.split(ENCODE_SLAB_ROWS)])
     return out[:n].reshape(*lead, weight.shape[-1])
 
-PALLAS_IMPLS = ("pool_only", "gather_split", "fused")
+PALLAS_IMPLS = ("pool_only", "gather_split", "fused", "auto")
 PALLAS_SOFTMAX = ("auto", "materialize", "online", "two_pass")
 
 
@@ -124,7 +127,7 @@ class Code2VecConfig:
     inverse_temp: float = 30.0
     dtype: torch.dtype = torch.float32  # compute dtype: float32 or bfloat16
     # the kernel routes of the forward (the JAX names are kept): "pool_only"
-    # (K1), "gather_split" (K2), "fused" (K3)
+    # (K1), "gather_split" (K2), "fused" (K3), or "auto" (the schedule cache's)
     use_pallas: bool = False
     pallas_impl: str = "pool_only"
     # the streamed softmax's bag chunk on the CPU (JAX parity); the CUDA
@@ -152,6 +155,16 @@ class Code2VecConfig:
     def padded(self, count: int) -> int:
         m = max(self.vocab_pad_multiple, 1)
         return -(-count // m) * m
+
+
+def route_config(config: Code2VecConfig, schedule) -> Code2VecConfig:
+    """``config`` on the fixed route a schedule names (an
+    ``ops.autotune.KernelSchedule``): ``xla`` is the plain forward, any
+    other impl that kernel route with the schedule's softmax."""
+    if schedule.impl == "xla":
+        return config.with_updates(use_pallas=False)
+    return config.with_updates(use_pallas=True, pallas_impl=schedule.impl,
+                               pallas_softmax=schedule.softmax)
 
 
 class Code2Vec(nn.Module):
@@ -192,6 +205,8 @@ class Code2Vec(nn.Module):
         else:
             self.output_linear = nn.Linear(c.encode_size, c.padded(c.label_count))
         self._dense_kernel_cache = None
+        # pallas_impl="auto": (schedule cache, {lookup: (impl, softmax)})
+        self._schedules = None
         # a mesh (parallel/shardings.shard_model): the sharded parameters'
         # specs; None on one device
         self.mesh = None
@@ -275,12 +290,14 @@ class Code2Vec(nn.Module):
             self._dense_kernel_cache = (key, w.detach().t().contiguous())
         return self._dense_kernel_cache[1]
 
-    def resolve_kernel(self, width: int) -> tuple[str | None, str]:
-        """``(impl, softmax_mode)`` of a forward at bag ``width`` — the JAX
-        model's ``_resolve_kernel`` without the autotune lookup. ``None``
-        impl is the plain forward. A long-bag width (above
+    def resolve_kernel(self, batch: int, width: int,
+                       device: torch.device | None = None) -> tuple[str | None, str]:
+        """``(impl, softmax_mode)`` of a forward at ``[batch, width]`` (the
+        global batch on a mesh) — the JAX model's ``_resolve_kernel``.
+        ``None`` impl is the plain forward, as is ``"xla"`` (a cached
+        schedule under ``pallas_impl="auto"``). A long-bag width (above
         ``longbag_width``) must stream: it is forced to ``fused`` with
-        ``online``, or ``two_pass`` when that was asked for."""
+        ``online``, or ``two_pass`` when that was asked for or cached."""
         c = self.config
         if not c.use_pallas:
             return None, "materialize"
@@ -289,9 +306,38 @@ class Code2Vec(nn.Module):
             softmax = c.pallas_softmax
         else:
             softmax = "online" if longbag else "materialize"
-        if longbag and (c.pallas_impl != "fused" or softmax == "materialize"):
-            return "fused", (softmax if softmax != "materialize" else "online")
-        return c.pallas_impl, softmax
+        impl = c.pallas_impl
+        if impl == "auto":
+            impl, softmax = self._auto_schedule(int(batch), int(width), softmax, device)
+        if longbag and (impl != "fused" or softmax == "materialize"):
+            if softmax == "materialize":
+                softmax = "online" if c.pallas_softmax in ("auto", "materialize") \
+                    else c.pallas_softmax
+            return "fused", softmax
+        return impl, softmax
+
+    def _auto_schedule(self, batch: int, width: int, softmax: str,
+                       device: torch.device | None) -> tuple[str, str]:
+        """The cached schedule's ``(impl, softmax)`` at ``[batch, width]``,
+        looked up once per shape and per process cache (a hit or a miss on
+        the counters, as JAX's one lookup a traced shape); a miss is the
+        configured ``pool_only`` with ``softmax``."""
+        from code2vec_tpu_torch.ops.autotune import KernelSchedule, get_cache, lookup_schedule
+
+        c = self.config
+        device = torch.device(device) if device is not None else self.attention_parameter.device
+        cache = get_cache()
+        if self._schedules is None or self._schedules[0] is not cache:
+            self._schedules = (cache, {})
+        memo = self._schedules[1]
+        key = (c, batch, width, device.type)
+        if key not in memo:
+            default = KernelSchedule(impl="pool_only", softmax=softmax, source="config")
+            sched = lookup_schedule(batch, width, c.terminal_embed_size, c.path_embed_size,
+                                    c.encode_size, c.table_dtype, default=default,
+                                    cache=cache, device=device)
+            memo[key] = (sched.impl, sched.softmax)
+        return memo[key]
 
     def quantize_tables(self) -> tuple[QuantTable, QuantTable] | None:
         """The ``(terminal, path)`` storage of ``config.table_dtype``, or
@@ -341,7 +387,10 @@ class Code2Vec(nn.Module):
         else:
             t_store, p_store = self.quantize_tables()
         mask = (starts > 0).float()  # PAD = 0 (model/model.py:64)
-        impl, softmax_mode = self.resolve_kernel(starts.shape[1])
+        b, width = starts.shape
+        if self.mesh is not None:  # the schedule of the global batch, as JAX's jit traces it
+            b, width = b * self.mesh.shape["data"], width * self.mesh.shape["ctx"]
+        impl, softmax_mode = self.resolve_kernel(b, width, starts.device)
         if impl == "gather_split" and self._row_sharded():
             # a mesh's row-sharded tables: K2 takes its rows from the sharded
             # gather (the model line's all-reduce)

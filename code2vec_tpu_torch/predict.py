@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from code2vec_tpu_torch import PAD_INDEX, QUESTION_TOKEN_INDEX, QUESTION_TOKEN_NAME
+from code2vec_tpu_torch.ops.autotune import pin_cache
 
 logger = logging.getLogger(__name__)
 
@@ -154,7 +155,9 @@ class Predictor:
 
     ``device``: ``None`` runs on ``cuda`` and raises when no GPU is
     visible; ``"cpu"`` runs the plain versions. ``pallas_impl`` picks the
-    forward's kernel route (serving default: the fully fused K3).
+    forward's kernel route (serving default: the fully fused K3); ``"auto"``
+    takes each ``(batch, width)``'s route from the schedule cache, pinned
+    to ``autotune_cache`` when one is given (``ops/autotune.py``).
     ``table_dtype`` overrides the meta's table storage. ``longbag_widths``
     adds rungs above the ladder's top (each must exceed it).
     """
@@ -170,6 +173,7 @@ class Predictor:
         pallas_impl: str = "fused",
         pallas_softmax: str = "auto",
         longbag_widths: tuple[int, ...] = (),
+        autotune_cache: str | None = None,
     ) -> None:
         from code2vec_tpu_torch import interop
         from code2vec_tpu_torch.data.pipeline import derive_bucket_ladder
@@ -178,6 +182,7 @@ class Predictor:
         from code2vec_tpu_torch.ops.backend import resolve_device
 
         self.device = resolve_device(device)
+        pin_cache(autotune_cache)
         meta_path = os.path.join(model_path, MODEL_META)
         if not os.path.exists(meta_path):
             raise FileNotFoundError(f"{meta_path} not found: not a trained model dir")

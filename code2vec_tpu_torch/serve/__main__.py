@@ -9,7 +9,7 @@ and only then accept traffic::
         --terminal_idx_path ds/terminal_idxs.txt --path_idx_path ds/path_idxs.txt \\
         [--transport stdio | --transport http --host 127.0.0.1 --port 8080] \\
         [--table_dtype int8] [--batch_sizes 1,8] [--device cpu] \\
-        [--longbag_widths 512,1024,2048] \\
+        [--longbag_widths 512,1024,2048] [--pallas_impl auto --autotune_cache at.json] \\
         [--code_vec_path out/code.vec | --retrieval_backend ann --ann_index_path out/ann.index]
 
 Requests and responses are JSON (``serve/protocol.py``); ``reload`` with a
@@ -57,9 +57,14 @@ def build_parser() -> argparse.ArgumentParser:
                         help="histogram-fallback sample size when the model meta has no "
                         "recorded bucket ladder")
     parser.add_argument("--pallas_impl", default="fused",
-                        choices=("fused", "gather_split", "pool_only"),
+                        choices=("fused", "gather_split", "pool_only", "auto"),
                         help="kernel route of the forward: fused (K3), gather_split "
-                        "(K2) or pool_only (K1)")
+                        "(K2), pool_only (K1), or auto (each shape's route from the "
+                        "schedule cache)")
+    parser.add_argument("--autotune_cache", default="",
+                        help="kernel-schedule cache consulted for every warmed shape "
+                        "(ops/autotune.py; default $C2V_AUTOTUNE_CACHE or "
+                        "~/.cache/code2vec_tpu/autotune_schedules.json)")
     parser.add_argument("--pallas_softmax", default="auto",
                         choices=("auto", "materialize", "online", "two_pass"),
                         help="bag softmax of the fused kernel: auto streams (online, K4) "
@@ -176,6 +181,7 @@ def build_server(args):
     server's ``events`` is the event log (None without --events_dir)."""
     from code2vec_tpu_torch.extractor import load_library
     from code2vec_tpu_torch.obs.runtime import FlightRecorder, global_health
+    from code2vec_tpu_torch.ops.autotune import pin_cache
     from code2vec_tpu_torch.serve.protocol import CodeServer
     from code2vec_tpu_torch.serve.swap import GoldenSet
 
@@ -188,6 +194,8 @@ def build_server(args):
         from code2vec_tpu_torch.obs.handles import HANDLE_DEBUG_ENV
 
         os.environ[HANDLE_DEBUG_ENV] = "1"
+    # pin the schedule cache before the first forward, as train() does
+    pin_cache(getattr(args, "autotune_cache", ""))
     events = None
     if args.events_dir:
         from code2vec_tpu_torch.obs import handles, sync

@@ -22,6 +22,14 @@ Ladder sources, in order:
 the top rung, so a request of up to that many contexts serves through a
 warmed long-bag shape (K4 on the card) and only a longer one is rejected.
 
+Schedule provenance: before the warm runs the engine consults the
+autotuner's cache for every (batch, width) shape (``ops/autotune
+.consult_schedules``, JAX ``_consult``): each provenance record carries
+the shape's ``schedule``, ``schedule_cached`` and ``kernel_backend``
+(``"gpu"`` or ``"cpu"``). Misses are recorded, never searched. Under
+``pallas_impl="auto"`` the forward then runs the route each shape's
+cached schedule names.
+
 Observability: ``serve_executable_compile`` (warmed shapes),
 ``serve_forward`` and ``serve_post_warmup_compile`` counters and the
 ``serve_executables`` gauge on the shared registry (the JAX names), a
@@ -66,7 +74,7 @@ class ServingEngine:
     def __init__(self, predictor, batch_sizes: tuple[int, ...] = DEFAULT_BATCH_SIZES, *,
                  ladder=_DEFAULT, warmup_requests: int = 64,
                  health: RuntimeHealth | None = None, events=None,
-                 version: str = "v0") -> None:
+                 version: str = "v0", autotune_cache: str | None = None) -> None:
         if not batch_sizes or any(b < 1 for b in batch_sizes):
             raise ValueError(f"batch_sizes must be >= 1, got {batch_sizes!r}")
         self.predictor = predictor
@@ -93,6 +101,8 @@ class ServingEngine:
         self.batch_sizes = tuple(sorted({int(b) for b in batch_sizes}))
         self.warmup_requests = int(warmup_requests)
         self._health = health or global_health()
+        # the schedule cache consulted at warmup (None = the process's pinned one)
+        self._autotune_cache = autotune_cache or None
         self._events = events
         self._lock = make_rlock("engine")
         self._warm: set[tuple[int, int]] = set()
@@ -157,15 +167,30 @@ class ServingEngine:
         ladder (idempotent); returns one record per warmed shape (its
         first run's synchronised milliseconds and analytic cost)."""
         with self._lock:
-            for w in self.active_ladder:
-                for b in self.batch_sizes:
-                    if (b, w) not in self._warm:
-                        self._first_run(b, w)
+            shapes = [(b, w) for w in self.active_ladder for b in self.batch_sizes]
+            schedules = self._consult(shapes)
+            for b, w in shapes:
+                if (b, w) not in self._warm:
+                    self._first_run(b, w, schedules.get((b, w)))
             self._warmed = True
             self._health.gauge("serve_executables").set(len(self._warm))
             return list(self.provenance)
 
-    def _first_run(self, b: int, w: int) -> float:
+    def _consult(self, shapes: list[tuple[int, int]]) -> dict[tuple[int, int], dict]:
+        """The schedule cache's record of every shape (JAX ``_consult``);
+        misses are recorded, never searched."""
+        from code2vec_tpu_torch.ops.autotune import ShapeKey, consult_schedules, device_kind, \
+            get_cache
+
+        te, pe, enc, _ = self._dims
+        kind = device_kind(self.device)
+        keys = [ShapeKey(device_kind=kind, batch=b, width=w, terminal_embed=te, path_embed=pe,
+                         encode=enc, table_dtype=self.table_dtype) for b, w in shapes]
+        records = consult_schedules(keys, cache=get_cache(self._autotune_cache),
+                                    device=self.device)
+        return dict(zip(shapes, records))
+
+    def _first_run(self, b: int, w: int, schedule: dict | None = None) -> float:
         ids = np.full((b, w), PAD_INDEX, np.int32)
         t0 = time.perf_counter()
         with get_tracer().span("serve_compile", category="serve", batch=b, width=w):
@@ -190,8 +215,12 @@ class ServingEngine:
                                                encode=enc, labels=labels,
                                                table_dtype=self.table_dtype)
         self._costs.register((b, w), cost)
+        schedule = schedule or {}
         record = {"batch": b, "width": w, "version": self.version,
-                  "table_dtype": self.table_dtype, "compile_ms": ms, "cost": cost}
+                  "table_dtype": self.table_dtype,
+                  "kernel_backend": "gpu" if self.device.type == "cuda" else "cpu",
+                  "compile_ms": ms, "schedule": schedule.get("schedule"),
+                  "schedule_cached": schedule.get("cached"), "cost": cost}
         if post:
             record["post_warmup"] = True
         self.provenance.append(record)

@@ -100,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--warmup_requests", type=int, default=64)
     parser.add_argument("--golden_min_recall", type=float, default=0.9)
     parser.add_argument("--pallas_impl", default="fused",
-                        choices=("fused", "gather_split", "pool_only"))
+                        choices=("fused", "gather_split", "pool_only", "auto"))
+    parser.add_argument("--autotune_cache", default="")
     parser.add_argument("--pallas_softmax", default="auto",
                         choices=("auto", "materialize", "online", "two_pass"))
     parser.add_argument("--longbag_widths", default="")
@@ -147,6 +148,8 @@ def worker_argv(args, slot: int) -> list[str]:
     ]
     if args.longbag_widths:
         argv += ["--longbag_widths", str(args.longbag_widths)]
+    if args.autotune_cache:
+        argv += ["--autotune_cache", args.autotune_cache]
     if args.table_dtype:
         argv += ["--table_dtype", args.table_dtype]
     if args.code_vec_path:

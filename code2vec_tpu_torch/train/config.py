@@ -1,13 +1,13 @@
 """Training configuration (the reference's Option, main.py:93-115).
 
 Own copy of ``code2vec_tpu/train/config.py``: the same field names and
-defaults, so a JAX configuration reads the same here. Fields of features
-the port does not have yet (``pallas_impl='auto'`` and
-``autotune_cache``, ROADMAP §A.7), one combination of the mesh (lazy
-tables over ``model_axis > 1``, ROADMAP §A.2.12) and the TPU knobs with no
-meaning on the card (``pallas_block_b``, ``pallas_dma_depth``,
-``rng_impl``) stay at their defaults: :meth:`TrainConfig.validate`
-rejects any other value loudly instead of ignoring it.
+defaults, so a JAX configuration reads the same here. One combination of
+the mesh the port does not have yet (lazy tables over ``model_axis > 1``,
+ROADMAP §A.2.12) and the TPU knobs with no meaning on the card
+(``pallas_block_b``, ``pallas_dma_depth``, ``rng_impl``) stay at their
+defaults: :meth:`TrainConfig.validate` rejects any other value loudly
+instead of ignoring it. ``pallas_impl='auto'`` picks each shape's route
+from the schedule cache at ``autotune_cache`` (``ops/autotune.py``).
 """
 
 from __future__ import annotations
@@ -65,7 +65,8 @@ class TrainConfig:
     use_pallas: bool = False
     # the Pallas kernel's batch tile: the card's kernels size their own grids
     pallas_block_b: int = 8
-    pallas_impl: str = "pool_only"  # pool_only (K1) | gather_split (K2) | fused (K3)
+    # pool_only (K1) | gather_split (K2) | fused (K3) | auto (the schedule cache's)
+    pallas_impl: str = "pool_only"
     # the fused Pallas kernel's gather buffers: K3 stages its rows with cp.async
     pallas_dma_depth: int = 2
     pallas_chunk_l: int = 128
@@ -80,7 +81,8 @@ class TrainConfig:
     # pad the tables and the head to this multiple so they shard evenly over
     # the model axis; 0 = auto (model_axis); checkpoint shapes depend on it
     vocab_pad_multiple: int = 0
-    # the kernel-schedule cache of pallas_impl='auto' (not ported)
+    # the kernel-schedule cache of pallas_impl='auto' ("" = $C2V_AUTOTUNE_CACHE or
+    # ~/.cache/code2vec_tpu/autotune_schedules.json)
     autotune_cache: str = ""
     # JAX's dropout PRNG; the port's dropout stream is a torch.Generator
     rng_impl: str = "threefry2x32"
@@ -209,15 +211,6 @@ class TrainConfig:
         if self.shard_staged_corpus and not self.device_epoch:
             raise ValueError("--shard_staged_corpus shards the device-staged corpus; it "
                              "requires --device_epoch")
-        unported = {
-            "pallas_impl='auto'": self.pallas_impl == "auto",
-            "autotune_cache": bool(self.autotune_cache),
-        }
-        asked = [name for name, on in unported.items() if on]
-        if asked:
-            raise NotImplementedError(
-                f"not ported to code2vec_tpu_torch yet (ROADMAP §A.7): {', '.join(asked)}"
-            )
         if self.table_update == "lazy" and self.model_axis > 1:
             raise NotImplementedError(
                 "--table_update lazy with --model_axis > 1 is not ported (ROADMAP §A.2.12): the "

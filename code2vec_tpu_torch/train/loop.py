@@ -110,6 +110,7 @@ from code2vec_tpu_torch.obs import costs as obs_costs
 from code2vec_tpu_torch.obs.events import EventLog, sink_consumer
 from code2vec_tpu_torch.obs.runtime import RecompileDetector, RuntimeHealth, memory_snapshot
 from code2vec_tpu_torch.obs.trace import get_tracer, set_tracer
+from code2vec_tpu_torch.ops.autotune import pin_cache
 from code2vec_tpu_torch.ops.backend import resolve_device
 from code2vec_tpu_torch.sinks import MetricSink, logging_sink
 from code2vec_tpu_torch.train.device_epoch import (
@@ -691,6 +692,9 @@ def train(
     from code2vec_tpu_torch.predict import save_inference_meta, save_model_file
 
     config.validate()
+    # pin the schedule cache before the first forward, so --pallas_impl auto
+    # looks its shapes up in the configured file (JAX loop.py:577-580)
+    pin_cache(config.autotune_cache)
     if events is None:
         events = EventLog()  # dispatch-only: the sinks still ride the stream
     if tracer is None:

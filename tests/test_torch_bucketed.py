@@ -371,7 +371,7 @@ def test_longbag_two_pass_gradients_match_the_plain_route(skewed):
         model.reset_parameters(torch.Generator().manual_seed(3))
         model.seed_dropout(7)
         model.train()
-        assert model.resolve_kernel(ladder[-1]) == (
+        assert model.resolve_kernel(cfg.batch_size, ladder[-1]) == (
             ("fused", "two_pass") if route == "two_pass" else (None, "materialize"))
         loss = forward_backward(model, batch, weights)
         grads[route] = (float(loss), {k: p.grad for k, p in model.named_parameters()})

@@ -35,7 +35,10 @@ K1, K1b, masked K2 and masked K3, a variable train step on each kernel
 route, and the sampler's ``@var_*`` remap on the card bit for bit the CPU's;
 the host prefetcher's copies on its own stream equal the synchronous copies,
 and ``train()`` prefetched (also fed by workers forked from a process with a
-live CUDA context) within rtol 1e-5 of the synchronous run's losses.
+live CUDA context) within rtol 1e-5 of the synchronous run's losses;
+``pallas_impl="auto"`` with a hand-written cache naming each route in turn
+launches that route's kernel and no other, its outputs bitwise the fixed
+route's, and an ``xla`` LUT entry is a miss for the searcher on the card.
 Tolerance rtol = atol = 1e-5 (the plain
 versions in f32 with TF32 off, the kernels' encode in 3xTF32 on the
 tensor cores); at top11 widths and one context the kernel's code vector is
@@ -1426,3 +1429,72 @@ def test_k2_over_rows_gathered_outside_is_gather_split(dev, cd, masked):
                                    compute_dtype=cd)
     for a, b in zip(got, torch.autograd.grad(ref.sum(), ref_leaves)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+AUTO_ROUTES = {  # route -> (impl, softmax, the one kernel its forward launches)
+    "xla": ("xla", "materialize", None),
+    "pool_only": ("pool_only", "materialize", "pool"),
+    "gather_split": ("gather_split", "materialize", "gather_split"),
+    "fused": ("fused", "materialize", "fused_f32"),
+    "online": ("fused", "online", "online_f32"),
+    "two_pass": ("fused", "two_pass", "two_pass_f32"),
+}
+
+
+@pytest.mark.parametrize("route", list(AUTO_ROUTES))
+def test_auto_launches_the_cached_routes_kernel_only(dev, tmp_path, route):
+    from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig, route_config
+    from code2vec_tpu_torch.ops import autotune as at
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+
+    impl, softmax, kernel = AUTO_ROUTES[route]
+    B, L = 8, 72
+    cfg = Code2VecConfig(terminal_count=301, path_count=157, label_count=11,
+                         terminal_embed_size=24, path_embed_size=16, encode_size=40,
+                         dropout_prob=0.0, use_pallas=True, pallas_impl="auto")
+    sched = at.KernelSchedule(impl=impl, softmax=softmax, backend="gpu")
+    cache = at.ScheduleCache(str(tmp_path / "at.json"))
+    cache.put(at.ShapeKey(at.device_kind(dev), B, L, 24, 16, 40, "f32"), sched)
+    cache.save()
+    at.get_cache(cache.path)
+    try:
+        with torch.device(dev):
+            model = Code2Vec(cfg).eval()
+            fixed = Code2Vec(route_config(cfg, sched)).eval()
+        fixed.load_state_dict(model.state_dict())
+        _, _, s, pa, e, _, _ = ids_and_tables(dev, B, L, 24, 16, 40, seed=2)
+        with torch.no_grad():
+            model(s, pa, e)  # builds and loads the kernels
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = model(s, pa, e)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            want = fixed(s, pa, e)
+        assert counts == ({} if kernel is None else {kernel: 1}), counts
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    finally:
+        at.reset_cache()
+
+
+def test_an_xla_lut_entry_is_a_miss_on_the_card(dev, tmp_path):
+    import numpy as np
+
+    from code2vec_tpu_torch.ann.index import AnnSearcher, build_index
+    from code2vec_tpu_torch.ops import autotune as at
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+
+    rows = np.random.default_rng(0).normal(size=(2000, 32)).astype(np.float32)
+    index, _ = build_index(rows, n_list=16, m=8, seed=0, kmeans_iters=4, pq_iters=4,
+                           device=dev)
+    meta = index.meta
+    cache = at.ScheduleCache(str(tmp_path / "at.json"))
+    cache.put(at.LutShapeKey(at.device_kind(dev), meta["m"], meta["n_list"], meta["capacity"],
+                             64), at.LutSchedule(impl="xla", backend="gpu"))
+    searcher = AnnSearcher(index, n_probe=4, shortlist=64, device=dev, cache=cache)
+    assert searcher.schedule == at.default_lut_schedule(dev)
+    assert searcher.describe()["schedule"]["impl"] == "pallas"
+    reset_launch_counts()
+    searcher.search(rows[:3])
+    assert launch_counts().get("lut_score", 0) == 1

@@ -36,8 +36,12 @@ from test_torch_swap import jax_params, jax_server, port_server, write_other_wei
 
 REPO = Path(__file__).resolve().parent.parent
 
-# metric names only one side exports after the same stream (none)
-PORT_ONLY: set[str] = set()
+# metric names only one side exports after the same stream: the autotuner's
+# counters, which both packages keep on their process-wide registry (JAX
+# ops/autotune.py _counters); the port's server here serves that registry, as
+# JAX's build_server does, but this test's JAX server runs on a private one
+PORT_ONLY: set[str] = {f"c2v_autotune_{name}_total" for name in
+                       ("cache_hit", "cache_miss", "timing_run", "schedule_stored")}
 JAX_ONLY: set[str] = set()
 
 

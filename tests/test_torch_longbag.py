@@ -148,8 +148,8 @@ class TestModelDispatch:
         kw = dict(DIMS, use_pallas=True, pallas_impl=impl, pallas_softmax=softmax,
                   longbag_width=200)
         _, sched = JaxCode2Vec(JaxConfig(**kw))._resolve_kernel(2, width)
-        assert Code2Vec(Code2VecConfig(**kw)).resolve_kernel(width) == (sched.impl,
-                                                                        sched.softmax)
+        assert Code2Vec(Code2VecConfig(**kw)).resolve_kernel(2, width) == (sched.impl,
+                                                                           sched.softmax)
 
     @pytest.mark.parametrize("softmax", ["auto", "two_pass"])
     def test_longbag_forward_matches_jax(self, softmax):
@@ -167,7 +167,7 @@ class TestModelDispatch:
         model = Code2Vec(cfg)
         params = jax.tree.map(np.asarray, params["params"])
         model.load_state_dict(interop.state_dict_from_jax_params(params, cfg), strict=True)
-        assert model.resolve_kernel(512) == ("fused", "online" if softmax == "auto" else softmax)
+        assert model.resolve_kernel(3, 512) == ("fused", "online" if softmax == "auto" else softmax)
         with torch.no_grad():
             out_t = model.eval()(*(torch.from_numpy(x) for x in (s, p, e)))
         for a, b in zip(out_t, out_j):
@@ -261,8 +261,8 @@ class TestServeLongBags:
         try:
             pred = srv.predictor
             assert (pred.base_bag, pred.bag, pred.ladder_recorded) == (16, 128, True)
-            assert pred.model.resolve_kernel(128) == ("fused", "online")
-            assert pred.model.resolve_kernel(16) == ("fused", "materialize")
+            assert pred.model.resolve_kernel(1, 128) == ("fused", "online")
+            assert pred.model.resolve_kernel(1, 16) == ("fused", "materialize")
             out = pred.predict_contexts(bag(100, seed=9).tolist(), top_k=2)
             assert out.n_contexts == 100 and np.isfinite(out.code_vector).all()
         finally:

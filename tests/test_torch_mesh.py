@@ -282,6 +282,35 @@ def _check_restore(spec, config, data):
             "saved_mesh_shape": info["saved_mesh_shape"]}
 
 
+def scenario_autotune(spec, rank):
+    """``pallas_impl="auto"`` on the mesh: each rank forwards its rows of
+    the batch twice; the schedule is looked up once, keyed on the global
+    batch (tests/test_torch_autotune.py)."""
+    import torch
+
+    from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
+    from code2vec_tpu_torch.ops import autotune
+    from code2vec_tpu_torch.parallel.distributed import global_batch
+    from code2vec_tpu_torch.parallel.shardings import shard_model
+
+    inputs = torch.load(spec["inputs"], weights_only=False)
+    mesh = _mesh(spec["axes"])
+    autotune.get_cache(spec["cache"])
+    model = Code2Vec(Code2VecConfig(**spec["model"], dropout_prob=0.0, use_pallas=True,
+                                    pallas_impl="auto"))
+    model.load_state_dict(inputs["state_dict"], strict=True)
+    shard_model(model, mesh)
+    model.eval()
+    batch = _torch_batch(global_batch(mesh, inputs["batches"][0]))
+    before = autotune.counters_snapshot()
+    with torch.no_grad():
+        cvs = [model(batch["starts"], batch["paths"], batch["ends"])[1] for _ in range(2)]
+    after = autotune.counters_snapshot()
+    return {"local_rows": int(batch["starts"].shape[0]), "code_vectors": cvs,
+            "resolved": sorted((k[1:3], v) for k, v in model._schedules[1].items()),
+            "counters": {k: after[k] - before[k] for k in after}}
+
+
 def _worker_main(spec_path: str, rank: int) -> None:
     sys.path.insert(0, REPO)
     import torch

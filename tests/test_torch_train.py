@@ -321,16 +321,21 @@ def test_training_with_quantized_tables_raises():
 
 
 # the mesh axes are ported (tests/test_torch_mesh.py); what stays rejected
-# beside them: the autotuner (ROADMAP A.7) and lazy tables over a model axis
-# (A.2.12)
-UNPORTED = [{"data_axis": 2, "autotune_cache": "at.json"},
-            {"model_axis": 2, "table_update": "lazy"}, {"pallas_impl": "auto"}]
+# beside them: lazy tables over a model axis (A.2.12)
+UNPORTED = [{"model_axis": 2, "table_update": "lazy"}]
+# the autotuner is ported (tests/test_torch_autotune.py)
+AUTOTUNER = [{"data_axis": 2, "autotune_cache": "at.json"}, {"pallas_impl": "auto"}]
 
 
 @pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: next(iter(kw)))
 def test_unported_settings_are_rejected(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TrainConfig(**kw).validate()
+
+
+@pytest.mark.parametrize("kw", AUTOTUNER, ids=lambda kw: next(iter(kw)))
+def test_autotuner_settings_validate(kw):
+    TrainConfig(**kw).validate()
 
 
 def test_device_epoch_validates():

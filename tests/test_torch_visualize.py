@@ -5,7 +5,7 @@ batch-free form, on the CPU.
   for byte JAX's for the same ``code.vec``; ``python -m
   code2vec_tpu_torch.visualize`` writes them too;
 - every option string of JAX's ``build_parser()`` exists in the port's
-  parser, but the three flags of features not ported yet (A.2.9, A.7);
+  parser;
   the reference's ``--gpu`` / ``--num_workers`` parse as no-ops, and
   non-default ``--rng_impl``, ``--pallas_block_b`` and
   ``--pallas_dma_depth`` raise;
@@ -71,8 +71,8 @@ def options(parser) -> set[str]:
     return {o for action in parser._actions for o in action.option_strings}
 
 
-# the flag of the feature the port has not yet: the autotuner (ROADMAP A.7)
-NOT_PORTED = {"--autotune_cache"}
+# the flags of features the port has not yet: none since the autotuner
+NOT_PORTED = set()
 
 
 def test_every_jax_flag_is_in_the_ports_parser():
