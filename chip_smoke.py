@@ -174,9 +174,18 @@ the final result line is not printed):
    bitwise; data=2 and model=2 on fused and pool_only within rtol 2e-5 a
    step of the same run at world 1; each rank of the sharded staging holds
    0.4-0.6 of the bytes; every restored tensor bitwise the saved one, the
-   resumed steps and epoch loss within rtol 2e-5 of world 1. Printed: a
+   resumed steps and epoch loss within rtol 2e-5 of world 1; lazy tables
+   at model=2 on fused (K3 masked, K3) and on gather_split (K2 masked),
+   each within rtol 2e-5 a step of the same lazy route at world 1. Printed: a
    profiled data=2 step's ms and its gradient all-reduce's ms and bytes
-   (gloo on one time-sliced card, not NCCL across cards);
+   (gloo on one time-sliced card, not NCCL across cards). (c) the same pair
+   serving at model=2 over the retrieval phase's 1,000,000-row corpus and
+   IVF-PQ index (``serve/retrieval.py``, ``ann/index.py`` on a mesh): the
+   exact top-10 of 64 queries, ids equal to one device's wherever the
+   scores differ by more than 1e-5; the ann shortlists equal to one
+   device's (``same_shortlist``), each rank launching K5 on its cells;
+   a data=2 ``build_index`` of a 100,000-row slice bitwise the world-1
+   build; per-query ms (gloo on one time-sliced card);
 7e. autotune (after train_mesh) — the kernel-schedule autotuner at the
    top11 widths (synthetic tables of 360,633 rows): (a) six forward keys
    (1024 x 200 f32; 1 x 200 and 64 x 200, f32 and int8 tables; 64 x 1024
@@ -301,14 +310,14 @@ the final result line is not printed):
    ``--shuffle_variable_indexes``) on the train phase's corpus with 0-3
    ``@var_*`` aliases a method, each alias at the start or end of the share
    the extract phase measured (15% if that is below 10%) of its method's
-   contexts, at the train phase's widths, batch, bag and dropout, 3 epochs:
+   contexts, at the train phase's widths, batch, bag and dropout, 2 epochs:
    host-fed and device epochs, each at a fixed bag and bucketed (the ladder
    derived from the methods' counts, as JAX derives it), on every route; the
    dual task on fused, host-fed and on the device; fused device epochs lazy
    in bf16. Per run epoch_seconds, steps/s, real contexts/s, pad_efficiency,
    loss, F1 and the launches, each kernel once for every batch of the
-   passes that run it, the train loss lower after 3 epochs than after the
-   first; the variable rows and their mean real contexts; the step
+   passes that run it, the train loss lower after the last epoch than after
+   the first; the variable rows and their mean real contexts; the step
    breakdown on variable batches (plain, fused); a dropout-0
    differential on a batch with an all-PAD row and 255 one-context rows
    (the train differential's tolerances); per route a device chunk (the
@@ -347,7 +356,8 @@ the final result line is not printed):
    of every train_variable run, of the python_source phase, of the
    serve_control phase, of the train_elastic runs, of the train_hpo
    trials (K1/K1b: the kernel events of its CLI run's profiled epoch), of
-   both ranks of the train_mesh runs and of the autotune phase's search,
+   both ranks of the train_mesh runs (K5: of its serving pair) and of the
+   autotune phase's search,
    auto training, engines and searcher, max error,
    times at the headline shape and the bound), then, last, the result
    line.
@@ -3027,8 +3037,22 @@ MESH_RUNS = {
                      ("fused_f32_masked",), None),
     "reshape_resume": (dict(model_axis=2, resume=True, **kernel_route("fused")),
                        ("fused_f32_masked", "fused_f32"), None),
+    # lazy tables over the model axis: each rank steps its row shard's rows
+    "model2_lazy_fused": (dict(model_axis=2, table_update="lazy", **kernel_route("fused")),
+                          ("fused_f32_masked", "fused_f32"), "lazy_fused"),
+    "model2_lazy_gather_split": (dict(model_axis=2, table_update="lazy",
+                                      **kernel_route("gather_split")),
+                                 ("gather_split_masked", "gather_split"), "lazy_gather_split"),
 }
-MESH_WORKER_TIMEOUT_S = 300
+# world-1 reference runs: name -> config updates
+MESH_REFS = {route: kernel_route(route) for route in ("fused", "pool_only", "gather_split")}
+MESH_REFS.update({f"lazy_{route}": dict(kernel_route(route), table_update="lazy")
+                  for route in ("fused", "gather_split")})
+MESH_WORKER_TIMEOUT_S = 420
+# the serving pair: the retrieval phase's index at model=2, these queries
+# one at a time and batched, and a data=2 build of a slice of its rows
+MESH_SERVE_QUERIES = 64
+MESH_BUILD = dict(n=100_000, n_list=100, m=ANN_M, kmeans_iters=10, pq_iters=8)
 
 
 def record_steps(torch, step_ms: list | None = None):
@@ -3103,6 +3127,8 @@ def mesh_worker(spec_path: str, rank: int) -> int:
     pstep.sync_gradients = timed_sync
     out = {}
     try:
+        if spec.get("serve"):
+            out["serve"] = mesh_serve_worker(torch, spec["serve"], rank)
         for name in spec["runs"]:
             updates = dict(MESH_RUNS[name][0])
             out_dir = spec["ckpt"] if name.startswith("reshape") else None
@@ -3158,6 +3184,144 @@ def mesh_worker(spec_path: str, rank: int) -> int:
         Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(out))
         dist.destroy_process_group()
     return 0
+
+
+def array_digests(index) -> dict:
+    """sha256 of each array of an ``IvfPqIndex`` (a bitwise comparison
+    across processes)."""
+    import hashlib
+
+    return {f: hashlib.sha256(np.ascontiguousarray(getattr(index, f)).tobytes()).hexdigest()
+            for f in ("centroids", "codebooks", "codes", "scales", "ids", "cell_counts")}
+
+
+def serve_queries(unit: np.ndarray) -> np.ndarray:
+    """The serving pair's queries: perturbed rows of the index's corpus."""
+    g = np.random.default_rng(23)
+    picks = unit[g.integers(0, len(unit), MESH_SERVE_QUERIES)]
+    return (picks + 0.05 * g.normal(size=picks.shape)).astype(np.float32)
+
+
+def mesh_serve_worker(torch, spec: dict, rank: int) -> dict:
+    """(c) One rank of the serving pair: the exact index and the ann
+    index of the retrieval phase's container at model=2 (every rank the
+    same queries, one at a time, then all 64), the K5 launches of the
+    ann queries, and a data=2 build of the first ``MESH_BUILD["n"]`` rows."""
+    from code2vec_tpu_torch.ann.index import build_index, load_index
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.parallel.mesh import make_mesh
+    from code2vec_tpu_torch.serve.retrieval import AnnRetrievalIndex, RetrievalIndex
+
+    mesh = make_mesh(1, 2, 1)
+    index, unit, labels = load_index(spec["index"])
+    queries = serve_queries(np.asarray(unit))
+    out = {}
+    for backend in ("exact", "ann"):
+        t0 = time.perf_counter()
+        if backend == "exact":
+            served = RetrievalIndex(labels, np.asarray(unit), mesh=mesh, device="cuda")
+        else:
+            served = AnnRetrievalIndex(labels, unit, index, n_probe=ANN_PROBE,
+                                       shortlist=ANN_SHORTLIST, mesh=mesh, device="cuda")
+        load_s = time.perf_counter() - t0
+        served.top_k(queries[0], 10)  # warm (the answers come back to the host)
+        reset_launch_counts()
+        lat = []
+        for q in queries:
+            t0 = time.perf_counter()
+            served.top_k(q, 10)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        rec = {"load_s": load_s, "p50_ms": float(np.percentile(lat, 50)),
+               "p99_ms": float(np.percentile(lat, 99)), "launches": launch_counts(),
+               "describe": {k: v for k, v in served.describe().items() if k != "schedule"}}
+        if backend == "exact":
+            top = served.top_k_batch(queries, 10)
+            rec["ids"] = [[int(n[1:]) for n, _ in row] for row in top]
+            rec["scores"] = [[s for _, s in row] for row in top]
+        else:
+            s_, i_ = served.searcher.search(queries)
+            rec["ids"], rec["scores"] = i_.tolist(), s_.tolist()
+        out[backend] = rec
+        served.close()
+        del served
+        print(f"mesh rank {rank} serve {backend}: p50 {rec['p50_ms']:.3f} ms, launches "
+              f"{rec['launches']}", flush=True)
+    build = MESH_BUILD
+    t0 = time.perf_counter()
+    built, _ = build_index(np.asarray(unit[:build["n"]]), n_list=build["n_list"], m=build["m"],
+                           seed=0, kmeans_iters=build["kmeans_iters"],
+                           pq_iters=build["pq_iters"], mesh=make_mesh(2, 1, 1), device="cuda")
+    out["build"] = {"seconds": time.perf_counter() - t0, "digests": array_digests(built)}
+    print(f"mesh rank {rank} build data=2: {out['build']['seconds']:.1f} s", flush=True)
+    return out
+
+
+def same_top(ids_a, scores_a, ids_b, scores_b, tol=1e-5) -> bool:
+    """Scores within ``tol`` and ids equal, save the order inside a run of
+    scores within ``tol`` of their neighbour."""
+    for ia, sa, ib, sb in zip(ids_a, scores_a, ids_b, scores_b):
+        sa, sb = np.asarray(sa, np.float64), np.asarray(sb, np.float64)
+        if len(ia) != len(ib) or np.max(np.abs(sa - sb)) > tol:
+            return False
+        cut = np.flatnonzero(np.abs(np.diff(sa)) > tol) + 1
+        if any(sorted(a.tolist()) != sorted(b.tolist())
+               for a, b in zip(np.split(np.asarray(ia), cut), np.split(np.asarray(ib), cut))):
+            return False
+    return True
+
+
+def mesh_serve_check(smi, ann_path: Path, ranks: list, bad: list) -> dict:
+    """(c) The serving pair against one device on the same container: the
+    exact top-10, the ann shortlists, K5 on each rank, the data=2 build."""
+    from code2vec_tpu_torch.ann.index import build_index, load_index
+    from code2vec_tpu_torch.serve.retrieval import AnnRetrievalIndex, RetrievalIndex
+
+    index, unit, labels = load_index(str(ann_path))
+    queries = serve_queries(np.asarray(unit))
+    r0, r1 = (r["serve"] for r in ranks)
+    exact = RetrievalIndex(labels, np.asarray(unit), device="cuda")
+    top = exact.top_k_batch(queries, 10)
+    want = ([[int(n[1:]) for n, _ in row] for row in top], [[s for _, s in row] for row in top])
+    del exact
+    ann = AnnRetrievalIndex(labels, unit, index, n_probe=ANN_PROBE, shortlist=ANN_SHORTLIST,
+                            device="cuda")
+    s_one, i_one = ann.searcher.search(queries)
+    del ann
+    build = MESH_BUILD
+    t0 = time.perf_counter()
+    one_build, _ = build_index(np.asarray(unit[:build["n"]]), n_list=build["n_list"],
+                               m=build["m"], seed=0, kmeans_iters=build["kmeans_iters"],
+                               pq_iters=build["pq_iters"], device="cuda")
+    one_build_s = time.perf_counter() - t0
+    for backend in ("exact", "ann"):
+        if (r0[backend]["ids"], r0[backend]["scores"]) != (r1[backend]["ids"],
+                                                           r1[backend]["scores"]):
+            bad.append(f"serve {backend}: the ranks' answers differ")
+    if not same_top(*want, r0["exact"]["ids"], r0["exact"]["scores"]):
+        bad.append("serve exact: the model=2 top-10 is not one device's")
+    if not same_shortlist(np.asarray(r0["ann"]["scores"], np.float32), np.asarray(r0["ann"]["ids"]),
+                          s_one, i_one):
+        bad.append("serve ann: the model=2 shortlists are not one device's")
+    k5 = [r["ann"]["launches"].get("lut_score", 0) for r in (r0, r1)]
+    if min(k5) < MESH_SERVE_QUERIES:
+        bad.append(f"serve ann: K5 launches a rank {k5}, want >= {MESH_SERVE_QUERIES}")
+    want_digests = array_digests(one_build)
+    same_build = [r["build"]["digests"] == want_digests for r in (r0, r1)]
+    if not all(same_build):
+        bad.append(f"build data=2: not bitwise world 1's ({r0['build']['digests']} vs "
+                   f"{want_digests})")
+    out = {b: {k: r0[b][k] for k in ("p50_ms", "p99_ms", "load_s", "describe")}
+           | {"launches": [r0[b]["launches"], r1[b]["launches"]]} for b in ("exact", "ann")}
+    out["build"] = {"seconds": [r0["build"]["seconds"], r1["build"]["seconds"]],
+                    "world1_seconds": one_build_s, "bitwise": same_build}
+    print(f"mesh (c) serving at model=2, gloo on one time-sliced card (not NCCL across cards), "
+          f"{MESH_SERVE_QUERIES} queries one at a time over {len(labels)} rows: exact p50 "
+          f"{out['exact']['p50_ms']:.3f} ms p99 {out['exact']['p99_ms']:.3f} ms, ann (n_probe "
+          f"{ANN_PROBE}, shortlist {ANN_SHORTLIST}) p50 {out['ann']['p50_ms']:.3f} ms p99 "
+          f"{out['ann']['p99_ms']:.3f} ms, K5 launches a rank {k5}; data=2 build of "
+          f"{build['n']} rows bitwise world 1's {same_build} in {r0['build']['seconds']:.1f} s "
+          f"(world 1 {one_build_s:.1f} s) [{smi}]", flush=True)
+    return out
 
 
 def mesh_nccl_world1(torch, tmp: Path) -> dict:
@@ -3257,17 +3421,18 @@ def mesh_rows_check(torch, dev, smi) -> dict:
 
 
 def mesh_references(torch, dev, data) -> dict:
-    """The world-1 runs the mesh runs are held against: fused, pool_only
-    and gather_split at the recipe, each step's loss recorded."""
+    """The world-1 runs the mesh runs are held against (``MESH_REFS``):
+    fused, pool_only and gather_split at the recipe, and lazy tables on
+    fused and gather_split, each step's loss recorded."""
     from code2vec_tpu_torch.train.config import TrainConfig
     from code2vec_tpu_torch.train.loop import train
 
     refs = {}
-    for route in ("fused", "pool_only", "gather_split"):
+    for route, updates in MESH_REFS.items():
         losses, undo = record_steps(torch)
         try:
             epochs = []
-            train(TrainConfig(**MESH_RECIPE, **kernel_route(route)), data, device=dev,
+            train(TrainConfig(**MESH_RECIPE, **updates), data, device=dev,
                   on_epoch=epochs.append, sinks=())
         finally:
             undo()
@@ -3287,10 +3452,13 @@ def phase_train_mesh(torch, smi, dev, tmp: Path, elastic) -> dict:
     version; (b) two gloo ranks on the one card, each a
     process this script starts (``LOCAL_RANK`` 0), through every run of
     ``MESH_RUNS``: the ranks' per-step losses bitwise equal, data=2 and
-    model=2 within rtol 2e-5 of the world-1 run of their route, the host-sharded and the
+    model=2 (lazy tables too) within rtol 2e-5 of the world-1 run of their
+    route, the host-sharded and the
     sharded device-epoch runs, the reshape restore bitwise; a data=2 step's
     device and collective ms and the bytes it all-reduces (gloo on one
-    time-sliced card, not NCCL across cards)."""
+    time-sliced card, not NCCL across cards); (c) the pair serving at
+    model=2 over the retrieval phase's container (``tmp / "ann.index"``)
+    and building at data=2 (:func:`mesh_serve_check`)."""
     import shutil
 
     from code2vec_tpu_torch.data.reader import load_corpus
@@ -3305,8 +3473,12 @@ def phase_train_mesh(torch, smi, dev, tmp: Path, elastic) -> dict:
     refs = mesh_references(torch, dev, data)
     del data
     torch.cuda.empty_cache()
+    ann_path = tmp / "ann.index"
+    if not ann_path.exists():
+        raise AssertionError(f"mesh (c) serves the retrieval phase's index: {ann_path} is missing")
     spec = {"init": str(root / "gloo-rendezvous"), "out": str(root), "corpus": paths,
-            "ckpt": str(root / "ckpt"), "runs": list(MESH_RUNS)}
+            "ckpt": str(root / "ckpt"), "runs": list(MESH_RUNS),
+            "serve": {"index": str(ann_path)}}
     (root / "spec.json").write_text(json.dumps(spec))
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh_worker",
@@ -3330,6 +3502,7 @@ def phase_train_mesh(torch, smi, dev, tmp: Path, elastic) -> dict:
             raise AssertionError(f"mesh (b): rank {r} exited {proc.returncode}:\n{log[-6000:]}")
     ranks = [json.loads((root / f"rank{r}.json").read_text()) for r in range(2)]
     bad, runs = [], {}
+    out["c"] = mesh_serve_check(smi, ann_path, ranks, bad)
     for name, (_, keys, ref) in MESH_RUNS.items():
         r0, r1 = ranks[0][name], ranks[1][name]
         metrics = ("train_loss", "test_loss", "accuracy", "f1")
@@ -3403,9 +3576,11 @@ def phase_train_mesh(torch, smi, dev, tmp: Path, elastic) -> dict:
         raise AssertionError("train_mesh:\n  " + "\n  ".join(bad))
     out["launches"] = {}
     for r in range(2):
-        for rec in ranks[r].values():
-            for key, n in rec["launches"].items():
-                out["launches"][key] = out["launches"].get(key, 0) + n
+        for name, rec in ranks[r].items():
+            for counts in ([rec["exact"]["launches"], rec["ann"]["launches"]] if name == "serve"
+                           else [rec["launches"]]):
+                for key, n in counts.items():
+                    out["launches"][key] = out["launches"].get(key, 0) + n
     print(f"train_mesh launches (both ranks): {json.dumps(out['launches'])}", flush=True)
     shutil.rmtree(root, ignore_errors=True)
     return out
@@ -5109,7 +5284,7 @@ def phase_train_variable(torch, smi, dev, share) -> dict:
     dual task (method and variable rows) on fused, host-fed and on the
     device; fused device epochs lazy in bf16. Each kernel launched once for
     every batch of the passes that run it, each run's train loss lower
-    after 3 epochs than after the first; the step breakdown of variable
+    after the last epoch than after the first; the step breakdown of variable
     batches (plain, fused); a differential on a batch with an
     all-PAD row and 1-context rows; per route a device chunk against the
     host step and a warm chunk, the remap on, under the sync debug mode."""
@@ -5123,7 +5298,7 @@ def phase_train_variable(torch, smi, dev, share) -> dict:
     data = variable_corpus(share["used"])
     config = TrainConfig(terminal_embed_size=100, path_embed_size=100, encode_size=100,
                          max_path_length=BAG, batch_size=TRAIN_BATCH, dropout_prob=0.25,
-                         max_epoch=3, random_seed=0, print_sample_cycle=0,
+                         max_epoch=2, random_seed=0, print_sample_cycle=0,
                          infer_method_name=False, infer_variable_name=True,
                          shuffle_variable_indexes=True)
     ladder, _ = resolve_ladder(config.with_updates(bucketed=True), data)
@@ -5553,6 +5728,7 @@ def main() -> int:
     if args.mesh_worker is not None:
         return mesh_worker(args.mesh_worker[0], int(args.mesh_worker[1]))
     only = set(args.phases.split(",")) if args.phases else None
+    started = time.perf_counter()
 
     import torch
 
@@ -5728,7 +5904,7 @@ def main() -> int:
         "replaces": "code2vec_tpu/ann/lut_kernel.py:206",
         "launches": (retrieval["launches"]["lut_score"] + py_counts.get("lut_score", 0)
                      + control["launches"].get("lut_score", 0)
-                     + at_counts.get("lut_score", 0)),
+                     + at_counts.get("lut_score", 0) + mesh_counts.get("lut_score", 0)),
         "max_abs_err": max(r["max_abs_err"] for r in k5),
         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"], "library_ms": None,
@@ -5750,6 +5926,8 @@ def main() -> int:
     for k in line:  # each kernel's share of its bound at its timed shape
         print(f"bound share {k['name']}: {k['bound_ms'] / k['ms']:.3f} "
               f"(ms={k['ms']:.5f} bound_ms={k['bound_ms']:.5f}, {k['bound_by']})")
+    print(f"chip_smoke: the whole script took {time.perf_counter() - started:.1f} s "
+          "(its limit 1200 s)", flush=True)
     print(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,16 @@ slabs with K5 (``lut_kernel.py``), adds the coarse term and returns a
 + shortlist * E) per query instead of O(N * E). Query batches pad to a
 power of two, as the JAX searcher's compiled entry points do; the products
 run in full f32 (TF32 off), so the probe agrees with the JAX package's.
+
+On a mesh (``parallel/mesh.Mesh``, one rank a card; every rank calls with
+the same inputs and gets the whole answer) :func:`build_index` assigns
+over the ``data`` line (``kmeans.py``), bitwise one device's index, and
+:class:`AnnSearcher` holds its shard of the cells over ``model``
+(``parallel/shardings.ann_shardings``): every rank probes the same cells,
+K5 scores the probed cells this rank holds (the others point at a local
+pad cell that scores ``-inf``), and the ranks' shortlists are
+all-gathered and merged by score, then flat slot. The JAX searcher runs
+its XLA scorer on a mesh; the port runs K5 on each shard.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ import numpy as np
 import torch
 
 from code2vec_tpu_torch.ops.backend import resolve_device
+from code2vec_tpu_torch.parallel.mesh import AXIS_MODEL
 
 __all__ = ["IvfPqIndex", "build_index", "save_index", "load_index", "AnnSearcher",
            "normalize_rows", "pow2_bucket", "require_full_f32"]
@@ -74,11 +85,12 @@ class IvfPqIndex:
 
 def build_index(rows: np.ndarray, *, n_list: int, m: int, seed: int = 0,
                 kmeans_iters: int = 25, pq_iters: int = 15, batch_size: int | None = None,
-                capacity: int | None = None,
+                capacity: int | None = None, mesh=None,
                 device: str | torch.device | None = None) -> tuple[IvfPqIndex, np.ndarray]:
     """Train an index over ``rows [N, E]``: ``(index, unit_rows)``. Seeded
     end to end (one seed lineage, host-side draws and folds); rows keep
-    their relative order inside each cell."""
+    their relative order inside each cell. ``mesh``: the assignments over
+    its ``data`` line, the index bitwise one device's."""
     from code2vec_tpu_torch.ann import pq
     from code2vec_tpu_torch.ann.kmeans import assign_cells, kmeans_fit
 
@@ -89,12 +101,12 @@ def build_index(rows: np.ndarray, *, n_list: int, m: int, seed: int = 0,
     if dim % m:
         raise ValueError(f"m={m} must divide dim={dim}")
     centroids = kmeans_fit(unit, n_list, seed=seed, iters=kmeans_iters,
-                           batch_size=batch_size, device=dev)
-    assign = assign_cells(unit, centroids, device=dev)
+                           batch_size=batch_size, mesh=mesh, device=dev)
+    assign = assign_cells(unit, centroids, mesh=mesh, device=dev)
     residuals = unit - centroids[assign]
     codebooks, row_scales = pq.train_codebooks(residuals, m, seed=seed + 1, iters=pq_iters,
-                                               batch_size=batch_size, device=dev)
-    row_codes = pq.encode(residuals, codebooks, row_scales, device=dev)
+                                               batch_size=batch_size, mesh=mesh, device=dev)
+    row_codes = pq.encode(residuals, codebooks, row_scales, mesh=mesh, device=dev)
 
     counts = np.bincount(assign, minlength=n_list).astype(np.int32)
     cap = int(capacity) if capacity else int(counts.max())
@@ -180,6 +192,13 @@ class AnnSearcher:
     probed slots; empty cells get a ``-inf`` coarse bias (never probed) and
     pad slots a ``-inf`` row bias (never short-listed).
 
+    ``mesh``: the cells sharded over its ``model`` line, ``n_list`` padded
+    to a multiple of it with cells of ``-inf`` coarse bias; this rank holds
+    cells ``[r·nl/n, (r+1)·nl/n)`` and one pad cell behind them (scale 0,
+    bias ``-inf``, id -1) that the probed cells of the other ranks point
+    at, so K5 scores a shard as it scores a whole index and the scores keep
+    one device's flat slots.
+
     ``schedule`` (an ``ops.autotune.LutSchedule``), else the LUT schedule
     the autotuner's ``cache`` (default: the process's) holds for this
     index's ``(m, n_list, capacity, shortlist)``, as JAX's searcher looks it
@@ -187,9 +206,10 @@ class AnnSearcher:
     CPU, the only routes each device has; :meth:`describe` reports it."""
 
     def __init__(self, index: IvfPqIndex, *, n_probe: int = 8, shortlist: int = 128,
-                 device: str | torch.device | None = None, schedule=None,
+                 mesh=None, device: str | torch.device | None = None, schedule=None,
                  cache=None) -> None:
         from code2vec_tpu_torch.ops.autotune import lookup_lut_schedule, unrunnable
+        from code2vec_tpu_torch.parallel.shardings import ann_shardings, shard_start, shard_tensor
 
         self.device = resolve_device(device)
         meta = index.meta
@@ -208,19 +228,34 @@ class AnnSearcher:
             self.m, self.n_list, self.capacity, self.shortlist, cache=cache, device=self.device)
         self._counts = counts
         self._centroids_host = np.ascontiguousarray(index.centroids, np.float32)
-        ids = np.ascontiguousarray(index.ids, np.int32)
+        self.mesh = mesh
+        self.shards = mesh.shape[AXIS_MODEL] if mesh is not None else 1
+        nl_pad = -(-self.n_list // self.shards) * self.shards
+
+        def cells(x, dtype, fill=0):  # padded to nl_pad cells (a copy: maps are read-only)
+            x = np.asarray(x, dtype)
+            pad = np.full((nl_pad - x.shape[0], *x.shape[1:]), fill, dtype)
+            return torch.from_numpy(np.concatenate([x, pad]))
+
+        ids = cells(index.ids, np.int32, -1)
+        stores = {"codes": cells(index.codes, np.uint8), "scales": cells(index.scales, np.float32),
+                  "bias": torch.where(ids < 0, -torch.inf, 0.0), "ids": ids}
+        self._cell_lo = 0
+        if self.shards > 1:
+            # this rank's cells, and the pad cell the others' probes point at
+            sh = ann_shardings(mesh, nl_pad)
+            stores = {k: shard_tensor(v, sh[k], mesh) for k, v in stores.items()}
+            self._cell_lo = shard_start(stores["ids"].shape[0], sh["ids"], mesh)
+            fill = {"codes": 0, "scales": 0.0, "bias": -torch.inf, "ids": -1}
+            stores = {k: torch.cat([v, torch.full_like(v[:1], fill[k])]) for k, v in stores.items()}
+        self._local_cells = stores["ids"].shape[0] - (self.shards > 1)
         dev = self.device
-
-        def put(x, dtype=None):  # a copy: container sections are read-only maps
-            return torch.from_numpy(np.array(x, dtype)).to(dev)
-
-        self._centroids = put(self._centroids_host)
-        self._codebooks = put(index.codebooks, np.float32)
-        self._codes = put(index.codes, np.uint8)
-        self._scales = put(index.scales, np.float32)
-        self._bias = put(np.where(ids < 0, -np.inf, 0.0), np.float32)
-        self._ids = put(ids)
-        self._cell_bias = put(np.where(counts == 0, -np.inf, 0.0), np.float32)
+        self._centroids = cells(self._centroids_host, np.float32).to(dev)
+        self._codebooks = torch.from_numpy(np.array(index.codebooks, np.float32)).to(dev)
+        self._codes, self._scales, self._bias, self._ids = (
+            stores[k].to(dev) for k in ("codes", "scales", "bias", "ids"))
+        empty = np.concatenate([counts == 0, np.ones(nl_pad - self.n_list, bool)])
+        self._cell_bias = torch.from_numpy(np.where(empty, -np.inf, 0.0).astype(np.float32)).to(dev)
         self._buckets: set[int] = set()
 
     def _cache_size(self) -> int:
@@ -248,6 +283,9 @@ class AnnSearcher:
             "schedule": self.schedule.to_dict(),
             "kernel_backend": "gpu" if self.device.type == "cuda" else "cpu",
             "kernel_route": self.device.type,
+            # K5 (or its plain version on the CPU) scores each rank's cells
+            "model_shards": self.shards,
+            "cells_per_shard": self._local_cells,
             "search_executables": self._cache_size(),
         }
 
@@ -256,7 +294,8 @@ class AnnSearcher:
         [Q, S] f32, row_ids [Q, S] int32, -1 = pad slot)``. The scores are
         the approximate (ADC) values; callers re-rank the ids exactly. The
         cells are scored by K5's wrapper (``lut_score_cells``): the kernel
-        on the card, its plain version on the CPU."""
+        on the card, its plain version on the CPU. On a mesh every rank of
+        the model line must call it with the same queries."""
         from code2vec_tpu_torch.ann.lut_kernel import lut_score_cells
 
         require_full_f32(self.device)
@@ -271,6 +310,10 @@ class AnnSearcher:
             qd = torch.from_numpy(q).to(self.device)
             cell_scores = qd @ self._centroids.T + self._cell_bias[None, :]
             coarse, probed = torch.topk(cell_scores, self.n_probe, dim=1)
+            if self.shards > 1:  # another rank's cell -> this rank's pad cell
+                local = probed - self._cell_lo
+                probed = torch.where((local >= 0) & (local < self._local_cells), local,
+                                     self._local_cells)
             lut = torch.einsum("qmd,mjd->qmj", qd.reshape(qb, m, self.dim // m), self._codebooks)
             adc = lut_score_cells(lut.contiguous(), probed.to(torch.int32), self._codes,
                                   self._scales, self._bias)
@@ -279,4 +322,20 @@ class AnnSearcher:
             p_idx = torch.div(flat_idx, cap, rounding_mode="floor")
             cells = torch.gather(probed, 1, p_idx)
             rows = self._ids[cells, flat_idx - p_idx * cap]
+            if self.shards > 1:
+                return self._merge(top[:n], flat_idx[:n], rows[:n])
             return top[:n].cpu().numpy(), rows[:n].cpu().numpy()
+
+    def _merge(self, top, flat_idx, rows) -> tuple[np.ndarray, np.ndarray]:
+        """The model line's shortlists all-gathered as one f64 tensor (exact
+        for f32 scores and int ids) and merged: score descending, then flat
+        slot ascending (``lax.top_k``'s order)."""
+        from code2vec_tpu_torch.parallel.distributed import allgather_to_host
+
+        packed = torch.stack([top.double(), flat_idx.double(), rows.double()])
+        every = allgather_to_host(packed[None], self.mesh, AXIS_MODEL)  # [n, 3, Q, S]
+        scores, flat, ids = (every[:, j].transpose(1, 0, 2).reshape(top.shape[0], -1)
+                             for j in range(3))
+        order = np.lexsort((flat, -scores), axis=-1)[:, :self.shortlist]
+        pick = lambda x: np.take_along_axis(x, order, axis=1)  # noqa: E731
+        return pick(scores).astype(np.float32), pick(ids).astype(np.int32)

@@ -45,12 +45,12 @@ def _split(m: int, dim: int) -> int:
 
 
 def train_codebooks(residuals: np.ndarray, m: int, *, seed: int = 0, iters: int = 15,
-                    batch_size: int | None = None,
+                    batch_size: int | None = None, mesh=None,
                     device: str | torch.device | None = None) -> tuple[np.ndarray, np.ndarray]:
     """Per-subspace codebooks on absmax-normalized residuals: ``(codebooks
     f32 [M, 256, dsub], scales f32 [N])``. With fewer than 256 samples the
     trailing entries duplicate entry 0, which the first-index argmin never
-    emits."""
+    emits. ``mesh``: the k-means assignments over its ``data`` line."""
     n, dim = residuals.shape
     dsub = _split(m, dim)
     scales = _row_scales(residuals)
@@ -60,7 +60,7 @@ def train_codebooks(residuals: np.ndarray, m: int, *, seed: int = 0, iters: int 
     for sub in range(m):
         block = unit[:, sub * dsub:(sub + 1) * dsub]
         cb = kmeans_fit(block, k_eff, seed=seed + sub, iters=iters, batch_size=batch_size,
-                        device=device)
+                        mesh=mesh, device=device)
         codebooks[sub, :k_eff] = cb
         if k_eff < PQ_ENTRIES:
             codebooks[sub, k_eff:] = cb[0]
@@ -68,7 +68,7 @@ def train_codebooks(residuals: np.ndarray, m: int, *, seed: int = 0, iters: int 
 
 
 def encode(residuals: np.ndarray, codebooks: np.ndarray, scales: np.ndarray, *,
-           batch_size: int | None = None,
+           batch_size: int | None = None, mesh=None,
            device: str | torch.device | None = None) -> np.ndarray:
     """uint8 codes ``[N, M]``: the nearest codebook entry per subspace of
     each absmax-normalized residual row."""
@@ -78,7 +78,7 @@ def encode(residuals: np.ndarray, codebooks: np.ndarray, scales: np.ndarray, *,
     for sub in range(m):
         block = unit[:, sub * dsub:(sub + 1) * dsub]
         codes[:, sub] = assign_cells(block, codebooks[sub], batch_size=batch_size,
-                                     device=device).astype(np.uint8)
+                                     mesh=mesh, device=device).astype(np.uint8)
     return codes
 
 

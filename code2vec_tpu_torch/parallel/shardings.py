@@ -13,7 +13,11 @@ Counterpart of ``code2vec_tpu/parallel/shardings.py`` over the port's
 
 A dim shards only when the axis divides it; otherwise it replicates
 (``vocab_pad_multiple``, auto = ``model_axis``, pads the tables so the
-shard happens). The Adam moments take their parameter's rule.
+shard happens). The Adam moments take their parameter's rule, the lazy
+table optimizer's too (its dense part's under ``"dense"``). Retrieval
+takes the tables' rule (:func:`retrieval_shardings`,
+:func:`ann_shardings`): the exact index's rows and the IVF-PQ cells over
+``model``.
 
 Specs are written JAX's way (one entry a dim: None or an axis name,
 ``[]`` for ``P()``), so :func:`pytree_spec_doc` gives a checkpoint's
@@ -87,6 +91,33 @@ def batch_shardings(mesh: Mesh) -> dict[str, list]:
             "example_mask": row}
 
 
+def retrieval_shardings(mesh: Mesh, n_rows: int | None = None) -> dict[str, list]:
+    """The exact retrieval index's layout (JAX ``retrieval_shardings``): the
+    unit rows ``[N, E]`` row-sharded over ``model``, as the tables are; the
+    queries and each query's result replicated. A row count ``n_rows`` the
+    model axis does not divide replicates (JAX's rule;
+    ``serve/retrieval.RetrievalIndex`` pads the rows so the shard happens)."""
+    model = _model_axis_for(mesh, n_rows)
+    return {"rows": [model, None], "query": [], "out": []}
+
+
+def ann_shardings(mesh: Mesh, n_list: int | None = None) -> dict[str, list]:
+    """The IVF-PQ searcher's layout (JAX ``ann_shardings``): the cell-major
+    stores (codes ``[n_list, C, M]``, scales, row bias and ids ``[n_list,
+    C]``) sharded over ``model`` by cell; centroids, codebooks, the coarse
+    ``cell_bias`` and the queries replicated. An ``n_list`` the model axis
+    does not divide replicates (``ann/index.AnnSearcher`` pads the cells)."""
+    model = _model_axis_for(mesh, n_list)
+    return {"codes": [model, None, None], "scales": [model, None], "bias": [model, None],
+            "ids": [model, None], "centroids": [], "cell_bias": [], "codebooks": [],
+            "query": []}
+
+
+def _model_axis_for(mesh: Mesh, count: int | None) -> str | None:
+    n = mesh.shape[AXIS_MODEL]
+    return AXIS_MODEL if n > 1 and (count is None or count % n == 0) else None
+
+
 def _sharded_dim(entries) -> int | None:
     for dim, entry in enumerate(entries or ()):
         if entry is not None:
@@ -102,6 +133,14 @@ def shard_tensor(t: torch.Tensor, entries, mesh: Mesh) -> torch.Tensor:
     n, me = mesh.shape[AXIS_MODEL], mesh.coords[AXIS_MODEL]
     size = t.shape[dim] // n
     return t.narrow(dim, me * size, size).clone()
+
+
+def shard_start(local_len: int, entries, mesh: Mesh) -> int | None:
+    """The global index at which this rank's slice (``local_len`` long) of
+    the dim ``entries`` shard starts, or None when nothing is sharded."""
+    if _sharded_dim(entries) is None:
+        return None
+    return mesh.coords[AXIS_MODEL] * local_len
 
 
 def unshard_tensor(t: torch.Tensor, entries, mesh: Mesh) -> torch.Tensor:

@@ -15,7 +15,8 @@ them itself:
   head's over the data line only (the ctx line computes the same head
   gradient on every rank), JAX's psum over ``data``;
 - with lazy tables the per-slot gradients of the plane are all-gathered
-  (:func:`gather_slot_grads`), so every rank steps the same rows.
+  (:func:`gather_slot_grads`), so every rank steps the same rows (on a
+  ``model`` axis, those of its row shard).
 """
 
 from __future__ import annotations
@@ -57,7 +58,10 @@ def sync_gradients(model, mesh: Mesh) -> int:
 
 def gather_slot_grads(table_grads: list, mesh: Mesh) -> list:
     """The lazy step's ``[(ids, slots)]`` of the whole data x ctx plane (in
-    its rank order), the same on every rank of it."""
+    its rank order), the same on every rank of it. The model line needs no
+    collective: the row-sharded gather's identity backward and the head's
+    all-reduced code-vector gradient give every rank of it the same slots,
+    of which each keeps its own rows' (``train/table_opt.lazy_rows``)."""
     group = mesh.group("dc")
     if group is None:
         return table_grads

@@ -13,6 +13,15 @@ one interface (``labels``/``n``/``dim``/``top_k``/``top_k_batch``/
   ``shortlist`` exactly on the host against the container's unit rows, so
   every returned similarity is an exact cosine.
 
+On a mesh (``parallel/mesh.Mesh``, one rank a card; every rank of the
+model line calls with the same queries and gets the whole answer): the
+exact backend pads its rows to a multiple of the ``model`` axis (pad rows
+get a ``-inf`` bias, JAX ``:76-90``) and each rank holds its row shard
+(``parallel/shardings.retrieval_shardings``), takes its local top-k and
+the ranks' candidates are all-gathered and merged by value, then index
+(``lax.top_k``'s order on ties); the ann backend's searcher shards its
+cells (``ann/index.AnnSearcher``).
+
 Query batches and k round up to powers of two (k capped at N), as the JAX
 backends key their compiled entry points; ``describe`` counts the buckets.
 ``host_rows`` gives the unit rows as host numpy (the hot-swap gate's
@@ -30,6 +39,7 @@ import torch
 from code2vec_tpu_torch.ann.index import normalize_rows, pow2_bucket, require_full_f32
 from code2vec_tpu_torch.obs import handles
 from code2vec_tpu_torch.ops.backend import resolve_device
+from code2vec_tpu_torch.parallel.mesh import AXIS_MODEL
 
 logger = logging.getLogger(__name__)
 
@@ -37,10 +47,17 @@ __all__ = ["RetrievalIndex", "AnnRetrievalIndex", "load_retrieval_index"]
 
 
 class RetrievalIndex:
-    """Cosine top-k over ``[n_methods, E]`` vectors on the card."""
+    """Cosine top-k over ``[n_methods, E]`` vectors on the card (its row
+    shard on a mesh's ``model`` line)."""
 
-    def __init__(self, labels: list[str], rows: np.ndarray,
+    def __init__(self, labels: list[str], rows: np.ndarray, mesh=None,
                  device: str | torch.device | None = None) -> None:
+        from code2vec_tpu_torch.parallel.shardings import (
+            retrieval_shardings,
+            shard_start,
+            shard_tensor,
+        )
+
         if rows.ndim != 2 or len(labels) != rows.shape[0]:
             raise ValueError(
                 f"rows must be [len(labels), E]; got {rows.shape} for {len(labels)} labels"
@@ -49,26 +66,45 @@ class RetrievalIndex:
         self.labels = list(labels)
         self.n = len(labels)
         self.dim = int(rows.shape[1])
-        self._rows = torch.from_numpy(normalize_rows(rows)).to(self.device)
+        self.mesh = mesh
+        self.shards = mesh.shape[AXIS_MODEL] if mesh is not None else 1
+        unit = torch.from_numpy(normalize_rows(rows))
+        self._lo, self._bias = 0, None
+        if self.shards > 1:
+            n_pad = -(-self.n // self.shards) * self.shards
+            unit = torch.cat([unit, unit.new_zeros(n_pad - self.n, self.dim)])
+            bias = torch.zeros(n_pad)
+            bias[self.n:] = -torch.inf  # pad rows never surface
+            entries = retrieval_shardings(mesh, n_pad)["rows"]
+            unit, bias = shard_tensor(unit, entries, mesh), shard_tensor(bias, entries[:1], mesh)
+            self._lo = shard_start(unit.shape[0], entries, mesh)
+            self._bias = bias.to(self.device)
+        self._rows = unit.to(self.device)
         self._buckets: set[tuple[int, int]] = set()
         handles.track(self, "retrieval_exact", name=f"{self.n}x{self.dim}")
 
     @classmethod
-    def from_code_vec(cls, path: str, device: str | torch.device | None = None) -> "RetrievalIndex":
+    def from_code_vec(cls, path: str, mesh=None,
+                      device: str | torch.device | None = None) -> "RetrievalIndex":
         """Load an exported ``code.vec``."""
         from code2vec_tpu_torch.formats.vectors_io import read_code_vectors
 
         labels, rows = read_code_vectors(path)
         logger.info("retrieval index: %d vectors of dim %d from %s", len(labels),
                     rows.shape[1] if rows.ndim == 2 else -1, path)
-        return cls(labels, rows, device=device)
+        return cls(labels, rows, mesh=mesh, device=device)
 
     def _cache_size(self) -> int:
         return len(self._buckets)
 
     def host_rows(self) -> np.ndarray:
-        """The unit rows ``[N, E]`` f32, copied off the card."""
-        return self._rows.cpu().numpy()
+        """The unit rows ``[N, E]`` f32, copied off the card (on a mesh
+        all-gathered over the model line: every rank of it calls this)."""
+        if self.shards == 1:
+            return self._rows.cpu().numpy()
+        from code2vec_tpu_torch.parallel.distributed import allgather_to_host
+
+        return allgather_to_host(self._rows, self.mesh, AXIS_MODEL)[:self.n]
 
     def close(self) -> None:
         """Leave the handle ledger (idempotent); the rows go back to the
@@ -78,7 +114,7 @@ class RetrievalIndex:
     def describe(self) -> dict:
         """The health op's retrieval block."""
         return {"backend": "exact", "size": self.n, "dim": self.dim,
-                "query_executables": self._cache_size()}
+                "model_shards": self.shards, "query_executables": self._cache_size()}
 
     def top_k_batch(self, vectors: np.ndarray, k: int = 5) -> list[list[tuple[str, float]]]:
         """Cosine top-k per query row of ``vectors [Q, E]``."""
@@ -94,11 +130,30 @@ class RetrievalIndex:
         self._buckets.add((kb, qb))
         with torch.inference_mode():
             sims = torch.from_numpy(q).to(self.device) @ self._rows.T
-            values, indices = torch.topk(sims, kb, dim=1)
-        values = values[:n_q, :k].cpu().numpy()
-        indices = indices[:n_q, :k].cpu().numpy()
+            if self.shards == 1:
+                values, indices = torch.topk(sims, kb, dim=1)
+                values = values[:n_q, :k].cpu().numpy()
+                indices = indices[:n_q, :k].cpu().numpy()
+            else:
+                values, indices = self._merged_top(sims[:n_q] + self._bias[None, :], kb)
+                values, indices = values[:, :k], indices[:, :k]
         return [[(self.labels[int(i)], float(v)) for i, v in zip(indices[r], values[r])]
                 for r in range(n_q)]
+
+    def _merged_top(self, sims: torch.Tensor, kb: int) -> tuple[np.ndarray, np.ndarray]:
+        """This shard's top ``min(kb, rows)`` of ``sims [Q, rows]`` at global
+        indices, all-gathered over the model line as one f64 tensor (exact
+        for f32 values and int indices) and merged to the top
+        ``kb`` by value descending, then index ascending."""
+        from code2vec_tpu_torch.parallel.distributed import allgather_to_host
+
+        values, indices = torch.topk(sims, min(kb, sims.shape[1]), dim=1)
+        packed = torch.stack([values.double(), (indices + self._lo).double()])
+        every = allgather_to_host(packed[None], self.mesh, AXIS_MODEL)  # [n, 2, Q, k]
+        vals, idx = (every[:, j].transpose(1, 0, 2).reshape(sims.shape[0], -1) for j in (0, 1))
+        order = np.lexsort((idx, -vals), axis=-1)[:, :kb]
+        return (np.take_along_axis(vals, order, 1).astype(np.float32),
+                np.take_along_axis(idx, order, 1).astype(np.int64))
 
     def top_k(self, vector: np.ndarray, k: int = 5) -> list[tuple[str, float]]:
         return self.top_k_batch(np.asarray(vector)[None, :], k)[0]
@@ -110,7 +165,7 @@ class AnnRetrievalIndex:
     candidate set is approximate."""
 
     def __init__(self, labels: list[str], unit_rows: np.ndarray, index, *, n_probe: int = 8,
-                 shortlist: int = 128, source: str | None = None,
+                 shortlist: int = 128, mesh=None, source: str | None = None,
                  device: str | torch.device | None = None) -> None:
         from code2vec_tpu_torch.ann.index import AnnSearcher
 
@@ -123,12 +178,13 @@ class AnnRetrievalIndex:
         self.dim = int(unit_rows.shape[1])
         self._rows = unit_rows  # unit-normalized; may be a memory-mapped view
         self._source = source
-        self.searcher = AnnSearcher(index, n_probe=n_probe, shortlist=shortlist, device=device)
+        self.searcher = AnnSearcher(index, n_probe=n_probe, shortlist=shortlist, mesh=mesh,
+                                    device=device)
         handles.track(self, "mmap_ann", name=source or f"{self.n}x{self.dim}")
 
     @classmethod
     def from_container(cls, path: str, *, n_probe: int | None = None,
-                       shortlist: int | None = None,
+                       shortlist: int | None = None, mesh=None,
                        device: str | torch.device | None = None) -> "AnnRetrievalIndex":
         """Load an index container; ``n_probe``/``shortlist`` default to
         the values in its header."""
@@ -141,7 +197,7 @@ class AnnRetrievalIndex:
         logger.info("ann retrieval index: %d vectors of dim %d from %s (n_list=%d m=%d "
                     "n_probe=%d shortlist=%d)", index.meta["n"], index.meta["dim"], path,
                     index.meta["n_list"], index.meta["m"], probe, short)
-        return cls(labels, rows, index, n_probe=probe, shortlist=short, source=path,
+        return cls(labels, rows, index, n_probe=probe, shortlist=short, mesh=mesh, source=path,
                    device=device)
 
     def host_rows(self) -> np.ndarray:
@@ -191,16 +247,17 @@ class AnnRetrievalIndex:
 
 def load_retrieval_index(backend: str, *, code_vec_path: str | None = None,
                          ann_index_path: str | None = None, n_probe: int | None = None,
-                         shortlist: int | None = None,
+                         shortlist: int | None = None, mesh=None,
                          device: str | torch.device | None = None):
-    """Backend dispatch for the serve CLI (``--retrieval_backend``)."""
+    """Backend dispatch for the serve CLI (``--retrieval_backend``);
+    ``mesh`` shards either backend over its ``model`` line."""
     if backend == "exact":
         if not code_vec_path:
             raise ValueError("retrieval_backend 'exact' needs --code_vec_path")
-        return RetrievalIndex.from_code_vec(code_vec_path, device=device)
+        return RetrievalIndex.from_code_vec(code_vec_path, mesh=mesh, device=device)
     if backend == "ann":
         if not ann_index_path:
             raise ValueError("retrieval_backend 'ann' needs --ann_index_path")
         return AnnRetrievalIndex.from_container(ann_index_path, n_probe=n_probe,
-                                                shortlist=shortlist, device=device)
+                                                shortlist=shortlist, mesh=mesh, device=device)
     raise ValueError(f"retrieval_backend must be 'exact' or 'ann', got {backend!r}")

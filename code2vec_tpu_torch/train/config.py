@@ -1,12 +1,10 @@
 """Training configuration (the reference's Option, main.py:93-115).
 
 Own copy of ``code2vec_tpu/train/config.py``: the same field names and
-defaults, so a JAX configuration reads the same here. One combination of
-the mesh the port does not have yet (lazy tables over ``model_axis > 1``,
-ROADMAP §A.2.12) and the TPU knobs with no meaning on the card
-(``pallas_block_b``, ``pallas_dma_depth``, ``rng_impl``) stay at their
-defaults: :meth:`TrainConfig.validate` rejects any other value loudly
-instead of ignoring it. ``pallas_impl='auto'`` picks each shape's route
+defaults, so a JAX configuration reads the same here. The TPU knobs with no
+meaning on the card (``pallas_block_b``, ``pallas_dma_depth``,
+``rng_impl``) stay at their defaults: :meth:`TrainConfig.validate` rejects
+any other value loudly instead of ignoring it. ``pallas_impl='auto'`` picks each shape's route
 from the schedule cache at ``autotune_cache`` (``ops/autotune.py``).
 """
 
@@ -211,12 +209,6 @@ class TrainConfig:
         if self.shard_staged_corpus and not self.device_epoch:
             raise ValueError("--shard_staged_corpus shards the device-staged corpus; it "
                              "requires --device_epoch")
-        if self.table_update == "lazy" and self.model_axis > 1:
-            raise NotImplementedError(
-                "--table_update lazy with --model_axis > 1 is not ported (ROADMAP §A.2.12): the "
-                "touched rows of a row-sharded table would need their ids mapped to each "
-                "model rank's shard and its moments; use --table_update dense, or lazy tables "
-                "over the data and context axes")
         if not (self.infer_method_name or self.infer_variable_name):
             raise ValueError("no task: turn on infer_method_name, infer_variable_name or both")
         if training and self.table_dtype != "f32":

@@ -36,7 +36,7 @@ import torch.nn.functional as F
 
 from code2vec_tpu_torch.parallel.distributed import all_reduce_sum
 from code2vec_tpu_torch.parallel.mesh import AXIS_DATA
-from code2vec_tpu_torch.train.table_opt import LazyTableAdam
+from code2vec_tpu_torch.train.table_opt import TABLE_PARAMS, LazyTableAdam
 
 BATCH_KEYS = ("starts", "paths", "ends", "labels", "example_mask")
 
@@ -149,8 +149,15 @@ def make_optimizer(model: torch.nn.Module, config) -> torch.optim.Optimizer:
         raise ValueError(f"table_update must be 'dense' or 'lazy', got {table_update!r}")
     tables = [model.terminal_embedding.weight, model.path_embedding.weight]
     rest = [p for p in model.parameters() if all(p is not t for t in tables)]
+    mesh = getattr(model, "mesh", None)
+    offsets = None
+    if mesh is not None:  # a model axis's row shards step their own rows
+        from code2vec_tpu_torch.parallel.shardings import shard_start
+
+        offsets = [shard_start(t.shape[0], model.shard_entries[name], mesh)
+                   for t, name in zip(tables, TABLE_PARAMS)]
     return LazyTableAdam(tables, adam(rest), lr=config.lr, betas=kw["betas"], eps=kw["eps"],
-                         mu_dtype=MU_DTYPES[mu_dtype])
+                         mu_dtype=MU_DTYPES[mu_dtype], row_offsets=offsets)
 
 
 def adam_mu_dtype(optimizer: torch.optim.Optimizer) -> str:

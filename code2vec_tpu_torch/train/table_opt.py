@@ -33,6 +33,15 @@ scatter, and the sentinel must not reach a real row (row 0 is PAD, which
 every PAD slot touches). Spreading them keeps the copies of one row few,
 as the zero slots' own sum rows keep the atomic adds off one row: on the
 card many writes to one row queue behind each other.
+
+Over a ``model`` axis (``parallel/shardings``: the tables row-sharded) each
+rank holds global rows ``[lo, lo + rows)`` of a table and of its moments.
+Every rank of the model line computes the same slots, so each keeps the
+slots of its own ids, mapped to local rows; the others become the
+sentinel with zero gradients before :func:`dedupe_sorted` (else they
+would count as touched). A rank whose shard the batch does not touch (PAD
+row 0 lives on rank 0 only) writes each row it reads back unchanged,
+decided on the device: no step waits for a count.
 """
 
 from __future__ import annotations
@@ -68,23 +77,37 @@ def dedupe_sorted(ids: torch.Tensor, slots: torch.Tensor, vocab: int):
 
 @torch.no_grad()
 def lazy_rows(param: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, ids: torch.Tensor,
-              slots: torch.Tensor, step_size: float, b1: float, b2: float, eps: float) -> None:
+              slots: torch.Tensor, step_size: float, b1: float, b2: float, eps: float,
+              row_lo: int | None = None) -> None:
     """One SparseAdam step of ``param``'s touched rows, in place (JAX
-    ``_lazy_rows`` + ``apply_updates_sparse``)."""
+    ``_lazy_rows`` + ``apply_updates_sparse``). ``row_lo``: ``param`` is
+    the row shard ``[row_lo, row_lo + rows)`` of a table the global
+    ``ids`` index; the ids outside it are dropped."""
     vocab = param.shape[0]
-    uids, gsum = dedupe_sorted(ids.reshape(-1), slots.reshape(-1, param.shape[1]).float(), vocab)
+    ids, slots = ids.reshape(-1), slots.reshape(-1, param.shape[1]).float()
+    if row_lo is not None:
+        local = ids.long() - row_lo
+        inside = (local >= 0) & (local < vocab)
+        ids, slots = torch.where(inside, local, vocab), torch.where(inside[:, None], slots, 0.0)
+    uids, gsum = dedupe_sorted(ids, slots, vocab)
     # sentinel row p -> distinct row p mod K and its sum: a row written twice
     # is written the same value, and no row more than ~N/K times
     pos = torch.arange(uids.shape[0], device=uids.device)
     valid = uids < vocab
-    src = torch.where(valid, pos, pos % valid.sum())
+    touched = valid.sum()
+    src = torch.where(valid, pos, pos % touched.clamp_min(1))
     uids, gsum = uids[src], gsum[src]
+    if row_lo is not None:  # an untouched shard: row 0 read and written back as it was
+        uids = uids.clamp_max(vocab - 1)
+        before = (param[uids], mu[uids], nu[uids])
     mu_new = mu[uids].float().mul_(b1).add_(gsum, alpha=1.0 - b1)
     nu_new = nu[uids].mul_(b2).addcmul_(gsum, gsum, value=1.0 - b2)
     rows = param[uids].addcdiv_(mu_new, nu_new.sqrt().add_(eps), value=-step_size)
-    param.index_copy_(0, uids, rows)
-    mu.index_copy_(0, uids, mu_new.to(mu.dtype))
-    nu.index_copy_(0, uids, nu_new)
+    after = (rows, mu_new.to(mu.dtype), nu_new)
+    if row_lo is not None:
+        after = tuple(torch.where(touched > 0, a, b) for a, b in zip(after, before))
+    for table, new in zip((param, mu, nu), after):
+        table.index_copy_(0, uids, new)
 
 
 def bias_corrected_step(lr: float, b1: float, b2: float, t: int) -> float:
@@ -101,15 +124,20 @@ class LazyTableAdam(torch.optim.Optimizer):
 
     :meth:`step` takes the tables' per-slot gradients; the tables' ``.grad``
     is never read. The moments are made at construction, on the tables'
-    device. ``state_dict`` holds the tables' state and, under ``"dense"``,
-    the dense optimizer's; ``load_state_dict`` keeps ``mu`` in
-    ``mu_dtype``."""
+    device (a row-sharded table's: its shard's). ``row_offsets``: per table,
+    the global id of its first row when it is a ``model`` axis's row shard
+    (the ids of the slots are global), else None. ``state_dict`` holds the
+    tables' state and, under ``"dense"``, the dense optimizer's;
+    ``load_state_dict`` keeps ``mu`` in ``mu_dtype``."""
 
     def __init__(self, tables, dense: torch.optim.Optimizer, lr: float,
-                 betas=(0.9, 0.999), eps: float = 1e-8, mu_dtype: torch.dtype = torch.float32):
+                 betas=(0.9, 0.999), eps: float = 1e-8, mu_dtype: torch.dtype = torch.float32,
+                 row_offsets=None):
         super().__init__(list(tables), dict(lr=lr, betas=tuple(betas), eps=eps,
                                             mu_dtype=mu_dtype, step=0))
         self.dense = dense
+        # a property of this run's mesh, not of the state: kept out of state_dict
+        self.row_offsets = list(row_offsets or [None] * len(self.param_groups[0]["params"]))
         for p in self.param_groups[0]["params"]:
             self.state[p] = {"exp_avg": torch.zeros_like(p, dtype=mu_dtype),
                              "exp_avg_sq": torch.zeros_like(p)}
@@ -131,10 +159,10 @@ class LazyTableAdam(torch.optim.Optimizer):
         group["step"] += 1
         b1, b2 = group["betas"]
         step_size = bias_corrected_step(group["lr"], b1, b2, group["step"])
-        for p, (ids, slots) in zip(group["params"], table_grads):
+        for p, (ids, slots), lo in zip(group["params"], table_grads, self.row_offsets):
             state = self.state[p]
             lazy_rows(p, state["exp_avg"], state["exp_avg_sq"], ids, slots, step_size, b1, b2,
-                      group["eps"])
+                      group["eps"], lo)
         return self.dense.step(closure)
 
     def state_dict(self):

@@ -38,7 +38,10 @@ and ``train()`` prefetched (also fed by workers forked from a process with a
 live CUDA context) within rtol 1e-5 of the synchronous run's losses;
 ``pallas_impl="auto"`` with a hand-written cache naming each route in turn
 launches that route's kernel and no other, its outputs bitwise the fixed
-route's, and an ``xla`` LUT entry is a miss for the searcher on the card.
+route's, and an ``xla`` LUT entry is a miss for the searcher on the card;
+on a one-rank mesh the searcher (K5) and the exact index bitwise the
+unmeshed ones, the k-means assignment row-local whatever the batch, and
+the lazy rows of a table's row shard (touched or not) with no sync.
 Tolerance rtol = atol = 1e-5 (the plain
 versions in f32 with TF32 off, the kernels' encode in 3xTF32 on the
 tensor cores); at top11 widths and one context the kernel's code vector is
@@ -510,6 +513,86 @@ def test_searcher_on_the_card_matches_its_plain_scoring(dev, monkeypatch):
         top10 = valid[np.argsort(-(unit[valid] @ qn[r]))][:10]
         recall += len(set(top10.tolist()) & set(truth[r].tolist())) / 160
     assert recall >= 0.95
+
+
+def test_meshed_retrieval_at_world1_on_the_card(dev):
+    """A searcher and an exact index given a one-rank mesh launch K5 (the
+    searcher) and answer bitwise as the unmeshed ones do."""
+    import numpy as np
+
+    from code2vec_tpu_torch.ann.index import AnnSearcher, build_index
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.parallel.mesh import single_device_mesh
+    from code2vec_tpu_torch.serve.retrieval import RetrievalIndex
+
+    rng = np.random.default_rng(2)
+    rows = rng.normal(size=(3001, 20)).astype(np.float32)
+    q = rng.normal(size=(5, 20)).astype(np.float32)
+    index, _ = build_index(rows, n_list=13, m=10, kmeans_iters=4, pq_iters=4, device=dev)
+    mesh = single_device_mesh()
+    outs = []
+    for m in (None, mesh):
+        reset_launch_counts()
+        outs.append(AnnSearcher(index, n_probe=5, shortlist=64, mesh=m, device=dev).search(q))
+        assert launch_counts() == {"lut_score": 1}
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+    labels = [f"m{i}" for i in range(len(rows))]
+    exact = [RetrievalIndex(labels, rows, mesh=m, device=dev).top_k_batch(q, 7)
+             for m in (None, mesh)]
+    assert exact[0] == exact[1]
+
+
+def test_kmeans_assignment_is_row_local_on_the_card(dev):
+    """cuBLAS picks its kernel by the row count (a 10 x 16 product's rows
+    moved between 1,200 and 600 rows): the assignment runs in fixed slabs,
+    so a row's cell, and its distances, do not depend on the batch, as a
+    data axis splits it."""
+    import numpy as np
+
+    from code2vec_tpu_torch.ann.kmeans import ASSIGN_SLAB_ROWS, _nearest
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    for n, k, e in ((1200, 10, 16), (ASSIGN_SLAB_ROWS + 300, 1000, 100), (16384, 256, 5)):
+        x = torch.randn(n, e, generator=g, device=dev)
+        c = torch.randn(k, e, generator=g, device=dev)
+        whole = _nearest(x, c)
+        for parts in (2, 3):
+            step = -(-n // parts)
+            halves = torch.cat([_nearest(x[lo:lo + step], c) for lo in range(0, n, step)])
+            assert torch.equal(halves, whole), (n, k, e, parts)
+    assert np.array_equal(_nearest(x[:1], c).cpu().numpy(), whole[:1].cpu().numpy())
+
+
+@pytest.mark.parametrize("touched", [True, False], ids=["touched", "untouched"])
+def test_lazy_rows_over_a_row_shard_on_the_card(dev, touched):
+    """``lazy_rows`` on a table's second half (its global ids' shard) never
+    waits for the card, untouched shard included, and steps the rows the
+    whole table's step steps; an untouched shard keeps every bit."""
+    from code2vec_tpu_torch.train.table_opt import lazy_rows
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    vocab, dim, n = 64, 16, 4096
+    table = torch.randn(vocab, dim, generator=g, device=dev)
+    mu, nu = torch.rand(vocab, dim, generator=g, device=dev), torch.rand(
+        vocab, dim, generator=g, device=dev)
+    hi = vocab if touched else vocab // 2
+    ids = torch.randint(0, hi, (n,), generator=g, device=dev)
+    slots = torch.randn(n, dim, generator=g, device=dev)
+    whole = [t.clone() for t in (table, mu, nu)]
+    lazy_rows(*whole, ids, slots, 0.01, 0.9, 0.999, 1e-8)
+    shard = [t[vocab // 2:].clone() for t in (table, mu, nu)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lazy_rows(*shard, ids, slots, 0.01, 0.9, 0.999, 1e-8, row_lo=vocab // 2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for got, want, before in zip(shard, whole, (table, mu, nu)):
+        if touched:
+            torch.testing.assert_close(got, want[vocab // 2:], rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(got, before[vocab // 2:])
 
 
 def test_out_of_range_ids_are_clamped(dev):

@@ -15,6 +15,8 @@ harness the other ``test_torch_mesh_*.py`` files use too.
   losses rtol 2e-5, parameters atol 3e-5 / rtol 1e-4 (``docs/PARITY.md:16``),
   the ranks bitwise equal; the kernel routes and lazy tables on the mesh
   (plain versions on the CPU) against JAX's plain sharded step;
+- lazy tables at ``model=2`` with a shard no slot touches, and the
+  per-slot gradients the same on both model ranks (no collective needed);
 - a vocab the model axis does not divide (replicated, JAX's rule);
 - ranks whose weight sums differ: the loss's global normalizer;
 - the table gradients at ``model=2`` against one device's (the identity
@@ -142,6 +144,27 @@ def scenario_grads(spec, rank):
     return {"loss": float(loss),
             "grads": {n: unshard_tensor(p.grad, model.shard_entries[n], mesh)
                       for n, p in model.named_parameters()}}
+
+
+def scenario_slots(spec, rank):
+    """The lazy step's per-slot table gradients on this rank, before any
+    collective over the plane."""
+    import torch
+
+    from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
+    from code2vec_tpu_torch.parallel.distributed import global_batch
+    from code2vec_tpu_torch.parallel.shardings import shard_model
+    from code2vec_tpu_torch.train.step import lazy_forward_backward
+
+    inputs = torch.load(spec["inputs"], weights_only=False)
+    mesh = _mesh(spec["axes"])
+    model = Code2Vec(Code2VecConfig(**spec["model"], dropout_prob=0.0))
+    model.load_state_dict(inputs["state_dict"], strict=True)
+    shard_model(model, mesh)
+    loss, table_grads = lazy_forward_backward(
+        model, _torch_batch(global_batch(mesh, inputs["batches"][0])),
+        torch.from_numpy(inputs["class_weights"]))
+    return {"loss": float(loss), "table_grads": table_grads}
 
 
 def scenario_ctx_pool(spec, rank):
@@ -311,6 +334,55 @@ def scenario_autotune(spec, rank):
             "counters": {k: after[k] - before[k] for k in after}}
 
 
+def scenario_serve(spec, rank):
+    """Retrieval on the mesh, every rank with the same queries: the exact
+    index's top-k at each ``(Q, k)``, the IVF-PQ searcher's shortlists and
+    ``load_retrieval_index`` of both backends from files."""
+    import torch
+
+    from code2vec_tpu_torch.ann.index import AnnSearcher, IvfPqIndex
+    from code2vec_tpu_torch.serve.retrieval import RetrievalIndex, load_retrieval_index
+
+    inputs = torch.load(spec["inputs"], weights_only=False)
+    mesh = _mesh(spec["axes"])
+    exact = RetrievalIndex(inputs["labels"], inputs["rows"], mesh=mesh, device="cpu")
+    out = {"exact": {(q, k): exact.top_k_batch(inputs["queries"][:q], k)
+                     for q in spec["queries"] for k in spec["ks"]},
+           "exact_rows": exact.host_rows(), "exact_describe": exact.describe()}
+    searcher = AnnSearcher(IvfPqIndex(**inputs["index"]), mesh=mesh, device="cpu",
+                           **spec["searcher"])
+    out["search"] = searcher.search(inputs["ann_queries"])
+    out["probed_fraction"] = searcher.probed_fraction(inputs["ann_queries"])
+    out["search_describe"] = searcher.describe()
+    for backend in ("exact", "ann"):
+        index = load_retrieval_index(backend, code_vec_path=inputs["code_vec"],
+                                     ann_index_path=inputs["ann_index"], mesh=mesh, device="cpu")
+        out[f"load_{backend}"] = index.top_k_batch(inputs["ann_queries"], 10)
+        out[f"load_{backend}_rows"] = index.host_rows()
+        index.close()
+    return out
+
+
+def scenario_build(spec, rank):
+    """k-means, ``assign_cells`` and ``build_index`` with the assignments
+    over the mesh's ``data`` line."""
+    import torch
+
+    from code2vec_tpu_torch.ann.index import build_index
+    from code2vec_tpu_torch.ann.kmeans import assign_cells, kmeans_fit
+
+    inputs = torch.load(spec["inputs"], weights_only=False)
+    mesh = _mesh(spec["axes"])
+    x, kw = inputs["x"], spec["kmeans"]
+    cents = kmeans_fit(x, kw["k"], seed=kw["seed"], iters=kw["iters"],
+                       batch_size=kw["batch_size"], mesh=mesh, device="cpu")
+    index, unit = build_index(inputs["rows"], mesh=mesh, device="cpu", **spec["build"])
+    return {"centroids": cents,
+            "assign": assign_cells(x, cents, batch_size=kw["batch_size"], mesh=mesh,
+                                   device="cpu"),
+            "index": index, "unit": unit}
+
+
 def _worker_main(spec_path: str, rank: int) -> None:
     sys.path.insert(0, REPO)
     import torch
@@ -423,14 +495,18 @@ AXES = {"data2": (2, 1, 1), "model2": (1, 2, 1), "ctx2": (1, 1, 2), "data2_model
 # plain versions on the CPU) and lazy tables where the config takes them
 VARIANTS = {
     "data2": ["plain", "pool_only", "gather_split", "fused", "lazy"],
-    "model2": ["plain", "pool_only", "gather_split", "fused"],
+    "model2": ["plain", "pool_only", "gather_split", "fused", "lazy", "lazy_gather_split",
+               "lazy_fused"],
     "ctx2": ["plain", "lazy"],
-    "data2_model2": ["plain", "fused"],
+    "data2_model2": ["plain", "fused", "lazy"],
 }
 
 
 def _variant(name):
-    return {"route": "plain", "table_update": "lazy"} if name == "lazy" else {"route": name}
+    """``lazy[_<route>]``: lazy tables on that route (plain by default)."""
+    if name.startswith("lazy"):
+        return {"route": name[len("lazy_"):] or "plain", "table_update": "lazy"}
+    return {"route": name}
 
 
 @pytest.mark.parametrize("mesh_name", list(AXES))
@@ -449,7 +525,7 @@ def test_steps_match_the_jax_sharded_step(tmp_path, mesh_name):
     lazy_want = None
     for name in variants:
         assert_ranks_bitwise(results, name)
-        if name == "lazy":
+        if name.startswith("lazy"):
             if lazy_want is None:
                 _, *lazy_want = jax_sharded_steps(axes, DIMS, batches, weights,
                                                   table_update="lazy")
@@ -457,6 +533,32 @@ def test_steps_match_the_jax_sharded_step(tmp_path, mesh_name):
             continue
         assert_matches_jax(results[0][name], want_losses, want_params, DIMS, steps=1)
         assert_matches_jax(results[0][name], want_losses, want_params, DIMS)
+
+
+def test_lazy_steps_with_an_untouched_shard(tmp_path):
+    """Lazy tables at ``model=2`` on batches whose ids all lie in rank 0's
+    rows (PAD too): rank 1's table shards are touched by no slot. It steps
+    without error, its rows and moments stay as they were, and the steps
+    match JAX's sharded lazy step."""
+    axes = (1, 2, 1)
+    half = dict(DIMS, terminal_count=DIMS["terminal_count"] // 2,
+                path_count=DIMS["path_count"] // 2)
+    batches = make_batches(half, seed=4)
+    weights = np.ones(DIMS["label_count"], np.float32)
+    params0, want_losses, want_params = jax_sharded_steps(axes, DIMS, batches, weights,
+                                                          table_update="lazy")
+    variants = {v: _variant(v) for v in ("lazy", "lazy_fused")}
+    results = spawn(tmp_path, "steps", 2, axes=list(axes), model=DIMS, lr=0.01,
+                    variants=variants,
+                    inputs=write_inputs(tmp_path, DIMS, params0, batches, weights))
+    start = interop.state_dict_from_jax_params(params0, Code2VecConfig(**DIMS))
+    for name in variants:
+        assert_ranks_bitwise(results, name)
+        assert_matches_jax(results[0][name], want_losses, want_params, DIMS)
+        for key, rows in (("terminal_embedding.weight", half["terminal_count"]),
+                          ("path_embedding.weight", half["path_count"])):
+            assert torch.equal(results[0][name]["params"][key][rows:], start[key][rows:]), key
+            assert not torch.equal(results[0][name]["params"][key][:rows], start[key][:rows])
 
 
 def test_an_indivisible_vocab_replicates(tmp_path):
@@ -515,6 +617,32 @@ def test_table_gradients_at_model2_are_one_devices(tmp_path):
     touched = torch.unique(torch.from_numpy(np.concatenate([batches[0]["starts"].ravel(),
                                                             batches[0]["ends"].ravel()])))
     assert results[0]["grads"]["terminal_embedding.weight"][touched].abs().sum() > 0
+
+
+def test_lazy_slots_are_the_same_on_the_model_line(tmp_path):
+    """``gather_slot_grads`` adds no collective over ``model``: the
+    row-sharded gather's identity backward and the head's all-reduced
+    code-vector gradient give both model ranks the same per-slot
+    gradients, bitwise, which are one device's."""
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.train.step import lazy_forward_backward
+
+    batches = make_batches(DIMS, n=1)
+    weights = np.ones(DIMS["label_count"], np.float32)
+    model = Code2Vec(Code2VecConfig(**DIMS, dropout_prob=0.0))
+    model.reset_parameters(torch.Generator().manual_seed(3))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    _, want = lazy_forward_backward(model, {k: torch.from_numpy(v) for k, v in
+                                            batches[0].items() if k != "ids"},
+                                    torch.from_numpy(weights))
+    path = tmp_path / "slots.pt"
+    torch.save({"state_dict": sd, "batches": batches, "class_weights": weights}, path)
+    results = spawn(tmp_path, "slots", 2, axes=[1, 2, 1], model=DIMS, inputs=str(path))
+    for (ids0, slots0), (ids1, slots1), (ids, slots) in zip(
+            results[0]["table_grads"], results[1]["table_grads"], want):
+        assert torch.equal(ids0, ids1) and torch.equal(slots0, slots1)
+        assert torch.equal(ids0, ids)
+        np.testing.assert_allclose(slots0.numpy(), slots.numpy(), rtol=1e-5, atol=1e-7)
 
 
 def test_ctx_pool_matches_jax(tmp_path):

@@ -12,7 +12,8 @@ Each rank is a subprocess of ``tests/test_torch_mesh.py``'s harness
   ``tests/test_multiprocess.py:107``): ranks in lockstep, the same metrics;
 - the mesh-reshape restore (JAX ``tests/test_elastic.py:625``): a mid-epoch
   save at ``data=2`` (SIGTERM to rank 0), restored onto ``model=2``
-  bitwise, the resumed epoch within rtol 2e-5 of the uninterrupted run;
+  bitwise, the resumed epoch within rtol 2e-5 of the uninterrupted run,
+  on ``fused`` and with lazy tables;
 - ``coordinated_stop``: SIGTERM to rank 0 stops every rank at one
   periodic-save step (or, without them, at the stream's end), to rank 1
   only stops none (rank 0's flag is the group's);
@@ -127,10 +128,20 @@ def test_mesh_reshape_restore(tmp_path, corpus):
     """A mid-epoch save at data=2 (SIGTERM to rank 0 after step 3), restored
     onto model=2: every tensor bitwise the saved one; the resumed epoch's
     losses within rtol 2e-5 of the uninterrupted one-device run."""
-    want_history, want_losses = one_device(corpus, use_pallas=True, pallas_impl="fused",
-                                           max_epoch=1)
+    reshape_restore(tmp_path, corpus, use_pallas=True, pallas_impl="fused")
+
+
+def test_lazy_mesh_reshape_restore(tmp_path, corpus):
+    """The same with lazy tables: the tables' moments (``LazyTableAdam``'s
+    state) and the dense part's (its ``"dense"`` sub-state) saved at data=2
+    restore onto model=2 bitwise, the tables' moments row-sharded."""
+    reshape_restore(tmp_path, corpus, table_update="lazy")
+
+
+def reshape_restore(tmp_path, corpus, **route):
+    want_history, want_losses = one_device(corpus, max_epoch=1, **route)
     ckpt = str(tmp_path / "ckpt")
-    fused = dict(RECIPE, use_pallas=True, pallas_impl="fused", max_epoch=1)
+    fused = dict(RECIPE, max_epoch=1, **route)
     saved = harness.spawn(tmp_path, "train", 2, corpus=corpus, out_dir=ckpt,
                           config=dict(fused, data_axis=2, checkpoint_every_steps=3),
                           rank_config={"0": {"fault_plan": "train_step@3:sigterm"}})

@@ -320,21 +320,20 @@ def test_training_with_quantized_tables_raises():
         model(s, s, s)
 
 
-# the mesh axes are ported (tests/test_torch_mesh.py); what stays rejected
-# beside them: lazy tables over a model axis (A.2.12)
-UNPORTED = [{"model_axis": 2, "table_update": "lazy"}]
 # the autotuner is ported (tests/test_torch_autotune.py)
 AUTOTUNER = [{"data_axis": 2, "autotune_cache": "at.json"}, {"pallas_impl": "auto"}]
-
-
-@pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: next(iter(kw)))
-def test_unported_settings_are_rejected(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TrainConfig(**kw).validate()
+# lazy tables over a model axis are ported (tests/test_torch_mesh.py)
+LAZY_MODEL_AXIS = {"model2": {"model_axis": 2, "table_update": "lazy"},
+                   "data2_model2": {"data_axis": 2, "model_axis": 2, "table_update": "lazy"}}
 
 
 @pytest.mark.parametrize("kw", AUTOTUNER, ids=lambda kw: next(iter(kw)))
 def test_autotuner_settings_validate(kw):
+    TrainConfig(**kw).validate()
+
+
+@pytest.mark.parametrize("kw", list(LAZY_MODEL_AXIS.values()), ids=list(LAZY_MODEL_AXIS))
+def test_lazy_tables_over_a_model_axis_validate(kw):
     TrainConfig(**kw).validate()
 
 
