@@ -29,8 +29,8 @@ the final result line is not printed):
    in the others and, when B > 1, one all-masked row; each
    held against its plain PyTorch version (max |err| <= 1e-5; f32 on the
    plain side with TF32 off, 3xTF32 on the tensor cores in K2-K4) and timed
-   with CUDA events (median of 30 launches after warmup, L2 flushed before
-   each launch);
+   with CUDA events (median of 30 launches after warmup at the kernel's
+   timed shape, of 10 at its other shapes, L2 flushed before each launch);
 4. serve   — a top11-width model dir with random weights from a seed,
    served through the port's own ``build_server`` with each kernel route
    (K3 with f32, int8 and bf16 tables, K2, K1): 96 predict/embed requests
@@ -87,8 +87,8 @@ the final result line is not printed):
    engine is held 429, a NaN reload 500, an ann reload's golden recall@10
    against its 0.9 floor, ``/healthz``, ``/metrics``, p50/p99 per op over
    HTTP beside the same server in process; (d) the serve CLI on stdio as a
-   subprocess: 64 pipelined requests, SIGTERM after the last, 64 answers
-   and exit 0; (e) a fleet of 2 replicas on the card behind the router
+   subprocess (started with the phase, so it boots beside (a)): 64
+   pipelined requests, SIGTERM after the last, 64 answers and exit 0; (e) a fleet of 2 replicas on the card behind the router
    (result cache 64 MB) under a trickle of distinct requests: a rolling
    reload to B and a rollback with no failed request and never two
    replicas swapping at once, a repeated request from the cache with no
@@ -157,13 +157,17 @@ the final result line is not printed):
    producer's thread apart from the step's; the profiler's trace of epoch
    2 naming K1's and K1b's kernels; (d) the projector TSVs of its
    code.vec, one row a vector; and a two-trial search through the CLI
-   with ``--gpu 0 --num_workers 4``. Each part's seconds are printed;
-7d. train_mesh (after train_hpo) — the ``(data, model, ctx)`` mesh: (a)
+   with ``--gpu 0 --num_workers 4``. The two CLIs start after (a) and run
+   beside (b) and each other. Each part's seconds are printed;
+7d. train_mesh (after autotune) — the ``(data, model, ctx)`` mesh: (a)
    the port's collective Functions (``parallel/distributed.py``) and their
    backwards over an NCCL group of one rank on ``cuda:0``, the NCCL version
    printed; (b) two processes this script starts (``--mesh_worker``), each
    ``LOCAL_RANK`` 0 with a gloo group formed before ``train()``,
-   time-sliced on the one card, through the train phase's corpus and recipe
+   time-sliced on the one card and started in the background (the
+   train_bucketed, train_bf16, train_lazy and train_device phases run
+   beside them, and their results are read after train_device), through
+   the train phase's corpus and recipe
    (top11 widths, batch 1024, bag 200, dropout 0.25, one epoch, tables
    padded to 2): data=2 on fused (K3 masked and its VJP, K3 in eval) and on
    pool_only (K1/K1b), model=2 on fused and on gather_split (K2 masked over
@@ -186,7 +190,7 @@ the final result line is not printed):
    device's (``same_shortlist``), each rank launching K5 on its cells;
    a data=2 ``build_index`` of a 100,000-row slice bitwise the world-1
    build; per-query ms (gloo on one time-sliced card);
-7e. autotune (after train_mesh) — the kernel-schedule autotuner at the
+7e. autotune (after train_hpo, before train_mesh) — the kernel-schedule autotuner at the
    top11 widths (synthetic tables of 360,633 rows): (a) six forward keys
    (1024 x 200 f32; 1 x 200 and 64 x 200, f32 and int8 tables; 64 x 1024
    f32) and the retrieval index's LUT key (m 20, n_list 1,000, its
@@ -273,7 +277,7 @@ the final result line is not printed):
    epoch's time goes (the train pass's enqueue and read, the eval pass,
    the F1 on the host, the device's busy time over a train pass);
 11b. train_feed (after train_device) — the host feed on ``bench.py``'s
-   training generator at 16,384 methods (mean 120 contexts, max 400, seed
+   training generator at 8,192 methods (mean 120 contexts, max 400, seed
    0; the train phase's widths, batch 1024, bag 200, dropout 0.25, 2
    epochs, ``--profile_steps 8``): the corpus written as ``corpus.txt``,
    converted to a CSR container by the port's ``tools/corpus_convert.py``
@@ -284,7 +288,7 @@ the final result line is not printed):
    synchronously, with ``--prefetch_batches 2``, with ``--feed_workers W``
    (W = min(4, usable cores - 1)), with both, from the container fixed and
    bucketed (synchronously and with both), streamed
-   (``--stream_chunk_items 8192``, synchronously and with prefetch), and
+   (``--stream_chunk_items 4096``, synchronously and with prefetch), and
    on pool_only (synchronously and with both). After each timed run an
    untimed pass draws the stream it was fed through the same feed and
    hashes every host batch as it is copied: each run's digests equal its
@@ -311,8 +315,9 @@ the final result line is not printed):
    ``@var_*`` aliases a method, each alias at the start or end of the share
    the extract phase measured (15% if that is below 10%) of its method's
    contexts, at the train phase's widths, batch, bag and dropout, 2 epochs:
-   host-fed and device epochs, each at a fixed bag and bucketed (the ladder
-   derived from the methods' counts, as JAX derives it), on every route; the
+   host-fed and device epochs, each at a fixed bag on every route and
+   bucketed (the ladder derived from the methods' counts, as JAX derives
+   it) on pool_only and fused; the
    dual task on fused, host-fed and on the device; fused device epochs lazy
    in bf16. Per run epoch_seconds, steps/s, real contexts/s, pad_efficiency,
    loss, F1 and the launches, each kernel once for every batch of the
@@ -336,18 +341,33 @@ the final result line is not printed):
    (masked K3) and on pool_only (K1 + K1b): steps/s, loss, F1, each kernel
    once a batch; (c) ``examples/python/src/util/math_utils.py`` predicted
    and embedded as a file through K3 against the plain versions on the CPU;
-   (d) a server with the long-bag rungs 512/1024/2048: every Python function
-   as a ``source`` request (``language: "python"``) for predict and embed,
-   and every Python file as ``embed_file``, one at a time: p50/p99 of each,
+   (d) a server with the long-bag rungs 512/1024/2048: for every third
+   Python file in order of size, each of its functions as a ``source``
+   request (``language: "python"``) for predict and embed, and the file as
+   ``embed_file``, one at a time: p50/p99 of each,
    ``extract_ms`` by file size, the launches (K3, and K4 for the functions
    at the long-bag rungs; longer ones subsampled as the engine does), each
    embedding against the model run plain on the card; (e) ``code.vec`` of
    those embeddings, ``file.vec`` from ``export_file_vectors`` (each row
    equal to the served ``embed_file`` vector), its IVF-PQ index from the
-   port's ``tools/ann_build.py``, and every file's ``neighbors`` at
+   port's ``tools/ann_build.py``, and every served file's ``neighbors`` at
    ``granularity="file"``: on the exact backend the file itself first
    (similarity within 1e-4 of 1), on ``--retrieval_backend ann`` in the top
    5, K5 launched for every request;
+14b. analysis (last) — the call-time contracts and the static scan at the
+   top11 widths: (a) four malformed CUDA inputs (a wrong rank, a symbol
+   mismatch, a wrong dtype category, a Python scalar where a tensor goes)
+   at K1, at K2, K3 and K4 online through ``fused_encode_attend_pool``, at
+   K5 and at ``train_step`` (batch 1024, the fused route), plus the three
+   inputs the step once trained on (``example_mask`` [B, 1] and [1], float
+   labels): each raises ``ContractError``, no launch count moves and no
+   weight changes; (b) each contract-checked entry's check alone on its
+   CUDA tensors under ``torch.cuda.set_sync_debug_mode("error")``; (c) the
+   host microseconds of a check at each entry (median of 1,000) and K3's
+   forward wall time at 1x200 and 1024x200 through the decorated entry and
+   through ``__wrapped__``; (d) ``python -m code2vec_tpu_torch.analysis
+   --json`` in a subprocess with ``torch`` and ``numpy`` blocked: exit 0,
+   its seconds and finding counts;
 15. a line with the launch floor and the ``neighbors`` split, the card's
    name and power limit, the line ``{"kernels": [...]}`` (per kernel:
    route, source, the TPU kernel it replaces, launches on its serve or
@@ -365,6 +385,10 @@ the final result line is not printed):
 With ``--json_out`` the per-shape kernel records and serving numbers are
 also written to that file. ``--phases a,b`` runs only those phases after
 device and build and prints no result line (for work on one phase).
+Throughout, a thread samples the main thread's frames in this script every
+0.25 s; before the result lines the script prints the seconds spent under
+the chains that cost most (``time:`` lines), where its time goes, and
+``--json_out`` holds every chain's seconds.
 """
 
 from __future__ import annotations
@@ -412,7 +436,8 @@ K5_SHAPES = [(q, p) for q in (1, 8, 64) for p in (8, 16)]
 K5_TIMED_SHAPE = (1, ANN_PROBE)  # a neighbors query: one at a time
 TOL = 1e-5  # kernel vs plain version (f32 plain, 3xTF32 encode on the tensor cores)
 SERVE_RTOL, SERVE_ATOL = 2e-4, 2e-5
-N_TIMED = 30
+N_TIMED = 30  # launches timed at a kernel's timed shape (the result line's)
+N_SHAPE_TIMED = 10  # at its other shapes
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM bandwidth, f32
 # on the FMA pipes, TF32 on the tensor cores (dense). The least the encode
 # of K2-K4 needs on the tensor cores is TF32_PRODUCTS[table dtype] products
@@ -434,6 +459,54 @@ BF16_POOL_SHAPES = SHAPES + [TRAIN_SHAPE]
 BF16_DIFF_WIDTHS = (25, BAG)
 ENCODE_KERNELS = ("encode_pool_online_kernel", "encode_score_kernel",
                   "encode_pool_fixed_max_kernel")
+
+
+class FrameSampler:
+    """A thread that samples the main thread's stack every ``PERIOD_S``
+    and counts the chains of this script's frames on it (outermost first,
+    each prefix of up to ``DEPTH`` frames): ``seconds()`` is the time
+    spent under each chain."""
+
+    PERIOD_S = 0.25
+    DEPTH = 8  # <module>, main, run, phase, the phase and three below it
+    SHOWN = 5  # the printed chains end at a line of a phase's function
+
+    def __init__(self):
+        import collections
+        import threading
+
+        self.counts = collections.Counter()
+        self.stop = threading.Event()
+        self.main_id = threading.main_thread().ident
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        src = str(Path(__file__).resolve())
+        while not self.stop.wait(self.PERIOD_S):
+            frame = sys._current_frames().get(self.main_id)
+            chain = []
+            while frame is not None:
+                if frame.f_code.co_filename == src:
+                    chain.append(f"{frame.f_code.co_name}:{frame.f_lineno}")
+                frame = frame.f_back
+            chain.reverse()
+            for depth in range(1, min(len(chain), self.DEPTH) + 1):
+                self.counts[" > ".join(chain[:depth])] += 1
+
+    def seconds(self) -> dict:
+        """Stops the sampling (the thread adds to ``counts``), then reads it."""
+        self.stop.set()
+        self.thread.join()
+        return {k: n * self.PERIOD_S for k, n in self.counts.most_common()}
+
+    def print_top(self, n: int = 25) -> None:
+        """The ``n`` chains of ``SHOWN`` frames that cost most (each a line
+        of a phase's function), without the four frames every chain starts
+        with."""
+        shown = [(k, s) for k, s in self.seconds().items() if k.count(" > ") == self.SHOWN - 1]
+        for chain, seconds in shown[:n]:
+            print(f"time: {seconds:.2f} s under {chain.split(' > ', 4)[-1]}")
 
 
 def nvidia_smi() -> str:
@@ -483,8 +556,8 @@ class KernelBench:
         self.flush_buf = torch.empty(96 * 2**20, dtype=torch.uint8, device=dev)
         self.spread = (0.0, 0.0)
 
-    def time_ms(self, fn) -> float:
-        """Median device milliseconds of one call over N_TIMED launches,
+    def time_ms(self, fn, n: int = N_TIMED) -> float:
+        """Median device milliseconds of one call over ``n`` launches,
         each with a cold L2 (a 96 MB write before it, outside the timed
         events). The card is held busy (``torch.cuda._sleep``) while the
         host enqueues the call, so host launch overhead is not timed. The
@@ -493,7 +566,7 @@ class KernelBench:
         for _ in range(3):
             fn()
         times = []
-        for _ in range(N_TIMED):
+        for _ in range(n):
             self.flush_buf.zero_()
             torch.cuda._sleep(4_000_000)
             start = torch.cuda.Event(enable_timing=True)
@@ -681,9 +754,15 @@ def phase_kernels(torch, dev, smi) -> dict:
     records = {}
     for name, key, source, replaces, impl, dt, mode, shapes in specs:
         rows = []
+        timed = {id(LONG_SHAPES): LONG_TIMED_SHAPE, id(BWD_SHAPES): TRAIN_SHAPE,
+                 id(MASKED_SHAPES): TRAIN_SHAPE, id(BF16_POOL_SHAPES): TRAIN_SHAPE,
+                 id(MASKED_LONG_SHAPES): LONGBAG_TRAIN_SHAPE}.get(id(shapes), TIMED_SHAPE)
+        if shapes == [TRAIN_SHAPE]:
+            timed = TRAIN_SHAPE
         for B, L in shapes:
             library = unmasked = None
             extra = {}
+            n = N_TIMED if (B, L) == timed else N_SHAPE_TIMED
             if impl == "pool_bf16":
                 ctx, mask, a = pool_inputs(torch, dev, g, B, L, H)
                 ctx, a = ctx.to(bf16), a.to(bf16)
@@ -698,7 +777,7 @@ def phase_kernels(torch, dev, smi) -> dict:
 
                 # the f32 kernel on the same values widened, timed beside it
                 extra["f32_kernel_ms"] = bench.time_ms(
-                    lambda: attention_pool_kernel(wide, mask, a_wide))
+                    lambda: attention_pool_kernel(wide, mask, a_wide), n)
                 nbytes, flops = pool_bound(B, L, H, ctx_item=2)
                 ops_s = flops / F32_FLOP_PER_S
             elif impl == "pool_bwd_bf16":
@@ -712,7 +791,7 @@ def phase_kernels(torch, dev, smi) -> dict:
                 kernel = lambda: pool_backward_kernel(*bargs[:4], cv0, *bargs[4:])  # noqa: E731
                 plain = lambda: pool_backward_reference(*bargs)  # noqa: E731
                 wide_args = (ctx.float(), mask, a.float(), w0, cv0, g_cv, g_w)
-                extra["f32_kernel_ms"] = bench.time_ms(lambda: pool_backward_kernel(*wide_args))
+                extra["f32_kernel_ms"] = bench.time_ms(lambda: pool_backward_kernel(*wide_args), n)
                 leaves = (ctx.float().requires_grad_(), a.float().requires_grad_())
                 pooled = attention_pool(leaves[0], mask, leaves[1])
 
@@ -743,13 +822,13 @@ def phase_kernels(torch, dev, smi) -> dict:
                 extra["max_abs_diff_vs_three_products"] = max(
                     (x - y).abs().max().item() for x, y in zip(two, three))
                 extra["f32_kernel_ms"] = bench.time_ms(lambda: fused_encode_attend_pool(
-                    *widened, *bargs[2:], impl="gather_split"))
+                    *widened, *bargs[2:], impl="gather_split"), n)
                 # the wrapper's PyTorch gather (and cast) before the kernel, in
                 # each timed call: bf16 rows and f32 rows
                 extra["gather_ms"] = bench.time_ms(lambda: [gather_rows(
-                    t_f32 if i != 1 else p_f32, x, bf16) for i, x in enumerate((s, p, e))])
+                    t_f32 if i != 1 else p_f32, x, bf16) for i, x in enumerate((s, p, e))], n)
                 extra["f32_gather_ms"] = bench.time_ms(lambda: [gather_rows(
-                    t_f32 if i != 1 else p_f32, x) for i, x in enumerate((s, p, e))])
+                    t_f32 if i != 1 else p_f32, x) for i, x in enumerate((s, p, e))], n)
                 nbytes, flops, ops_s = encode_pool_bound(torch, s, p, e, mask, "bf16", H)
                 if drop is not None:
                     nbytes += 4 * B * L * H  # the keep mask, read once
@@ -840,17 +919,17 @@ def phase_kernels(torch, dev, smi) -> dict:
             elif err > TOL:
                 raise AssertionError(f"{name} at {(B, L)}: max |err| {err:.3e} > {TOL}")
             bound_s, bound_by = bound_of(nbytes, ops_s)
-            ms = bench.time_ms(kernel)
+            ms = bench.time_ms(kernel, n)
             lo, hi = bench.spread
             row = {
-                "B": B, "L": L, "max_abs_err": err,
-                "ms": ms, "ms_min_max": [lo, hi], "plain_ms": bench.time_ms(plain),
-                "library_ms": bench.time_ms(library) if library else None,
+                "B": B, "L": L, "max_abs_err": err, "timed_launches": n,
+                "ms": ms, "ms_min_max": [lo, hi], "plain_ms": bench.time_ms(plain, n),
+                "library_ms": bench.time_ms(library, n) if library else None,
                 "bound_ms": bound_s * 1e3, "bound_by": bound_by,
                 "bytes": nbytes, "flops": flops,
             }
             if unmasked is not None:
-                row["unmasked_ms"] = bench.time_ms(unmasked)
+                row["unmasked_ms"] = bench.time_ms(unmasked, n)
             row.update(extra)
             if impl in (None, "pool_bf16"):
                 row["ctas_per_row"] = pool_ctas(B, L, sms)
@@ -859,18 +938,13 @@ def phase_kernels(torch, dev, smi) -> dict:
                     B, L, H, bf16 if impl == "pool_bwd_bf16" else torch.float32, dev)[0]
             rows.append(row)
             print(f"kernel {name:32s} B={B:3d} L={L:4d} max_abs_err={err:.3e} "
-                  f"ms={ms:.4f} (launches {lo:.4f}-{hi:.4f}) "
+                  f"ms={ms:.4f} ({n} launches {lo:.4f}-{hi:.4f}) "
                   f"plain_ms={row['plain_ms']:.4f} "
                   f"library_ms={row['library_ms']} bound_ms={row['bound_ms']:.4f} "
                   f"({bound_by}) bound_share={row['bound_ms'] / ms:.3f}"
                   + (f" unmasked_ms={row['unmasked_ms']:.4f}" if unmasked else "")
                   + "".join(f" {k}={v:.4f}" for k, v in extra.items())
                   + f" [{smi}]", flush=True)
-        timed = {id(LONG_SHAPES): LONG_TIMED_SHAPE, id(BWD_SHAPES): TRAIN_SHAPE,
-                 id(MASKED_SHAPES): TRAIN_SHAPE, id(BF16_POOL_SHAPES): TRAIN_SHAPE,
-                 id(MASKED_LONG_SHAPES): LONGBAG_TRAIN_SHAPE}.get(id(shapes), TIMED_SHAPE)
-        if shapes == [TRAIN_SHAPE]:
-            timed = TRAIN_SHAPE
         records[name] = dict(key=key, source=source, replaces=replaces, rows=rows,
                              timed=timed)
     print("kernels checked: " + ", ".join(f"{n}: ok" for n in records), flush=True)
@@ -1865,52 +1939,75 @@ def ctl_http(torch, smi, device, dirs, ann_index: Path | None) -> dict:
     return out
 
 
-def ctl_sigterm(smi, device, dirs) -> dict:
-    """(d): the serve CLI on stdio as a subprocess on the card: 64
-    pipelined requests, SIGTERM right after the last; all 64 answered,
-    exit code 0."""
-    import signal
+def start_sigterm_worker(device, dirs, tmp: Path):
+    """(d)'s worker, the serve CLI on stdio as a subprocess on the card,
+    started at the phase's start so that it boots beside the coalescing
+    check; its health request is queued at once. Returns the process, its
+    stderr file and its start time."""
+    import os
 
     cmd = [sys.executable, "-m", "code2vec_tpu_torch.serve", "--transport", "stdio",
            *ctl_args(dirs["A"], device, "--batch_sizes", ",".join(map(str, BATCH_SIZES)))]
+    tmp.mkdir(parents=True, exist_ok=True)
+    err = open(tmp / "sigterm_worker.err", "w+")
+    # the handle ledger on, as the hot-swap's server leaves it for the phase
+    env = {**os.environ, "C2V_HANDLE_DEBUG": "1"}
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+                            stderr=err, text=True, env=env)
+    proc.stdin.write(json.dumps({"id": "ready", "op": "health"}) + "\n")
+    proc.stdin.flush()
+    return proc, err, t0
+
+
+def stop_worker(worker) -> None:
+    proc, err, _ = worker
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    err.close()
+
+
+def ctl_sigterm(smi, worker) -> dict:
+    """(d): the worker of :func:`start_sigterm_worker`: its health answer,
+    then 64 pipelined requests, SIGTERM right after the last; all 64
+    answered, exit code 0."""
+    import signal
+
+    proc, err, t0 = worker
     try:
-        proc.stdin.write(json.dumps({"id": "ready", "op": "health"}) + "\n")
-        proc.stdin.flush()
-        ready = json.loads(proc.stdout.readline())
+        ready = json.loads(proc.stdout.readline() or "{}")
         if ready.get("id") != "ready" or not ready.get("ok"):
-            raise AssertionError(f"worker not ready: {ready}")
+            err.seek(0)
+            raise AssertionError(f"worker not ready: {ready}; stderr tail {err.read()[-2000:]}")
         startup_s = time.perf_counter() - t0
         for req in make_requests(CTL_SIGTERM_REQUESTS, seed=53):
             proc.stdin.write(json.dumps(req) + "\n")
         proc.stdin.flush()
         t0 = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
-        stdout, stderr = proc.communicate(timeout=300)
+        stdout, _ = proc.communicate(timeout=300)
         drain_s = time.perf_counter() - t0
+        err.seek(0)
+        stderr = err.read()
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        stop_worker(worker)
     answers = [json.loads(line) for line in stdout.splitlines() if line.strip()]
     ok = [a for a in answers if a.get("ok")]
     if proc.returncode != 0 or len(ok) != CTL_SIGTERM_REQUESTS:
         raise AssertionError(f"SIGTERM drain: exit {proc.returncode}, {len(ok)}/"
                              f"{CTL_SIGTERM_REQUESTS} answered; stderr tail {stderr[-2000:]}")
-    print(f"sigterm: worker ready in {startup_s:.1f} s; {len(ok)}/{CTL_SIGTERM_REQUESTS} "
+    print(f"sigterm: worker ready {startup_s:.1f} s after its start (it booted beside the "
+          f"coalescing check); {len(ok)}/{CTL_SIGTERM_REQUESTS} "
           f"pipelined requests answered after SIGTERM in {drain_s:.2f} s, exit 0 [{smi}]",
           flush=True)
     return {"startup_s": startup_s, "answered": len(ok), "drain_s": drain_s, "exit_code": 0}
 
 
-def ctl_fleet(smi, device, dirs, single_trickle) -> dict:
-    """(e): 2 replicas on the card behind the router (result cache 64 MB)
-    under a trickle: a rolling reload to B and a rollback with no failed
-    request and never more than one replica swapping; a repeated request
-    from the cache with no replica launching; the capacity block; p50/p99
-    through the router beside the single server's."""
+def boot_fleet(device, dirs) -> tuple:
+    """(e)'s fleet: 2 replicas of A behind the router (result cache 64 MB),
+    booted on a thread at the phase's start, beside the coalescing check.
+    Returns the router, its event log and the boot's seconds."""
     from code2vec_tpu_torch.serve.fleet.__main__ import build_parser, build_router
 
     args = build_parser().parse_args([
@@ -1919,7 +2016,27 @@ def ctl_fleet(smi, device, dirs, single_trickle) -> dict:
         "--probe_interval_s", "1.0"])
     t0 = time.perf_counter()
     router, events = build_router(args)
-    boot_s = time.perf_counter() - t0
+    return router, events, time.perf_counter() - t0
+
+
+def close_fleet(booting) -> None:
+    """Close the fleet of :func:`boot_fleet` (waiting for its boot first)."""
+    try:
+        router, events, _ = booting.result()
+    except Exception:  # noqa: BLE001 - the boot's own error is raised by ctl_fleet
+        return
+    router.close()
+    if events is not None:
+        events.close()
+
+
+def ctl_fleet(smi, booting, dirs, single_trickle) -> dict:
+    """(e): the fleet of :func:`boot_fleet` under a trickle: a rolling
+    reload to B and a rollback with no failed request and never more than
+    one replica swapping; a repeated request from the cache with no replica
+    launching; the capacity block; p50/p99 through the router beside the
+    single server's."""
+    router, events, boot_s = booting.result()
     replicas = list(router._slots)
 
     def replica_call(op):
@@ -1976,10 +2093,8 @@ def ctl_fleet(smi, device, dirs, single_trickle) -> dict:
         out.update(trickle=stats, max_concurrent_swaps=concurrent_swaps, capacity=capacity,
                    replica_launches=after, single_server_trickle=single_trickle)
     finally:
-        router.close()
-        if events is not None:
-            events.close()
-    print(f"fleet: 2 replicas booted in {boot_s:.1f} s; rolling reload {out['reload_s']:.2f} s, "
+        close_fleet(booting)
+    print(f"fleet: 2 replicas booted in {boot_s:.1f} s (beside the coalescing check); rolling reload {out['reload_s']:.2f} s, "
           f"rollback {out['rollback_s']:.2f} s, at most {concurrent_swaps} swapping at once; "
           f"router trickle {json.dumps(stats)} beside one server's "
           f"{json.dumps(single_trickle)}; cache hit with no launch; capacity "
@@ -1989,8 +2104,10 @@ def ctl_fleet(smi, device, dirs, single_trickle) -> dict:
 
 def phase_serve_control(torch, smi, device, tmp: Path, model_dir: Path) -> dict:
     """The coalescing invariant, hot-swap, HTTP, the SIGTERM drain and the
-    fleet (module docstring, phase 6b)."""
+    fleet (module docstring, phase 6b). The SIGTERM worker and the fleet
+    boot at the phase's start, beside the coalescing check."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
 
     from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
 
@@ -2005,6 +2122,9 @@ def phase_serve_control(torch, smi, device, tmp: Path, model_dir: Path) -> dict:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     ann_index = model_dir / "ann.index"
     out = {}
+    worker = start_sigterm_worker(device, dirs, tmp)
+    boot = ThreadPoolExecutor(1)
+    booting = boot.submit(boot_fleet, device, dirs)
     try:
         # the check resets and reads the counts around each route itself
         out["coalescing"] = coalescing_check(torch, model_dir, device, smi)
@@ -2012,9 +2132,12 @@ def phase_serve_control(torch, smi, device, tmp: Path, model_dir: Path) -> dict:
         out["hot_swap"] = ctl_hot_swap(torch, smi, device, dirs)
         out["http"] = ctl_http(torch, smi, device, dirs,
                                ann_index if ann_index.exists() else None)
-        out["sigterm"] = ctl_sigterm(smi, device, dirs)
-        out["fleet"] = ctl_fleet(smi, device, dirs, out["hot_swap"]["trickle"].get("before"))
+        out["sigterm"] = ctl_sigterm(smi, worker)
+        out["fleet"] = ctl_fleet(smi, booting, dirs, out["hot_swap"]["trickle"].get("before"))
     finally:
+        close_fleet(booting)
+        boot.shutdown(wait=True)
+        stop_worker(worker)
         os.environ.pop("C2V_HANDLE_DEBUG", None)
         (model_dir / "code.vec").unlink(missing_ok=True)
     counts = launch_counts()
@@ -2127,16 +2250,18 @@ def train_differential(torch, dev, data, config, host_batches, routes) -> dict:
             del before
         if ref is None:
             ref = steps
-            out[route] = [float(loss) for loss, _ in steps]
+            out[route] = torch.stack([loss for loss, _ in steps]).tolist()
             continue
         worst = 0.0
         for (loss, grads), (ref_loss, ref_grads) in zip(steps, ref):
             torch.testing.assert_close(loss, ref_loss, rtol=loss_rtol, atol=0)
             for k, g in ref_grads.items():
-                atol = grad_atol + grad_frac * g.abs().max().item()
+                # the comparison reads each route's grads once, after its steps
+                atol = grad_atol + grad_frac * g.abs().max().item()  # torchlint: disable=TX007
                 torch.testing.assert_close(grads[k], g, rtol=grad_rtol, atol=atol, msg=k)
-                worst = max(worst, (grads[k] - g).abs().max().item())
-        out[route] = {"losses": [float(loss) for loss, _ in steps], "max_abs_grad_err": worst}
+                worst = max(worst, (grads[k] - g).abs().max().item())  # torchlint: disable=TX007
+        out[route] = {"losses": torch.stack([loss for loss, _ in steps]).tolist(),
+                      "max_abs_grad_err": worst}
         print(f"train differential {'lazy ' if lazy else ''}{route}: {len(steps)} steps at widths "
               f"{[b['starts'].shape[1] for b in host_batches]}, losses "
               f"{[round(x, 6) for x in out[route]['losses']]} vs plain "
@@ -2464,6 +2589,35 @@ def slot_cursor(torch, out_dir: Path) -> dict:
                       mmap=True)["meta"]["cursor"]
 
 
+def elastic_cli(paths: dict, cli_dir: Path) -> dict:
+    """(d) of the train_elastic phase: the CLI in a subprocess, SIGKILL at
+    step 11 (exit -9), then --resume (exit 0); its epoch lines, exit codes
+    and seconds. Any other exit raises."""
+    import os
+
+    argv = [sys.executable, "-m", "code2vec_tpu_torch", "--corpus_path", paths["corpus"],
+            "--path_idx_path", paths["path_idx"], "--terminal_idx_path", paths["terminal_idx"],
+            "--model_path", str(cli_dir), "--vectors_path", str(cli_dir / "code.vec"),
+            "--no_corpus_cache", "--terminal_embed_size", "100", "--path_embed_size", "100",
+            "--encode_size", "100", "--max_path_length", str(BAG), "--batch_size",
+            str(TRAIN_BATCH), "--dropout_prob", "0.25", "--max_epoch", "2", "--random_seed",
+            "0", "--print_sample_cycle", "0", "--use_pallas", "--pallas_impl", "fused",
+            "--checkpoint_every_steps", "3"]
+    env = {k: v for k, v in os.environ.items() if k != "C2V_FAULT_PLAN"}
+    lines, codes, secs = [], [], []
+    for extra in (["--fault_plan", "train_step@11:kill"], ["--resume"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv + extra, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=300)
+        secs.append(time.perf_counter() - t0)
+        codes.append(proc.returncode)
+        lines += [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+        if proc.returncode not in (-9, 0) or (extra[0] == "--resume") != (proc.returncode == 0):
+            raise AssertionError(f"elastic (d) {extra}: exit {proc.returncode}\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return {"lines": lines, "exit_codes": codes, "seconds": secs}
+
+
 def phase_train_elastic(torch, smi, dev, tmp: Path) -> dict:
     """Elastic training at the train phase's recipe (top11 widths, 8,192
     methods, batch 1024, bag 200, dropout 0.25, 7 steps an epoch, 2
@@ -2476,11 +2630,13 @@ def phase_train_elastic(torch, smi, dev, tmp: Path) -> dict:
     step 9: train() returns, the cursor at epoch 1 step 2, the seconds from
     the signal to the return, the resume bitwise an uninterrupted pool_only
     run; (d) the CLI in a subprocess killed at step 11 (exit -9) and
-    resumed (exit 0): (a)'s history; (e) device epochs, SIGTERM at the
-    second epoch_start: a boundary save and its resume bitwise an
+    resumed (exit 0): (a)'s history, on a thread of its own beside (b),
+    (c) and (e), whose seconds it shares; (e) device epochs, SIGTERM at
+    the second epoch_start: a boundary save and its resume bitwise an
     uninterrupted device run."""
     import os
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
     from code2vec_tpu_torch.checkpoint import slot_path
     from code2vec_tpu_torch.data.pipeline import split_items
@@ -2544,6 +2700,37 @@ def phase_train_elastic(torch, smi, dev, tmp: Path) -> dict:
         shutil.rmtree(root / name)
     del none, sync, asyn
 
+    # (d) in a thread of its own from here, beside (b), (c) and (e)
+    cli = ThreadPoolExecutor(1)
+    cli_run = cli.submit(elastic_cli, paths, root / "d")
+    try:
+        run_bce(torch, smi, run, root, fused, config, ref_history, ref_weights, out)
+        d = cli_run.result()
+    finally:
+        cli.shutdown(wait=True)
+    same_history("the CLI (d)", d["lines"], ref_history)
+    codes, secs = d["exit_codes"], d["seconds"]
+    out["d"] = {"exit_codes": codes, "seconds": secs}
+    print(f"elastic (d): the CLI exited {codes[0]} at step 11 ({secs[0]:.1f} s) and {codes[1]} "
+          f"resumed ({secs[1]:.1f} s, replayed {d['lines'][1].get('replayed_batches')} "
+          f"batches), beside (b), (c) and (e); its history bitwise (a)'s [{smi}]", flush=True)
+    for child in root.iterdir():
+        if child.name != "corpus":  # the corpus stays for train_hpo
+            shutil.rmtree(child)
+    out["corpus_paths"] = paths
+    out["launches"] = {}
+    for counts in runs:
+        for key, n in counts.items():
+            out["launches"][key] = out["launches"].get(key, 0) + n
+    print(f"train_elastic launches: {json.dumps(out['launches'])}", flush=True)
+    return out
+
+
+def run_bce(torch, smi, run, root: Path, fused, config, ref_history, ref_weights,
+            out: dict) -> None:
+    """(b), (c) and (e) of the train_elastic phase, through its ``run``."""
+    import shutil
+
     # (b) a raise at step 11, then --resume
     every3 = fused.with_updates(checkpoint_every_steps=3)
     run("fused (b) raise at step 11", every3.with_updates(fault_plan="train_step@11:raise"),
@@ -2587,35 +2774,6 @@ def phase_train_elastic(torch, smi, dev, tmp: Path) -> dict:
         shutil.rmtree(root / name)
     del whole, pre, resumed
 
-    # (d) the CLI in a subprocess: SIGKILL at step 11, then --resume
-    cli_dir = root / "d"
-    argv = [sys.executable, "-m", "code2vec_tpu_torch", "--corpus_path", paths["corpus"],
-            "--path_idx_path", paths["path_idx"], "--terminal_idx_path", paths["terminal_idx"],
-            "--model_path", str(cli_dir), "--vectors_path", str(cli_dir / "code.vec"),
-            "--no_corpus_cache", "--terminal_embed_size", "100", "--path_embed_size", "100",
-            "--encode_size", "100", "--max_path_length", str(BAG), "--batch_size",
-            str(TRAIN_BATCH), "--dropout_prob", "0.25", "--max_epoch", "2", "--random_seed",
-            "0", "--print_sample_cycle", "0", "--use_pallas", "--pallas_impl", "fused",
-            "--checkpoint_every_steps", "3"]
-    env = {k: v for k, v in os.environ.items() if k != "C2V_FAULT_PLAN"}
-    lines, codes, secs = [], [], []
-    for extra in (["--fault_plan", "train_step@11:kill"], ["--resume"]):
-        t0 = time.perf_counter()
-        proc = subprocess.run(argv + extra, cwd=ROOT, env=env, capture_output=True, text=True,
-                              timeout=300)
-        secs.append(time.perf_counter() - t0)
-        codes.append(proc.returncode)
-        lines += [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
-        if proc.returncode not in (-9, 0) or (extra[0] == "--resume") != (proc.returncode == 0):
-            raise AssertionError(f"elastic (d) {extra}: exit {proc.returncode}\n"
-                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    same_history("the CLI (d)", lines, ref_history)
-    out["d"] = {"exit_codes": codes, "seconds": secs}
-    print(f"elastic (d): the CLI exited {codes[0]} at step 11 ({secs[0]:.1f} s) and {codes[1]} "
-          f"resumed ({secs[1]:.1f} s, replayed {lines[1].get('replayed_batches')} batches); "
-          f"its history bitwise (a)'s [{smi}]", flush=True)
-    shutil.rmtree(cli_dir)
-
     # (e) device epochs: SIGTERM at the second epoch_start, then --resume
     device = fused.with_updates(device_epoch=True)
     whole = run("fused (e) device epochs", device, ELASTIC_KEYS["fused"], "e_whole")
@@ -2635,16 +2793,6 @@ def phase_train_elastic(torch, smi, dev, tmp: Path) -> dict:
     print(f"elastic (e): a boundary save at SIGTERM ({pre['sigterm_to_return']:.3f} s to the "
           f"return); the resume bitwise the uninterrupted device run's [{smi}]", flush=True)
     del whole, pre, resumed
-    for child in root.iterdir():
-        if child.name != "corpus":  # the corpus stays for train_hpo
-            shutil.rmtree(child)
-    out["corpus_paths"] = paths
-    out["launches"] = {}
-    for counts in runs:
-        for key, n in counts.items():
-            out["launches"][key] = out["launches"].get(key, 0) + n
-    print(f"train_elastic launches: {json.dumps(out['launches'])}", flush=True)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2862,12 +3010,11 @@ def hpo_search(torch, smi, dev, data) -> dict:
 def hpo_cli(smi, paths: dict, root: Path) -> dict:
     """(c) the CLI with every telemetry flag (pool_only, 2 epochs,
     prefetched, --profile_steps 4) in a subprocess, and its gates; then
-    (d) the projector export of its code.vec; then a two-trial search
-    through the CLI with the reference's --gpu and --num_workers."""
+    (d) the projector export of its code.vec; beside both, in a second
+    subprocess started first, a two-trial search through the CLI with the
+    reference's --gpu and --num_workers (each CLI's seconds overlap the
+    other's and the phase's (b))."""
     import os
-
-    from code2vec_tpu_torch.formats.vectors_io import read_code_vectors
-    from code2vec_tpu_torch.visualize import visualize_code_vectors
 
     corpus = ["--corpus_path", paths["corpus"], "--path_idx_path", paths["path_idx"],
               "--terminal_idx_path", paths["terminal_idx"], "--terminal_embed_size", "100",
@@ -2882,6 +3029,40 @@ def hpo_cli(smi, paths: dict, root: Path) -> dict:
             "--prefetch_batches", "2", "--model_path", str(dirs["model"]), "--vectors_path",
             str(dirs["model"] / "code.vec")]
     env = {k: v for k, v in os.environ.items() if k != "C2V_FAULT_PLAN"}
+    # the search through the CLI, with the reference's no-op flags, beside (c) and (d)
+    root.mkdir(parents=True, exist_ok=True)
+    search_err = open(root / "search.err", "w+")
+    t_search = time.perf_counter()
+    search = subprocess.Popen([sys.executable, "-m", "code2vec_tpu_torch", *corpus,
+                               "--max_epoch", "1", "--use_pallas", "--pallas_impl", "fused",
+                               "--find_hyperparams", "--num_trials", "2", "--gpu", "0",
+                               "--num_workers", "4"], cwd=ROOT, env=env,
+                              stdout=subprocess.DEVNULL, stderr=search_err, text=True)
+    try:
+        out = hpo_cli_run(smi, argv, env, dirs)
+        search.wait(timeout=400)
+    finally:
+        if search.poll() is None:
+            search.kill()
+            search.wait()
+    search_seconds = time.perf_counter() - t_search
+    search_err.seek(0)
+    stderr = search_err.read()
+    search_err.close()
+    if search.returncode != 0 or "Number of finished trials: 2" not in stderr:
+        raise AssertionError(f"hpo: the CLI search exited {search.returncode}\n"
+                             f"{stderr[-3000:]}")
+    print(f"hpo: the CLI search (--gpu 0 --num_workers 4) ran 2 trials in "
+          f"{search_seconds:.1f} s beside (c) and (d) [{smi}]", flush=True)
+    return {**out, "search_cli_seconds": search_seconds}
+
+
+def hpo_cli_run(smi, argv, env, dirs) -> dict:
+    """(c) and (d) of :func:`hpo_cli`."""
+    from code2vec_tpu_torch.formats.vectors_io import read_code_vectors
+    from code2vec_tpu_torch.visualize import visualize_code_vectors
+
+    root = dirs["model"].parent
     t0 = time.perf_counter()
     proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True, timeout=400)
     cli_seconds = time.perf_counter() - t0
@@ -2949,30 +3130,17 @@ def hpo_cli(smi, paths: dict, root: Path) -> dict:
         raise AssertionError(f"hpo (d): {n_rows} TSV rows for {len(vectors)} vectors")
     print(f"hpo (d): {n_rows} projector rows for {len(labels)} vectors of dim "
           f"{vectors.shape[1]} in {projector_seconds:.2f} s", flush=True)
-
-    # the search through the CLI, with the reference's no-op flags
-    t0 = time.perf_counter()
-    search = subprocess.run([sys.executable, "-m", "code2vec_tpu_torch", *corpus,
-                             "--max_epoch", "1", "--use_pallas", "--pallas_impl", "fused",
-                             "--find_hyperparams", "--num_trials", "2", "--gpu", "0",
-                             "--num_workers", "4"], cwd=ROOT, env=env, capture_output=True,
-                            text=True, timeout=400)
-    search_seconds = time.perf_counter() - t0
-    if search.returncode != 0 or "Number of finished trials: 2" not in search.stderr:
-        raise AssertionError(f"hpo: the CLI search exited {search.returncode}\n"
-                             f"{search.stderr[-3000:]}")
-    print(f"hpo: the CLI search (--gpu 0 --num_workers 4) ran 2 trials in "
-          f"{search_seconds:.1f} s [{smi}]", flush=True)
     return {"cli_seconds": cli_seconds, "mfu": mfu, "profiled_launches": kernels,
-            "projector_rows": n_rows, "projector_seconds": projector_seconds,
-            "search_cli_seconds": search_seconds}
+            "projector_rows": n_rows, "projector_seconds": projector_seconds}
 
 
 def phase_train_hpo(torch, smi, dev, tmp: Path, elastic) -> dict:
     """The search's paths on the card: (a) the kernels at its widths, (b)
     a seeded search through the API, (c) the CLI with every telemetry flag
-    and (d) the projector export; each part's seconds printed."""
+    and (d) the projector export (:func:`hpo_cli`, on a thread of its own
+    beside (b)); each part's seconds printed."""
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
     from code2vec_tpu_torch.data.reader import load_corpus
 
@@ -2987,13 +3155,18 @@ def phase_train_hpo(torch, smi, dev, tmp: Path, elastic) -> dict:
         paths = write_raw_corpus(train_corpus()[0], root / "corpus")
     data = load_corpus(paths["corpus"], paths["path_idx"], paths["terminal_idx"], cache=False)
     seconds["load"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out["b"] = hpo_search(torch, smi, dev, data)
-    seconds["b"] = time.perf_counter() - t0
-    del data
-    t0 = time.perf_counter()
-    out["c"] = hpo_cli(smi, paths, root)
-    seconds["c_d"] = time.perf_counter() - t0
+    cli = ThreadPoolExecutor(1)
+    t_cli = time.perf_counter()
+    cli_run = cli.submit(hpo_cli, smi, paths, root)  # its subprocesses beside (b)
+    try:
+        t0 = time.perf_counter()
+        out["b"] = hpo_search(torch, smi, dev, data)
+        seconds["b"] = time.perf_counter() - t0
+        del data
+        out["c"] = cli_run.result()
+    finally:
+        cli.shutdown(wait=True)
+    seconds["c_d"] = time.perf_counter() - t_cli
     out["seconds"] = seconds
     out["launches"] = dict(out["b"]["launches"])
     # K1/K1b of the pool_only CLI run: its profiled epoch's kernel events
@@ -3447,20 +3620,20 @@ def rel_gap(got, want) -> float:
     return float(np.max(np.abs(got - want) / np.abs(want))) if len(want) else 0.0
 
 
-def phase_train_mesh(torch, smi, dev, tmp: Path, elastic) -> dict:
-    """(a) NCCL at world 1, and K2 over gathered rows against its plain
-    version; (b) two gloo ranks on the one card, each a
-    process this script starts (``LOCAL_RANK`` 0), through every run of
-    ``MESH_RUNS``: the ranks' per-step losses bitwise equal, data=2 and
-    model=2 (lazy tables too) within rtol 2e-5 of the world-1 run of their
-    route, the host-sharded and the
-    sharded device-epoch runs, the reshape restore bitwise; a data=2 step's
-    device and collective ms and the bytes it all-reduces (gloo on one
-    time-sliced card, not NCCL across cards); (c) the pair serving at
-    model=2 over the retrieval phase's container (``tmp / "ann.index"``)
-    and building at data=2 (:func:`mesh_serve_check`)."""
-    import shutil
-
+def train_mesh_start(torch, smi, dev, tmp: Path, elastic) -> dict:
+    """The train_mesh phase, in two parts: this one runs (a) NCCL at world
+    1, K2 over gathered rows against its plain version and the world-1
+    references, then starts (b) two gloo ranks on the one card, each a
+    process this script starts (``LOCAL_RANK`` 0), and returns while they
+    run (the phases after it run beside them); :func:`train_mesh_join`
+    waits for them and holds every run of ``MESH_RUNS``: the ranks'
+    per-step losses bitwise equal, data=2 and model=2 (lazy tables too)
+    within rtol 2e-5 of the world-1 run of their route, the host-sharded
+    and the sharded device-epoch runs, the reshape restore bitwise; a
+    data=2 step's device and collective ms and the bytes it all-reduces
+    (gloo on one time-sliced card, not NCCL across cards); (c) the pair
+    serving at model=2 over the retrieval phase's container (``tmp /
+    "ann.index"``) and building at data=2 (:func:`mesh_serve_check`)."""
     from code2vec_tpu_torch.data.reader import load_corpus
 
     root = tmp / "mesh"
@@ -3485,13 +3658,35 @@ def phase_train_mesh(torch, smi, dev, tmp: Path, elastic) -> dict:
                                str(root / "spec.json"), str(r)],
                               stdout=open(root / f"rank{r}.log", "w"), stderr=subprocess.STDOUT)
              for r in range(2)]
-    try:
-        for proc in procs:
-            proc.wait(timeout=MESH_WORKER_TIMEOUT_S)
-    except subprocess.TimeoutExpired:
-        for proc in procs:
+    print("mesh (b): the pair started; train_bucketed to train_device run beside it",
+          flush=True)
+    return {"root": root, "procs": procs, "t0": t0, "out": out, "refs": refs,
+            "ann_path": ann_path}
+
+
+def stop_mesh(state) -> None:
+    """Kill the pair of :func:`train_mesh_start` if it still runs."""
+    for proc in (state or {}).get("procs", ()):
+        if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def train_mesh_join(torch, smi, state) -> dict:
+    """The second part of the train_mesh phase (:func:`train_mesh_start`)."""
+    import shutil
+
+    if state is None:
+        raise AssertionError("the train_mesh phase's first part failed")
+    root, procs, t0 = state["root"], state["procs"], state["t0"]
+    out, refs, ann_path = state["out"], state["refs"], state["ann_path"]
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, MESH_WORKER_TIMEOUT_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        stop_mesh(state)
     seconds = time.perf_counter() - t0
     for r, proc in enumerate(procs):
         log = (root / f"rank{r}.log").read_text()
@@ -4697,11 +4892,11 @@ def phase_train_device(torch, smi, dev, host_train, host_bucketed, host_lazy) ->
 # phase 11b: the host feed and out-of-core corpora
 # ---------------------------------------------------------------------------
 
-# bench.py's training generator at 16,384 methods: cut from 32,768 to keep the whole
-# script inside its window once the autotune phase runs
-FEED_METHODS = 16_384
+# bench.py's training generator at 8,192 methods: cut from 32,768 to 16,384 and
+# then to 8,192 to keep the whole script inside its window
+FEED_METHODS = 8_192
 FEED_SLICE = 4_096  # the Python parser's slice
-FEED_STREAM_CHUNK = 8_192
+FEED_STREAM_CHUNK = 4_096  # two chunks of the train split
 FEED_PROFILE_STEPS = 8
 FEED_ROUTES = {  # route -> the kernels of its train and eval passes
     "fused": {"fused_f32_masked": ("train",), "fused_f32": ("eval",)},
@@ -4846,11 +5041,11 @@ def same_stream(label, run, ref):
 
 def phase_train_feed(torch, smi, dev, tmp: Path, device_train) -> dict:
     """The host feed at the train recipe's widths on bench.py's training
-    generator at 16,384 methods: the corpus written as text, converted to a
+    generator at 8,192 methods: the corpus written as text, converted to a
     CSR container by the port's tool, loaded through the native parser and
     then the cache; fused trained synchronously, with --prefetch_batches 2,
     with --feed_workers W, both, from the container (fixed, then bucketed)
-    with both, streamed (--stream_chunk_items 8192) with prefetch; pool_only
+    with both, streamed (--stream_chunk_items 4096) with prefetch; pool_only
     with both. Each run's batches equal its synchronous stream's."""
     import logging
     import os
@@ -5220,6 +5415,9 @@ def phase_extract(torch, smi, dev, tmp: Path, built: dict, serve: dict | None) -
 # ---------------------------------------------------------------------------
 
 VAR_NAMES = 2_000
+# the routes trained bucketed on variable rows (every route trains at the
+# fixed bag; the train_bucketed phase runs every route bucketed)
+VAR_BUCKETED_ROUTES = ("pool_only", "fused")
 
 
 def variable_corpus(share: float, infer_method: bool = False):
@@ -5280,7 +5478,8 @@ def variable_batch(data, config):
 def phase_train_variable(torch, smi, dev, share) -> dict:
     """The variable-name task at the train phase's widths, batch, bag and
     dropout (variable-only, --shuffle_variable_indexes): host-fed and
-    --device_epoch, each at a fixed bag and --bucketed, on every route; the
+    --device_epoch, each at a fixed bag on every route and --bucketed on
+    pool_only and fused; the
     dual task (method and variable rows) on fused, host-fed and on the
     device; fused device epochs lazy in bf16. Each kernel launched once for
     every batch of the passes that run it, each run's train loss lower
@@ -5328,7 +5527,7 @@ def phase_train_variable(torch, smi, dev, share) -> dict:
     runs = [(f"{feed} {layout} {route}", route, data, batches[layout],
              dict(device_epoch=feed == "device", bucketed=layout == "bucketed"))
             for feed in ("host", "device") for layout in ("fixed", "bucketed")
-            for route in DEVICE_ROUTES]
+            for route in DEVICE_ROUTES if layout == "fixed" or route in VAR_BUCKETED_ROUTES]
     runs += [("dual host fixed fused", "fused", dual, dual_batches["fixed"],
               dict(infer_method_name=True)),
              ("dual device fixed fused", "fused", dual, dual_batches["fixed"],
@@ -5371,6 +5570,9 @@ PY_TRAIN = dict(terminal_embed_size=100, path_embed_size=100, encode_size=100,
                 random_seed=0, print_sample_cycle=0)
 PY_ROUTES = ("fused", "pool_only")
 PY_TOP_K = 5
+# (d) and (e) serve every third Python file in order of size (all of its
+# functions, the file itself and its neighbors): each size class is kept
+PY_SERVE_EVERY = 3
 
 
 def python_corpus_rows() -> list[tuple[str, str]]:
@@ -5404,12 +5606,12 @@ def phase_python_source(torch, smi, dev, tmp: Path, serve: dict | None) -> dict:
     top11's widths trained on it on fused (masked K3) and pool_only (K1 +
     K1b), each kernel once a batch; (c) ``math_utils.py`` predicted and
     embedded as a file through K3 against the plain versions on the CPU;
-    (d) every Python function served one at a time as a ``source`` request
-    (predict and embed; K3, and K4 at the long-bag rungs) and every Python
-    file as ``embed_file``, the embeddings against the model run plain on
-    the card; (e) ``code.vec`` of those embeddings, ``file.vec`` from
-    ``export_file_vectors``, its index from the port's ``ann_build``, and
-    every file's ``neighbors`` at ``granularity="file"`` on the exact
+    (d) the functions of every third Python file by size served one at a
+    time as ``source`` requests (predict and embed; K3, and K4 at the
+    long-bag rungs) and each such file as ``embed_file``, the embeddings
+    against the model run plain on the card; (e) ``code.vec`` of those
+    embeddings, ``file.vec`` from ``export_file_vectors``, its index from
+    the port's ``ann_build``, and each served file's ``neighbors`` at ``granularity="file"`` on the exact
     backend (itself first, similarity within 1e-4 of 1) and on IVF-PQ
     (itself in the top k, K5 launched)."""
     from code2vec_tpu_torch import extractor
@@ -5448,7 +5650,7 @@ def phase_python_source(torch, smi, dev, tmp: Path, serve: dict | None) -> dict:
     by_file: dict[str, list[str]] = {}
     for src, label, _, _ in actual:
         by_file.setdefault(src, []).append(label)
-    py_files = sorted(f for f in {src for src, _ in rows} if f.endswith(".py"))
+    py_files = [f for f in sorted({src for src, _ in rows}) if f.endswith(".py")]
     geo = out["geometry"] = {
         "rows": len(rows), "files": len({src for src, _ in rows}), "python_files": len(py_files),
         "functions": data.n_items,
@@ -5543,18 +5745,21 @@ def phase_python_source(torch, smi, dev, tmp: Path, serve: dict | None) -> dict:
         print(f"  {g.method_name}: {g.n_contexts} contexts -> "
               + ", ".join(f"{p.name} {p.prob:.3f}" for p in g.predictions), flush=True)
 
-    # (d) serve every Python function and file, one request at a time
+    # (d) serve the functions of every third Python file by size and the
+    # file itself, one request at a time
+    served_files = sorted(sorted(py_files, key=lambda f: files[f]["bytes"])[::PY_SERVE_EVERY])
+    out["served_files"] = len(served_files)
     common = ["--model_path", str(model_dir), "--terminal_idx_path", vocab[0],
               "--path_idx_path", vocab[1], "--longbag_widths",
               ",".join(map(str, LONGBAG_RUNGS))]
     server = build_server(build_parser().parse_args(common))
-    texts = {rel: (ROOT / rel).read_text() for rel in py_files}
+    texts = {rel: (ROOT / rel).read_text() for rel in served_files}
     lat = {"predict": [], "embed": [], "embed_file": []}
     method_vectors, method_files, method_names = [], [], []
     served = []  # (file, name, entries) of the embed requests
     try:
         reset_launch_counts()
-        for rel in py_files:
+        for rel in served_files:
             ms_file = []
             for name in dict.fromkeys(by_file.get(rel, [])):
                 for op in ("predict", "embed"):
@@ -5715,6 +5920,231 @@ def phase_python_source(torch, smi, dev, tmp: Path, serve: dict | None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase: analysis (the contracts on the card, the static scan on its machine)
+# ---------------------------------------------------------------------------
+
+ANALYSIS_BATCH = 64  # the kernel sites' batch (K4 online at the first long-bag rung)
+ANALYSIS_CHECKS = 1000  # timed checks a site
+ANALYSIS_FORWARDS = 200  # K3 forwards a variant, for the wall time of the entry
+ANALYSIS_SCAN_SECONDS = 120
+
+
+def bad_inputs(args: dict, cases: dict) -> list:
+    """``(case, kwargs)``: each malformed copy of ``args`` a case makes
+    (one entry replaced)."""
+    out = []
+    for case, (key, make) in cases.items():
+        bad = dict(args)
+        bad[key] = make(args[key])
+        out.append((case, bad))
+    return out
+
+
+def phase_analysis(torch, smi, dev) -> dict:
+    """The call-time contracts on the card and the static scan on its
+    machine, at the top11 widths: (a) at K1, at K2, K3 and K4 online
+    (through ``fused_encode_attend_pool``), at K5 and at ``train_step`` (B
+    1024, the fused route) four malformed CUDA inputs each (a wrong rank, a
+    symbol mismatch, a wrong dtype category, a Python scalar where a tensor
+    goes), and at ``train_step`` the three inputs the step once trained on
+    (``example_mask`` [B, 1] and [1], float labels), each raising
+    ``ContractError`` with no kernel launched and no weight moved; (b)
+    every contract-checked entry's check alone, on its real CUDA tensors,
+    under ``torch.cuda.set_sync_debug_mode("error")``; (c) the host
+    microseconds of a check at each entry (median of 1,000) and K3's
+    forward wall time at 1x200 and 1024x200 through the decorated entry
+    and through ``__wrapped__`` (interleaved, median of 200 each); (d)
+    ``python -m code2vec_tpu_torch.analysis --json`` in a subprocess with
+    ``torch`` and ``numpy`` blocked: exit 0, its seconds and counts."""
+    from code2vec_tpu_torch.analysis.contracts import ContractError
+    from code2vec_tpu_torch.ann.lut_kernel import lut_score_cells
+    from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
+    from code2vec_tpu_torch.ops.attention import (
+        attention_pool,
+        masked_attention_weights,
+        streaming_attention_pool,
+    )
+    from code2vec_tpu_torch.ops.backend import launch_counts
+    from code2vec_tpu_torch.ops.embed import embedding_lookup
+    from code2vec_tpu_torch.ops.fused_encode_pool import fused_encode_attend_pool
+    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.step import eval_step, make_optimizer, train_step
+
+    c = TOP11
+    H, D = c["encode_size"], 2 * c["terminal_embed_size"] + c["path_embed_size"]
+    g = torch.Generator(device=dev).manual_seed(2020)
+    Bk, L = ANALYSIS_BATCH, BAG
+    T = torch.randn(c["terminal_count"], c["terminal_embed_size"], generator=g, device=dev)
+    P = torch.randn(c["path_count"], c["path_embed_size"], generator=g, device=dev)
+    W = torch.randn(D, H, generator=g, device=dev) / math.sqrt(D)
+    lns = 1.0 + 0.1 * torch.randn(H, generator=g, device=dev)
+    lnb = 0.1 * torch.randn(H, generator=g, device=dev)
+    attn = 0.08 * torch.randn(H, generator=g, device=dev)
+    ctx, pmask, _ = pool_inputs(torch, dev, g, Bk, L, H)
+    s, p, e, mask = id_inputs(torch, dev, g, Bk, L)
+    sl, pl, el, maskl = id_inputs(torch, dev, g, Bk, LONGBAG_RUNGS[0])
+    fused = dict(t_table=T, p_table=P, starts=s, paths=p, ends=e, mask=mask, dense_kernel=W,
+                 ln_scale=lns, ln_bias=lnb, attn_param=attn)
+    cells, cap, m = ANN_NLIST, 1024, ANN_M
+    lut = dict(lut=torch.randn(1, m, 256, generator=g, device=dev),
+               probed=torch.randint(0, cells, (1, ANN_PROBE), generator=g, device=dev,
+                                    dtype=torch.int32),
+               codes=torch.randint(0, 256, (cells, cap, m), generator=g, device=dev,
+                                   dtype=torch.uint8),
+               scales=torch.rand(cells, cap, generator=g, device=dev),
+               bias=torch.zeros(cells, cap, device=dev))
+    # the train step at the fused route: a step that ran would launch masked K3
+    model = Code2Vec(Code2VecConfig(**c, dropout_prob=0.25, use_pallas=True,
+                                    pallas_impl="fused")).to(dev)
+    opt = make_optimizer(model, TrainConfig(lr=0.01))
+    sb, pb, eb, maskb = id_inputs(torch, dev, g, TRAIN_BATCH, L)
+    batch = {"starts": sb, "paths": pb, "ends": eb,
+             "labels": torch.randint(0, c["label_count"], (TRAIN_BATCH,), generator=g,
+                                     device=dev, dtype=torch.int32),
+             "example_mask": torch.ones(TRAIN_BATCH, device=dev, dtype=torch.float32)}
+    weights = torch.ones(c["label_count"], device=dev)
+    step = dict(model=model, optimizer=opt, batch=batch, class_weights=weights)
+
+    def batch_with(key, make):
+        return lambda b: {**b, key: make(b[key])}
+
+    pool_cases = {"rank": ("contexts", lambda x: x[:, :, 0]),
+                  "symbol": ("attn_param", lambda x: x[:-1]),
+                  "dtype": ("contexts", lambda x: x.to(torch.int32)),
+                  "scalar": ("attn_param", lambda x: 1.0)}
+    fused_cases = {"rank": ("mask", lambda x: x[..., None]),
+                   "symbol": ("ends", lambda x: x[:, :-1]),
+                   "dtype": ("paths", lambda x: x.float()),
+                   "scalar": ("ln_bias", lambda x: 0.0)}
+    sites = {
+        "K1": (attention_pool_kernel, dict(contexts=ctx, mask=pmask, attn_param=attn),
+               pool_cases),
+        "K2": (lambda **a: fused_encode_attend_pool(**a, impl="gather_split"), fused,
+               fused_cases),
+        "K3": (lambda **a: fused_encode_attend_pool(**a, impl="fused"), fused, fused_cases),
+        "K4 online": (lambda **a: fused_encode_attend_pool(**a, impl="fused",
+                                                           softmax_mode="online"),
+                      {**fused, "starts": sl, "paths": pl, "ends": el, "mask": maskl},
+                      fused_cases),
+        "K5": (lut_score_cells, lut,
+               {"rank": ("probed", lambda x: x[:, 0]),
+                "symbol": ("codes", lambda x: x[..., :-1]),
+                "dtype": ("probed", lambda x: x.float()),
+                "scalar": ("scales", lambda x: 1.0)}),
+        "train_step": (train_step, step, {
+            "rank": ("batch", batch_with("starts", lambda x: x[..., None])),
+            "symbol": ("batch", batch_with("paths", lambda x: x[:, :-1])),
+            "dtype": ("batch", batch_with("starts", lambda x: x.float())),
+            "scalar": ("batch", batch_with("example_mask", lambda x: 1.0)),
+            "probe mask [B, 1]": ("batch", batch_with("example_mask", lambda x: x[:, None])),
+            "probe mask [1]": ("batch", batch_with("example_mask", lambda x: x[:1])),
+            "probe float labels": ("batch", batch_with("labels", lambda x: x.float())),
+        }),
+    }
+    out = {"card": smi, "raised": {}}
+    # (a) malformed inputs raise before any launch; the weights stay
+    table_before = model.terminal_embedding.weight.detach().clone()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for name, (fn, args, cases) in sites.items():
+        raised = []
+        for case, bad in bad_inputs(args, cases):
+            try:
+                fn(**bad)
+            except ContractError as exc:
+                raised.append(case)
+                print(f"analysis (a) {name} {case}: ContractError: {exc}"[:300], flush=True)
+            else:
+                raise AssertionError(f"analysis (a) {name} {case}: no ContractError")
+        out["raised"][name] = raised
+    torch.cuda.synchronize()
+    if launch_counts() != counts:
+        raise AssertionError(f"analysis (a): launches moved {counts} -> {launch_counts()}")
+    if not torch.equal(model.terminal_embedding.weight, table_before):
+        raise AssertionError("analysis (a): a malformed step moved the weights")
+    print(f"analysis (a): {sum(map(len, out['raised'].values()))} malformed calls raised "
+          f"ContractError, launches unchanged {counts} [{smi}]", flush=True)
+    # (b) a check alone, on every entry's real CUDA tensors, never syncs
+    checked = {
+        "masked_attention_weights": (masked_attention_weights,
+                                     dict(scores=ctx[..., 0], mask=pmask)),
+        "attention_pool": (attention_pool, dict(contexts=ctx, mask=pmask, attn_param=attn)),
+        "streaming_attention_pool": (streaming_attention_pool,
+                                     dict(contexts=ctx, mask=pmask, attn_param=attn)),
+        "embedding_lookup": (embedding_lookup, dict(table=T, ids=s)),
+        "K1": (attention_pool_kernel, sites["K1"][1]),
+        "K2-K4": (fused_encode_attend_pool, fused),
+        "K5": (lut_score_cells, lut),
+        "train_step": (train_step, step),
+        "eval_step": (eval_step, dict(model=model, batch=batch, class_weights=weights)),
+    }
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, (fn, args) in checked.items():
+            fn.check(**args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"analysis (b): {len(checked)} checks under set_sync_debug_mode('error'), no sync",
+          flush=True)
+    # (c) the host cost of a check, and of the decorated K3 entry end to end
+    out["check_us"] = {}
+    for name, (fn, args) in checked.items():
+        ts = []
+        for _ in range(ANALYSIS_CHECKS):
+            t0 = time.perf_counter_ns()
+            fn.check(**args)
+            ts.append(time.perf_counter_ns() - t0)
+        out["check_us"][name] = float(np.median(ts)) / 1e3
+    print("analysis (c) check us (median of "
+          f"{ANALYSIS_CHECKS}): {json.dumps(out['check_us'])} [{smi}]", flush=True)
+    out["k3_forward_ms"] = {}
+    with torch.no_grad():
+        for b in (1, TRAIN_BATCH):
+            sk, pk, ek, mk = id_inputs(torch, dev, g, b, L)
+            args = (T, P, sk, pk, ek, mk, W, lns, lnb, attn)
+            variants = {"decorated": fused_encode_attend_pool,
+                        "wrapped": fused_encode_attend_pool.__wrapped__}
+            times = {k: [] for k in variants}
+            for fn in variants.values():
+                for _ in range(5):
+                    fn(*args, impl="fused")
+            torch.cuda.synchronize()
+            for i in range(ANALYSIS_FORWARDS):
+                order = list(variants) if i % 2 == 0 else list(reversed(list(variants)))
+                for k in order:
+                    t0 = time.perf_counter()
+                    variants[k](*args, impl="fused")
+                    torch.cuda.synchronize()
+                    times[k].append((time.perf_counter() - t0) * 1e3)
+            row = {k: float(np.median(v)) for k, v in times.items()}
+            row["delta_us"] = (row["decorated"] - row["wrapped"]) * 1e3
+            out["k3_forward_ms"][f"{b}x{L}"] = row
+            print(f"analysis (c) K3 forward {b}x{L} wall ms (median of {ANALYSIS_FORWARDS}): "
+                  f"decorated {row['decorated']:.4f}, __wrapped__ {row['wrapped']:.4f}, "
+                  f"difference {row['delta_us']:+.1f} us [{smi}]", flush=True)
+    del model, opt
+    # (d) the static scan on this machine, torch and numpy blocked
+    script = ("import runpy, sys\n"
+              "for name in ('torch', 'numpy'): sys.modules[name] = None\n"
+              "sys.argv = ['code2vec_tpu_torch.analysis', '--json']\n"
+              "runpy.run_module('code2vec_tpu_torch.analysis', run_name='__main__')\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                          text=True, timeout=ANALYSIS_SCAN_SECONDS)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"analysis (d): the scan exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    summary = json.loads(proc.stdout)["summary"]
+    out["scan"] = {"rc": proc.returncode, "seconds": seconds, **summary}
+    print(f"analysis (d): python -m code2vec_tpu_torch.analysis --json (torch, numpy blocked) "
+          f"exit {proc.returncode} in {seconds:.2f} s: {json.dumps(summary)}", flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json_out", default=None,
@@ -5727,6 +6157,11 @@ def main() -> int:
     args = parser.parse_args()
     if args.mesh_worker is not None:
         return mesh_worker(args.mesh_worker[0], int(args.mesh_worker[1]))
+    return run(args, FrameSampler())
+
+
+def run(args, sampler: FrameSampler) -> int:
+    """The phases (module docstring) and the result lines."""
     only = set(args.phases.split(",")) if args.phases else None
     started = time.perf_counter()
 
@@ -5738,7 +6173,9 @@ def main() -> int:
     failed = []
 
     def phase(name, fn, *a):
-        if only is not None and name not in only | {"device", "build"}:
+        # the train_mesh phase's second part goes with its first
+        group = "train_mesh" if name == "train_mesh_join" else name
+        if only is not None and group not in only | {"device", "build"}:
             return None
         print(f"== phase {name}", flush=True)
         t0 = time.perf_counter()
@@ -5814,15 +6251,22 @@ def main() -> int:
         trained = phase("train", phase_train, torch, smi, dev, model_dir)
         elastic = phase("train_elastic", phase_train_elastic, torch, smi, dev, model_dir)
         searched = phase("train_hpo", phase_train_hpo, torch, smi, dev, model_dir, elastic)
-        meshed = phase("train_mesh", phase_train_mesh, torch, smi, dev, model_dir, elastic)
         tuned = phase("autotune", phase_autotune, torch, smi, dev, model_dir, model_dir,
                       elastic)
-        bucketed = phase("train_bucketed", phase_train_bucketed, torch, smi, dev, model_dir)
-        bf16_train = phase("train_bf16", phase_train_bf16, torch, smi, dev, model_dir, trained)
-        lazy_train = phase("train_lazy", phase_train_lazy, torch, smi, dev, trained, bucketed,
-                           bf16_train)
-        device_train = phase("train_device", phase_train_device, torch, smi, dev, trained,
-                             bucketed, lazy_train)
+        # the mesh pair runs beside the phases up to train_mesh_join
+        mesh_state = phase("train_mesh", train_mesh_start, torch, smi, dev, model_dir, elastic)
+        try:
+            bucketed = phase("train_bucketed", phase_train_bucketed, torch, smi, dev,
+                             model_dir)
+            bf16_train = phase("train_bf16", phase_train_bf16, torch, smi, dev, model_dir,
+                               trained)
+            lazy_train = phase("train_lazy", phase_train_lazy, torch, smi, dev, trained,
+                               bucketed, bf16_train)
+            device_train = phase("train_device", phase_train_device, torch, smi, dev, trained,
+                                 bucketed, lazy_train)
+            meshed = phase("train_mesh_join", train_mesh_join, torch, smi, mesh_state)
+        finally:
+            stop_mesh(mesh_state)
         feed_train = phase("train_feed", phase_train_feed, torch, smi, dev, model_dir,
                            device_train)
         extracted = phase("extract", phase_extract, torch, smi, dev, model_dir,
@@ -5831,9 +6275,11 @@ def main() -> int:
                        serve)
         variable = phase("train_variable", phase_train_variable, torch, smi, dev,
                          (extracted or {}).get("share"))
+        analysis = phase("analysis", phase_analysis, torch, smi, dev)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
+    sampler.print_top()
     if only is not None:
         print(f"chip_smoke: ran {sorted(only)} only; no result line", file=sys.stderr)
         return 0
@@ -5920,7 +6366,7 @@ def main() -> int:
              "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train,
              "train_device": device_train, "train_feed": feed_train, "extract": extracted,
              "train_variable": variable,
-             "python_source": python},
+             "python_source": python, "analysis": analysis, "time": sampler.seconds()},
             indent=1,
         ))
     for k in line:  # each kernel's share of its bound at its timed shape

@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from code2vec_tpu_torch.analysis.contracts import shape_contract, spec
 from code2vec_tpu_torch.ann.pq import PQ_ENTRIES
 from code2vec_tpu_torch.ops import _build
 from code2vec_tpu_torch.ops.backend import count_launch, resolve
@@ -105,6 +106,18 @@ def _launch(lut, probed, codes, scales, bias) -> torch.Tensor:
     return out
 
 
+# K5's input contract (JAX ``LUT_CONTRACT``), checked before the launch
+# wrapper's own device, dtype, alignment and emptiness checks
+LUT_CONTRACT = {
+    "lut": spec("Q,M,J", "float"),
+    "probed": spec("Q,P", "int"),
+    "codes": spec("N,C,M", "int"),
+    "scales": spec("N,C", "float"),
+    "bias": spec("N,C", "float"),
+}
+
+
+@shape_contract(**LUT_CONTRACT)
 def lut_score_cells(
     lut: torch.Tensor,  # f32 [Q, M, 256] per-query subspace LUT
     probed: torch.Tensor,  # int32 [Q, P] probed cell ids

@@ -457,7 +457,8 @@ def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generat
     doc = state.get("shardings")
     saved_mesh_shape = doc.get("mesh_shape") if doc else None
     if mesh is not None:
-        from code2vec_tpu_torch.parallel.shardings import shard_state, validate_runtime_spec
+        from code2vec_tpu_torch.analysis.sharding_check import validate_runtime_spec
+        from code2vec_tpu_torch.parallel.shardings import shard_state
 
         problems = [p for key, entries in ((doc or {}).get("specs") or {}).items() if entries
                     for p in validate_runtime_spec(entries, mesh.axis_names, context=key)]

@@ -642,6 +642,20 @@ def global_health() -> RuntimeHealth:
         return _global_health
 
 
+def _lint_hints() -> dict[str, str]:
+    """torchlint rule ids whose defect class surfaces as a new step input
+    signature, so the `recompile` warning/event links the telemetry back to
+    the static pass (JAX ``_lint_hints``). Guarded: obs stays usable if the
+    analysis package is stripped from a deployment; stdlib only, so obs
+    still imports without torch."""
+    try:
+        from code2vec_tpu_torch.analysis.torchlint import RECOMPILE_HINT_RULES
+
+        return dict(RECOMPILE_HINT_RULES)
+    except Exception:  # pragma: no cover - partial install
+        return {}
+
+
 class RecompileDetector:
     """Count post-warmup first sightings of a new step input signature.
 
@@ -697,10 +711,17 @@ class RecompileDetector:
                 from code2vec_tpu_torch.obs.trace import get_tracer
 
                 get_tracer().instant("recompile", category="health", fn=name, delta=delta)
+                hints = _lint_hints()
+                hint_suffix = (" Likely static causes: "
+                               + "; ".join(f"{rid}: {why}" for rid, why in hints.items())
+                               + " — run `python -m code2vec_tpu_torch.analysis` to locate"
+                               if hints else "")
                 logger.warning("recompile detected: %s saw %d new input signatures (%d -> %d; "
-                               "batch shape/dtype churn?)", name, delta, last, size)
+                               "batch shape/dtype churn?).%s", name, delta, last, size,
+                               hint_suffix)
                 if self._events is not None:
-                    fields = {"fn": name, "cache_size": size, "delta": delta, "lint_hints": []}
+                    fields = {"fn": name, "cache_size": size, "delta": delta,
+                              "lint_hints": sorted(hints)}
                     if epoch is not None:
                         fields["epoch"] = epoch
                     self._events.emit("recompile", **fields)

@@ -34,8 +34,20 @@ from __future__ import annotations
 
 import torch
 
+from code2vec_tpu_torch.analysis.contracts import shape_contract, spec
+
 # Same sentinel the reference uses for masked scores (model/model.py:12).
 NINF = -3.4e38
+
+# the input contract shared by the pools (plain, streaming and K1,
+# ``ops/pool_kernel.py``; JAX ``POOL_CONTRACT``): symbols bind per call, so
+# B/L/E must agree across the three arguments but are free across calls
+# (bucketed widths). Checked on every call from shapes and dtypes alone.
+POOL_CONTRACT = {
+    "contexts": spec("B,L,E", "float"),
+    "mask": spec("B,L"),
+    "attn_param": spec("E", "float"),
+}
 
 
 def elementwise(fn, x: torch.Tensor) -> torch.Tensor:
@@ -48,6 +60,7 @@ def elementwise(fn, x: torch.Tensor) -> torch.Tensor:
     return fn(x.double()).to(x.dtype)
 
 
+@shape_contract(scores=spec("B,L"), mask=spec("B,L"))
 def masked_attention_weights(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Softmax over the bag axis with PAD positions masked out.
 
@@ -103,6 +116,7 @@ def batch_free_attention_pool(
     return code_vector, attention
 
 
+@shape_contract(**POOL_CONTRACT)
 def attention_pool(
     contexts: torch.Tensor,  # [B, L, E]
     mask: torch.Tensor,  # [B, L] (1 = real, 0 = PAD)
@@ -156,6 +170,7 @@ def pool_backward_reference(
     return d_ctx.to(contexts.dtype), d_attn
 
 
+@shape_contract(**POOL_CONTRACT)
 def streaming_attention_pool(
     contexts: torch.Tensor,  # [B, L, E]
     mask: torch.Tensor,  # [B, L]

@@ -22,9 +22,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from code2vec_tpu_torch.analysis.contracts import shape_contract, spec
+
 GRAD_MODES = ("dense", "segment", "segment_sorted")
 
 
+# ids may be any rank ([B, L] contexts, [N] flat) but must be an integer
+# tensor; a Python int (torch.tensor of it is int64) is rejected (TX001)
+@shape_contract(table=spec("V,E", "float"), ids=spec(None, "int"))
 def embedding_lookup(table: torch.Tensor, ids: torch.Tensor,
                      grad_mode: str = "dense") -> torch.Tensor:
     """Gather rows of ``table`` ``[V, E]`` at integer ``ids`` ``[...]``;

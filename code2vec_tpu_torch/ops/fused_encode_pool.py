@@ -75,6 +75,7 @@ import ctypes
 
 import torch
 
+from code2vec_tpu_torch.analysis.contracts import shape_contract, spec
 from code2vec_tpu_torch.ops import _build
 from code2vec_tpu_torch.ops.attention import NINF, attention_pool, elementwise
 from code2vec_tpu_torch.ops.backend import count_launch, resolve
@@ -481,6 +482,21 @@ def _recompute_vjp(forward, compute_dtype, args, diff, g_cv, g_w) -> list:
     return grads
 
 
+# K2-K4's input contract (JAX ``FUSED_CONTRACT``), checked on every call
+# before the launch wrappers' own device, contiguity and width checks
+FUSED_CONTRACT = {
+    "starts": spec("B,L", "int"),
+    "paths": spec("B,L", "int"),
+    "ends": spec("B,L", "int"),
+    "mask": spec("B,L"),
+    "dense_kernel": spec("D,H", "float"),
+    "ln_scale": spec("H", "float"),
+    "ln_bias": spec("H", "float"),
+    "attn_param": spec("H", "float"),
+}
+
+
+@shape_contract(**FUSED_CONTRACT)
 def fused_encode_attend_pool(
     t_table,  # f32 [Vt, Et] master table OR ops.quant.QuantTable
     p_table,  # f32 [Vp, Ep] master table OR ops.quant.QuantTable

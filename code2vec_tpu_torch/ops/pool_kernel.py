@@ -36,8 +36,13 @@ import ctypes
 
 import torch
 
+from code2vec_tpu_torch.analysis.contracts import shape_contract
 from code2vec_tpu_torch.ops import _build
-from code2vec_tpu_torch.ops.attention import attention_pool, pool_backward_reference
+from code2vec_tpu_torch.ops.attention import (
+    POOL_CONTRACT,
+    attention_pool,
+    pool_backward_reference,
+)
 from code2vec_tpu_torch.ops.backend import count_launch, resolve
 
 KERNEL = "pool"
@@ -218,6 +223,7 @@ class _AttentionPool(torch.autograd.Function):
         return d_ctx, None, d_attn.to(attn_param.dtype), None
 
 
+@shape_contract(**POOL_CONTRACT)
 def attention_pool_kernel(
     contexts: torch.Tensor,  # [B, L, H] f32 or bf16
     mask: torch.Tensor,  # [B, L] (1 = real, 0 = PAD)

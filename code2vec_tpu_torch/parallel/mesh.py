@@ -28,6 +28,8 @@ AXIS_DATA = "data"
 AXIS_MODEL = "model"
 AXIS_CTX = "ctx"
 AXES = (AXIS_DATA, AXIS_MODEL, AXIS_CTX)
+# a group that is not an axis: the data x ctx plane through a rank
+GROUP_DC = "dc"
 
 
 def mesh_grid(data: int | None, model: int, ctx: int, world_size: int) -> np.ndarray:
@@ -89,7 +91,7 @@ def _lines(grid: np.ndarray) -> dict[str, list[list[int]]]:
         AXIS_DATA: [grid[:, j, k].tolist() for j in range(m) for k in range(c)],
         AXIS_MODEL: [grid[i, :, k].tolist() for i in range(d) for k in range(c)],
         AXIS_CTX: [grid[i, j, :].tolist() for i in range(d) for j in range(m)],
-        "dc": [grid[:, j, :].reshape(-1).tolist() for j in range(m)],
+        GROUP_DC: [grid[:, j, :].reshape(-1).tolist() for j in range(m)],
     }
 
 

@@ -22,8 +22,8 @@ takes the tables' rule (:func:`retrieval_shardings`,
 Specs are written JAX's way (one entry a dim: None or an axis name,
 ``[]`` for ``P()``), so :func:`pytree_spec_doc` gives a checkpoint's
 ``shardings.json`` sidecar in JAX's format, and the restore validates it
-(:func:`validate_runtime_spec`, the port's copy of JAX
-``analysis/sharding_check.py:267``, rules SC001 and SC002). A checkpoint
+(``analysis/sharding_check.validate_runtime_spec``, rules SC001 and SC002,
+as JAX's ``analysis/sharding_check.py:267``). A checkpoint
 holds global tensors, so a restore onto another mesh shape is a re-slice
 (:func:`shard_state`) to the layout the restoring model runs with; JAX
 instead re-binds the saved specs to the new mesh (:func:`rebind`, its
@@ -32,8 +32,6 @@ step runs any layout, the port's sharded forward runs one.
 """
 
 from __future__ import annotations
-
-from typing import Iterable
 
 import torch
 
@@ -295,30 +293,3 @@ def rebind(mesh: Mesh, doc: dict, shapes: dict[str, tuple]) -> dict[str, list]:
             fitted.append(None if axes and (dim >= len(shape) or shape[dim] % span) else entry)
         out[key] = fitted
     return out
-
-
-def validate_runtime_spec(entries, declared: Iterable[str], context: str = "spec") -> list[str]:
-    """SC001/SC002 over one saved spec at restore time (the port's copy of
-    JAX ``analysis/sharding_check.validate_runtime_spec``): ``entries`` in
-    the sidecar form, ``declared`` the restoring mesh's axis names; returns
-    the problems (empty = valid)."""
-    declared = set(declared)
-    problems: list[str] = []
-    flat: list[str] = []
-    for entry in entries:
-        if entry is None:
-            continue
-        flat.extend(entry if isinstance(entry, (list, tuple)) else [entry])
-    for axis in dict.fromkeys(flat):
-        if axis not in declared:
-            problems.append(
-                f"{context}: axis {axis!r} is not declared by the restore "
-                f"mesh (axes: {sorted(declared)}) [SC001]"
-            )
-        if flat.count(axis) > 1:
-            problems.append(
-                f"{context}: axis {axis!r} appears {flat.count(axis)} times "
-                "in one PartitionSpec — a mesh axis shards at most one "
-                "dimension [SC002]"
-            )
-    return problems

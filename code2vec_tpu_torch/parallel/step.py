@@ -26,7 +26,7 @@ import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from code2vec_tpu_torch.parallel.distributed import _all_gather
-from code2vec_tpu_torch.parallel.mesh import AXIS_DATA, Mesh
+from code2vec_tpu_torch.parallel.mesh import AXIS_DATA, GROUP_DC, Mesh
 from code2vec_tpu_torch.parallel.shardings import HEAD_KEYS
 
 
@@ -36,7 +36,7 @@ def gradient_groups(model, mesh: Mesh) -> list[tuple[list[torch.Tensor], object]
     head, bag = [], []
     for name, p in model.named_parameters():
         (head if name in HEAD_KEYS else bag).append(p)
-    pairs = [(bag, mesh.group("dc")), (head, mesh.group(AXIS_DATA))]
+    pairs = [(bag, mesh.group(GROUP_DC)), (head, mesh.group(AXIS_DATA))]
     return [(ps, g) for ps, g in pairs if g is not None]
 
 
@@ -62,7 +62,7 @@ def gather_slot_grads(table_grads: list, mesh: Mesh) -> list:
     collective: the row-sharded gather's identity backward and the head's
     all-reduced code-vector gradient give every rank of it the same slots,
     of which each keeps its own rows' (``train/table_opt.lazy_rows``)."""
-    group = mesh.group("dc")
+    group = mesh.group(GROUP_DC)
     if group is None:
         return table_grads
     return [(_all_gather(ids, group, 0), _all_gather(slots, group, 0))

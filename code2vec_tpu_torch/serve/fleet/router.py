@@ -1182,7 +1182,7 @@ class FleetRouter:
         self._retries.clear()
         # lockless by design: the dispatcher (the only other _heads writer)
         # was joined above, so this sweep runs single-threaded
-        for cls, head in self._heads.items():
+        for cls, head in self._heads.items():  # torchlint: disable=CX001
             if head is not None:
                 leftovers.append(head)
                 self._heads[cls] = None

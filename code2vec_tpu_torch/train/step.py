@@ -34,11 +34,41 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from code2vec_tpu_torch.analysis.contracts import shape_contract, spec
 from code2vec_tpu_torch.parallel.distributed import all_reduce_sum
 from code2vec_tpu_torch.parallel.mesh import AXIS_DATA
 from code2vec_tpu_torch.train.table_opt import TABLE_PARAMS, LazyTableAdam
 
 BATCH_KEYS = ("starts", "paths", "ends", "labels", "example_mask")
+
+# the contract on every step's inputs (analysis/contracts.py; JAX
+# STEP_STATE_CONTRACT / STEP_BATCH_CONTRACT), checked on every call from
+# shapes and dtypes alone (no sync), so a shape-skewed batch raises at the
+# step instead of broadcasting (an example_mask [B, 1] would turn the loss
+# into a B x B sum). Symbols bind per call: bucketed runs check each
+# ladder width's [B, L_b] on its own. The training master tables are f32
+# on every step path: quantized (int8/bf16) storage serves and evaluates
+# (``table_dtype``, ``quant_tables``), and a step over it would train on
+# dequantization noise. JAX's ``step`` counter has no counterpart here:
+# the optimizer counts its steps.
+STEP_STATE_CONTRACT = {
+    "terminal_embedding": {"weight": spec(None, torch.float32)},
+    "path_embedding": {"weight": spec(None, torch.float32)},
+}
+STEP_BATCH_CONTRACT = {
+    "starts": spec("B,L", "int"),
+    "paths": spec("B,L", "int"),
+    "ends": spec("B,L", "int"),
+    "labels": spec("B", "int"),
+    "example_mask": spec("B", "float"),
+}
+
+
+def contract_step(fn):
+    """Apply the shared model/batch contract to a ``(model, ..., batch,
+    ...)`` step function: the train and eval steps, which the dense, lazy,
+    mesh and device-epoch paths all go through."""
+    return shape_contract(model=STEP_STATE_CONTRACT, batch=STEP_BATCH_CONTRACT)(fn)
 
 
 def weighted_nll(logits: torch.Tensor, labels: torch.Tensor, class_weights: torch.Tensor,
@@ -326,6 +356,7 @@ def slot_grads(batch: dict[str, torch.Tensor], offsets) -> list:
             for ids, off in zip((term_ids, batch["paths"].reshape(-1)), offsets)]
 
 
+@contract_step
 def train_step(model, optimizer, batch: dict[str, torch.Tensor],
                class_weights: torch.Tensor) -> torch.Tensor:
     """One optimizer step (lazy when ``optimizer`` is a
@@ -350,6 +381,7 @@ def train_step(model, optimizer, batch: dict[str, torch.Tensor],
     return loss
 
 
+@contract_step
 @torch.no_grad()
 def eval_step(model, batch: dict[str, torch.Tensor], class_weights: torch.Tensor,
               quant_tables=None) -> dict[str, torch.Tensor]:

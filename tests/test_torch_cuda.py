@@ -1581,3 +1581,57 @@ def test_an_xla_lut_entry_is_a_miss_on_the_card(dev, tmp_path):
     reset_launch_counts()
     searcher.search(rows[:3])
     assert launch_counts().get("lut_score", 0) == 1
+
+
+@pytest.mark.parametrize("site", ["K1", "K2", "K3", "K4 online", "K5"])
+def test_contracts_raise_before_a_launch_and_never_sync(dev, site):
+    """A malformed CUDA input raises ``ContractError`` at the kernel entry
+    before its wrapper launches anything, and the check alone on healthy
+    CUDA tensors runs under ``set_sync_debug_mode("error")``."""
+    from code2vec_tpu_torch.analysis.contracts import ContractError
+    from code2vec_tpu_torch.ann.lut_kernel import lut_score_cells
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.fused_encode_pool import fused_encode_attend_pool
+    from code2vec_tpu_torch.ops.pool_kernel import attention_pool_kernel
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    if site == "K1":
+        fn = attention_pool_kernel
+        args = dict(contexts=torch.randn(4, 9, 13, generator=g, device=dev),
+                    mask=torch.ones(4, 9, device=dev),
+                    attn_param=torch.randn(13, generator=g, device=dev))
+        bad = dict(args, attn_param=args["attn_param"][:-1])
+    elif site == "K5":
+        fn = lut_score_cells
+        args = dict(lut=torch.randn(2, 4, 256, generator=g, device=dev),
+                    probed=torch.zeros(2, 3, dtype=torch.int32, device=dev),
+                    codes=torch.zeros(5, 32, 4, dtype=torch.uint8, device=dev),
+                    scales=torch.ones(5, 32, device=dev), bias=torch.zeros(5, 32, device=dev))
+        bad = dict(args, probed=args["probed"].float())
+    else:
+        t, p, s, pa, e, mask, (W, lns, lnb, attn) = ids_and_tables(dev, 4, 40, 8, 6, 16)
+        impl, mode = {"K2": ("gather_split", "materialize"), "K3": ("fused", "materialize"),
+                      "K4 online": ("fused", "online")}[site]
+
+        def fn(**a):
+            return fused_encode_attend_pool(**a, impl=impl, softmax_mode=mode)
+
+        fn.check = fused_encode_attend_pool.check
+        args = dict(t_table=t, p_table=p, starts=s, paths=pa, ends=e, mask=mask,
+                    dense_kernel=W, ln_scale=lns, ln_bias=lnb, attn_param=attn)
+        bad = dict(args, mask=mask[..., None])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with pytest.raises(ContractError):
+        fn(**bad)
+    with pytest.raises(ContractError):  # a Python scalar where a tensor goes
+        fn(**dict(args, attn_param=1.0) if "attn_param" in args else dict(args, lut=1.0))
+    torch.cuda.synchronize()
+    assert launch_counts() == {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn.check(**args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    fn(**args)
+    assert sum(launch_counts().values()) >= 1

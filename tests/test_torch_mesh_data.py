@@ -188,8 +188,9 @@ def test_the_sidecar_is_jaxs_pytree_spec_doc():
                                      [None], []])
 def test_validate_runtime_spec_is_jaxs(entries):
     from code2vec_tpu.analysis.sharding_check import validate_runtime_spec
+    from code2vec_tpu_torch.analysis import sharding_check
 
-    assert shardings.validate_runtime_spec(entries, AXES, "k") == \
+    assert sharding_check.validate_runtime_spec(entries, AXES, "k") == \
         validate_runtime_spec(entries, AXES, "k")
 
 

@@ -10,6 +10,8 @@
   (``tools/ann_build.py``).
 - The fleet router and the telemetry package import with ``torch``
   blocked: the router opens no CUDA context.
+- The static-analysis package (``analysis/``) is in the scan, and its lint
+  layers (and the CLI) import with ``torch`` and ``numpy`` blocked.
 - The port's extractor builds from ``extractor/src`` alone and writes only
   under ``build/code2vec_tpu_torch/`` (never ``extractor/build``, which the
   JAX package's build uses, nor ``code2vec_tpu/_native``).
@@ -71,6 +73,38 @@ def test_every_module_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+ANALYSIS_MODULES = ["__init__", "__main__", "contracts", "torchlint", "sharding_check",
+                    "concurrency", "lifecycle"]
+
+
+def test_the_analysis_package_is_scanned():
+    """The analysis package's modules are among the scanned files (no
+    ``jax`` or ``code2vec_tpu`` import), as every module of the port is."""
+    names = {str(p.relative_to(PORT)) for p in FILES if p.is_relative_to(PORT)}
+    assert {f"analysis/{m}.py" for m in ANALYSIS_MODULES} <= names
+
+
+def test_analysis_lint_layers_import_without_torch():
+    """The lint layers, the CLI and the contract module import with
+    ``torch`` and ``numpy`` (and jax) blocked, as the router and the
+    telemetry do; the contract module imports torch on its first check."""
+    modules = [f"code2vec_tpu_torch.analysis.{m}" for m in ANALYSIS_MODULES[1:]]
+    modules += ["code2vec_tpu_torch.analysis", "code2vec_tpu_torch.obs.runtime"]
+    script = (
+        "import sys\n"
+        f"for name in {BANNED + ('torch', 'numpy')!r}: sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "from code2vec_tpu_torch.obs.runtime import _lint_hints\n"
+        "print(sorted(_lint_hints()))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "['TX001', 'TX006']"
 
 
 @pytest.fixture
