@@ -368,6 +368,24 @@ the final result line is not printed):
    through ``__wrapped__``; (d) ``python -m code2vec_tpu_torch.analysis
    --json`` in a subprocess with ``torch`` and ``numpy`` blocked: exit 0,
    its seconds and finding counts;
+14c. tools (after analysis) — the port's ``tools/``: (a) a reference
+   ``code2vec.model`` at the top11 widths, plain head and margin head,
+   imported (``import_reference_checkpoint``: the corpus is the train
+   phase's with every label present, its probe through K3) into a model
+   dir, served by a ``Predictor`` (K3) on 8 bags within 2e-4 of
+   ``interop.reference_forward``, exported back
+   (``export_reference_checkpoint``) and every tensor equal to the
+   imported file's; (b) ``profile_step`` at 1024x200 f32 on ``pool_only``
+   (K1/K1b; its forward rows K2, K3 f32 and int8): every row finite and
+   positive; (c) ``bench_ctx --quick``: the kernel pool (K1 + K1b) within
+   1e-5 (code vector, d contexts) and 1e-4 (d attention) of the ctx pool,
+   each over max(|ctx pool|, 1), and a finite long-bag step (K4 online
+   with the keep mask); (d) ``rehearse_java_large`` at 50,000 methods (chunks
+   of 16,384) with the 1.3M-row vocabs and 50k labels, 2 steps, ``data=2``
+   over two gloo ranks on the card: every phase, the guard's forced overflow fired,
+   finite losses. (c) and (d) start before *train_variable* (the
+   ``tools_start`` step, which ``--phases tools`` includes) and run beside
+   it at a lower CPU priority, each in a process group of its own;
 15. a line with the launch floor and the ``neighbors`` split, the card's
    name and power limit, the line ``{"kernels": [...]}`` (per kernel:
    route, source, the TPU kernel it replaces, launches on its serve or
@@ -376,9 +394,9 @@ the final result line is not printed):
    of every train_variable run, of the python_source phase, of the
    serve_control phase, of the train_elastic runs, of the train_hpo
    trials (K1/K1b: the kernel events of its CLI run's profiled epoch), of
-   both ranks of the train_mesh runs (K5: of its serving pair) and of the
+   both ranks of the train_mesh runs (K5: of its serving pair), of the
    autotune phase's search,
-   auto training, engines and searcher, max error,
+   auto training, engines and searcher, and of the tools phase, max error,
    times at the headline shape and the bound), then, last, the result
    line.
 
@@ -6145,6 +6163,251 @@ def phase_analysis(torch, smi, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase: tools (the reference bridge and the measuring tools of
+# code2vec_tpu_torch/tools/)
+# ---------------------------------------------------------------------------
+
+TOOLS_ATOL = 2e-4  # the bridge tools' --atol default
+# K1 / K1b's tolerances (the kernels phase), over max(|reference|, 1)
+TOOLS_POOL_TOL = {"cv": TOL, "d_ctx": TOL, "d_attn": 1e-4}
+# the rehearsal: cut from 16M methods, the 1.3M-row vocabs and 50k labels kept
+TOOLS_REHEARSAL = ["--n_methods", "50000", "--chunk_items", "16384", "--steps", "2",
+                   "--data_axis", "2"]
+TOOLS_TIMEOUT_S = 300
+
+
+def start_tool(name: str, argv: list, log: Path) -> subprocess.Popen:
+    """``python -m code2vec_tpu_torch.tools.<name>`` in a process group of its
+    own (its children die with it), its output to ``log``. It runs at a
+    lower CPU priority (``nice``): the phases it runs beside keep the host
+    first."""
+    with open(log, "w", encoding="utf-8") as f:
+        return subprocess.Popen(["nice", "-n", "10", sys.executable, "-m",
+                                 f"code2vec_tpu_torch.tools.{name}", *argv], stdout=f,
+                                stderr=subprocess.STDOUT, cwd=ROOT, start_new_session=True)
+
+
+def stop_tool(proc: subprocess.Popen) -> None:
+    import os
+    import signal
+
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def join_tool(proc: subprocess.Popen, log: Path, timeout: float) -> list:
+    """The tool's JSON lines once it exits 0 (it is killed at ``timeout``)."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop_tool(proc)
+        raise AssertionError(f"{proc.args[5]} ran past {timeout} s") from None
+    text = log.read_text(encoding="utf-8", errors="replace")
+    if rc != 0:
+        raise AssertionError(f"{proc.args[5]} exited {rc}:\n{text[-3000:]}")
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def reference_state_dict(torch, margin: bool, seed: int) -> dict:
+    """A reference ``code2vec.model`` (model/model.py:21-42) at the top11
+    widths, random from ``seed``."""
+    c, g = TOP11, torch.Generator().manual_seed(seed)
+    D, H = 2 * c["terminal_embed_size"] + c["path_embed_size"], c["encode_size"]
+    sd = {
+        "terminal_embedding.weight": torch.randn(c["terminal_count"], c["terminal_embed_size"],
+                                                 generator=g),
+        "path_embedding.weight": torch.randn(c["path_count"], c["path_embed_size"], generator=g),
+        "input_linear.weight": torch.randn(H, D, generator=g) / math.sqrt(D),
+        "input_layer_norm.weight": 1.0 + 0.1 * torch.randn(H, generator=g),
+        "input_layer_norm.bias": 0.1 * torch.randn(H, generator=g),
+        "attention_parameter": 0.08 * torch.randn(H, generator=g),
+    }
+    head = torch.randn(c["label_count"], H, generator=g) / math.sqrt(H)
+    if margin:
+        sd["output_linear"] = head
+    else:
+        sd["output_linear.weight"] = head
+        sd["output_linear.bias"] = 0.1 * torch.randn(c["label_count"], generator=g)
+    return sd
+
+
+def tools_bridge(torch, dev, tmp: Path) -> dict:
+    """(a) a reference checkpoint of each head imported, served through K3
+    against ``interop.reference_forward``, exported back bit for bit."""
+    from code2vec_tpu_torch import interop
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.predict import Predictor
+    from code2vec_tpu_torch.tools import export_reference_checkpoint as export_tool
+    from code2vec_tpu_torch.tools import import_reference_checkpoint as import_tool
+
+    raw, _ = train_corpus()
+    # every label occurs, so the corpus's label vocab has top11's 8,000
+    raw.label_ids = np.arange(len(raw.row_splits) - 1) % TOP11["label_count"]
+    paths = write_raw_corpus(raw, tmp / "corpus")
+    rng = np.random.default_rng(21)
+    B, c = 8, TOP11
+    ids = [rng.integers(1, n, (B, BAG)) for n in (c["terminal_count"], c["path_count"],
+                                                  c["terminal_count"])]
+    ids[0][1:, BAG // 2:] = 0  # PAD tails
+    labels = rng.integers(0, c["label_count"], B)
+    out, counts = {}, {}
+    for head, margin in (("plain", False), ("margin", True)):
+        sd = reference_state_dict(torch, margin, seed=7 + margin)
+        root = tmp / head
+        root.mkdir(parents=True)
+        torch.save(sd, root / "code2vec.model")
+        model_dir = root / "model"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        report = import_tool.run_import(import_tool.build_parser().parse_args([
+            "--reference_model", str(root / "code2vec.model"), "--corpus_path", paths["corpus"],
+            "--terminal_idx_path", paths["terminal_idx"], "--path_idx_path", paths["path_idx"],
+            "--model_path", str(model_dir), "--no_corpus_cache", "--device", str(dev)]))
+        import_s = time.perf_counter() - t0
+        predictor = Predictor(str(model_dir), paths["terminal_idx"], paths["path_idx"],
+                              device=dev)
+        ten = [torch.as_tensor(x, dtype=torch.int32, device=dev) for x in (*ids, labels)]
+        with torch.inference_mode():
+            served = predictor.model(*ten[:3], labels=ten[3])[0].float()
+            ref = interop.reference_forward({k: v.to(dev) for k, v in sd.items()},
+                                            interop.infer_dims(sd), *ten, 0.5, 30.0)
+        served_err = float((served - ref).abs().max())
+        if not served_err <= TOOLS_ATOL:
+            raise AssertionError(f"tools (a) {head}: served logits {served_err:.3g} from the "
+                                 f"reference forward (atol {TOOLS_ATOL})")
+        t0 = time.perf_counter()
+        exported = export_tool.run_export(export_tool.build_parser().parse_args([
+            "--model_path", str(model_dir), "--output", str(root / "exported.model"),
+            "--device", str(dev)]))
+        export_s = time.perf_counter() - t0
+        back = torch.load(root / "exported.model", map_location="cpu", weights_only=True)
+        moved = sorted(k for k in sd if k not in back or not torch.equal(back[k], sd[k]))
+        if moved or set(back) != set(sd):
+            raise AssertionError(f"tools (a) {head}: the export moved {moved or set(back)}")
+        launched = launch_counts()
+        if not launched.get("fused_f32"):
+            raise AssertionError(f"tools (a) {head}: K3 never launched: {launched}")
+        add_counts(counts, launched)
+        out[head] = {"import_probe_err": report["probe_max_abs_logit_diff"],
+                     "served_err": served_err,
+                     "export_probe_err": exported["probe_max_abs_logit_diff"],
+                     "import_s": import_s, "export_s": export_s, "launches": launched}
+        print(f"tools (a) {head}: import {import_s:.1f} s (probe {out[head]['import_probe_err']:.3g}"
+              f"), served through K3 within {served_err:.3g} of the reference forward, export "
+              f"{export_s:.1f} s (probe {out[head]['export_probe_err']:.3g}), tensors equal; "
+              f"launches {json.dumps(launched)}", flush=True)
+        del predictor
+        torch.cuda.empty_cache()
+    return {"heads": out, "launches": counts}
+
+
+def tools_profile(torch, dev) -> dict:
+    """(b) ``profile_step`` at 1024x200 f32 on ``pool_only``."""
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.tools import profile_step
+
+    k = profile_step.knobs({})
+    reset_launch_counts()
+    rows = profile_step.run(k, dev, emit=lambda line: print(f"tools (b) {line}", flush=True))
+    counts = launch_counts()
+    bad = {name: ms for name, ms in rows.items() if not (ms > 0 and math.isfinite(ms))}
+    if bad or len(rows) != 12:
+        raise AssertionError(f"tools (b): rows not finite and positive: {bad or rows}")
+    for key in ("pool", "pool_bwd", "gather_split", "fused_f32", "fused_int8"):
+        if not counts.get(key):
+            raise AssertionError(f"tools (b): {key} never launched: {counts}")
+    torch.cuda.empty_cache()
+    return {"rows": rows, "launches": counts}
+
+
+def tools_bench_ctx(rows: list) -> dict:
+    """(c) ``bench_ctx --quick``: the pools agree, the step is finite."""
+    counts, pools, steps = {}, [], []
+    for r in rows:
+        if r.get("kind") == "pool":
+            errs = {k: r[f"err_{k}"] for k in TOOLS_POOL_TOL}
+            if any(not errs[k] <= tol for k, tol in TOOLS_POOL_TOL.items()):
+                raise AssertionError(f"tools (c): kernel pool vs ctx pool at {r['batch']}x"
+                                     f"{r['bag']}: {errs} over {TOOLS_POOL_TOL}")
+            pools.append(r)
+        elif r.get("kind") == "step":
+            if not (r["ms_per_step"] > 0 and math.isfinite(r["ms_per_step"])):
+                raise AssertionError(f"tools (c): step row {r}")
+            steps.append(r)
+        else:
+            continue
+        add_counts(counts, r["launches"])
+    if len(pools) != 2 or len(steps) != 1:
+        raise AssertionError(f"tools (c): rows {rows}")
+    for key in ("pool", "pool_bwd", "online_f32_masked"):
+        if not counts.get(key):
+            raise AssertionError(f"tools (c): {key} never launched: {counts}")
+    return {"pool": pools, "step": steps, "launches": counts}
+
+
+def tools_rehearsal(rows: list) -> dict:
+    """(d) the rehearsal: every phase, the guard fired, finite losses."""
+    phases = {r.get("phase") for r in rows}
+    finals = [r for r in rows if "final_loss" in r]
+    if not {"gen", "guard", "hostshard", "stream", "shard"} <= phases \
+            or not any(r.get("done") for r in rows):
+        raise AssertionError(f"tools (d): phases {phases}")
+    if not any(r.get("overflow_guard") == "fired" for r in rows):
+        raise AssertionError("tools (d): the int32 guard's forced overflow did not fire")
+    if len(finals) != 3 or not all(math.isfinite(r["final_loss"]) for r in finals):
+        raise AssertionError(f"tools (d): final losses {finals}")
+    counts = {}
+    for r in finals:
+        add_counts(counts, r["launches"])
+    if not counts.get("pool") or not counts.get("pool_bwd"):
+        raise AssertionError(f"tools (d): K1/K1b never launched: {counts}")
+    return {"rows": rows, "launches": counts}
+
+
+def start_tools_children(tmp: Path) -> dict:
+    """The tools phase's (c) ``bench_ctx --quick`` and (d)
+    ``rehearse_java_large``, started before *train_variable* so that they
+    run beside it (each in a process group of its own): ``{part: (process, log)}``."""
+    tmp.mkdir(parents=True, exist_ok=True)
+    return {
+        "bench_ctx": (start_tool("bench_ctx", ["--quick"], tmp / "bench_ctx.log"),
+                      tmp / "bench_ctx.log"),
+        "rehearsal": (start_tool("rehearse_java_large", TOOLS_REHEARSAL + [
+            "--work_dir", str(tmp / "rehearsal")], tmp / "rehearsal.log"),
+                      tmp / "rehearsal.log"),
+    }
+
+
+def stop_tools_children(procs: dict | None) -> None:
+    for proc, _ in (procs or {}).values():
+        stop_tool(proc)
+
+
+def phase_tools(torch, smi, dev, tmp: Path, procs: dict | None) -> dict:
+    """(a) the reference bridge; (b) ``profile_step``; then (c) ``bench_ctx
+    --quick`` and (d) ``rehearse_java_large`` joined (``procs``: started by
+    :func:`start_tools_children`)."""
+    if procs is None:
+        raise AssertionError("tools: (c) and (d) did not start")
+    out = {"bridge": tools_bridge(torch, dev, tmp), "profile": tools_profile(torch, dev)}
+    t0 = time.perf_counter()
+    out["bench_ctx"] = tools_bench_ctx(join_tool(*procs["bench_ctx"], TOOLS_TIMEOUT_S))
+    for r in out["bench_ctx"]["pool"] + out["bench_ctx"]["step"]:
+        print(f"tools (c) {json.dumps(r)}", flush=True)
+    out["rehearsal"] = tools_rehearsal(join_tool(*procs["rehearsal"], TOOLS_TIMEOUT_S))
+    for r in out["rehearsal"]["rows"]:
+        print(f"tools (d) {json.dumps(r)}", flush=True)
+    print(f"tools: waited {time.perf_counter() - t0:.1f} s for (c) and (d)", flush=True)
+    counts = {}
+    for part in out.values():
+        add_counts(counts, part["launches"])
+    out["launches"] = counts
+    print(f"tools launches: {json.dumps(counts)}", flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json_out", default=None,
@@ -6173,8 +6436,8 @@ def run(args, sampler: FrameSampler) -> int:
     failed = []
 
     def phase(name, fn, *a):
-        # the train_mesh phase's second part goes with its first
-        group = "train_mesh" if name == "train_mesh_join" else name
+        # the train_mesh and tools phases' first parts go with their second
+        group = {"train_mesh_join": "train_mesh", "tools_start": "tools"}.get(name, name)
         if only is not None and group not in only | {"device", "build"}:
             return None
         print(f"== phase {name}", flush=True)
@@ -6273,9 +6536,16 @@ def run(args, sampler: FrameSampler) -> int:
                           extractor_build, serve)
         python = phase("python_source", phase_python_source, torch, smi, dev, model_dir,
                        serve)
-        variable = phase("train_variable", phase_train_variable, torch, smi, dev,
-                         (extracted or {}).get("share"))
-        analysis = phase("analysis", phase_analysis, torch, smi, dev)
+        # the tools phase's children run beside train_variable and analysis
+        tools_procs = phase("tools_start", start_tools_children, model_dir / "tools")
+        try:
+            variable = phase("train_variable", phase_train_variable, torch, smi, dev,
+                             (extracted or {}).get("share"))
+            analysis = phase("analysis", phase_analysis, torch, smi, dev)
+            tools = phase("tools", phase_tools, torch, smi, dev, model_dir / "tools",
+                          tools_procs)
+        finally:
+            stop_tools_children(tools_procs)
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
@@ -6323,6 +6593,7 @@ def run(args, sampler: FrameSampler) -> int:
     hpo_counts = searched["launches"]  # the train_hpo phase's trials and CLI run (printed there)
     mesh_counts = meshed["launches"]  # the train_mesh phase's runs, both ranks (printed there)
     at_counts = tuned["launches"]  # the autotune phase's search, auto training, serving, search
+    tools_counts = tools["launches"]  # the tools phase's bridge, profile, bench_ctx, rehearsal
     line = []
     for name, rec in kernels.items():
         timed = next(r for r in rec["rows"] if (r["B"], r["L"]) == rec["timed"])
@@ -6334,7 +6605,8 @@ def run(args, sampler: FrameSampler) -> int:
                          + py_counts.get(rec["key"], 0) + feed_counts.get(rec["key"], 0)
                          + control["launches"].get(rec["key"], 0)
                          + el_counts.get(rec["key"], 0) + hpo_counts.get(rec["key"], 0)
-                         + mesh_counts.get(rec["key"], 0) + at_counts.get(rec["key"], 0)),
+                         + mesh_counts.get(rec["key"], 0) + at_counts.get(rec["key"], 0)
+                         + tools_counts.get(rec["key"], 0)),
             "max_abs_err": max(r["max_abs_err"] for r in rec["rows"]),
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -6350,7 +6622,8 @@ def run(args, sampler: FrameSampler) -> int:
         "replaces": "code2vec_tpu/ann/lut_kernel.py:206",
         "launches": (retrieval["launches"]["lut_score"] + py_counts.get("lut_score", 0)
                      + control["launches"].get("lut_score", 0)
-                     + at_counts.get("lut_score", 0) + mesh_counts.get("lut_score", 0)),
+                     + at_counts.get("lut_score", 0) + mesh_counts.get("lut_score", 0)
+                     + tools_counts.get("lut_score", 0)),
         "max_abs_err": max(r["max_abs_err"] for r in k5),
         "ms": timed["ms"], "plain_ms": timed["plain_ms"],
         "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"], "library_ms": None,
@@ -6366,7 +6639,8 @@ def run(args, sampler: FrameSampler) -> int:
              "train_bucketed": bucketed, "train_bf16": bf16_train, "train_lazy": lazy_train,
              "train_device": device_train, "train_feed": feed_train, "extract": extracted,
              "train_variable": variable,
-             "python_source": python, "analysis": analysis, "time": sampler.seconds()},
+             "python_source": python, "analysis": analysis, "tools": tools,
+             "time": sampler.seconds()},
             indent=1,
         ))
     for k in line:  # each kernel's share of its bound at its timed shape

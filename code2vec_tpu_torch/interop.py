@@ -26,15 +26,22 @@ parameter both ways (:func:`hierarchical_state_dict_from_jax_params`,
 
 ``code2vec.model`` files hold the reference's unpadded shapes:
 :func:`save_state_dict` slices the pad rows off and :func:`pad_state_dict`
-puts zero rows back for a padded config.
+puts zero rows back for a padded config. :func:`infer_dims` reads a
+reference ``state_dict``'s dims, and :func:`reference_forward` is the
+reference's eval-mode forward written from the ``state_dict`` alone: the
+second opinion the checkpoint tools (``tools/import_reference_checkpoint``,
+``tools/export_reference_checkpoint``) hold the port's model to before
+they write.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 PLAIN_KEYS = {
     "terminal_embedding.weight",
@@ -210,6 +217,14 @@ def pad_state_dict(sd: dict, config) -> dict[str, torch.Tensor]:
     return {k: _resize_rows(v, rows[k]) if k in rows else v for k, v in sd.items()}
 
 
+def unpad_state_dict(sd: dict, config) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`pad_state_dict`: the reference's unpadded shapes,
+    the vocab pad rows and head columns sliced off (exact: pad ids never
+    occur in data)."""
+    rows = _row_counts(config, padded=False)
+    return {k: _resize_rows(v, rows[k]) if k in rows else v for k, v in sd.items()}
+
+
 def load_state_dict(path: str) -> dict[str, torch.Tensor]:
     """``torch.load`` a reference ``code2vec.model`` (CPU, weights only)."""
     if os.path.isdir(path):
@@ -228,7 +243,71 @@ def save_state_dict(sd: dict, path: str, config=None) -> str:
     check_keys(sd)
     out = {k: v.detach().cpu().float().contiguous() for k, v in sd.items()}
     if config is not None:
-        rows = _row_counts(config, padded=False)
-        out = {k: _resize_rows(v, rows[k]) if k in rows else v for k, v in out.items()}
+        out = unpad_state_dict(out, config)
     torch.save(out, path)
     return path
+
+
+def infer_dims(sd: dict) -> dict:
+    """A reference ``state_dict``'s dims and head (JAX ``interop.infer_dims``,
+    ``code2vec_tpu/interop.py:84``); raises ``ValueError`` when the encoder
+    does not take ``[start; path; end]``."""
+    t_count, t_dim = sd["terminal_embedding.weight"].shape
+    p_count, p_dim = sd["path_embedding.weight"].shape
+    encode = sd["input_layer_norm.weight"].shape[0]
+    margin = "output_linear.weight" not in sd
+    head = sd["output_linear"] if margin else sd["output_linear.weight"]
+    expect_in = 2 * t_dim + p_dim
+    got_out, got_in = sd["input_linear.weight"].shape
+    if (got_out, got_in) != (encode, expect_in):
+        raise ValueError(
+            f"input_linear.weight is {got_out}x{got_in}, expected "
+            f"{encode}x{expect_in} (encode x 2*terminal_embed+path_embed)"
+        )
+    return {
+        "terminal_count": int(t_count),
+        "path_count": int(p_count),
+        "label_count": int(head.shape[0]),
+        "terminal_embed_size": int(t_dim),
+        "path_embed_size": int(p_dim),
+        "encode_size": int(encode),
+        "angular_margin_loss": margin,
+    }
+
+
+def reference_forward(sd: dict, dims: dict, starts, paths, ends, labels,
+                      angular_margin: float, inverse_temp: float) -> torch.Tensor:
+    """The reference's ``Code2Vec.forward`` in eval mode (reference
+    model/model.py:44-88; JAX ``interop.reference_forward``,
+    ``code2vec_tpu/interop.py:170``): logits ``[B, label_count]`` f32 from
+    ``sd``'s tensors alone, on their device, with no module of this package.
+    The id arrays (numpy or tensors) are ``[B, L]``, ``labels`` ``[B]``
+    (the margin head places its margin there)."""
+    t = {k: torch.as_tensor(v).float() for k, v in sd.items()}
+    dev = t["attention_parameter"].device
+
+    def ids(x):
+        return torch.as_tensor(x, device=dev).long()
+
+    starts_t, paths_t, ends_t = ids(starts), ids(paths), ids(ends)
+    ccv = torch.cat((t["terminal_embedding.weight"][starts_t],
+                     t["path_embedding.weight"][paths_t],
+                     t["terminal_embedding.weight"][ends_t]), dim=2)
+    ccv = ccv @ t["input_linear.weight"].T
+    ccv = F.layer_norm(ccv, (dims["encode_size"],),
+                       t["input_layer_norm.weight"], t["input_layer_norm.bias"])
+    ccv = torch.tanh(ccv)
+    mask = (starts_t > 0).float()
+    ninf = -3.4e38
+    attn = F.softmax((ccv * t["attention_parameter"]).sum(-1) * mask + (1 - mask) * ninf,
+                     dim=1)
+    code_vector = (ccv * attn.unsqueeze(-1)).sum(1)
+    if not dims["angular_margin_loss"]:
+        return code_vector @ t["output_linear.weight"].T + t["output_linear.bias"]
+    cosine = F.normalize(code_vector) @ F.normalize(t["output_linear"]).T
+    sine = torch.sqrt(torch.clamp(1.0 - cosine ** 2, min=0.0))
+    phi = cosine * math.cos(angular_margin) - sine * math.sin(angular_margin)
+    phi = torch.where(cosine > 0, phi, cosine)
+    one_hot = torch.zeros_like(cosine)
+    one_hot.scatter_(1, ids(labels).view(-1, 1), 1)
+    return ((one_hot * phi) + ((1.0 - one_hot) * cosine)) * inverse_temp

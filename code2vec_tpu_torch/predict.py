@@ -2,8 +2,11 @@
 
 Counterpart of ``code2vec_tpu/predict.py``. A model dir holds
 ``model_meta.json`` (dims, flags, the bag-width ladder), ``label_vocab.txt``
-and the weights as a reference-layout ``code2vec.model`` (a JAX-trained dir
-gets one from ``tools/export_reference_checkpoint.py``). The
+and the weights as a reference-layout ``code2vec.model`` (a dir that holds
+only a checkpoint gets one from ``python -m
+code2vec_tpu_torch.tools.export_reference_checkpoint``, and a reference
+run's ``code2vec.model`` becomes a model dir through
+``code2vec_tpu_torch.tools.import_reference_checkpoint``). The
 :class:`Predictor` reads them, quantizes the tables once at load
 (``table_dtype``), and pads every forward to the nearest ladder width.
 A ladder with rungs above the training bag (recorded by a run that fed
@@ -460,6 +463,10 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--method_name", default="*", help="* = all methods")
     parser.add_argument("--no_cuda", action="store_true", default=False,
                         help="run the plain versions on the CPU (the default is the card)")
+    parser.add_argument("--accelerator", action="store_true", default=False,
+                        help="JAX's flag for a forward off the CPU, accepted so its command "
+                             "lines run; the port runs on the card without it too, and "
+                             "--no_cuda still wins")
     parser.add_argument("--task", default="auto", choices=("auto", "method", "variable"),
                         help="what to predict; auto follows the model's training task (method "
                              "wins for a dual-task model)")

@@ -93,6 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "container's)")
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; 'cpu' runs the plain versions)")
+    parser.add_argument("--accelerator", action="store_true", default=False,
+                        help="JAX's flag for serving off the CPU, accepted so its command "
+                        "lines run; the port serves on the card without it too, and "
+                        "--device cpu still wins")
     parser.add_argument("--events_dir", default=None,
                         help="JSONL event log: the run manifest, then serve_executable, "
                         "swap and flight events")

@@ -115,6 +115,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="the workers' torch device (default cuda: a worker "
                         "without a GPU exits with an error; 'cpu' runs the plain "
                         "versions)")
+    parser.add_argument("--accelerator", action="store_true", default=False,
+                        help="JAX's flag, forwarded down the replica command line; the "
+                        "workers serve on the card without it too, and --device cpu "
+                        "still wins")
     parser.add_argument("--sync_debug", action="store_true", default=False,
                         help="lock sanitizer on the router AND every "
                         "worker (the flag is forwarded down the replica "
@@ -162,6 +166,8 @@ def worker_argv(args, slot: int) -> list[str]:
         argv += ["--ann_shortlist", str(args.ann_shortlist)]
     if args.device:
         argv += ["--device", str(args.device)]
+    if getattr(args, "accelerator", False):
+        argv += ["--accelerator"]
     if args.events_dir:
         argv += ["--events_dir", os.path.join(args.events_dir, f"r{slot}")]
     if getattr(args, "trace_dir", None):

@@ -14,8 +14,9 @@ serving defaults (``n_probe``, ``shortlist``) in its header::
 ``--n_list 0`` (the default) picks ~sqrt(N) rounded up to a multiple of 8;
 an ``--m`` that does not divide the vectors' width falls back to its
 largest divisor below it. The distance work runs on the card unless
-``--device cpu`` (JAX's ``--accelerator`` off); with no GPU visible and no
-``--device`` the tool raises.
+``--device cpu``; with no GPU visible and no ``--device`` the tool raises.
+JAX's ``--accelerator`` is accepted and changes nothing: the port builds on
+the card without it too.
 """
 
 from __future__ import annotations
@@ -48,6 +49,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="serving default baked into the container")
     parser.add_argument("--device", default=None,
                         help="torch device of the build (default cuda; 'cpu' builds on the CPU)")
+    parser.add_argument("--accelerator", action="store_true", default=False,
+                        help="JAX's flag for a build off the CPU, accepted so its command "
+                        "lines run; the port builds on the card without it too, and "
+                        "--device cpu still wins")
     return parser
 
 
