@@ -130,7 +130,11 @@ the final result line is not printed):
    run; (d) the CLI in a subprocess, ``train_step@11:kill`` (exit -9) then
    ``--resume`` (exit 0): its history bitwise (a)'s; (e) ``--device_epoch``
    on fused, ``epoch_start@2:sigterm``: a boundary save, and its resume
-   bitwise an uninterrupted device run. Every run launches its route's
+   bitwise an uninterrupted device run; (f) a resume trains at its own
+   optimizer settings: (b)'s step-3 checkpoint (fused) and a lazy
+   pool_only one (K1, K1b; epoch 0) resumed at ``--lr 0`` with every
+   weight bitwise the checkpoint's, then at half the rate; the resumed
+   epoch losses and the check's seconds. Every run launches its route's
    kernels (counts reset just before it, read just after);
 7c. train_hpo (after train_elastic) — the search's paths: (a) K3 masked
    (keep 0.5 and 0.9) and its VJP, K1 and K1b at B = 256, L = 200 and
@@ -2649,9 +2653,10 @@ def phase_train_elastic(torch, smi, dev, tmp: Path) -> dict:
     the signal to the return, the resume bitwise an uninterrupted pool_only
     run; (d) the CLI in a subprocess killed at step 11 (exit -9) and
     resumed (exit 0): (a)'s history, on a thread of its own beside (b),
-    (c) and (e), whose seconds it shares; (e) device epochs, SIGTERM at
-    the second epoch_start: a boundary save and its resume bitwise an
-    uninterrupted device run."""
+    (c), (e) and (f), whose seconds it shares; (e) device epochs, SIGTERM
+    at the second epoch_start: a boundary save and its resume bitwise an
+    uninterrupted device run; (f) resumes at lr 0 (bitwise) and at half
+    the rate, fused and lazy (:func:`resume_settings_check`)."""
     import os
     import shutil
     from concurrent.futures import ThreadPoolExecutor
@@ -2718,7 +2723,7 @@ def phase_train_elastic(torch, smi, dev, tmp: Path) -> dict:
         shutil.rmtree(root / name)
     del none, sync, asyn
 
-    # (d) in a thread of its own from here, beside (b), (c) and (e)
+    # (d) in a thread of its own from here, beside (b), (c), (e) and (f)
     cli = ThreadPoolExecutor(1)
     cli_run = cli.submit(elastic_cli, paths, root / "d")
     try:
@@ -2731,7 +2736,7 @@ def phase_train_elastic(torch, smi, dev, tmp: Path) -> dict:
     out["d"] = {"exit_codes": codes, "seconds": secs}
     print(f"elastic (d): the CLI exited {codes[0]} at step 11 ({secs[0]:.1f} s) and {codes[1]} "
           f"resumed ({secs[1]:.1f} s, replayed {d['lines'][1].get('replayed_batches')} "
-          f"batches), beside (b), (c) and (e); its history bitwise (a)'s [{smi}]", flush=True)
+          f"batches), beside (b), (c), (e) and (f); its history bitwise (a)'s [{smi}]", flush=True)
     for child in root.iterdir():
         if child.name != "corpus":  # the corpus stays for train_hpo
             shutil.rmtree(child)
@@ -2746,7 +2751,8 @@ def phase_train_elastic(torch, smi, dev, tmp: Path) -> dict:
 
 def run_bce(torch, smi, run, root: Path, fused, config, ref_history, ref_weights,
             out: dict) -> None:
-    """(b), (c) and (e) of the train_elastic phase, through its ``run``."""
+    """(b), (c), (e) and (f) of the train_elastic phase, through its
+    ``run``."""
     import shutil
 
     # (b) a raise at step 11, then --resume
@@ -2756,6 +2762,7 @@ def run_bce(torch, smi, run, root: Path, fused, config, ref_history, ref_weights
     cursor = slot_cursor(torch, root / "b")
     if (cursor["epoch"], cursor["step"]) != (1, 3):
         raise AssertionError(f"elastic (b): the slot's cursor {cursor['epoch'], cursor['step']}")
+    out["resume_settings"] = resume_settings_check(torch, smi, run, root, fused, config)
     resumed = run("fused (b) resumed", every3.with_updates(resume=True), ELASTIC_KEYS["fused"],
                   "b")
     same_history("fused (b)", resumed["result"].history, ref_history)
@@ -2811,6 +2818,59 @@ def run_bce(torch, smi, run, root: Path, fused, config, ref_history, ref_weights
     print(f"elastic (e): a boundary save at SIGTERM ({pre['sigterm_to_return']:.3f} s to the "
           f"return); the resume bitwise the uninterrupted device run's [{smi}]", flush=True)
     del whole, pre, resumed
+
+
+def resume_settings_check(torch, smi, run, root: Path, fused, config) -> dict:
+    """(f) of the train_elastic phase: a resume trains at the resuming run's
+    optimizer settings. (b)'s step-3 checkpoint (fused: K3 masked forward)
+    and one of the lazy route (pool_only with ``--table_update lazy``: K1,
+    K1b; the phase holds no lazy checkpoint, so a lazy run trains epoch 0
+    and saves at its end) each resumed at lr 0: every weight bitwise the
+    checkpoint's; then at half the saved rate: the weights move. Each
+    resume reads the slot through a hard link, so (b)'s own resume is
+    untouched. Prints both routes' resumed epoch losses and the seconds."""
+    import os
+    import shutil
+
+    from code2vec_tpu_torch.checkpoint import slot_path
+
+    t0 = time.perf_counter()
+    lazy = config.with_updates(**kernel_route("pool_only"), table_update="lazy")
+    run("lazy pool_only (f) epoch 0", lazy.with_updates(max_epoch=1), ELASTIC_KEYS["pool_only"],
+        "f_lazy")
+    out = {}
+    for route, cfg, saved, slot in (("fused", fused, "b", "last"),
+                                    ("lazy", lazy, "f_lazy", "best")):
+        src = slot_path(str(root / saved), slot)
+        weights = torch.load(src, map_location="cpu", weights_only=False, mmap=True)["model"]
+        losses = {}
+        for label, lr in (("lr 0", 0.0), ("half rate", cfg.lr / 2)):
+            name = f"f_{route}_{'lr0' if lr == 0 else 'half'}"
+            (root / name).mkdir()
+            os.link(src, slot_path(str(root / name), slot))
+            # an epoch's new best persists on a thread
+            r = run(f"{route} (f) resumed at {label}",
+                    cfg.with_updates(resume=True, lr=lr, async_checkpoint=True),
+                    ELASTIC_KEYS["fused" if route == "fused" else "pool_only"], name)
+            got = r["result"].model.state_dict()
+            moved = [k for k in weights if not torch.equal(got[k].cpu(), weights[k])]
+            if lr == 0 and moved:
+                raise AssertionError(f"elastic (f) {route}: resumed at lr 0, {moved} moved")
+            if lr and not moved:
+                raise AssertionError(f"elastic (f) {route}: resumed at {lr}, no weight moved")
+            losses[label] = r["epochs"][0]["train_loss"]
+            shutil.rmtree(root / name)
+            del r, got
+        out[route] = losses
+        del weights
+    shutil.rmtree(root / "f_lazy")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"elastic (f): resumed at lr 0, every weight bitwise the checkpoint's (fused and "
+          f"lazy); resumed epoch loss at lr 0 / half the rate: fused "
+          f"{out['fused']['lr 0']:.6f} / {out['fused']['half rate']:.6f}, lazy "
+          f"{out['lazy']['lr 0']:.6f} / {out['lazy']['half rate']:.6f}; the check "
+          f"{out['seconds']:.1f} s [{smi}]", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,16 @@ restore onto another mesh shape (``saved_mesh_shape``) is a re-slice (JAX
 The optimizer's first moments are saved in their own dtype (bf16 with
 ``--adam_mu_dtype bfloat16``); a resume under the other dtype raises, as the
 JAX restore does, and so does a resume under the other ``--table_update``
-(the optimizer states differ: JAX ``checkpoint.py:666-675``).
+(the optimizer states differ: JAX ``checkpoint.py:666-675``) or with a
+weight decay where the checkpoint had none, or none where it had one (JAX's
+optax chain gains or loses ``add_decayed_weights``, and orbax refuses the
+other tree).
+
+A resume takes from the checkpoint what training made: the weights, the
+moments, the step counts, the generators and the data cursor. The
+optimizer's settings (lr, betas, eps, the weight decay's value) stay the
+resuming run's (``train/step.load_optimizer_state``), as JAX rebuilds its
+chain from the run's config and restores only the arrays.
 """
 
 from __future__ import annotations
@@ -406,10 +415,14 @@ def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generat
     ``saved_mesh_shape`` and ``resharded``. ``mesh``: the restoring run's
     (``model`` sharded on it): the saved specs are validated against it and
     the global tensors sliced to its shards (a checkpoint of another mesh
-    shape, or of one device, restores by re-slicing). A slot file that does not load is skipped with a warning. An
-    optimizer whose first moments are stored in another dtype than the
-    checkpoint's, or that steps the tables otherwise (``--table_update``),
-    raises with the flag that resumes it."""
+    shape, or of one device, restores by re-slicing). A slot file that does
+    not load is skipped with a warning. The optimizer keeps its own settings
+    (lr, betas, eps, weight decay) and takes the checkpoint's moments and
+    step counts. An optimizer whose first moments are stored in another
+    dtype than the checkpoint's, that steps the tables otherwise
+    (``--table_update``), or that decays the weights where the checkpoint's
+    did not (or not where it did: ``--weight_decay``) raises, before
+    anything is loaded, with the flag that resumes it."""
     found = []
     for slot in SLOTS:
         path = slot_path(out_dir, slot)
@@ -437,8 +450,14 @@ def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generat
             "shapes differ; pass --vocab_pad_multiple "
             f"{meta.vocab_pad_multiple} to resume it"
         )
+    model_sd, optim_sd = state["model"], state["optimizer"]
     if optimizer is not None:
-        from code2vec_tpu_torch.train.step import adam_mu_dtype, table_update
+        from code2vec_tpu_torch.train.step import (
+            adam_mu_dtype,
+            load_optimizer_state,
+            table_update,
+            weight_decay,
+        )
 
         saved_update, want_update = meta.table_update or "dense", table_update(optimizer)
         if saved_update != want_update:
@@ -453,7 +472,15 @@ def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generat
                 f"the checkpoint in {out_dir} stores Adam first moments as {saved_mu} but "
                 f"this run uses {want_mu}; pass --adam_mu_dtype {saved_mu} to resume it"
             )
-    model_sd, optim_sd = state["model"], state["optimizer"]
+        saved_wd, want_wd = weight_decay(optim_sd), weight_decay(optimizer.state_dict())
+        if bool(saved_wd) != bool(want_wd):
+            raise ValueError(
+                f"the checkpoint in {out_dir} was saved with --weight_decay {saved_wd:g} but "
+                f"this run uses {want_wd:g}; pass "
+                + ("a non-zero --weight_decay" if saved_wd else "--weight_decay 0")
+                + " to resume it (a zero weight decay has no decay step: the optimizer "
+                "states differ)"
+            )
     doc = state.get("shardings")
     saved_mesh_shape = doc.get("mesh_shape") if doc else None
     if mesh is not None:
@@ -473,7 +500,7 @@ def restore_checkpoint(out_dir: str, model, optimizer, np_rng: np.random.Generat
                                                    else None))
     model.load_state_dict(model_sd)
     if optimizer is not None:
-        optimizer.load_state_dict(optim_sd)
+        load_optimizer_state(optimizer, optim_sd)
     np_rng.bit_generator.state = state["np_rng_state"]
     device = next(model.parameters()).device
     model.dropout_generator(device).set_state(state["dropout_rng_state"])

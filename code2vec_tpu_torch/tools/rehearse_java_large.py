@@ -26,9 +26,12 @@ five phases, each in a subprocess of its own (so each phase's peak RSS,
 
 The train phases run the ``pool_only`` route (K1 forward, K1b backward)
 at batch ``--batch``, bag ``--bag``, dropout 0.25, with ``--table_update``
-dense or lazy tables. Results stream as JSON lines; every phase but
-``gen`` and ``hostshard`` names its device. The corpus text layer is not
-rehearsed: the phases drive the array-level paths below it::
+dense or lazy tables. Results stream as JSON lines, each written whole in
+one call (the shard phase's ranks share one stdout); every phase but
+``gen`` and ``hostshard`` names its device. The shard phase's ranks meet
+at a file store under ``--work_dir``, so there is no port to pick. The
+corpus text layer is not rehearsed: the phases drive the array-level paths
+below it::
 
     python -m code2vec_tpu_torch.tools.rehearse_java_large             # 16M methods
     python -m code2vec_tpu_torch.tools.rehearse_java_large --n_methods 2000000 --steps 2 \\
@@ -40,7 +43,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -67,7 +69,10 @@ def _rss() -> dict:
 
 
 def _emit(**kw) -> None:
-    print(json.dumps(kw), flush=True)
+    # one write a line: under PYTHONUNBUFFERED ``print`` writes the text and
+    # its newline apart, and the lines of two ranks would interleave
+    sys.stdout.write(json.dumps(kw) + "\n")
+    sys.stdout.flush()
 
 
 def phase_gen(work_dir: str, n_methods: int, vocab_rows: int = N_TERMINALS,
@@ -331,12 +336,6 @@ def phase_shard(work_dir: str, batch: int, bag: int, steps: int, data_axis: int,
         dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def run_phases(args) -> int:
     """Every phase in its own subprocess, in order; the first that fails
     stops the run with its exit code."""
@@ -361,7 +360,10 @@ def run_phases(args) -> int:
         _emit(running=extra[1])
         t_phase = time.time()
         if extra[1] == "shard":
-            init = f"tcp://localhost:{_free_port()}"
+            store = os.path.abspath(os.path.join(args.work_dir, "shard.rendezvous"))
+            if os.path.exists(store):  # a --keep run's, which a new group must not read
+                os.remove(store)
+            init = "file://" + store
             procs = [subprocess.Popen(base + extra + ["--rank", str(r), "--init", init])
                      for r in range(args.data_axis)]
             rcs = [p.wait() for p in procs]

@@ -108,8 +108,8 @@ class TorchStyleAdam(torch.optim.Optimizer):
       bias corrections in f32, from the f32 ``mu``;
     - only the stored ``mu`` is rounded to ``mu_dtype`` (nearest even).
 
-    ``load_state_dict`` keeps the stored moment in ``mu_dtype`` (the base
-    class would cast it to the parameters' dtype)."""
+    ``load_state_dict`` keeps the stored moment in the run's ``mu_dtype``
+    (the base class would cast it to the parameters' dtype)."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0, mu_dtype: torch.dtype = torch.bfloat16):
@@ -155,7 +155,7 @@ class TorchStyleAdam(torch.optim.Optimizer):
             for p in group["params"]:
                 state = self.state.get(p)
                 if state:
-                    state["exp_avg"] = state["exp_avg"].to(group["mu_dtype"])
+                    state["exp_avg"] = state["exp_avg"].to(self.defaults["mu_dtype"])
 
 
 def make_optimizer(model: torch.nn.Module, config) -> torch.optim.Optimizer:
@@ -201,6 +201,35 @@ def table_update(optimizer: torch.optim.Optimizer) -> str:
     """``"lazy"`` or ``"dense"``: how ``optimizer`` steps the tables (what
     a checkpoint records and a resume checks)."""
     return "lazy" if isinstance(optimizer, LazyTableAdam) else "dense"
+
+
+def weight_decay(state_dict: dict) -> float:
+    """The coupled weight decay in an optimizer's ``state_dict`` (the dense
+    Adam's: the lazy tables take none)."""
+    return float(state_dict.get("dense", state_dict)["param_groups"][0]["weight_decay"])
+
+
+# the param-group entries a checkpoint restores: the parameters' places and
+# LazyTableAdam's shared step count, from which its bias correction goes on.
+# Every other entry (lr, betas, eps, weight_decay, mu_dtype, and
+# torch.optim.Adam's foreach, fused, capturable, differentiable, maximize
+# and amsgrad) is a setting of the run that resumes, as JAX builds its optax
+# chain from the run's config and restores only the arrays
+RESTORED_GROUP_KEYS = ("params", "step")
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: dict) -> None:
+    """``optimizer.load_state_dict(state_dict)``, keeping the group settings
+    ``optimizer`` was built with (those of a ``LazyTableAdam``'s dense Adam
+    too): the checkpoint gives the moments and the step counts, the run its
+    own rate, betas, eps and weight decay."""
+    parts = [optimizer] + ([optimizer.dense] if isinstance(optimizer, LazyTableAdam) else [])
+    settings = [[{k: v for k, v in group.items() if k not in RESTORED_GROUP_KEYS}
+                 for group in part.param_groups] for part in parts]
+    optimizer.load_state_dict(state_dict)
+    for part, groups in zip(parts, settings):
+        for group, own in zip(part.param_groups, groups):
+            group.update(own)
 
 
 # Python's sum() of floats from 3.12 on compensates (Neumaier); JAX's epoch

@@ -128,7 +128,7 @@ class LazyTableAdam(torch.optim.Optimizer):
     the global id of its first row when it is a ``model`` axis's row shard
     (the ids of the slots are global), else None. ``state_dict`` holds the
     tables' state and, under ``"dense"``, the dense optimizer's;
-    ``load_state_dict`` keeps ``mu`` in ``mu_dtype``."""
+    ``load_state_dict`` keeps ``mu`` in the run's ``mu_dtype``."""
 
     def __init__(self, tables, dense: torch.optim.Optimizer, lr: float,
                  betas=(0.9, 0.999), eps: float = 1e-8, mu_dtype: torch.dtype = torch.float32,
@@ -174,6 +174,5 @@ class LazyTableAdam(torch.optim.Optimizer):
         state_dict = dict(state_dict)
         self.dense.load_state_dict(state_dict.pop("dense"))
         super().load_state_dict(state_dict)
-        (group,) = self.param_groups
-        for p in group["params"]:
-            self.state[p]["exp_avg"] = self.state[p]["exp_avg"].to(group["mu_dtype"])
+        for p in self.param_groups[0]["params"]:
+            self.state[p]["exp_avg"] = self.state[p]["exp_avg"].to(self.defaults["mu_dtype"])
