@@ -176,7 +176,12 @@ the final result line is not printed):
    padded to 2): data=2 on fused (K3 masked and its VJP, K3 in eval) and on
    pool_only (K1/K1b), model=2 on fused and on gather_split (K2 masked over
    the row-sharded gather), ``--host_shard_corpus`` at data=2,
-   ``--device_epoch --shard_staged_corpus`` at data=2, and a mid-epoch save
+   ``--device_epoch --shard_staged_corpus`` at data=2, sharded staging by
+   feed group at data=2 (``group_staged``: each rank loads and stages only
+   its group's corpus shard, ``shard_staged_multiprocess`` assembles the
+   shares, a device epoch of ``ShardedEpochRunner`` chunks on pool_only,
+   K1/K1b; each rank staged only its shard, the shares sum to the corpus,
+   its staging seconds and VmRSS printed beside device_shard's), and a mid-epoch save
    at data=2 (SIGTERM to rank 0 after step 4, the ranks' common stop)
    restored onto model=2 and resumed. The ranks' per-step losses equal
    bitwise; data=2 and model=2 on fused and pool_only within rtol 2e-5 a
@@ -416,6 +421,7 @@ the chains that cost most (``time:`` lines), where its time goes, and
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -3281,6 +3287,9 @@ MESH_RUNS = {
     "host_shard": (dict(data_axis=2, **kernel_route("fused")), ("fused_f32_masked",), None),
     "device_shard": (dict(data_axis=2, device_epoch=True, shard_staged_corpus=True,
                           **kernel_route("fused")), ("fused_f32_masked", "fused_f32"), None),
+    # each feed group stages only its own corpus shard (mesh_group_staged)
+    "group_staged": (dict(data_axis=2, device_chunk_batches=4, **kernel_route("pool_only")),
+                     ("pool", "pool_bwd"), None),
     # a mid-epoch save at data=2 (SIGTERM to rank 0 after step 4, the ranks'
     # common stop at the periodic save there), resumed at model=2
     "reshape_save": (dict(data_axis=2, checkpoint_every_steps=MESH_SIGTERM_STEP,
@@ -3386,6 +3395,13 @@ def mesh_worker(spec_path: str, rank: int) -> int:
             if name == "reshape_save" and rank == 0:
                 updates["fault_plan"] = f"train_step@{MESH_SIGTERM_STEP}:sigterm"
             config = TrainConfig(**MESH_RECIPE, **updates)
+            if name == "group_staged":
+                out[name] = rec = mesh_group_staged(torch, config, args, losses,
+                                                    torch.device("cuda"))
+                print(f"mesh rank {rank} {name}: {len(losses)} steps in {rec['seconds']:.1f} s, "
+                      f"launches {rec['launches']}", flush=True)
+                torch.cuda.empty_cache()
+                continue
             run_data = (load_corpus(*args, cache=False, shard=(rank, 2)) if name == "host_shard"
                         else data)
             rec = {}
@@ -3419,8 +3435,9 @@ def mesh_worker(spec_path: str, rank: int) -> int:
             torch.cuda.synchronize()
             reset_launch_counts()
             t0 = time.perf_counter()
-            result = train(config, run_data, out_dir, device="cuda", on_epoch=epochs.append,
-                           sinks=())
+            with staging_rss(rec):
+                result = train(config, run_data, out_dir, device="cuda",
+                               on_epoch=epochs.append, sinks=())
             torch.cuda.synchronize()
             rec.update(epochs=epochs, losses=list(losses), launches=launch_counts(),
                        seconds=time.perf_counter() - t0, syncs=list(syncs),
@@ -3435,6 +3452,82 @@ def mesh_worker(spec_path: str, rank: int) -> int:
         Path(spec["out"], f"rank{rank}.json").write_text(json.dumps(out))
         dist.destroy_process_group()
     return 0
+
+
+@contextlib.contextmanager
+def staging_rss(rec: dict):
+    """While ``train()`` runs: this process's VmRSS right after a device-epoch
+    staging, into ``rec["stage_rss"]``."""
+    from code2vec_tpu_torch.train import loop
+
+    real = loop.stage_device_epochs
+
+    def recording(*a, **kw):
+        feed = real(*a, **kw)
+        rec["stage_rss"] = vm_rss_bytes()
+        return feed
+
+    loop.stage_device_epochs = recording
+    try:
+        yield
+    finally:
+        loop.stage_device_epochs = real
+
+
+def mesh_group_staged(torch, config, args, losses: list, dev) -> dict:
+    """(b) ``group_staged``: sharded staging by feed group, as JAX
+    ``tests/mp_worker.py:40-140`` drives it. This rank loads only its
+    group's corpus shard (``load_corpus(shard=feed_groups(mesh))``), stages
+    it with the group's seed, and ``shard_staged_multiprocess`` places its
+    share and tells it every share's counts; then one device epoch of
+    ``ShardedEpochRunner`` chunks on pool_only (K1, K1b) from the world-1
+    weights, every step's loss recorded into ``losses``."""
+    from code2vec_tpu_torch.data.reader import load_corpus
+    from code2vec_tpu_torch.models.code2vec import Code2Vec
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.parallel.distributed import feed_groups
+    from code2vec_tpu_torch.parallel.mesh import make_mesh
+    from code2vec_tpu_torch.parallel.shardings import shard_model
+    from code2vec_tpu_torch.train import device_epoch as de
+    from code2vec_tpu_torch.train.loop import class_weights_from, model_config_from
+    from code2vec_tpu_torch.train.step import StepTally, make_optimizer
+
+    mesh = make_mesh(config.data_axis, config.model_axis, config.context_axis)
+    group, n_groups = feed_groups(mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = load_corpus(*args, cache=False, shard=(group, n_groups))
+    t1 = time.perf_counter()
+    host = de.stage_method_corpus(data, np.arange(data.n_items),
+                                  np.random.default_rng(1000 + group))
+    staged = de.shard_staged_multiprocess(host, mesh, dev)
+    torch.cuda.synchronize()
+    rec = {"load_seconds": t1 - t0, "stage_seconds": time.perf_counter() - t1,
+           "stage_rss": vm_rss_bytes(), "feed_group": group, "local_items": data.n_items,
+           "staged_items": host.n_items, "global_items": data.global_n_items,
+           "n_items": staged.n_items, "shard_counts": staged.shard_counts.tolist(),
+           "staged_bytes": staged.nbytes}
+    del host
+    model = Code2Vec(model_config_from(config, data))
+    model.reset_parameters(torch.Generator().manual_seed(config.random_seed))
+    model.to(dev)
+    model.seed_dropout(config.random_seed)
+    shard_model(model, mesh)
+    opt = make_optimizer(model, config)
+    runner = de.ShardedEpochRunner(class_weights_from(config, data, dev), config.batch_size,
+                                   config.max_path_length, config.device_chunk_batches,
+                                   mesh=mesh)
+    tally = StepTally(dev)
+    losses.clear()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    runner.train_epoch(model, opt, staged, np.random.default_rng(config.random_seed),
+                       de.sampler_generator(config.random_seed, dev), tally)
+    torch.cuda.synchronize()
+    rec.update(epochs=[], losses=list(losses), launches=launch_counts(),
+               seconds=time.perf_counter() - t0, syncs=[])
+    return rec
 
 
 def array_digests(index) -> dict:
@@ -3742,6 +3835,43 @@ def train_mesh_start(torch, smi, dev, tmp: Path, elastic) -> dict:
             "ann_path": ann_path}
 
 
+def group_staged_check(smi, ranks: list, bad: list) -> dict:
+    """The ``group_staged`` run: each rank staged only its group's shard,
+    the shares sum to the corpus and tile it, rank 0 holds 0.4-0.6 of the
+    staged bytes; each rank's staging seconds and VmRSS beside those of the
+    ``device_shard`` run, which stages the whole corpus on every rank."""
+    runs = [r["group_staged"] for r in ranks]
+    n = runs[0]["global_items"]
+    for r, run in enumerate(runs):
+        if not (run["feed_group"] == r and run["staged_items"] == run["local_items"] < n
+                and run["n_items"] == n and run["shard_counts"] == runs[0]["shard_counts"]):
+            bad.append(f"group_staged: rank {r} staged {run['staged_items']} of {n} items "
+                       f"(group {run['feed_group']}, shares {run['shard_counts']})")
+    if sum(run["local_items"] for run in runs) != n or \
+            [run["local_items"] for run in runs] != runs[0]["shard_counts"]:
+        bad.append(f"group_staged: the shares {[run['local_items'] for run in runs]} do not "
+                   f"tile the {n} items")
+    staged = [run["staged_bytes"] for run in runs]
+    share = staged[0] / sum(staged)
+    if not 0.4 <= share <= 0.6:
+        bad.append(f"group_staged: staged bytes {staged} (rank 0's share {share:.3f})")
+    whole = [r["device_shard"] for r in ranks]
+    for r in range(2):
+        print(f"mesh (b) staging rank {r}: group_staged loads {runs[r]['local_items']} of {n} "
+              f"items in {runs[r]['load_seconds']:.3f} s and stages them in "
+              f"{runs[r]['stage_seconds']:.3f} s ({staged[r]} bytes placed), VmRSS after "
+              f"{runs[r]['stage_rss'] / 2**20:.1f} MiB; device_shard stages the whole corpus's "
+              f"two splits in {whole[r]['epochs'][0]['stage_seconds']:.3f} s "
+              f"({whole[r]['epochs'][0]['staged_bytes']} bytes placed), VmRSS after "
+              f"{whole[r]['stage_rss'] / 2**20:.1f} MiB [{smi}]", flush=True)
+    return {"staged_bytes": staged, "share": share,
+            "stage_seconds": [run["stage_seconds"] for run in runs],
+            "load_seconds": [run["load_seconds"] for run in runs],
+            "stage_rss": [run["stage_rss"] for run in runs],
+            "device_shard_stage_seconds": [w["epochs"][0]["stage_seconds"] for w in whole],
+            "device_shard_stage_rss": [w["stage_rss"] for w in whole]}
+
+
 def stop_mesh(state) -> None:
     """Kill the pair of :func:`train_mesh_start` if it still runs."""
     for proc in (state or {}).get("procs", ()):
@@ -3807,6 +3937,7 @@ def train_mesh_join(torch, smi, state) -> dict:
     share = staged[0] / sum(staged)
     if not 0.4 <= share <= 0.6:
         bad.append(f"device_shard: staged bytes {staged} (rank 0's share {share:.3f})")
+    out["group_staged"] = group_staged_check(smi, ranks, bad)
     # the reshape: restored bitwise onto model=2, the resumed tail within rtol
     # 2e-5 of the world-1 run's steps and epoch loss
     restore = ranks[0]["reshape_resume"]["restore"]

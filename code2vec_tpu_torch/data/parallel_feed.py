@@ -199,6 +199,12 @@ class FeedPool:
         self._active = _FeedStream(self, plans, self._gen, feed)
         return self._active
 
+    def worker_failed(self, wid_or_msg: str, tb_text: str) -> FeedWorkerError:
+        """The error a failed build raises on the coordinator, with the
+        worker's traceback."""
+        return FeedWorkerError(f"feed worker build failed: {wid_or_msg}",
+                               remote_traceback=tb_text)
+
     def check_workers(self) -> None:
         for wid, p in enumerate(self._procs):
             if not p.is_alive():
@@ -315,8 +321,7 @@ class _FeedStream:
             _, _, _, slot, summary, tb_text = msg
             self._pool._free.append(slot)
             self._fail()
-            raise FeedWorkerError(f"feed worker build failed: {summary}",
-                                  remote_traceback=tb_text)
+            raise self._pool.worker_failed(summary, tb_text)
         _, _, seq, slot, width = msg
         self._ready[seq] = (slot, width)
 

@@ -108,6 +108,9 @@ class CorpusData:
     def n_contexts(self) -> int:
         return int(self.row_splits[-1])
 
+    def context_counts(self) -> np.ndarray:
+        return np.diff(self.row_splits)
+
     @property
     def method_token_index(self) -> int | None:
         """Shifted index of ``@method_0``, replaced by ``@question`` so the

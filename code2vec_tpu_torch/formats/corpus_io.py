@@ -104,6 +104,10 @@ def iter_corpus_records(path: str | os.PathLike) -> Iterator[CorpusRecord]:
         yield record
 
 
+def read_corpus(path: str | os.PathLike) -> list[CorpusRecord]:
+    return list(iter_corpus_records(path))
+
+
 def write_corpus_record(f: IO[str], record: CorpusRecord) -> None:
     """One record followed by the blank separator line."""
     f.write(f"#{record.id}\n")

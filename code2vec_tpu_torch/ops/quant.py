@@ -33,6 +33,16 @@ class QuantTable:
     scale: torch.Tensor | None
     table_dtype: str  # "bf16" | "int8"
 
+    @property
+    def shape(self) -> tuple:
+        return tuple(self.values.shape)
+
+    def nbytes(self) -> int:
+        n = self.values.numel() * self.values.element_size()
+        if self.scale is not None:
+            n += self.scale.numel() * self.scale.element_size()
+        return n
+
 
 def row_absmax(x: torch.Tensor) -> torch.Tensor:
     """Per-row absmax ``[V, 1]`` of a ``[V, E]`` matrix; an all-zero row
@@ -75,3 +85,11 @@ def dequantize_table(qt: QuantTable) -> torch.Tensor:
     if qt.scale is not None:
         return qt.values.float() * qt.scale
     return qt.values.float()
+
+
+def maybe_quantize(table: torch.Tensor, table_dtype: str):
+    """``"f32"`` passes the master table through untouched; any other
+    ``table_dtype`` returns its :class:`QuantTable`."""
+    if table_dtype == "f32":
+        return table
+    return quantize_table(table, table_dtype)

@@ -268,6 +268,17 @@ def allgather_to_host(x, mesh: Mesh, axis: str = AXIS_DATA) -> np.ndarray:
     return np.concatenate([parts[i, :c] for i, c in enumerate(counts)])
 
 
+def process_allgather(x) -> np.ndarray:
+    """Every rank's host vector ``x`` (int64, the same length on every
+    rank) stacked in world-rank order: ``[world, len(x)]`` on every rank
+    (JAX ``multihost_utils.process_allgather``); ``x[None]`` alone."""
+    arr = np.ascontiguousarray(np.asarray(x, np.int64))
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return arr[None]
+    t = torch.from_numpy(arr).to(comm_device())
+    return _all_gather(t[None], None, 0).cpu().numpy()
+
+
 def broadcast_flag(value: bool) -> bool:
     """Rank 0's ``value`` on every rank of the world (one tiny broadcast)."""
     if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:

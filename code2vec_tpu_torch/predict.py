@@ -143,6 +143,16 @@ def nearest_from_rows(labels: list[str], rows: np.ndarray, vector: np.ndarray, t
     return [(labels[int(i)], float(sims[i])) for i in order]
 
 
+def nearest_neighbors(code_vec_path: str, vector: np.ndarray,
+                      top_k: int = 5) -> list[tuple[str, float]]:
+    """The cosine-nearest rows of an exported ``code.vec`` to ``vector``;
+    for many queries read the file once and call :func:`nearest_from_rows`."""
+    from code2vec_tpu_torch.formats.vectors_io import read_code_vectors
+
+    labels, rows = read_code_vectors(code_vec_path)
+    return nearest_from_rows(labels, rows, vector, top_k)
+
+
 def subsample(contexts: list, bag: int, rng: np.random.Generator | None = None) -> list:
     """Over-long bags: a seeded random subsample of ``bag`` contexts, kept
     in order (the trainer's truncation rule, dataset_builder.py:134-135)."""

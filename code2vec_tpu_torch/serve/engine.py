@@ -122,6 +122,14 @@ class ServingEngine:
         self._forward_counter = self._health.counter("serve_forward")
         self._post_warmup_counter = self._health.counter("serve_post_warmup_compile")
 
+    @classmethod
+    def from_predictor(cls, predictor, **kw) -> "ServingEngine":
+        """The engine of a loaded Predictor (JAX ``engine.py:144``): only a
+        ladder its checkpoint recorded flows through (None otherwise: the
+        live requests' histogram picks one); ``kw`` overrides."""
+        kw.setdefault("ladder", predictor.ladder if predictor.ladder_recorded else None)
+        return cls(predictor, **kw)
+
     # ---- warmup ---------------------------------------------------------
     @property
     def post_warmup_compiles(self) -> int:

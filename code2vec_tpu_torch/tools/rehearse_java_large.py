@@ -18,11 +18,14 @@ five phases, each in a subprocess of its own (so each phase's peak RSS,
              real train steps on the card, the corpus memory-mapped from
              disk, on a model with 1.3M-row path and terminal vocabs and 50k
              labels
-  shard      ``shard_staged`` + ``ShardedEpochRunner`` over a
-             ``data=--data_axis`` ``torch.distributed`` group (gloo), one
-             process a rank, real train steps; each rank's staged bytes
-             against the ``/D`` budget. Ranks share the visible cards in
-             turn (on one card: every rank on it, as a gloo mesh runs)
+  shard      ``shard_staged_multiprocess`` + ``ShardedEpochRunner`` over
+             a ``data=--data_axis`` ``torch.distributed`` group (gloo), one
+             process a rank, real train steps: each rank stages only its
+             round-robin share of the memory-mapped corpus (its feed
+             group's shard, as ``hostshard`` reckons it), so together the
+             ranks stage the corpus once; each rank's staged bytes against
+             the ``/D`` budget. Ranks share the visible cards in turn (on
+             one card: every rank on it, as a gloo mesh runs)
 
 The train phases run the ``pool_only`` route (K1 forward, K1b backward)
 at batch ``--batch``, bag ``--bag``, dropout 0.25, with ``--table_update``
@@ -58,11 +61,12 @@ GEN_CHUNK = 64_000_000
 
 
 def _rss() -> dict:
-    """Current and peak RSS in MB from /proc/self/status."""
+    """Current and peak RSS, and the anonymous part of the current (not
+    the mapped corpus's file pages), in MB from /proc/self/status."""
     out = {}
     with open("/proc/self/status") as f:
         for line in f:
-            if line.startswith(("VmRSS", "VmHWM")):
+            if line.startswith(("VmRSS", "VmHWM", "RssAnon")):
                 k, v = line.split(":")
                 out[k] = round(int(v.split()[0]) / 1024.0)
     return out
@@ -118,18 +122,16 @@ def phase_gen(work_dir: str, n_methods: int, vocab_rows: int = N_TERMINALS,
           csr_gb=round(total * 3 * 4 / 2**30, 2), **_rss())
 
 
-def load_corpus_data(work_dir: str, n_labels: int, ram: bool = False):
-    """A ``CorpusData`` over the generated arrays: memory-mapped by default
-    (RSS grows only with the pages a path touches), loaded whole with
-    ``ram`` (staging gathers every element). Vocabs hold the special tokens
-    and the labels only: the phases train, they do not decode."""
+def load_corpus_data(work_dir: str, n_labels: int):
+    """A ``CorpusData`` over the generated arrays, memory-mapped (RSS grows
+    only with the pages a path touches). Vocabs hold the special tokens and
+    the labels only: the phases train, they do not decode."""
     import numpy as np
 
     from code2vec_tpu_torch.data.reader import CorpusData
     from code2vec_tpu_torch.data.vocab import Vocab
 
-    mm = None if ram else "r"
-    arrays = {name: np.load(os.path.join(work_dir, f"{name}.npy"), mmap_mode=mm)
+    arrays = {name: np.load(os.path.join(work_dir, f"{name}.npy"), mmap_mode="r")
               for name in ("starts", "paths", "ends")}
     row_splits = np.load(os.path.join(work_dir, "row_splits.npy"))
     labels = np.load(os.path.join(work_dir, "labels.npy"))
@@ -146,7 +148,7 @@ def load_corpus_data(work_dir: str, n_labels: int, ram: bool = False):
         **arrays, row_splits=row_splits, ids=np.arange(n, dtype=np.int64), labels=labels,
         normalized_labels=[], sources=[None] * n, aliases=[{}] * n,
         terminal_vocab=terminal_vocab, path_vocab=path_vocab, label_vocab=label_vocab,
-        mmap_backed=not ram,
+        mmap_backed=True,
     )
 
 
@@ -273,7 +275,10 @@ def phase_stream(work_dir: str, batch: int, bag: int, steps: int, chunk_items: i
 def phase_shard(work_dir: str, batch: int, bag: int, steps: int, data_axis: int,
                 table_update: str, device_arg: str | None, vocab_rows: int, n_labels: int,
                 rank: int, init: str) -> None:
-    """One rank of the ``data=data_axis`` group."""
+    """One rank of the ``data=data_axis`` group: its feed group's
+    round-robin share of the memory-mapped corpus, staged with the group's
+    seed; ``shard_staged_multiprocess`` places it and tells every rank
+    every share's counts."""
     import datetime
 
     import numpy as np
@@ -281,12 +286,13 @@ def phase_shard(work_dir: str, batch: int, bag: int, steps: int, data_axis: int,
     import torch.distributed as dist
 
     from code2vec_tpu_torch.ops.backend import launch_counts
+    from code2vec_tpu_torch.parallel.distributed import feed_groups
     from code2vec_tpu_torch.parallel.mesh import make_mesh
     from code2vec_tpu_torch.parallel.shardings import shard_model
     from code2vec_tpu_torch.train.device_epoch import (
         ShardedEpochRunner,
         sampler_generator,
-        shard_staged,
+        shard_staged_multiprocess,
         stage_method_corpus,
     )
     from code2vec_tpu_torch.train.step import StepTally
@@ -302,21 +308,25 @@ def phase_shard(work_dir: str, batch: int, bag: int, steps: int, data_axis: int,
                             timeout=datetime.timedelta(seconds=600))
     try:
         mesh = make_mesh(data=data_axis, model=1, ctx=1)
-        data = load_corpus_data(work_dir, n_labels, ram=True)
+        group, n_groups = feed_groups(mesh)
+        data = load_corpus_data(work_dir, n_labels)
         if rank == 0:
             _emit(phase="shard", loaded=True, **_rss())
         model, optimizer, cw = model_bits(device, batch, bag, table_update, vocab_rows,
                                           n_labels)
         shard_model(model, mesh)
-        rng = np.random.default_rng(0)
+        # the reader's round robin (data/reader.py): this group's rows
+        mine = np.arange(group, data.n_items, n_groups)
         t0 = time.time()
-        staged = shard_staged(stage_method_corpus(data, np.arange(data.n_items), rng), mesh,
-                              device)
+        staged = shard_staged_multiprocess(
+            stage_method_corpus(data, mine, np.random.default_rng(1000 + group)), mesh, device)
         del data
         local = int(staged.nbytes)
         _emit(phase="shard", rank=rank, staged=True, seconds=round(time.time() - t0, 1),
-              data_axis=data_axis, per_device_staged_mb=round(local / 2**20),
+              data_axis=data_axis, local_items=len(mine),
+              per_device_staged_mb=round(local / 2**20),
               total_staged_mb=round(local * data_axis / 2**20), **_rss())
+        rng = np.random.default_rng(0)
         runner = ShardedEpochRunner(cw, batch, bag, chunk_batches=1, mesh=mesh)
         gen = sampler_generator(0, device)
         tally = StepTally(device)

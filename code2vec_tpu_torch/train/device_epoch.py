@@ -36,8 +36,12 @@ JAX module's order; the shifts (and, for the variable task's
 explicit ``torch.Generator`` on the corpus's device (its stream differs
 from JAX's keys, as dropout's does). The remap permutes the ``@var_*`` ids
 once per variable row of a batch, where the host path permutes them once
-per method; the marginal distribution is the same (JAX ``:577-579``). Not
-ported: the sharded runners and CUDA-graph capture of a chunk (ROADMAP).
+per method; the marginal distribution is the same (JAX ``:577-579``).
+
+Sharded staging (``shard_staged_corpus``) partitions a split over the
+mesh's data axis: :func:`shard_staged` from a whole-corpus host staging,
+:func:`shard_staged_multiprocess` from each feed group's own corpus shard.
+Not ported: CUDA-graph capture of a chunk (ROADMAP).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from code2vec_tpu_torch import PAD_INDEX, QUESTION_TOKEN_INDEX
 from code2vec_tpu_torch.data.pipeline import assign_buckets, flat_context_indices
@@ -224,6 +229,11 @@ class BucketedStagedCorpus:
     @property
     def nbytes(self) -> int:
         return sum(s.nbytes for _, s in self.buckets)
+
+    @property
+    def contexts(self):
+        """The first bucket's contexts (where the staging lives)."""
+        return self.buckets[0][1].contexts
 
     @property
     def counts(self) -> np.ndarray:
@@ -560,8 +570,7 @@ class BucketedEpochRunner:
     def run_train_epoch(self, model, optimizer, corpus: BucketedStagedCorpus,
                         rng: np.random.Generator,
                         generator: torch.Generator) -> tuple[float, dict]:
-        staged = corpus.buckets[0][1]  # a sharded bucket's rows are its ``local`` share
-        tally = StepTally(getattr(staged, "local", staged).contexts.device)
+        tally = StepTally(corpus.contexts.device)
         for i in rng.permutation(len(corpus.buckets)):
             width, staged = corpus.buckets[int(i)]
             self._runners[width].train_epoch(model, optimizer, staged, rng, generator, tally)
@@ -643,20 +652,107 @@ def shard_staged(staged: StagedCorpus, mesh, device: str | torch.device) -> Shar
     counts = np.diff(np.asarray(staged.row_splits).astype(np.int64))
     groups = partition_items_balanced(counts, n_shards)
     mine = _host_rows(staged, groups[me])
-    local = mine
-    if mine.n_items == 0:
-        # a share with no rows (a bucket smaller than the data axis) still
-        # steps masked batches: one empty row over one PAD context to sample
-        local = StagedCorpus(contexts=np.zeros((1, 3), np.int32),
-                             row_splits=np.zeros(2, np.int64), labels=np.zeros(1, np.int32),
-                             n_items=1, counts=np.zeros(1, np.int64),
-                             remap_ids=staged.remap_ids,
-                             remap_flags=None if staged.remap_flags is None
-                             else np.zeros(1, np.int32))
-    return ShardedStagedCorpus(local=place_staged(local, device),
+    return ShardedStagedCorpus(local=place_staged(_or_empty(mine, staged), device),
                                shard_counts=np.asarray([len(g) for g in groups], np.int64),
                                n_items=staged.n_items, total_contexts=int(counts.sum()),
                                host_labels=np.asarray(mine.labels))
+
+
+def _or_empty(mine: StagedCorpus, like: StagedCorpus) -> StagedCorpus:
+    """``mine``, or for a share with no rows (a bucket smaller than the data
+    axis) the stand-in that still steps masked batches: one empty row over
+    one PAD context to sample."""
+    if mine.n_items:
+        return mine
+    return StagedCorpus(contexts=np.zeros((1, 3), np.int32), row_splits=np.zeros(2, np.int64),
+                        labels=np.zeros(1, np.int32), n_items=1, counts=np.zeros(1, np.int64),
+                        remap_ids=like.remap_ids,
+                        remap_flags=None if like.remap_flags is None else np.zeros(1, np.int32))
+
+
+def stage_method_corpus_sharded(data, item_idx: np.ndarray, rng: np.random.Generator, mesh,
+                                device: str | torch.device) -> ShardedStagedCorpus:
+    """Method-task host staging, then :func:`shard_staged` (JAX ``:436``)."""
+    return shard_staged(stage_method_corpus(data, item_idx, rng), mesh, device)
+
+
+def _check_shard_ctx_cap(ctx_cap: int, n_shards: int) -> None:
+    """A share's ``row_splits`` are int32 (JAX ``:343``): the corpus may pass
+    2^31 contexts, one share may not."""
+    if ctx_cap >= 2**31:
+        raise ValueError(f"largest shard holds {ctx_cap} contexts (int32 row_splits); "
+                         f"increase data_axis beyond {n_shards}")
+
+
+def settle_group_counts(gathered: np.ndarray, n_shards: int) -> tuple[np.ndarray, int]:
+    """``(shard_counts, total_contexts)`` from :func:`shard_staged_multiprocess`'s
+    gathered ``[world, 3 + 2 * n_shards]`` matrix (a rank's row: its items
+    cap, its contexts cap, its feed group, then each coordinate's items and
+    contexts, zero outside its group). Every rank reads the same matrix, so
+    a check that fails here fails on every rank and none is left waiting at
+    the next collective. The largest share's contexts must fit int32, and
+    the replicas of a feed group must agree exactly on their counts: a
+    mismatch means divergent staging (an rng seeded by rank, not by group),
+    which would assemble wrong shares silently (JAX ``:518-541``)."""
+    gathered = np.asarray(gathered, np.int64)
+    _check_shard_ctx_cap(max(int(gathered[:, 1].max()), 1), n_shards)
+    proc_groups = gathered[:, 2]
+    all_counts = gathered[:, 3:3 + n_shards]
+    all_ctx = gathered[:, 3 + n_shards:]
+    for g in np.unique(proc_groups):
+        members = np.flatnonzero(proc_groups == g)
+        for name, arr in (("item", all_counts), ("context", all_ctx)):
+            if not (arr[members] == arr[members[0]][None, :]).all():
+                raise ValueError(
+                    f"feed-group {int(g)} replicas disagree on per-shard "
+                    f"{name} counts ({arr[members].tolist()}); group "
+                    "members must stage the SAME shard with the SAME seed "
+                    "(seed the staging rng by feed group, not by process)")
+    return all_counts.max(axis=0), int(all_ctx.max(axis=0).sum())
+
+
+def shard_staged_multiprocess(staged_local: StagedCorpus, mesh,
+                              device: str | torch.device) -> ShardedStagedCorpus:
+    """Sharded staging where each feed group stages only its own corpus
+    shard (JAX ``:448``): ``staged_local`` is the host staging of this
+    rank's group shard (``load_corpus(shard=feed_groups(mesh))``, the rng
+    seeded by group, so the replicas of a group stage alike). The shard is
+    dealt over the group's own data coordinates and this rank places its
+    coordinate's share on ``device``; one all-gather of a small int64
+    vector tells every rank every share's item and context counts. No rank
+    holds the whole corpus. Method task only; a world of one rank is
+    :func:`shard_staged`."""
+    from code2vec_tpu_torch.parallel.distributed import feed_groups, process_allgather
+
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+        return shard_staged(staged_local, mesh, device)
+    if staged_local.remap_ids is not None and len(np.asarray(staged_local.remap_ids)):
+        raise ValueError("multi-process sharded staging supports the method task only; "
+                         "stage the variable task replicated or use the host pipeline")
+    group, n_groups = feed_groups(mesh)
+    n_shards = mesh.shape["data"]
+    if n_shards % n_groups:
+        raise ValueError(f"data axis {n_shards} not divisible by {n_groups} feed groups")
+    # group g owns the data coordinates [g * local_d, (g + 1) * local_d)
+    local_d = n_shards // n_groups
+    counts = np.diff(np.asarray(staged_local.row_splits).astype(np.int64))
+    groups_local = partition_items_balanced(counts, local_d)
+    mine = slice(group * local_d, (group + 1) * local_d)
+    items, ctx = np.zeros(n_shards, np.int64), np.zeros(n_shards, np.int64)
+    items[mine] = [len(g) for g in groups_local]
+    ctx[mine] = [int(counts[g].sum()) for g in groups_local]
+    gathered = process_allgather(np.concatenate([
+        [max(items.max(), 1), max(ctx.max(), 1), group], items, ctx]))
+    shard_counts, total_contexts = settle_group_counts(gathered, n_shards)
+    members = groups_local[mesh.coords["data"] - group * local_d]
+    # a group of one coordinate (one rank a coordinate, as the port's mesh
+    # lays ranks) keeps every row in order: no second host copy of the shard
+    share = (staged_local if len(members) == staged_local.n_items
+             else _host_rows(staged_local, members))
+    return ShardedStagedCorpus(local=place_staged(_or_empty(share, staged_local), device),
+                               shard_counts=shard_counts, n_items=int(shard_counts.sum()),
+                               total_contexts=total_contexts,
+                               host_labels=np.asarray(share.labels))
 
 
 @dataclass
@@ -676,6 +772,11 @@ class BucketedShardedStagedCorpus:
     @property
     def nbytes(self) -> int:
         return sum(s.nbytes for _, s in self.buckets)
+
+    @property
+    def contexts(self):
+        """The first bucket's share of contexts on this rank."""
+        return self.buckets[0][1].local.contexts
 
     def flat_labels(self, mesh) -> np.ndarray:
         return (np.concatenate([s.flat_labels(mesh) for _, s in self.buckets]) if self.buckets

@@ -383,6 +383,109 @@ def scenario_build(spec, rank):
             "index": index, "unit": unit}
 
 
+def scenario_group_staging(spec, rank):
+    """Each feed group loads and stages only its corpus shard (the rng
+    seeded by group), ``shard_staged_multiprocess`` assembles the shares;
+    with ``spec["rows"]``, ``ShardedEpochRunner`` chunks on ``pool_only``
+    over the given rows of each share. With ``spec["refusals"]``, the
+    refused cases instead, each ``(message, shares placed)``."""
+    import torch
+
+    from code2vec_tpu_torch.data import reader
+    from code2vec_tpu_torch.parallel import distributed
+    from code2vec_tpu_torch.train import device_epoch as de
+
+    mesh = _mesh(spec["axes"])
+    group, n_groups = distributed.feed_groups(mesh)
+    corpus = spec["corpus"]
+    args = (corpus["corpus"], corpus["path_idx"], corpus["terminal_idx"])
+    data = reader.load_corpus(*args, cache=False, shard=(group, n_groups))
+    host = de.stage_method_corpus(data, np.arange(data.n_items),
+                                  np.random.default_rng(1000 + group))
+    if spec.get("refusals"):
+        return _group_staging_refusals(mesh, rank, data, host, args, group, n_groups)
+    staged = de.shard_staged_multiprocess(host, mesh, "cpu")
+    out = {"group": group, "local_items": data.n_items, "staged_items": host.n_items,
+           "shard_counts": staged.shard_counts, "n_items": staged.n_items,
+           "total_contexts": staged.total_contexts,
+           "local": {k: getattr(staged.local, k).numpy() for k in
+                     ("contexts", "row_splits", "labels")}}
+    if "rows" in spec:
+        out["losses"] = _group_staging_chunks(spec, mesh, staged)
+    return out
+
+
+def _group_staging_chunks(spec, mesh, staged):
+    """The chunks' per-step losses over the given rows of this rank's share."""
+    import torch
+
+    from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
+    from code2vec_tpu_torch.parallel.shardings import shard_model
+    from code2vec_tpu_torch.train import device_epoch as de
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.step import StepTally, make_optimizer
+
+    inputs = torch.load(spec["inputs"], weights_only=False)
+    model = Code2Vec(Code2VecConfig(**spec["model"], dropout_prob=0.0, use_pallas=True,
+                                    pallas_impl="pool_only"))
+    model.load_state_dict(inputs["state_dict"], strict=True)
+    shard_model(model, mesh)
+    opt = make_optimizer(model, TrainConfig(lr=spec["lr"]))
+    chunk = spec["chunk"]
+    runner = de.ShardedEpochRunner(torch.ones(spec["model"]["label_count"]), spec["batch"],
+                                   spec["bag"], chunk, mesh=mesh)
+    generator = de.sampler_generator(3, "cpu")
+    losses = []
+    for rows in spec["rows"]:  # [data, span] per chunk: the given rows of each share
+        order = np.asarray(rows[runner.shard], np.int64)
+        tally = StepTally(torch.device("cpu"))
+        runner.train_chunk(model, opt, staged.local, order, 0, chunk, len(order), generator,
+                           tally)
+        losses.append([float(x) for x in tally.losses])
+    return losses
+
+
+def _group_staging_refusals(mesh, rank, data, host, args, group, n_groups):
+    """Every refused case on every rank, one after another: the variable
+    task, a share past int32 on the last rank only, and the last rank
+    staging one item fewer than its group's other replica."""
+    from code2vec_tpu_torch.data import reader
+    from code2vec_tpu_torch.parallel import distributed
+    from code2vec_tpu_torch.train import device_epoch as de
+
+    placed, real_place, real_gather = [], de.place_staged, distributed.process_allgather
+    de.place_staged = lambda *a: placed.append(1) or real_place(*a)
+    last = rank == mesh.size - 1
+
+    def inflated(x):
+        x = np.asarray(x, np.int64).copy()
+        if last:
+            x[1] += 2**31
+        return real_gather(x)
+
+    var_data = reader.load_corpus(*args, cache=False, shard=(group, n_groups),
+                                  infer_method=False, infer_variable=True)
+    cases = {
+        "variable": lambda: de.stage_variable_corpus(var_data, np.arange(var_data.n_items),
+                                                     np.random.default_rng(1000 + group)),
+        "over_cap": lambda: host,
+        "replica": lambda: (de.stage_method_corpus(data, np.arange(data.n_items - 1),
+                                                   np.random.default_rng(1000 + group))
+                            if last else host),
+    }
+    out = {}
+    for name, staging in cases.items():
+        placed.clear()
+        distributed.process_allgather = inflated if name == "over_cap" else real_gather
+        try:
+            de.shard_staged_multiprocess(staging(), mesh, "cpu")
+            out[name] = (None, len(placed))
+        except ValueError as e:
+            out[name] = (str(e), len(placed))
+    distributed.process_allgather = real_gather
+    return out
+
+
 def _worker_main(spec_path: str, rank: int) -> None:
     sys.path.insert(0, REPO)
     import torch
