@@ -1,0 +1,9 @@
+"""K3 (``csrc/fused_encode_pool.cu``, materialize: the online kernel and the
+combine at widths up to the training bag): the least time of its traced
+calls (c2vbench/costs.encode_pool_seconds) over their traced time."""
+
+from c2vbench.serve_kernels import roofline
+
+
+def read(run):
+    return roofline(run, long_bags=False)
