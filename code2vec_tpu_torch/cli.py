@@ -48,7 +48,19 @@ scalars under ``--tensorboard_dir`` (needs tensorboardX);
 ``--events_dir`` writes a JSONL event log (the run manifest first),
 ``--trace_dir`` a Chrome trace of the training layers, ``--profile_dir``
 a ``torch.profiler`` trace of the second epoch (of the first trial in a
-search).
+search). In the trace a ``--device_epoch`` run writes a ``train_chunk``
+span a chunk (args ``steps``, ``rows``, ``real_contexts``, ``slots``,
+``late_steps``) holding each step's ``sample`` and ``train_step``; every
+``train_step`` (host-fed too) holds ``forward``, ``backward``,
+``grad_sync`` (on a mesh) and ``optimizer`` (with ``--table_update lazy``
+each table's ``<table>_rows_processed`` and ``<table>_rows_touched``). On
+the card ``sample``, ``forward``, ``backward``, ``grad_sync`` and
+``optimizer`` carry ``device_ms`` (the stream's time between CUDA events
+at their edges, read without a sync) and ``drained`` (whether the card
+had finished all the host had launched when the span began). Every step
+is spanned, 4 to 6 spans a step, so a long run reaches the tracer's cap
+of 1,000,000 spans: later spans (eval and checkpoint ones too) are left
+out of the file and counted in its ``dropped_events``.
 
 Several cards (JAX ``cli.py:168-186``, ``:246-252``, ``:511-535``):
 ``torchrun --nproc_per_node N -m code2vec_tpu_torch --data_axis D
@@ -289,7 +301,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--trace_dir", type=str, default=None,
                         help="write a Chrome trace_event JSON here (spans of the extractor, "
                              "the input pipeline, the prefetch producer and the train / eval / "
-                             "checkpoint phases; obs/trace.py)")
+                             "checkpoint phases; each step's train_step with forward, backward, "
+                             "grad_sync and optimizer, and with --device_epoch a train_chunk "
+                             "span a chunk with each step's sample; on the card the step's "
+                             "parts carry device_ms and drained; every step is spanned, 4 to 6 "
+                             "spans a step, and spans past the first 1,000,000 are counted as "
+                             "dropped_events, not written; obs/trace.py)")
 
     # the mesh (parallel/; JAX cli.py:168-186, :246-252)
     parser.add_argument("--data_axis", type=int, default=1,

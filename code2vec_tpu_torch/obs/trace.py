@@ -9,10 +9,20 @@ buffer; :meth:`Tracer.export_dir` writes the standard Chrome trace JSON
 events carry ``pid = process_index`` plus a ``process_name`` metadata
 event, so merged traces keep one track per process.
 
-Instrumented layers (the batcher, the engine, the server, the router)
-fetch the process-wide tracer via :func:`get_tracer`; with no tracer
-installed they get the :class:`NullTracer`, whose ``span`` returns a
-shared ``nullcontext`` — cheap enough for per-request call sites.
+Instrumented layers (the batcher, the engine, the server, the router,
+the train step and device epochs) fetch the process-wide tracer via
+:func:`get_tracer`; with no tracer installed they get the
+:class:`NullTracer`, whose ``span`` returns a shared ``nullcontext`` —
+cheap enough for per-request call sites.
+
+**Device time.** ``tracer.span("forward", "train", device)`` on a CUDA
+device also records a CUDA event at each edge on the current stream (from
+a pool, never waited on): its ``device_ms`` is read once the work is done
+(:meth:`Tracer.poll`, or at export), and ``drained`` says whether the card
+had finished everything launched before it began. :meth:`Tracer.summary`
+reads the spans of an interval back by name (count, host, self and device
+ms, summed args); :meth:`Tracer.marks` names each instant by its innermost
+span on the wall clock a profiler's trace is aligned to.
 
 Thread-safe: spans may close concurrently on any thread; each thread gets
 its own trace row (``tid``), named after ``threading.Thread.name`` via
@@ -142,6 +152,59 @@ def current_trace_scope() -> dict:
     return dict(tags) if tags else {}
 
 
+class _Span:
+    """One span: the context manager :meth:`Tracer.span` hands out while
+    the block runs, and the record the tracer keeps once it has closed.
+    Times are ``time.perf_counter_ns()``; ``child`` is the time of the
+    spans nested in it on its thread, so ``end - start - child`` is its
+    self time. ``args`` may be added to until the span closes."""
+
+    __slots__ = ("tracer", "name", "cat", "args", "device", "start", "end", "child",
+                 "edges", "device_ms", "tid")
+
+    def __init__(self, tracer, name, cat, args, device=None):
+        self.tracer, self.name, self.cat, self.args = tracer, name, cat, args
+        self.device = device
+        self.start = self.end = None
+        self.child = 0
+        self.edges = None  # [entry event, exit event] until they are read
+        self.device_ms = None
+        self.tid = None
+
+    def __enter__(self):
+        self.tracer._open(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.tracer._close(self)
+        return False
+
+
+def _self_pieces(spans: list) -> list:
+    """``[(start, end, name)]``: the intervals of one thread's nested spans
+    cut so that each instant belongs to the innermost span that holds it
+    (a parent's pieces are the time none of its children covers)."""
+    out = []
+    stack = []  # [span, where its uncovered time resumes]
+
+    def close(top):
+        span, at = top
+        if span.end > at:
+            out.append((at, span.end, span.name))
+        if stack:
+            stack[-1][1] = max(stack[-1][1], span.end)
+
+    for span in sorted(spans, key=lambda s: (s.start, -s.end)):
+        while stack and stack[-1][0].end <= span.start:
+            close(stack.pop())
+        if stack and span.start > stack[-1][1]:
+            out.append((stack[-1][1], span.start, stack[-1][0].name))
+        stack.append([span, span.start])
+    while stack:
+        close(stack.pop())
+    return sorted(out)
+
+
 class Tracer:
     """Collect spans; export once at end of run.
 
@@ -150,6 +213,23 @@ class Tracer:
 
     ``max_events`` bounds memory on long runs. Overflow is counted, not
     silent: the exported JSON carries ``dropped_events`` metadata.
+
+    Spans are kept in nanoseconds of ``time.perf_counter_ns()``, anchored
+    once to ``time.time_ns()`` (:meth:`wall_ns`); the export writes epoch
+    microseconds. A span given ``edges`` (the device its block's work runs
+    on) records, on a CUDA device, a timing event on the current stream at
+    entry and at exit, taken from a pool; nothing waits for them.
+    :meth:`poll` reads the pairs whose work is done (``device_ms``, the
+    stream's time between the two) and returns their events to the pool;
+    the export and :meth:`summary` wait for the rest. At entry an edged
+    span also records ``drained``: whether the last edge recorded on each
+    stream before it had completed, that is whether the card had run out of
+    work the host had launched (:attr:`drained_edges` counts them). Edged
+    spans are recorded from one thread. Their args may hold a 0-d device
+    tensor: it is copied to pinned host memory before the exit edge and
+    read when the span is polled. Once ``max_events`` spans are kept a span
+    records no edges, and an edged span dropped at its close hands its
+    events back to the pool.
     """
 
     enabled = True
@@ -163,7 +243,7 @@ class Tracer:
         self.process_index = process_index
         self.process_name = process_name
         self.max_events = int(max_events)
-        self._events: list[dict] = []
+        self._spans: list[_Span] = []
         # (os thread ident, thread name) -> synthetic trace tid. CPython
         # reuses idents as soon as a thread dies — and the prefetcher
         # spawns a fresh producer per epoch — so the raw ident would let a
@@ -174,11 +254,16 @@ class Tracer:
         # plain on purpose: hottest leaf lock in the process (every span);
         # never held across another acquire, so tracing it buys nothing
         self._lock = threading.Lock()
-        self._t0 = time.perf_counter()
+        self._local = threading.local()  # each thread's open spans
+        self._t0_ns = time.perf_counter_ns()
         # wall-clock anchor for the monotonic span clock: exported ts are
         # µs since the unix epoch, so per-host trace files land on one
         # shared time axis (aligned up to NTP skew) when merged
-        self._wall_t0_us = time.time() * 1e6
+        self._wall_t0_ns = time.time_ns()
+        self._pool: list = []  # timing events free to record
+        self._pending: list[_Span] = []  # closed edged spans not read yet
+        self._last: dict = {}  # stream -> its last edge not known complete
+        self.drained_edges = 0
 
     def _resolve_process_index(self) -> int:
         if self.process_index is None:
@@ -187,22 +272,114 @@ class Tracer:
             self.process_index = resolve_process_index()
         return int(self.process_index)
 
-    def _now_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
+    def wall_ns(self, t_ns: int) -> int:
+        """A span time (``perf_counter_ns``) on the ``time.time_ns()`` clock."""
+        return t_ns - self._t0_ns + self._wall_t0_ns
 
-    @contextlib.contextmanager
-    def span(self, name: str, category: str = "run", **args):
+    def span(self, name: str, category: str = "run", edges=None, **args) -> _Span:
         """Record the wrapped block as a complete trace event. Args are
-        evaluated at entry (e.g. queue depth at enqueue time)."""
-        ts = self._now_us()
+        evaluated at entry (e.g. queue depth at enqueue time); ``with ...
+        as span`` may add to ``span.args`` before the block ends.
+        ``edges``: the block's device (timed on a CUDA device)."""
+        return _Span(self, name, category, args, edges)
+
+    def _stack(self) -> list:
         try:
-            yield self
-        finally:
-            self._record(name, category, ts, self._now_us() - ts, args)
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
+
+    def _open(self, span: _Span) -> None:
+        span.start = time.perf_counter_ns()
+        if span.device is not None and span.device.type == "cuda" and not self._full():
+            self._edge_in(span)
+        self._stack().append(span)
+
+    def _close(self, span: _Span) -> None:
+        if span.edges is not None:
+            if self._full():
+                self._release(span)
+            else:
+                self._edge_out(span)
+        span.end = time.perf_counter_ns()
+        stack = self._stack()
+        if stack and stack[-1] is span:
+            stack.pop()
+        elif span in stack:
+            stack.remove(span)
+        if stack:
+            stack[-1].child += span.end - span.start
+        self._keep(span)
+
+    def _full(self) -> bool:
+        return len(self._spans) >= self.max_events
+
+    def _release(self, span: _Span) -> None:
+        """Hand a dropped span's edges back to the pool, unread."""
+        self._pool += [e for e in span.edges if e is not None]
+        span.edges = None
+
+    def _event(self):
+        import torch
+
+        return self._pool.pop() if self._pool else torch.cuda.Event(enable_timing=True)
+
+    def _edge_in(self, span: _Span) -> None:
+        import torch
+
+        if self._last:
+            waiting = {s: e for s, e in self._last.items() if not e.query()}
+            span.args["drained"] = not waiting
+            self.drained_edges += not waiting
+            self._last = waiting
+        stream = torch.cuda.current_stream(span.device)
+        event = self._event()
+        event.record(stream)
+        span.edges = [event, None]
+        self._last[stream] = event
+
+    def _edge_out(self, span: _Span) -> None:
+        import torch
+
+        for key, value in span.args.items():
+            if isinstance(value, torch.Tensor) and value.is_cuda:
+                host = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+                span.args[key] = host.copy_(value, non_blocking=True)
+        stream = torch.cuda.current_stream(span.device)
+        event = self._event()
+        event.record(stream)
+        span.edges[1] = event
+        self._last[stream] = event
+
+    def poll(self, wait: bool = False) -> None:
+        """Read the closed edged spans whose exit edges have completed, in
+        the order they closed, up to the first that has not (a ``query()``
+        each: no wait); ``wait`` synchronises on each instead (after the
+        caller's own sync, as at export)."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        done = 0
+        for span in pending:
+            start, end = span.edges
+            if wait:
+                end.synchronize()
+                start.synchronize()
+            elif not (end.query() and start.query()):
+                break
+            span.device_ms = start.elapsed_time(end)
+            span.args = sanitize(span.args)
+            span.edges = None
+            self._pool += (start, end)
+            done += 1
+        with self._lock:
+            self._pending = pending[done:] + self._pending
 
     def instant(self, name: str, category: str = "run", **args) -> None:
         """A zero-duration mark (Chrome "i" phase) — e.g. a recompile."""
-        self._record(name, category, self._now_us(), None, args)
+        span = _Span(self, name, category, args)
+        span.start = time.perf_counter_ns()
+        self._keep(span)
 
     def span_complete(
         self,
@@ -219,61 +396,121 @@ class Tracer:
         child's stamps share this process's span clock). ``track`` names
         the trace row the span lands on (its own tid, e.g.
         ``feed-worker-3``) instead of the recording thread's."""
-        ts = (start_s - self._t0) * 1e6
-        self._record(
-            name, category, ts, max((end_s - start_s) * 1e6, 0.0), args,
-            track=track,
-        )
+        span = _Span(self, name, category, args)
+        span.start = round(start_s * 1e9)
+        span.end = span.start + max(round((end_s - start_s) * 1e9), 0)
+        # synthetic per-track row: the key shape matches the thread keys
+        # ((unique, display-name)) so naming metadata just works
+        self._keep(span, None if track is None else (f"__track__{track}", track))
 
-    def _record(self, name, category, ts, dur, args, track=None) -> None:
-        if track is not None:
-            # synthetic per-track row: the key shape matches the thread
-            # keys ((unique, display-name)) so naming metadata just works
-            thread_key = (f"__track__{track}", track)
-        else:
-            thread_key = (
-                threading.get_ident(), threading.current_thread().name
-            )
-        # pid is stamped at export (one tracer = one process) so recording
-        # never has to resolve the process index
-        event = {
-            "name": name,
-            "cat": category,
-            "ph": "X" if dur is not None else "i",
-            "ts": round(ts, 3),
-        }
-        if dur is not None:
-            event["dur"] = round(dur, 3)
-        else:
-            event["s"] = "t"
-        if args:
-            event["args"] = sanitize(args)
+    def _keep(self, span: _Span, thread_key=None) -> None:
+        if thread_key is None:
+            thread_key = (threading.get_ident(), threading.current_thread().name)
+        if span.edges is None and span.args and not self._full():
+            span.args = sanitize(span.args)
         with self._lock:
             tid = self._tids.get(thread_key)
             if tid is None:
                 tid = len(self._tids)
                 self._tids[thread_key] = tid
-            event["tid"] = tid
-            if len(self._events) < self.max_events:
-                self._events.append(event)
+            span.tid = tid
+            kept = not self._full()
+            if kept:
+                self._spans.append(span)
+                if span.edges is not None:
+                    self._pending.append(span)
             else:
                 self._dropped += 1
+        if not kept and span.edges is not None:
+            self._release(span)
+
+    # ---- read-out ------------------------------------------------------
+    def _closed(self, start_ns: int | None, end_ns: int | None,
+                overlap: bool = False) -> list[_Span]:
+        """The closed spans within ``[start_ns, end_ns]`` (``overlap``: that
+        overlap it)."""
+        with self._lock:
+            spans = list(self._spans)
+        lo = -1 if start_ns is None else start_ns
+        hi = float("inf") if end_ns is None else end_ns
+        if overlap:
+            return [s for s in spans if s.end is not None and s.end >= lo and s.start <= hi]
+        return [s for s in spans if s.end is not None and s.start >= lo and s.end <= hi]
+
+    def summary(self, start_ns: int | None = None, end_ns: int | None = None) -> dict:
+        """``{name: {"count", "host_ms", "self_ms", "device_ms",
+        "device_count", "args"}}`` of the spans that ran within ``[start_ns,
+        end_ns]`` (``perf_counter_ns``; None leaves that side open).
+        ``self_ms`` is ``host_ms`` less the spans nested in them on their
+        thread; ``device_ms`` sums the ``device_count`` spans whose edges
+        were read, after waiting for them (:meth:`poll`); ``args`` sums
+        each numeric arg (``drained``: the spans that found the card
+        drained)."""
+        self.poll(wait=True)
+        out: dict = {}
+        for s in self._closed(start_ns, end_ns):
+            row = out.get(s.name)
+            if row is None:
+                row = out[s.name] = {"count": 0, "host_ms": 0.0, "self_ms": 0.0,
+                                     "device_ms": 0.0, "device_count": 0, "args": {}}
+            row["count"] += 1
+            row["host_ms"] += (s.end - s.start) / 1e6
+            row["self_ms"] += (s.end - s.start - s.child) / 1e6
+            if s.device_ms is not None:
+                row["device_ms"] += s.device_ms
+                row["device_count"] += 1
+            for key, value in s.args.items():
+                if isinstance(value, (int, float)):
+                    row["args"][key] = row["args"].get(key, 0) + value
+        return out
+
+    def marks(self, start_ns: int | None = None, end_ns: int | None = None) -> list:
+        """``[(start, end, name)]`` on the ``time.time_ns()`` clock: each
+        thread's spans that overlap ``[start_ns, end_ns]``
+        (``perf_counter_ns``), cut so that each instant is named by the
+        innermost span that holds it (its self time), for a profiler that
+        names what the host was doing."""
+        by_tid: dict = {}
+        for s in self._closed(start_ns, end_ns, overlap=True):
+            by_tid.setdefault(s.tid, []).append(s)
+        return [(self.wall_ns(a), self.wall_ns(b), name)
+                for spans in by_tid.values() for a, b, name in _self_pieces(spans)]
 
     # ---- export --------------------------------------------------------
-    def chrome_trace(self) -> dict:
-        """The full Chrome trace object: per-process / per-thread naming
-        metadata first, then the recorded events in timestamp order."""
-        pid = self._resolve_process_index()
-        with self._lock:
+    def _chrome_event(self, s: _Span, pid: int) -> dict:
+        event = {
+            "name": s.name,
+            "cat": s.cat,
+            "ph": "X" if s.end is not None else "i",
             # epoch-anchored integer µs: whole-µs resolution is plenty (the
             # cross-host alignment bound is NTP skew), and it keeps the
             # offset exact in float64 JSON numbers
-            events = [
-                dict(e, pid=pid, ts=round(self._wall_t0_us + e["ts"]))
-                for e in self._events
-            ]
+            "ts": (self.wall_ns(s.start) + 500) // 1000,
+        }
+        if s.end is not None:
+            event["dur"] = round((s.end - s.start) / 1e3, 3)
+        else:
+            event["s"] = "t"
+        args = s.args if s.edges is None else {}
+        if s.device_ms is not None:
+            args = {**args, "device_ms": round(s.device_ms, 6)}
+        if args:
+            event["args"] = args
+        event["tid"] = s.tid
+        event["pid"] = pid
+        return event
+
+    def chrome_trace(self) -> dict:
+        """The full Chrome trace object: per-process / per-thread naming
+        metadata first, then the recorded events in timestamp order (the
+        device edges read first, waiting for any still in flight)."""
+        self.poll(wait=True)
+        pid = self._resolve_process_index()
+        with self._lock:
+            spans = list(self._spans)
             thread_names = {tid: key[1] for key, tid in self._tids.items()}
             dropped = self._dropped
+        events = [self._chrome_event(s, pid) for s in spans]
         events.sort(key=lambda e: e["ts"])
         meta = [
             {
@@ -320,9 +557,13 @@ class NullTracer:
     else."""
 
     enabled = False
+    drained_edges = 0
     _NULL = contextlib.nullcontext()
 
-    def span(self, name: str, category: str = "run", **args):
+    def poll(self, wait: bool = False) -> None:
+        return None
+
+    def span(self, name: str, category: str = "run", edges=None, **args):
         return self._NULL
 
     def instant(self, name: str, category: str = "run", **args) -> None:

@@ -54,6 +54,7 @@ import torch.distributed as dist
 
 from code2vec_tpu_torch import PAD_INDEX, QUESTION_TOKEN_INDEX
 from code2vec_tpu_torch.data.pipeline import assign_buckets, flat_context_indices
+from code2vec_tpu_torch.obs.trace import NULL_TRACER, get_tracer
 from code2vec_tpu_torch.train.step import StepTally, eval_step, train_step
 
 # the shifts are uniform in [0, 2^30), as JAX's randint draws them
@@ -455,10 +456,11 @@ class EpochRunner:
         return rows.astype(np.int32)
 
     def _batches(self, corpus: StagedCorpus, order: np.ndarray, row_lo: int, nb: int,
-                 n_valid: int, generator: torch.Generator):
+                 n_valid: int, generator: torch.Generator, tracer=NULL_TRACER):
         """The chunk's ``nb`` sampled batches, in order: one pinned,
         asynchronous copy of its row order to the card, the example mask
-        made there."""
+        made there. Each batch's sampling is a ``sample`` span of
+        ``tracer``, timed on the stream it runs on."""
         dev = corpus.contexts.device
         rows = torch.from_numpy(self._padded_rows(order, row_lo, nb))
         if dev.type == "cuda":
@@ -467,9 +469,10 @@ class EpochRunner:
         b = self.batch_size
 
         def sample(i):
-            return self._place(sample_batch(corpus, rows[i * b:(i + 1) * b],
-                                            valid[i * b:(i + 1) * b], self.bag, generator,
-                                            self.shuffle_variable_ids, self._draw))
+            with tracer.span("sample", "train", dev):
+                return self._place(sample_batch(corpus, rows[i * b:(i + 1) * b],
+                                                valid[i * b:(i + 1) * b], self.bag, generator,
+                                                self.shuffle_variable_ids, self._draw))
 
         if not self.sample_prefetch:
             for i in range(nb):
@@ -497,10 +500,24 @@ class EpochRunner:
                     row_lo: int, nb: int, n_valid: int, generator: torch.Generator,
                     tally: StepTally) -> None:
         """Enqueue one chunk of train steps; each step's loss goes to
-        ``tally``."""
-        real = self._real_contexts(corpus, order, row_lo, nb, n_valid)
-        for i, batch in enumerate(self._batches(corpus, order, row_lo, nb, n_valid, generator)):
-            tally.add(train_step(model, optimizer, batch, self.class_weights), real[i])
+        ``tally``. Under a tracer the chunk is a ``train_chunk`` span (args
+        ``steps``, ``rows``, ``real_contexts``, ``slots`` and
+        ``late_steps``, the steps in which an edged span found the card
+        drained), holding each step's ``sample`` and ``train_step``; the
+        device edges of the chunks before it are read first (no wait)."""
+        tracer = get_tracer()
+        tracer.poll()
+        with tracer.span("train_chunk", "train", steps=nb, rows=n_valid,
+                         slots=nb * self.batch_size * self.bag) as span:
+            real = self._real_contexts(corpus, order, row_lo, nb, n_valid)
+            late = 0
+            for i, batch in enumerate(self._batches(corpus, order, row_lo, nb, n_valid,
+                                                    generator, tracer)):
+                drained = tracer.drained_edges
+                tally.add(train_step(model, optimizer, batch, self.class_weights), real[i])
+                late += tracer.drained_edges > drained
+            if tracer.enabled:
+                span.args.update(real_contexts=sum(real), late_steps=late)
 
     def train_epoch(self, model, optimizer, corpus: StagedCorpus, rng: np.random.Generator,
                     generator: torch.Generator, tally: StepTally) -> None:

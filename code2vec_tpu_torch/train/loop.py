@@ -71,7 +71,6 @@ of its first (warm) step.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import logging
 import os
@@ -147,8 +146,6 @@ from code2vec_tpu_torch.train.step import (
 )
 
 logger = logging.getLogger(__name__)
-
-_NO_SPAN = contextlib.nullcontext()
 
 
 class StopTraining(Exception):
@@ -432,10 +429,10 @@ def _train_pass(model, optimizer, batches, class_weights, device, prefetch: int 
     passes the ``train_step`` fault point, then ``hook`` (which may save,
     and raise :class:`PreemptionStop`); ``loss_offset`` is a resumed
     epoch's fold state, the pass covering the epoch's tail. The pass is a
-    ``train_pass`` span, its first and profiled steps ``train_step``
-    spans (synchronized, so the span covers the device's work). ``place``
-    (a mesh) cuts a host batch to this rank's rows and bag columns before
-    its copy."""
+    ``train_pass`` span; each step spans itself (``train/step.train_step``),
+    the device edges of the steps before it read first (no wait).
+    ``place`` (a mesh) cuts a host batch to this rank's rows and bag
+    columns before its copy."""
     def feed(batch):
         if place is not None:
             batch = place(batch)
@@ -454,18 +451,15 @@ def _train_pass(model, optimizer, batches, class_weights, device, prefetch: int 
                             drain_on_preemption=hook is not None and place is None) as stream:
             for host_batch, (device_batch, contexts) in stream:
                 sampled = profiler is not None and profiler.sampled(step)
-                spanned = (step == 0 and tracer.enabled) or sampled
                 if recompiles is not None:
                     recompiles.observe("train_step", _signature(host_batch, dtype))
+                tracer.poll()
                 if sampled:
                     _sync(device)
-                with (tracer.span("train_step", category="train", step=step) if spanned
-                      else _NO_SPAN):
-                    t0 = time.perf_counter()
-                    loss = train_step(model, optimizer, device_batch, class_weights)
-                    if spanned:
-                        _sync(device)
+                t0 = time.perf_counter()
+                loss = train_step(model, optimizer, device_batch, class_weights)
                 if sampled:
+                    _sync(device)
                     b, w = host_batch["paths"].shape
                     profiler.record_compute(step, (time.perf_counter() - t0) * 1e3,
                                             flops=_step_cost(model.config, b, w)["flops"])

@@ -26,6 +26,7 @@ Counterpart of ``code2vec_tpu/train/step.py``:
 
 from __future__ import annotations
 
+import functools
 import math
 import sys
 import time
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from code2vec_tpu_torch.analysis.contracts import shape_contract, spec
+from code2vec_tpu_torch.obs.trace import get_tracer
 from code2vec_tpu_torch.parallel.distributed import all_reduce_sum
 from code2vec_tpu_torch.parallel.mesh import AXIS_DATA
 from code2vec_tpu_torch.train.table_opt import TABLE_PARAMS, LazyTableAdam
@@ -345,15 +347,20 @@ def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, t
 def forward_backward(model, batch: dict[str, torch.Tensor], class_weights: torch.Tensor,
                      embed_offsets=None) -> torch.Tensor:
     """Training-mode forward and backward of one batch (gradients land in
-    ``.grad``); returns the loss, still on the device."""
+    ``.grad``); returns the loss, still on the device. Under a tracer the
+    two halves are the ``forward`` and ``backward`` spans, timed on the
+    device (``obs/trace.py``)."""
     model.train()
     labels = batch["labels"]
-    logits, _, _ = model(batch["starts"], batch["paths"], batch["ends"],
-                         labels=labels if model.config.angular_margin_loss else None,
-                         embed_offsets=embed_offsets)
-    group = _data_group(model)
-    loss = weighted_nll(logits, labels, class_weights, batch["example_mask"], group)
-    loss.backward()
+    tracer, device = get_tracer(), labels.device
+    with tracer.span("forward", "train", device):
+        logits, _, _ = model(batch["starts"], batch["paths"], batch["ends"],
+                             labels=labels if model.config.angular_margin_loss else None,
+                             embed_offsets=embed_offsets)
+        group = _data_group(model)
+        loss = weighted_nll(logits, labels, class_weights, batch["example_mask"], group)
+    with tracer.span("backward", "train", device):
+        loss.backward()
     # on a mesh: the global loss, the same on every rank
     return all_reduce_sum(loss.detach(), group)
 
@@ -385,28 +392,55 @@ def slot_grads(batch: dict[str, torch.Tensor], offsets) -> list:
             for ids, off in zip((term_ids, batch["paths"].reshape(-1)), offsets)]
 
 
+def _spanned(step):
+    """``step`` inside the ``train_step`` span when a tracer is installed,
+    its contract check included (the check is the span's self time)."""
+
+    @functools.wraps(step)
+    def spanned(*args, **kwargs):
+        tracer = get_tracer()
+        if not tracer.enabled:
+            return step(*args, **kwargs)
+        with tracer.span("train_step", "train"):
+            return step(*args, **kwargs)
+
+    return spanned
+
+
+@_spanned
 @contract_step
 def train_step(model, optimizer, batch: dict[str, torch.Tensor],
                class_weights: torch.Tensor) -> torch.Tensor:
     """One optimizer step (lazy when ``optimizer`` is a
-    :class:`LazyTableAdam`); returns the batch's loss on the device."""
+    :class:`LazyTableAdam`); returns the batch's loss on the device. Under
+    a tracer: the ``train_step`` span, and inside it ``forward``,
+    ``backward``, ``grad_sync`` (on a mesh) and ``optimizer``, each timed
+    on the device; a lazy ``optimizer`` span carries each table's
+    ``<table>_rows_processed`` and ``<table>_rows_touched``."""
     optimizer.zero_grad(set_to_none=True)
     mesh = getattr(model, "mesh", None)
+    tracer, device = get_tracer(), batch["labels"].device
     if isinstance(optimizer, LazyTableAdam):
         loss, table_grads = lazy_forward_backward(model, batch, class_weights)
         if mesh is not None:
             from code2vec_tpu_torch.parallel.step import gather_slot_grads, sync_gradients
 
-            sync_gradients(model, mesh)
-            table_grads = gather_slot_grads(table_grads, mesh)
-        optimizer.step(table_grads)
+            with tracer.span("grad_sync", "train", device):
+                sync_gradients(model, mesh)
+                table_grads = gather_slot_grads(table_grads, mesh)
+        with tracer.span("optimizer", "train", device) as span:
+            optimizer.step(table_grads)
+            if tracer.enabled:
+                span.args.update(optimizer.rows_read())
     else:
         loss = forward_backward(model, batch, class_weights)
         if mesh is not None:
             from code2vec_tpu_torch.parallel.step import sync_gradients
 
-            sync_gradients(model, mesh)
-        optimizer.step()
+            with tracer.span("grad_sync", "train", device):
+                sync_gradients(model, mesh)
+        with tracer.span("optimizer", "train", device):
+            optimizer.step()
     return loss
 
 

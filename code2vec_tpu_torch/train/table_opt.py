@@ -78,11 +78,13 @@ def dedupe_sorted(ids: torch.Tensor, slots: torch.Tensor, vocab: int):
 @torch.no_grad()
 def lazy_rows(param: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, ids: torch.Tensor,
               slots: torch.Tensor, step_size: float, b1: float, b2: float, eps: float,
-              row_lo: int | None = None) -> None:
+              row_lo: int | None = None) -> torch.Tensor:
     """One SparseAdam step of ``param``'s touched rows, in place (JAX
     ``_lazy_rows`` + ``apply_updates_sparse``). ``row_lo``: ``param`` is
     the row shard ``[row_lo, row_lo + rows)`` of a table the global
-    ``ids`` index; the ids outside it are dropped."""
+    ``ids`` index; the ids outside it are dropped. Returns the rows it
+    touched, a 0-d tensor on the device (of the ``N`` rows it reads and
+    writes, one a slot, whatever that count)."""
     vocab = param.shape[0]
     ids, slots = ids.reshape(-1), slots.reshape(-1, param.shape[1]).float()
     if row_lo is not None:
@@ -108,6 +110,7 @@ def lazy_rows(param: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor, ids: torc
         after = tuple(torch.where(touched > 0, a, b) for a, b in zip(after, before))
     for table, new in zip((param, mu, nu), after):
         table.index_copy_(0, uids, new)
+    return touched
 
 
 def bias_corrected_step(lr: float, b1: float, b2: float, t: int) -> float:
@@ -138,6 +141,7 @@ class LazyTableAdam(torch.optim.Optimizer):
         self.dense = dense
         # a property of this run's mesh, not of the state: kept out of state_dict
         self.row_offsets = list(row_offsets or [None] * len(self.param_groups[0]["params"]))
+        self.rows = []  # the last step's (rows read and written, rows touched) a table
         for p in self.param_groups[0]["params"]:
             self.state[p] = {"exp_avg": torch.zeros_like(p, dtype=mu_dtype),
                              "exp_avg_sq": torch.zeros_like(p)}
@@ -159,11 +163,26 @@ class LazyTableAdam(torch.optim.Optimizer):
         group["step"] += 1
         b1, b2 = group["betas"]
         step_size = bias_corrected_step(group["lr"], b1, b2, group["step"])
+        self.rows = []
         for p, (ids, slots), lo in zip(group["params"], table_grads, self.row_offsets):
             state = self.state[p]
-            lazy_rows(p, state["exp_avg"], state["exp_avg_sq"], ids, slots, step_size, b1, b2,
-                      group["eps"], lo)
+            touched = lazy_rows(p, state["exp_avg"], state["exp_avg_sq"], ids, slots, step_size,
+                                b1, b2, group["eps"], lo)
+            self.rows.append((ids.numel(), touched))
         return self.dense.step(closure)
+
+    def rows_read(self) -> dict:
+        """The last step's rows by table (``terminal``, ``path``):
+        ``<table>_rows_processed``, the rows its update read and wrote (one
+        a slot, a host int), and ``<table>_rows_touched``, the distinct ids
+        among them (a 0-d tensor on the tables' device, read with no
+        sync)."""
+        out = {}
+        for name, (processed, touched) in zip(TABLE_PARAMS, self.rows):
+            table = name.split("_", 1)[0]
+            out[f"{table}_rows_processed"] = processed
+            out[f"{table}_rows_touched"] = touched
+        return out
 
     def state_dict(self):
         out = super().state_dict()

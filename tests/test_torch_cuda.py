@@ -1635,3 +1635,146 @@ def test_contracts_raise_before_a_launch_and_never_sync(dev, site):
         torch.cuda.set_sync_debug_mode("default")
     fn(**args)
     assert sum(launch_counts().values()) >= 1
+
+
+# ---------------------------------------------------------------------------
+# spans inside device epochs (obs/trace.py): timed on the card, no sync
+# ---------------------------------------------------------------------------
+
+def heavy_chunk_case(dev, update):
+    """Device epochs the card sets the pace of: batch 1024 at bag 200, width
+    128, encode 384 and a 100,000-label head in f32 (a step ~5 ms on the
+    card, ~1 ms of the host's launches), 8 steps a chunk over 8,192 rows."""
+    import numpy as np
+
+    from code2vec_tpu_torch.models.code2vec import Code2Vec, Code2VecConfig
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.device_epoch import (
+        EpochRunner,
+        StagedCorpus,
+        sampler_generator,
+    )
+    from code2vec_tpu_torch.train.step import make_optimizer
+
+    rng = np.random.default_rng(0)
+    n, vocab, labels = 8192, 50_000, 100_000
+    lens = rng.integers(1, 300, n)
+    splits = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=splits[1:])
+    ctx = rng.integers(1, vocab, (int(splits[-1]), 3)).astype(np.int32)
+    corpus = StagedCorpus(*(torch.from_numpy(x).to(dev) for x in (
+        ctx, splits, rng.integers(0, labels, n).astype(np.int32))), n, lens.astype(np.int64))
+    cfg = Code2VecConfig(terminal_count=vocab, path_count=vocab, label_count=labels,
+                         terminal_embed_size=128, path_embed_size=128, encode_size=384,
+                         dropout_prob=0.25, use_pallas=True, pallas_impl="pool_only")
+    with torch.device(dev):
+        model = Code2Vec(cfg)
+    opt = make_optimizer(model, TrainConfig(lr=0.001, table_update=update))
+    runner = EpochRunner(torch.ones(labels, device=dev), 1024, 200, 8)
+    order = rng.permutation(n)
+    g = sampler_generator(0, dev)
+
+    def chunk():
+        from code2vec_tpu_torch.train.step import StepTally
+
+        runner.train_chunk(model, opt, corpus, order, 0, 8, n, g, StepTally(dev))
+
+    return chunk
+
+
+@pytest.mark.parametrize("update", ["dense", "lazy"])
+def test_traced_ranges_sum_to_the_step_time(dev, update):
+    """The ``sample``, ``forward``, ``backward`` and ``optimizer`` spans'
+    device times of a chunk sum to within 3% of its time between two CUDA
+    events around it; a lazy step's spans count the touched rows."""
+    from code2vec_tpu_torch.obs.trace import Tracer, set_tracer
+
+    chunk = heavy_chunk_case(dev, update)
+    chunk()
+    torch.cuda.synchronize()
+    tracer = Tracer()
+    previous = set_tracer(tracer)
+    try:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        chunk()
+        b.record()
+    finally:
+        set_tracer(previous)
+    torch.cuda.synchronize()
+    whole = a.elapsed_time(b)
+    summary = tracer.summary()
+    ranges = {k: summary[k] for k in ("sample", "forward", "backward", "optimizer")}
+    assert all(r["count"] == r["device_count"] == 8 for r in ranges.values()), summary
+    total = sum(r["device_ms"] for r in ranges.values())
+    assert abs(total - whole) <= 0.03 * whole, (total, whole, summary)
+    args = summary["optimizer"]["args"]
+    if update == "lazy":
+        assert args["terminal_rows_processed"] == 8 * 1024 * 400
+        assert 0 < args["terminal_rows_touched"] <= 8 * 50_000
+    else:
+        assert "terminal_rows_touched" not in args
+
+
+def test_tracing_adds_no_sync(dev):
+    """Under ``set_sync_debug_mode("warn")`` a traced chunk (lazy tables,
+    the device edges of the chunk before it read at its start) warns of no
+    more syncs than the same chunk untraced."""
+    import warnings
+
+    from code2vec_tpu_torch.obs.trace import Tracer, set_tracer
+
+    chunk = heavy_chunk_case(dev, "lazy")
+    tracer = Tracer()
+    counts = {}
+    for kind in ("untraced", "traced", "traced again"):
+        previous = set_tracer(tracer if kind != "untraced" else None)
+        chunk()
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                chunk()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                set_tracer(previous)
+        counts[kind] = sum("synchroniz" in str(w.message) for w in seen)
+        torch.cuda.synchronize()
+    assert counts["traced"] <= counts["untraced"] and counts["traced again"] <= counts["untraced"]
+    assert tracer.summary()["train_step"]["count"] == 32
+
+
+def test_drained_is_false_through_a_device_bound_chunk(dev):
+    """A chunk enqueued behind another: every edged span finds work the
+    card has not finished, so ``drained`` is false on each and the chunk
+    counts no late step; after a sync the next span finds the card
+    drained."""
+    import time
+
+    from code2vec_tpu_torch.obs.trace import Tracer, set_tracer
+
+    chunk = heavy_chunk_case(dev, "dense")
+    chunk()
+    torch.cuda.synchronize()
+    tracer = Tracer()
+    previous = set_tracer(tracer)
+    try:
+        chunk()
+        between = time.perf_counter_ns()
+        chunk()
+        torch.cuda.synchronize()
+        chunk()
+    finally:
+        set_tracer(previous)
+    torch.cuda.synchronize()
+    first, second = tracer.summary(end_ns=between), tracer.summary(start_ns=between)
+    edged = ("sample", "forward", "backward", "optimizer")
+    assert first["sample"]["count"] + second["sample"]["count"] == 24
+    events = [e for e in tracer.chrome_trace()["traceEvents"] if e.get("name") in edged]
+    assert all("drained" in e["args"] for e in events[1:]), events[:2]
+    late = [e["args"]["late_steps"] for e in tracer.chrome_trace()["traceEvents"]
+            if e.get("name") == "train_chunk"]
+    assert late[1] == 0, late
+    assert late[2] >= 1, late  # its first sample found the card drained by the sync
+    assert tracer.drained_edges >= 1
