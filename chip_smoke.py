@@ -31,6 +31,17 @@ the final result line is not printed):
    plain side with TF32 off, 3xTF32 on the tensor cores in K2-K4) and timed
    with CUDA events (median of 30 launches after warmup at the kernel's
    timed shape, of 10 at its other shapes, L2 flushed before each launch);
+3b. table_grad — K6, the dense tables' gradient (``ops/embed.py``,
+   ``csrc/table_grad.cu``), at top11's step shapes one table at a time:
+   ids ``[1024, 400]`` over the terminals (``[starts; ends]``) and
+   ``[1024, 200]`` over the paths, 37.4% of the slots PAD (top11's mean bag
+   of 125.2 in 200), f32 rows of width 100: each element within 1e-6 of its
+   rows' magnitudes of the float64 reference, two calls bitwise equal, its
+   split rows exactly the rows in runs longer than a chunk; timed as the
+   kernels are (K6 includes its sort and zero fill) beside its plain version
+   (``table_grad_reference``), ``F.embedding``'s backward (``library_ms``,
+   the yardstick) and the byte bound (rows read once, the gradient written
+   once); the step's sum of the two tables goes to the kernels line;
 4. serve   — a top11-width model dir with random weights from a seed,
    served through the port's own ``build_server`` with each kernel route
    (K3 with f32, int8 and bf16 tables, K2, K1): 96 predict/embed requests
@@ -263,7 +274,7 @@ the final result line is not printed):
    where it syncs is printed), and the profiler's op list of a lazy step
    (no embedding backward, no ``[V, E]``-sized zero / ``index_put`` /
    ``index_add_``, the tables' ``.grad`` None; the dense plain step must show
-   its embedding backward); the step breakdown with the mean rows a step
+   its embedding backward, K6); the step breakdown with the mean rows a step
    touches per table (f32 every route, bf16 plain and fused), beside the
    dense breakdowns; and one lazy epoch of the long-bag recipe on fused
    (masked K3 at the base rungs, masked K4 online above, once a batch);
@@ -977,6 +988,76 @@ def phase_kernels(torch, dev, smi) -> dict:
                              timed=timed)
     print("kernels checked: " + ", ".join(f"{n}: ok" for n in records), flush=True)
     return records, floor
+
+
+K6_TABLES = {"terminal": ("terminal_count", 2 * BAG), "path": ("path_count", BAG)}
+K6_PAD = 0.374  # top11's PAD share of a bag: a mean of 125.2 real contexts in 200
+
+
+def phase_table_grad(torch, dev, smi) -> dict:
+    """K6 at top11's per-table step shapes (docstring, phase 3b): per table
+    its error, split rows and times; ``step`` sums the two tables."""
+    import torch.nn.functional as F
+
+    from code2vec_tpu_torch.ops.embed import (
+        collect_split_rows,
+        table_grad_kernel,
+        table_grad_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(27)
+    bench = KernelBench(torch, dev)
+    E = TOP11["terminal_embed_size"]
+    rows_out = {}
+    for name, (count_key, width) in K6_TABLES.items():
+        V, n = TOP11[count_key], TRAIN_BATCH * width
+        ids = torch.randint(2, V, (n,), generator=g, device=dev, dtype=torch.int32)
+        ids[torch.rand(n, generator=g, device=dev) < K6_PAD] = 0
+        ids = ids.view(TRAIN_BATCH, width)
+        rows = torch.randn(TRAIN_BATCH, width, E, generator=g, device=dev)
+        with collect_split_rows(dev) as split:
+            got = table_grad_kernel(ids, rows, V)
+        again = table_grad_kernel(ids, rows, V)
+        want = table_grad_reference(ids, rows.double(), V)
+        mass = table_grad_reference(ids, rows.double().abs(), V)
+        torch.cuda.synchronize()
+        counts = torch.bincount(ids.reshape(-1).long())
+        want_split = int(counts[counts > 32].sum())
+        err = (got.double() - want).abs().max().item()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K6 {name}: two calls differ")
+        if not ((got.double() - want).abs() <= 1e-6 * mass + 1e-12).all():
+            raise AssertionError(f"K6 {name}: max |err| {err:.3e} past 1e-6 of the rows' "
+                                 "magnitudes")
+        if split.item() != want_split:
+            raise AssertionError(f"K6 {name}: split rows {split.item()}, want {want_split}")
+        del want, mass, again
+        table = torch.zeros(V, E, device=dev, requires_grad=True)
+        gathered = F.embedding(ids, table)
+        nbytes = (n + V) * E * 4
+        row = {"V": V, "N": n, "pad_slots": int((ids == 0).sum()), "split_rows": want_split,
+               "max_abs_err": err, "ms": bench.time_ms(lambda: table_grad_kernel(ids, rows, V))}
+        row["ms_min_max"] = list(bench.spread)
+        row["plain_ms"] = bench.time_ms(lambda: table_grad_reference(ids, rows, V))
+        row["library_ms"] = bench.time_ms(
+            lambda: torch.autograd.grad(gathered, table, rows, retain_graph=True))
+        row["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+        row["bytes"] = nbytes
+        rows_out[name] = row
+        print(f"kernel K6 table_grad {name:8s} V={V} N={n} pad={row['pad_slots']} "
+              f"split_rows={want_split} max_abs_err={err:.3e} ms={row['ms']:.4f} "
+              f"({N_TIMED} launches {row['ms_min_max'][0]:.4f}-{row['ms_min_max'][1]:.4f}) "
+              f"plain_ms={row['plain_ms']:.4f} library_ms={row['library_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.4f} (bytes) bound_share="
+              f"{row['bound_ms'] / row['ms']:.3f} [{smi}]", flush=True)
+        del table, gathered, got
+    step = {k: sum(r[k] for r in rows_out.values())
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "split_rows")}
+    step["max_abs_err"] = max(r["max_abs_err"] for r in rows_out.values())
+    print(f"K6 a top11 step (both tables): ms={step['ms']:.4f} plain_ms={step['plain_ms']:.4f} "
+          f"library_ms={step['library_ms']:.4f} bound_ms={step['bound_ms']:.4f} split_rows="
+          f"{step['split_rows']} [{smi}]", flush=True)
+    return {"tables": rows_out, "step": step}
 
 
 # ---------------------------------------------------------------------------
@@ -2415,7 +2496,8 @@ def train_route(torch, smi, dev, data, config, label, keys, out_dir=None,
     counts set to 0 just before and read just after: the epochs' metrics,
     the counts, the wall seconds and the peak device memory. Fails on a
     non-finite loss or a kernel of ``keys`` never launched (the plain route
-    must launch none)."""
+    must launch none but K6, the dense tables' gradient, which every dense
+    run launches and no lazy one)."""
     from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
     from code2vec_tpu_torch.train.loop import train
 
@@ -2446,8 +2528,12 @@ def train_route(torch, smi, dev, data, config, label, keys, out_dir=None,
     missing = [k for k in keys if counts.get(k, 0) < 1]
     if missing:
         raise AssertionError(f"train {label} never launched {missing}: {counts}")
-    if not config.use_pallas and counts:
-        raise AssertionError(f"the plain route launched kernels: {counts}")
+    if not config.use_pallas and set(counts) - {"table_grad"}:
+        raise AssertionError(f"the plain route launched kernels other than K6: {counts}")
+    if (counts.get("table_grad", 0) > 0) != (config.table_update == "dense"):
+        raise AssertionError(f"train {label}: K6 (table_grad) launched "
+                             f"{counts.get('table_grad', 0)} times under "
+                             f"{config.table_update} tables: {counts}")
     print(f"train {label}: {len(epochs)} epochs in {seconds:.1f}s, peak device memory "
           f"{peak / 2**30:.3f} GiB, launches {counts} [{smi}]", flush=True)
     del result
@@ -4006,13 +4092,13 @@ AT_DEVICE = "cuda"  # the --device of the phase's trainer runs
 AT_EXPECTED_SKIPS: dict[str, str] = {}
 # (impl, softmax) -> the kernels a training run on that route launches (the
 # masked train step's and the eval pass's)
-AT_TRAIN_KERNELS = {
-    ("xla", "materialize"): (),
-    ("pool_only", "materialize"): ("pool", "pool_bwd"),
-    ("gather_split", "materialize"): ("gather_split_masked", "gather_split"),
-    ("fused", "materialize"): ("fused_f32_masked", "fused_f32"),
-    ("fused", "online"): ("online_f32_masked", "online_f32"),
-    ("fused", "two_pass"): ("two_pass_f32_masked", "two_pass_f32"),
+AT_TRAIN_KERNELS = {  # K6 (table_grad): the dense tables' gradient on every route
+    ("xla", "materialize"): ("table_grad",),
+    ("pool_only", "materialize"): ("pool", "pool_bwd", "table_grad"),
+    ("gather_split", "materialize"): ("gather_split_masked", "gather_split", "table_grad"),
+    ("fused", "materialize"): ("fused_f32_masked", "fused_f32", "table_grad"),
+    ("fused", "online"): ("online_f32_masked", "online_f32", "table_grad"),
+    ("fused", "two_pass"): ("two_pass_f32_masked", "two_pass_f32", "table_grad"),
 }
 
 
@@ -4648,9 +4734,10 @@ def check_lazy_step(torch, dev, data, config, host_batches, route, smi) -> dict:
     ``torch.cuda.set_sync_debug_mode("error")`` must not sync, and the
     whole next step is tried the same way (where it syncs is reported, not
     failed); (2) the profiler's op list of a step holds no embedding
-    backward and no ``[V, E]``-sized zero / ``index_put`` / ``index_add_``,
-    and the tables' ``.grad`` stay None (the dense step on the plain route
-    shows the embedding backward, so the check can see one)."""
+    backward (K6's ``table_grad_level`` kernel or ``F.embedding``'s) and no
+    ``[V, E]``-sized zero / ``index_put`` / ``index_add_``, and the tables'
+    ``.grad`` stay None (the dense step on the plain route shows K6, so the
+    check can see one)."""
     from torch.profiler import ProfilerActivity, profile
 
     from code2vec_tpu_torch.models.code2vec import Code2Vec
@@ -4699,8 +4786,9 @@ def check_lazy_step(torch, dev, data, config, host_batches, route, smi) -> dict:
             train_step(model, opt, batches[3], weights)
             torch.cuda.synchronize()
         dense_ops = sorted({
-            e.name for e in prof.events()
-            if e.name == "aten::embedding_dense_backward"
+            "table_grad_level" if "table_grad_level" in e.name else e.name
+            for e in prof.events()
+            if e.name == "aten::embedding_dense_backward" or "table_grad_level" in e.name
             or (e.name in DENSE_GRAD_OPS
                 and any(tuple(sh) in table_shapes for sh in (e.input_shapes or [])))})
         out[f"{update}_dense_grad_ops"] = dense_ops
@@ -4708,8 +4796,8 @@ def check_lazy_step(torch, dev, data, config, host_batches, route, smi) -> dict:
         if update == "lazy" and (dense_ops or any(g is not None for g in grads)):
             raise AssertionError(f"lazy {route}: a dense table gradient was formed: {dense_ops}, "
                                  f".grad {[g is not None for g in grads]}")
-        if update == "dense" and "aten::embedding_dense_backward" not in dense_ops:
-            raise AssertionError(f"the dense step's op list shows no embedding backward: "
+        if update == "dense" and "table_grad_level" not in dense_ops:
+            raise AssertionError(f"the dense step's op list shows no K6 (table_grad_level): "
                                  f"{dense_ops}")
         del model, opt
     print(f"lazy {route}: the table optimizer's step ran under sync debug mode 'error' with "
@@ -6692,6 +6780,7 @@ def run(args, sampler: FrameSampler) -> int:
         return 1
     dev = torch.device("cuda")
     kernels, floor = phase("kernels", phase_kernels, torch, dev, smi) or (None, None)
+    table_grad = phase("table_grad", phase_table_grad, torch, dev, smi)
     with tempfile.TemporaryDirectory(prefix="c2v_smoke_") as tmp:
         model_dir = Path(tmp)
         t0 = time.perf_counter()
@@ -6803,6 +6892,21 @@ def run(args, sampler: FrameSampler) -> int:
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": timed["library_ms"],
         })
+    k6 = table_grad["step"]  # the dense tables' gradient: every dense training run
+    line.append({
+        "name": "K6 table_grad", "route": "cuda",
+        "source": "code2vec_tpu_torch/csrc/table_grad.cu",
+        "replaces": "replaces no TPU kernel (XLA's scatter-add in JAX)",
+        "launches": (sum(r["launches"].get("table_grad", 0) for r in trained["routes"].values())
+                     + device_counts.get("table_grad", 0) + var_counts.get("table_grad", 0)
+                     + py_counts.get("table_grad", 0) + feed_counts.get("table_grad", 0)
+                     + control["launches"].get("table_grad", 0)
+                     + el_counts.get("table_grad", 0) + hpo_counts.get("table_grad", 0)
+                     + mesh_counts.get("table_grad", 0) + at_counts.get("table_grad", 0)
+                     + tools_counts.get("table_grad", 0)),
+        "max_abs_err": k6["max_abs_err"], "ms": k6["ms"], "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"], "bound_by": "bytes", "library_ms": k6["library_ms"],
+    })
     k5 = retrieval["k5_rows"]
     timed = next(r for r in k5 if (r["Q"], r["P"]) == K5_TIMED_SHAPE)
     print(f"launch floor ms={floor['ms']:.4f}; neighbors split: "
@@ -6823,6 +6927,7 @@ def run(args, sampler: FrameSampler) -> int:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(
             {"card": smi, "torch": torch.__version__, "launch_floor": floor, "kernels": kernels,
+             "table_grad": table_grad,
              "serve": serve,
              "longbag": longbag, "retrieval": retrieval, "serve_control": control,
              "train": trained, "train_elastic": elastic, "train_hpo": searched,

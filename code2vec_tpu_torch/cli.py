@@ -18,9 +18,10 @@ stream through K4 on a kernel route). ``--compute_dtype bfloat16`` trains
 stores Adam's first moments in bf16. ``--table_update lazy`` steps the
 embedding tables' touched rows only (``torch.optim.SparseAdam``'s
 semantics), ``--embed_grad {dense,segment,segment_sorted}`` is accepted for JAX
-configurations (every mode runs ``F.embedding``'s backward, already a
-segment sum). ``--device_epoch [--device_chunk_batches 16] [--sample_prefetch
-true]`` stages both splits on the card and samples each epoch's batches there.
+configurations (every mode runs one segment sum: K6 on the card,
+``F.embedding``'s backward on the CPU). ``--device_epoch
+[--device_chunk_batches 16] [--sample_prefetch true]`` stages both splits on
+the card and samples each epoch's batches there.
 ``--infer_variable_name true [--infer_method_name false]
 [--shuffle_variable_indexes true]`` trains the variable-name task (one example
 per ``@var_*`` alias of a method), alone or beside the method-name task.
@@ -227,7 +228,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--embed_grad", type=str, default="dense",
                         choices=("dense", "segment", "segment_sorted"),
                         help="the JAX package's choice of the tables' backward; accepted for "
-                             "its configurations, every mode runs F.embedding's backward")
+                             "its configurations, every mode runs one segment sum (K6 on the "
+                             "card, F.embedding's backward on the CPU)")
 
     parser.add_argument("--device_epoch", action="store_true", default=False,
                         help="stage both splits on the card once and sample each epoch's "

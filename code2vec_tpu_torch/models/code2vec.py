@@ -59,7 +59,8 @@ The lazy table optimizer (``train/table_opt.py``) trains through
 ``forward(embed_offsets=...)``: the tables enter detached and the zero
 offsets added to the gathered rows take their per-slot gradients.
 ``embed_grad`` is JAX's choice of the dense tables' backward; every mode
-runs ``F.embedding``'s, which already is a segment sum (``ops/embed.py``).
+runs one segment sum (``ops/embed.py``): K6 on the card, ``F.embedding``'s
+backward on the CPU.
 
 On a mesh (``parallel/shardings.shard_model`` sets ``mesh``) the forward
 inserts what GSPMD inserts for the JAX model: a row-sharded table's rows

@@ -73,8 +73,8 @@ class TrainConfig:
     table_dtype: str = "f32"
     attn_impl: str = "xla"  # the plain pool: "xla" | "streaming"
     encoder_impl: str = "concat"  # the plain encode: "concat" | "split"
-    # JAX's choice of the tables' dense backward; here every mode is F.embedding's
-    # (ops/embed.py)
+    # JAX's choice of the tables' dense backward; here every mode is one segment
+    # sum (ops/embed.py: K6 on the card, F.embedding's backward on the CPU)
     embed_grad: str = "dense"
     # pad the tables and the head to this multiple so they shard evenly over
     # the model axis; 0 = auto (model_axis); checkpoint shapes depend on it

@@ -26,6 +26,7 @@ Counterpart of ``code2vec_tpu/train/step.py``:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import sys
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 
 from code2vec_tpu_torch.analysis.contracts import shape_contract, spec
 from code2vec_tpu_torch.obs.trace import get_tracer
+from code2vec_tpu_torch.ops.embed import collect_split_rows
 from code2vec_tpu_torch.parallel.distributed import all_reduce_sum
 from code2vec_tpu_torch.parallel.mesh import AXIS_DATA
 from code2vec_tpu_torch.train.table_opt import TABLE_PARAMS, LazyTableAdam
@@ -349,18 +351,24 @@ def forward_backward(model, batch: dict[str, torch.Tensor], class_weights: torch
     """Training-mode forward and backward of one batch (gradients land in
     ``.grad``); returns the loss, still on the device. Under a tracer the
     two halves are the ``forward`` and ``backward`` spans, timed on the
-    device (``obs/trace.py``)."""
+    device (``obs/trace.py``); on the card a dense step's ``backward`` span
+    carries ``table_grad_split_rows``, K6's rows in runs longer than one
+    chunk (``ops/embed.collect_split_rows``)."""
     model.train()
     labels = batch["labels"]
     tracer, device = get_tracer(), labels.device
+    split_rows = tracer.enabled and device.type == "cuda" and embed_offsets is None
     with tracer.span("forward", "train", device):
         logits, _, _ = model(batch["starts"], batch["paths"], batch["ends"],
                              labels=labels if model.config.angular_margin_loss else None,
                              embed_offsets=embed_offsets)
         group = _data_group(model)
         loss = weighted_nll(logits, labels, class_weights, batch["example_mask"], group)
-    with tracer.span("backward", "train", device):
+    with tracer.span("backward", "train", device) as span, (
+            collect_split_rows(device) if split_rows else contextlib.nullcontext()) as split:
         loss.backward()
+        if split is not None:
+            span.args["table_grad_split_rows"] = split
     # on a mesh: the global loss, the same on every rank
     return all_reduce_sum(loss.detach(), group)
 

@@ -33,6 +33,12 @@ second stream) the same batches and generator state as without it;
 variable-task rows (one context, all PAD but still an example) through
 K1, K1b, masked K2 and masked K3, a variable train step on each kernel
 route, and the sampler's ``@var_*`` remap on the card bit for bit the CPU's;
+K6 (the dense tables' gradient) against its plain version in f64 at top11's
+step shapes with a 37% PAD run, at widths 100, 128 and 7, int32 and int64
+ids, one id for every slot, all ids distinct, ids at ``V - 1``, no slot, rows
+at an odd address, bitwise repeatable, its split rows counted exactly, two
+launches a dense device-epoch step and none a lazy one, and the row-sharded
+lookup's gradient;
 the host prefetcher's copies on its own stream equal the synchronous copies,
 and ``train()`` prefetched (also fed by workers forked from a process with a
 live CUDA context) within rtol 1e-5 of the synchronous run's losses;
@@ -48,6 +54,8 @@ tensor cores); at top11 widths and one context the kernel's code vector is
 within 2e-6 of a float64 evaluation, which one TF32 product (~1e-3) would
 miss. K5's ``-inf`` pad masks must be identical.
 """
+
+import math
 
 import pytest
 import torch
@@ -1016,8 +1024,11 @@ def test_bf16_train_step_on_the_card_matches_the_cpu(dev, route):
                                 torch.ones(19, device=where))
         out[str(where)] = (loss.cpu(), {k: p.grad.cpu() for k, p in model.named_parameters()})
         counts = launch_counts()
-    want = {"plain": {}, "pool_only": {"pool_bf16": 1, "pool_bwd_bf16": 1},
-            "gather_split": {"gather_split_bf16": 1}, "fused": {"fused_f32": 1}}[route]
+    # K6 once a table lookup: [starts; ends] and paths, or each of the three
+    want = {"plain": {"table_grad": 2},
+            "pool_only": {"pool_bf16": 1, "pool_bwd_bf16": 1, "table_grad": 2},
+            "gather_split": {"gather_split_bf16": 1, "table_grad": 3},
+            "fused": {"fused_f32": 1, "table_grad": 3}}[route]
     assert counts == want
     (loss, grads), (ref_loss, ref_grads) = out[str(dev)], out["cpu"]
     torch.testing.assert_close(loss, ref_loss, rtol=2.0**-7, atol=0)
@@ -1154,8 +1165,9 @@ def test_lazy_table_step_never_waits_for_the_card(dev, route):
 
 
 def test_lazy_step_forms_no_dense_table_gradient(dev):
-    """The profiler's op list of a lazy step: no embedding backward and no
-    ``[V, E]``-sized zero or ``index_put`` (a dense step has both)."""
+    """The profiler's op list of a lazy step: no table gradient (K6's
+    ``table_grad_level`` kernel, or ``F.embedding``'s backward) and no
+    ``[V, E]``-sized zero or ``index_put``; a dense step shows K6."""
     from torch.profiler import ProfilerActivity, profile
 
     from code2vec_tpu_torch.train.config import TrainConfig
@@ -1175,15 +1187,16 @@ def test_lazy_step_forms_no_dense_table_gradient(dev):
             train_step(model, opt, batch, weights)
             torch.cuda.synchronize()
         found[update] = sorted({
-            e.name for e in prof.events()
-            if e.name == "aten::embedding_dense_backward"
+            "table_grad_level" if "table_grad_level" in e.name else e.name
+            for e in prof.events()
+            if e.name == "aten::embedding_dense_backward" or "table_grad_level" in e.name
             or (e.name in ("aten::zero_", "aten::zeros", "aten::index_put_", "aten::index_put",
                            "aten::index_add_")
                 and any(tuple(s) in table_shapes for s in (e.input_shapes or [])))})
         if update == "lazy":
             assert model.terminal_embedding.weight.grad is None
             assert model.path_embedding.weight.grad is None
-    assert "aten::embedding_dense_backward" in found["dense"], found
+    assert found["dense"] == ["table_grad_level"], found
     assert found["lazy"] == [], found
 
 
@@ -1778,3 +1791,151 @@ def test_drained_is_false_through_a_device_bound_chunk(dev):
     assert late[1] == 0, late
     assert late[2] >= 1, late  # its first sample found the card drained by the sync
     assert tracer.drained_edges >= 1
+
+
+# ---------------------------------------------------------------------------
+# K6: the dense tables' gradient (ops/embed.py, csrc/table_grad.cu)
+# ---------------------------------------------------------------------------
+
+TOP11_TABLES = {"terminal": (360_633, (1024, 400)), "path": (342_846, (1024, 200))}
+# case -> (rows of the table, ids' shape, width, id dtype)
+K6_CASES = {
+    "top11_terminal": (*TOP11_TABLES["terminal"], 100, torch.int32),
+    "top11_path": (*TOP11_TABLES["path"], 100, torch.int64),
+    "width128_int32": (300_000, (512, 400), 128, torch.int32),
+    "width128_int64": (300_000, (512, 400), 128, torch.int64),
+    "width7": (1000, (64, 200), 7, torch.int32),
+    "one_id": (10, (100_000,), 100, torch.int32),
+    "distinct": (70_000, (70_000,), 100, torch.int64),
+    "last_row": (1000, (3000,), 100, torch.int32),
+    "empty": (50, (0,), 100, torch.int32),
+    "one_slot": (50, (1,), 100, torch.int64),
+}
+
+
+def k6_ids(dev, case, generator):
+    v, shape, _, dtype = K6_CASES[case]
+    n = math.prod(shape)
+    if case == "one_id":
+        return torch.full(shape, 5, dtype=dtype, device=dev)
+    if case == "distinct":
+        return torch.randperm(v, generator=generator, device=dev).to(dtype).view(shape)
+    if case == "last_row":
+        return torch.full(shape, v - 1, dtype=dtype, device=dev)
+    ids = torch.randint(2, v, (n,), generator=generator, device=dev, dtype=dtype)
+    ids[torch.rand(n, generator=generator, device=dev) < 0.374] = 0  # the bags' PAD share
+    return ids.view(shape)
+
+
+def split_rows_of(ids):
+    """Rows in runs of equal ids longer than one chunk of K6 (32)."""
+    if ids.numel() == 0:
+        return 0
+    counts = torch.bincount(ids.reshape(-1).long())
+    return int(counts[counts > 32].sum())
+
+
+@pytest.mark.parametrize("case", list(K6_CASES) + ["odd_address"])
+def test_table_grad_matches_the_f64_reference(dev, case):
+    """K6 against ``table_grad_reference`` in f64: each element within
+    1e-6 of the sum of its rows' magnitudes (f32 sums of chunks of 32 and a
+    few levels of pieces), two calls bitwise equal, one launch a call, and
+    its split rows exactly the rows in runs longer than a chunk. ``odd_address``:
+    rows one float off 16-byte alignment (the scalar path)."""
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.embed import (
+        collect_split_rows,
+        table_grad_kernel,
+        table_grad_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    ids = k6_ids(dev, "width7" if case == "odd_address" else case, g)
+    v, _, e, _ = K6_CASES["width7" if case == "odd_address" else case]
+    if case == "odd_address":
+        e = 8
+        rows = torch.randn(ids.numel() * e + 1, generator=g, device=dev)[1:].view(*ids.shape, e)
+    else:
+        rows = torch.randn(*ids.shape, e, generator=g, device=dev)
+    reset_launch_counts()
+    with collect_split_rows(dev) as split:
+        got = table_grad_kernel(ids, rows, v)
+    again = table_grad_kernel(ids, rows, v)
+    assert launch_counts() == {"table_grad": 2}
+    want = table_grad_reference(ids, rows.double(), v)
+    mass = table_grad_reference(ids, rows.double().abs(), v)
+    torch.cuda.synchronize()
+    assert got.shape == (v, e) and got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert ((got.double() - want).abs() <= 1e-6 * mass + 1e-12).all()
+    assert split.item() == split_rows_of(ids)
+
+
+@pytest.mark.parametrize("mode", ["dense", "segment", "segment_sorted"])
+def test_embedding_lookup_backward_is_k6_in_every_mode(dev, mode):
+    """``embedding_lookup``'s forward is the gather bit for bit; its
+    backward is one K6 launch, bitwise a direct call's, in every mode."""
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+    from code2vec_tpu_torch.ops.embed import embedding_lookup, table_grad_kernel
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    ids = k6_ids(dev, "width128_int32", g)
+    table = torch.randn(300_000, 128, generator=g, device=dev, requires_grad=True)
+    rows = embedding_lookup(table, ids, mode)
+    assert torch.equal(rows, table.detach()[ids])
+    cot = torch.randn_like(rows)
+    reset_launch_counts()
+    rows.backward(cot)
+    assert launch_counts() == {"table_grad": 1}
+    assert torch.equal(table.grad, table_grad_kernel(ids, cot, 300_000))
+
+
+def test_table_grad_of_the_row_sharded_lookup(dev):
+    """The mesh's row-sharded lookup (ids outside the shard read row 0,
+    their rows zeroed after): the shard's gradient is the reference's over
+    the shard's own slots, and row 0 the sum of its real slots only."""
+    from code2vec_tpu_torch.ops.embed import embedding_lookup, table_grad_reference
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    ids = k6_ids(dev, "top11_terminal", g)
+    rows, lo = 180_317, 180_316  # the second of two shards
+    store = torch.randn(rows, 100, generator=g, device=dev, requires_grad=True)
+    local = ids - lo
+    inside = (local >= 0) & (local < rows)
+    got = embedding_lookup(store, torch.where(inside, local, 0))
+    got = torch.where(inside[..., None], got, 0.0)
+    cot = torch.randn_like(got)
+    got.backward(cot)
+    want = table_grad_reference(local[inside], cot[inside].double(), rows)
+    mass = table_grad_reference(local[inside], cot[inside].double().abs(), rows)
+    torch.cuda.synchronize()
+    assert ((store.grad.double() - want).abs() <= 1e-6 * mass + 1e-12).all()
+
+
+@pytest.mark.parametrize("update", ["dense", "lazy"])
+def test_table_grad_launches_in_a_device_epoch_chunk(dev, update):
+    """A chunk of 8 dense ``pool_only`` device-epoch steps launches K6 16
+    times (each table once a step) and its traced ``backward`` spans count
+    the split rows; a lazy chunk launches none and counts none."""
+    from code2vec_tpu_torch.obs.trace import Tracer, set_tracer
+    from code2vec_tpu_torch.ops.backend import launch_counts, reset_launch_counts
+
+    chunk = heavy_chunk_case(dev, update)
+    chunk()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    chunk()
+    torch.cuda.synchronize()
+    assert launch_counts().get("table_grad", 0) == (16 if update == "dense" else 0)
+    tracer = Tracer()
+    previous = set_tracer(tracer)
+    try:
+        chunk()
+    finally:
+        set_tracer(previous)
+    args = tracer.summary()["backward"]["args"]
+    if update == "dense":
+        # the PAD runs alone: > 32 rows a step, at most every slot of 8 steps
+        assert 8 * 33 <= args["table_grad_split_rows"] <= 8 * 1024 * 600, args
+    else:
+        assert "table_grad_split_rows" not in args, args

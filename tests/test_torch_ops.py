@@ -246,3 +246,97 @@ class TestRouting:
     def test_resolve_rejects_unknown_backend(self):
         with pytest.raises(ValueError, match="backend must be one of"):
             resolve(torch.zeros(1), "tpu")
+
+
+# ids of the table-gradient cases (K6's, tests/test_torch_cuda.py, at CPU sizes)
+def table_grad_ids(case: str, dtype, seed: int = 0):
+    """``(ids, num_rows)``: ``pad_run`` 37% PAD slots among random ids,
+    ``one_id`` every slot one id, ``distinct`` no id twice, ``last_row``
+    ids at ``V - 1``, ``empty`` no slot."""
+    rng = np.random.default_rng(seed)
+    v, shape = 97, (6, 40)
+    ids = rng.integers(1, v, shape)
+    if case == "pad_run":
+        ids[rng.random(shape) < 0.37] = 0
+    elif case == "one_id":
+        ids[:] = 5
+    elif case == "distinct":
+        ids = rng.permutation(v * 3)[:240].reshape(shape)
+        v *= 3
+    elif case == "last_row":
+        ids[:, ::2] = v - 1
+    elif case == "empty":
+        ids = ids[:0]
+    return torch.from_numpy(ids).to(dtype), v
+
+
+TABLE_GRAD_CASES = ("pad_run", "one_id", "distinct", "last_row", "empty")
+
+
+class TestTableGrad:
+    """The dense tables' backward off the card: ``embedding_lookup``'s
+    gradient is ``F.embedding``'s bit for bit in every mode, and K6's plain
+    version (``table_grad_reference``) computes it."""
+
+    @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+    @pytest.mark.parametrize("mode", ["dense", "segment", "segment_sorted"])
+    def test_cpu_gradient_is_f_embedding_bitwise(self, mode, dtype):
+        from code2vec_tpu_torch.ops.embed import embedding_lookup
+
+        ids, v = table_grad_ids("pad_run", dtype)
+        g = torch.from_numpy(np.random.default_rng(1).normal(size=(*ids.shape, 100))).float()
+        table = torch.randn(v, 100, generator=torch.Generator().manual_seed(2))
+        got, want = table.clone().requires_grad_(), table.clone().requires_grad_()
+        embedding_lookup(got, ids, mode).backward(g)
+        torch.nn.functional.embedding(ids, want).backward(g)
+        assert torch.equal(got.grad, want.grad)
+        assert torch.equal(embedding_lookup(table, ids, mode), table[ids])
+
+    @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+    @pytest.mark.parametrize("case", TABLE_GRAD_CASES)
+    def test_reference_is_f_embeddings_gradient(self, case, dtype):
+        from code2vec_tpu_torch.ops.embed import table_grad_reference
+
+        ids, v = table_grad_ids(case, dtype)
+        rows = torch.from_numpy(
+            np.random.default_rng(3).normal(size=(*ids.shape, 100))).float()
+        table = torch.zeros(v, 100, requires_grad=True)
+        torch.nn.functional.embedding(ids, table).backward(rows)
+        got = table_grad_reference(ids, rows, v)
+        assert got.shape == (v, 100) and got.dtype == torch.float32
+        torch.testing.assert_close(got, table.grad, rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("width", [128, 7])
+    def test_reference_at_other_widths_and_in_f64(self, width):
+        from code2vec_tpu_torch.ops.embed import table_grad_reference
+
+        ids, v = table_grad_ids("pad_run", torch.int64, seed=width)
+        rows = torch.from_numpy(np.random.default_rng(width).normal(size=(*ids.shape, width)))
+        want = np.zeros((v, width))
+        np.add.at(want, ids.numpy(), rows.numpy())
+        got = table_grad_reference(ids, rows, v)
+        assert got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+    @pytest.mark.parametrize("bad", ["float_ids", "f64_rows", "shape", "rows_over_int32"])
+    def test_kernel_rejects_inputs_before_any_launch(self, bad):
+        from code2vec_tpu_torch.ops.embed import table_grad_kernel
+
+        ids, v = table_grad_ids("pad_run", torch.int32)
+        rows = torch.zeros(*ids.shape, 8)
+        args = {"float_ids": (ids.float(), rows, v), "f64_rows": (ids, rows.double(), v),
+                "shape": (ids, rows[:, :-1], v), "rows_over_int32": (ids, rows, 2**31)}[bad]
+        reset_launch_counts()
+        with pytest.raises(ValueError, match="table grad kernel"):
+            table_grad_kernel(*args)
+        assert launch_counts() == {}
+
+    def test_split_rows_counters_nest(self):
+        from code2vec_tpu_torch.ops import embed
+
+        with embed.collect_split_rows(torch.device("cpu")) as outer:
+            with embed.collect_split_rows(torch.device("cpu")) as inner:
+                assert embed._split_rows is inner
+            assert embed._split_rows is outer
+            assert outer.dtype == torch.int64 and outer.item() == 0
+        assert embed._split_rows is None
