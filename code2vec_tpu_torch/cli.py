@@ -6,6 +6,12 @@ and the reference use (main.py:37-81):
     python -m code2vec_tpu_torch --corpus_path d/corpus.txt \\
         --path_idx_path d/path_idxs.txt --terminal_idx_path d/terminal_idxs.txt
 
+``--model code2seq --device_epoch`` trains code2seq (``models/code2seq.py``)
+on the same corpus and vocab files: the vocab strings expand to subtokens,
+nodes and target subtokens, ``--seq_*`` set its widths (code2seq's
+java-large defaults), SGD with Nesterov momentum at ``--lr`` decays ×0.95
+an epoch, and each epoch evaluates greedy-decoded names by subtoken
+precision, recall and F1.
 ``--synthetic {tiny,small,parity10k,top11}`` trains on a generated corpus
 instead. The run goes to the card; ``--device cpu`` (or the reference's
 ``--no_cuda``) runs the plain versions on the CPU. ``--model_path`` becomes
@@ -120,6 +126,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--synthetic", type=str, default=None, choices=SYNTHETIC,
                         help="ignore the corpus flags and train on a generated corpus")
 
+    parser.add_argument("--model", type=str, default="code2vec", choices=("code2vec", "code2seq"),
+                        help="code2seq: a bi-LSTM path encoder and an attention decoder that "
+                             "generates the name (device epochs, one card, f32, dense tables)")
     parser.add_argument("--batch_size", type=int, default=32)
     parser.add_argument("--terminal_embed_size", type=int, default=100)
     parser.add_argument("--path_embed_size", type=int, default=100)
@@ -136,6 +145,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--beta_max", type=float, default=0.999)
     parser.add_argument("--weight_decay", type=float, default=0.0)
     parser.add_argument("--dropout_prob", type=float, default=0.25)
+    # code2seq's widths (its config.py, the java-large model)
+    parser.add_argument("--seq_embed_size", type=int, default=128,
+                        help="code2seq: subtoken, node and target embeddings")
+    parser.add_argument("--seq_rnn_size", type=int, default=256,
+                        help="code2seq: the path bi-LSTM's state, both directions")
+    parser.add_argument("--seq_decoder_size", type=int, default=320)
 
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (the default) or cpu (the plain versions)")
@@ -340,7 +355,8 @@ _CONFIG_FLAGS = (
     "device_epoch", "device_chunk_batches", "sample_prefetch", "stream_chunk_items",
     "feed_workers", "prefetch_batches", "profile_steps", "async_checkpoint",
     "checkpoint_every_steps", "fault_plan", "rng_impl", "pallas_block_b", "pallas_dma_depth",
-    "shard_staged_corpus", "autotune_cache",
+    "shard_staged_corpus", "autotune_cache", "model", "seq_embed_size", "seq_rnn_size",
+    "seq_decoder_size",
 )
 
 
@@ -479,6 +495,9 @@ def main(argv: list[str] | None = None) -> int:
                            infer_method=args.infer_method_name,
                            infer_variable=args.infer_variable_name,
                            cache=not args.no_corpus_cache, shard=shard)
+        if args.model == "code2seq" and (args.find_hyperparams or args.export_only):
+            raise SystemExit("--model code2seq trains and evaluates only: the search and "
+                             "--export_only run code2vec")
         if args.find_hyperparams:
             from code2vec_tpu_torch.hpo import find_optimal_hyperparams
 

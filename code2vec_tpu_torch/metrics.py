@@ -5,6 +5,8 @@ label vocab's subtoken table and run on the host in numpy. ``exact_match``
 is computed here in numpy (the JAX module calls scikit-learn): accuracy
 and support-weighted precision / recall / F1 over the labels that occur
 in either array, a zero where a denominator is zero (``zero_division=0``).
+:func:`sequence_subtoken_match` is code2seq's: subtoken precision, recall
+and F1 of greedy-decoded names (no JAX counterpart).
 """
 
 from __future__ import annotations
@@ -84,6 +86,39 @@ def averaged_subtoken_match(expected: np.ndarray, actual: np.ndarray,
         f1s.append(2.0 * prec * rec / (prec + rec) if prec + rec > 0 else 0.0)
     return (float(np.average(accs)), float(np.average(precs)), float(np.average(recs)),
             float(np.average(f1s)))
+
+
+def sequence_subtoken_match(expected: list, predicted: np.ndarray, target_names: list,
+                            specials: int = 3) -> tuple[float, float, float, float]:
+    """code2seq's subtoken metrics over greedy-decoded names (its
+    ``update_per_subtoken_statistics``): ``expected`` each row's true
+    subtokens (strings), ``predicted`` ``[N, T]`` target ids, read up to the
+    first end of name (id 0), the reserved ids (below ``specials``: end,
+    UNK, SOS) dropped. A name predicted whole counts all its subtokens true;
+    otherwise a predicted subtoken is true if the name holds it (else
+    false), a true one missed if the prediction lacks it. Returns
+    ``(accuracy, precision, recall, f1)``, accuracy the share of names
+    predicted whole."""
+    tp = fp = fn = whole = 0
+    for want, row in zip(expected, np.asarray(predicted).tolist()):
+        got = []
+        for t in row:
+            if t == 0:
+                break
+            if t >= specials:
+                got.append(target_names[t])
+        want = list(want)
+        if "".join(want) == "".join(got):
+            tp += len(want)
+            whole += 1
+            continue
+        tp += sum(1 for s in got if s in want)
+        fp += sum(1 for s in got if s not in want)
+        fn += sum(1 for s in want if s not in got)
+    precision = tp / (tp + fp) if tp + fp else 0.0
+    recall = tp / (tp + fn) if tp + fn else 0.0
+    f1 = 2.0 * precision * recall / (precision + recall) if precision + recall > 0 else 0.0
+    return (whole / len(expected) if len(expected) else 0.0), precision, recall, f1
 
 
 def evaluate(eval_method: str, expected: np.ndarray, actual: np.ndarray,

@@ -75,6 +75,7 @@ sliced to this rank's rows and bag columns.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass, replace
 
@@ -172,6 +173,17 @@ class Code2Vec(nn.Module):
     """``forward`` returns ``(logits, code_vector, attention)``; the margin
     head uses ``labels`` to place the training margin and serves plain
     scaled-cosine logits without them."""
+
+    # what the train step and the loop ask of a model (models/code2seq.Code2Seq
+    # answers otherwise): the steps apply the head's NLL under the process's
+    # own precision settings; torch Adam at a fixed rate; the loop writes the
+    # code-vector outputs (the serving meta, code2vec.model, the vector
+    # export, print_sample) and the closed-form costs
+    owns_loss = False
+    step_scope = staticmethod(contextlib.nullcontext)
+    nesterov_momentum = None
+    epoch_lr_decay = 1.0
+    code_vectors = True
 
     def __init__(self, config: Code2VecConfig) -> None:
         super().__init__()

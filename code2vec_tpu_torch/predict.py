@@ -80,10 +80,15 @@ def save_inference_meta(out_dir: str, config, model_config, data, bucket_ladder=
         "table_dtype": config.table_dtype,
         "bucket_ladder": [int(w) for w in bucket_ladder] if bucket_ladder else None,
     }
+    write_model_meta(out_dir, meta)
+    write_vocab(os.path.join(out_dir, LABEL_VOCAB), sorted(data.label_vocab.itos.items()))
+
+
+def write_model_meta(out_dir: str, meta: dict) -> None:
+    """``meta`` as the model dir's ``model_meta.json``."""
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, MODEL_META), "w", encoding="utf-8") as f:
         json.dump(meta, f, indent=1)
-    write_vocab(os.path.join(out_dir, LABEL_VOCAB), sorted(data.label_vocab.itos.items()))
 
 
 def save_model_file(out_dir: str, model) -> str:
@@ -201,6 +206,10 @@ class Predictor:
             raise FileNotFoundError(f"{meta_path} not found: not a trained model dir")
         with open(meta_path, encoding="utf-8") as f:
             meta = json.load(f)
+        if meta.get("model", "code2vec") != "code2vec":
+            raise NotImplementedError(
+                f"{model_path} holds a {meta['model']} model: predict and serving run code2vec "
+                "only (code2seq trains and evaluates)")
         self.meta = meta
         self.terminal_vocab = read_vocab(terminal_idx_path, extra_tokens=[QUESTION_TOKEN_NAME])
         self.path_vocab = read_vocab(path_idx_path)

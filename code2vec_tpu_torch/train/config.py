@@ -16,12 +16,18 @@ from code2vec_tpu_torch.ops.embed import GRAD_MODES
 
 DTYPES = ("float32", "bfloat16")  # compute_dtype and adam_mu_dtype
 TABLE_UPDATES = ("dense", "lazy")
+MODELS = ("code2vec", "code2seq")
 
 
 @dataclass(frozen=True)
 class TrainConfig:
     # reproducibility: also seeds the train/test split
     random_seed: int = 123
+
+    # the model: "code2vec", or "code2seq" (models/code2seq.py: a bi-LSTM path
+    # encoder and an attention decoder over the same corpus, device epochs
+    # only; its optimizer and rate decay are its own)
+    model: str = "code2vec"
 
     # model dims (main.py:45-47) and the bag size (main.py:48)
     terminal_embed_size: int = 100
@@ -37,6 +43,13 @@ class TrainConfig:
     beta_max: float = 0.999
     weight_decay: float = 0.0
     dropout_prob: float = 0.25
+
+    # code2seq's widths (its config.py, the java-large model): EMBEDDINGS_SIZE,
+    # RNN_SIZE (both directions) and DECODER_SIZE; dropout_prob is its
+    # embeddings' dropout (the rest: models/code2seq.Code2SeqConfig)
+    seq_embed_size: int = 128
+    seq_rnn_size: int = 256
+    seq_decoder_size: int = 320
 
     # loss head (main.py:73-75)
     angular_margin_loss: bool = False
@@ -178,7 +191,8 @@ class TrainConfig:
             raise ValueError(f"device_chunk_batches must be >= 1, got "
                              f"{self.device_chunk_batches}")
         for name, allowed in (("compute_dtype", DTYPES), ("adam_mu_dtype", DTYPES),
-                              ("table_update", TABLE_UPDATES), ("embed_grad", GRAD_MODES)):
+                              ("table_update", TABLE_UPDATES), ("embed_grad", GRAD_MODES),
+                              ("model", MODELS)):
             if getattr(self, name) not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {getattr(self, name)!r}")
         for name in ("stream_chunk_items", "feed_workers", "prefetch_batches", "profile_steps",
@@ -211,9 +225,34 @@ class TrainConfig:
                              "requires --device_epoch")
         if not (self.infer_method_name or self.infer_variable_name):
             raise ValueError("no task: turn on infer_method_name, infer_variable_name or both")
+        if self.model == "code2seq":
+            self._validate_code2seq()
         if training and self.table_dtype != "f32":
             raise ValueError(
                 f"table_dtype={self.table_dtype!r} is not trainable: quantized tables serve "
                 "eval/predict/export forwards; training keeps f32 master weights"
             )
         return self
+
+    def _validate_code2seq(self) -> None:
+        """code2seq trains through device epochs on one card, in f32, with
+        dense tables, on the method-name task (ROADMAP F lists the rest)."""
+        refused = [
+            (not self.device_epoch, "the host feed: pass --device_epoch"),
+            (self.use_pallas, "the kernel routes K1-K4 (--use_pallas): it has no code2vec pool"),
+            (self.table_update != "dense", "lazy tables (--table_update lazy)"),
+            (self.compute_dtype != "float32", "bf16 compute (--compute_dtype)"),
+            (self.data_axis * self.model_axis * self.context_axis > 1,
+             "meshes (--data_axis/--model_axis/--context_axis)"),
+            (self.bucketed or self.max_contexts == 0, "bucketed and long bags"),
+            (self.infer_variable_name or not self.infer_method_name,
+             "the variable-name task"),
+            (self.angular_margin_loss, "the angular-margin head"),
+            (self.table_dtype != "f32", "quantized tables (--table_dtype)"),
+        ]
+        for bad, what in refused:
+            if bad:
+                raise NotImplementedError(f"--model code2seq does not support {what}")
+        if self.seq_rnn_size % 2:
+            raise ValueError(f"--seq_rnn_size {self.seq_rnn_size} holds two directions' "
+                             "states: make it even")

@@ -26,6 +26,12 @@ and variable-name tasks, alone or together (method rows first):
   ``code2vec.model``; ``print_sample`` every ``print_sample_cycle``
   epochs; the reference's early stop, whose counter resets when the train
   loss OR the accuracy improves (``:1724-1736``);
+- ``model="code2seq"`` (device epochs only): the model of
+  :func:`code2seq_from` over expansion tables built from the vocab strings;
+  the model answers the rest (``models/code2seq.Code2Seq``): its loss in
+  the steps, its optimizer, each epoch's rate ``lr * epoch_lr_decay **
+  epoch``, its ``score`` of the greedy-decoded names, its ``meta`` in the
+  model dir, and no code-vector outputs (``code_vectors``);
 - the optimizer of ``config.table_update`` (``train/step.make_optimizer``:
   the lazy table optimizer steps the tables' touched rows at every bag
   width, fixed, bucketed or long) and the tables' ``embed_grad``;
@@ -72,6 +78,7 @@ of its first (warm) step.
 from __future__ import annotations
 
 import copy
+import functools
 import logging
 import os
 import time
@@ -284,6 +291,21 @@ def model_config_from(config, data) -> Code2VecConfig:
         vocab_pad_multiple=config.vocab_pad_multiple or max(config.model_axis, 1),
         embed_grad=config.embed_grad,
     )
+
+
+def code2seq_from(config, data):
+    """A ``models/code2seq.Code2Seq`` of the config's widths over the
+    corpus's vocabularies, its expansion tables built from their strings
+    (``data/expansion.py``); the rest at code2seq's java-large values."""
+    from code2vec_tpu_torch.data.expansion import build_expansions
+    from code2vec_tpu_torch.models.code2seq import EXPANSIONS, Code2Seq, Code2SeqConfig
+
+    exp = build_expansions(data.terminal_vocab, data.path_vocab, data.label_vocab)
+    c = Code2SeqConfig(subtoken_count=exp.subtoken_count, node_count=exp.node_count,
+                       target_count=exp.target_count, embed_size=config.seq_embed_size,
+                       rnn_size=config.seq_rnn_size, decoder_size=config.seq_decoder_size,
+                       embed_dropout_prob=config.dropout_prob)
+    return Code2Seq(c, {name: getattr(exp, name) for name in EXPANSIONS}, exp.target_names)
 
 
 def build_mesh(config):
@@ -683,7 +705,7 @@ def train(
     ``profile_dir`` gets a ``torch.profiler`` trace of the second epoch run
     (not the first, where the kernels build)."""
     from code2vec_tpu_torch.export import print_sample, write_code_vectors
-    from code2vec_tpu_torch.predict import save_inference_meta, save_model_file
+    from code2vec_tpu_torch.predict import save_inference_meta, save_model_file, write_model_meta
 
     config.validate()
     # pin the schedule cache before the first forward, so --pallas_impl auto
@@ -763,15 +785,23 @@ def train(
         if data.infer_method and len(train_idx) else None)
     model_config = model_config_from(config, data)
     class_weights = class_weights_from(config, data, dev)
+    if config.model == "code2seq":
+        model = code2seq_from(config, data)
+        score = model.score
+    else:
+        model = Code2Vec(model_config)
+        score = functools.partial(evaluate, config.eval_method)
     if out_dir is not None and saving and writes:
-        # a fixed-L run records a corpus-derived ladder, so a server needs no
-        # corpus to pick its shapes
-        save_inference_meta(
-            out_dir, config, model_config, data,
-            bucket_ladder or derive_bucket_ladder(np.diff(data.row_splits),
-                                                  config.max_path_length))
+        if model.code_vectors:
+            # a fixed-L run records a corpus-derived ladder, so a server needs
+            # no corpus to pick its shapes
+            save_inference_meta(
+                out_dir, config, model_config, data,
+                bucket_ladder or derive_bucket_ladder(np.diff(data.row_splits),
+                                                      config.max_path_length))
+        else:
+            write_model_meta(out_dir, model.meta())
 
-    model = Code2Vec(model_config)
     if initial_state_dict is not None:
         model.load_state_dict(initial_state_dict, strict=True)
     else:
@@ -799,7 +829,9 @@ def train(
                     "path_vocab": len(data.path_vocab), "label_vocab": len(data.label_vocab),
                     "shard": list(data.shard) if data.shard is not None else None},
             # the analytic cost of each rung's step and the peak mfu divides by
-            costs=_manifest_costs(config, model_config, bucket_ladder, kind),
+            # (code2vec's closed form)
+            costs=(_manifest_costs(config, model_config, bucket_ladder, kind)
+                   if model.code_vectors else None),
         )
     # static [B, L] shapes are the design: a bucketed run meets one shape a
     # rung, its whole budget; anything beyond is churn
@@ -1006,6 +1038,10 @@ def train(
                 cursor_widths = resume_cursor.get("bucket_positions") or None
                 resume_cursor = None
             replay = None
+            if model.epoch_lr_decay != 1.0:
+                # the epoch's rate, from the epoch alone (a resumed run's too)
+                for group in optimizer.param_groups:
+                    group["lr"] = config.lr * model.epoch_lr_decay ** epoch
             if feed is not None:
                 with tracer.span("train_pass", category="train", epoch=epoch,
                                  mode="device_epoch"):
@@ -1015,8 +1051,7 @@ def train(
                 with tracer.span("eval_pass", category="eval", epoch=epoch, mode="device_epoch"):
                     test_loss, preds, _ = feed.runner.run_eval_epoch(model, feed.test,
                                                                      feed.generator)
-                accuracy, precision, recall, f1 = evaluate(config.eval_method, feed.expected,
-                                                           preds, data.label_vocab)
+                accuracy, precision, recall, f1 = score(feed.expected, preds, data.label_vocab)
                 # built on demand for the export and print_sample
                 train_epoch = test_epoch = None
                 source_pad = feed.pad
@@ -1103,7 +1138,7 @@ def train(
                 report_fn(epoch, f1)  # may raise StopTraining (the search's pruning)
 
             if (epoch > 1 and config.print_sample_cycle and epoch % config.print_sample_cycle == 0
-                    and saving and not sharded_feed):  # samples need whole batches
+                    and saving and not sharded_feed and model.code_vectors):  # whole batches
                 if test_epoch is None:
                     test_epoch = host_epoch(test_idx, epoch)
                 print_sample(data, model, test_epoch, batch_size, class_weights)
@@ -1116,7 +1151,7 @@ def train(
                         "vector export is not supported with host-sharded feeding (each feed "
                         "group holds 1/%d of the corpus); run a single-host export pass on the "
                         "saved checkpoint", n_groups)
-                elif vectors_path is not None and saving:
+                elif vectors_path is not None and saving and model.code_vectors:
                     if train_epoch is None:
                         train_epoch = host_epoch(train_idx, epoch)
                     if test_epoch is None:
@@ -1146,12 +1181,12 @@ def train(
                 with tracer.span("checkpoint_save", category="checkpoint", epoch=epoch,
                                  slot=save_slot):
                     save(save_slot, epoch=epoch)
-                if save_slot == "best":
+                if save_slot == "best" and model.code_vectors:
                     save_model_file(out_dir, model)
 
             if meta.bad_count > config.early_stop_patience:
                 logger.info("early stop loss:%s, bad:%d", train_loss, meta.bad_count)
-                if not sharded_feed:
+                if not sharded_feed and model.code_vectors:
                     if test_epoch is None:
                         test_epoch = host_epoch(test_idx, epoch)
                     print_sample(data, model, test_epoch, batch_size, class_weights)

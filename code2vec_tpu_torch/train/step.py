@@ -166,7 +166,13 @@ def make_optimizer(model: torch.nn.Module, config) -> torch.optim.Optimizer:
     """torch Adam with the config's rate, betas and coupled weight decay;
     :class:`TorchStyleAdam` when ``adam_mu_dtype`` stores mu in bf16. With
     ``table_update="lazy"`` that Adam steps the non-table parameters and
-    :class:`LazyTableAdam` the tables' touched rows (no weight decay)."""
+    :class:`LazyTableAdam` the tables' touched rows (no weight decay). A
+    model with a ``nesterov_momentum`` (``models/code2seq.Code2Seq``) gets
+    torch SGD with Nesterov momentum at it, dense tables only."""
+    if model.nesterov_momentum is not None:
+        return torch.optim.SGD(model.parameters(), lr=config.lr,
+                               momentum=model.nesterov_momentum, nesterov=True,
+                               weight_decay=config.weight_decay)
     kw = dict(lr=config.lr, betas=(config.beta_min, config.beta_max), eps=1e-8,
               weight_decay=config.weight_decay)
     mu_dtype = getattr(config, "adam_mu_dtype", "float32")
@@ -349,7 +355,10 @@ def to_device(batch: dict[str, np.ndarray], device: torch.device) -> dict[str, t
 def forward_backward(model, batch: dict[str, torch.Tensor], class_weights: torch.Tensor,
                      embed_offsets=None) -> torch.Tensor:
     """Training-mode forward and backward of one batch (gradients land in
-    ``.grad``); returns the loss, still on the device. Under a tracer the
+    ``.grad``); returns the loss, still on the device. A model that
+    ``owns_loss`` (``models/code2seq.Code2Seq``) gives its own ``loss(batch)``
+    in place of the head and the NLL. The backward runs under the model's
+    ``step_scope`` (code2seq's f32 with TF32 off, as its loss). Under a tracer the
     two halves are the ``forward`` and ``backward`` spans, timed on the
     device (``obs/trace.py``); on the card a dense step's ``backward`` span
     carries ``table_grad_split_rows``, K6's rows in runs longer than one
@@ -358,13 +367,17 @@ def forward_backward(model, batch: dict[str, torch.Tensor], class_weights: torch
     labels = batch["labels"]
     tracer, device = get_tracer(), labels.device
     split_rows = tracer.enabled and device.type == "cuda" and embed_offsets is None
+    own = getattr(model, "owns_loss", False)
     with tracer.span("forward", "train", device):
-        logits, _, _ = model(batch["starts"], batch["paths"], batch["ends"],
-                             labels=labels if model.config.angular_margin_loss else None,
-                             embed_offsets=embed_offsets)
-        group = _data_group(model)
-        loss = weighted_nll(logits, labels, class_weights, batch["example_mask"], group)
-    with tracer.span("backward", "train", device) as span, (
+        if own:
+            loss, group = model.loss(batch), None
+        else:
+            logits, _, _ = model(batch["starts"], batch["paths"], batch["ends"],
+                                 labels=labels if model.config.angular_margin_loss else None,
+                                 embed_offsets=embed_offsets)
+            group = _data_group(model)
+            loss = weighted_nll(logits, labels, class_weights, batch["example_mask"], group)
+    with tracer.span("backward", "train", device) as span, model.step_scope(), (
             collect_split_rows(device) if split_rows else contextlib.nullcontext()) as split:
         loss.backward()
         if split is not None:
@@ -458,7 +471,11 @@ def eval_step(model, batch: dict[str, torch.Tensor], class_weights: torch.Tensor
               quant_tables=None) -> dict[str, torch.Tensor]:
     """Eval-mode forward: the batch-mean loss, argmax predictions, the max
     logit (the reference's prediction "prob", main.py:411), code vectors
-    and attention (``:299-338``)."""
+    and attention (``:299-338``). A model that ``owns_loss`` gives its own
+    ``evaluate(batch)``: the loss, its greedy predictions and their log
+    probabilities."""
+    if getattr(model, "owns_loss", False):
+        return model.evaluate(batch)
     model.eval()
     labels = batch["labels"]
     logits, code_vector, attention = model(

@@ -38,7 +38,11 @@ step shapes with a 37% PAD run, at widths 100, 128 and 7, int32 and int64
 ids, one id for every slot, all ids distinct, ids at ``V - 1``, no slot, rows
 at an odd address, bitwise repeatable, its split rows counted exactly, two
 launches a dense device-epoch step and none a lazy one, and the row-sharded
-lookup's gradient;
+lookup's gradient; code2seq (``models/code2seq.py``): a training step
+at medium widths against the plain gate-loop reference
+(``tests/plain_code2seq.py``) with the keep masks drawn again, its bits the
+same whatever the global TF32 flags, and a device-epoch chunk
+under ``set_sync_debug_mode("error")``;
 the host prefetcher's copies on its own stream equal the synchronous copies,
 and ``train()`` prefetched (also fed by workers forked from a process with a
 live CUDA context) within rtol 1e-5 of the synchronous run's losses;
@@ -1810,6 +1814,9 @@ K6_CASES = {
     "last_row": (1000, (3000,), 100, torch.int32),
     "empty": (50, (0,), 100, torch.int32),
     "one_slot": (50, (1,), 100, torch.int64),
+    # code2seq's node table at its cell's step: both directions' nodes of 512 x
+    # 200 paths into 1,002 rows, every row a run of ~1,100 slots
+    "code2seq_nodes": (1002, (2, 512 * 200, 9), 128, torch.int32),
 }
 
 
@@ -1939,3 +1946,155 @@ def test_table_grad_launches_in_a_device_epoch_chunk(dev, update):
         assert 8 * 33 <= args["table_grad_split_rows"] <= 8 * 1024 * 600, args
     else:
         assert "table_grad_split_rows" not in args, args
+
+
+# ---------------------------------------------------------------------------
+# code2seq (models/code2seq.py)
+# ---------------------------------------------------------------------------
+
+def load_plain_code2seq():
+    """``tests/plain_code2seq.py`` by its path (on the card's machine another
+    installed package owns the name ``tests``)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "plain_code2seq", Path(__file__).resolve().parent / "plain_code2seq.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+C2S_MEDIUM = dict(subtoken_count=5002, node_count=1002, target_count=3003)
+
+
+def code2seq_case(dev, b=64, l=50, seed=0):
+    """A code2seq model at the published widths (128, 2 x 128, 320) over
+    medium vocabularies, its expansion tables and a sampled-like batch with
+    PAD tails and a masked last row."""
+    from code2vec_tpu_torch.models.code2seq import Code2Seq, Code2SeqConfig
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t, p, n = 4000, 3000, 500
+    c = C2S_MEDIUM
+
+    def cut(ids, counts, width):
+        return torch.where(torch.arange(width, device=dev) < counts[:, None], ids, 0).int()
+
+    term = cut(torch.randint(2, c["subtoken_count"], (t, 5), generator=g, device=dev),
+               torch.randint(1, 6, (t,), generator=g, device=dev), 5)
+    term[0] = 0
+    lengths = torch.randint(3, 10, (p,), generator=g, device=dev)
+    lengths[0] = 0
+    tables = {"term_subtokens": term,
+              "path_nodes": cut(torch.randint(2, c["node_count"], (p, 9), generator=g,
+                                              device=dev), lengths, 9),
+              "path_lengths": lengths.int()}
+    tgt_n = torch.randint(1, 7, (n,), generator=g, device=dev)
+    tables.update(label_targets=cut(torch.randint(3, c["target_count"], (n, 6), generator=g,
+                                                  device=dev), tgt_n, 6),
+                  label_lengths=tgt_n.int())
+    real = torch.arange(l, device=dev) < torch.randint(3, l + 1, (b, 1), generator=g,
+                                                       device=dev)
+    batch = {k: torch.where(real, torch.randint(1, hi, (b, l), generator=g, device=dev), 0).int()
+             for k, hi in (("starts", t), ("paths", p), ("ends", t))}
+    batch["labels"] = torch.randint(0, n, (b,), generator=g, device=dev).int()
+    batch["example_mask"] = torch.ones(b, device=dev)
+    batch["example_mask"][-1] = 0.0
+    with torch.device(dev):
+        model = Code2Seq(Code2SeqConfig(**c), tables)
+    model.reset_parameters(torch.Generator(device=dev).manual_seed(seed + 1))
+    return model, tables, batch
+
+
+def test_code2seq_step_matches_the_plain_reference(dev):
+    """A training step on the card (ATen's LSTMs, K6, the fused cell)
+    against the plain gate loops in f32 with TF32 off, the keep masks drawn
+    again from the model's seed: the loss within rtol 1e-5, every gradient
+    within atol 1e-5 + rtol 1e-4 (f32 sums in other orders over 9 LSTM and 7
+    decoder steps; one TF32 product would miss by ~1e-3)."""
+    from code2vec_tpu_torch.models.code2seq import full_f32
+    plain = load_plain_code2seq()
+
+    model, tables, batch = code2seq_case(dev)
+    b, l = batch["starts"].shape
+    c = model.config
+    params = {k: v.detach().clone().requires_grad_(True) for k, v in model.named_parameters()}
+    model.seed_dropout(3)
+    model.train()
+    loss = model.loss(batch)
+    with full_f32():
+        loss.backward()
+    g = torch.Generator(device=dev).manual_seed(3)
+    keeps = (torch.empty(b, l, 2 * c.embed_size + c.rnn_size, device=dev).bernoulli_(
+        0.75, generator=g) / 0.75,
+        torch.empty(c.decode_steps, b, c.decoder_size, device=dev).bernoulli_(
+        0.5, generator=g) / 0.5)
+    with plain.full_f32():
+        want = plain.loss(params, tables, batch, keeps)
+        want.backward()
+    torch.testing.assert_close(loss.detach().cpu(), want.detach().cpu(), atol=0.0, rtol=1e-5)
+    for name, p in model.named_parameters():
+        torch.testing.assert_close(p.grad, params[name].grad, atol=1e-5, rtol=1e-4,
+                                   msg=name)
+
+
+def test_code2seq_bits_do_not_follow_the_global_tf32_flags(dev):
+    """The port's f32 path: loss and every gradient bitwise the same with
+    the process's ``cudnn.allow_tf32`` and ``matmul.allow_tf32`` True or
+    False and cuDNN on (``full_f32`` scopes the model's forward and the
+    step's backward), and the flags as they were after it."""
+    from code2vec_tpu_torch.train.step import forward_backward
+
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = [f.allow_tf32 for f in flags]
+    out = []
+    try:
+        for flag in (True, False):
+            for f in flags:
+                f.allow_tf32 = flag
+            model, _, batch = code2seq_case(dev, seed=5)
+            model.seed_dropout(1)
+            loss = forward_backward(model, batch, torch.ones(1, device=dev))
+            out.append([loss.detach()] + [p.grad.clone() for p in model.parameters()])
+            assert [f.allow_tf32 for f in flags] == [flag, flag]
+            assert torch.backends.cudnn.enabled
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_code2seq_chunk_makes_no_host_sync(dev):
+    """A device-epoch chunk of code2seq (sampler, expansion, the LSTMs, the
+    decoder, K6, Nesterov SGD) enqueues with no host sync."""
+    import numpy as np
+
+    from code2vec_tpu_torch.train.config import TrainConfig
+    from code2vec_tpu_torch.train.device_epoch import EpochRunner, StagedCorpus, sampler_generator
+    from code2vec_tpu_torch.train.step import StepTally, make_optimizer
+
+    model, _, _ = code2seq_case(dev)
+    rng = np.random.default_rng(0)
+    n = 1024
+    lens = rng.integers(1, 300, n)
+    splits = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=splits[1:])
+    ctx = np.stack([rng.integers(1, 4000, int(splits[-1])), rng.integers(1, 3000, int(splits[-1])),
+                    rng.integers(1, 4000, int(splits[-1]))], axis=1).astype(np.int32)
+    corpus = StagedCorpus(*(torch.from_numpy(x).to(dev) for x in (
+        ctx, splits, rng.integers(0, 500, n).astype(np.int32))), n, lens.astype(np.int64))
+    opt = make_optimizer(model, TrainConfig())
+    runner = EpochRunner(torch.ones(1, device=dev), 128, 200, 4)
+    order, g = rng.permutation(n), sampler_generator(0, dev)
+    runner.train_chunk(model, opt, corpus, order, 0, 4, n, g, StepTally(dev))
+    torch.cuda.synchronize()
+    tally = StepTally(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        runner.train_chunk(model, opt, corpus, order, 512, 4, n - 512, g, tally)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(torch.stack(tally.losses)).all()
+

@@ -142,7 +142,11 @@ def test_sample_train_config_gives_the_same_fields():
         configs = {name: dataclasses.asdict(mod.sample_train_config(
                        _new_trial(mod, studies[name]), config_cls()))
                    for name, (mod, config_cls) in PACKAGES.items()}
-        assert configs["port"] == configs["jax"]
+        port, jax_ = configs["port"], configs["jax"]
+        assert {k: port[k] for k in jax_} == jax_
+        # the port's own settings (code2seq's) stay at their defaults
+        assert {k: v for k, v in port.items() if k not in jax_} == {
+            k: v for k, v in dataclasses.asdict(TrainConfig()).items() if k not in jax_}
 
 
 def scripted_train(stop_cls):

@@ -17,6 +17,7 @@ on the CPU (the counterpart of JAX ``tests/test_obs.py``
   profiler's ``mfu``; ``--profile_dir`` writes a trace on the CPU.
 """
 
+import dataclasses
 import json
 import logging
 import math
@@ -114,7 +115,12 @@ def test_the_same_event_types_in_the_same_order(both):
 
 def test_the_manifests_config_and_costs_blocks_are_equal(both):
     (port, *_), (jax_lines, *_) = both["port"], both["jax"]
-    assert port[0]["config"] == jax_lines[0]["config"]
+    config, jax_config = port[0]["config"], jax_lines[0]["config"]
+    assert {k: config[k] for k in jax_config} == jax_config
+    # the port's own settings (code2seq's) stay at their defaults
+    defaults = dataclasses.asdict(TrainConfig())
+    assert {k: v for k, v in config.items() if k not in jax_config} == {
+        k: v for k, v in defaults.items() if k not in jax_config}
     assert port[0]["costs"] == jax_lines[0]["costs"]
     assert port[0]["costs"]["device_kind"] == port[0]["device_kind"] == "cpu"
     assert port[0]["corpus"] == jax_lines[0]["corpus"]
